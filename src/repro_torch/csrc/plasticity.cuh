@@ -1,0 +1,151 @@
+// Device helpers shared by the fleet-step and rollout kernels.
+//
+// Each helper repeats, operation for operation, the arithmetic of
+// repro_torch/kernels/plasticity/quant.py (and of the JAX reference it is
+// held against).  The sources are compiled with -fmad=false and without
+// --use_fast_math, so every +, * and / below is one IEEE round-to-nearest
+// operation and the only fused multiply-adds are the explicit __fmaf_rn
+// calls: the places where XLA contracts the reference's dw and trace sums.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace ff {
+
+constexpr int kAlpha = 0, kBeta = 1, kGamma = 2, kDelta = 3;
+constexpr int kMaxLayers = 8;
+
+// Fixed-point parameters (QuantConfig plus the derived constants).
+struct QParams {
+  int one;           // 2**frac_bits
+  int tau_shift;
+  int trace_shift;
+  int vth_fx;        // round(v_th * one)
+  int vres_fx;       // round(v_reset * one)
+  int stoch_round;
+  float inv1;        // fp32(1 / one)
+  float inv2;        // fp32(1 / one**2)
+};
+
+// Float-datapath scalars shared by every layer of a call.
+struct FParams {
+  float inv_tau;     // fp32(1 / tau_m)
+  float v_th;
+  float v_reset;
+  float decay;       // trace decay lambda
+};
+
+// ---- int32 arithmetic with defined wrap-around (signed overflow is
+// undefined in C++; the reference wraps) ---------------------------------
+__device__ __forceinline__ int wadd(int a, int b) {
+  return (int)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int wsub(int a, int b) {
+  return (int)((uint32_t)a - (uint32_t)b);
+}
+__device__ __forceinline__ int wmul(int a, int b) {
+  return (int)((uint32_t)a * (uint32_t)b);
+}
+
+// quant.fold_seed: seed * 1000003 + layer, int32 wrap-around.
+__device__ __forceinline__ int fold_seed(int seed, int layer) {
+  return (int)((uint32_t)seed * 1000003u + (uint32_t)layer);
+}
+
+// quant.uniform_hash: uniform in [0, 1) from (seed, flat weight index).
+__device__ __forceinline__ float uniform_hash(int seed, int idx) {
+  uint32_t h = (uint32_t)idx * 0x9E3779B1u;
+  h ^= ((uint32_t)seed + 0x7F4A7C15u) * 0x85EBCA6Bu;
+  h ^= h >> 15;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 13;
+  h *= 0x27D4EB2Fu;
+  h ^= h >> 16;
+  return __uint2float_rn(h >> 8) * 5.9604644775390625e-08f;  // 2**-24
+}
+
+// quant.current_fx: round_half_even(float(acc) * scale).
+__device__ __forceinline__ int current_fx(int acc, float scale) {
+  return __float2int_rn(__fmul_rn(__int2float_rn(acc), scale));
+}
+
+// quant.neuron_update_q (arithmetic shift; hard reset or clip readout).
+__device__ __forceinline__ void neuron_q(int v, int i_fx, bool spiking,
+                                         const QParams& q, int* event,
+                                         int* v_out) {
+  int vn = wadd(v, wsub(i_fx, v) >> q.tau_shift);
+  if (spiking) {
+    bool sp = vn >= q.vth_fx;
+    *event = sp ? q.one : 0;
+    *v_out = sp ? q.vres_fx : vn;
+  } else {
+    *event = min(max(vn, -q.one), q.one);
+    *v_out = vn;
+  }
+}
+
+// quant.trace_update_q: tp - (tp >> k) + event.
+__device__ __forceinline__ int trace_q(int tp, int event, const QParams& q) {
+  return wadd(wsub(tp, tp >> q.trace_shift), event);
+}
+
+// The float neuron: v + (I - v) / tau, LIF hard reset or tanh readout.
+__device__ __forceinline__ void neuron_f(float v, float current, bool spiking,
+                                         const FParams& f, float* event,
+                                         float* v_out) {
+  float vn = v + (current - v) * f.inv_tau;
+  if (spiking) {
+    bool sp = vn >= f.v_th;
+    *event = sp ? 1.0f : 0.0f;
+    *v_out = sp ? f.v_reset : vn;
+  } else {
+    *event = tanhf(vn);
+    *v_out = vn;
+  }
+}
+
+// fma(g, post, fma(a, hebb, b * pre)) + d — the contracted four-term sum.
+__device__ __forceinline__ float four_term(const float* th, long plane,
+                                          float hebb, float pre, float post) {
+  float inner = __fmaf_rn(th[kAlpha * plane], hebb,
+                          __fmul_rn(th[kBeta * plane], pre));
+  return __fadd_rn(__fmaf_rn(th[kGamma * plane], post, inner),
+                   th[kDelta * plane]);
+}
+
+// Float plasticity for one synapse: clip(w + dw, +-w_clip).
+__device__ __forceinline__ float plastic_f(float w, const float* th,
+                                          long plane, float pre, float post,
+                                          float w_clip) {
+  float dw = four_term(th, plane, __fmul_rn(pre, post), pre, post);
+  return fminf(fmaxf(w + dw, -w_clip), w_clip);
+}
+
+// Fixed-point plasticity for one synapse: dw from the exact integer outer
+// product, stochastic round to grid steps, clip to qclip(w_clip, scale).
+__device__ __forceinline__ int plastic_q(int w, const float* th, long plane,
+                                        int pre, int post, float scale,
+                                        int qmax, int seed, int idx,
+                                        const QParams& q) {
+  float hebb = __fmul_rn(__int2float_rn(wmul(pre, post)), q.inv2);
+  float dw = four_term(th, plane, hebb, __fmul_rn(__int2float_rn(pre), q.inv1),
+                       __fmul_rn(__int2float_rn(post), q.inv1));
+  float st = __fdiv_rn(dw, scale);
+  int steps;
+  if (q.stoch_round) {
+    float fl = floorf(st);
+    float up = (__fsub_rn(st, fl) > uniform_hash(seed, idx)) ? 1.0f : 0.0f;
+    steps = (int)__fadd_rn(fl, up);
+  } else {
+    steps = __float2int_rn(st);
+  }
+  return min(max(wadd(w, steps), -qmax), qmax);
+}
+
+// quant.qclip: min(floor(w_clip / scale), 127).
+__device__ __forceinline__ int qclip(float w_clip, float scale) {
+  return (int)fminf(floorf(__fdiv_rn(w_clip, scale)), 127.0f);
+}
+
+}  // namespace ff

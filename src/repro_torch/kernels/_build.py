@@ -1,0 +1,104 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` into a shared library with
+a plain C interface and loaded with `ctypes`: no PyTorch headers, so a build
+takes seconds.  All sources compile in parallel, once per process, at the
+first launch of any kernel, into ``build/repro_torch/`` under the checkout;
+a library's file name carries a hash of its sources and flags, so an edited
+source is rebuilt and an unchanged one is reused.
+
+Flags: ``sm_90a`` (Hopper), ``-fmad=false`` and no ``--use_fast_math``: every
+float operation rounds once, as written, and the only fused multiply-adds are
+the explicit ``__fmaf_rn`` calls that mirror the JAX reference.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("fleet_step.cu", "rollout.cu")
+HEADERS = ("plasticity.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict = {}
+build_info: dict = {}      # seconds and compiler output of this process's build
+
+
+def build_dir() -> Path:
+    """``build/repro_torch`` at the root of the checkout."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit "
+                       "that builds the repro_torch kernels")
+
+
+def _target(source: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in (source,) + HEADERS:
+        h.update((CSRC / name).read_bytes())
+    return build_dir() / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, all at once; returns
+    ``{"seconds": ..., "log": {source: compiler output}}``."""
+    with _lock:
+        if build_info:
+            return build_info
+        build_dir().mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = {}
+        for src in SOURCES:
+            out = _target(src)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+            procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), tmp, out)
+        log, failed = {}, []
+        for src, (p, tmp, out) in procs.items():
+            log[src] = p.communicate()[0]
+            if p.returncode == 0:
+                os.replace(tmp, out)
+            else:
+                failed.append(src)
+        if failed:
+            raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
+                               + "\n".join(log[s] for s in failed))
+        build_info.update(seconds=time.perf_counter() - t0, log=log)
+        return build_info
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of one source (building all of them first)."""
+    build_all()
+    with _lock:
+        if source not in _libs:
+            _libs[source] = ctypes.CDLL(str(_target(source)))
+        return _libs[source]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} (see cudaError_t)")

@@ -1,0 +1,247 @@
+"""Time-fused rollout window: K timesteps x L layers in ONE kernel launch.
+
+The per-step path launches one fleet-step kernel per layer per timestep —
+K * L launches per control window, each re-reading and re-writing the whole
+state through device memory.  `rollout` runs the entire window as one launch
+of ``csrc/rollout.cu``: each CTA keeps its block of streams' weights, the
+shared theta planes, membranes, all L+1 traces and the inter-layer event bus
+in shared memory for the window and writes the state back once.
+
+Semantics, identical to K per-step calls (`rollout_plain` is that loop):
+
+  * the input population's trace is updated from the drive first, gated by
+    the active mask;
+  * each layer's plasticity reads the UNGATED post trace (equal to the gated
+    one for active streams; inactive streams keep their old weights);
+  * step k of layer i draws its stochastic round from
+    ``fold_seed(seed + k, i)`` and the layer's own flat index;
+  * a readout layer's output is its membrane, zeroed for inactive streams;
+  * an optional teaching current drives the LAST layer, per step (K, B, M).
+
+Only FLEET mode (``w (B, N, M)``) has a kernel in this slice.  The
+shared-weight window runs on CPU tensors through `rollout_plain`; on CUDA
+tensors it raises until the online-MNIST slice brings its kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.plasticity import fma32
+from repro_torch.kernels import _build
+from repro_torch.kernels.plasticity import kernel as _k
+from repro_torch.kernels.plasticity import quant as Q
+from repro_torch.kernels.plasticity import ref as _ref
+
+MAX_LAYERS = 8                    # ff::kMaxLayers
+DEFAULT_SMEM_LIMIT = 232448       # H100: 227 KB of dynamic shared memory
+
+_P = ctypes.c_void_p
+
+
+class _RolloutArgs(ctypes.Structure):
+    """``RolloutArgs`` of csrc/rollout.cu."""
+    _fields_ = [(name, _P) for name in (
+        "drives", "outs", "teach", "active", "seed")] + [
+        (name, _P * MAX_LAYERS) for name in (
+            "w_in", "w_out", "theta", "scale", "v_in", "v_out")] + [
+        ("tr_in", _P * (MAX_LAYERS + 1)), ("tr_out", _P * (MAX_LAYERS + 1)),
+        ("sizes", ctypes.c_int * (MAX_LAYERS + 1))] + [
+        (name, ctypes.c_int) for name in (
+            "n_layers", "k_steps", "batch", "block_b", "spiking_mask",
+            "plastic_mask", "theta_in_smem")] + [
+        ("w_clip", ctypes.c_float), ("f", _k.FParams), ("q", _k.QParams)]
+
+
+def rollout_smem_bytes(sizes, block_b: int, plastic, quant: bool,
+                       theta_in_smem: bool) -> int:
+    """Shared memory of one CTA: theta planes (if resident), membranes,
+    traces, the double-buffered event bus, the active flags and the block's
+    weights — the layout of ``csrc/rollout.cu``."""
+    def al(x):
+        return (x + 15) // 16 * 16
+    n_layers = len(sizes) - 1
+    syn = sum(sizes[i] * sizes[i + 1] for i in range(n_layers))
+    th = sum(4 * sizes[i] * sizes[i + 1] for i in range(n_layers)
+             if plastic[i]) if theta_in_smem else 0
+    return (al(th * 4) + al(block_b * sum(sizes[1:]) * 4)
+            + al(block_b * sum(sizes) * 4)
+            + al(2 * block_b * max(sizes) * 4) + al(block_b * 4)
+            + al(block_b * syn * (1 if quant else 4)))
+
+
+def smem_limit(device) -> int:
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin",
+                       DEFAULT_SMEM_LIMIT))
+
+
+def smem_plan(sizes, block_b: int, plastic, quant: bool,
+              limit: int) -> tuple[int, bool]:
+    """``(bytes, theta_in_smem)`` of one CTA: theta resident when it fits,
+    else read from device memory (through L2); raises when even the state
+    of ``block_b`` streams does not fit — the kernel does not fall back."""
+    for theta_in_smem in (True, False):
+        smem = rollout_smem_bytes(sizes, block_b, plastic, quant,
+                                  theta_in_smem)
+        if smem <= limit:
+            return smem, theta_in_smem
+    raise ValueError(
+        f"rollout working set of {smem} bytes for block_b={block_b} and "
+        f"layer sizes {list(sizes)} exceeds the {limit} bytes of shared "
+        f"memory a CTA may use; lower block_b")
+
+
+def rollout_plain(drives, ws, thetas, vs, traces, *, spiking, plastic,
+                  tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
+                  trace_decay: float = 0.8, w_clip: float = 4.0, qcfg=None,
+                  scales=None, seed=None, teach=None, active=None):
+    """The window as a Python loop over K of the plain per-layer steps.
+
+    Arguments as `rollout`; also takes shared weights ``(N, M)``.  Returns
+    ``(outs, ws, vs, traces)`` with outs (K, B, M_last).
+    """
+    n_layers = len(ws)
+    fleet = ws[0].ndim == 3
+    ws, vs, trs = list(ws), list(vs), list(traces)
+    gate = None if active is None else active.reshape(-1).bool()[:, None]
+    outs = []
+    for k in range(drives.shape[0]):
+        x = drives[k]
+        if qcfg is not None:
+            tr0 = Q.trace_update_q(trs[0], x, qcfg)
+        else:
+            tr0 = fma32(trace_decay, trs[0], x)
+        trs[0] = tr0 if gate is None else torch.where(gate, tr0, trs[0])
+        for i in range(n_layers):
+            kw = dict(v_th=v_th, v_reset=v_reset, w_clip=w_clip,
+                      plastic=plastic[i], spiking=spiking[i],
+                      teach=None if teach is None or i < n_layers - 1
+                      else teach[k])
+            if fleet:
+                kw["active"] = active
+            if qcfg is not None:
+                fn = (_ref.dual_engine_fleet_step_q if fleet
+                      else _ref.dual_engine_step_q)
+                res = fn(x, ws[i], scales[i], thetas[i], vs[i], trs[i],
+                         trs[i + 1], qcfg=qcfg,
+                         seed=Q.fold_seed(seed.long() + k, i), **kw)
+            else:
+                fn = (_ref.dual_engine_fleet_step if fleet
+                      else _ref.dual_engine_step)
+                res = fn(x, ws[i], thetas[i], vs[i], trs[i], trs[i + 1],
+                         tau_m=tau_m, trace_decay=trace_decay, **kw)
+            events, vs[i], trs[i + 1], ws[i] = res
+            x = events if spiking[i] else vs[i]
+            if gate is not None and not spiking[i]:
+                x = torch.where(gate, x, torch.zeros_like(x))
+        outs.append(x)
+    return torch.stack(outs), tuple(ws), tuple(vs), tuple(trs)
+
+
+def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
+            tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
+            trace_decay: float = 0.8, w_clip: float = 4.0, qcfg=None,
+            scales=None, seed=None, teach=None, active=None,
+            block_b: int = 8):
+    """K fused timesteps of the whole layer stack.
+
+    Args:
+      drives:  (K, B, N0) time-major input window (int32 fixed point when
+               ``qcfg``, float32 otherwise).
+      ws:      per-layer fleet weights (B, N_i, M_i) (int8 when ``qcfg``).
+      thetas:  per-layer packed (4, N_i, M_i) rules; None where not plastic.
+      vs:      per-layer membranes (B, M_i).
+      traces:  L+1 population traces (B, N_i); traces[0] is the input.
+      spiking/plastic: per-layer bool sequences.
+      qcfg/scales/seed: fixed-point mode — per-layer (B,) weight scales and
+               the (B,) base step counters.
+      teach:   optional (K, B, M_last) teaching current for the last layer.
+      active:  optional (B,) slot mask, constant over the window.
+      block_b: streams per CTA (the kernel's residency unit).
+
+    Returns ``(outs, ws, vs, traces)``, outs (K, B, M_last).  A CPU tensor
+    runs `rollout_plain`; a CUDA tensor launches the kernel (counted in
+    ``rollout.launches``).
+    """
+    spiking = tuple(bool(s) for s in spiking)
+    plastic = tuple(bool(p) for p in plastic)
+    n_layers = len(ws)
+    for i in range(n_layers):
+        if plastic[i] and thetas[i] is None:
+            raise ValueError(f"layer {i} marked plastic but theta is None")
+    if not _k.on_card(drives):
+        return rollout_plain(
+            drives, ws, thetas, vs, traces, spiking=spiking, plastic=plastic,
+            tau_m=tau_m, v_th=v_th, v_reset=v_reset, trace_decay=trace_decay,
+            w_clip=w_clip, qcfg=qcfg, scales=scales, seed=seed, teach=teach,
+            active=active)
+    if ws[0].ndim != 3:
+        raise NotImplementedError(
+            "the shared-weight rollout window (w (N, M)) has no CUDA kernel "
+            "yet: it comes with the online-MNIST slice of the port")
+    if n_layers > MAX_LAYERS:
+        raise ValueError(f"rollout kernel takes at most {MAX_LAYERS} layers")
+    quant = qcfg is not None
+    k_steps, b, n0 = drives.shape
+    dev = drives.device
+    sizes = [n0] + [w.shape[-1] for w in ws]
+    state_dt = torch.int32 if quant else torch.float32
+    w_dt = torch.int8 if quant else torch.float32
+    drives = _k.expect("drives", drives, (k_steps, b, n0), state_dt, dev)
+    ws = [_k.expect(f"w[{i}]", ws[i], (b, sizes[i], sizes[i + 1]), w_dt, dev)
+          for i in range(n_layers)]
+    vs = [_k.expect(f"v[{i}]", vs[i], (b, sizes[i + 1]), state_dt, dev)
+          for i in range(n_layers)]
+    trs = [_k.expect(f"trace[{i}]", traces[i], (b, sizes[i]), state_dt, dev)
+           for i in range(n_layers + 1)]
+    ths = [_k.expect(f"theta[{i}]", thetas[i], (4, sizes[i], sizes[i + 1]),
+                     torch.float32, dev) if plastic[i] else None
+           for i in range(n_layers)]
+    if teach is not None:
+        teach = teach.to(device=dev, dtype=state_dt).expand(
+            k_steps, b, sizes[-1]).contiguous()
+    act = _k.active_mask(active, b, dev)
+    if quant:
+        scs = [_k.per_stream(s, b, torch.float32, dev) for s in scales]
+        sd = _k.per_stream(seed, b, torch.int32, dev)
+    bb = min(block_b, b)
+    smem, theta_in_smem = smem_plan(sizes, bb, plastic, quant,
+                                    smem_limit(dev))
+
+    outs = torch.empty((k_steps, b, sizes[-1]), dtype=state_dt, device=dev)
+    w_out = [torch.empty_like(w) for w in ws]
+    v_out = [torch.empty_like(v) for v in vs]
+    tr_out = [torch.empty_like(t) for t in trs]
+    a = _RolloutArgs()
+    a.drives, a.outs = _k.ptr(drives), _k.ptr(outs)
+    a.teach, a.active = _k.ptr(teach), _k.ptr(act)
+    a.seed = _k.ptr(sd) if quant else None
+    for i in range(n_layers):
+        a.w_in[i], a.w_out[i] = _k.ptr(ws[i]), _k.ptr(w_out[i])
+        a.theta[i] = _k.ptr(ths[i])
+        a.scale[i] = _k.ptr(scs[i]) if quant else None
+        a.v_in[i], a.v_out[i] = _k.ptr(vs[i]), _k.ptr(v_out[i])
+    for i in range(n_layers + 1):
+        a.tr_in[i], a.tr_out[i] = _k.ptr(trs[i]), _k.ptr(tr_out[i])
+        a.sizes[i] = sizes[i]
+    a.n_layers, a.k_steps, a.batch, a.block_b = n_layers, k_steps, b, bb
+    a.spiking_mask = sum(1 << i for i in range(n_layers) if spiking[i])
+    a.plastic_mask = sum(1 << i for i in range(n_layers) if plastic[i])
+    a.theta_in_smem = int(theta_in_smem)
+    a.w_clip = w_clip
+    a.f = _k.f_params(tau_m, v_th, v_reset, trace_decay)
+    if quant:
+        a.q = _k.q_params(qcfg, v_th, v_reset)
+    fn = _build.library("rollout.cu").rollout
+    fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int,
+                   ctypes.c_size_t, _P]
+    fn.restype = ctypes.c_int
+    _build.check(fn(ctypes.byref(a), int(quant), smem, _k.stream_of(drives)),
+                 "rollout")
+    rollout.launches += 1
+    return outs, tuple(w_out), tuple(v_out), tuple(tr_out)
+
+
+rollout.launches = 0

@@ -1,0 +1,174 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA card and ``nvcc``, and skips elsewhere.  The
+file imports neither JAX nor the JAX package (the plain versions are held
+against JAX by the other ``test_torch_*`` files on the CPU), so it runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+int8 is held bit for bit; float32 within rtol = atol = 1e-5 (the kernels sum
+the psum in fan-in order, the plain versions as a batched product).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine as TE
+from repro_torch.kernels.plasticity import fused as TF
+from repro_torch.kernels.plasticity import kernel as TK
+from repro_torch.kernels.plasticity import quant as TQ
+
+B = 6
+ACTIVE = np.array([1, 0, 1, 1, 0, 1], np.int32)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip where there is none (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _on(dev, **arrays):
+    return {k: None if v is None else torch.from_numpy(np.array(v)).to(dev)
+            for k, v in arrays.items()}
+
+
+def _assert_match(got, want, quant):
+    for a, b in zip(got, want):
+        if quant:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# (N, M, spiking, teach, active): M = 200 is not a multiple of 128
+STEP_CASES = [(6, 2, True, None, False), (8, 128, True, None, True),
+              (16, 200, True, "per-stream", False),
+              (128, 8, False, None, True), (12, 5, False, "shared", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_fleet_step_kernels_match_plain_on_card(quant, cuda_device):
+    rng = np.random.default_rng(11)
+    wrapper = TK.fleet_step_q if quant else TK.fleet_step
+    launches = wrapper.launches
+    for n, m, spiking, teach, masked in STEP_CASES:
+        tshape = {"per-stream": (B, m), "shared": (m,)}.get(teach)
+        if quant:
+            t = _on(cuda_device,
+                    x=rng.choice([0, 256], (B, n)).astype(np.int32),
+                    w=rng.integers(-127, 128, (B, n, m)).astype(np.int8),
+                    v=rng.integers(-600, 600, (B, m)).astype(np.int32),
+                    tpre=rng.integers(0, 1200, (B, n)).astype(np.int32),
+                    tpost=rng.integers(-300, 1200, (B, m)).astype(np.int32),
+                    scale=np.where(np.arange(B) % 2 == 0, 1 / 32,
+                                   1 / 16).astype(np.float32),
+                    seed=rng.integers(-2 ** 31, 2 ** 31, B).astype(np.int32),
+                    teach=None if tshape is None else rng.integers(
+                        -300, 300, tshape).astype(np.int32))
+        else:
+            t = _on(cuda_device,
+                    x=(rng.random((B, n)) < 0.4).astype(np.float32),
+                    w=rng.uniform(-1, 1, (B, n, m)).astype(np.float32),
+                    v=rng.standard_normal((B, m)).astype(np.float32),
+                    tpre=(rng.random((B, n)) * 3).astype(np.float32),
+                    tpost=(rng.random((B, m)) * 3).astype(np.float32),
+                    teach=None if tshape is None else (
+                        rng.standard_normal(tshape) * 0.5).astype(np.float32))
+        theta = torch.from_numpy((rng.standard_normal((4, n, m)) * 0.02)
+                                 .astype(np.float32)).to(cuda_device)
+        active = (torch.from_numpy(ACTIVE).to(cuda_device) if masked
+                  else None)
+        kw = dict(spiking=spiking, teach=t["teach"], active=active)
+        if quant:
+            args = (t["x"], t["w"], t["scale"], theta, t["v"], t["tpre"],
+                    t["tpost"])
+            kw.update(qcfg=TQ.QuantConfig(), seed=t["seed"])
+            got, want = TK.fleet_step_q(*args, **kw), \
+                TK.fleet_step_q_plain(*args, **kw)
+        else:
+            args = (t["x"], t["w"], theta, t["v"], t["tpre"], t["tpost"])
+            got, want = TK.fleet_step(*args, **kw), \
+                TK.fleet_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        _assert_match(got, want, quant)
+        if masked:
+            off = active == 0
+            assert torch.equal(got[3][off], t["w"][off])
+    assert wrapper.launches == launches + len(STEP_CASES)
+
+
+def _network(rng, sizes, quant, dev):
+    """A random fleet state; int8 windows start 9 steps before the int32
+    wrap of the step counter, so seed + k wraps inside K = 16."""
+    n_layers = len(sizes) - 1
+    if quant:
+        w = [rng.integers(-40, 41, (B, sizes[i], sizes[i + 1]))
+             .astype(np.int8) for i in range(n_layers)]
+        v = [rng.integers(-300, 300, (B, m)).astype(np.int32)
+             for m in sizes[1:]]
+        tr = [rng.integers(0, 900, (B, n)).astype(np.int32) for n in sizes]
+        sc = [np.where(np.arange(B) % 2 == 0, 1 / 32, 1 / 16)
+              .astype(np.float32) for _ in range(n_layers)]
+        t0 = 2 ** 31 - 9
+    else:
+        w = [np.round(rng.uniform(-0.5, 0.5, (B, sizes[i], sizes[i + 1]))
+                      * 64).astype(np.float32) / 64 for i in range(n_layers)]
+        v = [rng.uniform(-0.5, 0.9, (B, m)).astype(np.float32)
+             for m in sizes[1:]]
+        tr = [rng.uniform(0, 2, (B, n)).astype(np.float32) for n in sizes]
+        sc, t0 = [], 0
+    tup = lambda xs: tuple(torch.from_numpy(x).to(dev) for x in xs)
+    return TE.NetworkState(w=tup(w), v=tup(v), trace=tup(tr),
+                           t=torch.tensor(t0, dtype=torch.int32, device=dev),
+                           w_scale=tup(sc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_rollout_kernel_matches_plain_on_card(quant, cuda_device):
+    """int8 bitwise at every K (the step counter wraps inside the window),
+    float32 within 1e-5 at K = 1."""
+    rng = np.random.default_rng(21)
+    qc = TQ.QuantConfig() if quant else None
+    for k, sizes, teach in ((1, (8, 32, 4), "per-step"), (4, (6, 4), "held"),
+                            (16, (8, 32, 4), None)):
+        st = _network(rng, sizes, quant, cuda_device)
+        theta = [torch.from_numpy((rng.standard_normal(
+            (4, sizes[i], sizes[i + 1])) * 0.02).astype(np.float32))
+            .to(cuda_device) for i in range(len(sizes) - 1)]
+        if quant:
+            drives = rng.integers(-512, 512, (k, B, sizes[0])).astype(np.int32)
+            tch = rng.integers(-200, 200, (k, B, sizes[-1])).astype(np.int32)
+        else:
+            drives = (np.round(rng.standard_normal((k, B, sizes[0])) * 16)
+                      / 16).astype(np.float32)
+            tch = (rng.standard_normal((k, B, sizes[-1])) * 0.3
+                   ).astype(np.float32)
+        tch = {None: None, "per-step": tch, "held": tch[0]}[teach]
+        t = _on(cuda_device, drives=drives, teach=tch, active=ACTIVE)
+        params = [TE.EngineParams(
+            spiking=i < len(sizes) - 2, quant=qc, tau_m=2.0,
+            trace_decay=0.75 if quant else 0.8)
+            for i in range(len(sizes) - 1)]
+        kw = dict(params=params, teach=t["teach"], active=t["active"])
+        launches = TF.rollout.launches
+        got_st, got = TE.rollout(st, theta, t["drives"], **kw)
+        assert TF.rollout.launches == launches + 1
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TF, "rollout", lambda *a, block_b=None, **k:
+                       TF.rollout_plain(*a, **k))
+            want_st, want = TE.rollout(st, theta, t["drives"], **kw)
+        torch.cuda.synchronize()
+        got_all = (*got_st.w, *got_st.v, *got_st.trace, got)
+        want_all = (*want_st.w, *want_st.v, *want_st.trace, want)
+        if quant or k == 1:
+            _assert_match(got_all, want_all, quant)
+        off = t["active"] == 0
+        for w_new, w_old in zip(got_st.w, st.w):
+            assert torch.equal(w_new[off], w_old[off])

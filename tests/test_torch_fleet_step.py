@@ -1,0 +1,153 @@
+"""Fleet-mode `layer_step` of the PyTorch port against the JAX reference.
+
+The JAX side is `repro.core.engine.layer_step(impl="xla")` under
+``jax.jit``; the port runs on CPU tensors, i.e. the plain version of the
+fleet-step kernels.  The fixed-point datapath is held BIT for bit (events,
+membranes, traces, weights); float32 within rtol = atol = 1e-5, the
+tolerance of tests/test_fleet.py:168 (the psum is summed in another order).
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import engine as JE
+from repro.kernels.plasticity import quant as JQ
+from repro_torch.core import engine as TE
+from repro_torch.kernels.plasticity import kernel as TK
+from repro_torch.kernels.plasticity import quant as TQ
+
+B = 6
+
+
+# (N, M, spiking, teach, active): M = 200 is not a multiple of 128
+CASES = [
+    (6, 2, True, None, None),
+    (8, 128, True, None, "mask"),
+    (16, 200, True, "per-stream", None),
+    (128, 8, False, None, "mask"),
+    (12, 5, False, "shared", "mask"),
+]
+
+
+def _inputs(rng, n, m, quant, teach, active):
+    d = {}
+    if quant:
+        d["x"] = rng.choice([0, 256], (B, n)).astype(np.int32)
+        d["w"] = rng.integers(-127, 128, (B, n, m)).astype(np.int8)
+        d["v"] = rng.integers(-600, 600, (B, m)).astype(np.int32)
+        d["tpre"] = rng.integers(0, 1200, (B, n)).astype(np.int32)
+        d["tpost"] = rng.integers(-300, 1200, (B, m)).astype(np.int32)
+        # heterogeneous per-slot scales and per-session seeds
+        d["scale"] = np.where(np.arange(B) % 2 == 0, 1 / 32,
+                              1 / 16).astype(np.float32)
+        d["seed"] = rng.integers(-2 ** 31, 2 ** 31, B).astype(np.int32)
+        tdt, tmag = np.int32, 300
+    else:
+        d["x"] = (rng.random((B, n)) < 0.4).astype(np.float32)
+        d["w"] = rng.uniform(-1, 1, (B, n, m)).astype(np.float32)
+        d["v"] = rng.standard_normal((B, m)).astype(np.float32)
+        d["tpre"] = (rng.random((B, n)) * 3).astype(np.float32)
+        d["tpost"] = (rng.random((B, m)) * 3).astype(np.float32)
+        d["scale"] = d["seed"] = None
+        tdt, tmag = np.float32, 0.5
+    d["theta"] = (rng.standard_normal((4, n, m)) * 0.02).astype(np.float32)
+    shape = {"per-stream": (B, m), "shared": (m,)}.get(teach)
+    d["teach"] = None if shape is None else (
+        (rng.standard_normal(shape) * tmag).astype(tdt))
+    d["active"] = (None if active is None
+                   else np.array([1, 0, 1, 1, 0, 1], np.int32))
+    return d
+
+
+def _params(quant, spiking):
+    kw = dict(v_th=1.0, v_reset=0.0, w_clip=4.0, plastic=True,
+              spiking=spiking)
+    if quant:
+        qj = JQ.QuantConfig()
+        kw.update(tau_m=qj.tau_m, trace_decay=qj.decay)
+        return (JE.EngineParams(quant=qj, **kw),
+                TE.EngineParams(quant=TQ.QuantConfig(), **kw))
+    kw.update(tau_m=2.0, trace_decay=0.8)
+    return JE.EngineParams(**kw), TE.EngineParams(**kw)
+
+
+def _jax_step(d, params):
+    def f(w, v, tpre, tpost, theta, scale, x, teach, active, seed):
+        st = JE.LayerState(w=w, v=v, trace_pre=tpre, trace_post=tpost,
+                           theta=theta, w_scale=scale)
+        st, out = JE.layer_step(st, x, params=params, impl="xla",
+                                teach=teach, active=active, seed=seed)
+        return st.w, st.v, st.trace_post, out
+    return [np.asarray(a) for a in jax.jit(f)(
+        d["w"], d["v"], d["tpre"], d["tpost"], d["theta"], d["scale"],
+        d["x"], d["teach"], d["active"], d["seed"])]
+
+
+def _torch_step(d, params):
+    t = {k: None if v is None else torch.from_numpy(np.array(v))
+         for k, v in d.items()}
+    st = TE.LayerState(w=t["w"], v=t["v"], trace_pre=t["tpre"],
+                       trace_post=t["tpost"], theta=t["theta"],
+                       w_scale=t["scale"])
+    st, out = TE.layer_step(st, t["x"], params=params, teach=t["teach"],
+                            active=t["active"], seed=t["seed"])
+    return [a.numpy() for a in (st.w, st.v, st.trace_post, out)]
+
+
+@pytest.mark.parametrize("mode", ("float32", "int8"))
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}-"
+                         f"{'spk' if c[2] else 'readout'}-teach{c[3]}-"
+                         f"{c[4] or 'all'}")
+def test_layer_step_matches_jax(mode, case):
+    n, m, spiking, teach, active = case
+    quant = mode == "int8"
+    rng = np.random.default_rng(n * 1000 + m)
+    d = _inputs(rng, n, m, quant, teach, active)
+    pj, pt = _params(quant, spiking)
+    want = _jax_step(d, pj)
+    got = _torch_step(d, pt)
+    for name, a, b in zip(("w", "v", "trace_post", "out"), want, got):
+        assert a.dtype == b.dtype, name
+        if quant:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+    if active is not None:
+        off = d["active"] == 0
+        np.testing.assert_array_equal(got[0][off], d["w"][off])
+        assert not got[3][off].any()
+
+
+def test_heterogeneous_per_slot_scales_move_membranes():
+    """Equal payloads under scales 1/32 and 1/16 must give DIFFERENT
+    membranes (the per-slot scale reaches the current) and the port must
+    equal JAX bit for bit on both slots."""
+    rng = np.random.default_rng(9)
+    d = _inputs(rng, 8, 16, True, None, None)
+    for k in ("x", "w", "v", "tpre", "tpost", "seed"):
+        d[k] = np.broadcast_to(d[k][:1], d[k].shape).copy()
+    d["x"][:] = 256
+    d["v"][:] = 0
+    pj, pt = _params(True, True)
+    want, got = _jax_step(d, pj), _torch_step(d, pt)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+    v = got[1]
+    assert not np.array_equal(v[0], v[1]), "scale did not reach the membrane"
+
+
+def test_kernel_wrapper_takes_plain_version_only_on_cpu():
+    """A CPU tensor runs the plain version; a tensor on another device
+    raises rather than running anything silently."""
+    rng = np.random.default_rng(3)
+    d = _inputs(rng, 4, 3, False, None, None)
+    t = {k: torch.from_numpy(v) for k, v in d.items() if v is not None}
+    args = (t["x"], t["w"], t["theta"], t["v"], t["tpre"], t["tpost"])
+    for a, b in zip(TK.fleet_step(*args), TK.fleet_step_plain(*args)):
+        assert torch.equal(a, b)
+    meta = tuple(a.to("meta") for a in args)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        TK.fleet_step(*meta)
+

@@ -1,0 +1,266 @@
+"""The port's fused rollout window against the JAX reference.
+
+`repro_torch.core.engine.rollout` on CPU tensors (the plain K-loop of the
+rollout kernel) against `repro.core.engine.rollout(impl="xla")` under
+``jax.jit``.  int8 is held BIT for bit for every K; float32 within
+rtol = atol = 1e-5 for K <= 4 at controller widths (drives and weights are
+grid-valued, so the first step's psums are exact in any summation order).
+"""
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import engine as JE
+from repro.kernels.plasticity import quant as JQ
+from repro_torch import convert
+from repro_torch.core import engine as TE
+from repro_torch.core.plasticity import fma32
+from repro_torch.kernels.plasticity import fused as TF
+from repro_torch.kernels.plasticity import quant as TQ
+
+B = 5
+ACTIVE = np.array([1, 1, 0, 1, 0], np.int32)
+SIZES = {1: (6, 4), 2: (8, 32, 4)}
+
+
+def _net(rng, sizes, quant, t0):
+    n_layers = len(sizes) - 1
+    if quant:
+        w = [rng.integers(-40, 41, (B, sizes[i], sizes[i + 1])
+                          ).astype(np.int8) for i in range(n_layers)]
+        v = [rng.integers(-300, 300, (B, m)).astype(np.int32)
+             for m in sizes[1:]]
+        tr = [rng.integers(0, 900, (B, n)).astype(np.int32) for n in sizes]
+        scale = [np.where(np.arange(B) % 2 == 0, 1 / 32, 1 / 16
+                          ).astype(np.float32) for _ in range(n_layers)]
+    else:
+        w = [np.round(rng.uniform(-0.5, 0.5, (B, sizes[i], sizes[i + 1]))
+                      * 64).astype(np.float32) / 64 for i in range(n_layers)]
+        v = [rng.uniform(-0.5, 0.9, (B, m)).astype(np.float32)
+             for m in sizes[1:]]
+        tr = [rng.uniform(0, 2, (B, n)).astype(np.float32) for n in sizes]
+        scale = []
+    return types.SimpleNamespace(w=tuple(w), v=tuple(v), trace=tuple(tr),
+                                 t=np.int32(t0), w_scale=tuple(scale))
+
+
+def _case(rng, quant, k, n_layers, teach):
+    sizes = SIZES[n_layers]
+    net = _net(rng, sizes, quant, 2 ** 31 - 9 if quant else 0)
+    theta = [(rng.standard_normal((4, sizes[i], sizes[i + 1])) * 0.02
+              ).astype(np.float32) for i in range(n_layers)]
+    if quant:
+        drives = rng.integers(-512, 512, (k, B, sizes[0])).astype(np.int32)
+        tch = rng.integers(-200, 200, (k, B, sizes[-1])).astype(np.int32)
+    else:
+        drives = (np.round(rng.standard_normal((k, B, sizes[0])) * 16) / 16
+                  ).astype(np.float32)
+        tch = (rng.standard_normal((k, B, sizes[-1])) * 0.3
+               ).astype(np.float32)
+    tch = {None: None, "per-step": tch, "held": tch[0]}[teach]
+    return net, theta, drives, tch
+
+
+def _params(quant, n_layers, mod):
+    qc = (JQ.QuantConfig() if mod is JE else TQ.QuantConfig()) \
+        if quant else None
+    kw = dict(v_th=1.0, v_reset=0.0, w_clip=4.0, plastic=True, quant=qc,
+              tau_m=2.0, trace_decay=0.75 if quant else 0.8)
+    return [mod.EngineParams(spiking=i < n_layers - 1, **kw)
+            for i in range(n_layers)]
+
+
+def _jax_rollout(net, theta, drives, teach, active, quant, n_layers):
+    params = _params(quant, n_layers, JE)
+
+    def f(w, v, tr, t, sc, th, dr, te, act):
+        st = JE.NetworkState(w=w, v=v, trace=tr, t=t, w_scale=sc)
+        st, outs = JE.rollout(st, th, dr, params=params, impl="xla",
+                              teach=te, active=act)
+        return st.w, st.v, st.trace, st.t, outs
+    w, v, tr, t, outs = jax.jit(f)(net.w, net.v, net.trace, net.t,
+                                   net.w_scale, theta, drives, teach, active)
+    return [np.asarray(a) for a in (*w, *v, *tr, outs)], int(t)
+
+
+def _torch_rollout(net, theta, drives, teach, active, quant, n_layers):
+    st = convert.network_state(net, device="cpu")
+    as_t = lambda a: None if a is None else torch.from_numpy(np.array(a))
+    st, outs = TE.rollout(st, convert.theta(theta, device="cpu"),
+                          as_t(drives), params=_params(quant, n_layers, TE),
+                          teach=as_t(teach), active=as_t(active))
+    return [a.numpy() for a in (*st.w, *st.v, *st.trace, outs)], int(st.t)
+
+
+ROLLOUT_CASES = [(m, k, n_layers, teach)
+                 for m, ks in (("float32", (1, 4)), ("int8", (1, 4, 16)))
+                 for k in ks for n_layers in (1, 2)
+                 for teach in ((None,) if n_layers == 1 else ("per-step",))
+                 ] + [("int8", 4, 1, "held"), ("float32", 4, 1, "held")]
+
+
+@pytest.mark.parametrize("mode,k,n_layers,teach", ROLLOUT_CASES)
+def test_rollout_matches_jax(mode, k, n_layers, teach):
+    quant = mode == "int8"
+    rng = np.random.default_rng(100 * k + 10 * n_layers + quant)
+    net, theta, drives, tch = _case(rng, quant, k, n_layers, teach)
+    want, t_j = _jax_rollout(net, theta, drives, tch, ACTIVE, quant, n_layers)
+    got, t_t = _torch_rollout(net, theta, drives, tch, ACTIVE, quant,
+                              n_layers)
+    assert t_j == t_t
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if quant:
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ("float32", "int8"))
+def test_k1_equals_one_layer_step_per_layer(mode):
+    """A one-step window is exactly the per-event path: the input trace
+    update, then `layer_step` layer by layer with fold_seed(t, i)."""
+    quant = mode == "int8"
+    rng = np.random.default_rng(7)
+    net, theta, drives, _ = _case(rng, quant, 1, 2, None)
+    st = convert.network_state(net, device="cpu")
+    th = convert.theta(theta, device="cpu")
+    x = torch.from_numpy(drives[0])
+    act = torch.from_numpy(ACTIVE)
+    params = _params(quant, 2, TE)
+    fused, outs = TE.rollout(st, th, x[None], params=params, active=act)
+    tr = list(st.trace)
+    if quant:
+        tr0 = TQ.trace_update_q(tr[0], x, params[0].quant)
+    else:
+        tr0 = fma32(0.8, tr[0], x)
+    tr[0] = torch.where(act.bool()[:, None], tr0, tr[0])
+    for i in range(2):
+        layer = TE.LayerState(st.w[i], st.v[i], tr[i], tr[i + 1], th[i],
+                              st.w_scale[i] if quant else None)
+        layer, x = TE.layer_step(
+            layer, x, params=params[i], active=act,
+            seed=TQ.fold_seed(st.t, i) if quant else None)
+        assert torch.equal(layer.w, fused.w[i])
+        assert torch.equal(layer.v, fused.v[i])
+        assert torch.equal(layer.trace_post, fused.trace[i + 1])
+        tr[i + 1] = layer.trace_post
+    assert torch.equal(tr[0], fused.trace[0])
+    assert torch.equal(x, outs[0])
+
+
+@pytest.mark.parametrize("mode", ("float32", "int8"))
+def test_inactive_slots_bit_frozen_across_window(mode):
+    quant = mode == "int8"
+    rng = np.random.default_rng(8)
+    net, theta, drives, tch = _case(rng, quant, 16, 2, "per-step")
+    got, _ = _torch_rollout(net, theta, drives, tch, ACTIVE, quant, 2)
+    before = [*net.w, *net.v, *net.trace]
+    off = ACTIVE == 0
+    for a, b in zip(before, got):
+        np.testing.assert_array_equal(np.asarray(a)[off], b[off])
+    assert not got[-1][:, off].any()                   # outputs zeroed
+    assert any(not np.array_equal(np.asarray(a)[~off], b[~off])
+               for a, b in zip(before, got))
+
+
+@pytest.mark.parametrize("mode", ("float32", "int8"))
+def test_shared_weight_window_matches_jax(mode):
+    """Shared weights (N, M) with batched activations: CPU plain code in
+    this slice, against the JAX oracle."""
+    quant = mode == "int8"
+    rng = np.random.default_rng(12)
+    net, theta, drives, _ = _case(rng, quant, 4, 1, None)
+    net.w = tuple(w[0] for w in net.w)
+    net.w_scale = tuple(s[0] for s in net.w_scale)
+    want, _ = _jax_rollout(net, theta, drives, None, None, quant, 1)
+    got, _ = _torch_rollout(net, theta, drives, None, None, quant, 1)
+    for a, b in zip(want, got):
+        if quant:
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
+
+
+def _bad_calls():
+    """(name, callable) pairs, each of which must raise ValueError."""
+    rng = np.random.default_rng(0)
+    net, theta, drives, _ = _case(rng, True, 2, 2, None)
+    st = convert.network_state(net, device="cpu")
+    th = convert.theta(theta, device="cpu")
+    dr = torch.from_numpy(drives)
+    p = _params(True, 2, TE)
+    pf = _params(False, 2, TE)
+    act = torch.from_numpy(ACTIVE)
+    layer = st.layer(0, th[0])
+    x0 = dr[0]
+    yield "params count", lambda: TE.rollout(st, th, dr, params=p[:1])
+    yield "non-uniform tau", lambda: TE.rollout(
+        st, th, dr, params=[p[0], TE.EngineParams(tau_m=4.0, quant=p[0].quant,
+                                                   trace_decay=0.75)])
+    yield "theta count", lambda: TE.rollout(st, th[:1], dr, params=p)
+    yield "drives rank", lambda: TE.rollout(st, th, dr[0, 0], params=p)
+    yield "fleet drives", lambda: TE.rollout(st, th, dr[:, 0], params=p)
+    yield "K = 0", lambda: TE.rollout(st, th, dr[:0], params=p)
+    yield "drives B", lambda: TE.rollout(st, th, dr[:, :2], params=p)
+    yield "active shape", lambda: TE.rollout(st, th, dr, params=p,
+                                             active=act[:2])
+    yield "quant drives dtype", lambda: TE.rollout(st, th, dr.float(),
+                                                   params=p)
+    yield "quant teach dtype", lambda: TE.rollout(
+        st, th, dr, params=p, teach=torch.zeros(B, 4))
+    yield "teach rank", lambda: TE.rollout(
+        st, th, dr, params=p, teach=torch.zeros(2, 2, B, 4, dtype=torch.int32))
+    yield "quant tau", lambda: TE.rollout(
+        st, th, dr, params=TE.EngineParams(tau_m=3.0, quant=p[0].quant,
+                                           trace_decay=0.75))
+    yield "quant decay", lambda: TE.rollout(
+        st, th, dr, params=TE.EngineParams(quant=p[0].quant))
+    yield "quant x dtype", lambda: TE.layer_step(layer, x0.float(),
+                                                 params=p[0])
+    yield "fleet x shape", lambda: TE.layer_step(layer, x0[:2], params=p[0])
+    yield "fleet v shape", lambda: TE.layer_step(
+        TE.LayerState(layer.w, layer.v[0], layer.trace_pre, layer.trace_post,
+                      layer.theta, layer.w_scale), x0, params=p[0])
+    yield "layer active shape", lambda: TE.layer_step(
+        layer, x0, params=p[0], active=act[:3])
+    yield "active on shared weights", lambda: TE.layer_step(
+        TE.LayerState(layer.w[0].float(), layer.v.float(),
+                      layer.trace_pre.float(), layer.trace_post.float(),
+                      layer.theta), x0.float(), params=pf[0], active=act)
+    yield "active on shared rollout", lambda: TE.rollout(
+        TE.NetworkState(w=tuple(w[0].float() for w in st.w),
+                        v=tuple(v.float() for v in st.v),
+                        trace=tuple(t.float() for t in st.trace), t=st.t),
+        th, dr.float(), params=pf, active=act)
+
+
+BAD = list(_bad_calls())
+
+
+@pytest.mark.parametrize("name", [n for n, _ in BAD])
+def test_value_error_contracts(name):
+    fn = dict(BAD)[name]
+    with pytest.raises(ValueError):
+        fn()
+
+
+def test_shared_memory_plan():
+    """The rollout kernel's working set at the 8-128-8 controller fits a
+    CTA with theta resident; an oversized block raises instead of falling
+    back."""
+    sizes, plastic = (8, 128, 8), (True, True)
+    smem, resident = TF.smem_plan(sizes, 8, plastic, False,
+                                  TF.DEFAULT_SMEM_LIMIT)
+    assert resident and smem == 32768 + 4352 + 4608 + 8192 + 32 + 65536
+    q_smem, _ = TF.smem_plan(sizes, 8, plastic, True, TF.DEFAULT_SMEM_LIMIT)
+    assert q_smem == smem - 65536 + 16384
+    _, resident = TF.smem_plan(sizes, 20, plastic, False,
+                               TF.DEFAULT_SMEM_LIMIT)
+    assert not resident                   # theta read through L2 instead
+    with pytest.raises(ValueError, match="lower block_b"):
+        TF.smem_plan(sizes, 64, plastic, False, TF.DEFAULT_SMEM_LIMIT)
+
