@@ -6,17 +6,30 @@ plain version.  Run from the root of a checkout:
 
 Phases, each fatal on failure:
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (parallel nvcc);
-  2. compare every kernel with its plain PyTorch version on the card, at the
-     shapes of the paper's 8-128-8 controller with B = 4096 streams;
+  2. compare every kernel with its plain PyTorch version on the card: the
+     fleet kernels at the shapes of the paper's 8-128-8 controller with
+     B = 4096 streams; the shared-weight step, the shared-weight rollout
+     window and the LIF forward kernel at the 784-1024-10 MNIST network;
   3. the recovery gate on the card: both gate scenarios x {float32, int8},
      plastic recovers >= 1/2 of the return drop, frozen <= 1/4;
-  4. the main path at full width: `firefly_snn.CONFIG` (8-128-8, T = 4) in
-     the closed loop on `direction` with B = 4096 controllers for 260 steps
-     (one rollout-kernel launch per control step), then the per-event path
-     (`snn.timestep`, one fleet-step launch per layer per timestep), in
-     float32 and int8; the int8 closed loop is repeated through the plain
-     rollout and must give the same bits;
-  5. time each kernel and its plain version with CUDA events.
+  4. the controller path at full width: `firefly_snn.CONFIG` (8-128-8,
+     T = 4) in the closed loop on `direction` with B = 4096 controllers for
+     260 steps (one rollout-kernel launch per control step), then the
+     per-event path (`snn.timestep`, one fleet-step launch per layer per
+     timestep), in float32 and int8; the int8 closed loop is repeated
+     through the plain rollout and must give the same bits;
+  5. time each kernel and its plain version with CUDA events, the L2 cache
+     flushed before each call;
+  6. the online-learning path at full width: `firefly_snn.MNIST`
+     (784-1024-10, T = 8, B = 1) on 120 procedural digits, predict then
+     learn (one shared-weight rollout launch per `classify_window`), then
+     one digit per event (`snn.timestep`, one shared-step launch per layer
+     per timestep) and through the Table II baselines (`lif_forward` per
+     layer, then `apply_plasticity`), in float32 and int8; the int8 stream
+     is repeated through the plain versions and must give the same bits;
+  7. the Table II timings on the card (per timestep at B = 1: fused,
+     forward-only, sequential, windowed) and each new kernel's time with
+     the L2 cache flushed between repetitions.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -42,12 +55,28 @@ B = 4096                         # fleet streams at full width
 STEPS = 260                      # closed-loop env steps (a gate episode)
 SEED = 0
 
-SOURCES = {"fleet_step": "src/repro_torch/csrc/fleet_step.cu",
-           "fleet_step_q": "src/repro_torch/csrc/fleet_step.cu",
-           "rollout": "src/repro_torch/csrc/rollout.cu"}
+MNIST_DIGITS = 120               # the Table II stream (mnist_throughput.py)
+TEACH = 2.0                      # teaching-current amplitude
+# the hand-set rule of mnist_throughput.online_accuracy: (a, b, g, d)
+MNIST_RULE = ((0.010, 0.004, -0.0030, -0.0010),
+              (0.050, -0.002, -0.0050, -0.0005))
+FLUSH_BYTES = 1 << 30            # > the 50 MB L2: zeroed between timed reps
+
+CSRC = "src/repro_torch/csrc/"
+SOURCES = {"fleet_step": CSRC + "fleet_step.cu",
+           "fleet_step_q": CSRC + "fleet_step.cu",
+           "rollout": CSRC + "rollout.cu",
+           "rollout_shared": CSRC + "rollout_shared.cu",
+           "shared_step": CSRC + "shared_step.cu",
+           "shared_step_q": CSRC + "shared_step.cu",
+           "lif_forward": CSRC + "lif_forward.cu"}
 REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "fleet_step_q": "src/repro/kernels/plasticity/kernel.py:559",
-            "rollout": "src/repro/kernels/plasticity/fused.py:304"}
+            "rollout": "src/repro/kernels/plasticity/fused.py:304",
+            "rollout_shared": "src/repro/kernels/plasticity/fused.py:304",
+            "shared_step": "src/repro/kernels/plasticity/kernel.py:132",
+            "shared_step_q": "src/repro/kernels/plasticity/kernel.py:431",
+            "lif_forward": "src/repro/kernels/lif/kernel.py:47"}
 
 
 def log(*a):
@@ -65,13 +94,44 @@ def require(cond, what):
 
 # ---- timing and bounds -------------------------------------------------------
 
-def median_ms(fn, reps=20, warmup=3):
-    """Median time of one call on the card, by CUDA events around each."""
+_flush_buf = []
+
+
+def device_ms(fn, reps=20, warmup=3):
+    """Median device time of one call: CUDA events around each call, with
+    the L2 cache flushed before it by zeroing a 1 GB buffer.  Nothing
+    synchronises inside the loop, and the zeroing (~0.3 ms of device work)
+    keeps the card behind the host, so the events time the call's kernels
+    and not the host's dispatch."""
+    import torch
+    if not _flush_buf:
+        _flush_buf.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                      device="cuda"))
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        _flush_buf[0].zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def latency_ms(fn, reps=50, warmup=3):
+    """Median latency of one call as its caller sees it: CUDA events around
+    each call with the card idle before it, so the host's dispatch counts."""
     import torch
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -96,20 +156,22 @@ def bound(nbytes, ops):
 OPS_F32, OPS_Q = 11, 35
 
 
-def step_bytes(b, n, m, wb, sb=4):
-    """One fleet-step launch: every input read once, every output written
-    once (x, w, theta, v, traces in; events, v, trace, w out)."""
-    return (b * n * sb + b * n * m * wb + 4 * n * m * 4 + b * m * sb * 2
-            + b * n * sb + b * m * sb * 3 + b * n * m * wb)
+def step_bytes(b, n, m, wb, sb=4, fleet=True):
+    """One step launch: every input read once, every output written once
+    (x, w, theta, v, traces in; events, v, trace, w out); a fleet has one
+    weight set per stream, a shared-weight step one."""
+    syn = (b if fleet else 1) * n * m
+    return (b * n * sb + 2 * syn * wb + 16 * n * m + 2 * b * m * sb
+            + b * n * sb + 3 * b * m * sb)
 
 
-def window_bytes(b, sizes, k, wb, sb=4):
+def window_bytes(b, sizes, k, wb, sb=4, fleet=True):
     """One rollout launch: drives and outputs once per step, the weights,
-    theta, membranes and traces once per window each way."""
+    theta, membranes and traces once per window each way (theta in)."""
     syn = sum(sizes[i] * sizes[i + 1] for i in range(len(sizes) - 1))
     return (k * b * sizes[0] * sb + k * b * sizes[-1] * sb
-            + 2 * b * syn * wb + 4 * syn * 4 + 2 * b * sum(sizes[1:]) * sb
-            + 2 * b * sum(sizes) * sb)
+            + 2 * (b if fleet else 1) * syn * wb + 16 * syn
+            + 2 * b * sum(sizes[1:]) * sb + 2 * b * sum(sizes) * sb)
 
 
 # ---- phase 2: kernels against their plain versions --------------------------
@@ -138,6 +200,38 @@ def rand_fleet_inputs(gen, b, n, m, quant, dev):
         tpost = r(b, m) * 3
     theta = 0.02 * torch.randn(4, n, m, generator=gen, device=dev)
     return x, w, theta, v, tpre, tpost
+
+
+def held(name, got, want, quant, results, what, tol=1e-5):
+    """Hold a kernel's outputs against its plain version's: bitwise in int8,
+    within ``tol`` in float32; record the largest difference."""
+    import torch
+    torch.cuda.synchronize()
+    err = max(float((g.double() - h.double()).abs().max())
+              for g, h in zip(got, want))
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    if quant:
+        require(all(torch.equal(g, h) for g, h in zip(got, want)),
+                f"{name} {what}: not bitwise equal to plain (max err {err})")
+    else:
+        require(all(torch.allclose(g, h, rtol=tol, atol=tol)
+                    for g, h in zip(got, want)),
+                f"{name} {what}: max err {err} > {tol}")
+    log(f"  {name:14s} {what}: max |err| {err:.3g}")
+    return err
+
+
+def drift(got, want):
+    """Largest difference and the share of elements outside 1e-4 (float
+    windows of more than one step drift by ULPs and are not gated)."""
+    import torch
+    torch.cuda.synchronize()
+    err = max(float((a.double() - c.double()).abs().max())
+              for a, c in zip(got, want))
+    outside = sum(int((~torch.isclose(a.double(), c.double(), rtol=1e-4,
+                                      atol=1e-4)).sum())
+                  for a, c in zip(got, want))
+    return err, outside / sum(a.numel() for a in got)
 
 
 def compare_fleet_steps(dev, results):
@@ -174,26 +268,14 @@ def compare_fleet_steps(dev, results):
                 got = K.fleet_step(x, w, theta, v, tpre, tpost, **kw)
                 want = K.fleet_step_plain(x, w, theta, v, tpre, tpost, **kw)
                 name = "fleet_step"
-            torch.cuda.synchronize()
-            err = max(float((g.double() - h.double()).abs().max())
-                      for g, h in zip(got, want))
-            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
-                                               err)
-            if quant:
-                require(all(torch.equal(g, h) for g, h in zip(got, want)),
-                        f"{name} N={n} M={m}: not bitwise equal to plain "
-                        f"(max err {err})")
-            else:
-                for g, h in zip(got, want):
-                    require(torch.allclose(g, h, rtol=1e-5, atol=1e-5),
-                            f"{name} N={n} M={m}: max err {err} > 1e-5")
+            held(name, got, want, quant, results,
+                 f"N={n} M={m} spiking={spiking} "
+                 f"active={'mask' if mask else 'all'}")
             if active is not None:
                 off = ~active
                 require(torch.equal(got[3][off], w[off])
                         and not got[0][off].any(),
                         f"{name}: inactive slots not frozen")
-            log(f"  {name:13s} N={n:3d} M={m:3d} spiking={spiking!s:5s} "
-                f"active={'mask' if mask else 'all '}: max |err| {err:.3g}")
 
 
 def net_inputs(gen, cfg, k, dev):
@@ -253,16 +335,10 @@ def compare_rollouts(dev, results):
             with mock.patch.object(fused, "rollout", plain_rollout):
                 want = engine.rollout(st, theta, drives, params=params,
                                       active=active, block_b=cfg.block_b)
-            torch.cuda.synchronize()
             g = [got[1]] + list(got[0].w) + list(got[0].v) + list(got[0].trace)
             h = ([want[1]] + list(want[0].w) + list(want[0].v)
                  + list(want[0].trace))
-            err = max(float((a.double() - c.double()).abs().max())
-                      for a, c in zip(g, h))
-            outside = sum(int((~torch.isclose(a.double(), c.double(),
-                                              rtol=1e-4, atol=1e-4)).sum())
-                          for a, c in zip(g, h))
-            share = outside / sum(a.numel() for a in g)
+            err, share = drift(g, h)
             results["rollout"]["max_abs_err"] = max(
                 results["rollout"]["max_abs_err"], err)
             mode = "int8" if quant else "float32"
@@ -281,6 +357,150 @@ def compare_rollouts(dev, results):
                         f"outside 1e-4 (limit 1e-3)")
             require(torch.equal(got[0].w[0][~active], st.w[0][~active]),
                     f"rollout {mode} K={k}: inactive slots not frozen")
+
+
+# ---- phase 2 (shared weights): the MNIST network's kernels -----------------
+
+def shared_inputs(gen, b, n, m, quant, dev):
+    """Shared-step operands: spike events, grid-valued weights (exact float
+    psums), a teaching current."""
+    import torch
+    x, w, theta, v, tpre, tpost = rand_fleet_inputs(gen, b, n, m, quant, dev)
+    if quant:
+        teach = torch.randint(-300, 300, (b, m), generator=gen, device=dev,
+                              dtype=torch.int32)
+    else:
+        teach = 0.5 * torch.randn(b, m, generator=gen, device=dev)
+    return x, w[0].contiguous(), theta, v, tpre, tpost, teach
+
+
+def compare_shared_steps(dev, results):
+    """784 -> 1024 (spiking) and 1024 -> 10 (spiking readout, taught) at
+    B = 1, B = 8 and unbatched (through engine.layer_step), and one
+    non-plastic step."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import engine
+    from repro_torch.kernels.plasticity import kernel as K
+    from repro_torch.kernels.plasticity.quant import QuantConfig
+    gen = torch.Generator(dev).manual_seed(SEED + 3)
+    sizes = firefly_snn.MNIST.layer_sizes
+    cases = [(sizes[i], sizes[i + 1], b, i == 1, True)
+             for i in range(2) for b in (1, 8, None)]
+    cases.append((sizes[0], sizes[1], 1, False, False))
+    for quant in (False, True):
+        name = "shared_step_q" if quant else "shared_step"
+        qc = QuantConfig() if quant else None
+        for n, m, b, teach, plastic in cases:
+            x, w, theta, v, tpre, tpost, tch = shared_inputs(
+                gen, b or 1, n, m, quant, dev)
+            tch = tch if teach else None
+            what = (f"{n}->{m} B={b or 'unbatched'} teach={teach} "
+                    f"plastic={plastic}")
+            if b is None:
+                p = engine.EngineParams(quant=qc, plastic=plastic,
+                                        trace_decay=0.75 if quant else 0.8)
+                layer = engine.LayerState(w, v[0], tpre[0], tpost[0], theta)
+                t1 = None if tch is None else tch[0]
+                ls, out = engine.layer_step(layer, x[0], params=p, teach=t1,
+                                            seed=2 ** 31 - 1)
+                got = (out, ls.w, ls.v, ls.trace_post)
+                with mock.patch.object(K, name, getattr(K, name + "_plain")):
+                    ls, out = engine.layer_step(layer, x[0], params=p,
+                                                teach=t1, seed=2 ** 31 - 1)
+                want = (out, ls.w, ls.v, ls.trace_post)
+            elif quant:
+                args = (x, w, torch.tensor(1 / 32, device=dev), theta, v,
+                        tpre, tpost)
+                kw = dict(qcfg=qc, teach=tch, plastic=plastic,
+                          seed=2 ** 31 - 1)
+                got = K.shared_step_q(*args, **kw)
+                want = K.shared_step_q_plain(*args, **kw)
+            else:
+                args = (x, w, theta, v, tpre, tpost)
+                kw = dict(teach=tch, plastic=plastic)
+                got = K.shared_step(*args, **kw)
+                want = K.shared_step_plain(*args, **kw)
+            held(name, got, want, quant, results, what)
+
+
+def mnist_cfg(quant):
+    """`firefly_snn.MNIST` with the online protocol's clip (w_clip = 1)."""
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import snn
+    cfg = dataclasses.replace(firefly_snn.MNIST, w_clip=1.0)
+    return snn.quant_config(cfg) if quant else cfg
+
+
+def compare_shared_rollouts(dev, results):
+    """The shared-weight window at 784-1024-10, unbatched, with a held
+    teaching current, K = 1, 8, 32; int8 from t = 2**31 - 9 (seed + k wraps
+    inside K = 32)."""
+    import torch
+    from repro_torch.core import engine, snn
+    from repro_torch.kernels.plasticity import fused
+    from repro_torch.kernels.plasticity import quant as Q
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+    for quant in (False, True):
+        cfg = mnist_cfg(quant)
+        sizes = cfg.layer_sizes
+        params = [cfg.engine_params(i) for i in range(cfg.num_layers)]
+        for k in (1, 8, 32):
+            st = snn.init_state(cfg, device=dev)
+            tr = tuple(torch.rand(n, generator=gen, device=dev) * 2
+                       for n in sizes)
+            if quant:
+                w = tuple(torch.randint(-40, 41, (sizes[i], sizes[i + 1]),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32).to(torch.int8)
+                          for i in range(cfg.num_layers))
+                st = dataclasses.replace(
+                    st, w=w, trace=tuple(Q.to_fixed(t, cfg.quant)
+                                         for t in tr),
+                    t=torch.tensor(2 ** 31 - 9, dtype=torch.int32,
+                                   device=dev))
+            else:
+                w = tuple(torch.round((torch.rand(
+                    sizes[i], sizes[i + 1], generator=gen, device=dev) * 2
+                    - 1) * 16) / 64 for i in range(cfg.num_layers))
+                st = dataclasses.replace(st, w=w, trace=tr)
+            drives = (torch.rand(k, sizes[0], generator=gen, device=dev)
+                      < 0.3).float()
+            teach = 0.5 * torch.randn(sizes[-1], generator=gen, device=dev)
+            if quant:
+                drives = Q.to_fixed(drives, cfg.quant)
+                teach = Q.to_fixed(teach, cfg.quant)
+            theta = snn.init_theta(cfg, gen, scale=0.02)
+            got = engine.rollout(st, theta, drives, params=params,
+                                 teach=teach)
+            with mock.patch.object(fused, "rollout", plain_rollout):
+                want = engine.rollout(st, theta, drives, params=params,
+                                      teach=teach)
+            g = [got[1], *got[0].w, *got[0].v, *got[0].trace]
+            h = [want[1], *want[0].w, *want[0].v, *want[0].trace]
+            mode = "int8" if quant else "float32"
+            if quant or k == 1:
+                held("rollout_shared", g, h, quant, results,
+                     f"{mode} K={k}")
+            else:
+                err, share = drift(g, h)
+                log(f"  rollout_shared {mode} K={k}: max |err| {err:.3g}, "
+                    f"share outside 1e-4 {share:.2e} (not gated)")
+
+
+def compare_lif(dev, results):
+    import torch
+    from repro_torch.kernels.lif import kernel as L
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    for b, k, m in ((1, 784, 1024), (8, 130, 250)):
+        x = (torch.rand(b, k, generator=gen, device=dev) < 0.5).float()
+        w = torch.round(torch.randn(k, m, generator=gen, device=dev)
+                        * 8) / 64
+        v = 0.1 * torch.randn(b, m, generator=gen, device=dev)
+        tr = torch.rand(b, m, generator=gen, device=dev)
+        held("lif_forward", L.lif_forward(x, w, v, tr),
+             L.lif_forward_plain(x, w, v, tr), False, results,
+             f"B={b} K={k} M={m}")
 
 
 # ---- phase 3: recovery gate ----------------------------------------------------
@@ -317,16 +537,17 @@ def recovery_gate(dev):
 
 # ---- phase 4: the main path at full width ----------------------------------
 
-def main_path(dev, counters):
+def main_path(dev, counters, every):
     """Closed loop (rollout kernel) and per-event steps (fleet-step kernels)
-    of the 8-128-8 controller for B = 4096 streams, float32 and int8."""
+    of the 8-128-8 controller for B = 4096 streams, float32 and int8.
+    Every counter is set to 0 first; those of this path are read after."""
     import torch
     from repro_torch import envs, scenarios as S
     from repro_torch.configs import firefly_snn
     from repro_torch.core import snn
     env = envs.make("direction", episode_len=STEPS)
     out = {}
-    for c in counters:
+    for c in every:
         c.launches = 0
     for quant in (False, True):
         cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
@@ -394,41 +615,49 @@ def plain_closed_loop_matches(dev, main):
         f"rewards and weights ({dt:.2f} s)")
 
 
-def profile_closed_loop(dev, main, steps=20):
-    """Device busy share and device time by kernel over `steps` control
-    steps of the full-width closed loop (torch.profiler, CUPTI)."""
+def profile_window(fn, steps):
+    """Device busy time, idle share and device time by kernel over one call
+    of ``fn`` (torch.profiler, CUPTI), against its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    out = {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+           "kernel_launches_per_step": launches / steps,
+           "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
+                    "count": e.count} for e in top]}
+    log(f"    {steps} steps in {wall_ms:.1f} ms wall, device busy "
+        f"{busy_ms:.2f} ms ({launches / steps:.0f} kernel launches per "
+        f"step)" if busy_ms else
+        "    profiler saw no device time (not measured)")
+    for t in out["top"]:
+        log(f"      {t['ms']:8.3f} ms  x{t['count']:<5d} {t['name']}")
+    return out
+
+
+def profile_closed_loop(dev, main, steps=20):
+    """Where the time goes over `steps` control steps of the full-width
+    closed loop."""
     out = {}
     for mode, m in main.items():
-        prog = m["prog"]
-        short = dataclasses.replace(prog, steps=steps)
+        short = dataclasses.replace(m["prog"], steps=steps)
         short.run(m["theta"], SEED, tasks="train", device=dev)   # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            short.run(m["theta"], SEED, tasks="train", device=dev)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        launches = sum(e.count for e in kernels)
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        out[mode] = {
-            "steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
-            "kernel_launches_per_step": launches / steps,
-            "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
-                     "count": e.count} for e in top]}
-        log(f"  {mode:7s}: {steps} steps in {wall_ms:.1f} ms wall, device busy "
-            f"{busy_ms:.2f} ms ({launches / steps:.0f} kernel launches per "
-            f"control step)" if busy_ms else
-            f"  {mode:7s}: profiler saw no device time (not measured)")
-        for t in out[mode]["top"]:
-            log(f"      {t['ms']:8.3f} ms  x{t['count']:<5d} {t['name']}")
+        log(f"  {mode}:")
+        out[mode] = profile_window(
+            lambda: short.run(m["theta"], SEED, tasks="train", device=dev),
+            steps)
     return out
 
 
@@ -464,8 +693,8 @@ def time_kernels(dev, results):
                 run = lambda: K.fleet_step(x, w, theta, v, tpre, tpost, **kw)
                 plain = lambda: K.fleet_step_plain(x, w, theta, v, tpre,
                                                    tpost, **kw)
-            ms.append(median_ms(run))
-            pms.append(median_ms(plain, reps=5))
+            ms.append(device_ms(run))
+            pms.append(device_ms(plain, reps=5))
             b_ms, kind = bound(step_bytes(B, n, m, 1 if quant else 4),
                                B * n * m * (OPS_Q if quant else OPS_F32))
             bms.append(b_ms)
@@ -496,10 +725,349 @@ def time_kernels(dev, results):
         b_ms, kind = bound(window_bytes(B, sizes, k, 1 if quant else 4),
                            k * B * syn * (OPS_Q if quant else OPS_F32))
         timed["int8" if quant else "float32"] = dict(
-            ms=median_ms(run), plain_ms=median_ms(plain, reps=5),
+            ms=device_ms(run), plain_ms=device_ms(plain, reps=5),
             bound_ms=b_ms, bound_by=kind)
     results["rollout"].update(timed["float32"])
     results["rollout"]["int8"] = timed["int8"]
+
+
+# ---- phase 6: the online-learning path at full width -------------------------
+
+def mnist_rule(cfg, dev):
+    """The hand-set rule of the online protocol, as (4, N, M) planes."""
+    import torch
+    return [torch.stack([torch.full((cfg.layer_sizes[i],
+                                     cfg.layer_sizes[i + 1]), c, device=dev)
+                         for c in MNIST_RULE[i]])
+            for i in range(cfg.num_layers)]
+
+
+def online_stream(cfg, theta, imgs, labels):
+    """`mnist_throughput.online_accuracy`: predict each digit with no
+    teaching current, then learn on it with the label as one
+    (`classify_window` = one shared-weight rollout launch each)."""
+    import torch
+    from repro_torch.core import snn
+    state = snn.init_state(cfg, device=imgs.device)
+    preds = []
+    for x, label in zip(imgs, labels):
+        _, scores = snn.classify_window(cfg, state, theta, x)
+        teach = TEACH * torch.nn.functional.one_hot(
+            label, cfg.layer_sizes[-1]).float()
+        state, _ = snn.classify_window(cfg, state, theta, x, teach=teach)
+        preds.append(torch.argmax(scores))
+    return state, torch.stack(preds)
+
+
+def batched(state):
+    """Unbatched shared-weight state as B = 1 (the baselines' layout)."""
+    return dataclasses.replace(state, v=tuple(v[None] for v in state.v),
+                               trace=tuple(t[None] for t in state.trace))
+
+
+def forward_only_step(cfg, state, x):
+    """Table II inference-only baseline: `lif_forward` per layer."""
+    from repro_torch.kernels import lif_forward
+    v, tr = list(state.v), list(state.trace)
+    for i in range(cfg.num_layers):
+        x, v[i], tr[i + 1] = lif_forward(x, state.w[i], v[i], tr[i + 1])
+    return dataclasses.replace(state, v=tuple(v), trace=tuple(tr),
+                               t=state.t + 1), x
+
+
+def sequential_step(cfg, state, theta, x):
+    """Table II unfused baseline: the forward pass completes, then the
+    plasticity pass re-reads every weight matrix."""
+    from repro_torch.core import plasticity as P
+    from repro_torch.kernels import lif_forward
+    w, v, tr = list(state.w), list(state.v), list(state.trace)
+    tr[0] = P.update_trace(tr[0], x, cfg.trace_decay)
+    for i in range(cfg.num_layers):
+        x, v[i], tr[i + 1] = lif_forward(x, w[i], v[i], tr[i + 1])
+    for i in range(cfg.num_layers):
+        w[i] = P.apply_plasticity(w[i], theta[i], tr[i], tr[i + 1],
+                                  cfg.layer_plasticity_cfg(i))
+    return dataclasses.replace(state, w=tuple(w), v=tuple(v),
+                               trace=tuple(tr), t=state.t + 1), x
+
+
+def online_path(dev, counters, every):
+    """120 digits of predict-then-learn at 784-1024-10, then one digit per
+    event and, in float32, through the Table II baselines; float32 and
+    int8.  Every counter is set to 0 first; those of this path are read
+    over exactly this run."""
+    import torch
+    from repro_torch.core import snn
+    from repro_torch.data import mnist_batch, spike_encode
+    from repro_torch.kernels.plasticity import quant as Q
+    gen = torch.Generator(dev).manual_seed(SEED)
+    imgs, labels = mnist_batch(gen, MNIST_DIGITS)
+    imgs = imgs.reshape(MNIST_DIGITS, -1)
+    spikes = spike_encode(gen, imgs[0], mnist_cfg(False).timesteps)
+    torch.cuda.synchronize()
+    out = {}
+    for c in every:
+        c.launches = 0
+    for quant in (False, True):
+        cfg = mnist_cfg(quant)
+        mode = "int8" if quant else "float32"
+        theta = mnist_rule(cfg, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, preds = online_stream(cfg, theta, imgs, labels)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        warm = MNIST_DIGITS // 5
+        acc = float((preds[warm:] == labels[warm:]).float().mean())
+        if quant:
+            qmax = int(Q.qclip(cfg.w_clip, torch.tensor(cfg.quant.w_scale)))
+            require(all(int(w.abs().max()) <= qmax for w in state.w),
+                    "int8 online stream: weights outside the clip")
+        else:
+            require(all(torch.isfinite(w).all()
+                        and float(w.abs().max()) <= cfg.w_clip
+                        for w in state.w),
+                    "float32 online stream: weights not finite or outside "
+                    "w_clip")
+        grown = float(sum(w.float().abs().sum() for w in state.w))
+        require(grown > 0, f"{mode} online stream: no synapse grew")
+        log(f"  online stream {mode:7s}: {MNIST_DIGITS} digits (2 windows "
+            f"each) in {dt:.3f} s = {MNIST_DIGITS / dt:.1f} digits/s; "
+            f"predict-then-learn accuracy {acc:.3f} (chance 0.1, by "
+            f"design); sum |w| {grown:.4g}")
+        # one digit per event: T timesteps through snn.timestep (one
+        # shared-step launch per layer each) against one window
+        x = imgs[0]
+        teach = TEACH * torch.nn.functional.one_hot(
+            labels[0], cfg.layer_sizes[-1]).float()
+        win, win_scores = snn.classify_window(cfg, state, theta, x,
+                                              teach=teach)
+        ev, ev_scores = state, 0
+        for _ in range(cfg.timesteps):
+            ev, o = snn.timestep(cfg, ev, theta, x, teach=teach)
+            ev_scores = ev_scores + o
+        torch.cuda.synchronize()
+        pairs = list(zip((*ev.w, *ev.v, *ev.trace, ev_scores),
+                         (*win.w, *win.v, *win.trace, win_scores)))
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in pairs)
+        if quant:
+            require(all(torch.equal(a, b) for a, b in pairs),
+                    "int8 per-event digit differs from its window")
+        else:
+            require(err <= 1e-4, f"float32 per-event digit differs from its "
+                    f"window by {err} > 1e-4")
+        log(f"  per-event digit {mode:7s}: {cfg.timesteps} timesteps vs one "
+            f"window, max |diff| {err:.3g}")
+        if not quant:
+            # the Table II baselines on the same timestep: the sequential
+            # (forward, then plasticity) step computes what the fused step
+            # does; forward-only its forward half
+            bs, xb = batched(state), spikes[0][None]
+            fused, f_out = snn.timestep(cfg, bs, theta, xb)
+            seq, s_out = sequential_step(cfg, bs, theta, xb)
+            fwd, o_out = forward_only_step(cfg, bs, xb)
+            torch.cuda.synchronize()
+            d_seq = max(float((a - b).abs().max()) for a, b in zip(
+                (*seq.w, *seq.v, *seq.trace, s_out),
+                (*fused.w, *fused.v, *fused.trace, f_out)))
+            d_fwd = max(float((a - b).abs().max()) for a, b in zip(
+                (*fwd.v, *fwd.trace[1:], o_out),
+                (*fused.v, *fused.trace[1:], f_out)))
+            require(d_seq <= 1e-4 and d_fwd <= 1e-4,
+                    f"Table II baselines differ from the fused step: "
+                    f"sequential {d_seq}, forward-only {d_fwd}")
+            log(f"  Table II baselines vs the fused timestep: sequential "
+                f"max |diff| {d_seq:.3g}, forward-only {d_fwd:.3g}")
+        out[mode] = dict(state=state, preds=preds, theta=theta, acc=acc,
+                         seconds=dt, digits_per_s=MNIST_DIGITS / dt)
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"  launches on the online-learning path: {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was not launched on the online path")
+    out["data"] = (imgs, labels, spikes)
+    return out, launches
+
+
+def plain_stream_matches(dev, online):
+    """The int8 stream through the plain versions gives the same bits."""
+    import torch
+    from repro_torch.kernels.plasticity import fused
+    imgs, labels, _ = online["data"]
+    m = online["int8"]
+    with mock.patch.object(fused, "rollout", plain_rollout):
+        t0 = time.perf_counter()
+        state, preds = online_stream(mnist_cfg(True), m["theta"], imgs,
+                                     labels)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    require(torch.equal(preds, m["preds"]),
+            "int8 online stream: plain versions give other predictions")
+    for a, b in zip((*state.w, *state.v, *state.trace),
+                    (*m["state"].w, *m["state"].v, *m["state"].trace)):
+        require(torch.equal(a, b),
+                "int8 online stream: plain versions give other state")
+    log(f"  int8 online stream through the plain versions: bitwise equal "
+        f"predictions and state ({dt:.2f} s)")
+
+
+def profile_online(online, digits=10):
+    """Where the time goes over `digits` digits of the online stream (a
+    step here is one digit: two windows)."""
+    imgs, labels, _ = online["data"]
+    out = {}
+    for mode in ("float32", "int8"):
+        cfg, theta = mnist_cfg(mode == "int8"), online[mode]["theta"]
+        log(f"  {mode}:")
+        out[mode] = profile_window(lambda: online_stream(
+            cfg, theta, imgs[:digits], labels[:digits]), digits)
+    return out
+
+
+# ---- phase 7: Table II timings and the new kernels' times ------------------
+
+def table2(dev, online):
+    """Per-timestep latency at B = 1 of the fused timestep, the forward-only
+    and sequential baselines, and the windowed `classify_window` (per
+    timestep), on the state the stream left (CUDA events per call, host
+    dispatch included: this is the online system's latency)."""
+    from repro_torch.core import snn
+    imgs, labels, spikes = online["data"]
+    out = {}
+    for quant in (False, True):
+        cfg = mnist_cfg(quant)
+        mode = "int8" if quant else "float32"
+        m = online[mode]
+        state, theta = m["state"], m["theta"]
+        bs, xb = batched(state), spikes[0][None]
+        t = cfg.timesteps
+        row = {"fused": latency_ms(lambda: snn.timestep(cfg, bs, theta, xb)),
+               "windowed": latency_ms(lambda: snn.classify_window(
+                   cfg, state, theta, imgs[0])) / t}
+        if not quant:
+            row["forward_only"] = latency_ms(
+                lambda: forward_only_step(cfg, bs, xb))
+            row["sequential"] = latency_ms(
+                lambda: sequential_step(cfg, bs, theta, xb))
+        fps = {k: 1e3 / (t * v) for k, v in row.items()}
+        out[mode] = {"per_timestep_ms": row, "fps": fps}
+        if not quant:
+            out[mode]["fused_vs_forward_only"] = (row["fused"]
+                                                  / row["forward_only"])
+            out[mode]["sequential_vs_fused"] = (row["sequential"]
+                                                / row["fused"])
+        log(f"  {mode:7s} per timestep: " + ", ".join(
+            f"{k} {v:.4f} ms ({fps[k]:.1f} FPS)" for k, v in row.items()))
+    log(f"  fused / forward-only: "
+        f"{out['float32']['fused_vs_forward_only']:.3f}; sequential / fused:"
+        f" {out['float32']['sequential_vs_fused']:.3f}")
+    return out
+
+
+# Scalar operations counted from the sources: per synapse and batch row the
+# psum (mul, add), the Hebbian product and sum (2) and the presynaptic sum;
+# per synapse the update: three divisions by B, the four-term sum (4), add,
+# clip (2) in float; in fixed point three conversions and scalings, the
+# four-term sum, a division, floor, subtract, the 12-operation hash,
+# compare, add, convert and the integer clip.
+OPS_ROW, OPS_UPD_F32, OPS_UPD_Q = 5, 10, 29
+
+
+def time_new_kernels(dev, results):
+    """Each new kernel at the online path's shapes (B = 1), L2 flushed
+    between repetitions; the plain version beside it."""
+    import torch
+    from repro_torch.core import engine, snn
+    from repro_torch.kernels.lif import kernel as L
+    from repro_torch.kernels.plasticity import fused, kernel as K
+    from repro_torch.kernels.plasticity.quant import QuantConfig
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+    qc = QuantConfig()
+    sizes = mnist_cfg(False).layer_sizes
+    layers = [(sizes[i], sizes[i + 1]) for i in range(len(sizes) - 1)]
+    for name, quant in (("shared_step", False), ("shared_step_q", True)):
+        ms, pms, bms, kinds = [], [], [], []
+        for n, m in layers:
+            x, w, theta, v, tpre, tpost, _ = shared_inputs(gen, 1, n, m,
+                                                           quant, dev)
+            if quant:
+                sc = torch.tensor(1 / 32, device=dev)
+                kw = dict(qcfg=qc, seed=12345)
+                run = lambda: K.shared_step_q(x, w, sc, theta, v, tpre,
+                                              tpost, **kw)
+                plain = lambda: K.shared_step_q_plain(x, w, sc, theta, v,
+                                                      tpre, tpost, **kw)
+            else:
+                run = lambda: K.shared_step(x, w, theta, v, tpre, tpost)
+                plain = lambda: K.shared_step_plain(x, w, theta, v, tpre,
+                                                    tpost)
+            ms.append(device_ms(run))
+            pms.append(device_ms(plain, reps=5))
+            b_ms, kind = bound(step_bytes(1, n, m, 1 if quant else 4,
+                                          fleet=False),
+                               n * m * (OPS_ROW + (OPS_UPD_Q if quant
+                                                   else OPS_UPD_F32)))
+            bms.append(b_ms)
+            kinds.append(kind)
+        results[name].update(ms=statistics.mean(ms),
+                             plain_ms=statistics.mean(pms),
+                             bound_ms=statistics.mean(bms),
+                             bound_by=max(set(kinds), key=kinds.count))
+    # shared window: one classify window (K = 8) of 784-1024-10 at B = 1
+    syn = sum(n * m for n, m in layers)
+    timed = {}
+    for quant in (False, True):
+        cfg = mnist_cfg(quant)
+        k = cfg.timesteps
+        st = snn.init_state(cfg, batch=1, device=dev)
+        if quant:
+            w = tuple(torch.randint(-40, 41, (n, m), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                      .to(torch.int8) for n, m in layers)
+            drives = (torch.rand(k, 1, sizes[0], generator=gen, device=dev)
+                      < 0.3).int() * cfg.quant.one
+        else:
+            w = tuple(torch.round((torch.rand(n, m, generator=gen,
+                                              device=dev) * 2 - 1) * 16) / 64
+                      for n, m in layers)
+            drives = (torch.rand(k, 1, sizes[0], generator=gen, device=dev)
+                      < 0.3).float()
+        st = dataclasses.replace(st, w=w)
+        theta = snn.init_theta(cfg, gen, scale=0.02)
+        kw = dict(spiking=[True, True], plastic=[True, True],
+                  tau_m=cfg.lif.tau_m, trace_decay=cfg.trace_decay,
+                  w_clip=cfg.w_clip, qcfg=cfg.quant)
+        if quant:
+            kw.update(scales=list(st.w_scale), seed=st.t)
+        run = lambda: fused.rollout_shared(drives, st.w, theta, st.v,
+                                           st.trace, **kw)
+        plain = lambda: fused.rollout_plain(drives, st.w, theta, st.v,
+                                            st.trace, **kw)
+        b_ms, kind = bound(window_bytes(1, sizes, k, 1 if quant else 4,
+                                        fleet=False),
+                           k * syn * (OPS_ROW + (OPS_UPD_Q if quant
+                                                 else OPS_UPD_F32)))
+        timed["int8" if quant else "float32"] = dict(
+            ms=device_ms(run), plain_ms=device_ms(plain, reps=5),
+            bound_ms=b_ms, bound_by=kind)
+    results["rollout_shared"].update(timed["float32"])
+    results["rollout_shared"]["int8"] = timed["int8"]
+    # lif_forward: the two layers of the forward-only baseline at B = 1;
+    # library call: torch.matmul of the same product (the product only)
+    ms, pms, lms, bms = [], [], [], []
+    for n, m in layers:
+        x = (torch.rand(1, n, generator=gen, device=dev) < 0.3).float()
+        w = torch.randn(n, m, generator=gen, device=dev) * n ** -0.5
+        v = 0.1 * torch.randn(1, m, generator=gen, device=dev)
+        tr = torch.rand(1, m, generator=gen, device=dev)
+        ms.append(device_ms(lambda: L.lif_forward(x, w, v, tr)))
+        pms.append(device_ms(lambda: L.lif_forward_plain(x, w, v, tr)))
+        lms.append(device_ms(lambda: torch.matmul(x, w)))
+        bms.append(bound(4 * (n + n * m + 5 * m), 2 * n * m + 5 * m)[0])
+    results["lif_forward"].update(
+        ms=statistics.mean(ms), plain_ms=statistics.mean(pms),
+        library_ms=statistics.mean(lms), bound_ms=statistics.mean(bms),
+        bound_by="bytes", library_covers="the (B,K)x(K,M) product only")
 
 
 def nvidia_smi():
@@ -525,6 +1093,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
+    from repro_torch.kernels.lif import kernel as L
     from repro_torch.kernels.plasticity import fused, kernel as K
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -541,6 +1110,8 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
 
     counters = (K.fleet_step, K.fleet_step_q, fused.rollout)
+    online_counters = (fused.rollout_shared, K.shared_step, K.shared_step_q,
+                       L.lif_forward)
     results = {name: {"name": name, "route": "cuda",
                       "source": SOURCES[name], "replaces": REPLACES[name],
                       "launches": 0, "max_abs_err": 0.0, "ms": None,
@@ -551,12 +1122,15 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     compare_fleet_steps(dev, results)
     compare_rollouts(dev, results)
+    compare_shared_steps(dev, results)
+    compare_shared_rollouts(dev, results)
+    compare_lif(dev, results)
 
     log("phase 3: recovery gate")
     recovery_gate(dev)
 
     log("phase 4: main path, 8-128-8 controller, B = 4096")
-    main, launches = main_path(dev, counters)
+    main, launches = main_path(dev, counters, counters + online_counters)
     for name, n in launches.items():
         results[name]["launches"] = n
     plain_closed_loop_matches(dev, main)
@@ -565,17 +1139,38 @@ def main() -> int:
 
     log("phase 5: timing")
     time_kernels(dev, results)
+
+    log("phase 6: online-learning path, 784-1024-10, T = 8, B = 1")
+    online, online_launches = online_path(dev, online_counters,
+                                          counters + online_counters)
+    for name, n in online_launches.items():
+        results[name]["launches"] = n
+    plain_stream_matches(dev, online)
+    log("phase 6b: where the online stream's time goes (10 digits)")
+    profiled_online = profile_online(online)
+
+    log("phase 7: Table II timings and the new kernels (L2 flushed)")
+    table = table2(dev, online)
+    time_new_kernels(dev, results)
     for r in results.values():
-        log(f"  {r['name']:13s} {r['ms']:.4f} ms/launch (plain "
+        lib = (f", library {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else "")
+        log(f"  {r['name']:14s} {r['ms']:.4f} ms/launch (plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']})")
-    log(f"  rollout int8: {json.dumps(results['rollout']['int8'])}")
+            f"{r['bound_by']}{lib}), {r['launches']} launches")
+    for name in ("rollout", "rollout_shared"):
+        log(f"  {name} int8: {json.dumps(results[name]['int8'])}")
 
     report = {"kernels": list(results.values()),
               "main_path": {m: {"control_steps_per_s": v["rate"],
                                 "seconds": v["seconds"]}
                             for m, v in main.items()},
-              "profile": profiled,
+              "online_path": {m: {"digits_per_s": online[m]["digits_per_s"],
+                                  "seconds": online[m]["seconds"],
+                                  "accuracy": online[m]["acc"]}
+                              for m in ("float32", "int8")},
+              "table2": table,
+              "profile": profiled, "profile_online": profiled_online,
               "build_seconds": info["seconds"], "card": smi,
               "seconds": time.perf_counter() - t_all}
     out_dir = ROOT / "chiprun_out"

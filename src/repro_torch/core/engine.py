@@ -5,12 +5,17 @@ Engine (psum, neuron dynamics, trace update) and the Plasticity Engine
 (four-term dw, weights rewritten) as a single fused program.  `rollout` runs
 K such timesteps over the whole layer stack as one launch.
 
-The backend follows the tensors' device: in FLEET mode (``w (B, N, M)``,
-every request stream with its own synapses and a per-sample dw under one
-shared rule theta) a CUDA tensor launches the hand-written kernels
-(kernels/plasticity/kernel.py, fused.py) and a CPU tensor runs their plain
-versions.  SHARED-weight mode (``w (N, M)``, batch-averaged dw) is plain
-tensor code for the CPU in this slice of the port and raises on CUDA tensors.
+Two modes, selected by the weight rank:
+
+  * FLEET (``w (B, N, M)``): every request stream owns its synapses, with a
+    per-sample dw under one shared rule theta;
+  * SHARED weights (``w (N, M)``) with unbatched ``(N,)`` or batched
+    ``(B, N)`` activations: one matrix, batch-averaged dw (online MNIST).
+    Unbatched state is promoted to B = 1 for the kernels and squeezed back.
+
+The backend follows the tensors' device: a CUDA tensor launches the
+hand-written kernels (kernels/plasticity/kernel.py, fused.py) and a CPU
+tensor runs their plain versions.
 
 Fleet mode accepts an ``active (B,)`` slot mask: streams whose flag is
 false are frozen bit for bit — weights, membrane and traces unchanged,
@@ -25,12 +30,7 @@ import torch
 
 from repro_torch.kernels.plasticity import fused as _fused
 from repro_torch.kernels.plasticity import kernel as _kernel
-from repro_torch.kernels.plasticity import ref as _ref
 from repro_torch.kernels.plasticity.quant import QuantConfig
-
-_SHARED_ON_CARD = ("shared-weight mode (w (N, M)) has no CUDA kernel yet: it "
-                   "comes with the online-MNIST slice of the port")
-
 
 @dataclasses.dataclass
 class LayerState:
@@ -181,20 +181,23 @@ def layer_step(state: LayerState, x: torch.Tensor, *,
             "active slot masks are a fleet-mode (w (B, N, M)) contract; "
             f"got w {tuple(state.w.shape)} with an active mask")
 
+    # the kernels are rank-(B, N): promote unbatched shared state to B = 1
+    unbatched = not fleet and x.ndim == 1
+    up = (lambda a: a[None]) if unbatched else (lambda a: a)
+    state_args = (up(state.v), up(state.trace_pre), up(state.trace_post))
     if qc is not None:
         scale = (state.w_scale if state.w_scale is not None
                  else torch.tensor(qc.w_scale, dtype=torch.float32,
                                    device=x.device))
-        args = (x, state.w, scale, state.theta, state.v, state.trace_pre,
-                state.trace_post)
-        fn = _kernel.fleet_step_q if fleet else _ref.dual_engine_step_q
+        args = (up(x), state.w, scale, state.theta, *state_args)
+        fn = _kernel.fleet_step_q if fleet else _kernel.shared_step_q
     else:
-        args = (x, state.w, state.theta, state.v, state.trace_pre,
-                state.trace_post)
-        fn = _kernel.fleet_step if fleet else _ref.dual_engine_step
-    if not fleet and _kernel.on_card(x):
-        raise NotImplementedError(_SHARED_ON_CARD)
-    spikes, v, tpost, w = fn(*args, teach=teach, **kw)
+        args = (up(x), state.w, state.theta, *state_args)
+        fn = _kernel.fleet_step if fleet else _kernel.shared_step
+    spikes, v, tpost, w = fn(*args, teach=None if teach is None
+                             else up(teach), **kw)
+    if unbatched:
+        spikes, v, tpost = spikes[0], v[0], tpost[0]
 
     new_state = dataclasses.replace(state, w=w, v=v, trace_post=tpost)
     out = spikes if params.spiking else v
@@ -230,8 +233,8 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
     with the same bits in fixed-point mode.
 
     Args:
-      state:  `NetworkState` — a fleet pool (B, N, M), or (CPU only) shared
-              weights (N, M) with unbatched or batched activations.
+      state:  `NetworkState` — a fleet pool (B, N, M), or shared weights
+              (N, M) with unbatched or batched activations.
       theta:  per-layer packed (4, N_i, M_i) rules (None where non-plastic).
       drives: time-major input window (K, N0) or (K, B, N0); int32 fixed
               point with a QuantConfig, float otherwise.
@@ -243,7 +246,7 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
       seed:   fixed-point mode — base step counter (scalar or (B,)); step
               k draws from ``fold_seed(seed + k, layer)``.  Defaults to
               ``state.t``.
-      block_b: fleet streams per CTA of the rollout kernel.
+      block_b: fleet streams per CTA of the rollout kernel (fleet only).
 
     Returns ``(new_state, outs)`` with outs (K, ·, M_last) and
     ``new_state.t = state.t + K``.
@@ -298,8 +301,6 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
                 f"teach must be per-step (K, ..., M) of rank {drives.ndim} "
                 f"or held of rank {drives.ndim - 1}; got "
                 f"{tuple(teach.shape)}")
-    if not fleet and _kernel.on_card(drives):
-        raise NotImplementedError(_SHARED_ON_CARD)
 
     plastic = [p.plastic and theta[i] is not None
                for i, p in enumerate(params)]
@@ -318,12 +319,19 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
                       if seed is not None else state.t.to(torch.int32))
     thetas = [theta[i] if plastic[i] else None
               for i in range(state.num_layers)]
-    if fleet:
-        outs, w, v, tr = _fused.rollout(drives, state.w, thetas, state.v,
-                                        state.trace, block_b=block_b, **kw)
-    else:
-        outs, w, v, tr = _fused.rollout_plain(drives, state.w, thetas,
-                                              state.v, state.trace, **kw)
+    # the kernels are rank-(B, ·): promote unbatched shared state to B = 1
+    unbatched = not fleet and drives.ndim == 2
+    up = (lambda a: a[None]) if unbatched else (lambda a: a)
+    up_t = (lambda a: a[:, None]) if unbatched else (lambda a: a)
+    if teach is not None:
+        kw["teach"] = up_t(teach)
+    outs, w, v, tr = _fused.rollout(
+        up_t(drives), state.w, thetas, tuple(up(a) for a in state.v),
+        tuple(up(a) for a in state.trace), block_b=block_b, **kw)
+    if unbatched:
+        outs = outs[:, 0]
+        v = tuple(a[0] for a in v)
+        tr = tuple(a[0] for a in tr)
     new_state = dataclasses.replace(state, w=w, v=v, trace=tr,
                                     t=state.t + k_steps)
     return new_state, outs

@@ -58,6 +58,36 @@ def fma32(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a * b.double() + c.double()).float()
 
 
+def delta_w(theta: torch.Tensor, s_pre: torch.Tensor,
+            s_post: torch.Tensor) -> torch.Tensor:
+    """The four-term rule: ``(n_pre, n_post)`` dw from packed ``(4, n_pre,
+    n_post)`` (or scalar-rule ``(4,)``) coefficients and traces ``(n,)`` or
+    ``(B, n)`` — batch-averaged when batched (a shared-weight batch).
+
+    Evaluated as ``fma(g, post, fma(a, hebb, b * pre)) + d``, the form XLA
+    contracts the reference's sum into under ``jax.jit``.
+    """
+    if s_pre.ndim == 1:
+        s_pre, s_post = s_pre[None], s_post[None]
+    b = s_pre.shape[0]
+    sp, so, th = s_pre.float(), s_post.float(), theta.float()
+    hebb = torch.einsum("bi,bj->ij", sp, so) / b
+    inner = fma32(th[ALPHA], hebb, th[BETA] * sp.mean(0)[:, None])
+    dw = fma32(th[GAMMA], so.mean(0)[None, :], inner) + th[DELTA]
+    return dw.to(theta.dtype)
+
+
+def apply_plasticity(w: torch.Tensor, theta: torch.Tensor,
+                     s_pre: torch.Tensor, s_post: torch.Tensor,
+                     cfg: PlasticityConfig) -> torch.Tensor:
+    """``w <- clip(w + dw)``: one online plasticity step for one layer (the
+    second pass of the unfused, forward-then-update baseline)."""
+    w_new = w + delta_w(theta, s_pre, s_post).to(w.dtype)
+    if cfg.w_clip is not None:
+        w_new = torch.clamp(w_new, -cfg.w_clip, cfg.w_clip)
+    return w_new
+
+
 def update_trace(trace: torch.Tensor, spikes: torch.Tensor,
                  decay: float) -> torch.Tensor:
     """S(t) = lam * S(t-1) + s(t), contracted as the JAX reference is."""

@@ -12,9 +12,11 @@ AND the four-term plasticity update — is one fused program.
 Within a timestep layer L's plasticity consumes the CURRENT timestep's
 traces while layer L+1's forward pass consumes layer L's fresh spikes.
 
-`timestep` is the per-event path (one fleet-step kernel per layer);
-`rollout_window` / `controller_step` run a whole window of timesteps as one
-rollout-kernel launch, with the same bits in fixed-point mode.
+`timestep` is the per-event path (one step kernel per layer);
+`rollout_window`, `controller_step` and `classify_window` run a whole window
+of timesteps as one rollout-kernel launch, with the same bits in fixed-point
+mode.  Rate encoding draws its Bernoulli spike trains from a
+`torch.Generator`, which the caller passes.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.core import plasticity as P
 from repro_torch.core.engine import NetworkState
 from repro_torch.kernels.plasticity import quant as Q
 from repro_torch.kernels.plasticity.quant import QuantConfig
+from repro_torch.optim.compression import compress_int8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,19 +53,13 @@ class SNNConfig:
     timesteps: int = 4                      # SNN timesteps per control step
     trace_decay: float = 0.8
     lif: LIFConfig = LIFConfig()
-    encoding: str = "current"               # analog current injection
+    encoding: str = "current"               # "current" | "rate"
     spiking_readout: bool = False           # True for classification
     w_clip: float = 4.0
     dtype: torch.dtype = torch.float32
     plastic: bool = True                    # False => fixed-weight SNN
     quant: Optional[QuantConfig] = None     # fixed-point mode (None = float32)
     block_b: int = 8                        # rollout-kernel streams per CTA
-
-    def __post_init__(self):
-        if self.encoding != "current":
-            raise NotImplementedError(
-                f"encoding={self.encoding!r}: rate encoding comes with the "
-                f"online-MNIST slice of the port; use encoding='current'")
 
     @property
     def num_layers(self) -> int:
@@ -169,15 +166,58 @@ def unflatten_theta(cfg: SNNConfig, flat: torch.Tensor):
     return out
 
 
-def encode(cfg: SNNConfig, obs: torch.Tensor) -> torch.Tensor:
-    """Observation -> input drive for one timestep (analog current)."""
+def quantize_state(cfg: SNNConfig, state: NetworkState) -> NetworkState:
+    """A float `NetworkState` moved onto the fixed-point representation:
+    weights onto the int8 grid ``2**-w_frac_bits`` (`compress_int8` with
+    that FIXED scale, one per slot for a fleet pool), membranes and traces
+    to int32 fixed point.  Lossy by exactly one rounding."""
+    qc = cfg.quant
+    if qc is None:
+        raise ValueError("quantize_state needs cfg.quant set (see "
+                         "snn.quant_config)")
+    w_q, scales = [], []
+    for w in state.w:
+        q, s = compress_int8(w, scale=qc.w_scale)
+        w_q.append(q)
+        scales.append(s.expand(w.shape[0]).clone() if w.ndim == 3 else s)
+    return NetworkState(
+        w=tuple(w_q), v=tuple(Q.to_fixed(v, qc) for v in state.v),
+        trace=tuple(Q.to_fixed(tr, qc) for tr in state.trace),
+        t=state.t, w_scale=tuple(scales))
+
+
+def _check_encode_key(cfg: SNNConfig, generator) -> None:
+    """Stochastic rate encoding needs a generator to draw from."""
+    if cfg.encoding == "rate" and generator is None:
+        raise ValueError(
+            'encoding="rate" draws Bernoulli spike trains and requires a '
+            "torch.Generator; pass generator=torch.Generator(device)"
+            ".manual_seed(...) to this call (or use encoding=\"current\" "
+            "for deterministic analog drive)")
+
+
+def encode(cfg: SNNConfig, obs: torch.Tensor,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Observation -> input drive for one timestep: the analog current, or
+    with rate encoding ``sign(obs)`` spikes with probability
+    ``clip(|obs|, 0, 1)``, drawn from ``generator``."""
+    if cfg.encoding == "rate":
+        _check_encode_key(cfg, generator)
+        p = torch.clamp(obs.abs(), 0.0, 1.0)
+        u = torch.rand(obs.shape, generator=generator,
+                       device=generator.device)
+        return (u < p).to(cfg.dtype) * torch.sign(obs).to(cfg.dtype)
     return obs.to(cfg.dtype)
 
 
 def encode_window(cfg: SNNConfig, obs: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
                   k: Optional[int] = None) -> torch.Tensor:
-    """A held observation as a time-major (K, ...) drive window."""
+    """A held observation as a time-major (K, ...) drive window: exactly the
+    draws K successive `encode` calls would make."""
     k = cfg.timesteps if k is None else k
+    if cfg.encoding == "rate":
+        return torch.stack([encode(cfg, obs, generator) for _ in range(k)])
     return encode(cfg, obs)[None].expand(k, *obs.shape)
 
 
@@ -259,13 +299,34 @@ def rollout_window(cfg: SNNConfig, state: NetworkState, theta,
 
 
 def controller_step(cfg: SNNConfig, state: NetworkState, theta,
-                    obs: torch.Tensor) -> tuple[NetworkState, torch.Tensor]:
+                    obs: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
+                    ) -> tuple[NetworkState, torch.Tensor]:
     """One control step = cfg.timesteps SNN timesteps on a held observation,
     as one `rollout_window` launch.  Returns (state, action) with action =
     the mean readout over the window (tanh-squashed for a leaky readout)."""
-    drives = encode_window(cfg, obs)
+    _check_encode_key(cfg, generator)
+    drives = encode_window(cfg, obs, generator)
     state, outs = rollout_window(cfg, state, theta, drives)
     action = outs.mean(dim=0)
     if not cfg.spiking_readout:
         action = torch.tanh(action)
     return state, action
+
+
+def classify_window(cfg: SNNConfig, state: NetworkState, theta,
+                    x: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    teach: Optional[torch.Tensor] = None
+                    ) -> tuple[NetworkState, torch.Tensor]:
+    """Present x for cfg.timesteps; return (state, class scores = readout
+    counts summed over the window).
+
+    With `teach` (e.g. ``label_onehot * amplitude``) the output population
+    is driven toward the labelled class during the window, so the rule
+    performs supervised online learning.  One `rollout_window` launch with
+    the teaching current held across it."""
+    _check_encode_key(cfg, generator)
+    drives = encode_window(cfg, x, generator)
+    state, outs = rollout_window(cfg, state, theta, drives, teach=teach)
+    return state, outs.sum(dim=0)

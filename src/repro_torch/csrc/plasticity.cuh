@@ -1,4 +1,4 @@
-// Device helpers shared by the fleet-step and rollout kernels.
+// Device helpers shared by the fleet-step, shared-step and rollout kernels.
 //
 // Each helper repeats, operation for operation, the arithmetic of
 // repro_torch/kernels/plasticity/quant.py (and of the JAX reference it is
@@ -24,8 +24,8 @@ struct QParams {
   int vth_fx;        // round(v_th * one)
   int vres_fx;       // round(v_reset * one)
   int stoch_round;
-  float inv1;        // fp32(1 / one)
-  float inv2;        // fp32(1 / one**2)
+  float inv1;        // fp32(1 / (one * B)): B = 1 in fleet mode, the batch
+  float inv2;        // fp32(1 / (one**2 * B))   of a shared-weight step
 };
 
 // Float-datapath scalars shared by every layer of a call.
@@ -35,6 +35,15 @@ struct FParams {
   float v_reset;
   float decay;       // trace decay lambda
 };
+
+// State type S (float | int32) and weight type W (float | int8) of the
+// float and fixed-point datapaths.
+template <bool Q>
+struct Types;
+template <>
+struct Types<false> { using S = float; using W = float; };
+template <>
+struct Types<true> { using S = int; using W = int8_t; };
 
 // ---- int32 arithmetic with defined wrap-around (signed overflow is
 // undefined in C++; the reference wraps) ---------------------------------
@@ -114,22 +123,35 @@ __device__ __forceinline__ float four_term(const float* th, long plane,
                    th[kDelta * plane]);
 }
 
-// Float plasticity for one synapse: clip(w + dw, +-w_clip).
-__device__ __forceinline__ float plastic_f(float w, const float* th,
-                                          long plane, float pre, float post,
-                                          float w_clip) {
-  float dw = four_term(th, plane, __fmul_rn(pre, post), pre, post);
+// Float plasticity for one synapse from its Hebbian, pre and post terms:
+// clip(w + dw, +-w_clip).
+__device__ __forceinline__ float plastic_f_terms(float w, const float* th,
+                                                long plane, float hebb,
+                                                float pre, float post,
+                                                float w_clip) {
+  float dw = four_term(th, plane, hebb, pre, post);
   return fminf(fmaxf(w + dw, -w_clip), w_clip);
 }
 
-// Fixed-point plasticity for one synapse: dw from the exact integer outer
-// product, stochastic round to grid steps, clip to qclip(w_clip, scale).
-__device__ __forceinline__ int plastic_q(int w, const float* th, long plane,
-                                        int pre, int post, float scale,
-                                        int qmax, int seed, int idx,
-                                        const QParams& q) {
-  float hebb = __fmul_rn(__int2float_rn(wmul(pre, post)), q.inv2);
-  float dw = four_term(th, plane, hebb, __fmul_rn(__int2float_rn(pre), q.inv1),
+// Per-stream (fleet) float plasticity: hebb = pre * post.
+__device__ __forceinline__ float plastic_f(float w, const float* th,
+                                          long plane, float pre, float post,
+                                          float w_clip) {
+  return plastic_f_terms(w, th, plane, __fmul_rn(pre, post), pre, post,
+                         w_clip);
+}
+
+// Fixed-point plasticity for one synapse from EXACT integer trace
+// reductions (quant.dw_from_int_reductions): hebb = sum_b pre_b * post_b,
+// pre/post = the batch sums, scaled by q.inv2 / q.inv1.  Then the
+// stochastic round to grid steps and the clip to qclip(w_clip, scale).
+__device__ __forceinline__ int plastic_q_sums(int w, const float* th,
+                                             long plane, int hebb, int pre,
+                                             int post, float scale, int qmax,
+                                             int seed, int idx,
+                                             const QParams& q) {
+  float dw = four_term(th, plane, __fmul_rn(__int2float_rn(hebb), q.inv2),
+                       __fmul_rn(__int2float_rn(pre), q.inv1),
                        __fmul_rn(__int2float_rn(post), q.inv1));
   float st = __fdiv_rn(dw, scale);
   int steps;
@@ -141,6 +163,15 @@ __device__ __forceinline__ int plastic_q(int w, const float* th, long plane,
     steps = __float2int_rn(st);
   }
   return min(max(wadd(w, steps), -qmax), qmax);
+}
+
+// Per-stream (fleet) fixed-point plasticity: the exact outer product.
+__device__ __forceinline__ int plastic_q(int w, const float* th, long plane,
+                                        int pre, int post, float scale,
+                                        int qmax, int seed, int idx,
+                                        const QParams& q) {
+  return plastic_q_sums(w, th, plane, wmul(pre, post), pre, post, scale,
+                        qmax, seed, idx, q);
 }
 
 // quant.qclip: min(floor(w_clip / scale), 127).

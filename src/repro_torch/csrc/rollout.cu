@@ -92,13 +92,7 @@ __host__ __device__ inline Layout layout(const RolloutArgs& a, bool quant) {
   return l;
 }
 
-// State type S (float | int32) and weight type W (float | int8).
-template <bool Q>
-struct Types;
-template <>
-struct Types<false> { using S = float; using W = float; };
-template <>
-struct Types<true> { using S = int; using W = int8_t; };
+using ff::Types;
 
 // Cooperative copy of `count` elements by the whole CTA.  16-byte vectors,
 // four in flight per thread, when both ends and the length allow it (the

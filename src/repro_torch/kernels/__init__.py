@@ -1,1 +1,9 @@
-"""Hand-written CUDA kernels of the port, their wrappers and plain versions."""
+"""Hand-written CUDA kernels of the port, their wrappers and plain versions.
+
+  plasticity — fused dual-engine steps (fleet and shared weights, float32
+               and fixed point) and the time-fused rollout window
+  lif        — psum-stationary product + LIF + trace (Forward Engine)
+"""
+from repro_torch.kernels.lif import lif_forward
+
+__all__ = ["lif_forward"]

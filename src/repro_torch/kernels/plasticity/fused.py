@@ -18,9 +18,11 @@ Semantics, identical to K per-step calls (`rollout_plain` is that loop):
   * a readout layer's output is its membrane, zeroed for inactive streams;
   * an optional teaching current drives the LAST layer, per step (K, B, M).
 
-Only FLEET mode (``w (B, N, M)``) has a kernel in this slice.  The
-shared-weight window runs on CPU tensors through `rollout_plain`; on CUDA
-tensors it raises until the online-MNIST slice brings its kernel.
+FLEET mode (``w (B, N, M)``) launches ``csrc/rollout.cu`` (`rollout`);
+SHARED-weight mode (``w (N, M)``, batched activations, batch-averaged dw)
+launches ``csrc/rollout_shared.cu`` (`rollout_shared`): one cooperative
+launch whose co-resident CTAs each own a slice of every layer's columns for
+the whole window, with one grid barrier per layer boundary per step.
 """
 from __future__ import annotations
 
@@ -93,6 +95,76 @@ def smem_plan(sizes, block_b: int, plastic, quant: bool,
         f"memory a CTA may use; lower block_b")
 
 
+class _SharedRolloutArgs(ctypes.Structure):
+    """``SharedRolloutArgs`` of csrc/rollout_shared.cu."""
+    _fields_ = [(name, _P) for name in (
+        "drives", "outs", "teach", "seed")] + [
+        (name, _P * MAX_LAYERS) for name in (
+            "w_in", "w_out", "theta", "scale", "v_in", "v_out")] + [
+        ("tr_in", _P * (MAX_LAYERS + 1)), ("tr_out", _P * (MAX_LAYERS + 1)),
+        ("bus", _P * MAX_LAYERS),
+        ("sizes", ctypes.c_int * (MAX_LAYERS + 1)),
+        ("cols", ctypes.c_int * MAX_LAYERS)] + [
+        (name, ctypes.c_int) for name in (
+            "n_layers", "k_steps", "batch", "spiking_mask", "plastic_mask",
+            "theta_in_smem")] + [
+        ("w_clip", ctypes.c_float), ("f", _k.FParams), ("q", _k.QParams)]
+
+
+SHARED_THREADS, SHARED_CHUNK = 256, 8      # csrc/rollout_shared.cu
+
+
+def shared_smem_bytes(sizes, cols, batch: int, plastic, quant: bool,
+                      theta_in_smem: bool) -> int:
+    """Shared memory of one CTA of the shared-weight window: per layer its
+    columns' theta (if resident), weights, membranes and post traces; the
+    input trace, two staging rows, the pre/post sums and the partial-sum
+    buffer — the layout of ``csrc/rollout_shared.cu``."""
+    def al(x):
+        return (x + 15) // 16 * 16
+    n_layers = len(sizes) - 1
+    widest = max(sizes[:n_layers])
+    total = 0
+    for i in range(n_layers):
+        nc = sizes[i] * cols[i]
+        if theta_in_smem and plastic[i]:
+            total += al(16 * nc)
+        total += al(nc * (1 if quant else 4)) + 2 * al(batch * cols[i] * 4)
+    return (total + al(batch * sizes[0] * 4) + 2 * al(batch * widest * 4)
+            + al(widest * 4) + al(32 * 4)
+            + al(SHARED_THREADS // 32 * SHARED_CHUNK * 32 * 4))
+
+
+def shared_plan(sizes, batch: int, plastic, quant: bool, sms: int,
+                limit: int) -> dict:
+    """Grid and residency of the shared-weight window: CTA g owns columns
+    ``[g * c_i, (g + 1) * c_i)`` of layer i, with ``c_i`` the power of two
+    that spreads the widest layer over at most ``sms`` CTAs.  Theta is
+    resident when the whole layout fits, else read through L2; raises when
+    the owned weights and state alone do not fit one CTA."""
+    m_max = max(sizes[1:])
+    grid = min(sms, m_max)
+    cols = []
+    for m in sizes[1:]:
+        c = 1 << max(0, (-(-m // grid) - 1).bit_length())
+        if c > 32:
+            raise ValueError(f"shared-weight rollout: a layer of {m} columns "
+                             f"needs {c} columns per CTA on {sms} SMs; the "
+                             f"kernel takes at most 32")
+        cols.append(c)
+    grid = max(-(-m // c) for m, c in zip(sizes[1:], cols))
+    for theta_in_smem in (True, False):
+        smem = shared_smem_bytes(sizes, cols, batch, plastic, quant,
+                                 theta_in_smem)
+        if smem <= limit:
+            return dict(grid=grid, cols=cols, smem=smem,
+                        theta_in_smem=theta_in_smem)
+    raise ValueError(
+        f"shared-weight rollout working set of {smem} bytes per CTA for "
+        f"layer sizes {list(sizes)} and B = {batch} exceeds the {limit} "
+        f"bytes of shared memory a CTA may use")
+
+
 def rollout_plain(drives, ws, thetas, vs, traces, *, spiking, plastic,
                   tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
                   trace_decay: float = 0.8, w_clip: float = 4.0, qcfg=None,
@@ -140,6 +212,73 @@ def rollout_plain(drives, ws, thetas, vs, traces, *, spiking, plastic,
     return torch.stack(outs), tuple(ws), tuple(vs), tuple(trs)
 
 
+def _layer_flags(spiking, plastic, thetas):
+    """Per-layer flags as bool tuples; a plastic layer needs its theta."""
+    plastic = tuple(bool(p) for p in plastic)
+    for i, p in enumerate(plastic):
+        if p and thetas[i] is None:
+            raise ValueError(f"layer {i} marked plastic but theta is None")
+    return tuple(bool(s) for s in spiking), plastic
+
+
+def _window_args(a, drives, ws, thetas, vs, traces, *, fleet, spiking,
+                 plastic, tau_m, v_th, v_reset, trace_decay, w_clip, qcfg,
+                 scales, seed, teach):
+    """Check a window's operands, allocate its outputs and fill the fields
+    both rollout kernels' argument structs share.  Returns ``((outs, ws,
+    vs, traces), keep)``: ``keep`` holds the checked inputs alive until the
+    launch."""
+    n_layers = len(ws)
+    if n_layers > MAX_LAYERS:
+        raise ValueError(f"rollout kernel takes at most {MAX_LAYERS} layers")
+    quant = qcfg is not None
+    k_steps, b, n0 = drives.shape
+    dev = drives.device
+    sizes = [n0] + [w.shape[-1] for w in ws]
+    lead = (b,) if fleet else ()          # fleet: one weight set per stream
+    state_dt = torch.int32 if quant else torch.float32
+    w_dt = torch.int8 if quant else torch.float32
+    drives = _k.expect("drives", drives, (k_steps, b, n0), state_dt, dev)
+    ws = [_k.expect(f"w[{i}]", ws[i], (*lead, sizes[i], sizes[i + 1]), w_dt,
+                    dev) for i in range(n_layers)]
+    vs = [_k.expect(f"v[{i}]", vs[i], (b, sizes[i + 1]), state_dt, dev)
+          for i in range(n_layers)]
+    trs = [_k.expect(f"trace[{i}]", traces[i], (b, sizes[i]), state_dt, dev)
+           for i in range(n_layers + 1)]
+    ths = [_k.expect(f"theta[{i}]", thetas[i], (4, sizes[i], sizes[i + 1]),
+                     torch.float32, dev) if plastic[i] else None
+           for i in range(n_layers)]
+    if teach is not None:
+        teach = teach.to(device=dev, dtype=state_dt).expand(
+            k_steps, b, sizes[-1]).contiguous()
+    per = b if fleet else 1               # scales and seeds per stream
+    scs = [_k.per_stream(s, per, torch.float32, dev) for s in scales] \
+        if quant else [None] * n_layers
+    sd = _k.per_stream(seed, per, torch.int32, dev) if quant else None
+    outs = torch.empty((k_steps, b, sizes[-1]), dtype=state_dt, device=dev)
+    w_out = [torch.empty_like(w) for w in ws]
+    v_out = [torch.empty_like(v) for v in vs]
+    tr_out = [torch.empty_like(t) for t in trs]
+    a.drives, a.outs = _k.ptr(drives), _k.ptr(outs)
+    a.teach, a.seed = _k.ptr(teach), _k.ptr(sd)
+    for i in range(n_layers):
+        a.w_in[i], a.w_out[i] = _k.ptr(ws[i]), _k.ptr(w_out[i])
+        a.theta[i], a.scale[i] = _k.ptr(ths[i]), _k.ptr(scs[i])
+        a.v_in[i], a.v_out[i] = _k.ptr(vs[i]), _k.ptr(v_out[i])
+    for i in range(n_layers + 1):
+        a.tr_in[i], a.tr_out[i] = _k.ptr(trs[i]), _k.ptr(tr_out[i])
+        a.sizes[i] = sizes[i]
+    a.n_layers, a.k_steps, a.batch = n_layers, k_steps, b
+    a.spiking_mask = sum(1 << i for i in range(n_layers) if spiking[i])
+    a.plastic_mask = sum(1 << i for i in range(n_layers) if plastic[i])
+    a.w_clip = w_clip
+    a.f = _k.f_params(tau_m, v_th, v_reset, trace_decay)
+    if quant:
+        a.q = _k.q_params(qcfg, v_th, v_reset, batch=1 if fleet else b)
+    alive = (drives, ws, vs, trs, ths, teach, scs, sd)
+    return (outs, tuple(w_out), tuple(v_out), tuple(tr_out)), alive
+
+
 def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
             tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
             trace_decay: float = 0.8, w_clip: float = 4.0, qcfg=None,
@@ -150,7 +289,8 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
     Args:
       drives:  (K, B, N0) time-major input window (int32 fixed point when
                ``qcfg``, float32 otherwise).
-      ws:      per-layer fleet weights (B, N_i, M_i) (int8 when ``qcfg``).
+      ws:      per-layer fleet weights (B, N_i, M_i), or shared weights
+               (N_i, M_i) (`rollout_shared`); int8 when ``qcfg``.
       thetas:  per-layer packed (4, N_i, M_i) rules; None where not plastic.
       vs:      per-layer membranes (B, M_i).
       traces:  L+1 population traces (B, N_i); traces[0] is the input.
@@ -162,15 +302,10 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
       block_b: streams per CTA (the kernel's residency unit).
 
     Returns ``(outs, ws, vs, traces)``, outs (K, B, M_last).  A CPU tensor
-    runs `rollout_plain`; a CUDA tensor launches the kernel (counted in
-    ``rollout.launches``).
+    runs `rollout_plain`; a CUDA tensor launches the fleet kernel (counted
+    in ``rollout.launches``) or, for shared weights, `rollout_shared`.
     """
-    spiking = tuple(bool(s) for s in spiking)
-    plastic = tuple(bool(p) for p in plastic)
-    n_layers = len(ws)
-    for i in range(n_layers):
-        if plastic[i] and thetas[i] is None:
-            raise ValueError(f"layer {i} marked plastic but theta is None")
+    spiking, plastic = _layer_flags(spiking, plastic, thetas)
     if not _k.on_card(drives):
         return rollout_plain(
             drives, ws, thetas, vs, traces, spiking=spiking, plastic=plastic,
@@ -178,70 +313,91 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
             w_clip=w_clip, qcfg=qcfg, scales=scales, seed=seed, teach=teach,
             active=active)
     if ws[0].ndim != 3:
-        raise NotImplementedError(
-            "the shared-weight rollout window (w (N, M)) has no CUDA kernel "
-            "yet: it comes with the online-MNIST slice of the port")
-    if n_layers > MAX_LAYERS:
-        raise ValueError(f"rollout kernel takes at most {MAX_LAYERS} layers")
-    quant = qcfg is not None
-    k_steps, b, n0 = drives.shape
-    dev = drives.device
-    sizes = [n0] + [w.shape[-1] for w in ws]
-    state_dt = torch.int32 if quant else torch.float32
-    w_dt = torch.int8 if quant else torch.float32
-    drives = _k.expect("drives", drives, (k_steps, b, n0), state_dt, dev)
-    ws = [_k.expect(f"w[{i}]", ws[i], (b, sizes[i], sizes[i + 1]), w_dt, dev)
-          for i in range(n_layers)]
-    vs = [_k.expect(f"v[{i}]", vs[i], (b, sizes[i + 1]), state_dt, dev)
-          for i in range(n_layers)]
-    trs = [_k.expect(f"trace[{i}]", traces[i], (b, sizes[i]), state_dt, dev)
-           for i in range(n_layers + 1)]
-    ths = [_k.expect(f"theta[{i}]", thetas[i], (4, sizes[i], sizes[i + 1]),
-                     torch.float32, dev) if plastic[i] else None
-           for i in range(n_layers)]
-    if teach is not None:
-        teach = teach.to(device=dev, dtype=state_dt).expand(
-            k_steps, b, sizes[-1]).contiguous()
-    act = _k.active_mask(active, b, dev)
-    if quant:
-        scs = [_k.per_stream(s, b, torch.float32, dev) for s in scales]
-        sd = _k.per_stream(seed, b, torch.int32, dev)
-    bb = min(block_b, b)
-    smem, theta_in_smem = smem_plan(sizes, bb, plastic, quant,
-                                    smem_limit(dev))
-
-    outs = torch.empty((k_steps, b, sizes[-1]), dtype=state_dt, device=dev)
-    w_out = [torch.empty_like(w) for w in ws]
-    v_out = [torch.empty_like(v) for v in vs]
-    tr_out = [torch.empty_like(t) for t in trs]
+        if active is not None:
+            raise ValueError("active slot masks are a fleet-mode contract")
+        return rollout_shared(
+            drives, ws, thetas, vs, traces, spiking=spiking, plastic=plastic,
+            tau_m=tau_m, v_th=v_th, v_reset=v_reset, trace_decay=trace_decay,
+            w_clip=w_clip, qcfg=qcfg, scales=scales, seed=seed, teach=teach)
+    b, quant = drives.shape[1], qcfg is not None
+    sizes = [drives.shape[2]] + [w.shape[-1] for w in ws]
     a = _RolloutArgs()
-    a.drives, a.outs = _k.ptr(drives), _k.ptr(outs)
-    a.teach, a.active = _k.ptr(teach), _k.ptr(act)
-    a.seed = _k.ptr(sd) if quant else None
-    for i in range(n_layers):
-        a.w_in[i], a.w_out[i] = _k.ptr(ws[i]), _k.ptr(w_out[i])
-        a.theta[i] = _k.ptr(ths[i])
-        a.scale[i] = _k.ptr(scs[i]) if quant else None
-        a.v_in[i], a.v_out[i] = _k.ptr(vs[i]), _k.ptr(v_out[i])
-    for i in range(n_layers + 1):
-        a.tr_in[i], a.tr_out[i] = _k.ptr(trs[i]), _k.ptr(tr_out[i])
-        a.sizes[i] = sizes[i]
-    a.n_layers, a.k_steps, a.batch, a.block_b = n_layers, k_steps, b, bb
-    a.spiking_mask = sum(1 << i for i in range(n_layers) if spiking[i])
-    a.plastic_mask = sum(1 << i for i in range(n_layers) if plastic[i])
+    out, alive = _window_args(
+        a, drives, ws, thetas, vs, traces, fleet=True, spiking=spiking,
+        plastic=plastic, tau_m=tau_m, v_th=v_th, v_reset=v_reset,
+        trace_decay=trace_decay, w_clip=w_clip, qcfg=qcfg, scales=scales,
+        seed=seed, teach=teach)
+    act = _k.active_mask(active, b, drives.device)
+    a.active = _k.ptr(act)
+    a.block_b = bb = min(block_b, b)
+    smem, theta_in_smem = smem_plan(sizes, bb, plastic, quant,
+                                    smem_limit(drives.device))
     a.theta_in_smem = int(theta_in_smem)
-    a.w_clip = w_clip
-    a.f = _k.f_params(tau_m, v_th, v_reset, trace_decay)
-    if quant:
-        a.q = _k.q_params(qcfg, v_th, v_reset)
     fn = _build.library("rollout.cu").rollout
     fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int,
                    ctypes.c_size_t, _P]
     fn.restype = ctypes.c_int
-    _build.check(fn(ctypes.byref(a), int(quant), smem, _k.stream_of(drives)),
-                 "rollout")
+    _build.check(fn(ctypes.byref(a), int(quant), smem,
+                    _k.stream_of(drives)), "rollout")
     rollout.launches += 1
-    return outs, tuple(w_out), tuple(v_out), tuple(tr_out)
+    return out
 
 
 rollout.launches = 0
+
+
+def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,
+                   tau_m: float = 2.0, v_th: float = 1.0,
+                   v_reset: float = 0.0, trace_decay: float = 0.8,
+                   w_clip: float = 4.0, qcfg=None, scales=None, seed=None,
+                   teach=None):
+    """K fused timesteps of a shared-weight layer stack in ONE cooperative
+    launch of ``csrc/rollout_shared.cu`` (counted in
+    ``rollout_shared.launches``).
+
+    Arguments as `rollout` with ws (N_i, M_i), per-layer scales () and a
+    scalar seed; state is batched (B, ·).  A CPU tensor runs
+    `rollout_plain`.  Raises where the grid cannot be co-resident.
+    """
+    spiking, plastic = _layer_flags(spiking, plastic, thetas)
+    if not _k.on_card(drives):
+        return rollout_plain(
+            drives, ws, thetas, vs, traces, spiking=spiking, plastic=plastic,
+            tau_m=tau_m, v_th=v_th, v_reset=v_reset, trace_decay=trace_decay,
+            w_clip=w_clip, qcfg=qcfg, scales=scales, seed=seed, teach=teach)
+    b, n_layers, quant = drives.shape[1], len(ws), qcfg is not None
+    sizes = [drives.shape[2]] + [w.shape[-1] for w in ws]
+    a = _SharedRolloutArgs()
+    out, alive = _window_args(
+        a, drives, ws, thetas, vs, traces, fleet=False, spiking=spiking,
+        plastic=plastic, tau_m=tau_m, v_th=v_th, v_reset=v_reset,
+        trace_decay=trace_decay, w_clip=w_clip, qcfg=qcfg, scales=scales,
+        seed=seed, teach=teach)
+    dev = drives.device
+    plan = shared_plan(
+        sizes, b, plastic, quant,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        smem_limit(dev))
+    bus = [torch.empty((2, 2, b, sizes[i + 1]), dtype=out[0].dtype,
+                       device=dev) for i in range(n_layers - 1)]
+    for i in range(n_layers):
+        a.bus[i] = _k.ptr(bus[i]) if i < n_layers - 1 else None
+        a.cols[i] = plan["cols"][i]
+    a.theta_in_smem = int(plan["theta_in_smem"])
+    fn = _build.library("rollout_shared.cu").rollout_shared
+    fn.argtypes = [ctypes.POINTER(_SharedRolloutArgs), ctypes.c_int,
+                   ctypes.c_int, ctypes.c_size_t, _P]
+    fn.restype = ctypes.c_int
+    err = fn(ctypes.byref(a), int(quant), plan["grid"], plan["smem"],
+             _k.stream_of(drives))
+    if err == 82:        # cudaErrorCooperativeLaunchTooLarge
+        raise RuntimeError(
+            f"shared-weight rollout: {plan['grid']} CTAs of {plan['smem']} "
+            f"bytes cannot all be resident on this card; the window needs "
+            f"one co-resident grid")
+    _build.check(err, "rollout_shared")
+    rollout_shared.launches += 1
+    return out
+
+
+rollout_shared.launches = 0

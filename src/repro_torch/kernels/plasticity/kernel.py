@@ -1,16 +1,20 @@
-"""Fleet dual-engine step: wrappers of the CUDA kernels and their plain
-versions.
+"""Dual-engine steps: wrappers of the CUDA kernels and their plain versions.
 
-One call = one SNN timestep of one synaptic layer for B request streams,
-each with its own weights ``(B, N, M)`` under one shared rule theta — the
-Forward Engine (psum, neuron, trace) and the Plasticity Engine (four-term
-dw, weights rewritten) fused in one launch.
+One call = one SNN timestep of one synaptic layer — the Forward Engine
+(psum, neuron, trace) and the Plasticity Engine (four-term dw, weights
+rewritten) fused in one launch.
 
-  * `fleet_step`   — float32 datapath; kernel ``csrc/fleet_step.cu``
-                     ``fleet_step_f32``.
-  * `fleet_step_q` — fixed-point datapath (int8 weights, int32 membranes
-                     and traces); kernel ``fleet_step_q``, bit for bit equal
-                     to its plain version.
+  * `fleet_step`    — B request streams, each with its own weights
+                      ``(B, N, M)`` under one shared rule theta; float32;
+                      kernel ``csrc/fleet_step.cu`` ``fleet_step_f32``.
+  * `fleet_step_q`  — the same on the fixed-point datapath (int8 weights,
+                      int32 membranes and traces); ``fleet_step_q``.
+  * `shared_step`   — B activation rows sharing ONE weight matrix
+                      ``(N, M)``, batch-averaged dw; float32; kernel
+                      ``csrc/shared_step.cu`` ``shared_step_f32``.
+  * `shared_step_q` — its fixed-point twin; ``shared_step_q``.
+
+The fixed-point kernels are bit for bit equal to their plain versions.
 
 The backend follows the tensors: a CPU tensor takes the plain version
 (``ref.dual_engine_fleet_step[_q]``), a CUDA tensor launches the kernel, and
@@ -30,6 +34,10 @@ from repro_torch.kernels.plasticity import ref as _ref
 # Plain versions, beside their kernels.
 fleet_step_plain = _ref.dual_engine_fleet_step
 fleet_step_q_plain = _ref.dual_engine_fleet_step_q
+shared_step_plain = _ref.dual_engine_step
+shared_step_q_plain = _ref.dual_engine_step_q
+
+MAX_SHARED_BATCH = 1024     # rows of one shared step (its traces in smem)
 
 _P = ctypes.c_void_p
 
@@ -58,15 +66,29 @@ class _FleetStepArgs(ctypes.Structure):
         ("w_clip", ctypes.c_float), ("f", FParams), ("q", QParams)]
 
 
+class _SharedStepArgs(ctypes.Structure):
+    """``SharedStepArgs`` of csrc/shared_step.cu."""
+    _fields_ = [(name, _P) for name in (
+        "x", "w", "theta", "v", "trace_pre", "trace_post", "teach", "scale",
+        "seed", "events", "v_out", "trace_post_out", "w_out")] + [
+        (name, ctypes.c_int) for name in (
+            "batch", "n", "m", "plastic", "spiking")] + [
+        ("w_clip", ctypes.c_float), ("f", FParams), ("q", QParams)]
+
+
 def f_params(tau_m, v_th, v_reset, trace_decay) -> FParams:
     return FParams(1.0 / tau_m, v_th, v_reset, trace_decay)
 
 
-def q_params(qcfg: Q.QuantConfig, v_th, v_reset) -> QParams:
+def q_params(qcfg: Q.QuantConfig, v_th, v_reset, batch: int = 1) -> QParams:
+    """Fixed-point constants; ``inv1``/``inv2`` are ``1 / (one * batch)`` and
+    ``1 / (one**2 * batch)`` in double, rounded once to fp32 (as
+    `quant.dw_from_int_reductions`): batch 1 per fleet stream, B for a
+    shared-weight batch."""
     vth_fx, vres_fx = Q.thresholds_fx(qcfg, v_th, v_reset)
     return QParams(qcfg.one, qcfg.tau_shift, qcfg.trace_shift, vth_fx,
-                   vres_fx, int(qcfg.stoch_round), 1.0 / qcfg.one,
-                   1.0 / (qcfg.one * qcfg.one))
+                   vres_fx, int(qcfg.stoch_round), 1.0 / (qcfg.one * batch),
+                   1.0 / (qcfg.one * qcfg.one * batch))
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -202,3 +224,101 @@ def fleet_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
 
 
 fleet_step_q.launches = 0
+
+
+def _launch_shared(entry: str, x, w, theta, v, trace_pre, trace_post, *,
+                   state_dt, plastic, spiking, w_clip, teach, scale=None,
+                   seed=None, f=None, q=None):
+    """Check operands, allocate outputs, launch one shared-step kernel."""
+    if x.ndim != 2:
+        raise ValueError(f"the shared-step kernel takes batched x (B, N); got "
+                         f"{tuple(x.shape)} (engine.layer_step promotes "
+                         f"unbatched state to B = 1)")
+    b, n = x.shape
+    m = w.shape[1]
+    dev = x.device
+    if b > MAX_SHARED_BATCH:
+        raise ValueError(f"shared-step kernel takes at most "
+                         f"{MAX_SHARED_BATCH} rows; got B = {b}")
+    if plastic and theta is None:
+        raise ValueError("plastic layer needs theta")
+    x = expect("x", x, (b, n), state_dt, dev)
+    w = expect("w", w, (n, m), w.dtype, dev)
+    v = expect("v", v, (b, m), state_dt, dev)
+    trace_post = expect("trace_post", trace_post, (b, m), state_dt, dev)
+    trace_pre = expect("trace_pre", trace_pre, (b, n), state_dt, dev)
+    if plastic:
+        theta = expect("theta", theta, (4, n, m), torch.float32, dev)
+    if teach is not None:
+        teach = teach.to(device=dev, dtype=state_dt).expand(b, m).contiguous()
+    events = torch.empty((b, m), dtype=state_dt, device=dev)
+    v_out = torch.empty_like(v)
+    tp_out = torch.empty_like(trace_post)
+    w_out = torch.empty_like(w)
+    args = _SharedStepArgs(
+        ptr(x), ptr(w), ptr(theta) if plastic else None, ptr(v),
+        ptr(trace_pre), ptr(trace_post), ptr(teach), ptr(scale), ptr(seed),
+        ptr(events), ptr(v_out), ptr(tp_out), ptr(w_out), b, n, m,
+        int(plastic), int(spiking), w_clip, f or FParams(), q or QParams())
+    fn = getattr(_build.library("shared_step.cu"), entry)
+    fn.argtypes, fn.restype = [ctypes.POINTER(_SharedStepArgs), _P], \
+        ctypes.c_int
+    _build.check(fn(ctypes.byref(args), stream_of(x)), entry)
+    return events, v_out, tp_out, w_out
+
+
+def shared_step(x, w, theta, v, trace_pre, trace_post, *,
+                tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
+                trace_decay: float = 0.8, w_clip: float = 4.0,
+                plastic: bool = True, spiking: bool = True, teach=None):
+    """Float32 shared-weight step; shapes as `ref.dual_engine_step` (the
+    kernel takes batched (B, ·) state).
+    Returns (events, v_out, trace_post_new, w_new)."""
+    if not on_card(x):
+        return shared_step_plain(
+            x, w, theta, v, trace_pre, trace_post, tau_m=tau_m, v_th=v_th,
+            v_reset=v_reset, trace_decay=trace_decay, w_clip=w_clip,
+            plastic=plastic, spiking=spiking, teach=teach)
+    for name, t in (("x", x), ("w", w), ("v", v), ("trace_pre", trace_pre),
+                    ("trace_post", trace_post)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"float shared-step kernel needs float32 {name}; "
+                             f"got {t.dtype}")
+    out = _launch_shared("shared_step_f32", x, w, theta, v, trace_pre,
+                         trace_post, state_dt=torch.float32, plastic=plastic,
+                         spiking=spiking, w_clip=w_clip, teach=teach,
+                         f=f_params(tau_m, v_th, v_reset, trace_decay))
+    shared_step.launches += 1
+    return out
+
+
+shared_step.launches = 0
+
+
+def shared_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
+                  qcfg: Q.QuantConfig, v_th: float = 1.0, v_reset: float = 0.0,
+                  w_clip: float = 4.0, plastic: bool = True,
+                  spiking: bool = True, teach=None, seed=None):
+    """Fixed-point shared-weight step; shapes as `ref.dual_engine_step_q`:
+    one scale () and one seed () per call.
+    Returns (events, v_out, trace_post_new, w_new), int32 and int8."""
+    if not on_card(x):
+        return shared_step_q_plain(
+            x, w, scale, theta, v, trace_pre, trace_post, qcfg=qcfg,
+            v_th=v_th, v_reset=v_reset, w_clip=w_clip, plastic=plastic,
+            spiking=spiking, teach=teach, seed=seed)
+    if w.dtype != torch.int8:
+        raise ValueError(f"fixed-point shared-step kernel needs int8 w; got "
+                         f"{w.dtype}")
+    dev = x.device
+    out = _launch_shared(
+        "shared_step_q", x, w, theta, v, trace_pre, trace_post,
+        state_dt=torch.int32, plastic=plastic, spiking=spiking, w_clip=w_clip,
+        teach=teach, scale=per_stream(scale, 1, torch.float32, dev),
+        seed=per_stream(seed, 1, torch.int32, dev),
+        q=q_params(qcfg, v_th, v_reset, batch=x.shape[0]))
+    shared_step_q.launches += 1
+    return out
+
+
+shared_step_q.launches = 0

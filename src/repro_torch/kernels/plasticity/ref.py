@@ -16,8 +16,11 @@ rule theta.  The JAX reference writes them as ``vmap`` of the unbatched step;
 here the batch dimension is explicit.  These functions are the plain version
 every fleet kernel is held against, and what a CPU tensor runs.
 
-The shared-weight steps (batch-averaged dw) are plain tensor code for the CPU
-only: their kernels come with the online-MNIST slice of the port.
+The SHARED-weight functions (one ``(N, M)`` matrix, batch-averaged dw) are
+the plain versions of the shared-step kernels (``csrc/shared_step.cu``).
+Every integer reduction here is an exact int32 broadcast-and-sum, never an
+integer matrix product: PyTorch has no integer ``matmul`` on CUDA tensors,
+and the plain versions run on the card beside their kernels.
 """
 from __future__ import annotations
 
@@ -131,7 +134,8 @@ def dual_engine_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     seed = torch.as_tensor(0 if seed is None else seed, dtype=torch.int32,
                            device=x.device)
-    acc = (x.long() @ w.long()).to(torch.int32)            # exact psum
+    x32, w32 = x.to(torch.int32), w.to(torch.int32)
+    acc = (x32[..., :, None] * w32).sum(-2, dtype=torch.int32)   # exact psum
     i_fx = Q.current_fx(acc, scale, qcfg)
     if teach is not None:
         i_fx = i_fx + teach.to(torch.int32)
@@ -143,7 +147,8 @@ def dual_engine_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
         if tpre.ndim == 1:
             tpre, tpo = tpre[None], tpo[None]
         b = tpre.shape[0]
-        hebb_i = (tpre.long().T @ tpo.long()).to(torch.int32)
+        hebb_i = (tpre[:, :, None] * tpo[:, None, :]).sum(
+            0, dtype=torch.int32)                          # exact tpre^T tpo
         dw = Q.dw_from_int_reductions(hebb_i, tpre.sum(0, dtype=torch.int32),
                                       tpo.sum(0, dtype=torch.int32), theta,
                                       b, qcfg)
@@ -151,8 +156,7 @@ def dual_engine_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
         steps = Q.round_steps(dw / scale, seed, _flat_idx(n, m, x.device),
                               qcfg)
         qmax = Q.qclip(w_clip, scale)
-        w_new = torch.clamp(w.to(torch.int32) + steps, -qmax,
-                            qmax).to(torch.int8)
+        w_new = torch.clamp(w32 + steps, -qmax, qmax).to(torch.int8)
     else:
         w_new = w
     return events, v_out, tp_new, w_new

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from repro_torch.core import engine as TE
+from repro_torch.kernels.lif import kernel as TL
 from repro_torch.kernels.plasticity import fused as TF
+from repro_torch.kernels.plasticity import ref as TR
 from repro_torch.kernels.plasticity import kernel as TK
 from repro_torch.kernels.plasticity import quant as TQ
 
@@ -172,3 +174,200 @@ def test_rollout_kernel_matches_plain_on_card(quant, cuda_device):
         off = t["active"] == 0
         for w_new, w_old in zip(got_st.w, st.w):
             assert torch.equal(w_new[off], w_old[off])
+
+
+def _shared_inputs(rng, b, n, m, quant, dev, teach):
+    """Spike-like events and grid-valued weights (exact float psums)."""
+    if quant:
+        t = _on(dev, x=rng.choice([0, 256], (b, n)).astype(np.int32),
+                w=rng.integers(-127, 128, (n, m)).astype(np.int8),
+                v=rng.integers(-600, 600, (b, m)).astype(np.int32),
+                tpre=rng.integers(0, 1200, (b, n)).astype(np.int32),
+                tpost=rng.integers(-300, 1200, (b, m)).astype(np.int32),
+                teach=rng.integers(-300, 300, (b, m)).astype(np.int32)
+                if teach else None)
+    else:
+        t = _on(dev, x=(rng.random((b, n)) < 0.4).astype(np.float32),
+                w=(np.round(rng.uniform(-1, 1, (n, m)) * 64) / 64
+                   ).astype(np.float32),
+                v=rng.standard_normal((b, m)).astype(np.float32),
+                tpre=(rng.random((b, n)) * 3).astype(np.float32),
+                tpost=(rng.random((b, m)) * 3).astype(np.float32),
+                teach=(rng.standard_normal((b, m)) * 0.5).astype(np.float32)
+                if teach else None)
+    t["theta"] = torch.from_numpy((rng.standard_normal((4, n, m)) * 0.02)
+                                  .astype(np.float32)).to(dev)
+    return t
+
+
+@pytest.mark.cuda
+def test_plain_shared_q_step_runs_on_card(cuda_device):
+    """The plain fixed-point shared step (exact int32 broadcast-and-sum
+    reductions) runs on CUDA tensors and gives the CPU's bits."""
+    rng = np.random.default_rng(5)
+    t = _shared_inputs(rng, 3, 40, 70, True, cuda_device, True)
+    args = ("x", "w", None, "theta", "v", "tpre", "tpost")
+    kw = dict(qcfg=TQ.QuantConfig(), seed=2 ** 31 - 3)
+    scale = torch.tensor(1 / 32)
+
+    def run(dev):
+        a = [scale.to(dev) if k is None else t[k].to(dev) for k in args]
+        return TR.dual_engine_step_q(*a, teach=t["teach"].to(dev), **kw)
+    for g, c in zip(run(cuda_device), run("cpu")):
+        assert torch.equal(g.cpu(), c)
+
+
+# (B, N, M, spiking, teach, plastic): M = 257 and 130 are not multiples of
+# the 8-column tile; 784 -> 1024 and 1024 -> 10 are the MNIST layers
+SHARED_CASES = [(1, 8, 8, True, False, True), (3, 17, 257, True, True, True),
+                (2, 100, 130, True, False, False),
+                (1, 784, 1024, True, False, True),
+                (8, 784, 1024, True, False, True),
+                (1, 1024, 10, True, True, True),
+                (4, 33, 12, False, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_shared_step_kernels_match_plain_on_card(quant, cuda_device):
+    rng = np.random.default_rng(31)
+    wrapper = TK.shared_step_q if quant else TK.shared_step
+    launches = wrapper.launches
+    for b, n, m, spiking, teach, plastic in SHARED_CASES:
+        t = _shared_inputs(rng, b, n, m, quant, cuda_device, teach)
+        kw = dict(spiking=spiking, teach=t["teach"], plastic=plastic)
+        if quant:
+            args = (t["x"], t["w"], torch.tensor(1 / 32, device=cuda_device),
+                    t["theta"], t["v"], t["tpre"], t["tpost"])
+            kw.update(qcfg=TQ.QuantConfig(), seed=int(rng.integers(2 ** 31)))
+            got, want = TK.shared_step_q(*args, **kw), \
+                TK.shared_step_q_plain(*args, **kw)
+        else:
+            args = (t["x"], t["w"], t["theta"], t["v"], t["tpre"], t["tpost"])
+            got, want = TK.shared_step(*args, **kw), \
+                TK.shared_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        _assert_match(got, want, quant)
+    assert wrapper.launches == launches + len(SHARED_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_unbatched_layer_step_launches_shared_kernel(quant, cuda_device):
+    """engine.layer_step promotes unbatched (N,) state to B = 1 for the
+    kernel and squeezes it back."""
+    rng = np.random.default_rng(32)
+    t = _shared_inputs(rng, 1, 50, 40, quant, cuda_device, True)
+    qc = TQ.QuantConfig() if quant else None
+    params = TE.EngineParams(quant=qc, trace_decay=0.75 if quant else 0.8)
+    layer = TE.LayerState(t["w"], t["v"][0], t["tpre"][0], t["tpost"][0],
+                          t["theta"])
+    wrapper = TK.shared_step_q if quant else TK.shared_step
+    launches = wrapper.launches
+    got_layer, got = TE.layer_step(layer, t["x"][0], params=params,
+                                   teach=t["teach"][0], seed=7)
+    assert wrapper.launches == launches + 1
+    assert got.shape == (40,) and got_layer.v.shape == (40,)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TK, "shared_step_q" if quant else "shared_step",
+                   TK.shared_step_q_plain if quant else TK.shared_step_plain)
+        want_layer, want = TE.layer_step(layer, t["x"][0], params=params,
+                                         teach=t["teach"][0], seed=7)
+    _assert_match((got, got_layer.w, got_layer.v, got_layer.trace_post),
+                  (want, want_layer.w, want_layer.v, want_layer.trace_post),
+                  quant)
+
+
+LIF_SHAPES = [(2, 16, 16), (4, 200, 64), (1, 784, 1024), (8, 130, 250)]
+
+
+@pytest.mark.cuda
+def test_lif_forward_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(41)
+    launches = TL.lif_forward.launches
+    for b, k, m in LIF_SHAPES:
+        t = _on(cuda_device, x=(rng.random((b, k)) < 0.5).astype(np.float32),
+                w=(np.round(rng.standard_normal((k, m)) * 64) / 64
+                   * k ** -0.5).astype(np.float32),
+                v=(rng.standard_normal((b, m)) * 0.1).astype(np.float32),
+                tr=rng.random((b, m)).astype(np.float32))
+        args = (t["x"], t["w"], t["v"], t["tr"])
+        got = TL.lif_forward(*args)
+        want = TL.lif_forward_plain(*args)
+        torch.cuda.synchronize()
+        _assert_match(got, want, False)
+    assert TL.lif_forward.launches == launches + len(LIF_SHAPES)
+    with pytest.raises(ValueError):
+        TL.lif_forward(*(a.to(torch.bfloat16) for a in args))
+
+
+def _shared_network(rng, sizes, b, quant, dev):
+    n_layers = len(sizes) - 1
+    bs = () if b is None else (b,)
+    if quant:
+        w = [rng.integers(-40, 41, (sizes[i], sizes[i + 1])).astype(np.int8)
+             for i in range(n_layers)]
+        v = [rng.integers(-300, 300, bs + (m,)).astype(np.int32)
+             for m in sizes[1:]]
+        tr = [rng.integers(0, 900, bs + (n,)).astype(np.int32)
+              for n in sizes]
+        sc = [np.float32(1 / 32 if i % 2 == 0 else 1 / 16)
+              for i in range(n_layers)]
+        t0 = 2 ** 31 - 9
+    else:
+        w = [(np.round(rng.uniform(-0.5, 0.5, (sizes[i], sizes[i + 1])) * 64)
+              / 64).astype(np.float32) for i in range(n_layers)]
+        v = [rng.uniform(-0.5, 0.9, bs + (m,)).astype(np.float32)
+             for m in sizes[1:]]
+        tr = [rng.uniform(0, 2, bs + (n,)).astype(np.float32) for n in sizes]
+        sc, t0 = [], 0
+    tup = lambda xs: tuple(torch.from_numpy(np.array(x)).to(dev) for x in xs)
+    return TE.NetworkState(w=tup(w), v=tup(v), trace=tup(tr),
+                           t=torch.tensor(t0, dtype=torch.int32, device=dev),
+                           w_scale=tup(sc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_shared_rollout_kernel_matches_plain_on_card(quant, cuda_device):
+    """The cooperative shared-weight window: int8 bitwise at every K (the
+    step counter wraps inside K = 16), float32 within 1e-5 at K = 1;
+    batched and unbatched, with and without a teaching current."""
+    rng = np.random.default_rng(51)
+    qc = TQ.QuantConfig() if quant else None
+    for k, sizes, b, teach in ((1, (8, 32, 4), 3, True),
+                               (4, (40, 100, 10), None, True),
+                               (16, (8, 32, 4), 2, False),
+                               (8, (784, 1024, 10), None, True)):
+        st = _shared_network(rng, sizes, b, quant, cuda_device)
+        theta = [torch.from_numpy((rng.standard_normal(
+            (4, sizes[i], sizes[i + 1])) * 0.02).astype(np.float32))
+            .to(cuda_device) for i in range(len(sizes) - 1)]
+        bs = () if b is None else (b,)
+        if quant:
+            drives = rng.choice([0, 256], (k,) + bs + (sizes[0],))
+            tch = rng.integers(-200, 200, bs + (sizes[-1],))
+            drives, tch = drives.astype(np.int32), tch.astype(np.int32)
+        else:
+            drives = (rng.random((k,) + bs + (sizes[0],)) < 0.4
+                      ).astype(np.float32)
+            tch = (rng.standard_normal(bs + (sizes[-1],)) * 0.3
+                   ).astype(np.float32)
+        t = _on(cuda_device, drives=drives, teach=tch if teach else None)
+        params = [TE.EngineParams(
+            spiking=True, quant=qc, tau_m=2.0,
+            trace_decay=0.75 if quant else 0.8)
+            for _ in range(len(sizes) - 1)]
+        kw = dict(params=params, teach=t["teach"])
+        launches = TF.rollout_shared.launches
+        got_st, got = TE.rollout(st, theta, t["drives"], **kw)
+        assert TF.rollout_shared.launches == launches + 1
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TF, "rollout", lambda *a, block_b=None, **k:
+                       TF.rollout_plain(*a, **k))
+            want_st, want = TE.rollout(st, theta, t["drives"], **kw)
+        torch.cuda.synchronize()
+        got_all = (*got_st.w, *got_st.v, *got_st.trace, got)
+        want_all = (*want_st.w, *want_st.v, *want_st.trace, want)
+        if quant or k == 1:
+            _assert_match(got_all, want_all, quant)

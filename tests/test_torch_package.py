@@ -56,7 +56,8 @@ def test_modules_mirror_the_jax_package():
 def test_kernel_sources_ship_with_the_package():
     csrc = Path(repro_torch.__file__).parent / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {
-        "fleet_step.cu", "rollout.cu", "plasticity.cuh"}
+        "fleet_step.cu", "rollout.cu", "shared_step.cu",
+        "rollout_shared.cu", "lif_forward.cu", "plasticity.cuh"}
 
 
 @pytest.mark.parametrize("entry", ("init_state", "run", "reset"))

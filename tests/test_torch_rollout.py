@@ -169,8 +169,8 @@ def test_inactive_slots_bit_frozen_across_window(mode):
 
 @pytest.mark.parametrize("mode", ("float32", "int8"))
 def test_shared_weight_window_matches_jax(mode):
-    """Shared weights (N, M) with batched activations: CPU plain code in
-    this slice, against the JAX oracle."""
+    """Shared weights (N, M) with batched activations, against the JAX
+    oracle."""
     quant = mode == "int8"
     rng = np.random.default_rng(12)
     net, theta, drives, _ = _case(rng, quant, 4, 1, None)
@@ -179,6 +179,45 @@ def test_shared_weight_window_matches_jax(mode):
     want, _ = _jax_rollout(net, theta, drives, None, None, quant, 1)
     got, _ = _torch_rollout(net, theta, drives, None, None, quant, 1)
     for a, b in zip(want, got):
+        if quant:
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
+
+
+SHARED_CASES = [(m, k, batched) for m, ks in (("float32", (1, 4)),
+                                              ("int8", (1, 4, 8)))
+                for k in ks for batched in (False, True)]
+
+
+@pytest.mark.parametrize("mode,k,batched", SHARED_CASES)
+def test_shared_window_matches_pallas_interpret(mode, k, batched):
+    """The shared-weight window (the grid-(1,) mode of the TPU rollout
+    kernel, run by the Pallas interpreter) on a 2-layer net with a held
+    teaching current; unbatched state goes through the B = 1 promotion.
+    int8 from t = 2**31 - 9, so seed + k wraps inside the window."""
+    quant = mode == "int8"
+    rng = np.random.default_rng(300 + 10 * k + 2 * batched + quant)
+    net, theta, drives, tch = _case(rng, quant, k, 2, "held")
+    net.w = tuple(w[0] for w in net.w)
+    net.w_scale = tuple(s[0] for s in net.w_scale)
+    if not batched:
+        net.v = tuple(v[0] for v in net.v)
+        net.trace = tuple(t[0] for t in net.trace)
+        drives, tch = drives[:, 0], tch[0]
+    params = _params(quant, 2, JE)
+
+    def f(w, v, tr, t, sc, th, dr, te):
+        st = JE.NetworkState(w=w, v=v, trace=tr, t=t, w_scale=sc)
+        st, outs = JE.rollout(st, th, dr, params=params,
+                              impl="pallas-interpret", teach=te)
+        return st.w, st.v, st.trace, outs
+    w, v, tr, outs = jax.jit(f)(net.w, net.v, net.trace, net.t, net.w_scale,
+                                theta, drives, tch)
+    want = [np.asarray(a) for a in (*w, *v, *tr, outs)]
+    got, _ = _torch_rollout(net, theta, drives, tch, None, quant, 2)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and a.shape == b.shape
         if quant:
             np.testing.assert_array_equal(a, b)
         else:
