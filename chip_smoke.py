@@ -10,6 +10,10 @@ Phases, each fatal on failure:
      fleet kernels at the shapes of the paper's 8-128-8 controller with
      B = 4096 streams; the shared-weight step, the shared-weight rollout
      window and the LIF forward kernel at the 784-1024-10 MNIST network;
+ 2c. the flash-attention kernel against its plain version at qwen3-4b's
+     prefill shape (B = 4, S = 2048, H = 32, HKV = 8, D = 128), a ragged
+     S = 1000, a decode-shaped query against 2049 keys, a kv_len mask and
+     the serve CLI's 32-token prompts, bfloat16 and float32;
   3. the recovery gate on the card: both gate scenarios x {float32, int8},
      plastic recovers >= 1/2 of the return drop, frozen <= 1/4;
   4. the controller path at full width: `firefly_snn.CONFIG` (8-128-8,
@@ -29,7 +33,24 @@ Phases, each fatal on failure:
      is repeated through the plain versions and must give the same bits;
   7. the Table II timings on the card (per timestep at B = 1: fused,
      forward-only, sequential, windowed) and each new kernel's time with
-     the L2 cache flushed between repetitions.
+     the L2 cache flushed between repetitions;
+ 7b. the attention kernel's time at the prefill shape beside its bound,
+     its plain version and `scaled_dot_product_attention` (the yardstick);
+  8. LM serving at full width: random-init qwen3-4b (36 layers, bf16)
+     serves 4 prompts of 2048 tokens and 32 greedy tokens through
+     `launch.serve.generate`, plastic adapter in float32 and int8, each
+     datapath once untimed and then timed: 36 attention launches per
+     prefill, 32 fleet-step launches per decode, each of those fleet-step
+     launches against the plain step on its own inputs (int8 bit for bit,
+     float32 within 1e-5), and the int8 adapter state after the timed run
+     bit for bit against the plain fleet steps fed the same hidden states;
+     the kernel path against the plain path at full depth in bf16
+     (printed, not gated) and a profile of 8 decode steps; 8b. at full
+     width with 2 layers in float32 the kernel path's logits equal the
+     plain path's within 1e-4 of the largest logit and the greedy tokens
+     are the same; 8c. the serve CLI at its defaults (4 x 32 + 16), each
+     attention and fleet-step launch against its plain version on its own
+     inputs.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -37,6 +58,7 @@ line, when there is no CUDA device or the package is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -69,14 +91,16 @@ SOURCES = {"fleet_step": CSRC + "fleet_step.cu",
            "rollout_shared": CSRC + "rollout_shared.cu",
            "shared_step": CSRC + "shared_step.cu",
            "shared_step_q": CSRC + "shared_step.cu",
-           "lif_forward": CSRC + "lif_forward.cu"}
+           "lif_forward": CSRC + "lif_forward.cu",
+           "flash_attention": CSRC + "flash_attention.cu"}
 REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "fleet_step_q": "src/repro/kernels/plasticity/kernel.py:559",
             "rollout": "src/repro/kernels/plasticity/fused.py:304",
             "rollout_shared": "src/repro/kernels/plasticity/fused.py:304",
             "shared_step": "src/repro/kernels/plasticity/kernel.py:132",
             "shared_step_q": "src/repro/kernels/plasticity/kernel.py:431",
-            "lif_forward": "src/repro/kernels/lif/kernel.py:47"}
+            "lif_forward": "src/repro/kernels/lif/kernel.py:47",
+            "flash_attention": "src/repro/kernels/attention/kernel.py:79"}
 
 
 def log(*a):
@@ -1070,6 +1094,396 @@ def time_new_kernels(dev, results):
         bound_by="bytes", library_covers="the (B,K)x(K,M) product only")
 
 
+# ---- phase 2c: flash attention against its plain version -------------------
+
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32      # the serving run (phase 8)
+ATTN_SHAPE = (LM_BATCH, 2048, 32, 8, 128)      # B, S, H, HKV, D at qwen3-4b
+ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-3)}
+
+
+def attention_inputs(gen, b, sq, skv, h, hkv, d, dtype, dev):
+    import torch
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev)
+    k = torch.randn(b, skv, hkv, d, generator=gen, device=dev)
+    v = torch.randn(b, skv, hkv, d, generator=gen, device=dev)
+    return tuple(t.to(dtype) for t in (q, k, v))
+
+
+def compare_attention(dev, results):
+    """#7 against `ref.mha` on the same inputs: the prefill shape of
+    qwen3-4b (B = 4, S = 2048, H = 32, HKV = 8, D = 128), a ragged
+    S = 1000, a decode-shaped query against 2049 keys, a kv_len mask and
+    the serve CLI's 32-token prompts (one partial query tile); bfloat16
+    and float32."""
+    import torch
+    from repro_torch.kernels.attention import kernel as TA
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    b, s, h, hkv, d = ATTN_SHAPE
+    cases = [("prefill", b, s, s, True, None),
+             ("ragged", b, 1000, 1000, True, None),
+             ("decode", b, 1, s + 1, True, None),
+             ("kv_len", b, s, s, True, 1500),
+             ("cli", b, 32, 32, True, None)]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        rtol, atol = ATTN_TOL[dname]
+        for what, bb, sq, skv, causal, kv_len in cases:
+            q, k, v = attention_inputs(gen, bb, sq, skv, h, hkv, d, dtype,
+                                       dev)
+            got = TA.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+            want = TA.flash_attention_plain(q, k, v, causal=causal,
+                                            kv_len=kv_len)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            results["flash_attention"]["max_abs_err"] = max(
+                results["flash_attention"]["max_abs_err"], err)
+            require(got.dtype == dtype and got.shape == q.shape
+                    and torch.allclose(got.float(), want.float(), rtol=rtol,
+                                       atol=atol),
+                    f"flash_attention {dname} {what}: max err {err} "
+                    f"outside rtol {rtol} atol {atol}")
+            log(f"  flash_attention  {dname:8s} {what:7s} Sq={sq} Skv={skv} "
+                f"kv_len={kv_len}: max |err| {err:.3g}")
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+
+# ---- phase 7b: the attention kernel's time ----------------------------------
+
+def attention_bound(b, sq, skv, h, hkv, d, itemsize):
+    """Least time (ms) for causal attention: q, k, v read once and o written
+    once at the memory rate, against 4·D FLOP for every visible
+    (query, key) pair at the dense bf16 tensor-core peak."""
+    off = skv - sq
+    pairs = sum(min(skv, i + off + 1) for i in range(sq))
+    nbytes = (2 * b * sq * h * d + 2 * b * skv * hkv * d) * itemsize
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = 4 * d * b * h * pairs / BF16_OPS_PER_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations", tb, to
+
+
+def time_attention(dev, results):
+    """#7 at the prefill shape in bfloat16, L2 flushed between calls; its
+    plain version and `scaled_dot_product_attention` (GQA) on the same
+    inputs as the library yardstick (timed here only, never on the path)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import kernel as TA
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    b, s, h, hkv, d = ATTN_SHAPE
+    q, k, v = attention_inputs(gen, b, s, s, h, hkv, d, torch.bfloat16, dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = device_ms(lambda: TA.flash_attention(q, k, v))
+    plain = device_ms(lambda: TA.flash_attention_plain(q, k, v), reps=5)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    bms, kind, tb, to = attention_bound(b, s, s, h, hkv, d, 2)
+    results["flash_attention"].update(ms=ms, plain_ms=plain, library_ms=lib,
+                                      bound_ms=bms, bound_by=kind)
+    log(f"  flash_attention bf16 B={b} S={s} H={h}/{hkv} D={d}: {ms:.4f} ms "
+        f"(bound {bms:.4f} ms by {kind}: bytes {tb:.4f} ms, operations "
+        f"{to:.4f} ms; plain {plain:.4f} ms; SDPA {lib:.4f} ms)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+# ---- phase 8: LM serving at full width --------------------------------------
+
+def serve_logits(cfg, params, prompts, gen, tokens=None):
+    """Prefill + ``gen`` decode steps through the serving step builders,
+    every step's logits kept (float32, on the card).  Greedy, or
+    teacher-forced on ``tokens (B, gen)``.  Returns (logits list, tokens);
+    the cache is freed."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill
+    prefill = make_prefill(cfg, prompts.shape[1] + gen)
+    decode = make_decode_step(cfg)
+    logits, cache = prefill(params, prompts)
+    outs, toks = [logits.float()], []
+    for i in range(gen):
+        tok = (tokens[:, i] if tokens is not None
+               else outs[-1].argmax(-1).to(torch.int32))
+        toks.append(tok)
+        logits, cache = decode(params, cache, tok[:, None])
+        outs.append(logits.float())
+    torch.cuda.synchronize()
+    del cache
+    return outs, torch.stack(toks, 1)
+
+
+@contextlib.contextmanager
+def recording(owner, name, calls):
+    """Pass every call of ``owner.<name>`` through, appending (args,
+    kwargs, result) to ``calls``.  The recorded functions return fresh
+    tensors and the path writes none of their inputs afterwards, so the
+    record adds no device work to the run it watches.  A kernel wrapper
+    counts its launches through its own module's name, so ``owner`` is
+    never the wrapper's module: the model's alias of the attention kernel,
+    or `plastic` for the adapter step around each fleet-step launch."""
+    real = getattr(owner, name)
+
+    def record(*a, **kw):
+        out = real(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+
+    with mock.patch.object(owner, name, record):
+        yield calls
+
+
+def tensors(out):
+    """The tensors of a result: a tensor, or a tuple of tensors and dicts
+    of tensors, in order."""
+    parts = out if isinstance(out, tuple) else (out,)
+    return [t for p in parts
+            for t in (p.values() if isinstance(p, dict) else (p,))]
+
+
+def plain_adapter_step(*a, **kw):
+    """`plastic.decode_step` with the plain fleet steps."""
+    from repro_torch.models import plastic
+    with contextlib.ExitStack() as stack:
+        for p in plain_kernels():
+            stack.enter_context(p)
+        return plastic.decode_step(*a, **kw)
+
+
+def replay_launches(calls, plain, name, results, what, exact, tol):
+    """Each recorded call on the path, one launch of kernel ``name``,
+    against ``plain`` on the same inputs: bit for bit if ``exact``, else
+    within ``tol = (rtol, atol)``."""
+    import torch
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (a, kw, got) in enumerate(calls):
+        want = plain(*a, **kw)
+        for g, w in zip(tensors(got), tensors(want)):
+            e = float((g.double() - w.double()).abs().max())
+            err = max(err, e)
+            require(torch.equal(g, w) if exact else torch.allclose(
+                        g.float(), w.float(), rtol=tol[0], atol=tol[1]),
+                    f"{name} {what}: launch {i} differs from the plain "
+                    f"version on its inputs (max err {e})")
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    log(f"  {name:14s} {what}: all {len(calls)} launches against the plain "
+        f"version on their inputs, max |err| {err:.3g}")
+
+
+def plain_kernels():
+    """Patches that send the LM path through the plain versions: the plain
+    attention in the model and the plain fleet steps in the engine."""
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.plasticity import kernel as K
+    from repro_torch.models import attention as MA
+    return (mock.patch.object(MA, "attn_op", TA.flash_attention_plain),
+            mock.patch.object(K, "fleet_step", K.fleet_step_plain),
+            mock.patch.object(K, "fleet_step_q", K.fleet_step_q_plain))
+
+
+def rel_err(got, want):
+    """Largest |got - want| over the largest |want| across steps."""
+    return max(float((g - w).abs().max()) for g, w in zip(got, want)) / \
+        max(float(w.abs().max()) for w in want)
+
+
+def replay_adapter(cfg, params, hs, dev):
+    """The adapter state after feeding ``hs`` to `plastic.decode_step` with
+    the plain fleet steps, from a fresh cache."""
+    from repro_torch.models import plastic, transformer
+    state = transformer.init_cache(cfg, LM_BATCH, 8, device=dev)["adapter"]
+    with contextlib.ExitStack() as stack:
+        for p in plain_kernels():
+            stack.enter_context(p)
+        for h in hs:
+            _, state = plastic.decode_step(params["adapter"], state, h, cfg)
+    return state
+
+
+def lm_path(dev, counters, every, results):
+    """Serve 4 x 2048-token prompts with 32 greedy tokens on random-init,
+    full-width qwen3-4b (36 layers, bf16), the plastic adapter in float32
+    then int8, through `launch.serve.generate`: each datapath once to warm
+    up, then once timed.  Every counter is set to 0 just before the timed
+    run and read just after it."""
+    import torch
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.plasticity import kernel as K
+    from repro_torch.launch import serve
+    from repro_torch.models import factory, plastic
+    cfg = qwen3_4b.CONFIG.with_(plastic_adapter=True, adapter_neurons=128)
+    model = factory.build(cfg)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.synchronize()
+    log(f"  qwen3-4b: {model.n_params() / 1e9:.3f} B parameters, random "
+        f"init in {time.perf_counter() - t0:.1f} s")
+    out, total = {}, {c.__name__: 0 for c in counters}
+    for quant in (False, True):
+        mode = "int8" if quant else "float32"
+        qcfg = cfg.with_(adapter_quant=quant)
+        step = K.fleet_step_q if quant else K.fleet_step
+        serve.generate(qcfg, params, prompts, LM_PROMPT + LM_GEN, LM_GEN)
+        torch.cuda.synchronize()
+        steps = []
+        for c in every:
+            c.launches = 0
+        with recording(plastic, "decode_step", steps):
+            toks, lats, cache, prefill_s = serve.generate(
+                qcfg, params, prompts, LM_PROMPT + LM_GEN, LM_GEN)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        require(TA.flash_attention.launches == cfg.n_layers,
+                f"{mode}: {TA.flash_attention.launches} attention launches "
+                f"in one prefill, want {cfg.n_layers}")
+        require(step.launches == LM_GEN,
+                f"{mode}: {step.launches} {step.__name__} launches in "
+                f"{LM_GEN} decode steps, want {LM_GEN}")
+        ad = cache["adapter"]
+        require(tuple(toks.shape) == (LM_BATCH, LM_GEN)
+                and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+                f"{mode}: bad generated tokens")
+        require(int((ad["t"] == LM_GEN).sum()) == LM_BATCH
+                and float(ad["w_fast"].float().abs().max()) > 0,
+                f"{mode}: the adapter's fast weights did not move")
+        p50 = sorted(lats)[len(lats) // 2] * 1e3
+        tps = LM_BATCH * len(lats) / sum(lats)
+        out[mode] = dict(prefill_ms=prefill_s * 1e3, decode_ms_p50=p50,
+                         decode_ms_mean=sum(lats) / len(lats) * 1e3,
+                         tokens_per_s=tps, launches=launches)
+        for name, n in launches.items():
+            total[name] += n
+        log(f"  serve {mode:7s}: prefill {prefill_s * 1e3:.1f} ms, decode "
+            f"p50 {p50:.3f} ms/token step, {tps:.1f} tokens/s; launches "
+            f"{launches}")
+        # every adapter step of the timed run (one fleet-step launch each)
+        # against the plain fleet step on the same state and hidden state,
+        # then the adapter state after the run against the plain fleet
+        # steps fed the run's hidden states from the start
+        replay_launches(steps, plain_adapter_step, step.__name__, results,
+                        f"{mode} serve (adapter steps)", quant, (1e-5, 1e-5))
+        state = replay_adapter(qcfg, params, [a[2] for a, _, _ in steps],
+                               dev)
+        if quant:
+            for k, want in state.items():
+                require(torch.equal(ad[k], want),
+                        f"int8 adapter {k}: the timed run differs from the "
+                        f"plain fleet steps on the same hidden states")
+            log(f"  int8 adapter state after {LM_GEN} steps: bitwise equal "
+                f"to the plain fleet steps on the same hidden states")
+        else:
+            err, share = drift([ad[k] for k in state], list(state.values()))
+            out[mode]["adapter_drift"] = dict(max_abs=err, share_1e4=share)
+            log(f"  float32 adapter state after {LM_GEN} steps against the "
+                f"plain fleet steps on the same hidden states (not gated): "
+                f"max |diff| {err:.3g}, share outside 1e-4 {share:.3g}")
+        del cache, ad, steps, state
+    # full depth, bf16: kernel path against the plain path (not gated)
+    got, toks = serve_logits(cfg, params, prompts, LM_GEN)
+    with contextlib.ExitStack() as stack:
+        for p in plain_kernels():
+            stack.enter_context(p)
+        want, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
+    agree = float(torch.stack([g.argmax(-1) == w.argmax(-1)
+                               for g, w in zip(got, want)]).float().mean())
+    err = rel_err(got, want)
+    out["bf16_full_depth"] = dict(max_rel_logit_diff=err,
+                                  greedy_agreement=agree)
+    log(f"  bf16, {cfg.n_layers} layers, kernel vs plain path: max rel "
+        f"logit diff {err:.3g}, greedy agreement {agree:.3f}")
+    del got, want
+    # profile one prefill, then 8 decode steps after it
+    from repro_torch.launch.steps import make_decode_step, make_prefill
+    prefill = make_prefill(cfg, LM_PROMPT + 8)
+    made = []
+    log("  one prefill of 4 x 2048 tokens:")
+    out["profile_prefill"] = profile_window(
+        lambda: made.append(prefill(params, prompts)), 1)
+    logits, cache = made.pop()
+    decode = make_decode_step(cfg)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+
+    def eight():
+        nonlocal cache
+        for _ in range(8):
+            _, cache = decode(params, cache, tok)
+
+    log("  8 decode steps, float32 adapter:")
+    out["profile_decode"] = profile_window(eight, 8)
+    del params, cache
+    torch.cuda.empty_cache()
+    return out, total
+
+
+def lm_depth2_matches(dev):
+    """Full width, 2 layers, float32: prefill and decode logits through the
+    kernels equal the plain path's within 1e-4 of the largest logit, and
+    the greedy tokens are the same."""
+    import torch
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.models import factory
+    for quant in (False, True):
+        cfg = qwen3_4b.CONFIG.with_(n_layers=2, dtype="float32",
+                                    plastic_adapter=True,
+                                    adapter_neurons=128, adapter_quant=quant)
+        gen = torch.Generator(dev).manual_seed(SEED + 1)
+        params = factory.build(cfg).init(gen)
+        prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                                generator=gen, device=dev)
+        got, toks = serve_logits(cfg, params, prompts, LM_GEN)
+        with contextlib.ExitStack() as stack:
+            for p in plain_kernels():
+                stack.enter_context(p)
+            want, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
+        err = rel_err(got, want)
+        same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                   for g, w in zip(got, want))
+        mode = "int8" if quant else "float32"
+        require(err <= 1e-4 and same,
+                f"2-layer float32 ({mode} adapter): kernel path differs from "
+                f"the plain path (max rel logit diff {err:.3g}, greedy "
+                f"tokens {'equal' if same else 'differ'})")
+        log(f"  2 layers, float32, {mode} adapter: max rel logit diff "
+            f"{err:.3g} over prefill + {LM_GEN} steps, greedy tokens equal")
+        del params, got, want
+        torch.cuda.empty_cache()
+
+
+def serve_cli_default(results):
+    """`python -m repro_torch.launch.serve --plastic` at its defaults
+    (qwen3-4b, 4 prompts of 32 tokens, 16 generated), in this process;
+    each attention and fleet-step launch of the run is then held against
+    its plain version on its own inputs."""
+    import io
+    import torch
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as MA, plastic
+    buf, attn, steps = io.StringIO(), [], []
+    with contextlib.redirect_stdout(buf), \
+            recording(MA, "attn_op", attn), \
+            recording(plastic, "decode_step", steps):
+        rc = serve.main(["--plastic"])
+    out = json.loads(buf.getvalue())
+    require(rc == 0 and out["launches"]["flash_attention"] == 36
+            and out["launches"]["fleet_step"] == 16,
+            f"serve CLI default: rc {rc}, launches {out['launches']}")
+    replay_launches(attn, TA.flash_attention_plain, "flash_attention",
+                    results, "serve CLI", False, ATTN_TOL["bfloat16"])
+    replay_launches(steps, plain_adapter_step, "fleet_step", results,
+                    "serve CLI (adapter steps)", False, (1e-5, 1e-5))
+    del attn, steps
+    log(f"  serve CLI default (4 x 32 + 16): prefill {out['prefill_ms']:.1f}"
+        f" ms, decode p50 {out['decode_ms_p50']:.3f} ms, "
+        f"{out['tokens_per_s']:.1f} tokens/s, launches {out['launches']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def nvidia_smi():
     try:
         p = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1093,6 +1507,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.lif import kernel as L
     from repro_torch.kernels.plasticity import fused, kernel as K
     dev = torch.device("cuda", 0)
@@ -1112,6 +1527,8 @@ def main() -> int:
     counters = (K.fleet_step, K.fleet_step_q, fused.rollout)
     online_counters = (fused.rollout_shared, K.shared_step, K.shared_step_q,
                        L.lif_forward)
+    lm_counters = (TA.flash_attention, K.fleet_step, K.fleet_step_q)
+    every = counters + online_counters + (TA.flash_attention,)
     results = {name: {"name": name, "route": "cuda",
                       "source": SOURCES[name], "replaces": REPLACES[name],
                       "launches": 0, "max_abs_err": 0.0, "ms": None,
@@ -1125,12 +1542,14 @@ def main() -> int:
     compare_shared_steps(dev, results)
     compare_shared_rollouts(dev, results)
     compare_lif(dev, results)
+    log("phase 2c: flash attention against its plain version")
+    compare_attention(dev, results)
 
     log("phase 3: recovery gate")
     recovery_gate(dev)
 
     log("phase 4: main path, 8-128-8 controller, B = 4096")
-    main, launches = main_path(dev, counters, counters + online_counters)
+    main, launches = main_path(dev, counters, every)
     for name, n in launches.items():
         results[name]["launches"] = n
     plain_closed_loop_matches(dev, main)
@@ -1141,8 +1560,7 @@ def main() -> int:
     time_kernels(dev, results)
 
     log("phase 6: online-learning path, 784-1024-10, T = 8, B = 1")
-    online, online_launches = online_path(dev, online_counters,
-                                          counters + online_counters)
+    online, online_launches = online_path(dev, online_counters, every)
     for name, n in online_launches.items():
         results[name]["launches"] = n
     plain_stream_matches(dev, online)
@@ -1152,6 +1570,19 @@ def main() -> int:
     log("phase 7: Table II timings and the new kernels (L2 flushed)")
     table = table2(dev, online)
     time_new_kernels(dev, results)
+    log("phase 7b: the attention kernel at the prefill shape (L2 flushed)")
+    time_attention(dev, results)
+
+    log("phase 8: LM serving, qwen3-4b at full width, B = 4, prompt 2048, "
+        "32 generated tokens, plastic adapter")
+    lm, lm_launches = lm_path(dev, lm_counters, every, results)
+    results["flash_attention"]["launches"] = lm_launches["flash_attention"]
+    log("phase 8b: 2 layers at full width in float32, kernels against the "
+        "plain path")
+    lm_depth2_matches(dev)
+    log("phase 8c: the serve CLI at its defaults")
+    lm["serve_cli_default"] = serve_cli_default(results)
+
     for r in results.values():
         lib = (f", library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
@@ -1170,6 +1601,7 @@ def main() -> int:
                                   "accuracy": online[m]["acc"]}
                               for m in ("float32", "int8")},
               "table2": table,
+              "lm_path": lm, "lm_launches": lm_launches,
               "profile": profiled, "profile_online": profiled_online,
               "build_seconds": info["seconds"], "card": smi,
               "seconds": time.perf_counter() - t_all}

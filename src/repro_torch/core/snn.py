@@ -40,6 +40,15 @@ class LIFConfig:
     v_reset: float = 0.0      # hard reset
 
 
+def lif_step(v: torch.Tensor, current: torch.Tensor,
+             cfg: LIFConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """One elementwise LIF update.  Returns (v_new, spikes)."""
+    v = v + (current.to(v.dtype) - v) * (1.0 / cfg.tau_m)
+    spikes = (v >= cfg.v_threshold).to(v.dtype)
+    v = torch.where(spikes > 0, torch.full_like(v, cfg.v_reset), v)
+    return v, spikes
+
+
 @dataclasses.dataclass(frozen=True)
 class SNNConfig:
     """Fully-connected plastic controller (paper Sec. IV-A).

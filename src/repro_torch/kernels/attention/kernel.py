@@ -1,0 +1,88 @@
+"""Flash attention: wrapper of ``csrc/flash_attention.cu`` and its plain
+version.
+
+`flash_attention` takes q (B, Sq, H, D) and k/v (B, Skv, HKV, D) in float32
+or bfloat16, read in that layout through their strides (the last dim must
+be contiguous), and returns (B, Sq, H, D) in q's dtype.  Causal masking
+puts the queries at the last Sq key positions; ``kv_len`` hides keys at
+and beyond it.  A CPU tensor takes the plain version (`ref.mha`); a CUDA
+tensor launches the kernel and counts it in ``flash_attention.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.attention import ref as _ref
+from repro_torch.kernels.plasticity.kernel import on_card, stream_of
+
+flash_attention_plain = _ref.mha
+
+HEAD_DIMS = (64, 128)             # head widths the kernel is built for
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+class _AttnArgs(ctypes.Structure):
+    """``AttnArgs`` of csrc/flash_attention.cu (strides in elements)."""
+    _fields_ = [(name, _P) for name in ("q", "k", "v", "o")] + [
+        (name, _L) for name in ("q_sb", "q_ss", "q_sh", "k_sb", "k_ss",
+                                "k_sh", "v_sb", "v_ss", "v_sh")] + [
+        (name, _I) for name in ("batch", "sq", "skv", "heads", "kv_heads",
+                                "head_dim", "causal", "kv_len", "q_offset",
+                                "dtype")] + [("scale", ctypes.c_float)]
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None,
+                    kv_len: Optional[int] = None):
+    """q (B,Sq,H,D), k/v (B,Skv,HKV,D) -> (B,Sq,H,D)."""
+    if not on_card(q):
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     kv_len=kv_len)
+    b, sq, h, d = q.shape
+    if k.ndim != 4 or k.shape[0] != b or k.shape[3] != d \
+            or v.shape != k.shape:
+        raise ValueError(f"k and v must be (B, Skv, HKV, D) with B = {b}, "
+                         f"D = {d}; got k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    skv, hkv = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"{h} query heads do not group over {hkv} KV heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel is built for head_dim in "
+                         f"{HEAD_DIMS}; got {d}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"the attention kernel takes float32 or bfloat16 "
+                         f"q, k, v of one dtype; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: the kernel reads the head dim "
+                             f"contiguously; got strides {t.stride()}")
+    scale = d ** -0.5 if scale is None else scale
+    kv_len = skv if kv_len is None else min(kv_len, skv)
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if o.numel() == 0:
+        return o
+    args = _AttnArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     b, sq, skv, h, hkv, d, int(causal), kv_len, skv - sq,
+                     _DTYPE_CODE[q.dtype], scale)
+    fn = _build.library("flash_attention.cu").flash_attention
+    fn.argtypes, fn.restype = [ctypes.POINTER(_AttnArgs), _P], ctypes.c_int
+    _build.check(fn(ctypes.byref(args), stream_of(q)), "flash_attention")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -1,0 +1,123 @@
+"""GQA attention block: plan, full-sequence apply (prefill) and cached
+decode.
+
+Grouped KV heads, optional QKV bias, optional per-head q/k RMSNorm (qwen3)
+and RoPE, as in the JAX package.  Prefill attention goes through
+`kernels.attention.attention` (the hand-written flash kernel on a CUDA
+tensor); one-token decode attention is plain torch, as it is an einsum in
+the JAX package too.
+
+The port writes the decode cache IN PLACE: `decode_step` stores the new
+position into the ``(B, Smax, KV, HD)`` cache tensors it is given and
+returns the same tensors (the JAX package returns updated copies).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.attention import attention as attn_op
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParamDesc, rms_norm, rope
+
+
+def plan(cfg: ModelConfig, stack: int = 0) -> dict:
+    """Parameter plan for one attention block (stacked `stack` deep if >0)."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def desc(shape, **kw):
+        return ParamDesc((stack, *shape) if stack else shape,
+                         dtype=cfg.dtype, **kw)
+
+    p = {
+        "wq": desc((d, h * hd), fan_in=d),
+        "wk": desc((d, kv * hd), fan_in=d),
+        "wv": desc((d, kv * hd), fan_in=d),
+        "wo": desc((h * hd, d), fan_in=h * hd),
+        "norm": desc((d,), init="ones"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = desc((h * hd,), init="zeros")
+        p["bk"] = desc((kv * hd,), init="zeros")
+        p["bv"] = desc((kv * hd,), init="zeros")
+    if cfg.qk_norm:
+        p["q_norm"] = desc((hd,), init="ones")
+        p["k_norm"] = desc((hd,), init="ones")
+    return p
+
+
+def _qkv(params, x, cfg: ModelConfig, positions):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q, k = rope(q, k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def apply(params, x, cfg: ModelConfig, positions=None):
+    """Full-sequence causal attention (prefill).  x (B,S,D) ->
+    (x + attn (B,S,D), (k, v) each (B,S,KV,HD))."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    q, k, v = _qkv(params, h, cfg, positions)
+    o = attn_op(q, k, v, causal=True)
+    o = o.reshape(b, s, -1) @ params["wo"]
+    return x + o, (k, v)
+
+
+def _write_at(cache, row, index):
+    """Write one new position of every stream, ``row (B,1,...)``, into the
+    ``(B,Smax,...)`` cache at the scalar ``index``, in place."""
+    cache.index_copy_(1, index.reshape(1).long(), row.to(cache.dtype))
+    return cache
+
+
+def decode_step(params, x, cache_k, cache_v, index, cfg: ModelConfig):
+    """One-token cached attention, every stream at the same length.
+    x (B,1,D); cache (B,Smax,KV,HD), written in place at ``index`` (0-d
+    int tensor, the number of positions already resident).
+    Returns (out (B,1,D), cache_k, cache_v)."""
+    if cfg.kv_quant:
+        raise NotImplementedError(
+            "the int8 KV cache (kv_quant) is not ported yet (ROADMAP.md, "
+            "Queue 1 item 9)")
+    b = x.shape[0]
+    positions = index.reshape(1, 1).expand(b, 1)
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    q, k, v = _qkv(params, h, cfg, positions)
+    _write_at(cache_k, k, index)
+    _write_at(cache_v, v, index)
+    o = _decode_attend(q, cache_k, cache_v, index, cfg)
+    o = o.reshape(b, 1, -1) @ params["wo"]
+    return x + o, cache_k, cache_v
+
+
+def _decode_attend(q, k, v, index, cfg: ModelConfig):
+    """q (B,1,H,HD) against the whole cache, positions above ``index``
+    masked.  Products of the storage-dtype operands accumulate in float32
+    (the JAX package's ``preferred_element_type``); the probabilities are
+    cast to the cache dtype before the PV product, as there."""
+    b, _, h, hd = q.shape
+    smax, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, 1, kvh, g, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) \
+        * (hd ** -0.5)
+    valid = torch.arange(smax, device=q.device) <= index
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(b, 1, h, hd).to(q.dtype)

@@ -1,0 +1,200 @@
+"""Decoder-only LM, the ``dense`` layout: GQA attention + SwiGLU MLP blocks
+(qwen3 and the other dense archs).
+
+The parameters keep the JAX package's tree: ``segments`` is a list of
+segments whose leaves are stacked over the segment's layers, and where the
+JAX package scans over that stack the port runs a Python loop over it.
+The MoE, SSM and hybrid layouts are not ported yet and raise.
+
+Entry points:
+  plan / init                        — parameter plan and random init
+  forward                            — full-sequence logits (or hidden)
+  cache_plan / init_cache / prefill / decode_step — serving with a KV cache
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core.snn import resolve_device
+from repro_torch.models import attention, plastic
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (ParamDesc, init_from_plan, param_count,
+                                       rms_norm, swiglu)
+
+
+def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
+    if cfg.layout == "dense":
+        return [("dense", cfg.n_layers)]
+    raise NotImplementedError(
+        f"layout {cfg.layout!r} is not ported to repro_torch yet "
+        f"(ROADMAP.md, Queue 1 item 9); the port carries 'dense'")
+
+
+def _mlp_plan(cfg: ModelConfig, d_ff: int, stack: int = 0) -> dict:
+    d = cfg.d_model
+
+    def desc(shape, **kw):
+        return ParamDesc((stack, *shape) if stack else shape,
+                         dtype=cfg.dtype, **kw)
+
+    return {
+        "norm": desc((d,), init="ones"),
+        "w_gate": desc((d, d_ff), fan_in=d),
+        "w_up": desc((d, d_ff), fan_in=d),
+        "w_down": desc((d_ff, d), fan_in=d_ff),
+    }
+
+
+def plan(cfg: ModelConfig) -> dict:
+    d, v = cfg.d_model, cfg.vocab
+    p: dict[str, Any] = {
+        "embed": ParamDesc((v, d), scale=1.0, fan_in=d, dtype=cfg.dtype),
+        "segments": [{"attn": attention.plan(cfg, stack=n),
+                      "mlp": _mlp_plan(cfg, cfg.d_ff, stack=n)}
+                     for _, n in segments(cfg)],
+        "final_norm": ParamDesc((d,), init="ones", dtype=cfg.dtype),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ParamDesc((d, v), fan_in=d, dtype=cfg.dtype)
+    if cfg.plastic_adapter:
+        p["adapter"] = plastic.plan(cfg)
+    return p
+
+
+def init(cfg: ModelConfig, generator: torch.Generator):
+    return init_from_plan(plan(cfg), generator)
+
+
+def _layer(seg: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked segment (views, no copies)."""
+    return {blk: {k: t[i] for k, t in ps.items()} for blk, ps in seg.items()}
+
+
+def _mlp_apply(p, x, cfg: ModelConfig):
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _head_w(params, cfg: ModelConfig):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
+            head: bool = True):
+    """inputs: tokens (B,S) int (or embeddings (B,S,D) for
+    ``input_mode="embeddings"``).  Returns logits (B,S,V), or with
+    ``head=False`` the final normed hidden state (B,S,D).
+    ``collect_cache(segment, layer, k, v)``, if given, receives every
+    layer's keys and values (B,S,KV,HD) as they are made."""
+    if cfg.input_mode == "embeddings" and inputs.ndim == 3:
+        h = inputs.to(cfg.adtype)
+    else:
+        h = params["embed"][inputs]
+    for seg_idx, (_, count) in enumerate(segments(cfg)):
+        seg = params["segments"][seg_idx]
+        for i in range(count):
+            p = _layer(seg, i)
+            h, (k, v) = attention.apply(p["attn"], h, cfg)
+            h = _mlp_apply(p["mlp"], h, cfg)
+            if collect_cache is not None:
+                collect_cache(seg_idx, i, k, v)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if not head:
+        return h
+    return h @ _head_w(params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache plan, prefill, decode
+# ---------------------------------------------------------------------------
+
+
+def cache_plan(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The decode cache: per segment a ``(L, B, max_len, KV, HD)`` K and V,
+    the scalar ``index`` (positions resident, every stream in lockstep) and,
+    with the adapter, its per-stream state."""
+    if cfg.kv_quant:
+        raise NotImplementedError(
+            "the int8 KV cache (kv_quant) is not ported yet (ROADMAP.md, "
+            "Queue 1 item 9)")
+    segs = []
+    for _, count in segments(cfg):
+        kv = ParamDesc((count, batch, max_len, cfg.n_kv_heads, cfg.hd),
+                       init="zeros", dtype=cfg.dtype)
+        segs.append({"k": kv, "v": kv})
+    out = {"segments": segs,
+           "index": ParamDesc((), init="zeros", dtype="int32")}
+    if cfg.plastic_adapter:
+        out["adapter"] = plastic.plan_cache(cfg, batch)
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """The zeroed decode cache on ``device`` (None: the card)."""
+    gen = torch.Generator(resolve_device(device))
+    return init_from_plan(cache_plan(cfg, batch, max_len), gen)
+
+
+def prefill(params, inputs, cfg: ModelConfig, max_len: int):
+    """Run the prompts through the model, building the decode cache.
+    Returns (last-position logits (B,V), cache)."""
+    bsz, s = inputs.shape[0], inputs.shape[1]
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens does not fit max_len "
+                         f"{max_len}")
+    cache = init_cache(cfg, bsz, max_len, device=params["embed"].device)
+
+    def put(seg, layer, k, v):
+        _embed_kv(cache["segments"][seg], layer, k, v)
+
+    hidden = forward(params, inputs, cfg, collect_cache=put, head=False)
+    logits = hidden[:, -1] @ _head_w(params, cfg)
+    cache["index"].fill_(s)
+    return logits, cache
+
+
+def _embed_kv(seg_cache: dict, layer: int, k, v):
+    """Place one layer's prefilled (B,S,KV,HD) keys and values at the
+    start of its (B,max_len,KV,HD) slot of the cache."""
+    s = k.shape[1]
+    seg_cache["k"][layer, :, :s] = k
+    seg_cache["v"][layer, :, :s] = v
+
+
+def _decode_backbone(params, cache, tokens, cfg: ModelConfig):
+    """Embed + all layers for ONE new token per stream, tokens (B,1); the
+    cache is written in place.  Returns (h (B,1,D) before the final norm,
+    the new index)."""
+    index = cache["index"]
+    h = params["embed"][tokens]
+    for seg_idx, (_, count) in enumerate(segments(cfg)):
+        seg = params["segments"][seg_idx]
+        c = cache["segments"][seg_idx]
+        for i in range(count):
+            p = _layer(seg, i)
+            h, _, _ = attention.decode_step(p["attn"], h, c["k"][i],
+                                            c["v"][i], index, cfg)
+            h = _mlp_apply(p["mlp"], h, cfg)
+    return h, index + 1
+
+
+def _head(params, h, cfg: ModelConfig):
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return h @ _head_w(params, cfg)
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig):
+    """One lockstep decode step.  tokens (B,1) int; the new token is written
+    at ``cache["index"]`` (in place).  Returns (logits (B,V), new_cache)."""
+    h, new_index = _decode_backbone(params, cache, tokens, cfg)
+    new_cache = {"segments": cache["segments"], "index": new_index}
+    if cfg.plastic_adapter:
+        h, new_cache["adapter"] = plastic.decode_step(
+            params["adapter"], cache["adapter"], h, cfg)
+    return _head(params, h, cfg)[:, 0], new_cache
+
+
+def n_params(cfg: ModelConfig) -> int:
+    return param_count(plan(cfg))

@@ -8,7 +8,10 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 int8 is held bit for bit; float32 within rtol = atol = 1e-5 (the kernels sum
-the psum in fan-in order, the plain versions as a batched product).
+the psum in fan-in order, the plain versions as a batched product).  The
+attention kernel's bfloat16 output within rtol 2e-2, atol 2e-3: both compute
+in float32 and round once, so they differ by at most a bf16 step where the
+float32 sums straddle a rounding boundary.
 """
 import numpy as np
 import pytest
@@ -371,3 +374,82 @@ def test_shared_rollout_kernel_matches_plain_on_card(quant, cuda_device):
         want_all = (*want_st.w, *want_st.v, *want_st.trace, want)
         if quant or k == 1:
             _assert_match(got_all, want_all, quant)
+
+
+# (B, Sq, Skv, H, HKV, D, causal, kv_len): the prefill shape, a ragged
+# square, a decode-shaped query against a long cache, a kv_len mask, head
+# width 64, and Sq > Skv (rows with no visible key)
+ATTN_CASES = [(4, 2048, 2048, 32, 8, 128, True, None),
+              (2, 1000, 1000, 32, 8, 128, True, None),
+              (4, 1, 2049, 32, 8, 128, True, None),
+              (2, 300, 700, 8, 2, 128, True, 650),
+              (1, 257, 257, 4, 2, 64, False, 200),
+              (1, 80, 50, 4, 4, 64, True, None)]
+ATTN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("float32", "bfloat16"))
+def test_flash_attention_kernel_matches_plain_on_card(dtype, cuda_device):
+    from repro_torch.kernels.attention import kernel as TA
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    for b, sq, skv, h, hkv, d, causal, kv_len in ATTN_CASES:
+        q = torch.randn(b, sq, h, d, generator=gen, device=cuda_device)
+        k = torch.randn(b, skv, hkv, d, generator=gen, device=cuda_device)
+        v = torch.randn(b, skv, hkv, d, generator=gen, device=cuda_device)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        launches = TA.flash_attention.launches
+        got = TA.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        assert TA.flash_attention.launches == launches + 1
+        want = TA.flash_attention_plain(q, k, v, causal=causal,
+                                        kv_len=kv_len)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **ATTN_TOL[dtype])
+        if sq > skv and causal:          # no visible key: exactly zero
+            assert (got[:, :sq - skv] == 0).all()
+        del q, k, v, got, want
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_through_strides_on_card(cuda_device):
+    """q, k, v cut from one packed projection (no copies) give the same
+    result as contiguous copies."""
+    from repro_torch.kernels.attention import kernel as TA
+    gen = torch.Generator(cuda_device).manual_seed(8)
+    b, s, h, hkv, d = 2, 333, 16, 4, 128
+    packed = torch.randn(b, s, h + 2 * hkv, d, generator=gen,
+                         device=cuda_device).to(torch.bfloat16)
+    q, k, v = packed[:, :, :h], packed[:, :, h:h + hkv], \
+        packed[:, :, h + hkv:]
+    got = TA.flash_attention(q, k, v)
+    want = TA.flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_lm_prefill_launches_attention_kernel_per_layer(cuda_device):
+    """A smoke-size prefill on the card launches the attention kernel once
+    per layer and matches the same prefill with the plain attention."""
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.models import attention as MA
+    from repro_torch.models import factory
+    model = factory.build("qwen3-4b", smoke=True, dtype="float32")
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    toks = torch.randint(0, model.cfg.vocab, (2, 70), device=cuda_device)
+    launches = TA.flash_attention.launches
+    logits, cache = model.prefill(params, toks, 80)
+    assert TA.flash_attention.launches == launches + model.cfg.n_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(MA, "attn_op", TA.flash_attention_plain)
+        want, want_cache = model.prefill(params, toks, 80)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache["segments"][0]["k"],
+                               want_cache["segments"][0]["k"], rtol=1e-4,
+                               atol=1e-4)

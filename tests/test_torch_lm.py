@@ -1,0 +1,259 @@
+"""The port's LM serving path against the JAX reference, on qwen3-4b's
+smoke config with the plastic adapter.
+
+The JAX parameters (``model.init``) are carried into the port by
+`convert.lm_params`; the JAX side runs jitted ``make_prefill`` /
+``make_decode_step``.  float32: logits within rtol = atol = 1e-4 and the
+same greedy tokens at every step.  bfloat16: both round at the same places
+(`rms_norm`, `rope`, every product, the attention output), but sums run in
+other orders and silu rounds once where XLA's CPU expansion rounds after
+each op, so a few activations differ by one bf16 step and the logits by a
+few; they are held within 2e-2 of the largest logit.  The
+adapter on the same hidden states: the int8 datapath bit for bit, float32
+within 1e-5.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs import get_smoke as j_get_smoke
+from repro.launch.steps import make_decode_step as j_make_decode_step
+from repro.launch.steps import make_prefill as j_make_prefill
+from repro.models import factory as j_factory
+from repro.models import plastic as j_plastic
+from repro_torch import convert
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.launch import steps
+from repro_torch.models import factory, plastic, transformer
+from repro_torch.models.layers import leaves
+
+ROOT = Path(__file__).resolve().parents[1]
+B, S, GEN = 2, 40, 4
+MAX_LEN = S + GEN
+
+
+def _cfgs(dtype="float32", quant=False, **kw):
+    over = dict(dtype=dtype, plastic_adapter=True, adapter_neurons=128,
+                adapter_quant=quant, **kw)
+    return (j_get_smoke("qwen3-4b").with_(**over),
+            get_smoke("qwen3-4b").with_(**over))
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """JAX parameters per dtype (one init each, shared by the tests)."""
+    return {dt: j_factory.build(_cfgs(dt)[0]).init(jax.random.PRNGKey(0))
+            for dt in ("float32", "bfloat16")}
+
+
+def _tokens():
+    return np.random.default_rng(0).integers(0, 512, (B, S)).astype(np.int32)
+
+
+def _run(dtype, quant, attn_impl, params):
+    """Prefill + GEN greedy decode steps in both packages; JAX's greedy
+    tokens feed both.  Returns per-step (jax logits, port logits) and the
+    final adapter states."""
+    jcfg, tcfg = _cfgs(dtype, quant)
+    tparams = convert.lm_params(params, tcfg, "cpu")
+    toks = _tokens()
+    jl, jc = jax.jit(j_make_prefill(jcfg, MAX_LEN, attn_impl=attn_impl))(
+        params, jnp.asarray(toks))
+    tl, tc = steps.make_prefill(tcfg, MAX_LEN)(
+        tparams, torch.from_numpy(toks).long())
+    pairs = [(np.asarray(jl, np.float32), tl.float().numpy())]
+    jdec = jax.jit(j_make_decode_step(jcfg))
+    tdec = steps.make_decode_step(tcfg)
+    for _ in range(GEN):
+        tok = pairs[-1][0].argmax(-1).astype(np.int32)[:, None]
+        jl, jc = jdec(params, jc, jnp.asarray(tok))
+        tl, tc = tdec(tparams, tc, torch.from_numpy(tok).long())
+        pairs.append((np.asarray(jl, np.float32), tl.float().numpy()))
+    assert int(tc["index"]) == int(jc["index"]) == S + GEN
+    return pairs, jc["adapter"], tc["adapter"]
+
+
+@pytest.mark.parametrize("attn_impl", ("xla_flash", "xla"))
+@pytest.mark.parametrize("quant", (False, True), ids=("f32-adapter",
+                                                      "int8-adapter"))
+def test_float32_prefill_and_decode_match_jax(quant, attn_impl, jax_params):
+    pairs, jad, tad = _run("float32", quant, attn_impl,
+                           jax_params["float32"])
+    for step, (a, b) in enumerate(pairs):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"step {step}")
+        np.testing.assert_array_equal(b.argmax(-1), a.argmax(-1))
+    for k, want in jad.items():
+        got, want = tad[k].numpy(), np.asarray(want)
+        assert got.dtype == want.dtype, k
+        if quant and k != "v1":
+            np.testing.assert_array_equal(got, want, err_msg=k)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+    assert np.abs(tad["w_fast"].numpy()).max() > 0      # the rule ran
+
+
+def test_bfloat16_prefill_and_decode_match_jax(jax_params):
+    pairs, _, _ = _run("bfloat16", False, "xla_flash",
+                       jax_params["bfloat16"])
+    for step, (a, b) in enumerate(pairs):
+        err = np.abs(a - b).max()
+        assert err <= 2e-2 * np.abs(a).max(), (step, err)
+
+
+def _adapter_inputs(n_steps):
+    """Hidden states on a 1/8 grid and p_in on a 1/64 grid: every drive is
+    an exact float32 sum in any order, so both packages see the same
+    spikes; the scale is set so that the drive crosses threshold."""
+    rng = np.random.default_rng(5)
+    d = 128
+    h = rng.integers(-16, 17, (n_steps, B, 1, d)).astype(np.float32) / 8
+    p_in = rng.integers(-8, 9, (d, 128)).astype(np.float32) / 64
+    return h, p_in
+
+
+@pytest.mark.parametrize("quant,masked", ((False, False), (True, False),
+                                          (True, True)),
+                         ids=("float32", "int8", "int8-vacant-slot"))
+def test_adapter_decode_step_matches_jax(quant, masked, jax_params):
+    """``masked``: slot 1 is vacant and must stay bit-frozen."""
+    jcfg, tcfg = _cfgs("float32", quant)
+    active = np.array([1, 0], np.int32) if masked else None
+    params = dict(jax_params["float32"]["adapter"])
+    h, p_in = _adapter_inputs(6)
+    params["p_in"] = jnp.asarray(p_in)
+    params["scale"] = jnp.asarray(0.5, jnp.float32)
+    tparams = {k: convert.tensor(np.asarray(v), "cpu")
+               for k, v in params.items()}
+    jstate = j_factory.build(jcfg).init_cache(B, MAX_LEN)["adapter"]
+    tstate = transformer.init_cache(tcfg, B, MAX_LEN, device="cpu")[
+        "adapter"]
+    start = {k: v.clone() for k, v in tstate.items()}
+    jstep = jax.jit(lambda p, s, x, a: j_plastic.decode_step(
+        p, s, x, jcfg, active=a))
+    spikes = 0
+    for t in range(h.shape[0]):
+        jh, jstate = jstep(params, jstate, jnp.asarray(h[t]),
+                           None if active is None else jnp.asarray(active))
+        th, tstate = plastic.decode_step(
+            tparams, tstate, torch.from_numpy(h[t]), tcfg,
+            active=None if active is None else torch.from_numpy(active))
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-5,
+                                   atol=1e-5)
+        spikes += int((np.asarray(jstate["tr1"]) != 0).sum())
+        for k, want in jstate.items():
+            got, want = tstate[k].numpy(), np.asarray(want)
+            if quant or k in ("t", "v1", "tr1"):
+                np.testing.assert_array_equal(got, want, err_msg=k)
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                           err_msg=k)
+    assert spikes > 0
+    assert np.abs(tstate["w_fast"].numpy()).max() > 0
+    if masked:
+        for k, v in start.items():
+            assert torch.equal(tstate[k][1], v[1]), k
+
+
+def test_lm_params_round_trip(jax_params):
+    """Every JAX leaf lands at its path in the port's tree with its shape,
+    dtype and bits; the port's own plan has the same leaves."""
+    jcfg, tcfg = _cfgs("bfloat16")
+    params = jax_params["bfloat16"]
+    tparams = convert.lm_params(params, tcfg, "cpu")
+    jleaves = jax.tree.leaves(params)
+    tleaves = leaves(transformer.plan(tcfg))
+    assert len(jleaves) == len(tleaves) == len(
+        jax.tree.leaves(tparams))
+    back = jax.tree.map(lambda t: t.view(torch.int16).numpy()
+                        if t.dtype == torch.bfloat16 else t.numpy(),
+                        tparams)
+    for j, t, d in zip(jleaves, jax.tree.leaves(back), tleaves):
+        j = np.asarray(j)
+        assert tuple(j.shape) == tuple(d.shape) == t.shape
+        if j.dtype.name == "bfloat16":
+            j = j.view(np.int16)
+        np.testing.assert_array_equal(t, j)
+    bad = jax.tree.map(lambda x: x, params)
+    bad["final_norm"] = np.zeros((7,), np.float32)
+    with pytest.raises(ValueError, match="final_norm"):
+        convert.lm_params(bad, tcfg, "cpu")
+
+
+def test_configs_and_plans_match_jax():
+    """Every field the port keeps equals the JAX config's, and the full
+    config's parameter count equals the JAX package's."""
+    for jc, tc in ((j_get_config("qwen3-4b"), get_config("qwen3-4b")),
+                   (j_get_smoke("qwen3-4b"), get_smoke("qwen3-4b"))):
+        for f in tc.__dataclass_fields__:
+            assert getattr(tc, f) == getattr(jc, f), f
+    for plastic_on in (False, True):
+        over = dict(plastic_adapter=plastic_on, adapter_neurons=128)
+        assert (factory.build("qwen3-4b", **over).n_params()
+                == j_factory.build("qwen3-4b", **over).n_params())
+    assert factory.build("qwen3-4b").n_params() > 4.0e9
+
+
+def test_unported_archs_and_layouts_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        factory.build("mamba2-1.3b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        factory.build(get_smoke("qwen3-4b").with_(layout="moe"))
+    with pytest.raises(KeyError):
+        factory.build("no-such-arch")
+    with pytest.raises(TypeError, match="firefly-snn"):
+        factory.build("firefly-snn")
+    cfg = get_smoke("qwen3-4b").with_(kv_quant=True)
+    with pytest.raises(NotImplementedError, match="kv_quant"):
+        transformer.init_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_serve_cli_runs_on_cpu(quant):
+    args = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+            "--device", "cpu", "--plastic", "--batch", "2",
+            "--prompt-len", "12", "--gen", "3"]
+    if quant:
+        args.append("--adapter-quant")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    p = subprocess.run(args, capture_output=True, text=True, env=env,
+                       timeout=240, cwd=ROOT)
+    assert p.returncode == 0, p.stderr
+    out = json.loads(p.stdout)
+    assert out["arch"] == "qwen3-4b-smoke" and out["plastic"]
+    assert out["adapter_quant"] == quant and out["generated"] == 3
+    assert out["decode_ms_p50"] > 0 and out["tokens_per_s"] > 0
+    # the CPU runs the plain versions: no kernel was launched
+    assert set(out["launches"].values()) == {0}
+
+
+def test_generate_greedy_and_sampled():
+    """`serve.generate` returns (B, gen) tokens with one latency per step;
+    greedy decoding follows the argmax of the logits, and sampling at a
+    temperature is reproducible from the generator's seed."""
+    from repro_torch.launch import serve
+    _, tcfg = _cfgs("float32")
+    params = factory.build(tcfg).init(torch.Generator().manual_seed(0))
+    prompts = torch.from_numpy(_tokens()).long()
+    toks, lats, cache, prefill_s = serve.generate(tcfg, params, prompts,
+                                                  MAX_LEN, GEN)
+    assert toks.shape == (B, GEN) and len(lats) == GEN and prefill_s > 0
+    assert int(cache["index"]) == S + GEN
+    logits, _ = steps.make_prefill(tcfg, MAX_LEN)(params, prompts)
+    assert torch.equal(toks[:, 0], logits.argmax(-1).to(torch.int32))
+    runs = [serve.generate(tcfg, params, prompts, MAX_LEN, GEN,
+                           temperature=0.8,
+                           generator=torch.Generator().manual_seed(3))[0]
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert int(runs[0].min()) >= 0 and int(runs[0].max()) < tcfg.vocab

@@ -15,6 +15,8 @@ import repro_torch
 from repro_torch import scenarios as TS
 from repro_torch.configs import firefly_snn
 from repro_torch.core import snn
+from repro_torch.launch import serve
+from repro_torch.models import factory
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -41,6 +43,18 @@ def test_every_module_imports_without_jax_or_repro():
     assert p.returncode == 0 and p.stdout.strip() == "ok", p.stderr
 
 
+def _mirrored(rel: Path) -> bool:
+    """repro has ``rel`` as a module or a package; a port package may also
+    mirror a directory of repro without ``__init__.py`` that holds one of
+    the port package's own modules."""
+    there = SRC / "repro" / rel
+    if there.with_suffix(".py").exists() or (there / "__init__.py").exists():
+        return True
+    here = SRC / "repro_torch" / rel
+    return any((there / p.name).exists() for p in here.glob("*.py")
+               if p.name != "__init__.py")
+
+
 def test_modules_mirror_the_jax_package():
     """Each port module has its counterpart at the same path in repro
     (the build helper and the converter are the port's own)."""
@@ -48,19 +62,27 @@ def test_modules_mirror_the_jax_package():
     for name in _modules():
         if name in own:
             continue
-        rel = Path(*name.split(".")[1:])
-        assert ((SRC / "repro" / rel).with_suffix(".py").exists()
-                or (SRC / "repro" / rel / "__init__.py").exists()), name
+        assert _mirrored(Path(*name.split(".")[1:])), name
+
+
+def test_lm_stack_is_walked():
+    """The LM stack's modules are among those held to the two tests
+    above."""
+    assert {"repro_torch.models.transformer", "repro_torch.models.plastic",
+            "repro_torch.kernels.attention.kernel",
+            "repro_torch.launch.serve"} <= set(_modules())
 
 
 def test_kernel_sources_ship_with_the_package():
     csrc = Path(repro_torch.__file__).parent / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {
         "fleet_step.cu", "rollout.cu", "shared_step.cu",
-        "rollout_shared.cu", "lif_forward.cu", "plasticity.cuh"}
+        "rollout_shared.cu", "lif_forward.cu", "flash_attention.cu",
+        "plasticity.cuh"}
 
 
-@pytest.mark.parametrize("entry", ("init_state", "run", "reset"))
+@pytest.mark.parametrize("entry", ("init_state", "run", "reset", "serve",
+                                   "init_cache"))
 def test_default_device_is_the_card(entry, monkeypatch):
     """With CUDA unavailable, an entry point without ``device=`` raises
     instead of returning CPU tensors."""
@@ -74,6 +96,10 @@ def test_default_device_is_the_card(entry, monkeypatch):
             scfg = TS.controller_config(env)
             TS.make_closed_loop(env, scfg, batch=2, steps=3).run(
                 TS.reference_rule(spec.env_name, scfg), 0)
+        elif entry == "serve":
+            serve.main(["--smoke", "--plastic", "--gen", "1"])
+        elif entry == "init_cache":
+            factory.build("qwen3-4b", smoke=True).init_cache(1, 8)
         else:
             TS.VectorEnv(env, 2).reset(0)
     st = snn.init_state(firefly_snn.CONFIG, batch=4, fleet=True,
