@@ -50,17 +50,38 @@ Phases, each fatal on failure:
      plain path's within 1e-4 of the largest logit and the greedy tokens
      are the same; 8c. the serve CLI at its defaults (4 x 32 + 16), each
      attention and fleet-step launch against its plain version on its own
-     inputs.
+     inputs;
+ 2d. the SSD-scan kernel against its plain version at mamba2-1.3b's
+     prefill shape (B = 4, L = 2048, H = 64, P = 64, S = 128), ragged
+     L = 1, 100 and 300, G = 2 groups by index, x, B and C cut from one
+     packed projection, bfloat16 and float32; and against the literal
+     recurrence at a small size;
+ 7c. the SSD-scan kernel's time at the prefill shape beside its bound and
+     its plain version;
+  9. phase 8 on random-init mamba2-1.3b (48 SSM layers, bf16): 48 SSD-scan
+     launches per prefill, 32 fleet-step launches per decode, the adapter
+     checks of phase 8, the bf16 full-depth comparison (beside two plain
+     paths that differ only in the SSD chunk, i.e. in summation order) and
+     the profile;
+     9b. at full width with 2 layers in float32 the kernel path's logits
+     equal the plain path's within 1e-4 of the largest logit with the same
+     greedy tokens, and the SSM state prefilled from a 300-token prompt
+     (a ragged last chunk) through the kernel equals the same prompt fed
+     token by token through the decode step within 2e-3; 9c. the serve CLI
+     at its defaults with ``--arch mamba2-1.3b``, each SSD-scan launch
+     against its plain version on its own inputs.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when there is no CUDA device or the package is not beside it.
+Each phase prints its seconds.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -92,7 +113,8 @@ SOURCES = {"fleet_step": CSRC + "fleet_step.cu",
            "shared_step": CSRC + "shared_step.cu",
            "shared_step_q": CSRC + "shared_step.cu",
            "lif_forward": CSRC + "lif_forward.cu",
-           "flash_attention": CSRC + "flash_attention.cu"}
+           "flash_attention": CSRC + "flash_attention.cu",
+           "ssd_scan": CSRC + "ssd.cu"}
 REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "fleet_step_q": "src/repro/kernels/plasticity/kernel.py:559",
             "rollout": "src/repro/kernels/plasticity/fused.py:304",
@@ -100,7 +122,8 @@ REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "shared_step": "src/repro/kernels/plasticity/kernel.py:132",
             "shared_step_q": "src/repro/kernels/plasticity/kernel.py:431",
             "lif_forward": "src/repro/kernels/lif/kernel.py:47",
-            "flash_attention": "src/repro/kernels/attention/kernel.py:79"}
+            "flash_attention": "src/repro/kernels/attention/kernel.py:79",
+            "ssd_scan": "src/repro/kernels/ssd/kernel.py:65"}
 
 
 def log(*a):
@@ -1188,6 +1211,137 @@ def time_attention(dev, results):
     torch.cuda.empty_cache()
 
 
+# ---- phase 2d: the SSD scan against its plain version -----------------------
+
+SSD_SHAPE = (LM_BATCH, 2048, 64, 64, 128)      # B, L, H, P, S at mamba2-1.3b
+SSD_CHUNK = 256                                # the model's chunk
+SSD_TOL = (2e-3, 2e-3)                         # float32; tests/test_kernels.py
+
+
+def bf16_step(t):
+    """One bfloat16 step at the largest |t| (8 significant bits)."""
+    m = float(t.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def ssd_close(got, want):
+    """One output of the SSD scan against its plain version: bfloat16 y
+    within one bf16 step of the largest |y| (both round a float32 result
+    once), float32 within rtol = atol = 2e-3."""
+    import torch
+    if got.dtype == torch.bfloat16:
+        err = float((got.float() - want.float()).abs().max())
+        return got.dtype == want.dtype and err <= bf16_step(want)
+    return got.dtype == want.dtype and torch.allclose(
+        got, want, rtol=SSD_TOL[0], atol=SSD_TOL[1])
+
+
+def ssd_inputs(gen, b, length, h, p, s, g, dtype, dev):
+    """x, B and C cut from one packed (B, L, H*P + 2*G*S) projection (x is
+    not contiguous), dt = softplus(N(0, 1)) and a = -exp(N(0, 0.25)): the
+    decay reaches exp(-100) and below within a chunk."""
+    import torch
+    import torch.nn.functional as F
+    packed = torch.randn(b, length, h * p + 2 * g * s, generator=gen,
+                         device=dev).to(dtype)
+    x = packed[..., :h * p].unflatten(-1, (h, p))
+    bm = packed[..., h * p:h * p + g * s].unflatten(-1, (g, s))
+    cm = packed[..., h * p + g * s:].unflatten(-1, (g, s))
+    dt = F.softplus(torch.randn(b, length, h, generator=gen, device=dev))
+    a = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+    return x, dt, a, bm, cm
+
+
+def compare_ssd(dev, results):
+    """#8 against `ssd_scan_plain` (the chunked form at the model's chunk)
+    on the same inputs: the prefill shape, ragged L = 1, 100 and 300,
+    G = 2, and the serve CLI's 32-token prompts; bfloat16 and float32.
+    Then the kernel against the literal recurrence at a small size."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as SK, ref as SR
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    b, length, h, p, s = SSD_SHAPE
+    cases = [("prefill", b, length, 1), ("L=1", b, 1, 1),
+             ("L=100", b, 100, 1), ("L=300", b, 300, 1),
+             ("G=2", 2, 300, 2), ("cli", b, 32, 1)]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for what, bb, ll, g in cases:
+            args = ssd_inputs(gen, bb, ll, h, p, s, g, dtype, dev)
+            got = SK.ssd_scan(*args)
+            want = SK.ssd_scan_plain(*args, chunk=SSD_CHUNK)
+            torch.cuda.synchronize()
+            errs = [float((x.float() - w.float()).abs().max())
+                    for x, w in zip(got, want)]
+            results["ssd_scan"]["max_abs_err"] = max(
+                results["ssd_scan"]["max_abs_err"], *errs)
+            require(got[0].shape == want[0].shape
+                    and got[1].shape == (bb, h, s, p)
+                    and all(ssd_close(x, w) for x, w in zip(got, want)),
+                    f"ssd_scan {dname} {what}: max err y {errs[0]}, state "
+                    f"{errs[1]} (y tolerance: "
+                    + ("one bf16 step" if dtype == torch.bfloat16
+                       else f"{SSD_TOL}") + f"; state {SSD_TOL})")
+            log(f"  ssd_scan {dname:8s} {what:7s} B={bb} L={ll} G={g}: "
+                f"max |err| y {errs[0]:.3g}, state {errs[1]:.3g}")
+            del args, got, want
+    args = ssd_inputs(gen, 2, 200, 8, p, s, 2, torch.float32, dev)
+    got, want = SK.ssd_scan(*args), SR.ssd_scan_ref(*args)
+    torch.cuda.synchronize()
+    errs = [float((x - w).abs().max()) for x, w in zip(got, want)]
+    require(all(ssd_close(x, w) for x, w in zip(got, want)),
+            f"ssd_scan float32 against the recurrence: max err {errs}")
+    log(f"  ssd_scan float32 against the literal recurrence (B=2 L=200 H=8 "
+        f"G=2): max |err| y {errs[0]:.3g}, state {errs[1]:.3g}")
+    torch.cuda.empty_cache()
+
+
+# ---- phase 7c: the SSD scan's time --------------------------------------------
+
+def ssd_bound(b, length, h, p, s, g, chunk, itemsize):
+    """Least time (ms) for the chunked SSD: x, B, C, dt and a read once, y
+    and the float32 state written once, at the memory rate, against the
+    FLOP of each (b, h, chunk of q rows) at the dense bf16 tensor-core
+    peak: the causal triangles of C B^T and G x, q(q+1)(S + P), and the
+    products C state and the state update, 2qSP each."""
+    nbytes = ((2 * b * length * h * p + 2 * b * length * g * s) * itemsize
+              + 4 * (b * length * h + h + b * h * s * p))
+    qs = [min(chunk, length - i) for i in range(0, length, chunk)]
+    flops = b * h * sum(q * (q + 1) * (s + p) + 4 * q * s * p for q in qs)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = flops / BF16_OPS_PER_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations", tb, to
+
+
+def time_ssd(dev, results):
+    """#8 at the prefill shape in bfloat16 (x, B, C cut from a packed
+    projection, as the model passes them), L2 flushed between calls, beside
+    its plain version; no single PyTorch call computes an SSD scan."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as SK
+    gen = torch.Generator(dev).manual_seed(SEED + 10)
+    b, length, h, p, s = SSD_SHAPE
+    args = ssd_inputs(gen, b, length, h, p, s, 1, torch.bfloat16, dev)
+    ms = device_ms(lambda: SK.ssd_scan(*args))
+    plain = device_ms(lambda: SK.ssd_scan_plain(*args, chunk=SSD_CHUNK),
+                      reps=5)
+    bms, kind, tb, to = ssd_bound(b, length, h, p, s, 1, SSD_CHUNK, 2)
+    per_sm = SK.blocks_per_sm(torch.bfloat16)
+    # one prompt: H = 64 CTAs on 132 SMs (printed, not in the kernels line)
+    one = [t[:1] for t in args[:2]] + [args[2]] + [t[:1] for t in args[3:]]
+    ms_b1 = device_ms(lambda: SK.ssd_scan(*one))
+    bms1 = ssd_bound(1, length, h, p, s, 1, SSD_CHUNK, 2)[0]
+    results["ssd_scan"].update(ms=ms, plain_ms=plain, library_ms=None,
+                               bound_ms=bms, bound_by=kind,
+                               blocks_per_sm=per_sm, ms_b1=ms_b1)
+    log(f"  ssd_scan bf16 B={b} L={length} H={h} P={p} S={s}: {ms:.4f} ms "
+        f"(bound {bms:.4f} ms by {kind}: bytes {tb:.4f} ms, operations "
+        f"{to:.4f} ms; plain {plain:.4f} ms; {b * h} CTAs, {per_sm} per SM)"
+        f"; B=1: {ms_b1:.4f} ms (bound {bms1:.4f} ms, {h} CTAs)")
+    del args, one
+    torch.cuda.empty_cache()
+
+
 # ---- phase 8: LM serving at full width --------------------------------------
 
 def serve_logits(cfg, params, prompts, gen, tokens=None):
@@ -1249,10 +1403,11 @@ def plain_adapter_step(*a, **kw):
         return plastic.decode_step(*a, **kw)
 
 
-def replay_launches(calls, plain, name, results, what, exact, tol):
+def replay_launches(calls, plain, name, results, what, exact, tol,
+                    close=None):
     """Each recorded call on the path, one launch of kernel ``name``,
     against ``plain`` on the same inputs: bit for bit if ``exact``, else
-    within ``tol = (rtol, atol)``."""
+    within ``tol = (rtol, atol)``, or as ``close(got, want)`` says."""
     import torch
     torch.cuda.synchronize()
     err = 0.0
@@ -1261,8 +1416,9 @@ def replay_launches(calls, plain, name, results, what, exact, tol):
         for g, w in zip(tensors(got), tensors(want)):
             e = float((g.double() - w.double()).abs().max())
             err = max(err, e)
-            require(torch.equal(g, w) if exact else torch.allclose(
-                        g.float(), w.float(), rtol=tol[0], atol=tol[1]),
+            require(torch.equal(g, w) if exact else close(g, w) if close
+                    else torch.allclose(g.float(), w.float(), rtol=tol[0],
+                                        atol=tol[1]),
                     f"{name} {what}: launch {i} differs from the plain "
                     f"version on its inputs (max err {e})")
     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
@@ -1272,13 +1428,26 @@ def replay_launches(calls, plain, name, results, what, exact, tol):
 
 def plain_kernels():
     """Patches that send the LM path through the plain versions: the plain
-    attention in the model and the plain fleet steps in the engine."""
+    attention and SSD scan in the model and the plain fleet steps in the
+    engine."""
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.plasticity import kernel as K
-    from repro_torch.models import attention as MA
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.models import attention as MA, ssm as MS
     return (mock.patch.object(MA, "attn_op", TA.flash_attention_plain),
+            mock.patch.object(MS, "ssd_op", SK.ssd_scan_plain),
             mock.patch.object(K, "fleet_step", K.fleet_step_plain),
             mock.patch.object(K, "fleet_step_q", K.fleet_step_q_plain))
+
+
+def lm_config(arch):
+    """The full-width config of ``arch`` and the wrapper of the kernel its
+    prefill launches once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.ssd import kernel as SK
+    cfg = get_config(arch)
+    return cfg, (SK.ssd_scan if cfg.layout == "ssm" else TA.flash_attention)
 
 
 def rel_err(got, want):
@@ -1300,19 +1469,19 @@ def replay_adapter(cfg, params, hs, dev):
     return state
 
 
-def lm_path(dev, counters, every, results):
-    """Serve 4 x 2048-token prompts with 32 greedy tokens on random-init,
-    full-width qwen3-4b (36 layers, bf16), the plastic adapter in float32
-    then int8, through `launch.serve.generate`: each datapath once to warm
-    up, then once timed.  Every counter is set to 0 just before the timed
-    run and read just after it."""
+def lm_path(dev, counters, every, results, arch="qwen3-4b"):
+    """Serve 4 x 2048-token prompts with 32 greedy tokens on random-init
+    ``arch`` at full width and depth (qwen3-4b: 36 attention layers;
+    mamba2-1.3b: 48 SSM layers; bf16), the plastic adapter in float32 then
+    int8, through `launch.serve.generate`: each datapath once to warm up,
+    then once timed.  Every counter is set to 0 just before the timed run
+    and read just after it."""
     import torch
-    from repro_torch.configs import qwen3_4b
-    from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.plasticity import kernel as K
     from repro_torch.launch import serve
     from repro_torch.models import factory, plastic
-    cfg = qwen3_4b.CONFIG.with_(plastic_adapter=True, adapter_neurons=128)
+    cfg, mixer = lm_config(arch)
+    cfg = cfg.with_(plastic_adapter=True, adapter_neurons=128)
     model = factory.build(cfg)
     gen = torch.Generator(dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1320,7 +1489,7 @@ def lm_path(dev, counters, every, results):
     prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
                             generator=gen, device=dev)
     torch.cuda.synchronize()
-    log(f"  qwen3-4b: {model.n_params() / 1e9:.3f} B parameters, random "
+    log(f"  {arch}: {model.n_params() / 1e9:.3f} B parameters, random "
         f"init in {time.perf_counter() - t0:.1f} s")
     out, total = {}, {c.__name__: 0 for c in counters}
     for quant in (False, True):
@@ -1337,9 +1506,9 @@ def lm_path(dev, counters, every, results):
                 qcfg, params, prompts, LM_PROMPT + LM_GEN, LM_GEN)
         torch.cuda.synchronize()
         launches = {c.__name__: c.launches for c in counters}
-        require(TA.flash_attention.launches == cfg.n_layers,
-                f"{mode}: {TA.flash_attention.launches} attention launches "
-                f"in one prefill, want {cfg.n_layers}")
+        require(mixer.launches == cfg.n_layers,
+                f"{mode}: {mixer.launches} {mixer.__name__} launches in one "
+                f"prefill, want {cfg.n_layers}")
         require(step.launches == LM_GEN,
                 f"{mode}: {step.launches} {step.__name__} launches in "
                 f"{LM_GEN} decode steps, want {LM_GEN}")
@@ -1382,20 +1551,37 @@ def lm_path(dev, counters, every, results):
                 f"plain fleet steps on the same hidden states (not gated): "
                 f"max |diff| {err:.3g}, share outside 1e-4 {share:.3g}")
         del cache, ad, steps, state
-    # full depth, bf16: kernel path against the plain path (not gated)
+    # full depth, bf16: kernel path against the plain path (not gated);
+    # for the SSM layout also two plain paths that differ only in the SSD
+    # chunk length, i.e. in float32 summation order: how far bf16 rounding
+    # alone moves this random-init model
     got, toks = serve_logits(cfg, params, prompts, LM_GEN)
     with contextlib.ExitStack() as stack:
         for p in plain_kernels():
             stack.enter_context(p)
         want, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
-    agree = float(torch.stack([g.argmax(-1) == w.argmax(-1)
-                               for g, w in zip(got, want)]).float().mean())
-    err = rel_err(got, want)
-    out["bf16_full_depth"] = dict(max_rel_logit_diff=err,
-                                  greedy_agreement=agree)
-    log(f"  bf16, {cfg.n_layers} layers, kernel vs plain path: max rel "
-        f"logit diff {err:.3g}, greedy agreement {agree:.3f}")
-    del got, want
+        if cfg.layout == "ssm":
+            from repro_torch.kernels.ssd import kernel as SK
+            from repro_torch.models import ssm as MS
+            stack.enter_context(mock.patch.object(
+                MS, "ssd_op", lambda *a, chunk: SK.ssd_scan_plain(
+                    *a, chunk=64)))
+            other, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
+    pairs = [("kernel vs plain path", got, want)]
+    if cfg.layout == "ssm":
+        pairs.append(("plain path, chunk 64 vs 256", other, want))
+    out["bf16_full_depth"] = {}
+    for what, x, y in pairs:
+        agree = float(torch.stack([g.argmax(-1) == w.argmax(-1)
+                                   for g, w in zip(x, y)]).float().mean())
+        err, err0 = rel_err(x, y), rel_err(x[:1], y[:1])
+        out["bf16_full_depth"][what] = dict(
+            max_rel_logit_diff=err, prefill_rel_logit_diff=err0,
+            greedy_agreement=agree)
+        log(f"  bf16, {cfg.n_layers} layers, {what}: max rel logit diff "
+            f"{err:.3g} (prefill logits {err0:.3g}), greedy agreement "
+            f"{agree:.3f}")
+    del got, want, pairs
     # profile one prefill, then 8 decode steps after it
     from repro_torch.launch.steps import make_decode_step, make_prefill
     prefill = make_prefill(cfg, LM_PROMPT + 8)
@@ -1419,17 +1605,17 @@ def lm_path(dev, counters, every, results):
     return out, total
 
 
-def lm_depth2_matches(dev):
+def lm_depth2_matches(dev, arch="qwen3-4b"):
     """Full width, 2 layers, float32: prefill and decode logits through the
     kernels equal the plain path's within 1e-4 of the largest logit, and
     the greedy tokens are the same."""
     import torch
-    from repro_torch.configs import qwen3_4b
     from repro_torch.models import factory
     for quant in (False, True):
-        cfg = qwen3_4b.CONFIG.with_(n_layers=2, dtype="float32",
-                                    plastic_adapter=True,
-                                    adapter_neurons=128, adapter_quant=quant)
+        cfg = lm_config(arch)[0].with_(n_layers=2, dtype="float32",
+                                       plastic_adapter=True,
+                                       adapter_neurons=128,
+                                       adapter_quant=quant)
         gen = torch.Generator(dev).manual_seed(SEED + 1)
         params = factory.build(cfg).init(gen)
         prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
@@ -1447,36 +1633,80 @@ def lm_depth2_matches(dev):
                 f"2-layer float32 ({mode} adapter): kernel path differs from "
                 f"the plain path (max rel logit diff {err:.3g}, greedy "
                 f"tokens {'equal' if same else 'differ'})")
-        log(f"  2 layers, float32, {mode} adapter: max rel logit diff "
+        log(f"  {arch}, 2 layers, float32, {mode} adapter: max rel logit diff "
             f"{err:.3g} over prefill + {LM_GEN} steps, greedy tokens equal")
         del params, got, want
         torch.cuda.empty_cache()
 
 
-def serve_cli_default(results):
-    """`python -m repro_torch.launch.serve --plastic` at its defaults
-    (qwen3-4b, 4 prompts of 32 tokens, 16 generated), in this process;
-    each attention and fleet-step launch of the run is then held against
-    its plain version on its own inputs."""
+def ssm_state_matches(dev):
+    """Full width, 2 layers, float32: the SSM state and conv window that a
+    300-token prompt (a ragged last chunk) leaves in the cache through #8
+    equal the same prompt fed token by token through `decode_step` from a
+    zeroed cache, within 2e-3."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.models import factory
+    cfg = lm_config("mamba2-1.3b")[0].with_(n_layers=2, dtype="float32")
+    model = factory.build(cfg)
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    params = model.init(gen)
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, 300), generator=gen,
+                           device=dev)
+    launches = SK.ssd_scan.launches
+    _, got = model.prefill(params, prompt, 300)
+    require(SK.ssd_scan.launches == launches + cfg.n_layers,
+            "the 300-token prefill did not launch ssd_scan per layer")
+    want = model.init_cache(LM_BATCH, 300, device=dev)
+    for t in range(prompt.shape[1]):
+        _, want = model.decode_step(params, want, prompt[:, t:t + 1])
+    torch.cuda.synchronize()
+    for k in ("ssm", "conv"):
+        g, w = got["segments"][0][k], want["segments"][0][k]
+        err = float((g - w).abs().max())
+        require(torch.allclose(g, w, rtol=SSD_TOL[0], atol=SSD_TOL[1]),
+                f"prefilled {k} state differs from the token-by-token "
+                f"recurrence: max err {err} (scale {float(w.abs().max())})")
+        log(f"  prefilled {k} state of a 300-token prompt against 300 decode "
+            f"steps: max |err| {err:.3g} (largest |value| "
+            f"{float(w.abs().max()):.3g})")
+    del params, got, want
+    torch.cuda.empty_cache()
+
+
+def serve_cli_default(results, arch="qwen3-4b"):
+    """`python -m repro_torch.launch.serve --arch <arch> --plastic` at its
+    defaults (4 prompts of 32 tokens, 16 generated), in this process; each
+    attention or SSD-scan launch and each fleet-step launch of the run is
+    then held against its plain version on its own inputs."""
     import io
     import torch
     from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.launch import serve
-    from repro_torch.models import attention as MA, plastic
-    buf, attn, steps = io.StringIO(), [], []
+    from repro_torch.models import attention as MA, plastic, ssm as MS
+    cfg, mixer = lm_config(arch)
+    ssm = cfg.layout == "ssm"
+    buf, mixes, steps = io.StringIO(), [], []
     with contextlib.redirect_stdout(buf), \
-            recording(MA, "attn_op", attn), \
+            recording(MS if ssm else MA, "ssd_op" if ssm else "attn_op",
+                      mixes), \
             recording(plastic, "decode_step", steps):
-        rc = serve.main(["--plastic"])
+        rc = serve.main(["--arch", arch, "--plastic"])
     out = json.loads(buf.getvalue())
-    require(rc == 0 and out["launches"]["flash_attention"] == 36
+    name = mixer.__name__
+    require(rc == 0 and out["launches"][name] == cfg.n_layers
             and out["launches"]["fleet_step"] == 16,
             f"serve CLI default: rc {rc}, launches {out['launches']}")
-    replay_launches(attn, TA.flash_attention_plain, "flash_attention",
-                    results, "serve CLI", False, ATTN_TOL["bfloat16"])
+    if ssm:
+        replay_launches(mixes, SK.ssd_scan_plain, name, results,
+                        "serve CLI", False, None, close=ssd_close)
+    else:
+        replay_launches(mixes, TA.flash_attention_plain, name, results,
+                        "serve CLI", False, ATTN_TOL["bfloat16"])
     replay_launches(steps, plain_adapter_step, "fleet_step", results,
                     "serve CLI (adapter steps)", False, (1e-5, 1e-5))
-    del attn, steps
+    del mixes, steps
     log(f"  serve CLI default (4 x 32 + 16): prefill {out['prefill_ms']:.1f}"
         f" ms, decode p50 {out['decode_ms_p50']:.3f} ms, "
         f"{out['tokens_per_s']:.1f} tokens/s, launches {out['launches']}")
@@ -1510,25 +1740,38 @@ def main() -> int:
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.lif import kernel as L
     from repro_torch.kernels.plasticity import fused, kernel as K
+    from repro_torch.kernels.ssd import kernel as SK
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     t_all = time.perf_counter()
 
-    log("phase 1: build")
-    info = _build.build_all()
-    log(f"  built {len(info['log'])} sources in {info['seconds']:.1f} s")
-    for src, text in info["log"].items():
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+    seconds = {}
+
+    @contextlib.contextmanager
+    def phase(title):
+        """Log the phase's title, then its seconds when it ends."""
+        log(title)
+        t0 = time.perf_counter()
+        yield
+        seconds[title.split(":")[0]] = dt = time.perf_counter() - t0
+        log(f"  ({title.split(':')[0]}: {dt:.1f} s)")
+
+    with phase("phase 1: build"):
+        info = _build.build_all()
+        log(f"  built {len(info['log'])} sources in {info['seconds']:.1f} s")
+        for src, text in info["log"].items():
+            for line in text.splitlines():
+                if "Used" in line or "spill" in line:
+                    log(f"  {src}: {line.strip()}")
 
     counters = (K.fleet_step, K.fleet_step_q, fused.rollout)
     online_counters = (fused.rollout_shared, K.shared_step, K.shared_step_q,
                        L.lif_forward)
-    lm_counters = (TA.flash_attention, K.fleet_step, K.fleet_step_q)
-    every = counters + online_counters + (TA.flash_attention,)
+    lm_counters = (TA.flash_attention, SK.ssd_scan, K.fleet_step,
+                   K.fleet_step_q)
+    every = counters + online_counters + (TA.flash_attention, SK.ssd_scan)
     results = {name: {"name": name, "route": "cuda",
                       "source": SOURCES[name], "replaces": REPLACES[name],
                       "launches": 0, "max_abs_err": 0.0, "ms": None,
@@ -1536,52 +1779,69 @@ def main() -> int:
                       "library_ms": None}
                for name in SOURCES}
 
-    log("phase 2: kernels against their plain versions")
-    compare_fleet_steps(dev, results)
-    compare_rollouts(dev, results)
-    compare_shared_steps(dev, results)
-    compare_shared_rollouts(dev, results)
-    compare_lif(dev, results)
-    log("phase 2c: flash attention against its plain version")
-    compare_attention(dev, results)
+    with phase("phase 2: kernels against their plain versions"):
+        compare_fleet_steps(dev, results)
+        compare_rollouts(dev, results)
+        compare_shared_steps(dev, results)
+        compare_shared_rollouts(dev, results)
+        compare_lif(dev, results)
+    with phase("phase 2c: flash attention against its plain version"):
+        compare_attention(dev, results)
+    with phase("phase 2d: the SSD scan against its plain version"):
+        compare_ssd(dev, results)
 
-    log("phase 3: recovery gate")
-    recovery_gate(dev)
+    with phase("phase 3: recovery gate"):
+        recovery_gate(dev)
 
-    log("phase 4: main path, 8-128-8 controller, B = 4096")
-    main, launches = main_path(dev, counters, every)
-    for name, n in launches.items():
-        results[name]["launches"] = n
-    plain_closed_loop_matches(dev, main)
-    log("phase 4b: where the closed loop's time goes (20 control steps)")
-    profiled = profile_closed_loop(dev, main)
+    with phase("phase 4: main path, 8-128-8 controller, B = 4096"):
+        main, launches = main_path(dev, counters, every)
+        for name, n in launches.items():
+            results[name]["launches"] = n
+        plain_closed_loop_matches(dev, main)
+    with phase("phase 4b: where the closed loop's time goes (20 control "
+               "steps)"):
+        profiled = profile_closed_loop(dev, main)
 
-    log("phase 5: timing")
-    time_kernels(dev, results)
+    with phase("phase 5: timing"):
+        time_kernels(dev, results)
 
-    log("phase 6: online-learning path, 784-1024-10, T = 8, B = 1")
-    online, online_launches = online_path(dev, online_counters, every)
-    for name, n in online_launches.items():
-        results[name]["launches"] = n
-    plain_stream_matches(dev, online)
-    log("phase 6b: where the online stream's time goes (10 digits)")
-    profiled_online = profile_online(online)
+    with phase("phase 6: online-learning path, 784-1024-10, T = 8, B = 1"):
+        online, online_launches = online_path(dev, online_counters, every)
+        for name, n in online_launches.items():
+            results[name]["launches"] = n
+        plain_stream_matches(dev, online)
+    with phase("phase 6b: where the online stream's time goes (10 digits)"):
+        profiled_online = profile_online(online)
 
-    log("phase 7: Table II timings and the new kernels (L2 flushed)")
-    table = table2(dev, online)
-    time_new_kernels(dev, results)
-    log("phase 7b: the attention kernel at the prefill shape (L2 flushed)")
-    time_attention(dev, results)
+    with phase("phase 7: Table II timings and the new kernels (L2 "
+               "flushed)"):
+        table = table2(dev, online)
+        time_new_kernels(dev, results)
+    with phase("phase 7b: the attention kernel at the prefill shape (L2 "
+               "flushed)"):
+        time_attention(dev, results)
+    with phase("phase 7c: the SSD scan at the prefill shape (L2 flushed)"):
+        time_ssd(dev, results)
 
-    log("phase 8: LM serving, qwen3-4b at full width, B = 4, prompt 2048, "
-        "32 generated tokens, plastic adapter")
-    lm, lm_launches = lm_path(dev, lm_counters, every, results)
-    results["flash_attention"]["launches"] = lm_launches["flash_attention"]
-    log("phase 8b: 2 layers at full width in float32, kernels against the "
-        "plain path")
-    lm_depth2_matches(dev)
-    log("phase 8c: the serve CLI at its defaults")
-    lm["serve_cli_default"] = serve_cli_default(results)
+    lm, lm_launches = {}, {}
+    for tag, arch, n_mix in (("8", "qwen3-4b", "36 attention"),
+                             ("9", "mamba2-1.3b", "48 SSM")):
+        with phase(f"phase {tag}: LM serving, {arch} at full width "
+                   f"({n_mix} layers), B = 4, prompt 2048, 32 generated "
+                   f"tokens, plastic adapter"):
+            lm[arch], lm_launches[arch] = lm_path(dev, lm_counters, every,
+                                                  results, arch)
+        with phase(f"phase {tag}b: {arch}, 2 layers at full width in "
+                   f"float32, kernels against the plain path"):
+            lm_depth2_matches(dev, arch)
+            if arch == "mamba2-1.3b":
+                ssm_state_matches(dev)
+        with phase(f"phase {tag}c: the serve CLI at its defaults, --arch "
+                   f"{arch}"):
+            lm[arch]["serve_cli_default"] = serve_cli_default(results, arch)
+    results["flash_attention"]["launches"] = \
+        lm_launches["qwen3-4b"]["flash_attention"]
+    results["ssd_scan"]["launches"] = lm_launches["mamba2-1.3b"]["ssd_scan"]
 
     for r in results.values():
         lib = (f", library {r['library_ms']:.4f} ms"
@@ -1591,6 +1851,7 @@ def main() -> int:
             f"{r['bound_by']}{lib}), {r['launches']} launches")
     for name in ("rollout", "rollout_shared"):
         log(f"  {name} int8: {json.dumps(results[name]['int8'])}")
+    log(f"  phase seconds: {json.dumps(seconds)}")
 
     report = {"kernels": list(results.values()),
               "main_path": {m: {"control_steps_per_s": v["rate"],
@@ -1604,6 +1865,7 @@ def main() -> int:
               "lm_path": lm, "lm_launches": lm_launches,
               "profile": profiled, "profile_online": profiled_online,
               "build_seconds": info["seconds"], "card": smi,
+              "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_all}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

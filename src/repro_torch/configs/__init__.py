@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["qwen3-4b", "firefly-snn"]
+ARCHS = ["qwen3-4b", "mamba2-1.3b", "firefly-snn"]
 # the JAX package's other LM archs, in ROADMAP order
-PENDING = ["mamba2-1.3b", "zamba2-7b", "deepseek-moe-16b", "grok-1-314b",
+PENDING = ["zamba2-7b", "deepseek-moe-16b", "grok-1-314b",
            "qwen2-72b", "internlm2-20b", "qwen1.5-32b", "musicgen-medium",
            "pixtral-12b"]
 

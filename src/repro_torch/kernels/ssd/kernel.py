@@ -1,0 +1,139 @@
+"""The chunked SSD scan: wrapper of ``csrc/ssd.cu`` and its plain version.
+
+`ssd_scan` takes x (B, L, H, P) and B, C (B, L, G, S) in float32 or
+bfloat16 (one dtype), read in that layout through their strides (the last
+dim must be contiguous), dt (B, L, H) and a (H,) in float32, and returns
+y (B, L, H, P) in x's dtype and the final state (B, H, S, P) in float32,
+from a zero state.  Head h reads B/C group ``h // (H / G)``: the groups are
+never repeated to heads.  Any L: the kernel masks the ragged tail, the
+plain version pads it with dt = 0 steps (exact no-ops), so the final state
+does not depend on the padding.  A CPU tensor takes the plain version
+(`ssd_scan_plain`, the chunked form at ``chunk``); a CUDA tensor launches
+the kernel, which tiles the sequence its own way (``chunk`` does not reach
+it), and counts it in ``ssd_scan.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.plasticity.kernel import on_card, stream_of
+from repro_torch.kernels.ssd import ref as _ref
+
+MAX_HEAD_DIM = 64                 # P the kernel's tiles hold
+MAX_STATE = 128                   # S the kernel's tiles hold (a multiple of 4)
+SUB_BLOCK = 64                    # rows of one step of the kernel's walk
+# one CTA's shared memory, recomputed by the C launcher (which refuses a
+# disagreeing count): x (64 x 64), B and C (64 x 128 each) and the state
+# (128 x 64) as float32, and dt, the log-decay and the update weights (64
+# each); 115,456 bytes, so that two CTAs share an SM
+SMEM_BYTES = 4 * (SUB_BLOCK * MAX_HEAD_DIM + 2 * SUB_BLOCK * MAX_STATE
+                  + MAX_STATE * MAX_HEAD_DIM + 3 * SUB_BLOCK)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+class _SsdArgs(ctypes.Structure):
+    """``SsdArgs`` of csrc/ssd.cu (strides in elements)."""
+    _fields_ = [(name, _P) for name in ("x", "dt", "a", "b", "c", "y",
+                                        "state")] + [
+        (name, _L) for name in ("x_sb", "x_sl", "x_sh", "dt_sb", "dt_sl",
+                                "dt_sh", "b_sb", "b_sl", "b_sg", "c_sb",
+                                "c_sl", "c_sg")] + [
+        (name, _I) for name in ("batch", "length", "heads", "groups",
+                                "head_dim", "state_dim", "dtype")]
+
+
+def ssd_scan_plain(x, dt, a, bmat, c, *, chunk: int = 64):
+    """The chunked form on any L: padded to a multiple of ``chunk`` with
+    dt = 0 steps, y cut back to L."""
+    length = x.shape[1]
+    pad = (-length) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, 0, 0, pad))
+    y, state = _ref.ssd_chunked_ref(x, dt, a, bmat, c, chunk=chunk)
+    return y[:, :length], state
+
+
+def _check(x, dt, a, bmat, c):
+    b, length, h, p = x.shape
+    if bmat.ndim != 4 or bmat.shape[:2] != (b, length) \
+            or c.shape != bmat.shape:
+        raise ValueError(f"B and C must be (B, L, G, S) with B = {b}, "
+                         f"L = {length}; got {tuple(bmat.shape)}, "
+                         f"{tuple(c.shape)}")
+    g, s = bmat.shape[2], bmat.shape[3]
+    if h % g:
+        raise ValueError(f"{g} groups do not divide {h} heads")
+    if tuple(dt.shape) != (b, length, h) or tuple(a.shape) != (h,):
+        raise ValueError(f"dt must be (B, L, H) = {(b, length, h)} and a "
+                         f"(H,); got {tuple(dt.shape)}, {tuple(a.shape)}")
+    if not 1 <= p <= MAX_HEAD_DIM or not 1 <= s <= MAX_STATE or s % 4:
+        raise ValueError(f"the SSD kernel is built for head_dim <= "
+                         f"{MAX_HEAD_DIM} and a state <= {MAX_STATE} that is "
+                         f"a multiple of 4; got P = {p}, S = {s}")
+    if x.dtype not in _DTYPE_CODE or bmat.dtype != x.dtype \
+            or c.dtype != x.dtype:
+        raise ValueError(f"the SSD kernel takes float32 or bfloat16 x, B, C "
+                         f"of one dtype; got {x.dtype}, {bmat.dtype}, "
+                         f"{c.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"dt and a must be float32; got {dt.dtype}, "
+                         f"{a.dtype}")
+    for name, t in (("dt", dt), ("a", a), ("B", bmat), ("C", c)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    for name, t in (("x", x), ("B", bmat), ("C", c)):
+        if t.numel() and t.stride(-1) != 1:
+            raise ValueError(f"{name}: the kernel reads the last dim "
+                             f"contiguously; got strides {t.stride()}")
+
+
+def ssd_scan(x, dt, a, bmat, c, *, chunk: int = 64):
+    """x (B,L,H,P), dt (B,L,H), a (H,), bmat/c (B,L,G,S) ->
+    (y (B,L,H,P), state_final (B,H,S,P))."""
+    if not on_card(x):
+        return ssd_scan_plain(x, dt, a, bmat, c, chunk=chunk)
+    _check(x, dt, a, bmat, c)
+    b, length, h, p = x.shape
+    g, s = bmat.shape[2], bmat.shape[3]
+    a = a.contiguous()
+    y = torch.empty((b, length, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, h, s, p), dtype=torch.float32, device=x.device)
+    if state.numel() == 0:
+        return y, state
+    args = _SsdArgs(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                    bmat.data_ptr(), c.data_ptr(), y.data_ptr(),
+                    state.data_ptr(), *x.stride()[:3], *dt.stride(),
+                    *bmat.stride()[:3], *c.stride()[:3],
+                    b, length, h, g, p, s, _DTYPE_CODE[x.dtype])
+    fn = _build.library("ssd.cu").ssd_scan
+    fn.argtypes = [ctypes.POINTER(_SsdArgs), ctypes.c_size_t, _P]
+    fn.restype = ctypes.c_int
+    _build.check(fn(ctypes.byref(args), SMEM_BYTES, stream_of(x)),
+                 "ssd_scan")
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0
+
+
+def blocks_per_sm(dtype=torch.bfloat16) -> int:
+    """CTAs of the kernel that one SM holds at once (CUDA's occupancy
+    calculator, after the launcher's shared-memory attributes)."""
+    fn = _build.library("ssd.cu").ssd_blocks_per_sm
+    fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], ctypes.c_int
+    out = _I(0)
+    _build.check(fn(_DTYPE_CODE[dtype], ctypes.byref(out)),
+                 "ssd_blocks_per_sm")
+    return out.value

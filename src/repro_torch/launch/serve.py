@@ -1,4 +1,5 @@
-"""Batched serving driver: prefill + lockstep greedy decode with a KV cache,
+"""Batched serving: prefill + lockstep greedy decode with a KV cache
+(or, for ``--arch mamba2-1.3b``, an SSD state and conv window per layer),
 optionally with the FireFly-P plastic adapter (one online plasticity step
 per generated token).
 
@@ -6,9 +7,10 @@ per generated token).
         --smoke --batch 4 --prompt-len 32 --gen 16 --plastic --device cpu
 
 On a CUDA device every prefill attention launches the flash-attention
-kernel and every decode step with ``--plastic`` launches the fleet-step
-kernel (``--adapter-quant``: its fixed-point twin); on the CPU the same
-code runs the kernels' plain versions.  Weights are random, drawn from
+kernel, every prefill SSM block the SSD-scan kernel, and every decode step
+with ``--plastic`` the fleet-step kernel (``--adapter-quant``: its
+fixed-point twin); on the CPU the same code runs the kernels' plain
+versions.  Weights are random, drawn from
 ``--seed``.  Prints one JSON object with the decode latencies, the
 throughput and the kernel launches of the run.
 """
@@ -24,10 +26,11 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.snn import resolve_device
 from repro_torch.kernels.attention.kernel import flash_attention
 from repro_torch.kernels.plasticity.kernel import fleet_step, fleet_step_q
+from repro_torch.kernels.ssd.kernel import ssd_scan
 from repro_torch.launch.steps import make_decode_step, make_prefill
 from repro_torch.models import factory
 
-COUNTERS = (flash_attention, fleet_step, fleet_step_q)
+COUNTERS = (flash_attention, ssd_scan, fleet_step, fleet_step_q)
 
 
 def _sync(device: torch.device) -> None:

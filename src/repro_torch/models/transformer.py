@@ -1,15 +1,20 @@
-"""Decoder-only LM, the ``dense`` layout: GQA attention + SwiGLU MLP blocks
-(qwen3 and the other dense archs).
+"""Decoder-only LM as a sequence of SEGMENTS, each a stack of identical
+blocks:
+
+  dense — GQA attention + SwiGLU MLP     (qwen3 and the other dense archs)
+  ssm   — Mamba2 SSD block               (mamba2)
 
 The parameters keep the JAX package's tree: ``segments`` is a list of
 segments whose leaves are stacked over the segment's layers, and where the
 JAX package scans over that stack the port runs a Python loop over it.
-The MoE, SSM and hybrid layouts are not ported yet and raise.
+The MoE and hybrid layouts are not ported yet and raise.
 
 Entry points:
   plan / init                        — parameter plan and random init
   forward                            — full-sequence logits (or hidden)
   cache_plan / init_cache / prefill / decode_step — serving with a KV cache
+                                       (dense) or an SSD state and conv
+                                       window (ssm) per layer
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ from typing import Any
 import torch
 
 from repro_torch.core.snn import resolve_device
-from repro_torch.models import attention, plastic
+from repro_torch.models import attention, plastic, ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamDesc, init_from_plan, param_count,
                                        rms_norm, swiglu)
@@ -27,9 +32,11 @@ from repro_torch.models.layers import (ParamDesc, init_from_plan, param_count,
 def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
     if cfg.layout == "dense":
         return [("dense", cfg.n_layers)]
+    if cfg.layout == "ssm":
+        return [("ssm", cfg.n_layers)]
     raise NotImplementedError(
         f"layout {cfg.layout!r} is not ported to repro_torch yet "
-        f"(ROADMAP.md, Queue 1 item 9); the port carries 'dense'")
+        f"(ROADMAP.md, Queue 1 item 9); the port carries 'dense' and 'ssm'")
 
 
 def _mlp_plan(cfg: ModelConfig, d_ff: int, stack: int = 0) -> dict:
@@ -47,13 +54,18 @@ def _mlp_plan(cfg: ModelConfig, d_ff: int, stack: int = 0) -> dict:
     }
 
 
+def _segment_plan(cfg: ModelConfig, kind: str, count: int) -> dict:
+    if kind == "ssm":
+        return ssm_mod.plan(cfg, stack=count)
+    return {"attn": attention.plan(cfg, stack=count),
+            "mlp": _mlp_plan(cfg, cfg.d_ff, stack=count)}
+
+
 def plan(cfg: ModelConfig) -> dict:
     d, v = cfg.d_model, cfg.vocab
     p: dict[str, Any] = {
         "embed": ParamDesc((v, d), scale=1.0, fan_in=d, dtype=cfg.dtype),
-        "segments": [{"attn": attention.plan(cfg, stack=n),
-                      "mlp": _mlp_plan(cfg, cfg.d_ff, stack=n)}
-                     for _, n in segments(cfg)],
+        "segments": [_segment_plan(cfg, k, n) for k, n in segments(cfg)],
         "final_norm": ParamDesc((d,), init="ones", dtype=cfg.dtype),
     }
     if not cfg.tie_embeddings:
@@ -69,7 +81,8 @@ def init(cfg: ModelConfig, generator: torch.Generator):
 
 def _layer(seg: dict, i: int) -> dict:
     """Layer ``i`` of a stacked segment (views, no copies)."""
-    return {blk: {k: t[i] for k, t in ps.items()} for blk, ps in seg.items()}
+    return {k: _layer(t, i) if isinstance(t, dict) else t[i]
+            for k, t in seg.items()}
 
 
 def _mlp_apply(p, x, cfg: ModelConfig):
@@ -81,25 +94,34 @@ def _head_w(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _block(kind: str, p, h, cfg: ModelConfig):
+    """One block of ``kind``: (h, its cache leaves)."""
+    if kind == "ssm":
+        h, state, conv = ssm_mod.apply(p, h, cfg)
+        return h, (state, conv)
+    h, kv = attention.apply(p["attn"], h, cfg)
+    return _mlp_apply(p["mlp"], h, cfg), kv
+
+
 def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
             head: bool = True):
     """inputs: tokens (B,S) int (or embeddings (B,S,D) for
     ``input_mode="embeddings"``).  Returns logits (B,S,V), or with
     ``head=False`` the final normed hidden state (B,S,D).
-    ``collect_cache(segment, layer, k, v)``, if given, receives every
-    layer's keys and values (B,S,KV,HD) as they are made."""
+    ``collect_cache(segment, layer, *leaves)``, if given, receives every
+    layer's cache leaves as they are made: the keys and values (B,S,KV,HD)
+    of an attention block, the final SSD state (B,H,S,P) and the raw conv
+    tail (B,<=W-1,C) of an SSM block."""
     if cfg.input_mode == "embeddings" and inputs.ndim == 3:
         h = inputs.to(cfg.adtype)
     else:
         h = params["embed"][inputs]
-    for seg_idx, (_, count) in enumerate(segments(cfg)):
+    for seg_idx, (kind, count) in enumerate(segments(cfg)):
         seg = params["segments"][seg_idx]
         for i in range(count):
-            p = _layer(seg, i)
-            h, (k, v) = attention.apply(p["attn"], h, cfg)
-            h = _mlp_apply(p["mlp"], h, cfg)
+            h, leaves = _block(kind, _layer(seg, i), h, cfg)
             if collect_cache is not None:
-                collect_cache(seg_idx, i, k, v)
+                collect_cache(seg_idx, i, *leaves)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if not head:
         return h
@@ -112,15 +134,19 @@ def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
 
 
 def cache_plan(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """The decode cache: per segment a ``(L, B, max_len, KV, HD)`` K and V,
-    the scalar ``index`` (positions resident, every stream in lockstep) and,
-    with the adapter, its per-stream state."""
+    """The decode cache: per segment a ``(L, B, max_len, KV, HD)`` K and V
+    (dense) or a ``(L, B, H, S, P)`` float32 SSD state and ``(L, B, W-1, C)``
+    conv window (ssm), the scalar ``index`` (positions resident, every
+    stream in lockstep) and, with the adapter, its per-stream state."""
     if cfg.kv_quant:
         raise NotImplementedError(
             "the int8 KV cache (kv_quant) is not ported yet (ROADMAP.md, "
             "Queue 1 item 9)")
     segs = []
-    for _, count in segments(cfg):
+    for kind, count in segments(cfg):
+        if kind == "ssm":
+            segs.append(ssm_mod.plan_cache(cfg, batch, count))
+            continue
         kv = ParamDesc((count, batch, max_len, cfg.n_kv_heads, cfg.hd),
                        init="zeros", dtype=cfg.dtype)
         segs.append({"k": kv, "v": kv})
@@ -145,9 +171,11 @@ def prefill(params, inputs, cfg: ModelConfig, max_len: int):
         raise ValueError(f"prompt of {s} tokens does not fit max_len "
                          f"{max_len}")
     cache = init_cache(cfg, bsz, max_len, device=params["embed"].device)
+    kinds = [kind for kind, _ in segments(cfg)]
 
-    def put(seg, layer, k, v):
-        _embed_kv(cache["segments"][seg], layer, k, v)
+    def put(seg, layer, *leaves):
+        embed = _embed_ssm if kinds[seg] == "ssm" else _embed_kv
+        embed(cache["segments"][seg], layer, *leaves)
 
     hidden = forward(params, inputs, cfg, collect_cache=put, head=False)
     logits = hidden[:, -1] @ _head_w(params, cfg)
@@ -163,17 +191,29 @@ def _embed_kv(seg_cache: dict, layer: int, k, v):
     seg_cache["v"][layer, :, :s] = v
 
 
+def _embed_ssm(seg_cache: dict, layer: int, state, conv_tail):
+    """Place one layer's prefilled SSD state and raw conv tail in its slot
+    of the cache; a prompt shorter than the conv window leaves the zeros of
+    the missing history before it."""
+    seg_cache["ssm"][layer] = state
+    seg_cache["conv"][layer, :, -conv_tail.shape[1]:] = conv_tail
+
+
 def _decode_backbone(params, cache, tokens, cfg: ModelConfig):
     """Embed + all layers for ONE new token per stream, tokens (B,1); the
     cache is written in place.  Returns (h (B,1,D) before the final norm,
     the new index)."""
     index = cache["index"]
     h = params["embed"][tokens]
-    for seg_idx, (_, count) in enumerate(segments(cfg)):
+    for seg_idx, (kind, count) in enumerate(segments(cfg)):
         seg = params["segments"][seg_idx]
         c = cache["segments"][seg_idx]
         for i in range(count):
             p = _layer(seg, i)
+            if kind == "ssm":
+                h, _, _ = ssm_mod.decode_step(p, h, c["ssm"][i],
+                                              c["conv"][i], cfg)
+                continue
             h, _, _ = attention.decode_step(p["attn"], h, c["k"][i],
                                             c["v"][i], index, cfg)
             h = _mlp_apply(p["mlp"], h, cfg)

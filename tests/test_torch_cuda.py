@@ -11,7 +11,10 @@ int8 is held bit for bit; float32 within rtol = atol = 1e-5 (the kernels sum
 the psum in fan-in order, the plain versions as a batched product).  The
 attention kernel's bfloat16 output within rtol 2e-2, atol 2e-3: both compute
 in float32 and round once, so they differ by at most a bf16 step where the
-float32 sums straddle a rounding boundary.
+float32 sums straddle a rounding boundary.  The SSD scan walks the sequence
+in other sub-blocks than the plain chunked form, so float32 is held within
+rtol = atol = 2e-3 (the JAX package's bound between its chunked form and
+the recurrence) and bfloat16 y within one bf16 step of the largest |y|.
 """
 import numpy as np
 import pytest
@@ -453,3 +456,108 @@ def test_lm_prefill_launches_attention_kernel_per_layer(cuda_device):
     torch.testing.assert_close(cache["segments"][0]["k"],
                                want_cache["segments"][0]["k"], rtol=1e-4,
                                atol=1e-4)
+
+
+# (B, L, H, P, S, G): one token, a ragged 100 with G = 2, a ragged 300,
+# mamba2-1.3b's head (P = 64, S = 128) over an exact 128, and the smoke
+# config's small head (P = S = 16)
+SSD_CASES = [(2, 1, 4, 64, 128, 1), (2, 100, 4, 64, 128, 2),
+             (1, 300, 8, 64, 128, 1), (2, 128, 2, 64, 128, 1),
+             (3, 70, 4, 16, 16, 1)]
+SSD_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def _ssd_inputs(gen, b, length, h, p, s, g, dtype, dev):
+    """x, B and C cut from one packed (B, L, H*P + 2*G*S) projection (x is
+    not contiguous), as the Mamba2 block hands them to the kernel."""
+    packed = torch.randn(b, length, h * p + 2 * g * s, generator=gen,
+                         device=dev).to(dtype)
+    x = packed[..., :h * p].unflatten(-1, (h, p))
+    bm = packed[..., h * p:h * p + g * s].unflatten(-1, (g, s))
+    cm = packed[..., h * p + g * s:].unflatten(-1, (g, s))
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, length, h, generator=gen, device=dev))
+    a = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+    return x, dt, a, bm, cm
+
+
+def _bf16_step(t):
+    """One bfloat16 step at the largest |t|."""
+    m = float(t.float().abs().max())
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("float32", "bfloat16"))
+def test_ssd_kernel_matches_plain_on_card(dtype, cuda_device):
+    """y and the final state against the plain chunked form (chunk 256, the
+    model's, and 64); float32 y within 2e-3, bfloat16 y within one bf16
+    step of the largest |y|; the state (float32) within 2e-3."""
+    from repro_torch.kernels.ssd import kernel as TS
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    launches = TS.ssd_scan.launches
+    for b, length, h, p, s, g in SSD_CASES:
+        args = _ssd_inputs(gen, b, length, h, p, s, g, dtype, cuda_device)
+        y, st = TS.ssd_scan(*args)
+        for chunk in (256, 64):
+            want_y, want_st = TS.ssd_scan_plain(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            assert y.dtype == dtype and y.shape == want_y.shape
+            assert st.dtype == torch.float32 and st.shape == (b, h, s, p)
+            if dtype == torch.float32:
+                torch.testing.assert_close(y, want_y, **SSD_TOL)
+            else:
+                err = float((y.float() - want_y.float()).abs().max())
+                assert err <= _bf16_step(want_y), (length, err)
+            torch.testing.assert_close(st, want_st, **SSD_TOL)
+    assert TS.ssd_scan.launches == launches + len(SSD_CASES)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_matches_the_recurrence_on_card(cuda_device):
+    from repro_torch.kernels.ssd import kernel as TS, ref as TR
+    gen = torch.Generator(cuda_device).manual_seed(10)
+    args = _ssd_inputs(gen, 2, 150, 4, 64, 128, 2, torch.float32,
+                       cuda_device)
+    y, st = TS.ssd_scan(*args)
+    want_y, want_st = TR.ssd_scan_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, **SSD_TOL)
+    torch.testing.assert_close(st, want_st, **SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_through_strides_on_card(cuda_device):
+    """x, B and C cut from the packed projection give the same bits as
+    contiguous copies."""
+    from repro_torch.kernels.ssd import kernel as TS
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    args = _ssd_inputs(gen, 2, 333, 8, 64, 128, 2, torch.bfloat16,
+                       cuda_device)
+    got = TS.ssd_scan(*args)
+    want = TS.ssd_scan(*(t.contiguous() for t in args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_mamba2_prefill_launches_ssd_kernel_per_layer(cuda_device):
+    """A smoke-size mamba2 prefill on the card launches the SSD kernel once
+    per layer and matches the same prefill through the plain version."""
+    from repro_torch.kernels.ssd import kernel as TS
+    from repro_torch.models import factory
+    from repro_torch.models import ssm as MS
+    model = factory.build("mamba2-1.3b", smoke=True, dtype="float32")
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    toks = torch.randint(0, model.cfg.vocab, (2, 70), device=cuda_device)
+    launches = TS.ssd_scan.launches
+    logits, cache = model.prefill(params, toks, 80)
+    assert TS.ssd_scan.launches == launches + model.cfg.n_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(MS, "ssd_op", TS.ssd_scan_plain)
+        want, want_cache = model.prefill(params, toks, 80)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache["segments"][0]["ssm"],
+                               want_cache["segments"][0]["ssm"], **SSD_TOL)

@@ -1,9 +1,11 @@
-"""The port's LM serving path against the JAX reference, on qwen3-4b's
-smoke config with the plastic adapter.
+"""The port's LM serving path against the JAX reference, on the smoke
+configs of qwen3-4b (the ``dense`` layout) and mamba2-1.3b (``ssm``) with
+the plastic adapter.
 
 The JAX parameters (``model.init``) are carried into the port by
 `convert.lm_params`; the JAX side runs jitted ``make_prefill`` /
-``make_decode_step``.  float32: logits within rtol = atol = 1e-4 and the
+``make_decode_step`` (its prefill through each of two attention or SSD
+implementations).  float32: logits within rtol = atol = 1e-4 and the
 same greedy tokens at every step.  bfloat16: both round at the same places
 (`rms_norm`, `rope`, every product, the attention output), but sums run in
 other orders and silu rounds once where XLA's CPU expansion rounds after
@@ -12,6 +14,7 @@ few; they are held within 2e-2 of the largest logit.  The
 adapter on the same hidden states: the int8 datapath bit for bit, float32
 within 1e-5.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,36 +40,47 @@ from repro_torch.models import factory, plastic, transformer
 from repro_torch.models.layers import leaves
 
 ROOT = Path(__file__).resolve().parents[1]
-B, S, GEN = 2, 40, 4
+B, S, GEN = 2, 40, 4          # S = 40 is ragged in mamba2's 16-token chunks
 MAX_LEN = S + GEN
+ARCHS = ("qwen3-4b", "mamba2-1.3b")
+# the JAX prefill's two implementations of each layout's sequence mixer
+IMPL_KW = {"qwen3-4b": "attn_impl", "mamba2-1.3b": "ssd_impl"}
 
 
-def _cfgs(dtype="float32", quant=False, **kw):
+def _cfgs(dtype="float32", quant=False, arch="qwen3-4b", **kw):
     over = dict(dtype=dtype, plastic_adapter=True, adapter_neurons=128,
                 adapter_quant=quant, **kw)
-    return (j_get_smoke("qwen3-4b").with_(**over),
-            get_smoke("qwen3-4b").with_(**over))
+    return (j_get_smoke(arch).with_(**over), get_smoke(arch).with_(**over))
 
 
 @pytest.fixture(scope="module")
 def jax_params():
-    """JAX parameters per dtype (one init each, shared by the tests)."""
-    return {dt: j_factory.build(_cfgs(dt)[0]).init(jax.random.PRNGKey(0))
-            for dt in ("float32", "bfloat16")}
+    """JAX parameters per (arch, dtype): one init each, made at first use
+    and shared by the tests."""
+    made = {}
+
+    def get(arch, dtype):
+        if (arch, dtype) not in made:
+            made[arch, dtype] = j_factory.build(
+                _cfgs(dtype, arch=arch)[0]).init(jax.random.PRNGKey(0))
+        return made[arch, dtype]
+    return get
 
 
-def _tokens():
-    return np.random.default_rng(0).integers(0, 512, (B, S)).astype(np.int32)
+def _tokens(vocab=512):
+    return np.random.default_rng(0).integers(0, vocab, (B, S)).astype(
+        np.int32)
 
 
-def _run(dtype, quant, attn_impl, params):
+def _run(arch, dtype, quant, impl, params):
     """Prefill + GEN greedy decode steps in both packages; JAX's greedy
     tokens feed both.  Returns per-step (jax logits, port logits) and the
     final adapter states."""
-    jcfg, tcfg = _cfgs(dtype, quant)
+    jcfg, tcfg = _cfgs(dtype, quant, arch)
     tparams = convert.lm_params(params, tcfg, "cpu")
-    toks = _tokens()
-    jl, jc = jax.jit(j_make_prefill(jcfg, MAX_LEN, attn_impl=attn_impl))(
+    toks = _tokens(tcfg.vocab)
+    jl, jc = jax.jit(j_make_prefill(jcfg, MAX_LEN,
+                                    **{IMPL_KW[arch]: impl}))(
         params, jnp.asarray(toks))
     tl, tc = steps.make_prefill(tcfg, MAX_LEN)(
         tparams, torch.from_numpy(toks).long())
@@ -82,12 +96,15 @@ def _run(dtype, quant, attn_impl, params):
     return pairs, jc["adapter"], tc["adapter"]
 
 
-@pytest.mark.parametrize("attn_impl", ("xla_flash", "xla"))
+@pytest.mark.parametrize("arch,impl", (
+    ("qwen3-4b", "xla_flash"), ("qwen3-4b", "xla"),
+    ("mamba2-1.3b", "xla"), ("mamba2-1.3b", "scan")))
 @pytest.mark.parametrize("quant", (False, True), ids=("f32-adapter",
                                                       "int8-adapter"))
-def test_float32_prefill_and_decode_match_jax(quant, attn_impl, jax_params):
-    pairs, jad, tad = _run("float32", quant, attn_impl,
-                           jax_params["float32"])
+def test_float32_prefill_and_decode_match_jax(quant, arch, impl,
+                                              jax_params):
+    pairs, jad, tad = _run(arch, "float32", quant, impl,
+                           jax_params(arch, "float32"))
     for step, (a, b) in enumerate(pairs):
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4,
                                    err_msg=f"step {step}")
@@ -103,9 +120,11 @@ def test_float32_prefill_and_decode_match_jax(quant, attn_impl, jax_params):
     assert np.abs(tad["w_fast"].numpy()).max() > 0      # the rule ran
 
 
-def test_bfloat16_prefill_and_decode_match_jax(jax_params):
-    pairs, _, _ = _run("bfloat16", False, "xla_flash",
-                       jax_params["bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bfloat16_prefill_and_decode_match_jax(arch, jax_params):
+    impl = "xla_flash" if arch == "qwen3-4b" else "xla"
+    pairs, _, _ = _run(arch, "bfloat16", False, impl,
+                       jax_params(arch, "bfloat16"))
     for step, (a, b) in enumerate(pairs):
         err = np.abs(a - b).max()
         assert err <= 2e-2 * np.abs(a).max(), (step, err)
@@ -129,7 +148,7 @@ def test_adapter_decode_step_matches_jax(quant, masked, jax_params):
     """``masked``: slot 1 is vacant and must stay bit-frozen."""
     jcfg, tcfg = _cfgs("float32", quant)
     active = np.array([1, 0], np.int32) if masked else None
-    params = dict(jax_params["float32"]["adapter"])
+    params = dict(jax_params("qwen3-4b", "float32")["adapter"])
     h, p_in = _adapter_inputs(6)
     params["p_in"] = jnp.asarray(p_in)
     params["scale"] = jnp.asarray(0.5, jnp.float32)
@@ -165,11 +184,12 @@ def test_adapter_decode_step_matches_jax(quant, masked, jax_params):
             assert torch.equal(tstate[k][1], v[1]), k
 
 
-def test_lm_params_round_trip(jax_params):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_params_round_trip(arch, jax_params):
     """Every JAX leaf lands at its path in the port's tree with its shape,
     dtype and bits; the port's own plan has the same leaves."""
-    jcfg, tcfg = _cfgs("bfloat16")
-    params = jax_params["bfloat16"]
+    jcfg, tcfg = _cfgs("bfloat16", arch=arch)
+    params = jax_params(arch, "bfloat16")
     tparams = convert.lm_params(params, tcfg, "cpu")
     jleaves = jax.tree.leaves(params)
     tleaves = leaves(transformer.plan(tcfg))
@@ -190,25 +210,33 @@ def test_lm_params_round_trip(jax_params):
         convert.lm_params(bad, tcfg, "cpu")
 
 
-def test_configs_and_plans_match_jax():
+@pytest.mark.parametrize("arch,least", (("qwen3-4b", 4.0e9),
+                                        ("mamba2-1.3b", 1.3e9)), ids=ARCHS)
+def test_configs_and_plans_match_jax(arch, least):
     """Every field the port keeps equals the JAX config's, and the full
-    config's parameter count equals the JAX package's."""
-    for jc, tc in ((j_get_config("qwen3-4b"), get_config("qwen3-4b")),
-                   (j_get_smoke("qwen3-4b"), get_smoke("qwen3-4b"))):
+    config's parameter count (counted from the plan, nothing allocated)
+    equals the JAX package's."""
+    for jc, tc in ((j_get_config(arch), get_config(arch)),
+                   (j_get_smoke(arch), get_smoke(arch))):
         for f in tc.__dataclass_fields__:
-            assert getattr(tc, f) == getattr(jc, f), f
+            mine, theirs = getattr(tc, f), getattr(jc, f)
+            if dataclasses.is_dataclass(mine):        # MoEConfig, SSMConfig
+                mine, theirs = (dataclasses.asdict(mine),
+                                dataclasses.asdict(theirs))
+            assert mine == theirs, f
     for plastic_on in (False, True):
         over = dict(plastic_adapter=plastic_on, adapter_neurons=128)
-        assert (factory.build("qwen3-4b", **over).n_params()
-                == j_factory.build("qwen3-4b", **over).n_params())
-    assert factory.build("qwen3-4b").n_params() > 4.0e9
+        assert (factory.build(arch, **over).n_params()
+                == j_factory.build(arch, **over).n_params())
+    assert factory.build(arch).n_params() > least
 
 
 def test_unported_archs_and_layouts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.build("mamba2-1.3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.build(get_smoke("qwen3-4b").with_(layout="moe"))
+        factory.build("zamba2-7b")
+    for layout in ("moe", "hybrid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            factory.build(get_smoke("qwen3-4b").with_(layout=layout))
     with pytest.raises(KeyError):
         factory.build("no-such-arch")
     with pytest.raises(TypeError, match="firefly-snn"):
@@ -218,10 +246,11 @@ def test_unported_archs_and_layouts_raise():
         transformer.init_cache(cfg, 1, 8, device="cpu")
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
-def test_serve_cli_runs_on_cpu(quant):
+def test_serve_cli_runs_on_cpu(quant, arch):
     args = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
-            "--device", "cpu", "--plastic", "--batch", "2",
+            "--arch", arch, "--device", "cpu", "--plastic", "--batch", "2",
             "--prompt-len", "12", "--gen", "3"]
     if quant:
         args.append("--adapter-quant")
@@ -230,21 +259,22 @@ def test_serve_cli_runs_on_cpu(quant):
                        timeout=240, cwd=ROOT)
     assert p.returncode == 0, p.stderr
     out = json.loads(p.stdout)
-    assert out["arch"] == "qwen3-4b-smoke" and out["plastic"]
+    assert out["arch"] == f"{arch}-smoke" and out["plastic"]
     assert out["adapter_quant"] == quant and out["generated"] == 3
     assert out["decode_ms_p50"] > 0 and out["tokens_per_s"] > 0
     # the CPU runs the plain versions: no kernel was launched
     assert set(out["launches"].values()) == {0}
 
 
-def test_generate_greedy_and_sampled():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_greedy_and_sampled(arch):
     """`serve.generate` returns (B, gen) tokens with one latency per step;
     greedy decoding follows the argmax of the logits, and sampling at a
     temperature is reproducible from the generator's seed."""
     from repro_torch.launch import serve
-    _, tcfg = _cfgs("float32")
+    _, tcfg = _cfgs("float32", arch=arch)
     params = factory.build(tcfg).init(torch.Generator().manual_seed(0))
-    prompts = torch.from_numpy(_tokens()).long()
+    prompts = torch.from_numpy(_tokens(tcfg.vocab)).long()
     toks, lats, cache, prefill_s = serve.generate(tcfg, params, prompts,
                                                   MAX_LEN, GEN)
     assert toks.shape == (B, GEN) and len(lats) == GEN and prefill_s > 0

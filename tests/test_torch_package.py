@@ -69,7 +69,8 @@ def test_lm_stack_is_walked():
     """The LM stack's modules are among those held to the two tests
     above."""
     assert {"repro_torch.models.transformer", "repro_torch.models.plastic",
-            "repro_torch.kernels.attention.kernel",
+            "repro_torch.models.ssm", "repro_torch.kernels.attention.kernel",
+            "repro_torch.kernels.ssd.kernel",
             "repro_torch.launch.serve"} <= set(_modules())
 
 
@@ -78,7 +79,7 @@ def test_kernel_sources_ship_with_the_package():
     assert {p.name for p in csrc.iterdir()} >= {
         "fleet_step.cu", "rollout.cu", "shared_step.cu",
         "rollout_shared.cu", "lif_forward.cu", "flash_attention.cu",
-        "plasticity.cuh"}
+        "ssd.cu", "plasticity.cuh"}
 
 
 @pytest.mark.parametrize("entry", ("init_state", "run", "reset", "serve",

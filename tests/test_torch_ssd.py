@@ -1,0 +1,272 @@
+"""The port's SSD scan (`kernels.ssd`) and Mamba2 block (`models.ssm`)
+against the JAX reference.
+
+On CPU tensors `kernels.ssd.ssd` takes its plain version (the chunked form,
+the length padded with dt = 0 steps).  The JAX side runs under ``jax.jit``
+on the same numpy-seeded inputs: its literal recurrence (``impl="scan"``),
+its chunked oracle (``impl="xla"``) and the TPU kernel ``ssd_pallas`` in the
+Pallas interpreter (``impl="pallas"``), at the shapes of the JAX package's
+own SSD test.  The port against JAX's same form: within 1e-5 of the largest
+|y| (and of the largest |state|).  The chunked form against the recurrence:
+rtol = atol = 2e-3, the JAX package's own bound (``tests/test_kernels.py``).
+The JAX side takes B and C per head; the port takes them per group and
+indexes group ``h // (H / G)``, so a G = 2 case feeds JAX the repeated
+groups.  The Mamba2 block at mamba2-1.3b's SMOKE config in float32: within
+1e-5 of the largest output.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke as j_get_smoke
+from repro.kernels.ssd import ref as j_ref
+from repro.kernels.ssd import ssd as j_ssd
+from repro.kernels.ssd import ssd_decode_step as j_decode_step
+from repro.models import ssm as j_ssm
+from repro.models.layers import init_from_plan as j_init_from_plan
+from repro_torch import convert
+from repro_torch.configs import get_smoke
+from repro_torch.kernels.ssd import kernel as TK
+from repro_torch.kernels.ssd import ref, ssd, ssd_decode_step
+from repro_torch.models import ssm
+
+# (B, L, H, P, S, chunk): the JAX package's test_ssd_matches_scan shapes
+# (L = 100 takes the padding path) and a ragged 300 over 64-row chunks
+SHAPES = {"16": (1, 16, 2, 8, 4, 8), "64": (2, 64, 4, 16, 8, 16),
+          "100": (1, 100, 2, 32, 16, 32), "300": (2, 300, 4, 16, 8, 64)}
+SAME_FORM = 1e-5                     # port vs JAX, relative to the largest
+CHUNK_VS_SCAN = dict(rtol=2e-3, atol=2e-3)
+
+
+def _inputs(b, length, h, p, s, groups=None, seed=0):
+    """numpy float32 x, dt, a and per-group B, C (G = H unless given)."""
+    rng = np.random.default_rng(seed + 7 * length + h)
+    g = h if groups is None else groups
+    x = rng.standard_normal((b, length, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, length, h)))).astype(
+        np.float32)
+    a = (-np.exp(0.1 * rng.standard_normal(h))).astype(np.float32)
+    bm = rng.standard_normal((b, length, g, s)).astype(np.float32)
+    cm = rng.standard_normal((b, length, g, s)).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+def _per_head(t, h):
+    return np.repeat(t, h // t.shape[2], axis=2)
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.array(t)) for t in arrays]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ssd(impl, chunk):
+    return jax.jit(functools.partial(j_ssd, impl=impl, chunk=chunk,
+                                     interpret=impl == "pallas"))
+
+
+def _close(got, want, tol=SAME_FORM):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_scan_ref_matches_jax_scan(shape):
+    b, length, h, p, s, chunk = SHAPES[shape]
+    arrays = _inputs(b, length, h, p, s)
+    jy, js = _jax_ssd("scan", chunk)(*map(jnp.asarray, arrays))
+    ty, ts = ref.ssd_scan_ref(*_torch(*arrays))
+    _close(ty.numpy(), jy)
+    _close(ts.numpy(), js)
+
+
+@pytest.mark.parametrize("impl", ("xla", "pallas"))
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_ssd_matches_jax_chunked(shape, impl):
+    """`ops.ssd` on CPU tensors (the chunked form, padded where L is not a
+    multiple of the chunk) against the JAX chunked oracle and the Pallas
+    kernel in the interpreter."""
+    b, length, h, p, s, chunk = SHAPES[shape]
+    arrays = _inputs(b, length, h, p, s)
+    jy, js = _jax_ssd(impl, chunk)(*map(jnp.asarray, arrays))
+    launches = TK.ssd_scan.launches
+    ty, ts = ssd(*_torch(*arrays), chunk=chunk)
+    assert TK.ssd_scan.launches == launches     # the CPU launches nothing
+    assert ty.shape == (b, length, h, p) and ts.shape == (b, h, s, p)
+    _close(ty.numpy(), jy)
+    _close(ts.numpy(), js)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_chunked_matches_scan(shape):
+    b, length, h, p, s, chunk = SHAPES[shape]
+    args = _torch(*_inputs(b, length, h, p, s))
+    y, st = ssd(*args, chunk=chunk)
+    y_ref, st_ref = ref.ssd_scan_ref(*args)
+    torch.testing.assert_close(y, y_ref, **CHUNK_VS_SCAN)
+    torch.testing.assert_close(st, st_ref, **CHUNK_VS_SCAN)
+
+
+@pytest.mark.parametrize("impl", ("scan", "xla", "pallas"))
+def test_groups_are_indexed_not_repeated(impl):
+    """G = 2 groups over 8 heads at L = 100 (the padding path): the port's
+    per-group B and C give what JAX gives on the repeated per-head ones."""
+    b, length, h, p, s, chunk = 2, 100, 8, 16, 8, 32
+    x, dt, a, bm, cm = _inputs(b, length, h, p, s, groups=2)
+    jy, js = _jax_ssd(impl, chunk)(
+        *map(jnp.asarray, (x, dt, a, _per_head(bm, h), _per_head(cm, h))))
+    args = _torch(x, dt, a, bm, cm)
+    ty, ts = (ref.ssd_scan_ref(*args) if impl == "scan"
+              else ssd(*args, chunk=chunk))
+    _close(ty.numpy(), jy)
+    _close(ts.numpy(), js)
+
+
+@pytest.mark.parametrize("form", ("scan", "chunked"))
+def test_initial_state_matches_jax(form):
+    b, length, h, p, s, chunk = 2, 64, 4, 16, 8, 16
+    arrays = _inputs(b, length, h, p, s)
+    state0 = np.random.default_rng(3).standard_normal(
+        (b, h, s, p)).astype(np.float32)
+    if form == "scan":
+        jfn = jax.jit(j_ref.ssd_scan_ref)
+        tfn = ref.ssd_scan_ref
+    else:
+        jfn = jax.jit(functools.partial(j_ref.ssd_chunked_ref, chunk=chunk))
+        tfn = functools.partial(ref.ssd_chunked_ref, chunk=chunk)
+    jy, js = jfn(*map(jnp.asarray, arrays), jnp.asarray(state0))
+    ty, ts = tfn(*_torch(*arrays), torch.from_numpy(state0))
+    _close(ty.numpy(), jy)
+    _close(ts.numpy(), js)
+
+
+@pytest.mark.parametrize("length", (1, 100, 300))
+def test_final_state_does_not_depend_on_padding(length):
+    """A ragged length padded to the chunk gives the recurrence's final
+    state and outputs: dt = 0 steps are exact no-ops."""
+    args = _torch(*_inputs(2, length, 4, 16, 8, groups=2))
+    for chunk in (16, 64, 256):
+        y, st = ssd(*args, chunk=chunk)
+        y_ref, st_ref = ref.ssd_scan_ref(*args)
+        assert y.shape == y_ref.shape
+        torch.testing.assert_close(y, y_ref, **CHUNK_VS_SCAN)
+        torch.testing.assert_close(st, st_ref, **CHUNK_VS_SCAN)
+
+
+@pytest.mark.parametrize("groups", (1, 2))
+def test_decode_step_matches_jax_in_place(groups):
+    b, h, p, s = 2, 4, 8, 16
+    rng = np.random.default_rng(11 + groups)
+    state = rng.standard_normal((b, h, s, p)).astype(np.float32)
+    x, dt, a, bm, cm = _inputs(b, 1, h, p, s, groups=groups, seed=groups)
+    jst, jy = jax.jit(j_decode_step)(
+        jnp.asarray(state), jnp.asarray(x[:, 0]), jnp.asarray(dt[:, 0]),
+        jnp.asarray(a), jnp.asarray(_per_head(bm, h)[:, 0]),
+        jnp.asarray(_per_head(cm, h)[:, 0]))
+    tstate = torch.from_numpy(state.copy())
+    tx, tdt, ta, tb, tc = _torch(x, dt, a, bm, cm)
+    got_state, ty = ssd_decode_step(tstate, tx[:, 0], tdt[:, 0], ta,
+                                    tb[:, 0], tc[:, 0])
+    assert got_state is tstate                    # written in place
+    assert ty.dtype == torch.float32
+    _close(ty.numpy(), jy)
+    _close(tstate.numpy(), jst)
+
+
+def test_decode_steps_reproduce_the_scan():
+    """Token by token through `ssd_decode_step` from a zero state gives the
+    full-sequence scan's outputs and final state."""
+    b, length, h, p, s = 2, 12, 4, 8, 4
+    x, dt, a, bm, cm = _torch(*_inputs(b, length, h, p, s, groups=2))
+    y_ref, st_ref = ssd(x, dt, a, bm, cm, chunk=8)
+    state = torch.zeros((b, h, s, p))
+    ys = [ssd_decode_step(state, x[:, t], dt[:, t], a, bm[:, t],
+                          cm[:, t])[1] for t in range(length)]
+    torch.testing.assert_close(torch.stack(ys, 1), y_ref, **CHUNK_VS_SCAN)
+    torch.testing.assert_close(state, st_ref, **CHUNK_VS_SCAN)
+
+
+def test_wrapper_refuses_other_devices():
+    args = [t.to("meta") for t in _torch(*_inputs(1, 8, 2, 8, 4))]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        TK.ssd_scan(*args)
+
+
+# ---- the Mamba2 block at mamba2-1.3b's SMOKE config, float32 ------------
+
+def _block_params():
+    """One layer's JAX parameters, with the zero/one-initialised vectors
+    drawn from numpy so that every term of the block is exercised."""
+    jcfg = j_get_smoke("mamba2-1.3b").with_(dtype="float32")
+    params = dict(j_init_from_plan(j_ssm.plan(jcfg), jax.random.PRNGKey(4)))
+    rng = np.random.default_rng(4)
+    for k in ("a_log", "dt_bias", "conv_b", "norm", "out_norm", "d_skip"):
+        base = 1.0 if k in ("norm", "out_norm", "d_skip") else 0.0
+        params[k] = jnp.asarray(base + 0.3 * rng.standard_normal(
+            params[k].shape), jnp.float32)
+    tparams = {k: convert.tensor(np.asarray(v), "cpu")
+               for k, v in params.items()}
+    tcfg = get_smoke("mamba2-1.3b").with_(dtype="float32")
+    return jcfg, tcfg, params, tparams
+
+
+@pytest.mark.parametrize("length", (40, 2))
+def test_ssm_apply_matches_jax(length):
+    """Prefill through the block: output, final SSD state and the raw conv
+    tail (L = 2 is shorter than the conv window)."""
+    jcfg, tcfg, params, tparams = _block_params()
+    x = np.random.default_rng(length).standard_normal(
+        (2, length, tcfg.d_model)).astype(np.float32)
+    jout, jst, jtail = jax.jit(
+        lambda p, v: j_ssm.apply(p, v, jcfg, impl="xla"))(params,
+                                                          jnp.asarray(x))
+    tout, tst, ttail = ssm.apply(tparams, torch.from_numpy(x), tcfg)
+    _close(tout.numpy(), jout)
+    _close(tst.numpy(), jst)
+    _close(ttail.numpy(), jtail)
+
+
+def test_ssm_decode_step_matches_jax_in_place():
+    jcfg, tcfg, params, tparams = _block_params()
+    rng = np.random.default_rng(9)
+    _, n_heads, d_xbc = ssm.dims(tcfg)
+    s = tcfg.ssm
+    st = rng.standard_normal((2, n_heads, s.state, s.head_dim)).astype(
+        np.float32)
+    cv = rng.standard_normal((2, s.conv_width - 1, d_xbc)).astype(
+        np.float32)
+    jstep = jax.jit(lambda p, v, a, c: j_ssm.decode_step(p, v, a, c, jcfg))
+    tst, tcv = torch.from_numpy(st.copy()), torch.from_numpy(cv.copy())
+    for t in range(3):
+        x = rng.standard_normal((2, 1, tcfg.d_model)).astype(np.float32)
+        jout, st, cv = jstep(params, jnp.asarray(x), jnp.asarray(st),
+                             jnp.asarray(cv))
+        tout, got_st, got_cv = ssm.decode_step(tparams, torch.from_numpy(x),
+                                               tst, tcv, tcfg)
+        assert got_st is tst and got_cv is tcv     # written in place
+        _close(tout.numpy(), jout)
+        _close(tst.numpy(), st)
+        _close(tcv.numpy(), cv)
+
+
+def test_plans_match_jax():
+    """The block's and the cache's plans have the JAX package's leaves."""
+    jcfg, tcfg = j_get_smoke("mamba2-1.3b"), get_smoke("mamba2-1.3b")
+    jplan = j_ssm.plan(jcfg, stack=3)
+    tplan = ssm.plan(tcfg, stack=3)
+    assert set(jplan) == set(tplan)
+    for k, d in tplan.items():
+        assert tuple(d.shape) == tuple(jplan[k].shape), k
+        assert d.dtype == jplan[k].dtype and d.init == jplan[k].init, k
+    jc, tc = j_ssm.plan_cache(jcfg, 2, 3), ssm.plan_cache(tcfg, 2, 3)
+    for k in ("ssm", "conv"):
+        assert tuple(tc[k].shape) == tuple(jc[k].shape)
+        assert tc[k].dtype == jc[k].dtype
+    assert dataclasses.asdict(tcfg.ssm) == dataclasses.asdict(jcfg.ssm)
