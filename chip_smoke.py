@@ -69,7 +69,24 @@ Phases, each fatal on failure:
      (a ragged last chunk) through the kernel equals the same prompt fed
      token by token through the decode step within 2e-3; 9c. the serve CLI
      at its defaults with ``--arch mamba2-1.3b``, each SSD-scan launch
-     against its plain version on its own inputs.
+     against its plain version on its own inputs;
+ 2e. the telemetry variants of the fleet-step and rollout kernels against
+     their plain versions at 8-128-8, B = 4096, 3/4 of the slots active and
+     a teaching signal: the fleet steps at 8->128 and 128->8, the rollout
+     at K = 4 and 16, float32 and int8; each launch's state equals the same
+     launch without telemetry bit for bit, its row equals the plain
+     version's bit for bit (int8) or within 2e-4 (float32), vacant rows 0;
+     phase 5 also times each variant beside its telemetry-off twin;
+ 10. session serving at full width: `FleetScheduler` on 8-128-8 with 4096
+     slots and a `SessionStore` on disk, float32 and int8: 4096 sessions
+     admitted from 8192 users, 24 windows under churn (2% of the residents
+     leave before each, as many arrive; one rollout launch per window, the
+     telemetry variant on every 4th), then 16 per-event telemetry steps;
+     a probe moved through disk into another slot continues bit for bit
+     as without the move, 256 vacant slots stay frozen over 8 windows,
+     the static signatures and loaded libraries stay constant after
+     warm-up, 8 windows are profiled, and the int8 run repeated through
+     the plain versions gives the same final pool and persisted sessions.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -114,7 +131,10 @@ SOURCES = {"fleet_step": CSRC + "fleet_step.cu",
            "shared_step_q": CSRC + "shared_step.cu",
            "lif_forward": CSRC + "lif_forward.cu",
            "flash_attention": CSRC + "flash_attention.cu",
-           "ssd_scan": CSRC + "ssd.cu"}
+           "ssd_scan": CSRC + "ssd.cu",
+           "fleet_step_telemetry": CSRC + "fleet_step.cu",
+           "fleet_step_q_telemetry": CSRC + "fleet_step.cu",
+           "rollout_telemetry": CSRC + "rollout.cu"}
 REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "fleet_step_q": "src/repro/kernels/plasticity/kernel.py:559",
             "rollout": "src/repro/kernels/plasticity/fused.py:304",
@@ -123,7 +143,11 @@ REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "shared_step_q": "src/repro/kernels/plasticity/kernel.py:431",
             "lif_forward": "src/repro/kernels/lif/kernel.py:47",
             "flash_attention": "src/repro/kernels/attention/kernel.py:79",
-            "ssd_scan": "src/repro/kernels/ssd/kernel.py:65"}
+            "ssd_scan": "src/repro/kernels/ssd/kernel.py:65",
+            "fleet_step_telemetry": "src/repro/kernels/plasticity/kernel.py:239",
+            "fleet_step_q_telemetry":
+                "src/repro/kernels/plasticity/kernel.py:538",
+            "rollout_telemetry": "src/repro/kernels/plasticity/fused.py:230"}
 
 
 def log(*a):
@@ -664,7 +688,9 @@ def plain_closed_loop_matches(dev, main):
 
 def profile_window(fn, steps):
     """Device busy time, idle share and device time by kernel over one call
-    of ``fn`` (torch.profiler, CUPTI), against its wall time."""
+    of ``fn`` (torch.profiler, CUPTI), against its wall time.  Ranges
+    annotated with `record_function` (the serving phases) are not kernels:
+    their host time is reported apart."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -674,9 +700,14 @@ def profile_window(fn, steps):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    annotated = lambda e: getattr(e, "is_user_annotation", False)
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0 and not annotated(e)]
+    ranges = {e.key: {"host_ms": e.cpu_time_total / 1e3, "count": e.count}
+              for e in events if annotated(e)
+              and e.device_type == torch.autograd.DeviceType.CPU}
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
@@ -685,12 +716,16 @@ def profile_window(fn, steps):
            "kernel_launches_per_step": launches / steps,
            "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
                     "count": e.count} for e in top]}
+    if ranges:
+        out["annotated_host_ms"] = ranges
     log(f"    {steps} steps in {wall_ms:.1f} ms wall, device busy "
         f"{busy_ms:.2f} ms ({launches / steps:.0f} kernel launches per "
         f"step)" if busy_ms else
         "    profiler saw no device time (not measured)")
     for t in out["top"]:
         log(f"      {t['ms']:8.3f} ms  x{t['count']:<5d} {t['name']}")
+    for name, r in sorted(ranges.items()):
+        log(f"      host {r['host_ms']:8.3f} ms  x{r['count']:<5d} {name}")
     return out
 
 
@@ -1714,6 +1749,508 @@ def serve_cli_default(results, arch="qwen3-4b"):
     return out
 
 
+# ---- phase 2e: the telemetry variants against their plain versions --------
+
+TEL_TOL = 2e-4                  # float32 rows; tests/test_obs.py:198
+TEL_FIELDS = ("spike_rate", "mean_abs_dw", "sat_frac", "occupancy")
+
+
+def held_telemetry(name, got, off, want, quant, results, what, active):
+    """A telemetry launch: its state bit for bit against the same launch
+    without telemetry, its state against the plain version (``held``), its
+    row bit for bit (int8) or within TEL_TOL (float32), zeros in vacant
+    slots."""
+    import torch
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, o) for g, o in zip(got[:-1], off)),
+            f"{name} {what}: state differs from the telemetry-off launch")
+    err = float((got[-1].double() - want[-1].double()).abs().max())
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    if quant:
+        require(torch.equal(got[-1], want[-1]),
+                f"{name} {what}: row not bitwise equal to plain (max err "
+                f"{err})")
+    else:
+        require(err <= TEL_TOL, f"{name} {what}: row err {err} > {TEL_TOL}")
+    require(not got[-1][~active].any(),
+            f"{name} {what}: a vacant slot reports telemetry")
+    log(f"  {name:22s} {what}: state = telemetry-off launch bit for bit, "
+        f"row max |err| {err:.3g}, vacant rows 0")
+
+
+def compare_telemetry(dev, results):
+    """Each telemetry variant at 8-128-8 and B = 4096 with 3/4 of the slots
+    active and a teaching signal."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import engine, snn
+    from repro_torch.kernels.plasticity import fused, kernel as K
+    from repro_torch.kernels.plasticity.quant import QuantConfig
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    qc = QuantConfig()
+    active = torch.rand(B, generator=gen, device=dev) < 0.75
+    for n, m, spiking in ((8, 128, True), (128, 8, False)):
+        for quant in (False, True):
+            x, w, theta, v, tpre, tpost = rand_fleet_inputs(
+                gen, B, n, m, quant, dev)
+            if quant:
+                teach = torch.randint(-300, 300, (B, m), generator=gen,
+                                      device=dev, dtype=torch.int32)
+                scale = torch.where(torch.arange(B, device=dev) % 2 == 0,
+                                    1 / 32, 1 / 16).float()
+                seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int64).int()
+                args = (x, w, scale, theta, v, tpre, tpost)
+                kw = dict(qcfg=qc, spiking=spiking, seed=seed, teach=teach,
+                          active=active)
+                fn, plain, name = (K.fleet_step_q, K.fleet_step_q_plain,
+                                   "fleet_step_q_telemetry")
+            else:
+                teach = 0.5 * torch.randn(B, m, generator=gen, device=dev)
+                args = (x, w, theta, v, tpre, tpost)
+                kw = dict(spiking=spiking, teach=teach, active=active)
+                fn, plain, name = (K.fleet_step, K.fleet_step_plain,
+                                   "fleet_step_telemetry")
+            got = fn(*args, telemetry=True, **kw)
+            off = fn(*args, **kw)
+            want = plain(*args, telemetry=True, **kw)
+            held(name, got[:4], want[:4], quant, results,
+                 f"N={n} M={m} state against plain")
+            held_telemetry(name, got, off, want, quant, results,
+                           f"N={n} M={m}", active)
+    for quant in (False, True):
+        cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
+               else firefly_snn.CONFIG)
+        params = [cfg.engine_params(i) for i in range(cfg.num_layers)]
+        mode = "int8" if quant else "float32"
+        for k in (4, 16):
+            st, theta, drives = net_inputs(gen, cfg, k, dev)
+            m_out = cfg.layer_sizes[-1]
+            teach = (torch.randint(-300, 300, (B, m_out), generator=gen,
+                                   device=dev, dtype=torch.int32) if quant
+                     else 0.5 * torch.randn(B, m_out, generator=gen,
+                                            device=dev))
+            kw = dict(params=params, teach=teach, active=active,
+                      block_b=cfg.block_b)
+            got = engine.rollout(st, theta, drives, telemetry=True, **kw)
+            off = engine.rollout(st, theta, drives, **kw)
+            with mock.patch.object(fused, "rollout", plain_rollout):
+                want = engine.rollout(st, theta, drives, telemetry=True, **kw)
+            flat = lambda r: (list(r[0].w) + list(r[0].v) + list(r[0].trace)
+                              + [r[1]])
+            rows = lambda r: torch.stack([getattr(r[2], f)
+                                          for f in TEL_FIELDS], 1)
+            if quant:
+                held("rollout_telemetry", flat(got), flat(want), True,
+                     results, f"{mode} K={k} state against plain")
+            else:
+                err, share = drift(flat(got), flat(want))
+                log(f"  rollout_telemetry      {mode} K={k} state against "
+                    f"plain: max |err| {err:.3g}, share outside 1e-4 "
+                    f"{share:.2e} (gated in phase 2)")
+            held_telemetry("rollout_telemetry",
+                           flat(got) + [rows(got)], flat(off),
+                           flat(want) + [rows(want)], quant, results,
+                           f"{mode} K={k}", active)
+
+
+# ---- phase 5: the telemetry variants' times ----------------------------------
+
+# Telemetry's extra operations: per (stream, column) |event|, compare, two
+# adds and the shuffle tree's share; per synapse a subtraction, |.| and add.
+OPS_TEL_COL, OPS_TEL_SYN = 6, 3
+
+
+def time_telemetry(dev, results):
+    """Each telemetry variant beside its telemetry-off twin and its plain
+    version at the phase-4 shapes, L2 flushed; the overhead in percent."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import snn
+    from repro_torch.kernels.plasticity import fused, kernel as K
+    from repro_torch.kernels.plasticity.quant import QuantConfig
+    gen = torch.Generator(dev).manual_seed(SEED + 10)
+    qc = QuantConfig()
+    sizes = firefly_snn.CONFIG.layer_sizes
+    active = torch.rand(B, generator=gen, device=dev) < 0.75
+    for name, quant in (("fleet_step_telemetry", False),
+                        ("fleet_step_q_telemetry", True)):
+        ms, off_ms, pms, bms = [], [], [], []
+        for i in range(len(sizes) - 1):
+            n, m = sizes[i], sizes[i + 1]
+            spiking = i < len(sizes) - 2
+            x, w, theta, v, tpre, tpost = rand_fleet_inputs(
+                gen, B, n, m, quant, dev)
+            if quant:
+                sc = torch.full((B,), 1 / 32, device=dev)
+                sd = torch.arange(B, dtype=torch.int32, device=dev)
+                args = (x, w, sc, theta, v, tpre, tpost)
+                kw = dict(qcfg=qc, spiking=spiking, seed=sd, active=active)
+                fn, plain = K.fleet_step_q, K.fleet_step_q_plain
+            else:
+                args = (x, w, theta, v, tpre, tpost)
+                kw = dict(spiking=spiking, active=active)
+                fn, plain = K.fleet_step, K.fleet_step_plain
+            ms.append(device_ms(lambda: fn(*args, telemetry=True, **kw)))
+            off_ms.append(device_ms(lambda: fn(*args, **kw)))
+            pms.append(device_ms(lambda: plain(*args, telemetry=True, **kw),
+                                 reps=5))
+            ops = B * n * m * ((OPS_Q if quant else OPS_F32) + OPS_TEL_SYN) \
+                + B * m * OPS_TEL_COL
+            bms.append(bound(step_bytes(B, n, m, 1 if quant else 4)
+                             + B * 3 * 4, ops)[0])
+        results[name].update(
+            ms=statistics.mean(ms), plain_ms=statistics.mean(pms),
+            bound_ms=statistics.mean(bms), bound_by="bytes",
+            off_ms=statistics.mean(off_ms),
+            overhead_pct=100 * (statistics.mean(ms) / statistics.mean(off_ms)
+                                - 1))
+    k = firefly_snn.CONFIG.timesteps
+    syn = sum(sizes[i] * sizes[i + 1] for i in range(len(sizes) - 1))
+    timed = {}
+    for quant in (False, True):
+        cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
+               else firefly_snn.CONFIG)
+        st, theta, drives = net_inputs(gen, cfg, k, dev)
+        kw = dict(spiking=[cfg.engine_params(i).spiking for i in range(2)],
+                  plastic=[True, True], tau_m=cfg.lif.tau_m,
+                  trace_decay=cfg.trace_decay, w_clip=cfg.w_clip,
+                  qcfg=cfg.quant, active=active)
+        if quant:
+            kw.update(scales=list(st.w_scale),
+                      seed=st.t.expand(B).contiguous())
+        args = (drives, st.w, theta, st.v, st.trace)
+        t_on = device_ms(lambda: fused.rollout(
+            *args, block_b=cfg.block_b, telemetry=True, **kw))
+        t_off = device_ms(lambda: fused.rollout(*args, block_b=cfg.block_b,
+                                                **kw))
+        ops = k * B * syn * (OPS_Q if quant else OPS_F32) \
+            + k * B * sum(sizes[1:]) * OPS_TEL_COL + B * syn * OPS_TEL_SYN
+        b_ms, kind = bound(window_bytes(B, sizes, k, 1 if quant else 4)
+                           + B * 3 * 4, ops)
+        timed["int8" if quant else "float32"] = dict(
+            ms=t_on, off_ms=t_off, overhead_pct=100 * (t_on / t_off - 1),
+            plain_ms=device_ms(lambda: fused.rollout_plain(
+                *args, telemetry=True, **kw), reps=5),
+            bound_ms=b_ms, bound_by=kind)
+    results["rollout_telemetry"].update(timed["float32"])
+    results["rollout_telemetry"]["int8"] = timed["int8"]
+    for name in ("fleet_step_telemetry", "fleet_step_q_telemetry",
+                 "rollout_telemetry"):
+        r = results[name]
+        log(f"  {name:22s} {r['ms']:.4f} ms beside {r['off_ms']:.4f} ms "
+            f"without telemetry ({r['overhead_pct']:+.1f}%), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+    r = results["rollout_telemetry"]["int8"]
+    log(f"  rollout_telemetry int8  {r['ms']:.4f} ms beside {r['off_ms']:.4f}"
+        f" ms without telemetry ({r['overhead_pct']:+.1f}%), plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+
+
+# ---- phase 10: session serving of the controller fleet at full width --------
+
+POPULATION = 2 * B              # users who come and go
+SERVE_WINDOWS = 24              # control windows under churn
+SERVE_STEPS = 16                # per-event telemetry steps after them
+DEPART_P = 0.02                 # per resident and window
+PROBE_CUT = 12                  # the window before which the probe moves
+VACANT = 256                    # slots left empty for the frozen check
+TAIL_WINDOWS = 8                # windows of the frozen check, and profiled
+
+
+def store_digest(root):
+    """sha256 over every session's latest checkpoint under a store root
+    (LATEST, manifest and leaves), and the number of sessions."""
+    import hashlib
+    h, n = hashlib.sha256(), 0
+    for user in sorted(Path(root).iterdir()):
+        if not (user / "LATEST").exists():
+            continue            # checked out fresh, never persisted
+        latest = (user / "LATEST").read_text().strip()
+        step = user / f"step_{int(latest):09d}"
+        h.update(f"{user.name}:{latest}".encode())
+        for f in sorted(step.iterdir()):
+            h.update(f.read_bytes())
+        n += 1
+    return h.hexdigest(), n
+
+
+class ServeRun:
+    """One deterministic serving run on a FleetScheduler: admissions from a
+    population, churn before each window, the probe moved once, per-event
+    steps, a frozen-vacancy check.  Records the probe's call sequence and
+    outputs for the uninterrupted replay."""
+
+    def __init__(self, sched, seed):
+        import numpy as np
+        self.s = sched
+        self.rng = np.random.default_rng(seed)
+        self.base = np.random.default_rng(seed + 1).standard_normal(
+            (POPULATION + 1, sched.cfg.layer_sizes[0])).astype(np.float32)
+        self.index = {f"u{i}": i for i in range(POPULATION)}
+        self.index["probe"] = POPULATION
+        self.calls = []          # (kind, probe's drive, probe's output)
+        self.window = 0
+
+    def drives(self, t):
+        import numpy as np
+        mat = (np.sin(0.5 * t + self.base) * 1.5).astype(np.float32)
+        return {u: mat[self.index[u]] for u in self.s.active_users}
+
+    def churn(self):
+        """Each resident but the probe departs with DEPART_P; as many
+        arrivals come from the population's non-residents."""
+        s = self.s
+        residents = [u for u in s.slot_user if u is not None and u != "probe"]
+        gone = [u for u, r in zip(residents,
+                                  self.rng.random(len(residents)))
+                if r < DEPART_P]
+        for u in gone:
+            s.evict(u)
+        out = sorted(set(self.index) - set(s.user_slot) - {"probe"},
+                     key=self.index.get)
+        for u in self.rng.choice(out, len(gone), replace=False):
+            s.admit(str(u))
+        return len(gone)
+
+    def call(self, kind, churn=True):
+        import torch
+        if churn:
+            self.churn()
+        d = self.drives(self.window)
+        if kind == "window":
+            out = self.s.control_step(d)
+        elif kind == "telemetry window":
+            out, tel = self.s.pool_step(d, telemetry=True)
+        else:
+            out, tel = self.s.step(d, telemetry=True)
+        self.calls.append((kind, d["probe"], out["probe"]))
+        self.window += 1
+
+    def move_probe(self):
+        """Evict the probe to disk, drop its warm-cache entry, let a rival
+        take its slot, and re-admit it into another slot."""
+        s = self.s
+        old = s.user_slot["probe"]
+        s.evict("probe")
+        s.store._warm.pop("probe")
+        rival = next(u for u in self.index if u not in s.user_slot
+                     and u != "probe")
+        require(s.admit(rival) == old, "the rival did not take the slot")
+        s.evict(next(u for u in s.slot_user if u not in (None, rival)))
+        restores = s.store.restores
+        new = s.admit("probe")
+        require(new != old and s.store.restores == restores + 1,
+                "the probe did not come back from disk into another slot")
+        return old, new
+
+
+def serve_run(dev, quant, root, profile=None):
+    """The phase-10 sequence on a fresh B = 4096 pool; returns the run and
+    its measurements."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import snn
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.plasticity import fused
+    from repro_torch.serving import FleetScheduler, SessionStore
+    cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
+           else firefly_snn.CONFIG)
+    theta = snn.init_theta(cfg, torch.Generator(dev).manual_seed(SEED + 11),
+                           scale=0.05)
+    sched = FleetScheduler(cfg, theta, slots=B, device=dev,
+                           store=SessionStore(root=str(root),
+                                              capacity=B // 2))
+    run = ServeRun(sched, SEED + 12)
+    sched.admit("probe")
+    for u in run.rng.choice(POPULATION, B - 1, replace=False):
+        sched.admit(f"u{u}")
+    out = {"quant": quant, "theta": theta}
+    kinds = ["telemetry window" if w % 4 == 3 else "window"
+             for w in range(SERVE_WINDOWS)]
+    launches0 = getattr(fused.rollout, "launches", 0)   # 0 when plain
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w, kind in enumerate(kinds):
+        if w == PROBE_CUT:
+            out["probe_slots"] = run.move_probe()
+        run.call(kind)
+        if w == 3:              # warm-up: every entry point once
+            run.call("step", churn=False)
+            torch.cuda.synchronize()
+            warm = (sched.compiled_programs(), len(_build._libs))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out.update(seconds=dt, windows_per_s=SERVE_WINDOWS / dt,
+               control_steps_per_s=SERVE_WINDOWS * B / dt,
+               rollout_launches_per_window=(
+                   getattr(fused.rollout, "launches", 0) - launches0)
+               / SERVE_WINDOWS)
+    for _ in range(SERVE_STEPS):
+        run.call("step", churn=False)
+    # vacant slots stay frozen bit for bit over TAIL_WINDOWS windows
+    for u in run.rng.choice([u for u in sched.slot_user if u != "probe"],
+                            VACANT, replace=False):
+        sched.evict(str(u))
+    vacant = [s for s, u in enumerate(sched.slot_user) if u is None]
+    before = [t[vacant].clone() for t in sched.fleet.w + sched.fleet.v
+              + sched.fleet.trace + sched.fleet.w_scale]
+    for _ in range(TAIL_WINDOWS):
+        run.call("window", churn=False)
+    after = [t[vacant] for t in sched.fleet.w + sched.fleet.v
+             + sched.fleet.trace + sched.fleet.w_scale]
+    require(all(torch.equal(a, b) for a, b in zip(after, before)),
+            f"{len(vacant)} vacant slots moved over {TAIL_WINDOWS} windows")
+    out["vacant_frozen"] = len(vacant)
+    # TAIL_WINDOWS more windows under churn, profiled in the main run
+    tail = lambda: [run.call("window") for _ in range(TAIL_WINDOWS)]
+    if profile is not None:
+        out["profile"] = profile(tail, TAIL_WINDOWS)
+    else:
+        tail()
+    torch.cuda.synchronize()
+    require(sched.compiled_programs() == warm[0]
+            and len(_build._libs) == warm[1],
+            f"static signatures after warm-up {warm} became "
+            f"{sched.compiled_programs()}, {len(_build._libs)} libraries")
+    out["signatures"] = sched.compiled_programs()
+    sched.evict("probe")
+    out["probe_final"], out["probe_step"] = sched.store.checkout(
+        "probe", lambda: snn.init_state(cfg, device=dev), device=dev)
+    snap = sched.metrics.snapshot()
+    out["metrics"] = {k: snap[k] for k in (
+        "pool_admit_seconds", "pool_evict_seconds", "fleet_spike_rate",
+        "fleet_mean_abs_dw", "fleet_sat_frac", "fleet_occupancy")}
+    out["admit_ms"] = {"p50": snap["pool_admit_seconds"]["p50"] * 1e3,
+                       "mean": snap["pool_admit_seconds"]["mean"] * 1e3}
+    out["evict_ms"] = {"p50": snap["pool_evict_seconds"]["p50"] * 1e3,
+                       "mean": snap["pool_evict_seconds"]["mean"] * 1e3}
+    st = sched.store
+    out["store"] = dict(warm_hits=st.warm_hits, restores=st.restores,
+                        creates=st.creates, persists=st.persists)
+    out["pool_nbytes"] = sched.pool_nbytes()
+    out["sched"], out["run"] = sched, run
+    return out
+
+
+def replay_probe(dev, res):
+    """The probe's calls again on a pool where nothing interrupts it: its
+    outputs and final state must equal the interrupted run's bit for bit."""
+    import torch
+    from repro_torch.core import snn
+    from repro_torch.serving import FleetScheduler, SessionStore
+    sched = res["sched"]
+    ref = FleetScheduler(sched.cfg, res["theta"], slots=8, device=dev,
+                         store=SessionStore())
+    ref.admit("probe")
+    for i, (kind, d, got) in enumerate(res["run"].calls):
+        obs = {"probe": d}
+        if kind == "window":
+            want = ref.control_step(obs)["probe"]
+        elif kind == "telemetry window":
+            want = ref.pool_step(obs, telemetry=True)[0]["probe"]
+        else:
+            want = ref.step(obs, telemetry=True)[0]["probe"]
+        require(torch.equal(got, want),
+                f"probe call {i} ({kind}) differs from the uninterrupted run")
+    ref.evict("probe")
+    final, step = ref.store.checkout(
+        "probe", lambda: snn.init_state(sched.cfg, device=dev), device=dev)
+    got = res["probe_final"]
+    require(step == res["probe_step"]
+            and all(torch.equal(a, b) for a, b in zip(
+                got.w + got.v + got.trace + got.w_scale,
+                final.w + final.v + final.trace + final.w_scale)),
+            "the probe's final state differs from the uninterrupted run")
+    return len(res["run"].calls)
+
+
+def serve_path(dev, every):
+    """Phase 10: FleetScheduler at 8-128-8 with 4096 slots, float32 and
+    int8, each with a SessionStore on disk.  Every counter is set to 0
+    just before the two runs and read just after them."""
+    import tempfile
+    import torch
+    from repro_torch.kernels.plasticity import fused, kernel as K
+    tel_counters = (K.fleet_step, K.fleet_step_q, fused.rollout)
+    for c in every:
+        c.launches = 0
+    for c in tel_counters:
+        c.telemetry_launches = 0
+    work = ROOT / "build" / "chip_smoke_sessions"
+    work.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        for quant in (False, True):
+            mode = "int8" if quant else "float32"
+            runs[mode] = serve_run(
+                dev, quant, Path(tmp) / mode,
+                profile=lambda fn, n: profile_window(fn, n))
+        launches = {"rollout": fused.rollout.launches,
+                    "rollout_telemetry": fused.rollout.telemetry_launches,
+                    "fleet_step_telemetry": K.fleet_step.telemetry_launches,
+                    "fleet_step_q_telemetry":
+                        K.fleet_step_q.telemetry_launches}
+        log(f"  launches on the serving path: {json.dumps(launches)}")
+        for name, n in launches.items():
+            require(n > 0, f"kernel {name} was not launched on the serving "
+                    f"path")
+        report = {}
+        for mode, r in runs.items():
+            calls = replay_probe(dev, r)
+            log(f"  {mode}: the probe moved from slot {r['probe_slots'][0]} "
+                f"to {r['probe_slots'][1]} through disk; its {calls} calls "
+                f"and final state equal the uninterrupted run bit for bit")
+            log(f"  {mode}: {SERVE_WINDOWS} windows x {B} slots under churn "
+                f"in {r['seconds']:.3f} s = {r['windows_per_s']:.4g} "
+                f"windows/s, {r['control_steps_per_s']:.4g} control-steps/s;"
+                f" {r['rollout_launches_per_window']:.3g} rollout launches "
+                f"per window")
+            log(f"  {mode}: admit p50 {r['admit_ms']['p50']:.3f} ms, mean "
+                f"{r['admit_ms']['mean']:.3f} ms; evict p50 "
+                f"{r['evict_ms']['p50']:.3f} ms, mean "
+                f"{r['evict_ms']['mean']:.3f} ms; store "
+                f"{json.dumps(r['store'])}")
+            log(f"  {mode}: fleet gauges " + json.dumps(
+                {k: r["metrics"][k]["value"] for k in r["metrics"]
+                 if k.startswith("fleet_")}))
+            log(f"  {mode}: {r['vacant_frozen']} vacant slots frozen bit for "
+                f"bit over {TAIL_WINDOWS} windows; static signatures "
+                f"constant after warm-up: {json.dumps(r['signatures'])}")
+            report[mode] = {k: r[k] for k in (
+                "seconds", "windows_per_s", "control_steps_per_s",
+                "rollout_launches_per_window", "admit_ms", "evict_ms",
+                "store", "signatures", "vacant_frozen", "pool_nbytes",
+                "profile", "probe_slots")}
+            report[mode]["fleet_gauges"] = {
+                k: r["metrics"][k]["value"] for k in r["metrics"]
+                if k.startswith("fleet_")}
+        # the int8 run again through the plain versions: same bits
+        kern = runs["int8"]
+        digest = store_digest(Path(tmp) / "int8")
+        with mock.patch.object(fused, "rollout", plain_rollout), \
+                mock.patch.object(K, "fleet_step_q", K.fleet_step_q_plain):
+            t0 = time.perf_counter()
+            plain = serve_run(dev, True, Path(tmp) / "int8-plain")
+            dt = time.perf_counter() - t0
+        a, b = kern["sched"].fleet, plain["sched"].fleet
+        require(all(torch.equal(x, y) for x, y in zip(
+            a.w + a.v + a.trace + a.w_scale, b.w + b.v + b.trace + b.w_scale)),
+            "int8 serving: the plain versions give another final pool")
+        plain_digest = store_digest(Path(tmp) / "int8-plain")
+        require(digest == plain_digest,
+                f"int8 serving: the plain versions persist other sessions "
+                f"({digest} vs {plain_digest})")
+        log(f"  int8 run repeated through the plain versions ({dt:.1f} s): "
+            f"final pool and all {digest[1]} persisted sessions bit for bit "
+            f"(sha256 {digest[0][:16]})")
+        report["int8"]["plain_repeat_seconds"] = dt
+        report["int8"]["sessions_on_disk"] = digest[1]
+    return report, launches
+
+
 def nvidia_smi():
     try:
         p = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1789,6 +2326,9 @@ def main() -> int:
         compare_attention(dev, results)
     with phase("phase 2d: the SSD scan against its plain version"):
         compare_ssd(dev, results)
+    with phase("phase 2e: the telemetry variants against their plain "
+               "versions, 8-128-8, B = 4096"):
+        compare_telemetry(dev, results)
 
     with phase("phase 3: recovery gate"):
         recovery_gate(dev)
@@ -1804,6 +2344,7 @@ def main() -> int:
 
     with phase("phase 5: timing"):
         time_kernels(dev, results)
+        time_telemetry(dev, results)
 
     with phase("phase 6: online-learning path, 784-1024-10, T = 8, B = 1"):
         online, online_launches = online_path(dev, online_counters, every)
@@ -1843,13 +2384,20 @@ def main() -> int:
         lm_launches["qwen3-4b"]["flash_attention"]
     results["ssd_scan"]["launches"] = lm_launches["mamba2-1.3b"]["ssd_scan"]
 
+    with phase(f"phase 10: session serving, 8-128-8 FleetScheduler, "
+               f"{B} slots, float32 and int8"):
+        served, serve_launches = serve_path(dev, every)
+    for name in ("fleet_step_telemetry", "fleet_step_q_telemetry",
+                 "rollout_telemetry"):
+        results[name]["launches"] = serve_launches[name]
+
     for r in results.values():
         lib = (f", library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
         log(f"  {r['name']:14s} {r['ms']:.4f} ms/launch (plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}{lib}), {r['launches']} launches")
-    for name in ("rollout", "rollout_shared"):
+    for name in ("rollout", "rollout_shared", "rollout_telemetry"):
         log(f"  {name} int8: {json.dumps(results[name]['int8'])}")
     log(f"  phase seconds: {json.dumps(seconds)}")
 
@@ -1863,6 +2411,7 @@ def main() -> int:
                               for m in ("float32", "int8")},
               "table2": table,
               "lm_path": lm, "lm_launches": lm_launches,
+              "serve_path": served, "serve_launches": serve_launches,
               "profile": profiled, "profile_online": profiled_online,
               "build_seconds": info["seconds"], "card": smi,
               "phase_seconds": seconds,

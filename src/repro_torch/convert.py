@@ -9,6 +9,8 @@ arrays — and never imports JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -17,6 +19,7 @@ from repro_torch.core.snn import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import torch_dtype
 from repro_torch.models.layers import ParamDesc
+from repro_torch.obs.telemetry import FleetTelemetry
 from repro_torch.scenarios.perturb import Schedule
 from repro_torch.scenarios.vector_env import VecEnvState
 
@@ -69,6 +72,12 @@ def network_state(state, device=None) -> NetworkState:
     return NetworkState(w=tup(state.w), v=tup(state.v),
                         trace=tup(state.trace), t=tensor(state.t, device),
                         w_scale=tup(state.w_scale))
+
+
+def fleet_telemetry(tel, device=None) -> FleetTelemetry:
+    """``repro.obs.FleetTelemetry`` -> the port's `FleetTelemetry`."""
+    return FleetTelemetry(*(tensor(getattr(tel, f.name), device)
+                            for f in dataclasses.fields(FleetTelemetry)))
 
 
 def theta(th, device=None) -> list:

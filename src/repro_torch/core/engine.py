@@ -20,6 +20,10 @@ tensor runs their plain versions.
 Fleet mode accepts an ``active (B,)`` slot mask: streams whose flag is
 false are frozen bit for bit — weights, membrane and traces unchanged,
 events zero — so a fixed-shape slot pool never drifts in its vacant slots.
+
+Fleet mode also takes ``telemetry=True``: the kernels' telemetry variants
+return per-slot sums beside the state, normalized here into an
+`obs.FleetTelemetry` third result (vacant slots report zeros).
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ import torch
 from repro_torch.kernels.plasticity import fused as _fused
 from repro_torch.kernels.plasticity import kernel as _kernel
 from repro_torch.kernels.plasticity.quant import QuantConfig
+from repro_torch.obs.telemetry import FleetTelemetry
+
 
 @dataclasses.dataclass
 class LayerState:
@@ -112,12 +118,23 @@ def _check_dtypes(checks, what: str) -> None:
                 f"kernels.plasticity.quant.to_fixed); got {arr.dtype}")
 
 
+def _occupancy(active, b: int, device) -> torch.Tensor:
+    """The active mask as 0.0/1.0 float32 (all ones without one)."""
+    if active is None:
+        return torch.ones((b,), dtype=torch.float32, device=device)
+    return active.reshape(-1).float()
+
+
+_TELEMETRY_FLEET_ONLY = ("telemetry is a fleet-mode (w (B, N, M)) contract: "
+                         "per-slot rows need a leading stream rank")
+
+
 def layer_step(state: LayerState, x: torch.Tensor, *,
                params: EngineParams = EngineParams(),
                teach: Optional[torch.Tensor] = None,
                active: Optional[torch.Tensor] = None,
-               seed: Optional[torch.Tensor] = None
-               ) -> tuple[LayerState, torch.Tensor]:
+               seed: Optional[torch.Tensor] = None,
+               telemetry: bool = False):
     """One fused forward+plasticity step for one layer.
 
     Args:
@@ -130,9 +147,12 @@ def layer_step(state: LayerState, x: torch.Tensor, *,
               true no-ops (state bit-identical, events zero).
       seed:   fixed-point mode — the step counter of the stochastic round
               (scalar, or ``(B,)`` per-session counters in fleet mode).
+      telemetry: fleet only — also return an `obs.FleetTelemetry` of
+              per-slot means (the kernels' telemetry variant).
 
     Returns ``(new_state, out)``: out is the layer's events for spiking
-    layers, the membrane for the leaky readout.
+    layers, the membrane for the leaky readout; with ``telemetry``,
+    ``(new_state, out, FleetTelemetry)``.
     """
     plastic = params.plastic and state.theta is not None
     qc = params.quant
@@ -180,6 +200,11 @@ def layer_step(state: LayerState, x: torch.Tensor, *,
         raise ValueError(
             "active slot masks are a fleet-mode (w (B, N, M)) contract; "
             f"got w {tuple(state.w.shape)} with an active mask")
+    if telemetry:
+        if not fleet:
+            raise ValueError(f"{_TELEMETRY_FLEET_ONLY}; got w "
+                             f"{tuple(state.w.shape)}")
+        kw["telemetry"] = True
 
     # the kernels are rank-(B, N): promote unbatched shared state to B = 1
     unbatched = not fleet and x.ndim == 1
@@ -194,8 +219,8 @@ def layer_step(state: LayerState, x: torch.Tensor, *,
     else:
         args = (up(x), state.w, state.theta, *state_args)
         fn = _kernel.fleet_step if fleet else _kernel.shared_step
-    spikes, v, tpost, w = fn(*args, teach=None if teach is None
-                             else up(teach), **kw)
+    res = fn(*args, teach=None if teach is None else up(teach), **kw)
+    spikes, v, tpost, w = res[:4]
     if unbatched:
         spikes, v, tpost = spikes[0], v[0], tpost[0]
 
@@ -205,7 +230,16 @@ def layer_step(state: LayerState, x: torch.Tensor, *,
         # the readout's output IS the membrane; inactive slots still emit
         # zero events
         out = torch.where(active.bool()[:, None], out, torch.zeros_like(out))
-    return new_state, out
+    if not telemetry:
+        return new_state, out
+    # the raw per-slot sums as per-neuron / per-synapse means
+    b, n, m = state.w.shape
+    raw = res[4]
+    tel = FleetTelemetry(spike_rate=raw[:, 0] / m,
+                         mean_abs_dw=raw[:, 1] / (n * m),
+                         sat_frac=raw[:, 2] / m,
+                         occupancy=_occupancy(active, b, x.device))
+    return new_state, out, tel
 
 
 def _validate_rollout_params(params) -> None:
@@ -226,7 +260,7 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
             params, teach: Optional[torch.Tensor] = None,
             active: Optional[torch.Tensor] = None,
             seed: Optional[torch.Tensor] = None,
-            block_b: int = 8) -> tuple[NetworkState, torch.Tensor]:
+            block_b: int = 8, telemetry: bool = False):
     """K fused timesteps of the WHOLE layer stack (one kernel launch).
 
     The time-fused analogue of calling `layer_step` K * num_layers times,
@@ -247,9 +281,14 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
               k draws from ``fold_seed(seed + k, layer)``.  Defaults to
               ``state.t``.
       block_b: fleet streams per CTA of the rollout kernel (fleet only).
+      telemetry: fleet only — also return an `obs.FleetTelemetry` of
+              per-slot WINDOW means: spike_rate and sat_frac averaged over
+              the K steps and the layers, mean_abs_dw the NET weight motion
+              ``|w_end - w_start| / (N*M) / (K * n_plastic)``.
 
     Returns ``(new_state, outs)`` with outs (K, ·, M_last) and
-    ``new_state.t = state.t + K``.
+    ``new_state.t = state.t + K``; with ``telemetry``,
+    ``(new_state, outs, FleetTelemetry)``.
     """
     if isinstance(params, EngineParams):
         params = [params] * state.num_layers
@@ -273,6 +312,8 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
                          f"{tuple(drives.shape)}")
     if active is not None and not fleet:
         raise ValueError("active slot masks are a fleet-mode contract")
+    if telemetry and not fleet:
+        raise ValueError(_TELEMETRY_FLEET_ONLY)
     k_steps = drives.shape[0]
     if k_steps < 1:
         raise ValueError("rollout needs K >= 1 timesteps")
@@ -308,7 +349,7 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
     kw = dict(spiking=[p.spiking for p in params], plastic=plastic,
               tau_m=p0.tau_m, v_th=p0.v_th, v_reset=p0.v_reset,
               trace_decay=p0.trace_decay, w_clip=p0.w_clip, qcfg=qc,
-              teach=teach, active=active)
+              teach=teach, active=active, telemetry=telemetry)
     if qc is not None:
         kw["scales"] = [state.w_scale[i] if state.w_scale
                         else torch.tensor(qc.w_scale, dtype=torch.float32,
@@ -325,13 +366,21 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
     up_t = (lambda a: a[:, None]) if unbatched else (lambda a: a)
     if teach is not None:
         kw["teach"] = up_t(teach)
-    outs, w, v, tr = _fused.rollout(
+    res = _fused.rollout(
         up_t(drives), state.w, thetas, tuple(up(a) for a in state.v),
         tuple(up(a) for a in state.trace), block_b=block_b, **kw)
+    outs, w, v, tr = res[:4]
     if unbatched:
         outs = outs[:, 0]
         v = tuple(a[0] for a in v)
         tr = tuple(a[0] for a in tr)
     new_state = dataclasses.replace(state, w=w, v=v, trace=tr,
                                     t=state.t + k_steps)
-    return new_state, outs
+    if not telemetry:
+        return new_state, outs
+    raw = res[4]                       # finalized and gated (B, 3)
+    tel = FleetTelemetry(spike_rate=raw[:, 0], mean_abs_dw=raw[:, 1],
+                         sat_frac=raw[:, 2],
+                         occupancy=_occupancy(active, raw.shape[0],
+                                              drives.device))
+    return new_state, outs, tel

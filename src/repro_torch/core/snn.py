@@ -30,6 +30,7 @@ from repro_torch.core import plasticity as P
 from repro_torch.core.engine import NetworkState
 from repro_torch.kernels.plasticity import quant as Q
 from repro_torch.kernels.plasticity.quant import QuantConfig
+from repro_torch.obs.telemetry import FleetTelemetry
 from repro_torch.optim.compression import compress_int8
 
 
@@ -233,8 +234,8 @@ def encode_window(cfg: SNNConfig, obs: torch.Tensor,
 def timestep(cfg: SNNConfig, state: NetworkState, theta,
              drive: torch.Tensor, teach: Optional[torch.Tensor] = None,
              active: Optional[torch.Tensor] = None,
-             seed: Optional[torch.Tensor] = None
-             ) -> tuple[NetworkState, torch.Tensor]:
+             seed: Optional[torch.Tensor] = None,
+             telemetry: bool = False):
     """One SNN timestep: every layer through `engine.layer_step`.
 
     `teach` drives the OUTPUT layer; `active` (fleet only) freezes inactive
@@ -243,6 +244,10 @@ def timestep(cfg: SNNConfig, state: NetworkState, theta,
     (B,) per session, defaulting to ``state.t``.  In fixed-point mode
     `drive`/`teach` are floats quantized here and the output is dequantized,
     so callers are representation-agnostic.
+
+    `telemetry` (fleet only): also return a network-level
+    `obs.FleetTelemetry` — the layers' telemetry averaged over the layers
+    (spike rate and saturation over all, |dw| zero for a frozen network).
     """
     qc = cfg.quant
     w, v, tr = list(state.w), list(state.v), list(state.trace)
@@ -261,37 +266,51 @@ def timestep(cfg: SNNConfig, state: NetworkState, theta,
         tr0_new = torch.where(active.bool()[:, None], tr0_new, tr[0])
     tr[0] = tr0_new
     out = None
+    tels = []
     for i in range(cfg.num_layers):
         last = i == cfg.num_layers - 1
         layer = engine.LayerState(
             w=w[i], v=v[i], trace_pre=tr[i], trace_post=tr[i + 1],
             theta=theta[i] if cfg.plastic else None,
             w_scale=state.w_scale[i] if state.w_scale else None)
-        layer, out = engine.layer_step(
+        res = engine.layer_step(
             layer, x, params=cfg.engine_params(i),
             teach=teach if last else None, active=active,
-            seed=None if base_seed is None else Q.fold_seed(base_seed, i))
+            seed=None if base_seed is None else Q.fold_seed(base_seed, i),
+            telemetry=telemetry)
+        layer, out = res[0], res[1]
+        if telemetry:
+            tels.append(res[2])
         w[i], v[i], tr[i + 1] = layer.w, layer.v, layer.trace_post
         x = out
     if qc is not None:
         out = Q.from_fixed(out, qc)
     new_state = NetworkState(w=tuple(w), v=tuple(v), trace=tuple(tr),
                              t=state.t + 1, w_scale=state.w_scale)
-    return new_state, out
+    if not telemetry:
+        return new_state, out
+    nl = float(cfg.num_layers)
+    tel = FleetTelemetry(
+        spike_rate=sum(t.spike_rate for t in tels) / nl,
+        mean_abs_dw=(sum(t.mean_abs_dw for t in tels) / nl if cfg.plastic
+                     else torch.zeros_like(tels[0].spike_rate)),
+        sat_frac=sum(t.sat_frac for t in tels) / nl,
+        occupancy=tels[0].occupancy)
+    return new_state, out, tel
 
 
 def rollout_window(cfg: SNNConfig, state: NetworkState, theta,
                    drives: torch.Tensor,
                    teach: Optional[torch.Tensor] = None,
                    active: Optional[torch.Tensor] = None,
-                   seed: Optional[torch.Tensor] = None
-                   ) -> tuple[NetworkState, torch.Tensor]:
+                   seed: Optional[torch.Tensor] = None,
+                   telemetry: bool = False):
     """K SNN timesteps as ONE fused engine launch (`engine.rollout`).
 
     ``drives`` is time-major (K, N_in) or (K, B, N_in), already encoded.
-    `teach`/`active`/`seed` follow `timestep` (``teach`` held or per-step).
-    In fixed-point mode drives/teach are quantized here and the outputs
-    dequantized.
+    `teach`/`active`/`seed`/`telemetry` follow `timestep` (``teach`` held or
+    per-step; telemetry as window means, a third result).  In fixed-point
+    mode drives/teach are quantized here and the outputs dequantized.
     """
     qc = cfg.quant
     if qc is not None:
@@ -299,12 +318,13 @@ def rollout_window(cfg: SNNConfig, state: NetworkState, theta,
         teach = None if teach is None else Q.to_fixed(teach, qc)
     params = [cfg.engine_params(i) for i in range(cfg.num_layers)]
     th = [theta[i] if cfg.plastic else None for i in range(cfg.num_layers)]
-    state, outs = engine.rollout(
+    res = engine.rollout(
         state, th, drives, params=params, teach=teach, active=active,
-        seed=seed, block_b=cfg.block_b)
+        seed=seed, block_b=cfg.block_b, telemetry=telemetry)
+    state, outs = res[0], res[1]
     if qc is not None:
         outs = Q.from_fixed(outs, qc)
-    return state, outs
+    return (state, outs) + tuple(res[2:])
 
 
 def controller_step(cfg: SNNConfig, state: NetworkState, theta,

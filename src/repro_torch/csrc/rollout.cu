@@ -2,8 +2,9 @@
 // of request streams in ONE launch.
 //
 // Replaces src/repro/kernels/plasticity/fused.py:304 rollout_pallas
-// (_rollout_kernel :79), fleet grid; the shared-weight grid (1,) and the
-// telemetry variant are not ported here.
+// (_rollout_kernel :79), fleet grid, and its fleet telemetry variant (the
+// time-loop accumulator :133/:230 and the finalized window means :256-283);
+// the shared-weight grid (1,) is csrc/rollout_shared.cu.
 //
 // What bounds it on an H100: bytes, and only when the window is long enough.
 // The least traffic is one read and one write of the block's weights,
@@ -25,6 +26,20 @@
 // reference's compute-then-select bit for bit.  Step k of layer i draws its
 // stochastic round from fold_seed(seed + k, i) and the layer's own flat
 // (row * M + col) index, as the per-step kernels do.
+//
+// Telemetry variant (template flag kTel, set when `tel` is given): a
+// (block_b, 2) float accumulator in shared memory carries, per stream,
+// sum over steps and layers of [sum |event| / M_i, #|v| >= 0.9 v_th / M_i].
+// After phase 1 of each layer one warp per stream reduces the layer's
+// columns (lanes stride the columns, then a shuffle tree: the same order on
+// every run) from the event bus and the membranes.  At write-back each
+// stream's net weight motion sum |w_end - w_start| per plastic layer is
+// reduced the same way against w_in, which the launch never overwrites
+// (one more read of the block's weights per window); then the row is
+// divided by K * L (and K * n_plastic), gated by the active flag and
+// written to tel (B, 3).  The fixed-point terms are summed in int32 and
+// converted once, so they are exact and the int8 row equals the plain
+// version's bit for bit.
 #include "plasticity.cuh"
 
 using ff::kMaxLayers;
@@ -51,6 +66,10 @@ struct RolloutArgs {
   float w_clip;
   ff::FParams f;
   ff::QParams q;
+  float* tel;                       // (B, 3) out, or null
+  int telemetry;                    // 1 when tel is set
+  int sat_q;                        // fixed-point saturation threshold
+  float sat_f;                      // float saturation threshold
 };
 
 namespace {
@@ -64,7 +83,7 @@ __host__ __device__ inline size_t align16(size_t x) {
 // Shared-memory layout; repro_torch/kernels/plasticity/fused.py computes the
 // same total (rollout_smem_bytes) and the launcher checks that both agree.
 struct Layout {
-  size_t theta, v, tr, bus, act, w, total;
+  size_t theta, v, tr, bus, act, w, tel, total;
 };
 
 __host__ __device__ inline Layout layout(const RolloutArgs& a, bool quant) {
@@ -88,7 +107,8 @@ __host__ __device__ inline Layout layout(const RolloutArgs& a, bool quant) {
   l.bus = l.tr + align16(bb * pop * 4);
   l.act = l.bus + align16(2 * bb * widest * 4);
   l.w = l.act + align16(bb * 4);
-  l.total = l.w + align16(bb * syn * (quant ? 1 : 4));
+  l.tel = l.w + align16(bb * syn * (quant ? 1 : 4));
+  l.total = l.tel + (a.telemetry ? align16(bb * 8) : 0);
   return l;
 }
 
@@ -119,7 +139,18 @@ __device__ inline void copy_block(T* __restrict__ dst, const T* __restrict__ src
   }
 }
 
-template <bool Q>
+// Sum of one value per lane over a warp, in a fixed tree order.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x = x + __shfl_down_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// |x| with the reference's int32 wrap-around (|INT_MIN| stays INT_MIN).
+__device__ __forceinline__ int wabs(int x) { return x < 0 ? ff::wsub(0, x) : x; }
+
+template <bool Q, bool kTel>
 __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
   using S = typename Types<Q>::S;
   using W = typename Types<Q>::W;
@@ -170,7 +201,11 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
   int* act = (int*)(smem + lay.act);
   for (int s = tid; s < nb; s += nt)
     act[s] = a.active == nullptr || a.active[b0 + s] != 0;
+  float* tel_acc = (float*)(smem + lay.tel);     // (bb, 2), kTel only
+  if constexpr (kTel)
+    for (int e = tid; e < 2 * nb; e += nt) tel_acc[e] = 0.0f;
   __syncthreads();
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
 
   const int n0 = a.sizes[0];
   for (int k = 0; k < a.k_steps; ++k) {
@@ -222,6 +257,48 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
         if (last) ((S*)a.outs)[((long)k * B + b0) * m + e] = out;
       }
       __syncthreads();
+      // ---- telemetry: this layer's event and saturation means ---------
+      // Events from the bus in event units (a readout's output is its
+      // membrane: back through tanh or the fixed-point clip); saturation
+      // on the updated membrane (frozen for inactive streams, whose row the
+      // final gate zeroes).
+      if constexpr (kTel) {
+        for (int s = warp; s < nb; s += n_warps) {
+          const S* o = bus_out + s * m;
+          const S* vs = v[i] + s * m;
+          if constexpr (Q) {
+            int ev = 0, sat = 0;
+            for (int c = lane; c < m; c += 32) {
+              const int x = o[c];
+              ev += wabs(spiking ? x : min(max(x, -a.q.one), a.q.one));
+              sat += wabs(vs[c]) >= a.sat_q;
+            }
+            ev = warp_sum(ev);
+            sat = warp_sum(sat);
+            if (lane == 0) {
+              tel_acc[2 * s] = tel_acc[2 * s] +
+                  __int2float_rn(ev) / (float)a.q.one / (float)m;
+              tel_acc[2 * s + 1] =
+                  tel_acc[2 * s + 1] + __int2float_rn(sat) / (float)m;
+            }
+          } else {
+            float ev = 0.0f, sat = 0.0f;
+            for (int c = lane; c < m; c += 32) {
+              ev = ev + fabsf(spiking ? o[c] : tanhf(o[c]));
+              sat = sat + (fabsf(vs[c]) >= a.sat_f ? 1.0f : 0.0f);
+            }
+            ev = warp_sum(ev);
+            sat = warp_sum(sat);
+            if (lane == 0) {
+              tel_acc[2 * s] = tel_acc[2 * s] + ev / (float)m;
+              tel_acc[2 * s + 1] = tel_acc[2 * s + 1] + sat / (float)m;
+            }
+          }
+        }
+        // the bus and membranes are rewritten before the next barrier
+        // when this layer is not plastic
+        __syncthreads();
+      }
       // ---- phase 2: Plasticity Engine on the resident weights ---------
       // Synapse o = row * M + col of stream s; the thread's (row, col)
       // advances by a fixed step, so the loop does no integer division.
@@ -264,6 +341,43 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
     }
   }
 
+  // ---- telemetry: net weight motion, finalize, gate, write -------------
+  if constexpr (kTel) {
+    int n_plastic = 0;
+    for (int i = 0; i < L; ++i) n_plastic += (a.plastic_mask >> i) & 1;
+    const float kl = (float)(a.k_steps * L);
+    for (int s = warp; s < nb; s += n_warps) {
+      float mean_dw = 0.0f;
+      for (int i = 0; i < L; ++i) {
+        if (!((a.plastic_mask >> i) & 1)) continue;
+        const long nm = (long)a.sizes[i] * a.sizes[i + 1];
+        const W* w_end = w[i] + s * nm;
+        const W* w_start = (const W*)a.w_in[i] + (long)(b0 + s) * nm;
+        float per_slot;
+        if constexpr (Q) {
+          int d = 0;
+          for (long o = lane; o < nm; o += 32)
+            d += abs((int)w_end[o] - (int)w_start[o]);
+          per_slot = __int2float_rn(warp_sum(d)) * a.scale[i][b0 + s];
+        } else {
+          float d = 0.0f;
+          for (long o = lane; o < nm; o += 32)
+            d = d + fabsf(w_end[o] - w_start[o]);
+          per_slot = warp_sum(d);
+        }
+        mean_dw = mean_dw + per_slot / (float)nm;
+      }
+      if (n_plastic) mean_dw = mean_dw / (float)(a.k_steps * n_plastic);
+      if (lane == 0) {
+        const float g = act[s] ? 1.0f : 0.0f;
+        float* row = a.tel + (long)(b0 + s) * 3;
+        row[0] = tel_acc[2 * s] / kl * g;
+        row[1] = mean_dw * g;
+        row[2] = tel_acc[2 * s + 1] / kl * g;
+      }
+    }
+  }
+
   // ---- single write-back of the window's state ------------------------
   for (int i = 0; i < L; ++i) {
     const int n = a.sizes[i], m = a.sizes[i + 1];
@@ -276,31 +390,33 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
          (long)nb * a.sizes[i]);
 }
 
+template <bool Q, bool kTel>
+int launch_window(const RolloutArgs* a, size_t smem, unsigned blocks,
+                  cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      rollout_kernel<Q, kTel>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  rollout_kernel<Q, kTel><<<blocks, kThreads, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // expected_smem: the wrapper's count; a mismatch means the two layouts have
 // drifted apart and the launch is refused.
 extern "C" int rollout(const RolloutArgs* a, int quant, size_t expected_smem,
                        cudaStream_t stream) {
-  if (a->n_layers < 1 || a->n_layers > kMaxLayers || a->block_b < 1)
+  if (a->n_layers < 1 || a->n_layers > kMaxLayers || a->block_b < 1 ||
+      (a->telemetry != 0) != (a->tel != nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = layout(*a, quant != 0).total;
   if (smem != expected_smem) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((a->batch + a->block_b - 1) / a->block_b);
   if (blocks == 0) return (int)cudaSuccess;
-  cudaError_t err;
-  if (quant) {
-    err = cudaFuncSetAttribute(rollout_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    rollout_kernel<true><<<blocks, kThreads, smem, stream>>>(*a);
-  } else {
-    err = cudaFuncSetAttribute(rollout_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    rollout_kernel<false><<<blocks, kThreads, smem, stream>>>(*a);
-  }
-  return (int)cudaGetLastError();
+  if (quant)
+    return a->telemetry ? launch_window<true, true>(a, smem, blocks, stream)
+                        : launch_window<true, false>(a, smem, blocks, stream);
+  return a->telemetry ? launch_window<false, true>(a, smem, blocks, stream)
+                      : launch_window<false, false>(a, smem, blocks, stream);
 }

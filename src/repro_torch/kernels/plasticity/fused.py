@@ -18,6 +18,13 @@ Semantics, identical to K per-step calls (`rollout_plain` is that loop):
   * a readout layer's output is its membrane, zeroed for inactive streams;
   * an optional teaching current drives the LAST layer, per step (K, B, M).
 
+``telemetry=True`` (fleet only) also returns the window's per-slot
+telemetry row ``(B, 3) float32``, already normalized and gated: mean
+|event| and saturated share over the K * L layer steps, and the net weight
+motion |w_end - w_start| / (N_i * M_i) per plastic layer over K * n_plastic
+(``csrc/rollout.cu``'s telemetry variant; `rollout_plain` is its plain
+version).
+
 FLEET mode (``w (B, N, M)``) launches ``csrc/rollout.cu`` (`rollout`);
 SHARED-weight mode (``w (N, M)``, batched activations, batch-averaged dw)
 launches ``csrc/rollout_shared.cu`` (`rollout_shared`): one cooperative
@@ -35,6 +42,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.plasticity import kernel as _k
 from repro_torch.kernels.plasticity import quant as Q
 from repro_torch.kernels.plasticity import ref as _ref
+from repro_torch.obs.telemetry import sat_threshold, sat_threshold_q
 
 MAX_LAYERS = 8                    # ff::kMaxLayers
 DEFAULT_SMEM_LIMIT = 232448       # H100: 227 KB of dynamic shared memory
@@ -53,14 +61,17 @@ class _RolloutArgs(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "n_layers", "k_steps", "batch", "block_b", "spiking_mask",
             "plastic_mask", "theta_in_smem")] + [
-        ("w_clip", ctypes.c_float), ("f", _k.FParams), ("q", _k.QParams)]
+        ("w_clip", ctypes.c_float), ("f", _k.FParams), ("q", _k.QParams),
+        ("tel", _P), ("telemetry", ctypes.c_int), ("sat_q", ctypes.c_int),
+        ("sat_f", ctypes.c_float)]
 
 
 def rollout_smem_bytes(sizes, block_b: int, plastic, quant: bool,
-                       theta_in_smem: bool) -> int:
+                       theta_in_smem: bool, telemetry: bool = False) -> int:
     """Shared memory of one CTA: theta planes (if resident), membranes,
-    traces, the double-buffered event bus, the active flags and the block's
-    weights — the layout of ``csrc/rollout.cu``."""
+    traces, the double-buffered event bus, the active flags, the block's
+    weights and, with ``telemetry``, the (block_b, 2) float accumulator —
+    the layout of ``csrc/rollout.cu``."""
     def al(x):
         return (x + 15) // 16 * 16
     n_layers = len(sizes) - 1
@@ -70,7 +81,8 @@ def rollout_smem_bytes(sizes, block_b: int, plastic, quant: bool,
     return (al(th * 4) + al(block_b * sum(sizes[1:]) * 4)
             + al(block_b * sum(sizes) * 4)
             + al(2 * block_b * max(sizes) * 4) + al(block_b * 4)
-            + al(block_b * syn * (1 if quant else 4)))
+            + al(block_b * syn * (1 if quant else 4))
+            + (al(block_b * 8) if telemetry else 0))
 
 
 def smem_limit(device) -> int:
@@ -80,13 +92,13 @@ def smem_limit(device) -> int:
 
 
 def smem_plan(sizes, block_b: int, plastic, quant: bool,
-              limit: int) -> tuple[int, bool]:
+              limit: int, telemetry: bool = False) -> tuple[int, bool]:
     """``(bytes, theta_in_smem)`` of one CTA: theta resident when it fits,
     else read from device memory (through L2); raises when even the state
     of ``block_b`` streams does not fit — the kernel does not fall back."""
     for theta_in_smem in (True, False):
         smem = rollout_smem_bytes(sizes, block_b, plastic, quant,
-                                  theta_in_smem)
+                                  theta_in_smem, telemetry)
         if smem <= limit:
             return smem, theta_in_smem
     raise ValueError(
@@ -165,19 +177,66 @@ def shared_plan(sizes, batch: int, plastic, quant: bool, sms: int,
         f"bytes of shared memory a CTA may use")
 
 
+def _event_units(out, spiking: bool, qcfg):
+    """|events| in event units from a layer's gated output: a readout's
+    output is its membrane, mapped back through its event nonlinearity
+    (tanh, or the fixed-point clip); zeroed outputs stay zero."""
+    if qcfg is not None:
+        ev = out if spiking else torch.clamp(out, -qcfg.one, qcfg.one)
+        return ev.abs().float() / qcfg.one
+    return (out if spiking else torch.tanh(out)).abs()
+
+
+def _window_telemetry(acc, ws0, ws, plastic, scales, active, k_steps, qcfg):
+    """Finalize a window's (B, 2) [spike, saturation] accumulator and net
+    weight motion into the gated (B, 3) row (`fused.py:256-283` of the JAX
+    package)."""
+    n_layers = len(ws)
+    kl = float(k_steps * n_layers)
+    spike_rate, sat_frac = acc[:, 0] / kl, acc[:, 1] / kl
+    plast = [i for i in range(n_layers) if plastic[i]]
+    mean_dw = torch.zeros_like(spike_rate)
+    if plast:
+        for i in plast:
+            n_i, m_i = ws[i].shape[-2], ws[i].shape[-1]
+            if qcfg is not None:
+                d = (ws[i].to(torch.int32) - ws0[i].to(torch.int32)).abs()
+                per_slot = d.sum((1, 2), dtype=torch.int32).float() \
+                    * torch.as_tensor(scales[i], dtype=torch.float32,
+                                      device=acc.device).reshape(-1)
+            else:
+                per_slot = (ws[i] - ws0[i]).abs().sum((1, 2))
+            mean_dw = mean_dw + per_slot / (n_i * m_i)
+        mean_dw = mean_dw / float(k_steps * len(plast))
+    row = torch.stack([spike_rate, mean_dw, sat_frac], dim=1)
+    if active is not None:
+        row = row * active.reshape(-1, 1).float()
+    return row
+
+
 def rollout_plain(drives, ws, thetas, vs, traces, *, spiking, plastic,
                   tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
                   trace_decay: float = 0.8, w_clip: float = 4.0, qcfg=None,
-                  scales=None, seed=None, teach=None, active=None):
+                  scales=None, seed=None, teach=None, active=None,
+                  telemetry: bool = False):
     """The window as a Python loop over K of the plain per-layer steps.
 
     Arguments as `rollout`; also takes shared weights ``(N, M)``.  Returns
-    ``(outs, ws, vs, traces)`` with outs (K, B, M_last).
+    ``(outs, ws, vs, traces)`` with outs (K, B, M_last), plus the (B, 3)
+    telemetry row with ``telemetry`` (fleet only).
     """
     n_layers = len(ws)
     fleet = ws[0].ndim == 3
+    if telemetry and not fleet:
+        raise ValueError("telemetry is a fleet-mode contract (per-slot rows "
+                         "need a leading stream rank)")
+    ws0 = ws
     ws, vs, trs = list(ws), list(vs), list(traces)
     gate = None if active is None else active.reshape(-1).bool()[:, None]
+    acc = (torch.zeros((drives.shape[1], 2), dtype=torch.float32,
+                       device=drives.device) if telemetry else None)
+    sat_thr = (None if not telemetry else sat_threshold(v_th)
+               if qcfg is None else sat_threshold_q(v_th, qcfg))
     outs = []
     for k in range(drives.shape[0]):
         x = drives[k]
@@ -208,8 +267,18 @@ def rollout_plain(drives, ws, thetas, vs, traces, *, spiking, plastic,
             x = events if spiking[i] else vs[i]
             if gate is not None and not spiking[i]:
                 x = torch.where(gate, x, torch.zeros_like(x))
+            if telemetry:
+                m_i = x.shape[-1]
+                sat = (vs[i].abs() >= sat_thr).float()
+                acc = acc + torch.stack(
+                    [_event_units(x, spiking[i], qcfg).sum(1) / m_i,
+                     sat.sum(1) / m_i], dim=1)
         outs.append(x)
-    return torch.stack(outs), tuple(ws), tuple(vs), tuple(trs)
+    out = (torch.stack(outs), tuple(ws), tuple(vs), tuple(trs))
+    if not telemetry:
+        return out
+    return out + (_window_telemetry(acc, ws0, ws, plastic, scales, active,
+                                    drives.shape[0], qcfg),)
 
 
 def _layer_flags(spiking, plastic, thetas):
@@ -283,7 +352,7 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
             tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
             trace_decay: float = 0.8, w_clip: float = 4.0, qcfg=None,
             scales=None, seed=None, teach=None, active=None,
-            block_b: int = 8):
+            block_b: int = 8, telemetry: bool = False):
     """K fused timesteps of the whole layer stack.
 
     Args:
@@ -300,10 +369,15 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
       teach:   optional (K, B, M_last) teaching current for the last layer.
       active:  optional (B,) slot mask, constant over the window.
       block_b: streams per CTA (the kernel's residency unit).
+      telemetry: fleet only — also return the window's (B, 3) telemetry
+               row (the kernel's telemetry variant).
 
-    Returns ``(outs, ws, vs, traces)``, outs (K, B, M_last).  A CPU tensor
-    runs `rollout_plain`; a CUDA tensor launches the fleet kernel (counted
-    in ``rollout.launches``) or, for shared weights, `rollout_shared`.
+    Returns ``(outs, ws, vs, traces)``, outs (K, B, M_last), plus the
+    telemetry row with ``telemetry``.  A CPU tensor runs `rollout_plain`; a
+    CUDA tensor launches the fleet kernel (counted in
+    ``rollout.launches``, its telemetry variant also in
+    ``rollout.telemetry_launches``) or, for shared weights,
+    `rollout_shared`.
     """
     spiking, plastic = _layer_flags(spiking, plastic, thetas)
     if not _k.on_card(drives):
@@ -311,10 +385,13 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
             drives, ws, thetas, vs, traces, spiking=spiking, plastic=plastic,
             tau_m=tau_m, v_th=v_th, v_reset=v_reset, trace_decay=trace_decay,
             w_clip=w_clip, qcfg=qcfg, scales=scales, seed=seed, teach=teach,
-            active=active)
+            active=active, telemetry=telemetry)
     if ws[0].ndim != 3:
         if active is not None:
             raise ValueError("active slot masks are a fleet-mode contract")
+        if telemetry:
+            raise ValueError("telemetry is a fleet-mode contract (per-slot "
+                             "rows need a leading stream rank)")
         return rollout_shared(
             drives, ws, thetas, vs, traces, spiking=spiking, plastic=plastic,
             tau_m=tau_m, v_th=v_th, v_reset=v_reset, trace_decay=trace_decay,
@@ -330,8 +407,13 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
     act = _k.active_mask(active, b, drives.device)
     a.active = _k.ptr(act)
     a.block_b = bb = min(block_b, b)
+    tel = (torch.empty((b, 3), dtype=torch.float32, device=drives.device)
+           if telemetry else None)
+    a.tel, a.telemetry = _k.ptr(tel), int(telemetry)
+    a.sat_q = sat_threshold_q(v_th, qcfg) if quant else 0
+    a.sat_f = sat_threshold(v_th)
     smem, theta_in_smem = smem_plan(sizes, bb, plastic, quant,
-                                    smem_limit(drives.device))
+                                    smem_limit(drives.device), telemetry)
     a.theta_in_smem = int(theta_in_smem)
     fn = _build.library("rollout.cu").rollout
     fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int,
@@ -340,10 +422,12 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
     _build.check(fn(ctypes.byref(a), int(quant), smem,
                     _k.stream_of(drives)), "rollout")
     rollout.launches += 1
-    return out
+    rollout.telemetry_launches += int(telemetry)
+    return out if tel is None else out + (tel,)
 
 
 rollout.launches = 0
+rollout.telemetry_launches = 0      # the telemetry variant's share
 
 
 def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,

@@ -16,10 +16,15 @@ rewritten) fused in one launch.
 
 The fixed-point kernels are bit for bit equal to their plain versions.
 
+``telemetry=True`` on the fleet steps launches the kernels' telemetry
+variant and appends the raw (B, 3) float32 per-slot row of
+`ref._fleet_telemetry_raw` to the four outputs.
+
 The backend follows the tensors: a CPU tensor takes the plain version
 (``ref.dual_engine_fleet_step[_q]``), a CUDA tensor launches the kernel, and
 anything else raises.  Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``, and the fleet steps those of their telemetry variant
+also in ``<wrapper>.telemetry_launches``.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.plasticity import quant as Q
 from repro_torch.kernels.plasticity import ref as _ref
+from repro_torch.obs.telemetry import sat_threshold, sat_threshold_q
 
 # Plain versions, beside their kernels.
 fleet_step_plain = _ref.dual_engine_fleet_step
@@ -63,7 +69,9 @@ class _FleetStepArgs(ctypes.Structure):
         "scale", "seed", "events", "v_out", "trace_post_out", "w_out")] + [
         (name, ctypes.c_int) for name in (
             "batch", "n", "m", "plastic", "spiking")] + [
-        ("w_clip", ctypes.c_float), ("f", FParams), ("q", QParams)]
+        ("w_clip", ctypes.c_float), ("f", FParams), ("q", QParams),
+        ("tel", _P), ("tiles", ctypes.c_int), ("sat_q", ctypes.c_int),
+        ("sat_f", ctypes.c_float)]
 
 
 class _SharedStepArgs(ctypes.Structure):
@@ -137,10 +145,18 @@ def active_mask(active, b: int, device) -> torch.Tensor | None:
     return (active.to(device) != 0).to(torch.uint8).contiguous()
 
 
+def tel_tiles(m: int) -> int:
+    """Partials per stream of the fleet-step telemetry buffer: the most
+    32-lane warps that M contiguous (b, m) elements can touch."""
+    return (m - 1) // 32 + 2
+
+
 def _launch(entry: str, x, w, theta, v, trace_pre, trace_post, *, state_dt,
-            plastic, spiking, w_clip, teach, active, scale=None, seed=None,
-            f=None, q=None):
-    """Check operands, allocate outputs, launch one fleet-step kernel."""
+            plastic, spiking, w_clip, teach, active, telemetry, v_th,
+            scale=None, seed=None, f=None, q=None, qcfg=None):
+    """Check operands, allocate outputs, launch one fleet-step kernel;
+    with ``telemetry`` also fold its per-(stream, warp piece) partials into
+    the raw (B, 3) row."""
     b, n = x.shape
     m = w.shape[2]
     dev = x.device
@@ -160,55 +176,80 @@ def _launch(entry: str, x, w, theta, v, trace_pre, trace_post, *, state_dt,
     v_out = torch.empty_like(v)
     tp_out = torch.empty_like(trace_post)
     w_out = torch.empty_like(w)
+    tiles = tel_tiles(m)
+    parts = (torch.zeros((b, tiles, 3), dtype=state_dt, device=dev)
+             if telemetry else None)
     args = _FleetStepArgs(
         ptr(x), ptr(w), ptr(theta) if plastic else None, ptr(v),
         ptr(trace_pre), ptr(trace_post), ptr(teach), ptr(active), ptr(scale),
         ptr(seed), ptr(events), ptr(v_out), ptr(tp_out), ptr(w_out),
         b, n, m, int(plastic), int(spiking), w_clip, f or FParams(),
-        q or QParams())
+        q or QParams(), ptr(parts), tiles,
+        sat_threshold_q(v_th, qcfg) if qcfg is not None else 0,
+        sat_threshold(v_th))
     fn = getattr(_build.library("fleet_step.cu"), entry)
     fn.argtypes, fn.restype = [ctypes.POINTER(_FleetStepArgs), _P], \
         ctypes.c_int
     _build.check(fn(ctypes.byref(args), stream_of(x)), entry)
-    return events, v_out, tp_out, w_out
+    out = (events, v_out, tp_out, w_out)
+    if not telemetry:
+        return out
+    if qcfg is None:
+        raw = parts.sum(1)
+    else:   # exact integer counts until one division and one scaling
+        sums = parts.sum(1, dtype=torch.int32)
+        raw = torch.stack([sums[:, 0].float() / qcfg.one,
+                           sums[:, 1].float() * scale,
+                           sums[:, 2].float()], dim=1)
+    if active is not None:
+        raw = raw * active.reshape(-1, 1).float()
+    return out + (raw,)
 
 
 def fleet_step(x, w, theta, v, trace_pre, trace_post, *,
                tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
                trace_decay: float = 0.8, w_clip: float = 4.0,
                plastic: bool = True, spiking: bool = True, teach=None,
-               active=None):
+               active=None, telemetry: bool = False):
     """Float32 fleet step; shapes as `ref.dual_engine_fleet_step`.
-    Returns (events, v_out, trace_post_new, w_new)."""
+    Returns (events, v_out, trace_post_new, w_new), plus the raw (B, 3)
+    telemetry row with ``telemetry``."""
     if not on_card(x):
         return fleet_step_plain(
             x, w, theta, v, trace_pre, trace_post, tau_m=tau_m, v_th=v_th,
             v_reset=v_reset, trace_decay=trace_decay, w_clip=w_clip,
-            plastic=plastic, spiking=spiking, teach=teach, active=active)
+            plastic=plastic, spiking=spiking, teach=teach, active=active,
+            telemetry=telemetry)
     if w.dtype != torch.float32:
         raise ValueError(f"float fleet kernel needs float32 w; got {w.dtype}")
     out = _launch("fleet_step_f32", x, w, theta, v, trace_pre, trace_post,
                   state_dt=torch.float32, plastic=plastic, spiking=spiking,
                   w_clip=w_clip, teach=teach, active=active,
+                  telemetry=telemetry, v_th=v_th,
                   f=f_params(tau_m, v_th, v_reset, trace_decay))
     fleet_step.launches += 1
+    fleet_step.telemetry_launches += int(telemetry)
     return out
 
 
 fleet_step.launches = 0
+fleet_step.telemetry_launches = 0       # the telemetry variant's share
 
 
 def fleet_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
                  qcfg: Q.QuantConfig, v_th: float = 1.0, v_reset: float = 0.0,
                  w_clip: float = 4.0, plastic: bool = True,
-                 spiking: bool = True, teach=None, seed=None, active=None):
+                 spiking: bool = True, teach=None, seed=None, active=None,
+                 telemetry: bool = False):
     """Fixed-point fleet step; shapes as `ref.dual_engine_fleet_step_q`.
-    Returns (events, v_out, trace_post_new, w_new), int32 and int8."""
+    Returns (events, v_out, trace_post_new, w_new), int32 and int8, plus
+    the raw (B, 3) float32 telemetry row with ``telemetry``."""
     if not on_card(x):
         return fleet_step_q_plain(
             x, w, scale, theta, v, trace_pre, trace_post, qcfg=qcfg,
             v_th=v_th, v_reset=v_reset, w_clip=w_clip, plastic=plastic,
-            spiking=spiking, teach=teach, seed=seed, active=active)
+            spiking=spiking, teach=teach, seed=seed, active=active,
+            telemetry=telemetry)
     if w.dtype != torch.int8:
         raise ValueError(f"fixed-point fleet kernel needs int8 w; got "
                          f"{w.dtype}")
@@ -216,14 +257,17 @@ def fleet_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
     out = _launch("fleet_step_q", x, w, theta, v, trace_pre, trace_post,
                   state_dt=torch.int32, plastic=plastic, spiking=spiking,
                   w_clip=w_clip, teach=teach, active=active,
+                  telemetry=telemetry, v_th=v_th,
                   scale=per_stream(scale, b, torch.float32, dev),
                   seed=per_stream(seed, b, torch.int32, dev),
-                  q=q_params(qcfg, v_th, v_reset))
+                  q=q_params(qcfg, v_th, v_reset), qcfg=qcfg)
     fleet_step_q.launches += 1
+    fleet_step_q.telemetry_launches += int(telemetry)
     return out
 
 
 fleet_step_q.launches = 0
+fleet_step_q.telemetry_launches = 0       # the telemetry variant's share
 
 
 def _launch_shared(entry: str, x, w, theta, v, trace_pre, trace_post, *,

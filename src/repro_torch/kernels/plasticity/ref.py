@@ -28,6 +28,34 @@ import torch
 
 from repro_torch.core.plasticity import fma32
 from repro_torch.kernels.plasticity import quant as Q
+from repro_torch.obs.telemetry import sat_threshold, sat_threshold_q
+
+
+def _fleet_telemetry_raw(events, v_out, w_old, w_new, active, *, v_th,
+                         scale=None, qcfg=None):
+    """Raw per-slot telemetry sums ``(B, 3) float32`` (`obs.telemetry`
+    schema) from the already-gated fleet outputs: col 0 = sum |events| in
+    event units (the fixed-point 0/``one`` grid divided out), col 1 = sum
+    |dw| in float weight units (int8 grid steps x per-slot scale), col 2 =
+    count of membranes at >= SAT_FRACTION of threshold.  The row is
+    multiplied by the active mask: a vacant slot's frozen membrane may sit
+    near threshold and must not leak into col 2.  Fixed-point sums stay
+    integer until the one division or scaling, so they are exact."""
+    if qcfg is not None:
+        spike_sum = events.abs().sum(1, dtype=torch.int32).float() / qcfg.one
+        dsteps = (w_new.to(torch.int32) - w_old.to(torch.int32)).abs()
+        abs_dw = dsteps.sum((1, 2), dtype=torch.int32).float() \
+            * torch.as_tensor(scale, dtype=torch.float32,
+                              device=events.device).reshape(-1)
+        sat = v_out.abs() >= sat_threshold_q(v_th, qcfg)
+    else:
+        spike_sum = events.float().abs().sum(1)
+        abs_dw = (w_new.float() - w_old.float()).abs().sum((1, 2))
+        sat = v_out.float().abs() >= sat_threshold(v_th)
+    raw = torch.stack([spike_sum, abs_dw, sat.sum(1).float()], dim=1)
+    if active is not None:
+        raw = raw * active.reshape(-1, 1).float()
+    return raw
 
 
 def _forward(current, v, trace_post, *, tau_m, v_th, v_reset, trace_decay,
@@ -90,12 +118,14 @@ def dual_engine_fleet_step(x, w, theta, v, trace_pre, trace_post, *,
                            tau_m: float = 2.0, v_th: float = 1.0,
                            v_reset: float = 0.0, trace_decay: float = 0.8,
                            w_clip: float = 4.0, plastic: bool = True,
-                           spiking: bool = True, teach=None, active=None):
+                           spiking: bool = True, teach=None, active=None,
+                           telemetry: bool = False):
     """Fleet step: x (B,N), w (B,N,M), theta (4,N,M) shared, v (B,M),
     traces (B,·), teach (B,M)|(M,)|None, active (B,)|None.
 
     Returns (events, v_out, trace_post_new, w_new); inactive streams come
-    back bit-identical with zero events.
+    back bit-identical with zero events.  ``telemetry`` appends the raw
+    (B, 3) float32 row of `_fleet_telemetry_raw`.
     """
     current = torch.bmm(x.float()[:, None, :], w.float())[:, 0]   # psum
     if teach is not None:
@@ -113,7 +143,11 @@ def dual_engine_fleet_step(x, w, theta, v, trace_pre, trace_post, *,
         w_new = w32
     out = (spikes.to(x.dtype), v_out.to(v.dtype),
            tp_new.to(trace_post.dtype), w_new.to(w.dtype))
-    return _gate(active, *out, v, trace_post, w)
+    out = _gate(active, *out, v, trace_post, w)
+    if not telemetry:
+        return out
+    return out + (_fleet_telemetry_raw(out[0], out[1], w, out[3], active,
+                                       v_th=v_th),)
 
 
 # ---- fixed-point datapath ---------------------------------------------------
@@ -166,13 +200,15 @@ def dual_engine_fleet_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
                              qcfg: Q.QuantConfig, v_th: float = 1.0,
                              v_reset: float = 0.0, w_clip: float = 4.0,
                              plastic: bool = True, spiking: bool = True,
-                             teach=None, seed=None, active=None):
+                             teach=None, seed=None, active=None,
+                             telemetry: bool = False):
     """Fixed-point fleet step: x (B,N) int32, w (B,N,M) int8, scale (B,)|()
     f32 per slot, theta (4,N,M) f32 shared, v/traces (B,·) int32, seed
     (B,)|() int32 per-session step counters, active (B,)|None.
 
     Every reduction is an exact integer reduction and every float operation
-    elementwise, so the CUDA kernel matches this function bit for bit.
+    elementwise, so the CUDA kernel matches this function bit for bit, its
+    ``telemetry`` row (`_fleet_telemetry_raw`, float units) included.
     """
     b, n, m = w.shape
     dev = x.device
@@ -200,4 +236,8 @@ def dual_engine_fleet_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
         w_new = torch.clamp(w32 + steps, -qmax, qmax).to(torch.int8)
     else:
         w_new = w
-    return _gate(active, events, v_out, tp_new, w_new, v, trace_post, w)
+    out = _gate(active, events, v_out, tp_new, w_new, v, trace_post, w)
+    if not telemetry:
+        return out
+    return out + (_fleet_telemetry_raw(out[0], out[1], w, out[3], active,
+                                       v_th=v_th, scale=scale, qcfg=qcfg),)

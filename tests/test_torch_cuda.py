@@ -561,3 +561,165 @@ def test_mamba2_prefill_launches_ssd_kernel_per_layer(cuda_device):
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(cache["segments"][0]["ssm"],
                                want_cache["segments"][0]["ssm"], **SSD_TOL)
+
+
+# ---- the telemetry variants and session serving -------------------------------
+
+def _tel_step_inputs(rng, n, m, quant, dev):
+    if quant:
+        return _on(dev, x=rng.choice([0, 256], (B, n)).astype(np.int32),
+                   w=rng.integers(-127, 128, (B, n, m)).astype(np.int8),
+                   v=rng.integers(-600, 600, (B, m)).astype(np.int32),
+                   tpre=rng.integers(0, 1200, (B, n)).astype(np.int32),
+                   tpost=rng.integers(-300, 1200, (B, m)).astype(np.int32),
+                   scale=np.where(np.arange(B) % 2 == 0, 1 / 32,
+                                  1 / 16).astype(np.float32),
+                   seed=rng.integers(-2 ** 31, 2 ** 31, B).astype(np.int32),
+                   teach=rng.integers(-300, 300, (B, m)).astype(np.int32),
+                   theta=(rng.standard_normal((4, n, m)) * 0.02
+                          ).astype(np.float32))
+    return _on(dev, x=(rng.random((B, n)) < 0.4).astype(np.float32),
+               w=(np.round(rng.uniform(-1, 1, (B, n, m)) * 64) / 64
+                  ).astype(np.float32),
+               v=(rng.standard_normal((B, m)) * 0.8).astype(np.float32),
+               tpre=(rng.random((B, n)) * 3).astype(np.float32),
+               tpost=(rng.random((B, m)) * 3).astype(np.float32),
+               teach=(rng.standard_normal((B, m)) * 0.5).astype(np.float32),
+               theta=(rng.standard_normal((4, n, m)) * 0.02
+                      ).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_fleet_step_telemetry_variant_matches_plain_on_card(quant,
+                                                           cuda_device):
+    """The telemetry row against the plain version (int8 bit for bit,
+    float32 within 2e-4), its state bit for bit against the same launch
+    without telemetry, and zeros for vacant slots."""
+    rng = np.random.default_rng(41)
+    active = torch.from_numpy(ACTIVE).to(cuda_device)
+    for n, m, spiking in ((8, 128, True), (128, 8, False), (7, 45, True),
+                          (16, 200, False)):
+        t = _tel_step_inputs(rng, n, m, quant, cuda_device)
+        kw = dict(spiking=spiking, teach=t["teach"], active=active)
+        if quant:
+            args = (t["x"], t["w"], t["scale"], t["theta"], t["v"],
+                    t["tpre"], t["tpost"])
+            kw.update(qcfg=TQ.QuantConfig(), seed=t["seed"])
+            fn, plain = TK.fleet_step_q, TK.fleet_step_q_plain
+        else:
+            args = (t["x"], t["w"], t["theta"], t["v"], t["tpre"],
+                    t["tpost"])
+            fn, plain = TK.fleet_step, TK.fleet_step_plain
+        got = fn(*args, telemetry=True, **kw)
+        off = fn(*args, **kw)
+        want = plain(*args, telemetry=True, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:4], off):
+            assert torch.equal(a, b)
+        _assert_match(got[:4], want[:4], quant)
+        if quant:
+            assert torch.equal(got[4], want[4])
+        else:
+            torch.testing.assert_close(got[4], want[4], rtol=0, atol=2e-4)
+        assert (got[4][active == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_rollout_telemetry_variant_matches_plain_on_card(quant, cuda_device):
+    rng = np.random.default_rng(43)
+    qc = TQ.QuantConfig() if quant else None
+    sizes = (8, 128, 8)
+    for k in (1, 4, 16):
+        st = _network(rng, sizes, quant, cuda_device)
+        theta = [torch.from_numpy((rng.standard_normal(
+            (4, sizes[i], sizes[i + 1])) * 0.02).astype(np.float32))
+            .to(cuda_device) for i in range(len(sizes) - 1)]
+        if quant:
+            drives = rng.integers(-512, 512, (k, B, sizes[0])).astype(np.int32)
+            tch = rng.integers(-200, 200, (B, sizes[-1])).astype(np.int32)
+        else:
+            drives = (np.round(rng.standard_normal((k, B, sizes[0])) * 16)
+                      / 16).astype(np.float32)
+            tch = (rng.standard_normal((B, sizes[-1])) * 0.3
+                   ).astype(np.float32)
+        t = _on(cuda_device, drives=drives, teach=tch, active=ACTIVE)
+        params = [TE.EngineParams(
+            spiking=i < len(sizes) - 2, quant=qc, tau_m=2.0,
+            trace_decay=0.75 if quant else 0.8)
+            for i in range(len(sizes) - 1)]
+        kw = dict(params=params, teach=t["teach"], active=t["active"])
+        got_st, got, tel = TE.rollout(st, theta, t["drives"], telemetry=True,
+                                      **kw)
+        off_st, off = TE.rollout(st, theta, t["drives"], **kw)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TF, "rollout", lambda *a, block_b=None, **k:
+                       TF.rollout_plain(*a, **k))
+            want_st, want, want_tel = TE.rollout(st, theta, t["drives"],
+                                                 telemetry=True, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip((*got_st.w, *got_st.v, *got_st.trace, got),
+                        (*off_st.w, *off_st.v, *off_st.trace, off)):
+            assert torch.equal(a, b)
+        for f in ("spike_rate", "mean_abs_dw", "sat_frac", "occupancy"):
+            g, w = getattr(tel, f), getattr(want_tel, f)
+            if quant:
+                assert torch.equal(g, w), f
+            else:
+                torch.testing.assert_close(g, w, rtol=0, atol=2e-4)
+            assert (g[t["active"] == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_scheduler_evict_readmit_bit_identical_on_card(quant, cuda_device,
+                                                       tmp_path):
+    """A 64-slot pool on the card: a probe evicted to disk and re-admitted
+    into another slot continues exactly as without the interruption."""
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import snn
+    from repro_torch.serving import FleetScheduler, SessionStore
+    cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
+           else firefly_snn.CONFIG)
+    theta = snn.init_theta(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           scale=0.05)
+    users = [f"u{i}" for i in range(63)]
+
+    def drive(uid, t):
+        return (np.sin(0.3 * t + len(uid) + np.arange(8)) * 1.5
+                ).astype(np.float32)
+
+    def run(interrupt):
+        sched = FleetScheduler(
+            cfg, theta, slots=64, device=cuda_device,
+            store=SessionStore(root=str(tmp_path / str(interrupt))))
+        assert sched.admit("probe") == 0
+        for u in users:
+            sched.admit(u)
+        outs = []
+        for t in range(8):
+            if interrupt and t == 4:
+                sched.evict("probe")
+                sched.store._warm.clear()
+                sched.evict("u5")
+                sched.admit("rival")         # takes slot 0
+                assert sched.admit("probe") == 6
+            obs = {u: drive(u, t) for u in sched.active_users}
+            if t % 2:
+                out = sched.step(obs, telemetry=True)[0]
+            else:
+                out = sched.control_step(obs)
+            outs.append(out["probe"].clone())
+        sched.evict("probe")
+        return outs, sched.store.checkout(
+            "probe", lambda: snn.init_state(cfg, device=cuda_device),
+            device=cuda_device)
+
+    o1, (f1, s1) = run(False)
+    o2, (f2, s2) = run(True)
+    assert s1 == s2
+    for a, b in zip(o1, o2):
+        assert torch.equal(a, b)
+    for a, b in zip((*f1.w, *f1.v, *f1.trace), (*f2.w, *f2.v, *f2.trace)):
+        assert torch.equal(a, b)
