@@ -87,6 +87,28 @@ Phases, each fatal on failure:
      the static signatures and loaded libraries stay constant after
      warm-up, 8 windows are profiled, and the int8 run repeated through
      the plain versions gives the same final pool and persisted sessions.
+ 2f. the bfloat16 instantiations against their plain versions: the fleet
+     step (with and without telemetry, the rule in bf16 or float32) at
+     8->128, 128->8 and a ragged 17->257 with B = 4096, with and without
+     a slot mask and teach; the fleet window at K = 1, 4, 32 with 90% of
+     the slots active and its telemetry variant at K = 4, 16; the
+     shared-weight window at 784-1024-10, K = 1 and 8; the shared step and
+     `lif_forward` at 784->1024 and 1024->10, B = 1.  Steps and one-step
+     windows within 3e-2 (JAX's own bf16 tolerance), K = 4 windows with at
+     most 1e-3 of the elements outside it, telemetry launches' state bit
+     for bit their telemetry-off twins', vacant slots frozen; each prints
+     its largest difference and the share beyond one bf16 step;
+ 4f. the controller path in bfloat16: `firefly_snn.CONFIG` with
+     ``dtype=bfloat16``, B = 4096, 260 steps on `direction`, beside phase
+     4's float32 rate and reward; one control window per event and fused,
+     with and without telemetry, each against the plain versions; the
+     recovery gate's two scenarios in bf16, printed and not gated;
+ 6f. the online path in bfloat16: `firefly_snn.MNIST` in bf16 on the 120
+     digits beside phase 6's float32, one digit per event and fused
+     against the plain versions, and the Table II forward-only baseline;
+ 7f. each bf16 kernel's time beside its float32 twin (timed in the same
+     phase), its plain version, its bound at 2 bytes per bf16 element and,
+     for `lif_forward`, a bf16 `torch.matmul` of the product.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -134,7 +156,14 @@ SOURCES = {"fleet_step": CSRC + "fleet_step.cu",
            "ssd_scan": CSRC + "ssd.cu",
            "fleet_step_telemetry": CSRC + "fleet_step.cu",
            "fleet_step_q_telemetry": CSRC + "fleet_step.cu",
-           "rollout_telemetry": CSRC + "rollout.cu"}
+           "rollout_telemetry": CSRC + "rollout.cu",
+           "fleet_step_bf16": CSRC + "fleet_step.cu",
+           "fleet_step_bf16_telemetry": CSRC + "fleet_step.cu",
+           "rollout_bf16": CSRC + "rollout.cu",
+           "rollout_bf16_telemetry": CSRC + "rollout.cu",
+           "rollout_shared_bf16": CSRC + "rollout_shared.cu",
+           "shared_step_bf16": CSRC + "shared_step.cu",
+           "lif_forward_bf16": CSRC + "lif_forward.cu"}
 REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "fleet_step_q": "src/repro/kernels/plasticity/kernel.py:559",
             "rollout": "src/repro/kernels/plasticity/fused.py:304",
@@ -147,7 +176,16 @@ REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "fleet_step_telemetry": "src/repro/kernels/plasticity/kernel.py:239",
             "fleet_step_q_telemetry":
                 "src/repro/kernels/plasticity/kernel.py:538",
-            "rollout_telemetry": "src/repro/kernels/plasticity/fused.py:230"}
+            "rollout_telemetry": "src/repro/kernels/plasticity/fused.py:230",
+            "fleet_step_bf16": "src/repro/kernels/plasticity/kernel.py:256",
+            "fleet_step_bf16_telemetry":
+                "src/repro/kernels/plasticity/kernel.py:239",
+            "rollout_bf16": "src/repro/kernels/plasticity/fused.py:304",
+            "rollout_bf16_telemetry":
+                "src/repro/kernels/plasticity/fused.py:230",
+            "rollout_shared_bf16": "src/repro/kernels/plasticity/fused.py:304",
+            "shared_step_bf16": "src/repro/kernels/plasticity/kernel.py:132",
+            "lif_forward_bf16": "src/repro/kernels/lif/kernel.py:47"}
 
 
 def log(*a):
@@ -227,21 +265,22 @@ def bound(nbytes, ops):
 OPS_F32, OPS_Q = 11, 35
 
 
-def step_bytes(b, n, m, wb, sb=4, fleet=True):
+def step_bytes(b, n, m, wb, sb=4, fleet=True, tb=4):
     """One step launch: every input read once, every output written once
     (x, w, theta, v, traces in; events, v, trace, w out); a fleet has one
-    weight set per stream, a shared-weight step one."""
+    weight set per stream, a shared-weight step one.  ``wb``, ``sb`` and
+    ``tb``: bytes of a weight, a state element and a rule coefficient."""
     syn = (b if fleet else 1) * n * m
-    return (b * n * sb + 2 * syn * wb + 16 * n * m + 2 * b * m * sb
+    return (b * n * sb + 2 * syn * wb + 4 * tb * n * m + 2 * b * m * sb
             + b * n * sb + 3 * b * m * sb)
 
 
-def window_bytes(b, sizes, k, wb, sb=4, fleet=True):
+def window_bytes(b, sizes, k, wb, sb=4, fleet=True, tb=4):
     """One rollout launch: drives and outputs once per step, the weights,
     theta, membranes and traces once per window each way (theta in)."""
     syn = sum(sizes[i] * sizes[i + 1] for i in range(len(sizes) - 1))
     return (k * b * sizes[0] * sb + k * b * sizes[-1] * sb
-            + 2 * (b if fleet else 1) * syn * wb + 16 * syn
+            + 2 * (b if fleet else 1) * syn * wb + 4 * tb * syn
             + 2 * b * sum(sizes[1:]) * sb + 2 * b * sum(sizes) * sb)
 
 
@@ -1948,6 +1987,592 @@ def time_telemetry(dev, results):
         f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
 
 
+# ---- phase 2f: the bfloat16 kernels against their plain versions -----------
+
+BF16_TOL = 3e-2                 # JAX's own bf16 tolerance (tests/test_fleet.py)
+BF16_SHARE = 1e-3               # windows: share of elements outside BF16_TOL
+BF16_NAMES = ("fleet_step_bf16", "fleet_step_bf16_telemetry", "rollout_bf16",
+              "rollout_bf16_telemetry", "rollout_shared_bf16",
+              "shared_step_bf16", "lif_forward_bf16")
+
+
+def bf16_ulp(t):
+    """One bfloat16 step at each element's magnitude."""
+    import torch
+    a = t.double().abs()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    return torch.where(a > 0, torch.exp2(e - 7), torch.full_like(a, 2e-40))
+
+
+def bf16_diff(got, want):
+    """Largest difference, the share of elements more than one bf16 step
+    apart and the share outside BF16_TOL, over paired tensors."""
+    import torch
+    torch.cuda.synchronize()
+    d = [(g.double() - h.double()).abs() for g, h in zip(got, want)]
+    n = sum(x.numel() for x in d)
+    return (max(float(x.max()) for x in d),
+            sum(int((x > bf16_ulp(h)).sum()) for x, h in zip(d, want)) / n,
+            sum(int((x > BF16_TOL).sum()) for x in d) / n)
+
+
+def held_bf16(name, got, want, results, what, windowed=False):
+    """A bf16 launch against its plain version: bfloat16 outputs, and every
+    element within BF16_TOL (a step or a one-step window) or at most
+    BF16_SHARE of them outside it (a longer window); the largest
+    difference and the share beyond one bf16 step are printed."""
+    import torch
+    require(all(g.dtype == torch.bfloat16 for g in got),
+            f"{name} {what}: outputs are not bfloat16")
+    err, ulp_share, tol_share = bf16_diff(got, want)
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    if windowed:
+        require(tol_share <= BF16_SHARE,
+                f"{name} {what}: {tol_share:.2e} of elements outside "
+                f"{BF16_TOL} (limit {BF16_SHARE})")
+    else:
+        require(err <= BF16_TOL, f"{name} {what}: max err {err} > {BF16_TOL}")
+    log(f"  {name:25s} {what}: max |err| {err:.3g}, share beyond one bf16 "
+        f"step {ulp_share:.2e}, outside {BF16_TOL} {tol_share:.2e}")
+    return err
+
+
+def held_row(name, got, want, results, what, tol):
+    """A telemetry row (float32) within ``tol`` relative to the plain
+    version's, elementwise (atol = tol)."""
+    err = float(((got.double() - want.double()).abs()
+                 / (1 + want.double().abs())).max())
+    results[name]["max_abs_err"] = max(
+        results[name]["max_abs_err"],
+        float((got.double() - want.double()).abs().max()))
+    require(err <= tol, f"{name} {what}: row err {err} > {tol} relative")
+    log(f"  {name:25s} {what}: row max relative err {err:.3g}")
+
+
+def bf16_fleet_inputs(gen, b, n, m, dev, theta_bf16=True):
+    """`rand_fleet_inputs` in bfloat16 (grid-valued weights and spike
+    events stay exact), the rule in bfloat16 or float32."""
+    import torch
+    x, w, theta, v, tpre, tpost = rand_fleet_inputs(gen, b, n, m, False, dev)
+    bf = torch.bfloat16
+    return (x.to(bf), w.to(bf), theta.to(bf) if theta_bf16 else theta,
+            v.to(bf), tpre.to(bf), tpost.to(bf))
+
+
+def compare_bf16_steps(dev, results):
+    """#1 (with and without telemetry), #4 and #6 in bfloat16 against their
+    plain versions on the card."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.kernels.lif import kernel as L
+    from repro_torch.kernels.plasticity import kernel as K
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    bf = torch.bfloat16
+    for n, m, spiking, theta_bf16 in ((8, 128, True, True),
+                                      (128, 8, False, True),
+                                      (17, 257, True, False)):
+        for extras in (False, True):
+            args = bf16_fleet_inputs(gen, B, n, m, dev, theta_bf16)
+            kw = dict(spiking=spiking)
+            if extras:
+                kw.update(active=torch.rand(B, generator=gen,
+                                            device=dev) < 0.7,
+                          teach=(0.5 * torch.randn(B, m, generator=gen,
+                                                   device=dev)).to(bf))
+            what = (f"N={n} M={m} theta={'bf16' if theta_bf16 else 'f32'} "
+                    f"{'mask+teach' if extras else 'all, no teach'}")
+            off = K.fleet_step(*args, **kw)
+            held_bf16("fleet_step_bf16", off, K.fleet_step_plain(*args, **kw),
+                      results, what)
+            got = K.fleet_step(*args, telemetry=True, **kw)
+            want = K.fleet_step_plain(*args, telemetry=True, **kw)
+            torch.cuda.synchronize()
+            require(all(torch.equal(g, o) for g, o in zip(got[:4], off)),
+                    f"fleet_step_bf16_telemetry {what}: state differs from "
+                    f"the telemetry-off launch")
+            held_row("fleet_step_bf16_telemetry", got[4], want[4], results,
+                     what + " (state = telemetry-off launch bit for bit)",
+                     BF16_TOL)
+            if extras:
+                act = kw["active"]
+                require(torch.equal(got[3][~act], args[1][~act])
+                        and torch.equal(got[1][~act], args[3][~act])
+                        and not got[0][~act].any()
+                        and not got[4][~act].any(),
+                        f"fleet_step_bf16 {what}: inactive slots not frozen")
+    sizes = firefly_snn.MNIST.layer_sizes
+    for i, (n, m) in enumerate(zip(sizes[:-1], sizes[1:])):
+        for theta_bf16 in (True, False):
+            x, w, theta, v, tpre, tpost, teach = shared_inputs(
+                gen, 1, n, m, False, dev)
+            args = (x.to(bf), w.to(bf), theta.to(bf) if theta_bf16
+                    else theta, v.to(bf), tpre.to(bf), tpost.to(bf))
+            kw = dict(teach=teach.to(bf) if i == 1 else None)
+            held_bf16("shared_step_bf16", K.shared_step(*args, **kw),
+                      K.shared_step_plain(*args, **kw), results,
+                      f"{n}->{m} B=1 theta={'bf16' if theta_bf16 else 'f32'}"
+                      f" teach={i == 1}")
+        xl = (torch.rand(1, n, generator=gen, device=dev) < 0.5).to(bf)
+        wl = (torch.round(torch.randn(n, m, generator=gen, device=dev) * 8)
+              / 64).to(bf)
+        vl = (0.1 * torch.randn(1, m, generator=gen, device=dev)).to(bf)
+        tl = torch.rand(1, m, generator=gen, device=dev).to(bf)
+        held_bf16("lif_forward_bf16", L.lif_forward(xl, wl, vl, tl),
+                  L.lif_forward_plain(xl, wl, vl, tl), results,
+                  f"B=1 K={n} M={m}")
+
+
+def bf16_controller_cfg():
+    """`firefly_snn.CONFIG` (8-128-8, T = 4) in bfloat16."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    return dataclasses.replace(firefly_snn.CONFIG, dtype=torch.bfloat16)
+
+
+def bf16_net_inputs(gen, cfg, k, dev):
+    """`net_inputs` in bfloat16: grid-valued weights and drives."""
+    st, theta, drives = net_inputs(gen, cfg, k, dev)
+    return (dataclasses.replace(st, w=tuple(w.to(cfg.dtype) for w in st.w)),
+            theta, drives.to(cfg.dtype))
+
+
+def compare_bf16_windows(dev, results):
+    """#3 fleet (with and without telemetry) at 8-128-8, B = 4096, 90% of
+    the slots active, and #3 shared at 784-1024-10, B = 1, in bfloat16."""
+    import torch
+    from repro_torch.core import engine, snn
+    from repro_torch.kernels.plasticity import fused
+    gen = torch.Generator(dev).manual_seed(SEED + 12)
+    cfg = bf16_controller_cfg()
+    params = [cfg.engine_params(i) for i in range(cfg.num_layers)]
+    flat = lambda r: [r[1], *r[0].w, *r[0].v, *r[0].trace]
+    for k in (1, 4, 32):
+        st, theta, drives = bf16_net_inputs(gen, cfg, k, dev)
+        active = torch.rand(B, generator=gen, device=dev) < 0.9
+        got = engine.rollout(st, theta, drives, params=params, active=active,
+                             block_b=cfg.block_b)
+        with mock.patch.object(fused, "rollout", plain_rollout):
+            want = engine.rollout(st, theta, drives, params=params,
+                                  active=active, block_b=cfg.block_b)
+        if k <= 4:
+            held_bf16("rollout_bf16", flat(got), flat(want), results,
+                      f"K={k}", windowed=k > 1)
+        else:
+            err, ulp_share, tol_share = bf16_diff(flat(got), flat(want))
+            log(f"  {'rollout_bf16':25s} K={k}: max |err| {err:.3g}, share "
+                f"beyond one bf16 step {ulp_share:.2e}, outside {BF16_TOL} "
+                f"{tol_share:.2e} (not gated)")
+        for a, c in zip(got[0].w + got[0].v, st.w + st.v):
+            require(torch.equal(a[~active], c[~active]),
+                    f"rollout_bf16 K={k}: inactive slots not frozen")
+    active = torch.rand(B, generator=gen, device=dev) < 0.75
+    for k in (4, 16):
+        st, theta, drives = bf16_net_inputs(gen, cfg, k, dev)
+        teach = (0.5 * torch.randn(B, cfg.layer_sizes[-1], generator=gen,
+                                   device=dev)).to(cfg.dtype)
+        kw = dict(params=params, teach=teach, active=active,
+                  block_b=cfg.block_b)
+        got = engine.rollout(st, theta, drives, telemetry=True, **kw)
+        off = engine.rollout(st, theta, drives, **kw)
+        with mock.patch.object(fused, "rollout", plain_rollout):
+            want = engine.rollout(st, theta, drives, telemetry=True, **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip(flat(got), flat(off))),
+                f"rollout_bf16_telemetry K={k}: state differs from the "
+                f"telemetry-off launch")
+        rows = lambda r: torch.stack([getattr(r[2], f) for f in TEL_FIELDS],
+                                     1)
+        held_row("rollout_bf16_telemetry", rows(got), rows(want), results,
+                 f"K={k} (state = telemetry-off launch bit for bit)",
+                 TEL_TOL)
+        require(not rows(got)[~active, :3].any(),
+                f"rollout_bf16_telemetry K={k}: a vacant slot reports "
+                f"telemetry")
+    mcfg = dataclasses.replace(mnist_cfg(False), dtype=torch.bfloat16)
+    sizes = mcfg.layer_sizes
+    mparams = [mcfg.engine_params(i) for i in range(mcfg.num_layers)]
+    for k in (1, 8):
+        st = snn.init_state(mcfg, device=dev)
+        w = tuple((torch.round((torch.rand(
+            sizes[i], sizes[i + 1], generator=gen, device=dev) * 2 - 1) * 16)
+            / 64).to(mcfg.dtype) for i in range(mcfg.num_layers))
+        tr = tuple((torch.rand(n, generator=gen, device=dev) * 2)
+                   .to(mcfg.dtype) for n in sizes)
+        st = dataclasses.replace(st, w=w, trace=tr)
+        drives = (torch.rand(k, sizes[0], generator=gen, device=dev)
+                  < 0.3).to(mcfg.dtype)
+        teach = (0.5 * torch.randn(sizes[-1], generator=gen, device=dev)
+                 ).to(mcfg.dtype)
+        theta = snn.init_theta(mcfg, gen, scale=0.02)
+        got = engine.rollout(st, theta, drives, params=mparams, teach=teach)
+        with mock.patch.object(fused, "rollout", plain_rollout):
+            want = engine.rollout(st, theta, drives, params=mparams,
+                                  teach=teach)
+        if k == 1:
+            held_bf16("rollout_shared_bf16", flat(got), flat(want), results,
+                      "784-1024-10 K=1")
+        else:
+            err, ulp_share, tol_share = bf16_diff(flat(got), flat(want))
+            log(f"  {'rollout_shared_bf16':25s} 784-1024-10 K={k}: max |err|"
+                f" {err:.3g}, share beyond one bf16 step {ulp_share:.2e}, "
+                f"outside {BF16_TOL} {tol_share:.2e} (not gated)")
+
+
+# ---- phase 4f and 6f: the controller and online paths in bfloat16 -----------
+
+def bf16_counters_zero(counters):
+    for c in counters:
+        c.launches = c.bf16_launches = 0
+        if hasattr(c, "telemetry_launches"):
+            c.telemetry_launches = 0
+
+
+def bf16_counts(counters, what):
+    """Read the counters of a bf16 path: every launch there is bfloat16,
+    and each kernel, and each telemetry variant where there is one, was
+    launched."""
+    counts = {}
+    for c in counters:
+        require(c.bf16_launches == c.launches,
+                f"kernel {c.__name__}: {c.launches - c.bf16_launches} of "
+                f"{c.launches} launches on the {what} not bfloat16")
+        tel = getattr(c, "telemetry_launches", 0)
+        counts[c.__name__ + "_bf16"] = c.bf16_launches - tel
+        if hasattr(c, "telemetry_launches"):
+            counts[c.__name__ + "_bf16_telemetry"] = tel
+    log(f"  bf16 launches on the {what}: {json.dumps(counts)}")
+    for name, n in counts.items():
+        require(n > 0, f"kernel {name} was not launched on the {what}")
+    return counts
+
+
+def bf16_paths_held(what, kern, plain, fused_kern, fused_plain):
+    """A bf16 per-event run and a fused window from the same state, each
+    against the same run through the plain versions (at most BF16_SHARE of
+    the elements outside BF16_TOL: several dependent steps); the
+    per-event run against the window is printed, not gated.  The
+    per-event path rounds to bfloat16 every step (lam too, as JAX's xla
+    and pallas per-step paths do), the window carries float32 across it
+    (as JAX's rollout kernel does): two contracts, whose spread spikes
+    turn into whole-event differences at full width."""
+    out = {}
+    for name, a, c in (("per-event path", kern, plain),
+                       ("fused window", fused_kern, fused_plain),
+                       ("per-event vs fused", kern, fused_kern)):
+        err, ulp_share, tol_share = bf16_diff(a, c)
+        gated = name != "per-event vs fused"
+        log(f"  {what} {name}{' against plain' if gated else ''}: max |diff|"
+            f" {err:.3g}, share beyond one bf16 step {ulp_share:.2e}, "
+            f"outside {BF16_TOL} {tol_share:.2e}"
+            + ("" if gated else " (two contracts; not gated)"))
+        if gated:
+            require(tol_share <= BF16_SHARE,
+                    f"{what} {name}: {tol_share:.2e} of elements outside "
+                    f"{BF16_TOL} against the plain versions")
+        out[name] = dict(max_diff=err, share_beyond_one_step=ulp_share,
+                         share_outside_tol=tol_share)
+    return out
+
+
+def bf16_controller_path(dev, main, counters):
+    """The 8-128-8 controller in bfloat16 for B = 4096 streams on
+    `direction`: the closed loop (one bf16 rollout launch per control
+    step), then one control window per event (`snn.timestep`, one bf16
+    fleet-step launch per layer per timestep, with and without telemetry)
+    and fused (with and without telemetry), each against the plain
+    versions.  Every counter of the path is set to 0 first and read
+    after."""
+    import torch
+    from repro_torch import envs, scenarios as S
+    from repro_torch.core import snn
+    env = envs.make("direction", episode_len=STEPS)
+    cfg = bf16_controller_cfg()
+    theta = snn.init_theta(cfg, torch.Generator(dev).manual_seed(SEED),
+                           scale=0.01)
+    prog = S.make_closed_loop(env, cfg, batch=B, steps=STEPS)
+    bf16_counters_zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = prog.run(theta, SEED, tasks="train", device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    r, a = res.rewards, res.actions
+    require(tuple(r.shape) == (STEPS, B) and torch.isfinite(r).all()
+            and torch.isfinite(a.float()).all() and (a.abs() <= 1).all()
+            and a.dtype == torch.bfloat16,
+            "closed loop bf16: bad rewards or actions")
+    rate = STEPS * B / dt
+    f32 = main["float32"]
+    log(f"  closed loop bf16: {STEPS} steps x {B} controllers in {dt:.3f} s "
+        f"= {rate:.4g} control-steps/s, mean reward {float(r.mean()):.4f} "
+        f"(float32: {f32['rate']:.4g} control-steps/s, mean reward "
+        f"{float(f32['result'].rewards.mean()):.4f})")
+    from repro_torch.kernels.plasticity import fused, kernel as K
+    drive = snn.encode(cfg, prog.venv.observe(res.env_state))
+    drives = drive[None].expand(cfg.timesteps, *drive.shape)
+    flat = lambda n: n.w + n.v + n.trace
+
+    def per_event(telemetry=False):
+        net = res.net
+        for _ in range(cfg.timesteps):
+            net = snn.timestep(cfg, net, theta, drive,
+                               telemetry=telemetry)[0]
+        return flat(net)
+
+    window = lambda telemetry=False: flat(snn.rollout_window(
+        cfg, res.net, theta, drives, telemetry=telemetry)[0])
+    kern, kern_tel, fused_kern, fused_tel = (per_event(), per_event(True),
+                                             window(), window(True))
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, c) for a, c in zip(kern_tel, kern))
+            and all(torch.equal(a, c) for a, c in zip(fused_tel, fused_kern)),
+            "bf16 telemetry launches on the controller path give other state"
+            " than their telemetry-off twins")
+    counts = bf16_counts(counters, "bf16 controller path")
+    with mock.patch.object(K, "fleet_step", K.fleet_step_plain), \
+            mock.patch.object(fused, "rollout", plain_rollout):
+        plain, fused_plain = per_event(), window()
+    held = bf16_paths_held("control window", kern, plain, fused_kern,
+                           fused_plain)
+    log("  where the bf16 closed loop's time goes (20 control steps):")
+    short = dataclasses.replace(prog, steps=20)
+    short.run(theta, SEED, tasks="train", device=dev)          # warm
+    profile = profile_window(
+        lambda: short.run(theta, SEED, tasks="train", device=dev), 20)
+    return dict(rate=rate, seconds=dt, mean_reward=float(r.mean()),
+                windows=held, launches=counts, profile=profile)
+
+
+def bf16_recovery_gate(dev):
+    """The recovery gate's two scenarios with bfloat16 controllers, printed
+    and not gated (the JAX package makes no bf16 recovery claim)."""
+    import torch
+    from repro_torch import scenarios as S
+    out = {}
+    for name in S.GATE_SCENARIOS:
+        spec = S.SCENARIOS[name]
+        env = spec.make_env()
+        scfg = dataclasses.replace(S.controller_config(env),
+                                   dtype=torch.bfloat16)
+        theta = S.reference_rule(spec.env_name, scfg)
+        prog = S.make_closed_loop(env, scfg, batch=spec.batch,
+                                  steps=spec.steps)
+        sched = S.compile_schedule(
+            env, spec.perturbations,
+            torch.Generator(dev).manual_seed(123), spec.batch)
+        rp = prog.run(theta, 7, tasks=spec.tasks, schedule=sched, device=dev)
+        rf = prog.run(theta, 7, tasks=spec.tasks, schedule=sched,
+                      freeze_at=spec.onset, device=dev)
+        mp = S.adaptation_metrics(rp.rewards, spec.onset, spec.window)
+        mf = S.adaptation_metrics(rf.rewards, spec.onset, spec.window)
+        passed = (mp["drop"] >= 0.02 and mp["recovery_frac"] >= 0.5
+                  and mf["recovery_frac"] <= 0.25
+                  and mp["time_to_recover"] > 0)
+        log(f"  {name:16s} bf16   : drop {mp['drop']:.4f}, plastic recovers "
+            f"{mp['recovery_frac']:.3f} (ttr {mp['time_to_recover']}), "
+            f"frozen {mf['recovery_frac']:.3f}; float32's gate would "
+            f"{'pass' if passed else 'fail'} (printed, not gated)")
+        out[name] = dict(plastic=mp, frozen=mf, would_pass=passed)
+    return out
+
+
+def bf16_online_path(dev, online, counters):
+    """`firefly_snn.MNIST` (784-1024-10, T = 8, B = 1) in bfloat16 on the
+    120 digits: the predict-then-learn stream (one bf16 shared-weight
+    rollout launch per window), one digit per event (bf16 shared-step
+    launches) and the Table II forward-only baseline (bf16 `lif_forward`
+    launches).  Every counter of the path is set to 0 first and read
+    after."""
+    import torch
+    from repro_torch.core import snn
+    imgs, labels, spikes = online["data"]
+    cfg = dataclasses.replace(mnist_cfg(False), dtype=torch.bfloat16)
+    theta = [t.to(cfg.dtype) for t in mnist_rule(cfg, dev)]
+    bf16_counters_zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, preds = online_stream(cfg, theta, imgs, labels)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    warm = MNIST_DIGITS // 5
+    acc = float((preds[warm:] == labels[warm:]).float().mean())
+    require(all(w.dtype == torch.bfloat16 and torch.isfinite(w.float()).all()
+                and float(w.abs().max()) <= cfg.w_clip for w in state.w),
+            "bf16 online stream: weights not bfloat16, not finite or outside"
+            " w_clip")
+    require(float(sum(w.float().abs().sum() for w in state.w)) > 0,
+            "bf16 online stream: no synapse grew")
+    f32 = online["float32"]
+    log(f"  online stream bf16: {MNIST_DIGITS} digits in {dt:.3f} s = "
+        f"{MNIST_DIGITS / dt:.1f} digits/s, accuracy {acc:.3f} (float32: "
+        f"{f32['digits_per_s']:.1f} digits/s, accuracy {f32['acc']:.3f})")
+    from repro_torch.kernels.plasticity import fused, kernel as K
+    x = imgs[0]
+    teach = TEACH * torch.nn.functional.one_hot(
+        labels[0], cfg.layer_sizes[-1]).float()
+    flat = lambda n: (*n.w, *n.v, *n.trace)
+
+    def per_event():
+        ev = state
+        for _ in range(cfg.timesteps):
+            ev, _ = snn.timestep(cfg, ev, theta, x.to(cfg.dtype),
+                                 teach=teach)
+        return flat(ev)
+
+    window = lambda: flat(snn.classify_window(cfg, state, theta, x,
+                                              teach=teach)[0])
+    kern, fused_kern = per_event(), window()
+    with mock.patch.object(K, "shared_step", K.shared_step_plain), \
+            mock.patch.object(fused, "rollout", plain_rollout):
+        plain, fused_plain = per_event(), window()
+    held = bf16_paths_held("digit", kern, plain, fused_kern, fused_plain)
+    bs, xb = batched(state), spikes[0][None].to(cfg.dtype)
+    fused_state, f_out = snn.timestep(cfg, bs, theta, xb)
+    fwd, o_out = forward_only_step(cfg, bs, xb)
+    err_f, _, tol_f = bf16_diff((*fwd.v, *fwd.trace[1:], o_out),
+                                (*fused_state.v, *fused_state.trace[1:],
+                                 f_out))
+    log(f"  forward-only baseline (bf16 lif_forward) against the fused "
+        f"timestep's forward half: max |diff| {err_f:.3g}, outside "
+        f"{BF16_TOL} {tol_f:.2e}")
+    require(err_f <= BF16_TOL, f"bf16 forward-only baseline differs from the"
+            f" fused timestep by {err_f} > {BF16_TOL}")
+    counts = bf16_counts(counters, "bf16 online path")
+    log("  where the bf16 online stream's time goes (10 digits):")
+    profile = profile_window(lambda: online_stream(
+        cfg, theta, imgs[:10], labels[:10]), 10)
+    return dict(digits_per_s=MNIST_DIGITS / dt, seconds=dt, accuracy=acc,
+                windows=held, launches=counts, profile=profile)
+
+
+# ---- phase 7f: the bfloat16 kernels' times -------------------------------------
+
+def time_bf16_kernels(dev, results):
+    """Each bf16 kernel at its path's shapes, L2 flushed, beside its float32
+    twin (timed in this call, same inputs rounded), its plain version and,
+    for #6, a bf16 `torch.matmul` of the product."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.kernels.lif import kernel as L
+    from repro_torch.kernels.plasticity import fused, kernel as K
+    gen = torch.Generator(dev).manual_seed(SEED + 13)
+    bf = torch.bfloat16
+    up = lambda ts: [None if t is None else t.float() for t in ts]
+    sizes = firefly_snn.CONFIG.layer_sizes
+    active = torch.rand(B, generator=gen, device=dev) < 0.75
+    for name, tel in (("fleet_step_bf16", False),
+                      ("fleet_step_bf16_telemetry", True)):
+        ms, f32_ms, pms, bms = [], [], [], []
+        for i in range(len(sizes) - 1):
+            n, m = sizes[i], sizes[i + 1]
+            args = bf16_fleet_inputs(gen, B, n, m, dev)
+            args32 = up(args)
+            kw = dict(spiking=i < len(sizes) - 2, telemetry=tel,
+                      active=active if tel else None)
+            ms.append(device_ms(lambda: K.fleet_step(*args, **kw)))
+            f32_ms.append(device_ms(lambda: K.fleet_step(*args32, **kw)))
+            pms.append(device_ms(lambda: K.fleet_step_plain(*args, **kw),
+                                 reps=5))
+            ops = B * n * m * (OPS_F32 + (OPS_TEL_SYN if tel else 0)) \
+                + (B * m * OPS_TEL_COL if tel else 0)
+            bms.append(bound(step_bytes(B, n, m, 2, sb=2, tb=2)
+                             + (B * 3 * 4 if tel else 0), ops)[0])
+        results[name].update(ms=statistics.mean(ms),
+                             f32_ms=statistics.mean(f32_ms),
+                             plain_ms=statistics.mean(pms),
+                             bound_ms=statistics.mean(bms), bound_by="bytes")
+    cfg = bf16_controller_cfg()
+    k = cfg.timesteps
+    syn = sum(sizes[i] * sizes[i + 1] for i in range(len(sizes) - 1))
+    for name, tel in (("rollout_bf16", False),
+                      ("rollout_bf16_telemetry", True)):
+        st, theta, drives = bf16_net_inputs(gen, cfg, k, dev)
+        kw = dict(spiking=[cfg.engine_params(i).spiking for i in range(2)],
+                  plastic=[True, True], tau_m=cfg.lif.tau_m,
+                  trace_decay=cfg.trace_decay, w_clip=cfg.w_clip,
+                  active=active if tel else None, telemetry=tel)
+        args = (drives, st.w, theta, st.v, st.trace)
+        args32 = (drives.float(), up(st.w), up(theta), up(st.v),
+                  up(st.trace))
+        ops = k * B * syn * OPS_F32 + ((k * B * sum(sizes[1:]) * OPS_TEL_COL
+                                        + B * syn * OPS_TEL_SYN) if tel
+                                       else 0)
+        b_ms, kind = bound(window_bytes(B, sizes, k, 2, sb=2, tb=2)
+                           + (B * 3 * 4 if tel else 0), ops)
+        results[name].update(
+            ms=device_ms(lambda: fused.rollout(*args, block_b=cfg.block_b,
+                                               **kw)),
+            f32_ms=device_ms(lambda: fused.rollout(
+                *args32, block_b=cfg.block_b, **kw)),
+            plain_ms=device_ms(lambda: fused.rollout_plain(*args, **kw),
+                               reps=5),
+            bound_ms=b_ms, bound_by=kind)
+    msizes = mnist_cfg(False).layer_sizes
+    layers = [(msizes[i], msizes[i + 1]) for i in range(len(msizes) - 1)]
+    ms, f32_ms, pms, bms = [], [], [], []
+    for n, m in layers:
+        x, w, theta, v, tpre, tpost, _ = shared_inputs(gen, 1, n, m, False,
+                                                       dev)
+        args = tuple(t.to(bf) for t in (x, w, theta, v, tpre, tpost))
+        args32 = up(args)
+        ms.append(device_ms(lambda: K.shared_step(*args)))
+        f32_ms.append(device_ms(lambda: K.shared_step(*args32)))
+        pms.append(device_ms(lambda: K.shared_step_plain(*args), reps=5))
+        bms.append(bound(step_bytes(1, n, m, 2, sb=2, fleet=False, tb=2),
+                         n * m * (OPS_ROW + OPS_UPD_F32))[0])
+    results["shared_step_bf16"].update(
+        ms=statistics.mean(ms), f32_ms=statistics.mean(f32_ms),
+        plain_ms=statistics.mean(pms), bound_ms=statistics.mean(bms),
+        bound_by="bytes")
+    mcfg = dataclasses.replace(mnist_cfg(False), dtype=bf)
+    k = mcfg.timesteps
+    msyn = sum(n * m for n, m in layers)
+    w = tuple((torch.round((torch.rand(n, m, generator=gen, device=dev) * 2
+                            - 1) * 16) / 64).to(bf) for n, m in layers)
+    drives = (torch.rand(k, 1, msizes[0], generator=gen, device=dev)
+              < 0.3).to(bf)
+    from repro_torch.core import snn
+    st = dataclasses.replace(snn.init_state(mcfg, batch=1, device=dev), w=w)
+    theta = snn.init_theta(mcfg, gen, scale=0.02)
+    kw = dict(spiking=[True, True], plastic=[True, True],
+              tau_m=mcfg.lif.tau_m, trace_decay=mcfg.trace_decay,
+              w_clip=mcfg.w_clip)
+    args = (drives, st.w, theta, st.v, st.trace)
+    args32 = (drives.float(), up(st.w), up(theta), up(st.v), up(st.trace))
+    b_ms, kind = bound(window_bytes(1, msizes, k, 2, sb=2, fleet=False, tb=2),
+                       k * msyn * (OPS_ROW + OPS_UPD_F32))
+    results["rollout_shared_bf16"].update(
+        ms=device_ms(lambda: fused.rollout_shared(*args, **kw)),
+        f32_ms=device_ms(lambda: fused.rollout_shared(*args32, **kw)),
+        plain_ms=device_ms(lambda: fused.rollout_plain(*args, **kw), reps=5),
+        bound_ms=b_ms, bound_by=kind)
+    ms, f32_ms, pms, lms, bms = [], [], [], [], []
+    for n, m in layers:
+        x = (torch.rand(1, n, generator=gen, device=dev) < 0.3).to(bf)
+        wl = (torch.randn(n, m, generator=gen, device=dev)
+              * n ** -0.5).to(bf)
+        v = (0.1 * torch.randn(1, m, generator=gen, device=dev)).to(bf)
+        tr = torch.rand(1, m, generator=gen, device=dev).to(bf)
+        args32 = up((x, wl, v, tr))
+        ms.append(device_ms(lambda: L.lif_forward(x, wl, v, tr)))
+        f32_ms.append(device_ms(lambda: L.lif_forward(*args32)))
+        pms.append(device_ms(lambda: L.lif_forward_plain(x, wl, v, tr)))
+        lms.append(device_ms(lambda: torch.matmul(x, wl)))
+        bms.append(bound(2 * (n + n * m + 5 * m), 2 * n * m + 5 * m)[0])
+    results["lif_forward_bf16"].update(
+        ms=statistics.mean(ms), f32_ms=statistics.mean(f32_ms),
+        plain_ms=statistics.mean(pms), library_ms=statistics.mean(lms),
+        bound_ms=statistics.mean(bms), bound_by="bytes",
+        library_covers="the bf16 (B,K)x(K,M) product only")
+    for name in BF16_NAMES:
+        r = results[name]
+        log(f"  {name:25s} {r['ms']:.4f} ms beside float32 "
+            f"{r['f32_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}"
+            + (f", bf16 torch.matmul {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else ""))
+
+
 # ---- phase 10: session serving of the controller fleet at full width --------
 
 POPULATION = 2 * B              # users who come and go
@@ -2329,6 +2954,10 @@ def main() -> int:
     with phase("phase 2e: the telemetry variants against their plain "
                "versions, 8-128-8, B = 4096"):
         compare_telemetry(dev, results)
+    with phase("phase 2f: the bfloat16 kernels against their plain "
+               "versions"):
+        compare_bf16_steps(dev, results)
+        compare_bf16_windows(dev, results)
 
     with phase("phase 3: recovery gate"):
         recovery_gate(dev)
@@ -2341,6 +2970,13 @@ def main() -> int:
     with phase("phase 4b: where the closed loop's time goes (20 control "
                "steps)"):
         profiled = profile_closed_loop(dev, main)
+    with phase("phase 4f: main path in bfloat16, 8-128-8 controller, "
+               "B = 4096"):
+        bf16_main = bf16_controller_path(dev, main,
+                                         (K.fleet_step, fused.rollout))
+        for name, n in bf16_main["launches"].items():
+            results[name]["launches"] = n
+        bf16_main["recovery"] = bf16_recovery_gate(dev)
 
     with phase("phase 5: timing"):
         time_kernels(dev, results)
@@ -2353,11 +2989,19 @@ def main() -> int:
         plain_stream_matches(dev, online)
     with phase("phase 6b: where the online stream's time goes (10 digits)"):
         profiled_online = profile_online(online)
+    with phase("phase 6f: online-learning path in bfloat16, 784-1024-10, "
+               "T = 8, B = 1"):
+        bf16_online = bf16_online_path(
+            dev, online, (fused.rollout_shared, K.shared_step, L.lif_forward))
+        for name, n in bf16_online["launches"].items():
+            results[name]["launches"] = n
 
     with phase("phase 7: Table II timings and the new kernels (L2 "
                "flushed)"):
         table = table2(dev, online)
         time_new_kernels(dev, results)
+    with phase("phase 7f: the bfloat16 kernels' times (L2 flushed)"):
+        time_bf16_kernels(dev, results)
     with phase("phase 7b: the attention kernel at the prefill shape (L2 "
                "flushed)"):
         time_attention(dev, results)
@@ -2409,6 +3053,7 @@ def main() -> int:
                                   "seconds": online[m]["seconds"],
                                   "accuracy": online[m]["acc"]}
                               for m in ("float32", "int8")},
+              "bf16_main_path": bf16_main, "bf16_online_path": bf16_online,
               "table2": table,
               "lm_path": lm, "lm_launches": lm_launches,
               "serve_path": served, "serve_launches": serve_launches,

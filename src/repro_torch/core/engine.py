@@ -92,7 +92,7 @@ class EngineParams:
     w_clip: float = 4.0
     plastic: bool = True
     spiking: bool = True        # False => leaky readout (event = tanh(V))
-    quant: Optional[QuantConfig] = None  # fixed-point mode (None = float32)
+    quant: Optional[QuantConfig] = None  # fixed-point mode (None = float)
 
 
 def _check_quant_params(p: EngineParams, qc: QuantConfig) -> None:

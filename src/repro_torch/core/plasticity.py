@@ -90,5 +90,14 @@ def apply_plasticity(w: torch.Tensor, theta: torch.Tensor,
 
 def update_trace(trace: torch.Tensor, spikes: torch.Tensor,
                  decay: float) -> torch.Tensor:
-    """S(t) = lam * S(t-1) + s(t), contracted as the JAX reference is."""
-    return fma32(decay, trace, spikes.to(trace.dtype))
+    """S(t) = lam * S(t-1) + s(t), contracted as the JAX reference is.
+
+    The result keeps the trace's dtype.  In another dtype (bfloat16) lam is
+    first rounded to that dtype, as JAX's weak typing of the Python scalar
+    does, and the product and the sum each round to it, as the jitted JAX
+    reference does."""
+    s = spikes.to(trace.dtype)
+    if trace.dtype == torch.float32:
+        return fma32(decay, trace, s)
+    lam = torch.tensor(decay, dtype=trace.dtype, device=trace.device)
+    return lam * trace + s

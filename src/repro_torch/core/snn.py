@@ -68,7 +68,7 @@ class SNNConfig:
     w_clip: float = 4.0
     dtype: torch.dtype = torch.float32
     plastic: bool = True                    # False => fixed-weight SNN
-    quant: Optional[QuantConfig] = None     # fixed-point mode (None = float32)
+    quant: Optional[QuantConfig] = None     # fixed-point mode (None = float)
     block_b: int = 8                        # rollout-kernel streams per CTA
 
     @property

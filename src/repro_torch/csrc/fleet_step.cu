@@ -7,6 +7,14 @@
 //   fleet_step_q    replaces src/repro/kernels/plasticity/kernel.py:559
 //                   dual_engine_fleet_step_q_pallas (_fleet_kernel_q :493)
 //
+// The float kernel is a template on its element type: fleet_step_f32 runs
+// it in float32, fleet_step_bf16 in bfloat16 (the Pallas body's generic
+// dtype, kernel.py:330-333).  In bfloat16 every operand is promoted to
+// float32 on load (the rule may be float32 or bfloat16), the arithmetic is
+// the float32 instantiation's operation for operation, and each output is
+// rounded to bfloat16 once, on store; the dw reads the unrounded float32
+// post trace.  Only the bytes change: 4 per synapse each way instead of 8.
+//
 // What bounds it on an H100: bytes.  Per call the step reads each stream's
 // weights once and writes them once (8 bytes per synapse in fp32, 2 in
 // int8); the psum and the four-term update are a few operations per synapse,
@@ -27,10 +35,13 @@
 // `tel` is set): the same program also emits the per-slot raw telemetry sums
 // [sum |events|, sum |dw|, #|v| >= 0.9 v_th], gated like the state writes,
 // replacing _fleet_kernel's telemetry (kernel.py:239) and _fleet_kernel_q's
-// (kernel.py:538).  Each thread reduces its own column while the values are
-// in registers (|dw| accumulates in the write loop), then a warp segments
-// its 32 flat (b, m) elements by stream and sums each segment toward its
-// first lane with shuffles.  That lane writes one partial per (stream, warp
+// (kernel.py:538).  In bfloat16 the event and saturation terms read the
+// rounded outputs back, as the Pallas body does (kernel.py:245-246), and
+// |dw| the float32 weights before their rounding (:247).  Each thread
+// reduces its own column while the values are in registers (|dw|
+// accumulates in the write loop), then a warp segments its 32 flat (b, m)
+// elements by stream and sums each segment toward its first lane with
+// shuffles.  That lane writes one partial per (stream, warp
 // piece) into a zeroed (B, tiles, 3) buffer, tiles = (M - 1) / 32 + 2 (the
 // most warps M contiguous elements can touch); the wrapper folds the tile
 // axis.  No atomics: the float partials come out in the same order on every
@@ -42,13 +53,13 @@
 // Outside the anonymous namespace: the C entry points below take it, and a
 // parameter type with internal linkage would keep them from being exported.
 struct FleetStepArgs {
-  const void* x;            // (B, N) float32 | int32
-  const void* w;            // (B, N, M) float32 | int8
-  const float* theta;       // (4, N, M) or null (not plastic)
+  const void* x;            // (B, N) float32 | bfloat16 | int32
+  const void* w;            // (B, N, M) float32 | bfloat16 | int8
+  const void* theta;        // (4, N, M) float32 | bfloat16, or null
   const void* v;            // (B, M)
   const void* trace_pre;    // (B, N)
   const void* trace_post;   // (B, M)
-  const void* teach;        // (B, M) or null
+  const void* teach;        // (B, M) float32 | int32, or null
   const uint8_t* active;    // (B,) or null
   const float* scale;       // (B,) int8 only
   const int* seed;          // (B,) int8 only
@@ -64,6 +75,7 @@ struct FleetStepArgs {
   int tiles;                // (M - 1) / 32 + 2
   int sat_q;                // fixed-point saturation threshold on |v|
   float sat_f;              // float saturation threshold on |v|
+  int theta_bf16;           // bfloat16 kernel: theta is bfloat16, not float32
 };
 
 namespace {
@@ -104,45 +116,51 @@ __device__ __forceinline__ void tel_partials(const FleetStepArgs& a, long gid,
   }
 }
 
-template <bool kTel>
+// T: the element type of x, w, v and the traces (float | bfloat16); TH:
+// the rule's; teach is float32.  Compute is float32 throughout.
+template <typename T, typename TH, bool kTel>
 __global__ void __launch_bounds__(kThreads)
-fleet_step_f32_kernel(FleetStepArgs a) {
+fleet_step_float_kernel(FleetStepArgs a) {
+  using ff::cvt;
   const long gid = (long)blockIdx.x * blockDim.x + threadIdx.x;
   float t_ev = 0.0f, t_dw = 0.0f, t_sat = 0.0f;
   if (gid < (long)a.batch * a.m) {
     const int b = (int)(gid / a.m), col = (int)(gid % a.m);
     const long nm = (long)a.n * a.m;
-    const float* __restrict__ x = (const float*)a.x + (long)b * a.n;
-    const float* __restrict__ w = (const float*)a.w + b * nm + col;
-    float* __restrict__ w_out = (float*)a.w_out + b * nm + col;
+    const T* __restrict__ x = (const T*)a.x + (long)b * a.n;
+    const T* __restrict__ w = (const T*)a.w + b * nm + col;
+    T* __restrict__ w_out = (T*)a.w_out + b * nm + col;
 
     float acc = 0.0f;                       // psum, fan-in order
-    for (int i = 0; i < a.n; ++i) acc = acc + x[i] * w[(long)i * a.m];
+    for (int i = 0; i < a.n; ++i)
+      acc = acc + cvt<float>(x[i]) * cvt<float>(w[(long)i * a.m]);
     if (a.teach) acc = acc + ((const float*)a.teach)[gid];
 
-    const float v = ((const float*)a.v)[gid];
-    const float tp_old = ((const float*)a.trace_post)[gid];
+    const T v_raw = ((const T*)a.v)[gid];
+    const T tp_raw = ((const T*)a.trace_post)[gid];
     const bool on = a.active == nullptr || a.active[b] != 0;
     float ev, v_new;
-    ff::neuron_f(v, acc, a.spiking, a.f, &ev, &v_new);
-    const float tp = __fmaf_rn(a.f.decay, tp_old, ev);
-    ((float*)a.events)[gid] = on ? ev : 0.0f;
-    ((float*)a.v_out)[gid] = on ? v_new : v;
-    ((float*)a.trace_post_out)[gid] = on ? tp : tp_old;
-    if constexpr (kTel) {
-      t_ev = on ? fabsf(ev) : 0.0f;
-      t_sat = on && fabsf(v_new) >= a.sat_f ? 1.0f : 0.0f;
+    ff::neuron_f(cvt<float>(v_raw), acc, a.spiking, a.f, &ev, &v_new);
+    const float tp = __fmaf_rn(a.f.decay, cvt<float>(tp_raw), ev);
+    const T ev_t = cvt<T>(on ? ev : 0.0f), v_t = on ? cvt<T>(v_new) : v_raw;
+    ((T*)a.events)[gid] = ev_t;
+    ((T*)a.v_out)[gid] = v_t;
+    ((T*)a.trace_post_out)[gid] = on ? cvt<T>(tp) : tp_raw;
+    if constexpr (kTel) {                   // the stored (rounded) values
+      t_ev = fabsf(cvt<float>(ev_t));
+      t_sat = on && fabsf(cvt<float>(v_t)) >= a.sat_f ? 1.0f : 0.0f;
     }
 
     if (a.plastic && on) {
-      const float* pre = (const float*)a.trace_pre + (long)b * a.n;
-      const float* th = a.theta + col;
+      const T* pre = (const T*)a.trace_pre + (long)b * a.n;
+      const TH* th = (const TH*)a.theta + col;
       for (int i = 0; i < a.n; ++i) {
         const long o = (long)i * a.m;
-        const float wn = ff::plastic_f(w[o], th + o, nm, pre[i], tp,
-                                       a.w_clip);
-        w_out[o] = wn;
-        if constexpr (kTel) t_dw = t_dw + fabsf(wn - w[o]);
+        const float w_old = cvt<float>(w[o]);
+        const float wn = ff::plastic_f(w_old, th + o, nm, cvt<float>(pre[i]),
+                                       tp, a.w_clip);
+        w_out[o] = cvt<T>(wn);
+        if constexpr (kTel) t_dw = t_dw + fabsf(wn - w_old);
       }
     } else {
       for (int i = 0; i < a.n; ++i) w_out[(long)i * a.m] = w[(long)i * a.m];
@@ -189,7 +207,7 @@ fleet_step_q_kernel(FleetStepArgs a) {
 
     if (a.plastic && on) {
       const int* pre = (const int*)a.trace_pre + (long)b * a.n;
-      const float* th = a.theta + col;
+      const float* th = (const float*)a.theta + col;
       const int qmax = ff::qclip(a.w_clip, scale);
       const int seed = a.seed[b];
       for (int i = 0; i < a.n; ++i) {
@@ -216,12 +234,22 @@ int launch(void (*kernel)(FleetStepArgs), const FleetStepArgs* a,
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename TH>
+int launch_float(const FleetStepArgs* a, cudaStream_t stream) {
+  return launch(a->tel ? fleet_step_float_kernel<T, TH, true>
+                       : fleet_step_float_kernel<T, TH, false>, a, stream);
+}
+
 }  // namespace
 
 // With a->tel set, the telemetry variant runs; the wrapper zeroes a->tel.
 extern "C" int fleet_step_f32(const FleetStepArgs* a, cudaStream_t stream) {
-  return launch(a->tel ? fleet_step_f32_kernel<true>
-                       : fleet_step_f32_kernel<false>, a, stream);
+  return launch_float<float, float>(a, stream);
+}
+
+extern "C" int fleet_step_bf16(const FleetStepArgs* a, cudaStream_t stream) {
+  return a->theta_bf16 ? launch_float<__nv_bfloat16, __nv_bfloat16>(a, stream)
+                       : launch_float<__nv_bfloat16, float>(a, stream);
 }
 
 extern "C" int fleet_step_q(const FleetStepArgs* a, cudaStream_t stream) {

@@ -2,7 +2,11 @@
 // hard reset, post-trace update.
 //
 //   lif_forward_f32  replaces src/repro/kernels/lif/kernel.py:47
-//                    lif_forward_pallas (_lif_kernel :21)
+//   lif_forward_bf16 lif_forward_pallas (_lif_kernel :21), in float32 and
+//                    in bfloat16 (the Pallas body's generic dtype,
+//                    :36-44): bfloat16 operands are promoted to float32 on
+//                    load, the product accumulates in float32 over the
+//                    whole K, and each output is rounded once on store.
 //
 // What bounds it on an H100: bytes.  The product reads w (K, M) once; at
 // the online-MNIST layer 784 x 1024 and B = 1 that is ~3.2 MB, ~1 us at
@@ -18,14 +22,15 @@
 #include "plasticity.cuh"
 
 // Arguments of one launch; mirrored by kernels/lif/kernel.py _LifArgs.
+// Every tensor is float32, or every one bfloat16.
 struct LifArgs {
-  const float* x;           // (B, K)
-  const float* w;           // (K, M)
-  const float* v;           // (B, M)
-  const float* trace;       // (B, M)
-  float* spikes;            // (B, M) out
-  float* v_out;             // (B, M) out
-  float* trace_out;         // (B, M) out
+  const void* x;            // (B, K)
+  const void* w;            // (K, M)
+  const void* v;            // (B, M)
+  const void* trace;        // (B, M)
+  void* spikes;             // (B, M) out
+  void* v_out;              // (B, M) out
+  void* trace_out;          // (B, M) out
   int batch, k, m;
   ff::FParams f;
 };
@@ -37,14 +42,16 @@ constexpr int kRows = 32;                // contraction lanes per column
 constexpr int kThreads = kCols * kRows;
 constexpr int kChunk = 8;                // batch rows per pass
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) lif_forward_kernel(LifArgs a) {
+  using ff::cvt;
   __shared__ float red[kRows * kChunk * kCols];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kCols + tx;
   const int K = a.k, M = a.m;
   const int col = blockIdx.x * kCols + tx;
-  const float* __restrict__ x = a.x;
-  const float* __restrict__ w = a.w;
+  const T* __restrict__ x = (const T*)a.x;
+  const T* __restrict__ w = (const T*)a.w;
   for (int b0 = 0; b0 < a.batch; b0 += kChunk) {
     const int nb = min(kChunk, a.batch - b0);
     float acc[kChunk];
@@ -52,10 +59,11 @@ __global__ void __launch_bounds__(kThreads) lif_forward_kernel(LifArgs a) {
     for (int u = 0; u < kChunk; ++u) acc[u] = 0.0f;
     if (col < M) {
       for (int r = ty; r < K; r += kRows) {
-        const float wv = w[(long)r * M + col];
+        const float wv = cvt<float>(w[(long)r * M + col]);
 #pragma unroll
         for (int u = 0; u < kChunk; ++u)
-          if (u < nb) acc[u] = acc[u] + x[(long)(b0 + u) * K + r] * wv;
+          if (u < nb)
+            acc[u] = acc[u] + cvt<float>(x[(long)(b0 + u) * K + r]) * wv;
       }
     }
 #pragma unroll
@@ -69,20 +77,30 @@ __global__ void __launch_bounds__(kThreads) lif_forward_kernel(LifArgs a) {
       for (int r = 1; r < kRows; ++r) s = s + red[(r * kChunk + u) * kCols + j];
       const long g = (long)(b0 + u) * M + c;
       float ev, vn;
-      ff::neuron_f(a.v[g], s, true, a.f, &ev, &vn);
-      a.spikes[g] = ev;
-      a.v_out[g] = vn;
-      a.trace_out[g] = __fmaf_rn(a.f.decay, a.trace[g], ev);
+      ff::neuron_f(cvt<float>(((const T*)a.v)[g]), s, true, a.f, &ev, &vn);
+      ((T*)a.spikes)[g] = cvt<T>(ev);
+      ((T*)a.v_out)[g] = cvt<T>(vn);
+      ((T*)a.trace_out)[g] = cvt<T>(
+          __fmaf_rn(a.f.decay, cvt<float>(((const T*)a.trace)[g]), ev));
     }
     __syncthreads();
   }
 }
 
+template <typename T>
+int launch(const LifArgs* a, cudaStream_t stream) {
+  if (a->batch < 1 || a->m < 1) return (int)cudaSuccess;
+  const unsigned blocks = (unsigned)((a->m + kCols - 1) / kCols);
+  lif_forward_kernel<T><<<blocks, dim3(kCols, kRows), 0, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int lif_forward_f32(const LifArgs* a, cudaStream_t stream) {
-  if (a->batch < 1 || a->m < 1) return (int)cudaSuccess;
-  const unsigned blocks = (unsigned)((a->m + kCols - 1) / kCols);
-  lif_forward_kernel<<<blocks, dim3(kCols, kRows), 0, stream>>>(*a);
-  return (int)cudaGetLastError();
+  return launch<float>(a, stream);
+}
+
+extern "C" int lif_forward_bf16(const LifArgs* a, cudaStream_t stream) {
+  return launch<__nv_bfloat16>(a, stream);
 }

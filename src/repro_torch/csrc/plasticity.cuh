@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ff {
@@ -36,8 +37,23 @@ struct FParams {
   float decay;       // trace decay lambda
 };
 
+// Element conversions between device memory and the compute types.  A
+// bfloat16 operand is promoted to float32 on load (exactly) and a float32
+// result rounded to bfloat16 on store with round-to-nearest-even, the
+// rounding of the reference's astype; every other pair is a plain cast.
+template <typename D, typename S>
+__device__ __forceinline__ D cvt(S x) { return (D)x; }
+template <>
+__device__ __forceinline__ float cvt<float, __nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16, float>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 // State type S (float | int32) and weight type W (float | int8) of the
-// float and fixed-point datapaths.
+// float and fixed-point datapaths, as computed and as kept on chip.
 template <bool Q>
 struct Types;
 template <>
@@ -115,17 +131,22 @@ __device__ __forceinline__ void neuron_f(float v, float current, bool spiking,
 }
 
 // fma(g, post, fma(a, hebb, b * pre)) + d — the contracted four-term sum.
-__device__ __forceinline__ float four_term(const float* th, long plane,
+// The rule's planes are float32 or bfloat16 (promoted on load).
+template <typename TH>
+__device__ __forceinline__ float four_term(const TH* th, long plane,
                                           float hebb, float pre, float post) {
-  float inner = __fmaf_rn(th[kAlpha * plane], hebb,
-                          __fmul_rn(th[kBeta * plane], pre));
-  return __fadd_rn(__fmaf_rn(th[kGamma * plane], post, inner),
-                   th[kDelta * plane]);
+  const float a = cvt<float>(th[kAlpha * plane]);
+  const float b = cvt<float>(th[kBeta * plane]);
+  const float g = cvt<float>(th[kGamma * plane]);
+  const float d = cvt<float>(th[kDelta * plane]);
+  float inner = __fmaf_rn(a, hebb, __fmul_rn(b, pre));
+  return __fadd_rn(__fmaf_rn(g, post, inner), d);
 }
 
 // Float plasticity for one synapse from its Hebbian, pre and post terms:
 // clip(w + dw, +-w_clip).
-__device__ __forceinline__ float plastic_f_terms(float w, const float* th,
+template <typename TH>
+__device__ __forceinline__ float plastic_f_terms(float w, const TH* th,
                                                 long plane, float hebb,
                                                 float pre, float post,
                                                 float w_clip) {
@@ -134,7 +155,8 @@ __device__ __forceinline__ float plastic_f_terms(float w, const float* th,
 }
 
 // Per-stream (fleet) float plasticity: hebb = pre * post.
-__device__ __forceinline__ float plastic_f(float w, const float* th,
+template <typename TH>
+__device__ __forceinline__ float plastic_f(float w, const TH* th,
                                           long plane, float pre, float post,
                                           float w_clip) {
   return plastic_f_terms(w, th, plane, __fmul_rn(pre, post), pre, post,

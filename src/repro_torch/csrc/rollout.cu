@@ -40,6 +40,19 @@
 // written to tel (B, 3).  The fixed-point terms are summed in int32 and
 // converted once, so they are exact and the int8 row equals the plain
 // version's bit for bit.
+//
+// bfloat16 (the Pallas body's generic dtype: fused.py:112-122, :251,
+// :275-278): drives, weights, membranes and traces are bfloat16 in device
+// memory and promoted to float32 as they are loaded into shared memory,
+// where the window runs in float32 exactly as the float32 instantiation
+// does; each step's readout row is rounded to bfloat16 as it is stored, and
+// weights, membranes and traces once, at write-back.  The rule may be
+// float32 or bfloat16 and stays in its own type in shared memory (2 bytes
+// per coefficient when bfloat16); the rest of the layout is the float32
+// one.  Telemetry's net weight motion is float32 |w_end - w_start|, w_start
+// promoted from the bfloat16 input.
+#include <type_traits>
+
 #include "plasticity.cuh"
 
 using ff::kMaxLayers;
@@ -47,14 +60,14 @@ using ff::kMaxLayers;
 // Arguments of one launch; mirrored by fused.py _RolloutArgs (ctypes).
 // Outside the anonymous namespace so the C entry point is exported.
 struct RolloutArgs {
-  const void* drives;               // (K, B, N0)
-  void* outs;                       // (K, B, M_last) out
-  const void* teach;                // (K, B, M_last) or null
+  const void* drives;               // (K, B, N0) float32 | bfloat16 | int32
+  void* outs;                       // (K, B, M_last) out, as the drives
+  const void* teach;                // (K, B, M_last) float32 | int32, or null
   const uint8_t* active;            // (B,) or null
   const int* seed;                  // (B,) int8 only
   const void* w_in[kMaxLayers];     // (B, N_i, M_i)
   void* w_out[kMaxLayers];
-  const float* theta[kMaxLayers];   // (4, N_i, M_i) or null
+  const void* theta[kMaxLayers];    // (4, N_i, M_i) or null
   const float* scale[kMaxLayers];   // (B,) int8 only
   const void* v_in[kMaxLayers];     // (B, M_i)
   void* v_out[kMaxLayers];
@@ -70,6 +83,8 @@ struct RolloutArgs {
   int telemetry;                    // 1 when tel is set
   int sat_q;                        // fixed-point saturation threshold
   float sat_f;                      // float saturation threshold
+  int bf16;                         // float state and weights in bfloat16
+  int theta_bf16;                   // the rules in bfloat16
 };
 
 namespace {
@@ -102,7 +117,7 @@ __host__ __device__ inline Layout layout(const RolloutArgs& a, bool quant) {
   const size_t bb = a.block_b;
   Layout l;
   l.theta = 0;
-  l.v = l.theta + align16(th * 4);
+  l.v = l.theta + align16(th * (a.theta_bf16 ? 2 : 4));
   l.tr = l.v + align16(bb * post * 4);
   l.bus = l.tr + align16(bb * pop * 4);
   l.act = l.bus + align16(2 * bb * widest * 4);
@@ -114,14 +129,18 @@ __host__ __device__ inline Layout layout(const RolloutArgs& a, bool quant) {
 
 using ff::Types;
 
-// Cooperative copy of `count` elements by the whole CTA.  16-byte vectors,
+// Cooperative copy of `count` elements by the whole CTA, converting where
+// the two types differ (ff::cvt).  Between equal types: 16-byte vectors,
 // four in flight per thread, when both ends and the length allow it (the
 // state loads are latency-bound otherwise: one CTA per SM at block_b = 8).
-template <typename T>
-__device__ inline void copy_block(T* __restrict__ dst, const T* __restrict__ src,
+template <typename D, typename T>
+__device__ inline void copy_block(D* __restrict__ dst, const T* __restrict__ src,
                             long count) {
   const long tid = threadIdx.x, nt = blockDim.x;
-  if ((((uintptr_t)dst | (uintptr_t)src | (count * sizeof(T))) & 15) == 0) {
+  if constexpr (!std::is_same_v<D, T>) {
+    for (long i = tid; i < count; i += nt) dst[i] = ff::cvt<D>(src[i]);
+  } else if ((((uintptr_t)dst | (uintptr_t)src | (count * sizeof(T))) & 15)
+             == 0) {
     int4* d = (int4*)dst;
     const int4* s = (const int4*)src;
     const long n = count * sizeof(T) / 16;
@@ -150,10 +169,16 @@ __device__ __forceinline__ T warp_sum(T x) {
 // |x| with the reference's int32 wrap-around (|INT_MIN| stays INT_MIN).
 __device__ __forceinline__ int wabs(int x) { return x < 0 ? ff::wsub(0, x) : x; }
 
-template <bool Q, bool kTel>
+// S and W: state and weights as held in shared memory (float | int32, float
+// | int8); G and WG: as held in device memory (T = float | bfloat16 on the
+// float path); TH: the rules' type (float | bfloat16).
+template <bool Q, bool kTel, typename T, typename TH>
 __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
+  using ff::cvt;
   using S = typename Types<Q>::S;
   using W = typename Types<Q>::W;
+  using G = std::conditional_t<Q, int, T>;
+  using WG = std::conditional_t<Q, int8_t, T>;
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay = layout(a, Q);
   const int L = a.n_layers, B = a.batch, bb = a.block_b;
@@ -162,34 +187,34 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
   const int tid = threadIdx.x, nt = blockDim.x;
 
   // ---- carve shared memory and load the window's working set ONCE ------
-  const float* th[kMaxLayers];
+  const TH* th[kMaxLayers];
   S* v[kMaxLayers];
   S* tr[kMaxLayers + 1];
   W* w[kMaxLayers];
   {
-    float* th_s = (float*)(smem + lay.theta);
+    TH* th_s = (TH*)(smem + lay.theta);
     S* v_s = (S*)(smem + lay.v);
     S* tr_s = (S*)(smem + lay.tr);
     W* w_s = (W*)(smem + lay.w);
     for (int i = 0; i < L; ++i) {
       const int n = a.sizes[i], m = a.sizes[i + 1];
       const long nm = (long)n * m;
-      th[i] = a.theta[i];
+      th[i] = (const TH*)a.theta[i];
       if (a.theta_in_smem && ((a.plastic_mask >> i) & 1)) {
-        copy_block(th_s, a.theta[i], 4 * nm);
+        copy_block(th_s, th[i], 4 * nm);
         th[i] = th_s;
         th_s += 4 * nm;
       }
       w[i] = w_s;
-      copy_block(w_s, (const W*)a.w_in[i] + (long)b0 * nm, nb * nm);
+      copy_block(w_s, (const WG*)a.w_in[i] + (long)b0 * nm, nb * nm);
       w_s += bb * nm;
       v[i] = v_s;
-      copy_block(v_s, (const S*)a.v_in[i] + (long)b0 * m, (long)nb * m);
+      copy_block(v_s, (const G*)a.v_in[i] + (long)b0 * m, (long)nb * m);
       v_s += bb * m;
     }
     for (int i = 0; i <= L; ++i) {
       tr[i] = tr_s;
-      copy_block(tr_s, (const S*)a.tr_in[i] + (long)b0 * a.sizes[i],
+      copy_block(tr_s, (const G*)a.tr_in[i] + (long)b0 * a.sizes[i],
               (long)nb * a.sizes[i]);
       tr_s += bb * a.sizes[i];
     }
@@ -210,9 +235,9 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
   const int n0 = a.sizes[0];
   for (int k = 0; k < a.k_steps; ++k) {
     // ---- input population: drive onto the bus, gated trace update -----
-    const S* drive = (const S*)a.drives + ((long)k * B + b0) * n0;
+    const G* drive = (const G*)a.drives + ((long)k * B + b0) * n0;
     for (int e = tid; e < nb * n0; e += nt) {
-      const S x = drive[e];
+      const S x = cvt<S>(drive[e]);
       bus_in[e] = x;
       if (act[e / n0]) {
         if constexpr (Q) tr[0][e] = ff::trace_q(tr[0][e], x, a.q);
@@ -254,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
         if (on) v[i][e] = v_new;
         out = on ? (spiking ? ev : v_new) : S(0);
         bus_out[e] = out;
-        if (last) ((S*)a.outs)[((long)k * B + b0) * m + e] = out;
+        if (last) ((G*)a.outs)[((long)k * B + b0) * m + e] = cvt<G>(out);
       }
       __syncthreads();
       // ---- telemetry: this layer's event and saturation means ---------
@@ -352,7 +377,7 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
         if (!((a.plastic_mask >> i) & 1)) continue;
         const long nm = (long)a.sizes[i] * a.sizes[i + 1];
         const W* w_end = w[i] + s * nm;
-        const W* w_start = (const W*)a.w_in[i] + (long)(b0 + s) * nm;
+        const WG* w_start = (const WG*)a.w_in[i] + (long)(b0 + s) * nm;
         float per_slot;
         if constexpr (Q) {
           int d = 0;
@@ -362,7 +387,7 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
         } else {
           float d = 0.0f;
           for (long o = lane; o < nm; o += 32)
-            d = d + fabsf(w_end[o] - w_start[o]);
+            d = d + fabsf(w_end[o] - cvt<float>(w_start[o]));
           per_slot = warp_sum(d);
         }
         mean_dw = mean_dw + per_slot / (float)nm;
@@ -382,23 +407,31 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
   for (int i = 0; i < L; ++i) {
     const int n = a.sizes[i], m = a.sizes[i + 1];
     const long nm = (long)n * m;
-    copy_block((W*)a.w_out[i] + (long)b0 * nm, (const W*)w[i], nb * nm);
-    copy_block((S*)a.v_out[i] + (long)b0 * m, (const S*)v[i], (long)nb * m);
+    copy_block((WG*)a.w_out[i] + (long)b0 * nm, (const W*)w[i], nb * nm);
+    copy_block((G*)a.v_out[i] + (long)b0 * m, (const S*)v[i], (long)nb * m);
   }
   for (int i = 0; i <= L; ++i)
-    copy_block((S*)a.tr_out[i] + (long)b0 * a.sizes[i], (const S*)tr[i],
+    copy_block((G*)a.tr_out[i] + (long)b0 * a.sizes[i], (const S*)tr[i],
          (long)nb * a.sizes[i]);
 }
 
-template <bool Q, bool kTel>
+template <bool Q, bool kTel, typename T, typename TH>
 int launch_window(const RolloutArgs* a, size_t smem, unsigned blocks,
                   cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      rollout_kernel<Q, kTel>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      rollout_kernel<Q, kTel, T, TH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  rollout_kernel<Q, kTel><<<blocks, kThreads, smem, stream>>>(*a);
+  rollout_kernel<Q, kTel, T, TH><<<blocks, kThreads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+template <bool Q, typename T, typename TH>
+int launch_types(const RolloutArgs* a, size_t smem, unsigned blocks,
+                 cudaStream_t stream) {
+  return a->telemetry
+             ? launch_window<Q, true, T, TH>(a, smem, blocks, stream)
+             : launch_window<Q, false, T, TH>(a, smem, blocks, stream);
 }
 
 }  // namespace
@@ -408,15 +441,18 @@ int launch_window(const RolloutArgs* a, size_t smem, unsigned blocks,
 extern "C" int rollout(const RolloutArgs* a, int quant, size_t expected_smem,
                        cudaStream_t stream) {
   if (a->n_layers < 1 || a->n_layers > kMaxLayers || a->block_b < 1 ||
-      (a->telemetry != 0) != (a->tel != nullptr))
+      (a->telemetry != 0) != (a->tel != nullptr) ||
+      (quant && (a->bf16 || a->theta_bf16)) || (a->theta_bf16 && !a->bf16))
     return (int)cudaErrorInvalidValue;
   const size_t smem = layout(*a, quant != 0).total;
   if (smem != expected_smem) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((a->batch + a->block_b - 1) / a->block_b);
   if (blocks == 0) return (int)cudaSuccess;
-  if (quant)
-    return a->telemetry ? launch_window<true, true>(a, smem, blocks, stream)
-                        : launch_window<true, false>(a, smem, blocks, stream);
-  return a->telemetry ? launch_window<false, true>(a, smem, blocks, stream)
-                      : launch_window<false, false>(a, smem, blocks, stream);
+  using bf16 = __nv_bfloat16;
+  if (quant) return launch_types<true, float, float>(a, smem, blocks, stream);
+  if (!a->bf16)
+    return launch_types<false, float, float>(a, smem, blocks, stream);
+  return a->theta_bf16
+             ? launch_types<false, bf16, bf16>(a, smem, blocks, stream)
+             : launch_types<false, bf16, float>(a, smem, blocks, stream);
 }

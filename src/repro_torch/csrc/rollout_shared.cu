@@ -33,7 +33,16 @@
 // every CTA.  Step k of layer i draws its stochastic round from
 // fold_seed(seed + k, i) and the synapse's flat (row * M + col) index, as
 // the per-step kernels do.
+//
+// bfloat16 (the Pallas body's generic dtype, fused.py:112-122, :251,
+// :275-278): the owned weights, membranes and traces and the input trace
+// are promoted to float32 as they are loaded, the window runs in float32
+// as the float32 instantiation does (the bus carries float32 events and
+// traces), each step's readout row is rounded to bfloat16 on store, and
+// the state once, at write-back.  The rule may be float32 or bfloat16 and
+// stays in its own type in shared memory.
 #include <cooperative_groups.h>
+#include <type_traits>
 
 #include "plasticity.cuh"
 
@@ -43,19 +52,20 @@ using ff::Types;
 
 // Arguments of one launch; mirrored by fused.py _SharedRolloutArgs (ctypes).
 struct SharedRolloutArgs {
-  const void* drives;                 // (K, B, N0)
-  void* outs;                         // (K, B, M_last) out
-  const void* teach;                  // (K, B, M_last) or null
+  const void* drives;                 // (K, B, N0) float32 | bfloat16 | int32
+  void* outs;                         // (K, B, M_last) out, as the drives
+  const void* teach;                  // (K, B, M_last) float32 | int32, or null
   const int* seed;                    // () int8 only
   const void* w_in[kMaxLayers];       // (N_i, M_i)
   void* w_out[kMaxLayers];
-  const float* theta[kMaxLayers];     // (4, N_i, M_i) or null
+  const void* theta[kMaxLayers];      // (4, N_i, M_i) or null
   const float* scale[kMaxLayers];     // () int8 only
   const void* v_in[kMaxLayers];       // (B, M_i)
   void* v_out[kMaxLayers];
   const void* tr_in[kMaxLayers + 1];  // (B, N_i); tr[0] is the input
   void* tr_out[kMaxLayers + 1];
-  void* bus[kMaxLayers];              // (2 parities, 2 [events|trace], B, M_i)
+  void* bus[kMaxLayers];              // (2 parities, 2 [events|trace], B,
+                                      // M_i) float32 | int32
   int sizes[kMaxLayers + 1];
   int cols[kMaxLayers];               // columns per CTA, power of two <= 32
   int n_layers, k_steps, batch;
@@ -63,6 +73,8 @@ struct SharedRolloutArgs {
   float w_clip;
   ff::FParams f;
   ff::QParams q;                      // inv1 / inv2 of this batch
+  int bf16;                           // float state and weights in bfloat16
+  int theta_bf16;                     // the rules in bfloat16
 };
 
 namespace {
@@ -94,7 +106,7 @@ __host__ __device__ inline Layout layout(const SharedRolloutArgs& a,
     const size_t nc = (size_t)a.sizes[i] * a.cols[i];
     l.theta[i] = off;
     if (a.theta_in_smem && ((a.plastic_mask >> i) & 1))
-      off += align16(4 * nc * 4);
+      off += align16(4 * nc * (a.theta_bf16 ? 2 : 4));
     l.w[i] = off;
     off += align16(nc * (quant ? 1 : 4));
     l.v[i] = off;
@@ -125,11 +137,16 @@ __device__ inline T shfl_xor(T v, int off) {
   return __shfl_xor_sync(0xffffffffu, v, off);
 }
 
-template <bool Q>
+// S and W: state and weights in shared memory; G and WG: in device memory
+// (T = float | bfloat16 on the float path); TH: the rules' type.
+template <bool Q, typename T, typename TH>
 __global__ void __launch_bounds__(kThreads)
 rollout_shared_kernel(SharedRolloutArgs a) {
+  using ff::cvt;
   using S = typename Types<Q>::S;
   using W = typename Types<Q>::W;
+  using G = std::conditional_t<Q, int, T>;
+  using WG = std::conditional_t<Q, int8_t, T>;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const Layout lay = layout(a, Q);
@@ -152,14 +169,17 @@ rollout_shared_kernel(SharedRolloutArgs a) {
     W* ws = (W*)(smem + lay.w[i]);
     for (int o = tid; o < n * c; o += nt) {
       const int r = o >> lc, j = o & (c - 1);
-      ws[o] = j < own ? ((const W*)a.w_in[i])[(long)r * m + col0 + j] : W(0);
+      ws[o] = j < own ? cvt<W>(((const WG*)a.w_in[i])[(long)r * m + col0 + j])
+                      : W(0);
     }
     if (a.theta_in_smem && ((a.plastic_mask >> i) & 1)) {
-      float* th = (float*)(smem + lay.theta[i]);
+      TH* th = (TH*)(smem + lay.theta[i]);
+      const TH* src = (const TH*)a.theta[i];
       for (int o = tid; o < 4 * n * c; o += nt) {
         const int p = o / (n * c), rj = o % (n * c);
         const int r = rj >> lc, j = rj & (c - 1);
-        th[o] = j < own ? a.theta[i][((long)p * n + r) * m + col0 + j] : 0.0f;
+        th[o] = j < own ? src[((long)p * n + r) * m + col0 + j]
+                        : cvt<TH>(0.0f);
       }
     }
     S* vs = (S*)(smem + lay.v[i]);
@@ -167,11 +187,12 @@ rollout_shared_kernel(SharedRolloutArgs a) {
     for (int e = tid; e < B * c; e += nt) {
       const int b = e >> lc, j = e & (c - 1);
       const long g = (long)b * m + col0 + j;
-      vs[e] = j < own ? ((const S*)a.v_in[i])[g] : S(0);
-      tps[e] = j < own ? ((const S*)a.tr_in[i + 1])[g] : S(0);
+      vs[e] = j < own ? cvt<S>(((const G*)a.v_in[i])[g]) : S(0);
+      tps[e] = j < own ? cvt<S>(((const G*)a.tr_in[i + 1])[g]) : S(0);
     }
   }
-  for (int e = tid; e < B * n0; e += nt) tr0[e] = ((const S*)a.tr_in[0])[e];
+  for (int e = tid; e < B * n0; e += nt)
+    tr0[e] = cvt<S>(((const G*)a.tr_in[0])[e]);
   float sc[kMaxLayers];
   for (int i = 0; i < L; ++i) sc[i] = Q ? *a.scale[i] : 0.0f;
   const int base_seed = Q ? *a.seed : 0;
@@ -180,9 +201,9 @@ rollout_shared_kernel(SharedRolloutArgs a) {
   for (int k = 0; k < a.k_steps; ++k) {
     const int par = k & 1;
     // ---- input population: drive onto the staging bus, trace update ---
-    const S* drive = (const S*)a.drives + (long)k * B * n0;
+    const G* drive = (const G*)a.drives + (long)k * B * n0;
     for (int e = tid; e < B * n0; e += nt) {
-      const S x = drive[e];
+      const S x = cvt<S>(drive[e]);
       xs[e] = x;
       if constexpr (Q) tr0[e] = ff::trace_q(tr0[e], x, a.q);
       else tr0[e] = __fmaf_rn(a.f.decay, tr0[e], x);
@@ -255,7 +276,7 @@ rollout_shared_kernel(SharedRolloutArgs a) {
             tps[li] = tp;
             const S out = spiking ? ev : vn;
             if (last) {
-              ((S*)a.outs)[gt] = out;
+              ((G*)a.outs)[gt] = cvt<G>(out);
             } else {
               bus_ev[(long)b * m + col0 + jj] = out;
               bus_tr[(long)b * m + col0 + jj] = tp;
@@ -284,8 +305,9 @@ rollout_shared_kernel(SharedRolloutArgs a) {
           }
           __syncthreads();
           const bool resident = a.theta_in_smem;
-          const float* th_base =
-              resident ? (const float*)(smem + lay.theta[i]) : a.theta[i];
+          const TH* th_base = resident
+                                  ? (const TH*)(smem + lay.theta[i])
+                                  : (const TH*)a.theta[i];
           const long plane = resident ? (long)n * c : (long)n * m;
           int qmax = 0, seed_i = 0;
           if constexpr (Q) {
@@ -296,7 +318,7 @@ rollout_shared_kernel(SharedRolloutArgs a) {
           for (int o = tid; o < n * c; o += nt) {
             const int r = o >> lc, jj = o & (c - 1);
             if (jj >= own) continue;
-            const float* th =
+            const TH* th =
                 th_base + (resident ? (long)o : (long)r * m + col0 + jj);
             S hebb = S(0);
             for (int b = 0; b < B; ++b) {
@@ -342,26 +364,28 @@ rollout_shared_kernel(SharedRolloutArgs a) {
     const S* tps = (const S*)(smem + lay.tp[i]);
     for (int o = tid; o < n * c; o += nt) {
       const int r = o >> lc, j = o & (c - 1);
-      if (j < own) ((W*)a.w_out[i])[(long)r * m + col0 + j] = ws[o];
+      if (j < own)
+        ((WG*)a.w_out[i])[(long)r * m + col0 + j] = cvt<WG>(ws[o]);
     }
     for (int e = tid; e < B * c; e += nt) {
       const int b = e >> lc, j = e & (c - 1);
       if (j < own) {
-        ((S*)a.v_out[i])[(long)b * m + col0 + j] = vs[e];
-        ((S*)a.tr_out[i + 1])[(long)b * m + col0 + j] = tps[e];
+        ((G*)a.v_out[i])[(long)b * m + col0 + j] = cvt<G>(vs[e]);
+        ((G*)a.tr_out[i + 1])[(long)b * m + col0 + j] = cvt<G>(tps[e]);
       }
     }
   }
   if (blockIdx.x == 0)
-    for (int e = tid; e < B * n0; e += nt) ((S*)a.tr_out[0])[e] = tr0[e];
+    for (int e = tid; e < B * n0; e += nt)
+      ((G*)a.tr_out[0])[e] = cvt<G>(tr0[e]);
 }
 
-template <bool Q>
+template <bool Q, typename T, typename TH>
 int launch(const SharedRolloutArgs* a, int grid_size, size_t expected_smem,
            cudaStream_t stream) {
   const size_t smem = layout(*a, Q).total;
   if (smem != expected_smem) return (int)cudaErrorInvalidValue;
-  void (*kernel)(SharedRolloutArgs) = rollout_shared_kernel<Q>;
+  void (*kernel)(SharedRolloutArgs) = rollout_shared_kernel<Q, T, TH>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -392,7 +416,8 @@ extern "C" int rollout_shared(const SharedRolloutArgs* a, int quant,
                               int grid_size, size_t expected_smem,
                               cudaStream_t stream) {
   if (a->n_layers < 1 || a->n_layers > kMaxLayers || a->batch < 1 ||
-      grid_size < 1)
+      grid_size < 1 || (quant && (a->bf16 || a->theta_bf16)) ||
+      (a->theta_bf16 && !a->bf16))
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < a->n_layers; ++i) {
     const int c = a->cols[i];
@@ -400,6 +425,12 @@ extern "C" int rollout_shared(const SharedRolloutArgs* a, int quant,
         (long)c * grid_size < a->sizes[i + 1])
       return (int)cudaErrorInvalidValue;
   }
-  return quant ? launch<true>(a, grid_size, expected_smem, stream)
-               : launch<false>(a, grid_size, expected_smem, stream);
+  using bf16 = __nv_bfloat16;
+  if (quant) return launch<true, float, float>(a, grid_size, expected_smem,
+                                               stream);
+  if (!a->bf16)
+    return launch<false, float, float>(a, grid_size, expected_smem, stream);
+  return a->theta_bf16
+             ? launch<false, bf16, bf16>(a, grid_size, expected_smem, stream)
+             : launch<false, bf16, float>(a, grid_size, expected_smem, stream);
 }

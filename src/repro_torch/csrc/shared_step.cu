@@ -7,6 +7,11 @@
 //   shared_step_q    replaces src/repro/kernels/plasticity/kernel.py:431
 //                    dual_engine_step_q_pallas (_dual_engine_kernel_q :399)
 //
+// The float kernel is a template on its element type: shared_step_f32 runs
+// it in float32 and shared_step_bf16 in bfloat16 (the Pallas body's generic
+// dtype, kernel.py:118-122): operands promoted to float32 on load, the
+// float32 instantiation's arithmetic, each output rounded once on store.
+//
 // What bounds it on an H100: bytes.  A step reads w and the four theta
 // planes once and writes w once: at the online-MNIST layer 784 -> 1024 and
 // B = 1 that is ~19 MB in float32 (~6 us at 3.35 TB/s) and ~14.5 MB in
@@ -26,19 +31,21 @@
 // The integer sums wrap in 32 bits and are order-free, so shared_step_q is
 // bit-equal to ref.dual_engine_step_q; the float psum is summed in lane
 // order (exact on grid-valued inputs, ULP-close otherwise).
+#include <type_traits>
+
 #include "plasticity.cuh"
 
 using ff::Types;
 
 // Arguments of one launch; mirrored by kernel.py _SharedStepArgs (ctypes).
 struct SharedStepArgs {
-  const void* x;            // (B, N) float32 | int32
-  const void* w;            // (N, M) float32 | int8
-  const float* theta;       // (4, N, M) or null (not plastic)
+  const void* x;            // (B, N) float32 | bfloat16 | int32
+  const void* w;            // (N, M) float32 | bfloat16 | int8
+  const void* theta;        // (4, N, M) float32 | bfloat16, or null
   const void* v;            // (B, M)
   const void* trace_pre;    // (B, N)
   const void* trace_post;   // (B, M)
-  const void* teach;        // (B, M) or null
+  const void* teach;        // (B, M) float32 | int32, or null
   const float* scale;       // () int8 only
   const int* seed;          // () int8 only
   void* events;             // (B, M) out
@@ -49,6 +56,7 @@ struct SharedStepArgs {
   float w_clip;
   ff::FParams f;
   ff::QParams q;            // inv1 / inv2 of this batch
+  int theta_bf16;           // bfloat16 kernel: theta is bfloat16
 };
 
 namespace {
@@ -58,11 +66,16 @@ constexpr int kRows = 32;                // fan-in lanes per column
 constexpr int kThreads = kCols * kRows;
 constexpr int kChunk = 8;                // batch rows per psum pass
 
-template <bool Q>
+// S: the compute type (float | int32); T: the float kernel's element type
+// in device memory (float | bfloat16; unused in fixed point); TH: the
+// rule's.  G and WG are the state's and the weights' types in memory.
+template <bool Q, typename T, typename TH>
 __global__ void __launch_bounds__(kThreads)
 shared_step_kernel(SharedStepArgs a) {
+  using ff::cvt;
   using S = typename Types<Q>::S;
-  using W = typename Types<Q>::W;
+  using G = std::conditional_t<Q, int, T>;
+  using WG = std::conditional_t<Q, int8_t, T>;
   extern __shared__ __align__(16) unsigned char smem[];
   S* red = (S*)smem;                           // (kRows, kChunk, kCols)
   S* tp_s = red + kRows * kChunk * kCols;      // (B, kCols) fresh traces
@@ -72,8 +85,8 @@ shared_step_kernel(SharedStepArgs a) {
   const int B = a.batch, N = a.n, M = a.m;
   const int col = blockIdx.x * kCols + tx;
   const bool in = col < M;
-  const W* __restrict__ w = (const W*)a.w;
-  const S* __restrict__ x = (const S*)a.x;
+  const WG* __restrict__ w = (const WG*)a.w;
+  const G* __restrict__ x = (const G*)a.x;
   const float scale = Q ? *a.scale : 0.0f;
 
   // ---- Forward Engine ---------------------------------------------------
@@ -84,11 +97,11 @@ shared_step_kernel(SharedStepArgs a) {
     for (int u = 0; u < kChunk; ++u) acc[u] = S(0);
     if (in) {
       for (int r = ty; r < N; r += kRows) {
-        const S wv = (S)w[(long)r * M + col];
+        const S wv = cvt<S>(w[(long)r * M + col]);
 #pragma unroll
         for (int u = 0; u < kChunk; ++u) {
           if (u < nb) {
-            const S xv = x[(long)(b0 + u) * N + r];
+            const S xv = cvt<S>(x[(long)(b0 + u) * N + r]);
             if constexpr (Q) acc[u] = ff::wadd(acc[u], ff::wmul(xv, wv));
             else acc[u] = acc[u] + xv * wv;
           }
@@ -116,18 +129,20 @@ shared_step_kernel(SharedStepArgs a) {
         tp = ff::trace_q(((const int*)a.trace_post)[g], ev, a.q);
       } else {
         if (a.teach) s = s + ((const float*)a.teach)[g];
-        ff::neuron_f(((const float*)a.v)[g], s, a.spiking, a.f, &ev, &vn);
-        tp = __fmaf_rn(a.f.decay, ((const float*)a.trace_post)[g], ev);
+        ff::neuron_f(cvt<float>(((const G*)a.v)[g]), s, a.spiking, a.f, &ev,
+                     &vn);
+        tp = __fmaf_rn(a.f.decay, cvt<float>(((const G*)a.trace_post)[g]),
+                       ev);
       }
-      ((S*)a.events)[g] = ev;
-      ((S*)a.v_out)[g] = vn;
-      ((S*)a.trace_post_out)[g] = tp;
+      ((G*)a.events)[g] = cvt<G>(ev);
+      ((G*)a.v_out)[g] = cvt<G>(vn);
+      ((G*)a.trace_post_out)[g] = cvt<G>(tp);
       tp_s[(b0 + u) * kCols + j] = tp;
     }
     __syncthreads();
   }
 
-  W* __restrict__ w_out = (W*)a.w_out;
+  WG* __restrict__ w_out = (WG*)a.w_out;
   if (!a.plastic) {
     if (in)
       for (int r = ty; r < N; r += kRows)
@@ -146,7 +161,7 @@ shared_step_kernel(SharedStepArgs a) {
   }
   __syncthreads();
   if (!in) return;
-  const S* __restrict__ pre = (const S*)a.trace_pre;
+  const G* __restrict__ pre = (const G*)a.trace_pre;
   const long nm = (long)N * M;
   int qmax = 0, seed = 0;
   if constexpr (Q) {
@@ -157,7 +172,7 @@ shared_step_kernel(SharedStepArgs a) {
     const long o = (long)r * M + col;
     S hebb = S(0), pre_sum = S(0);
     for (int b = 0; b < B; ++b) {
-      const S p = pre[(long)b * N + r];
+      const S p = cvt<S>(pre[(long)b * N + r]);
       if constexpr (Q) {
         hebb = ff::wadd(hebb, ff::wmul(p, tp_s[b * kCols + tx]));
         pre_sum = ff::wadd(pre_sum, p);
@@ -168,20 +183,19 @@ shared_step_kernel(SharedStepArgs a) {
     }
     if constexpr (Q) {
       // hash counter: the flat (row * M + col) index of the matrix
-      w_out[o] = (int8_t)ff::plastic_q_sums((int)w[o], a.theta + o, nm, hebb,
-                                            pre_sum, post_s[tx], scale, qmax,
-                                            seed, (int)o, a.q);
+      w_out[o] = (int8_t)ff::plastic_q_sums(
+          (int)w[o], (const float*)a.theta + o, nm, hebb, pre_sum, post_s[tx],
+          scale, qmax, seed, (int)o, a.q);
     } else {
       const float fb = (float)B;
-      w_out[o] = ff::plastic_f_terms(w[o], a.theta + o, nm,
-                                     __fdiv_rn(hebb, fb),
-                                     __fdiv_rn(pre_sum, fb),
-                                     __fdiv_rn(post_s[tx], fb), a.w_clip);
+      w_out[o] = cvt<WG>(ff::plastic_f_terms(
+          cvt<float>(w[o]), (const TH*)a.theta + o, nm, __fdiv_rn(hebb, fb),
+          __fdiv_rn(pre_sum, fb), __fdiv_rn(post_s[tx], fb), a.w_clip));
     }
   }
 }
 
-template <bool Q>
+template <bool Q, typename T = float, typename TH = float>
 int launch(const SharedStepArgs* a, cudaStream_t stream) {
   using S = typename Types<Q>::S;
   if (a->batch < 1 || a->m < 1) return (int)cudaSuccess;
@@ -190,10 +204,11 @@ int launch(const SharedStepArgs* a, cudaStream_t stream) {
       sizeof(S) * ((size_t)kRows * kChunk * kCols + (size_t)a->batch * kCols +
                    kCols);
   cudaError_t err = cudaFuncSetAttribute(
-      shared_step_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      shared_step_kernel<Q, T, TH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  shared_step_kernel<Q><<<blocks, dim3(kCols, kRows), smem, stream>>>(*a);
+  shared_step_kernel<Q, T, TH><<<blocks, dim3(kCols, kRows), smem, stream>>>(
+      *a);
   return (int)cudaGetLastError();
 }
 
@@ -201,6 +216,12 @@ int launch(const SharedStepArgs* a, cudaStream_t stream) {
 
 extern "C" int shared_step_f32(const SharedStepArgs* a, cudaStream_t stream) {
   return launch<false>(a, stream);
+}
+
+extern "C" int shared_step_bf16(const SharedStepArgs* a,
+                                cudaStream_t stream) {
+  return a->theta_bf16 ? launch<false, __nv_bfloat16, __nv_bfloat16>(a, stream)
+                       : launch<false, __nv_bfloat16, float>(a, stream);
 }
 
 extern "C" int shared_step_q(const SharedStepArgs* a, cudaStream_t stream) {

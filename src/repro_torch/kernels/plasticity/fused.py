@@ -30,6 +30,13 @@ SHARED-weight mode (``w (N, M)``, batched activations, batch-averaged dw)
 launches ``csrc/rollout_shared.cu`` (`rollout_shared`): one cooperative
 launch whose co-resident CTAs each own a slice of every layer's columns for
 the whole window, with one grid barrier per layer boundary per step.
+
+Both kernels take the float window in float32 or bfloat16 (drives, weights,
+membranes and traces in one dtype; the rules in that dtype or float32).  A
+bfloat16 window computes in float32 throughout, rounds each step's outputs
+to bfloat16 and the state once, at write-back (`rollout_plain` documents
+the contract); each wrapper counts those launches also in
+``<wrapper>.bf16_launches``.
 """
 from __future__ import annotations
 
@@ -63,22 +70,26 @@ class _RolloutArgs(ctypes.Structure):
             "plastic_mask", "theta_in_smem")] + [
         ("w_clip", ctypes.c_float), ("f", _k.FParams), ("q", _k.QParams),
         ("tel", _P), ("telemetry", ctypes.c_int), ("sat_q", ctypes.c_int),
-        ("sat_f", ctypes.c_float)]
+        ("sat_f", ctypes.c_float), ("bf16", ctypes.c_int),
+        ("theta_bf16", ctypes.c_int)]
 
 
 def rollout_smem_bytes(sizes, block_b: int, plastic, quant: bool,
-                       theta_in_smem: bool, telemetry: bool = False) -> int:
-    """Shared memory of one CTA: theta planes (if resident), membranes,
-    traces, the double-buffered event bus, the active flags, the block's
-    weights and, with ``telemetry``, the (block_b, 2) float accumulator —
-    the layout of ``csrc/rollout.cu``."""
+                       theta_in_smem: bool, telemetry: bool = False,
+                       theta_bytes: int = 4) -> int:
+    """Shared memory of one CTA: theta planes (if resident, ``theta_bytes``
+    a coefficient), membranes, traces, the double-buffered event bus, the
+    active flags, the block's weights and, with ``telemetry``, the
+    (block_b, 2) float accumulator — the layout of ``csrc/rollout.cu``.  A
+    bfloat16 window holds its state, weights and bus in float32 there, so
+    only a bfloat16 rule changes the count."""
     def al(x):
         return (x + 15) // 16 * 16
     n_layers = len(sizes) - 1
     syn = sum(sizes[i] * sizes[i + 1] for i in range(n_layers))
     th = sum(4 * sizes[i] * sizes[i + 1] for i in range(n_layers)
              if plastic[i]) if theta_in_smem else 0
-    return (al(th * 4) + al(block_b * sum(sizes[1:]) * 4)
+    return (al(th * theta_bytes) + al(block_b * sum(sizes[1:]) * 4)
             + al(block_b * sum(sizes) * 4)
             + al(2 * block_b * max(sizes) * 4) + al(block_b * 4)
             + al(block_b * syn * (1 if quant else 4))
@@ -92,13 +103,14 @@ def smem_limit(device) -> int:
 
 
 def smem_plan(sizes, block_b: int, plastic, quant: bool,
-              limit: int, telemetry: bool = False) -> tuple[int, bool]:
+              limit: int, telemetry: bool = False,
+              theta_bytes: int = 4) -> tuple[int, bool]:
     """``(bytes, theta_in_smem)`` of one CTA: theta resident when it fits,
     else read from device memory (through L2); raises when even the state
     of ``block_b`` streams does not fit — the kernel does not fall back."""
     for theta_in_smem in (True, False):
         smem = rollout_smem_bytes(sizes, block_b, plastic, quant,
-                                  theta_in_smem, telemetry)
+                                  theta_in_smem, telemetry, theta_bytes)
         if smem <= limit:
             return smem, theta_in_smem
     raise ValueError(
@@ -120,18 +132,21 @@ class _SharedRolloutArgs(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "n_layers", "k_steps", "batch", "spiking_mask", "plastic_mask",
             "theta_in_smem")] + [
-        ("w_clip", ctypes.c_float), ("f", _k.FParams), ("q", _k.QParams)]
+        ("w_clip", ctypes.c_float), ("f", _k.FParams), ("q", _k.QParams),
+        ("bf16", ctypes.c_int), ("theta_bf16", ctypes.c_int)]
 
 
 SHARED_THREADS, SHARED_CHUNK = 256, 8      # csrc/rollout_shared.cu
 
 
 def shared_smem_bytes(sizes, cols, batch: int, plastic, quant: bool,
-                      theta_in_smem: bool) -> int:
+                      theta_in_smem: bool, theta_bytes: int = 4) -> int:
     """Shared memory of one CTA of the shared-weight window: per layer its
-    columns' theta (if resident), weights, membranes and post traces; the
-    input trace, two staging rows, the pre/post sums and the partial-sum
-    buffer — the layout of ``csrc/rollout_shared.cu``."""
+    columns' theta (if resident, ``theta_bytes`` a coefficient), weights,
+    membranes and post traces; the input trace, two staging rows, the
+    pre/post sums and the partial-sum buffer — the layout of
+    ``csrc/rollout_shared.cu`` (float32 state and weights in a bfloat16
+    window too)."""
     def al(x):
         return (x + 15) // 16 * 16
     n_layers = len(sizes) - 1
@@ -140,7 +155,7 @@ def shared_smem_bytes(sizes, cols, batch: int, plastic, quant: bool,
     for i in range(n_layers):
         nc = sizes[i] * cols[i]
         if theta_in_smem and plastic[i]:
-            total += al(16 * nc)
+            total += al(4 * theta_bytes * nc)
         total += al(nc * (1 if quant else 4)) + 2 * al(batch * cols[i] * 4)
     return (total + al(batch * sizes[0] * 4) + 2 * al(batch * widest * 4)
             + al(widest * 4) + al(32 * 4)
@@ -148,7 +163,7 @@ def shared_smem_bytes(sizes, cols, batch: int, plastic, quant: bool,
 
 
 def shared_plan(sizes, batch: int, plastic, quant: bool, sms: int,
-                limit: int) -> dict:
+                limit: int, theta_bytes: int = 4) -> dict:
     """Grid and residency of the shared-weight window: CTA g owns columns
     ``[g * c_i, (g + 1) * c_i)`` of layer i, with ``c_i`` the power of two
     that spreads the widest layer over at most ``sms`` CTAs.  Theta is
@@ -167,7 +182,7 @@ def shared_plan(sizes, batch: int, plastic, quant: bool, sms: int,
     grid = max(-(-m // c) for m, c in zip(sizes[1:], cols))
     for theta_in_smem in (True, False):
         smem = shared_smem_bytes(sizes, cols, batch, plastic, quant,
-                                 theta_in_smem)
+                                 theta_in_smem, theta_bytes)
         if smem <= limit:
             return dict(grid=grid, cols=cols, smem=smem,
                         theta_in_smem=theta_in_smem)
@@ -224,7 +239,25 @@ def rollout_plain(drives, ws, thetas, vs, traces, *, spiking, plastic,
     Arguments as `rollout`; also takes shared weights ``(N, M)``.  Returns
     ``(outs, ws, vs, traces)`` with outs (K, B, M_last), plus the (B, 3)
     telemetry row with ``telemetry`` (fleet only).
+
+    A float window in another dtype than float32 (bfloat16) runs as the
+    kernel does (`fused.py:112-122`, `:251`, `:275-278` of the JAX
+    package): state, weights and the inter-layer events in float32 for all
+    K steps, the outputs rounded to the drives' dtype, and weights,
+    membranes and traces rounded once, at write-back.
     """
+    if qcfg is None and drives.dtype != torch.float32:
+        up = lambda ts: [None if t is None else t.float() for t in ts]
+        res = rollout_plain(
+            drives.float(), up(ws), up(thetas), up(vs), up(traces),
+            spiking=spiking, plastic=plastic, tau_m=tau_m, v_th=v_th,
+            v_reset=v_reset, trace_decay=trace_decay, w_clip=w_clip,
+            teach=None if teach is None else teach.float(), active=active,
+            telemetry=telemetry)
+        back = lambda got, like: tuple(g.to(t.dtype)
+                                       for g, t in zip(got, like))
+        return (res[0].to(drives.dtype), back(res[1], ws), back(res[2], vs),
+                back(res[3], traces)) + tuple(res[4:])
     n_layers = len(ws)
     fleet = ws[0].ndim == 3
     if telemetry and not fleet:
@@ -295,8 +328,8 @@ def _window_args(a, drives, ws, thetas, vs, traces, *, fleet, spiking,
                  scales, seed, teach):
     """Check a window's operands, allocate its outputs and fill the fields
     both rollout kernels' argument structs share.  Returns ``((outs, ws,
-    vs, traces), keep)``: ``keep`` holds the checked inputs alive until the
-    launch."""
+    vs, traces), keep, theta_bytes)``: ``keep`` holds the checked inputs
+    alive until the launch."""
     n_layers = len(ws)
     if n_layers > MAX_LAYERS:
         raise ValueError(f"rollout kernel takes at most {MAX_LAYERS} layers")
@@ -305,8 +338,20 @@ def _window_args(a, drives, ws, thetas, vs, traces, *, fleet, spiking,
     dev = drives.device
     sizes = [n0] + [w.shape[-1] for w in ws]
     lead = (b,) if fleet else ()          # fleet: one weight set per stream
-    state_dt = torch.int32 if quant else torch.float32
-    w_dt = torch.int8 if quant else torch.float32
+    if quant:
+        state_dt, w_dt, th_dt = torch.int32, torch.int8, torch.float32
+    else:
+        state_dt = w_dt = _k.float_dtype(
+            "rollout kernel",
+            [("drives", drives)] + [(f"w[{i}]", w) for i, w in enumerate(ws)]
+            + [(f"v[{i}]", v) for i, v in enumerate(vs)]
+            + [(f"trace[{i}]", t) for i, t in enumerate(traces)],
+            [thetas[i] for i in range(n_layers) if plastic[i]])
+        th_dts = {thetas[i].dtype for i in range(n_layers) if plastic[i]}
+        if len(th_dts) > 1:
+            raise ValueError(f"rollout kernel: every layer's theta in one "
+                             f"dtype; got {sorted(map(str, th_dts))}")
+        th_dt = th_dts.pop() if th_dts else torch.float32
     drives = _k.expect("drives", drives, (k_steps, b, n0), state_dt, dev)
     ws = [_k.expect(f"w[{i}]", ws[i], (*lead, sizes[i], sizes[i + 1]), w_dt,
                     dev) for i in range(n_layers)]
@@ -315,10 +360,11 @@ def _window_args(a, drives, ws, thetas, vs, traces, *, fleet, spiking,
     trs = [_k.expect(f"trace[{i}]", traces[i], (b, sizes[i]), state_dt, dev)
            for i in range(n_layers + 1)]
     ths = [_k.expect(f"theta[{i}]", thetas[i], (4, sizes[i], sizes[i + 1]),
-                     torch.float32, dev) if plastic[i] else None
+                     th_dt, dev) if plastic[i] else None
            for i in range(n_layers)]
-    if teach is not None:
-        teach = teach.to(device=dev, dtype=state_dt).expand(
+    if teach is not None:      # float32 on the float kernels
+        teach = teach.to(device=dev, dtype=torch.int32 if quant else
+                         torch.float32).expand(
             k_steps, b, sizes[-1]).contiguous()
     per = b if fleet else 1               # scales and seeds per stream
     scs = [_k.per_stream(s, per, torch.float32, dev) for s in scales] \
@@ -344,8 +390,11 @@ def _window_args(a, drives, ws, thetas, vs, traces, *, fleet, spiking,
     a.f = _k.f_params(tau_m, v_th, v_reset, trace_decay)
     if quant:
         a.q = _k.q_params(qcfg, v_th, v_reset, batch=1 if fleet else b)
+    a.bf16 = int(state_dt == torch.bfloat16)
+    a.theta_bf16 = int(th_dt == torch.bfloat16)
     alive = (drives, ws, vs, trs, ths, teach, scs, sd)
-    return (outs, tuple(w_out), tuple(v_out), tuple(tr_out)), alive
+    return ((outs, tuple(w_out), tuple(v_out), tuple(tr_out)), alive,
+            th_dt.itemsize)
 
 
 def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
@@ -357,7 +406,7 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
 
     Args:
       drives:  (K, B, N0) time-major input window (int32 fixed point when
-               ``qcfg``, float32 otherwise).
+               ``qcfg``, else float32 or bfloat16, the state's dtype).
       ws:      per-layer fleet weights (B, N_i, M_i), or shared weights
                (N_i, M_i) (`rollout_shared`); int8 when ``qcfg``.
       thetas:  per-layer packed (4, N_i, M_i) rules; None where not plastic.
@@ -399,7 +448,7 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
     b, quant = drives.shape[1], qcfg is not None
     sizes = [drives.shape[2]] + [w.shape[-1] for w in ws]
     a = _RolloutArgs()
-    out, alive = _window_args(
+    out, alive, theta_bytes = _window_args(
         a, drives, ws, thetas, vs, traces, fleet=True, spiking=spiking,
         plastic=plastic, tau_m=tau_m, v_th=v_th, v_reset=v_reset,
         trace_decay=trace_decay, w_clip=w_clip, qcfg=qcfg, scales=scales,
@@ -413,7 +462,8 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
     a.sat_q = sat_threshold_q(v_th, qcfg) if quant else 0
     a.sat_f = sat_threshold(v_th)
     smem, theta_in_smem = smem_plan(sizes, bb, plastic, quant,
-                                    smem_limit(drives.device), telemetry)
+                                    smem_limit(drives.device), telemetry,
+                                    theta_bytes)
     a.theta_in_smem = int(theta_in_smem)
     fn = _build.library("rollout.cu").rollout
     fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int,
@@ -423,11 +473,13 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
                     _k.stream_of(drives)), "rollout")
     rollout.launches += 1
     rollout.telemetry_launches += int(telemetry)
+    rollout.bf16_launches += a.bf16
     return out if tel is None else out + (tel,)
 
 
 rollout.launches = 0
 rollout.telemetry_launches = 0      # the telemetry variant's share
+rollout.bf16_launches = 0           # the bfloat16 instantiation's share
 
 
 def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,
@@ -452,7 +504,7 @@ def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,
     b, n_layers, quant = drives.shape[1], len(ws), qcfg is not None
     sizes = [drives.shape[2]] + [w.shape[-1] for w in ws]
     a = _SharedRolloutArgs()
-    out, alive = _window_args(
+    out, alive, theta_bytes = _window_args(
         a, drives, ws, thetas, vs, traces, fleet=False, spiking=spiking,
         plastic=plastic, tau_m=tau_m, v_th=v_th, v_reset=v_reset,
         trace_decay=trace_decay, w_clip=w_clip, qcfg=qcfg, scales=scales,
@@ -461,9 +513,10 @@ def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,
     plan = shared_plan(
         sizes, b, plastic, quant,
         torch.cuda.get_device_properties(dev).multi_processor_count,
-        smem_limit(dev))
-    bus = [torch.empty((2, 2, b, sizes[i + 1]), dtype=out[0].dtype,
-                       device=dev) for i in range(n_layers - 1)]
+        smem_limit(dev), theta_bytes)
+    bus = [torch.empty((2, 2, b, sizes[i + 1]), dtype=torch.int32 if quant
+                       else torch.float32, device=dev)
+           for i in range(n_layers - 1)]
     for i in range(n_layers):
         a.bus[i] = _k.ptr(bus[i]) if i < n_layers - 1 else None
         a.cols[i] = plan["cols"][i]
@@ -481,7 +534,9 @@ def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,
             f"one co-resident grid")
     _build.check(err, "rollout_shared")
     rollout_shared.launches += 1
+    rollout_shared.bf16_launches += a.bf16
     return out
 
 
 rollout_shared.launches = 0
+rollout_shared.bf16_launches = 0    # the bfloat16 instantiation's share

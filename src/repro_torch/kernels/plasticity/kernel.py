@@ -5,16 +5,21 @@ One call = one SNN timestep of one synaptic layer — the Forward Engine
 rewritten) fused in one launch.
 
   * `fleet_step`    — B request streams, each with its own weights
-                      ``(B, N, M)`` under one shared rule theta; float32;
-                      kernel ``csrc/fleet_step.cu`` ``fleet_step_f32``.
+                      ``(B, N, M)`` under one shared rule theta; float32
+                      or bfloat16; kernel ``csrc/fleet_step.cu``
+                      ``fleet_step_f32`` / ``fleet_step_bf16``.
   * `fleet_step_q`  — the same on the fixed-point datapath (int8 weights,
                       int32 membranes and traces); ``fleet_step_q``.
   * `shared_step`   — B activation rows sharing ONE weight matrix
-                      ``(N, M)``, batch-averaged dw; float32; kernel
-                      ``csrc/shared_step.cu`` ``shared_step_f32``.
+                      ``(N, M)``, batch-averaged dw; float32 or bfloat16;
+                      kernel ``csrc/shared_step.cu`` ``shared_step_f32`` /
+                      ``shared_step_bf16``.
   * `shared_step_q` — its fixed-point twin; ``shared_step_q``.
 
 The fixed-point kernels are bit for bit equal to their plain versions.
+A float call takes every state operand in one dtype, float32 or bfloat16,
+and the rule in that dtype or float32; a bfloat16 call computes in float32
+and rounds each output once (the Pallas bodies' generic dtype).
 
 ``telemetry=True`` on the fleet steps launches the kernels' telemetry
 variant and appends the raw (B, 3) float32 per-slot row of
@@ -23,8 +28,9 @@ variant and appends the raw (B, 3) float32 per-slot row of
 The backend follows the tensors: a CPU tensor takes the plain version
 (``ref.dual_engine_fleet_step[_q]``), a CUDA tensor launches the kernel, and
 anything else raises.  Each wrapper counts its kernel launches in
-``<wrapper>.launches``, and the fleet steps those of their telemetry variant
-also in ``<wrapper>.telemetry_launches``.
+``<wrapper>.launches``, the fleet steps those of their telemetry variant
+also in ``<wrapper>.telemetry_launches``, and the float wrappers their
+bfloat16 launches also in ``<wrapper>.bf16_launches``.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ shared_step_plain = _ref.dual_engine_step
 shared_step_q_plain = _ref.dual_engine_step_q
 
 MAX_SHARED_BATCH = 1024     # rows of one shared step (its traces in smem)
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)    # the float kernels' types
 
 _P = ctypes.c_void_p
 
@@ -71,7 +78,7 @@ class _FleetStepArgs(ctypes.Structure):
             "batch", "n", "m", "plastic", "spiking")] + [
         ("w_clip", ctypes.c_float), ("f", FParams), ("q", QParams),
         ("tel", _P), ("tiles", ctypes.c_int), ("sat_q", ctypes.c_int),
-        ("sat_f", ctypes.c_float)]
+        ("sat_f", ctypes.c_float), ("theta_bf16", ctypes.c_int)]
 
 
 class _SharedStepArgs(ctypes.Structure):
@@ -81,7 +88,8 @@ class _SharedStepArgs(ctypes.Structure):
         "seed", "events", "v_out", "trace_post_out", "w_out")] + [
         (name, ctypes.c_int) for name in (
             "batch", "n", "m", "plastic", "spiking")] + [
-        ("w_clip", ctypes.c_float), ("f", FParams), ("q", QParams)]
+        ("w_clip", ctypes.c_float), ("f", FParams), ("q", QParams),
+        ("theta_bf16", ctypes.c_int)]
 
 
 def f_params(tau_m, v_th, v_reset, trace_decay) -> FParams:
@@ -107,6 +115,26 @@ def on_card(t: torch.Tensor) -> bool:
         return False
     raise ValueError(f"repro_torch runs on CUDA or CPU tensors; got a tensor "
                      f"on {t.device}")
+
+
+def float_dtype(what: str, operands, thetas=()) -> torch.dtype:
+    """The element type of one float kernel call: float32 or bfloat16, the
+    same for every ``(name, tensor)`` operand; each rule (None skipped) in
+    that type or float32.  Raises on any other dtype and on a mix."""
+    name0, t0 = operands[0]
+    dt = t0.dtype
+    if dt not in FLOAT_DTYPES:
+        raise ValueError(f"{what}: the float kernels take float32 or "
+                         f"bfloat16; got {name0} {dt}")
+    for name, t in operands:
+        if t.dtype != dt:
+            raise ValueError(f"{what}: every operand in one dtype; got "
+                             f"{name} {t.dtype} beside {name0} {dt}")
+    for th in thetas:
+        if th is not None and th.dtype not in (dt, torch.float32):
+            raise ValueError(f"{what}: theta must be {dt} or float32; got "
+                             f"{th.dtype}")
+    return dt
 
 
 def ptr(t) -> int | None:
@@ -156,7 +184,8 @@ def _launch(entry: str, x, w, theta, v, trace_pre, trace_post, *, state_dt,
             scale=None, seed=None, f=None, q=None, qcfg=None):
     """Check operands, allocate outputs, launch one fleet-step kernel;
     with ``telemetry`` also fold its per-(stream, warp piece) partials into
-    the raw (B, 3) row."""
+    the raw (B, 3) row.  A float kernel takes teach in float32 and the rule
+    in float32 or bfloat16, and sums telemetry in float32."""
     b, n = x.shape
     m = w.shape[2]
     dev = x.device
@@ -167,17 +196,20 @@ def _launch(entry: str, x, w, theta, v, trace_pre, trace_post, *, state_dt,
     v = expect("v", v, (b, m), state_dt, dev)
     trace_post = expect("trace_post", trace_post, (b, m), state_dt, dev)
     trace_pre = expect("trace_pre", trace_pre, (b, n), state_dt, dev)
-    if plastic:
-        theta = expect("theta", theta, (4, n, m), torch.float32, dev)
+    wide = torch.int32 if qcfg is not None else torch.float32
+    if plastic:     # float32, or bfloat16 beside bfloat16 state
+        theta = expect("theta", theta, (4, n, m), torch.float32
+                       if qcfg is not None else theta.dtype, dev)
+    th_bf16 = plastic and theta.dtype == torch.bfloat16
     if teach is not None:
-        teach = teach.to(device=dev, dtype=state_dt).expand(b, m).contiguous()
+        teach = teach.to(device=dev, dtype=wide).expand(b, m).contiguous()
     active = active_mask(active, b, dev)
     events = torch.empty((b, m), dtype=state_dt, device=dev)
     v_out = torch.empty_like(v)
     tp_out = torch.empty_like(trace_post)
     w_out = torch.empty_like(w)
     tiles = tel_tiles(m)
-    parts = (torch.zeros((b, tiles, 3), dtype=state_dt, device=dev)
+    parts = (torch.zeros((b, tiles, 3), dtype=wide, device=dev)
              if telemetry else None)
     args = _FleetStepArgs(
         ptr(x), ptr(w), ptr(theta) if plastic else None, ptr(v),
@@ -186,7 +218,7 @@ def _launch(entry: str, x, w, theta, v, trace_pre, trace_post, *, state_dt,
         b, n, m, int(plastic), int(spiking), w_clip, f or FParams(),
         q or QParams(), ptr(parts), tiles,
         sat_threshold_q(v_th, qcfg) if qcfg is not None else 0,
-        sat_threshold(v_th))
+        sat_threshold(v_th), int(th_bf16))
     fn = getattr(_build.library("fleet_step.cu"), entry)
     fn.argtypes, fn.restype = [ctypes.POINTER(_FleetStepArgs), _P], \
         ctypes.c_int
@@ -211,29 +243,33 @@ def fleet_step(x, w, theta, v, trace_pre, trace_post, *,
                trace_decay: float = 0.8, w_clip: float = 4.0,
                plastic: bool = True, spiking: bool = True, teach=None,
                active=None, telemetry: bool = False):
-    """Float32 fleet step; shapes as `ref.dual_engine_fleet_step`.
-    Returns (events, v_out, trace_post_new, w_new), plus the raw (B, 3)
-    telemetry row with ``telemetry``."""
+    """Float fleet step (float32 or bfloat16); shapes as
+    `ref.dual_engine_fleet_step`.  Returns (events, v_out, trace_post_new,
+    w_new), plus the raw (B, 3) float32 telemetry row with ``telemetry``."""
     if not on_card(x):
         return fleet_step_plain(
             x, w, theta, v, trace_pre, trace_post, tau_m=tau_m, v_th=v_th,
             v_reset=v_reset, trace_decay=trace_decay, w_clip=w_clip,
             plastic=plastic, spiking=spiking, teach=teach, active=active,
             telemetry=telemetry)
-    if w.dtype != torch.float32:
-        raise ValueError(f"float fleet kernel needs float32 w; got {w.dtype}")
-    out = _launch("fleet_step_f32", x, w, theta, v, trace_pre, trace_post,
-                  state_dt=torch.float32, plastic=plastic, spiking=spiking,
-                  w_clip=w_clip, teach=teach, active=active,
-                  telemetry=telemetry, v_th=v_th,
+    dt = float_dtype("float fleet kernel", (
+        ("x", x), ("w", w), ("v", v), ("trace_pre", trace_pre),
+        ("trace_post", trace_post)), (theta,) if plastic else ())
+    bf16 = dt == torch.bfloat16
+    out = _launch("fleet_step_bf16" if bf16 else "fleet_step_f32", x, w,
+                  theta, v, trace_pre, trace_post, state_dt=dt,
+                  plastic=plastic, spiking=spiking, w_clip=w_clip,
+                  teach=teach, active=active, telemetry=telemetry, v_th=v_th,
                   f=f_params(tau_m, v_th, v_reset, trace_decay))
     fleet_step.launches += 1
     fleet_step.telemetry_launches += int(telemetry)
+    fleet_step.bf16_launches += int(bf16)
     return out
 
 
 fleet_step.launches = 0
 fleet_step.telemetry_launches = 0       # the telemetry variant's share
+fleet_step.bf16_launches = 0            # the bfloat16 instantiation's share
 
 
 def fleet_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
@@ -291,10 +327,13 @@ def _launch_shared(entry: str, x, w, theta, v, trace_pre, trace_post, *,
     v = expect("v", v, (b, m), state_dt, dev)
     trace_post = expect("trace_post", trace_post, (b, m), state_dt, dev)
     trace_pre = expect("trace_pre", trace_pre, (b, n), state_dt, dev)
-    if plastic:
-        theta = expect("theta", theta, (4, n, m), torch.float32, dev)
-    if teach is not None:
-        teach = teach.to(device=dev, dtype=state_dt).expand(b, m).contiguous()
+    if plastic:     # float32, or bfloat16 beside bfloat16 state
+        theta = expect("theta", theta, (4, n, m), torch.float32
+                       if q is not None else theta.dtype, dev)
+    th_bf16 = plastic and theta.dtype == torch.bfloat16
+    if teach is not None:      # float32 on the float kernels
+        teach = teach.to(device=dev, dtype=torch.int32 if q else
+                         torch.float32).expand(b, m).contiguous()
     events = torch.empty((b, m), dtype=state_dt, device=dev)
     v_out = torch.empty_like(v)
     tp_out = torch.empty_like(trace_post)
@@ -303,7 +342,8 @@ def _launch_shared(entry: str, x, w, theta, v, trace_pre, trace_post, *,
         ptr(x), ptr(w), ptr(theta) if plastic else None, ptr(v),
         ptr(trace_pre), ptr(trace_post), ptr(teach), ptr(scale), ptr(seed),
         ptr(events), ptr(v_out), ptr(tp_out), ptr(w_out), b, n, m,
-        int(plastic), int(spiking), w_clip, f or FParams(), q or QParams())
+        int(plastic), int(spiking), w_clip, f or FParams(), q or QParams(),
+        int(th_bf16))
     fn = getattr(_build.library("shared_step.cu"), entry)
     fn.argtypes, fn.restype = [ctypes.POINTER(_SharedStepArgs), _P], \
         ctypes.c_int
@@ -315,28 +355,30 @@ def shared_step(x, w, theta, v, trace_pre, trace_post, *,
                 tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
                 trace_decay: float = 0.8, w_clip: float = 4.0,
                 plastic: bool = True, spiking: bool = True, teach=None):
-    """Float32 shared-weight step; shapes as `ref.dual_engine_step` (the
-    kernel takes batched (B, ·) state).
+    """Float shared-weight step (float32 or bfloat16); shapes as
+    `ref.dual_engine_step` (the kernel takes batched (B, ·) state).
     Returns (events, v_out, trace_post_new, w_new)."""
     if not on_card(x):
         return shared_step_plain(
             x, w, theta, v, trace_pre, trace_post, tau_m=tau_m, v_th=v_th,
             v_reset=v_reset, trace_decay=trace_decay, w_clip=w_clip,
             plastic=plastic, spiking=spiking, teach=teach)
-    for name, t in (("x", x), ("w", w), ("v", v), ("trace_pre", trace_pre),
-                    ("trace_post", trace_post)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"float shared-step kernel needs float32 {name}; "
-                             f"got {t.dtype}")
-    out = _launch_shared("shared_step_f32", x, w, theta, v, trace_pre,
-                         trace_post, state_dt=torch.float32, plastic=plastic,
-                         spiking=spiking, w_clip=w_clip, teach=teach,
+    dt = float_dtype("float shared-step kernel", (
+        ("x", x), ("w", w), ("v", v), ("trace_pre", trace_pre),
+        ("trace_post", trace_post)), (theta,) if plastic else ())
+    bf16 = dt == torch.bfloat16
+    out = _launch_shared("shared_step_bf16" if bf16 else "shared_step_f32",
+                         x, w, theta, v, trace_pre, trace_post, state_dt=dt,
+                         plastic=plastic, spiking=spiking, w_clip=w_clip,
+                         teach=teach,
                          f=f_params(tau_m, v_th, v_reset, trace_decay))
     shared_step.launches += 1
+    shared_step.bf16_launches += int(bf16)
     return out
 
 
 shared_step.launches = 0
+shared_step.bf16_launches = 0           # the bfloat16 instantiation's share
 
 
 def shared_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,

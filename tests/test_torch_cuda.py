@@ -15,6 +15,10 @@ float32 sums straddle a rounding boundary.  The SSD scan walks the sequence
 in other sub-blocks than the plain chunked form, so float32 is held within
 rtol = atol = 2e-3 (the JAX package's bound between its chunked form and
 the recurrence) and bfloat16 y within one bf16 step of the largest |y|.
+The bfloat16 plasticity kernels compute in float32 and round each output
+once, as their plain versions do: steps and one-step windows within 3e-2
+(the JAX package's own bf16 tolerance, tests/test_fleet.py), longer
+windows with at most 1e-3 of the elements outside it.
 """
 import numpy as np
 import pytest
@@ -303,8 +307,29 @@ def test_lif_forward_kernel_matches_plain_on_card(cuda_device):
         torch.cuda.synchronize()
         _assert_match(got, want, False)
     assert TL.lif_forward.launches == launches + len(LIF_SHAPES)
+    bf16 = tuple(a.to(torch.bfloat16) for a in args)
+    bf16_launches = TL.lif_forward.bf16_launches
+    got = TL.lif_forward(*bf16)
+    want = TL.lif_forward_plain(*bf16)
+    torch.cuda.synchronize()
+    assert TL.lif_forward.bf16_launches == bf16_launches + 1
+    _assert_bf16(got, want)
     with pytest.raises(ValueError):
-        TL.lif_forward(*(a.to(torch.bfloat16) for a in args))
+        TL.lif_forward(*(a.to(torch.float16) for a in args))
+    with pytest.raises(ValueError):
+        TL.lif_forward(bf16[0], *args[1:])
+
+
+def _assert_bf16(got, want, share=None):
+    """bfloat16 outputs within 3e-2 of the plain version's; with ``share``,
+    at most that share of the elements outside it."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.bfloat16
+        d = (a.double() - b.double()).abs()
+        if share is None:
+            assert float(d.max()) <= 3e-2
+        else:
+            assert float((d > 3e-2).double().mean()) <= share
 
 
 def _shared_network(rng, sizes, b, quant, dev):
@@ -723,3 +748,131 @@ def test_scheduler_evict_readmit_bit_identical_on_card(quant, cuda_device,
         assert torch.equal(a, b)
     for a, b in zip((*f1.w, *f1.v, *f1.trace), (*f2.w, *f2.v, *f2.trace)):
         assert torch.equal(a, b)
+
+
+def _bf16(t, dev):
+    return {k: None if v is None else
+            torch.from_numpy(np.array(v)).to(dev).to(torch.bfloat16)
+            for k, v in t.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta_dtype", (torch.bfloat16, torch.float32),
+                         ids=("theta-bf16", "theta-f32"))
+def test_bf16_fleet_step_kernel_matches_plain_on_card(theta_dtype,
+                                                      cuda_device):
+    """#1 in bfloat16, telemetry off and on: state within 3e-2 of the plain
+    version, the telemetry launch's state bit for bit the telemetry-off
+    launch's, rows within 3e-2 relative, inactive slots frozen; float16
+    and mixed dtypes raise."""
+    rng = np.random.default_rng(61)
+    active = torch.from_numpy(ACTIVE).to(cuda_device)
+    launches = TK.fleet_step.bf16_launches
+    for n, m, spiking, teach, masked in STEP_CASES:
+        tshape = {"per-stream": (B, m), "shared": (m,)}.get(teach)
+        t = _bf16(dict(
+            x=(rng.random((B, n)) < 0.4).astype(np.float32),
+            w=np.round(rng.uniform(-1, 1, (B, n, m)) * 64) / 64,
+            v=rng.standard_normal((B, m)), tpre=rng.random((B, n)) * 3,
+            tpost=rng.random((B, m)) * 3,
+            teach=None if tshape is None else
+            rng.standard_normal(tshape) * 0.5), cuda_device)
+        theta = torch.from_numpy(rng.standard_normal((4, n, m)) * 0.02).to(
+            cuda_device).to(theta_dtype)
+        args = (t["x"], t["w"], theta, t["v"], t["tpre"], t["tpost"])
+        kw = dict(spiking=spiking, teach=t["teach"],
+                  active=active if masked else None)
+        off = TK.fleet_step(*args, **kw)
+        got = TK.fleet_step(*args, telemetry=True, **kw)
+        want = TK.fleet_step_plain(*args, telemetry=True, **kw)
+        torch.cuda.synchronize()
+        _assert_bf16(off, want[:4])
+        for a, b in zip(got[:4], off):
+            assert torch.equal(a, b)
+        d = (got[4].double() - want[4].double()).abs()
+        assert float((d / (1 + want[4].double().abs())).max()) <= 3e-2
+        if masked:
+            assert torch.equal(got[3][active == 0], t["w"][active == 0])
+            assert (got[4][active == 0] == 0).all()
+    assert TK.fleet_step.bf16_launches == launches + 2 * len(STEP_CASES)
+    with pytest.raises(ValueError):
+        TK.fleet_step(*(a.to(torch.float16) for a in args))
+    with pytest.raises(ValueError):
+        TK.fleet_step(args[0].float(), *args[1:])
+
+
+@pytest.mark.cuda
+def test_bf16_shared_step_kernel_matches_plain_on_card(cuda_device):
+    """#4 in bfloat16 at the MNIST layers and ragged shapes, the rule in
+    bfloat16 or float32; float16 raises."""
+    rng = np.random.default_rng(62)
+    launches = TK.shared_step.bf16_launches
+    for i, (b, n, m, spiking, teach, plastic) in enumerate(SHARED_CASES):
+        t = _shared_inputs(rng, b, n, m, False, cuda_device, teach)
+        th = t["theta"].to(torch.bfloat16) if i % 2 else t["theta"]
+        args = tuple(a.to(torch.bfloat16) for a in (
+            t["x"], t["w"])) + (th,) + tuple(a.to(torch.bfloat16) for a in (
+                t["v"], t["tpre"], t["tpost"]))
+        kw = dict(spiking=spiking, plastic=plastic,
+                  teach=None if t["teach"] is None
+                  else t["teach"].to(torch.bfloat16))
+        got = TK.shared_step(*args, **kw)
+        want = TK.shared_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        _assert_bf16(got, want)
+    assert TK.shared_step.bf16_launches == launches + len(SHARED_CASES)
+    with pytest.raises(ValueError):
+        TK.shared_step(*(a.to(torch.float16) for a in args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fleet", (True, False), ids=("fleet", "shared"))
+def test_bf16_rollout_kernels_match_plain_on_card(fleet, cuda_device):
+    """#3 in bfloat16, fleet (with telemetry at K = 4) and shared-weight:
+    K = 1 within 3e-2, K = 4 and 16 with at most 1e-3 of the elements
+    outside it; inactive slots frozen; float16 raises."""
+    rng = np.random.default_rng(63)
+    counter = TF.rollout if fleet else TF.rollout_shared
+    launches = counter.bf16_launches
+    for k, sizes in ((1, (8, 32, 4)), (4, (8, 128, 8)), (16, (8, 32, 4))):
+        st = _network(rng, sizes, False, cuda_device)
+        if not fleet:
+            st = TE.NetworkState(w=tuple(w[0] for w in st.w), v=st.v,
+                                 trace=st.trace, t=st.t)
+        bf = torch.bfloat16
+        st = TE.NetworkState(w=tuple(w.to(bf) for w in st.w),
+                             v=tuple(v.to(bf) for v in st.v),
+                             trace=tuple(t.to(bf) for t in st.trace), t=st.t)
+        theta = [torch.from_numpy(rng.standard_normal(
+            (4, sizes[i], sizes[i + 1])) * 0.02).to(cuda_device).to(bf)
+            for i in range(len(sizes) - 1)]
+        drives = torch.from_numpy(np.round(rng.standard_normal(
+            (k, B, sizes[0])) * 16) / 16).to(cuda_device).to(bf)
+        tch = torch.from_numpy(rng.standard_normal((B, sizes[-1])) * 0.3
+                               ).to(cuda_device).to(bf)
+        params = [TE.EngineParams(spiking=i < len(sizes) - 2)
+                  for i in range(len(sizes) - 1)]
+        kw = dict(params=params, teach=tch)
+        if fleet:
+            kw["active"] = torch.from_numpy(ACTIVE).to(cuda_device)
+        tel = fleet and k == 4
+        got = TE.rollout(st, theta, drives, telemetry=tel, **kw)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TF, "rollout", lambda *a, block_b=None, **kk:
+                       TF.rollout_plain(*a, **kk))
+            want = TE.rollout(st, theta, drives, telemetry=tel, **kw)
+        torch.cuda.synchronize()
+        flat = lambda r: (*r[0].w, *r[0].v, *r[0].trace, r[1])
+        _assert_bf16(flat(got), flat(want), None if k == 1 else 1e-3)
+        if tel:
+            for f in ("spike_rate", "mean_abs_dw", "sat_frac"):
+                torch.testing.assert_close(getattr(got[2], f),
+                                           getattr(want[2], f), rtol=0,
+                                           atol=2e-4)
+        if fleet:
+            off = kw["active"] == 0
+            for a, b in zip(got[0].w + got[0].v, st.w + st.v):
+                assert torch.equal(a[off], b[off])
+    assert counter.bf16_launches == launches + 3
+    with pytest.raises(ValueError):
+        TE.rollout(st, theta, drives.to(torch.float16), **kw)

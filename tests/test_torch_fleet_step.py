@@ -151,3 +151,65 @@ def test_kernel_wrapper_takes_plain_version_only_on_cpu():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         TK.fleet_step(*meta)
 
+
+
+# (B, N, M) of tests/test_fleet.py:134, the bf16 shapes of the JAX kernel
+BF16_SHAPES = [(1, 8, 8), (4, 32, 48), (2, 100, 130), (8, 128, 128),
+               (3, 17, 257)]
+
+
+def _bf16(a):
+    """numpy float32 -> numpy bfloat16 (round to nearest even)."""
+    return np.asarray(jax.numpy.asarray(a, jax.numpy.bfloat16))
+
+
+@pytest.mark.parametrize("b,n,m", BF16_SHAPES)
+def test_layer_step_bf16_matches_jax_bitwise(b, n, m):
+    """bfloat16 state, weights and rule: the plain fleet step (float32
+    arithmetic, one rounding per output) equals jitted JAX ``impl="xla"``
+    bit for bit, in bfloat16, with the teaching current and slot mask."""
+    from repro_torch import convert
+    rng = np.random.default_rng(b * 131 + n + m)
+    d = dict(x=(rng.random((b, n)) < 0.5).astype(np.float32),
+             w=rng.standard_normal((b, n, m)) * 0.1,
+             v=rng.standard_normal((b, m)) * 0.1,
+             tpre=rng.random((b, n)), tpost=rng.random((b, m)),
+             theta=rng.standard_normal((4, n, m)) * 0.01,
+             teach=rng.standard_normal((b, m)) * 0.5)
+    d = {k: _bf16(v) for k, v in d.items()}
+    d.update(scale=None, seed=None,
+             active=(np.arange(b) % 3 != 1).astype(np.int32))
+    pj, pt = _params(False, True)
+    want = _jax_step(d, pj)
+    t = {k: None if v is None else convert.tensor(v, "cpu")
+         for k, v in d.items()}
+    st = TE.LayerState(w=t["w"], v=t["v"], trace_pre=t["tpre"],
+                       trace_post=t["tpost"], theta=t["theta"])
+    st, out = TE.layer_step(st, t["x"], params=pt, teach=t["teach"],
+                            active=t["active"])
+    for name, a, g in zip(("w", "v", "trace_post", "out"), want,
+                          (st.w, st.v, st.trace_post, out)):
+        assert g.dtype == torch.bfloat16, name
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(a, np.float32),
+                                      err_msg=name)
+
+
+def test_float_kernels_take_float32_or_bfloat16_only():
+    """The float kernels' dtype contract, checked before any launch: every
+    state operand float32, or every one bfloat16; the rule in the state's
+    dtype or float32; float16, float64 and mixes raise."""
+    f32 = torch.zeros(2)
+    bf = f32.to(torch.bfloat16)
+    assert TK.float_dtype("k", [("x", f32), ("w", f32)], [f32]) \
+        == torch.float32
+    assert TK.float_dtype("k", [("x", bf), ("w", bf)], [bf, f32, None]) \
+        == torch.bfloat16
+    for ops, thetas in (([("x", f32.half())], ()),
+                        ([("x", f32.double())], ()),
+                        ([("x", f32), ("w", bf)], ()),
+                        ([("x", bf), ("w", f32)], ()),
+                        ([("x", f32)], [bf]),
+                        ([("x", bf)], [f32.half()])):
+        with pytest.raises(ValueError):
+            TK.float_dtype("k", ops, thetas)

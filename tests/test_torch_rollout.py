@@ -303,3 +303,166 @@ def test_shared_memory_plan():
     with pytest.raises(ValueError, match="lower block_b"):
         TF.smem_plan(sizes, 64, plastic, False, TF.DEFAULT_SMEM_LIMIT)
 
+
+
+# ---- bfloat16 windows ---------------------------------------------------------
+
+BF16_STEP = 2.0 ** -7     # one bf16 rounding step at magnitudes below 2
+
+
+def _bf16_case(rng, fleet, k):
+    """8-32-4 net, bf16 state, weights, rules, drives and a per-step
+    teaching current; fleet weights (B, N, M) or shared (N, M)."""
+    import jax.numpy as jnp
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16))
+    sizes = SIZES[2]
+    lead = (B,) if fleet else ()
+    net = types.SimpleNamespace(
+        w=tuple(bf(rng.uniform(-0.5, 0.5, lead + (sizes[i], sizes[i + 1])))
+                for i in range(2)),
+        v=tuple(bf(rng.uniform(-0.5, 0.9, (B, m))) for m in sizes[1:]),
+        trace=tuple(bf(rng.uniform(0, 2, (B, n))) for n in sizes),
+        t=np.int32(0), w_scale=())
+    theta = [bf(rng.standard_normal((4, sizes[i], sizes[i + 1])) * 0.02)
+             for i in range(2)]
+    drives = bf(np.round(rng.standard_normal((k, B, sizes[0])) * 16) / 16)
+    teach = bf(rng.standard_normal((k, B, sizes[-1])) * 0.3)
+    return net, theta, drives, teach
+
+
+def _jax_window(net, theta, drives, teach, active, impl, telemetry=False):
+    import jax.numpy as jnp
+    params = _params(False, 2, JE)
+
+    def f(w, v, tr, th, dr, te, act):
+        st = JE.NetworkState(w=w, v=v, trace=tr, t=jnp.int32(0))
+        res = JE.rollout(st, th, dr, params=params, impl=impl, teach=te,
+                         active=act, telemetry=telemetry)
+        st = res[0]
+        tel = ([] if not telemetry else
+               [jnp.stack([res[2].spike_rate, res[2].mean_abs_dw,
+                           res[2].sat_frac], 1)])
+        return [*st.w, *st.v, *st.trace, res[1], *tel]
+    return [np.asarray(a, np.float32) for a in jax.jit(f)(
+        net.w, net.v, net.trace, theta, drives, teach, active)]
+
+
+def _torch_window(net, theta, drives, teach, active, telemetry=False):
+    st = convert.network_state(net, device="cpu")
+    as_t = lambda a: None if a is None else convert.tensor(a, "cpu")
+    res = TE.rollout(st, convert.theta(theta, device="cpu"), as_t(drives),
+                     params=_params(False, 2, TE), teach=as_t(teach),
+                     active=as_t(active), telemetry=telemetry)
+    st = res[0]
+    got = [*st.w, *st.v, *st.trace, res[1]]
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    tel = ([] if not telemetry else
+           [torch.stack([res[2].spike_rate, res[2].mean_abs_dw,
+                         res[2].sat_frac], 1)])
+    return [g.float().numpy() for g in got + tel]
+
+
+def _max_diff(xs, ys):
+    return max(float(np.abs(x - y).max()) for x, y in zip(xs, ys))
+
+
+@pytest.mark.parametrize("fleet", (True, False), ids=("fleet", "shared"))
+@pytest.mark.parametrize("k", (1, 4, 8))
+def test_bf16_window_matches_the_kernel_contract(fleet, k):
+    """A bfloat16 window of the plain rollout carries float32 for all K
+    steps and rounds once at write-back, as the TPU kernel does: against
+    `rollout_pallas` run by the Pallas interpreter within one bf16 step
+    (measured: bit for bit), and against the scanned per-step oracle
+    (``impl="xla"``, which rounds every step) within JAX's own
+    xla-vs-interpreter spread on the same inputs plus that step."""
+    rng = np.random.default_rng(700 + 10 * k + fleet)
+    net, theta, drives, teach = _bf16_case(rng, fleet, k)
+    active = ACTIVE if fleet else None
+    pal = _jax_window(net, theta, drives, teach, active, "pallas-interpret")
+    xla = _jax_window(net, theta, drives, teach, active, "xla")
+    got = _torch_window(net, theta, drives, teach, active)
+    for a, g in zip(pal, got):
+        np.testing.assert_allclose(g, a, rtol=BF16_STEP, atol=BF16_STEP)
+    spread = _max_diff(xla, pal)
+    assert _max_diff(got, xla) <= spread + BF16_STEP
+    if fleet:
+        off = ACTIVE == 0
+        before = [*net.w, *net.v, *net.trace]
+        for a, g in zip(before, got):
+            np.testing.assert_array_equal(g[off], np.asarray(a, np.float32)
+                                          [off])
+
+
+def test_bf16_window_telemetry_matches_the_kernel_contract():
+    """The fleet window's telemetry row in bfloat16 (float32 window means)
+    against the interpreted TPU kernel within 1e-6 relative, as float32
+    window rows are held."""
+    rng = np.random.default_rng(777)
+    net, theta, drives, teach = _bf16_case(rng, True, 4)
+    pal = _jax_window(net, theta, drives, teach, ACTIVE, "pallas-interpret",
+                      telemetry=True)
+    got = _torch_window(net, theta, drives, teach, ACTIVE, telemetry=True)
+    np.testing.assert_allclose(got[-1], pal[-1], rtol=1e-6, atol=1e-7)
+    assert not got[-1][ACTIVE == 0].any()
+
+
+def test_bf16_trace_stays_bf16_and_equals_jax():
+    """Queue 3 fault 1: a bfloat16 input trace stays bfloat16 through
+    `snn.timestep` (equal to jitted JAX's per-event path at step 2, bit for
+    bit) and through `snn.rollout_window` (equal to JAX's window run by the
+    interpreted TPU kernel, bit for bit)."""
+    import jax.numpy as jnp
+    from repro.core import snn as JS
+    from repro_torch.core import snn as TS
+    bf = jnp.bfloat16
+    cfg_j = JS.SNNConfig(layer_sizes=(8, 128, 8), dtype=bf,
+                         impl="pallas-interpret")
+    cfg_t = TS.SNNConfig(layer_sizes=(8, 128, 8), dtype=torch.bfloat16)
+    rng = np.random.default_rng(16)
+    theta = [np.asarray(jnp.asarray(rng.standard_normal((4, n, m)) * 0.02,
+                                    bf)) for n, m in ((8, 128), (128, 8))]
+    obs = np.asarray(jnp.asarray(rng.standard_normal((2, 4, 8)), bf))
+    th_t = convert.theta(theta, "cpu")
+    obs_t = convert.tensor(obs, "cpu")
+    cfg_x = JS.SNNConfig(layer_sizes=(8, 128, 8), dtype=bf, impl="xla")
+    step = jax.jit(lambda s, o: JS.timestep(cfg_x, s, theta, o)[0])
+    js = JS.init_state(cfg_x, batch=4, fleet=True)
+    ts = TS.init_state(cfg_t, batch=4, fleet=True, device="cpu")
+    for i in range(2):
+        js = step(js, obs[i])
+        ts, _ = TS.timestep(cfg_t, ts, th_t, obs_t[i])
+    assert ts.trace[0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(ts.trace[0].float().numpy(),
+                                  np.asarray(js.trace[0], np.float32))
+    win = jax.jit(lambda s, d: JS.rollout_window(cfg_j, s, theta, d)[0])
+    jw = win(JS.init_state(cfg_j, batch=4, fleet=True), obs)
+    tw, _ = TS.rollout_window(
+        cfg_t, TS.init_state(cfg_t, batch=4, fleet=True, device="cpu"),
+        th_t, obs_t)
+    assert tw.trace[0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(tw.trace[0].float().numpy(),
+                                  np.asarray(jw.trace[0], np.float32))
+
+
+def test_convert_carries_bf16_state_and_rule_bit_for_bit():
+    """A bfloat16 `NetworkState` and rule built by the JAX package reach the
+    port as bfloat16 tensors with the same bits."""
+    import jax.numpy as jnp
+    from repro.core import snn as JS
+    cfg = JS.SNNConfig(layer_sizes=(8, 128, 8), dtype=jnp.bfloat16)
+    theta = JS.init_theta(cfg, jax.random.PRNGKey(4), scale=0.02)
+    st = JS.init_state(cfg, batch=3, fleet=True)
+    st = JE.NetworkState(
+        w=tuple(jax.random.normal(jax.random.PRNGKey(i), w.shape, w.dtype)
+                for i, w in enumerate(st.w)),
+        v=st.v, trace=tuple(t + 0.3 for t in st.trace), t=st.t,
+        w_scale=st.w_scale)
+    got = convert.network_state(st, device="cpu")
+    got_th = convert.theta(theta, device="cpu")
+    bits = lambda a: np.asarray(a).view(np.uint16)
+    for a, g in zip((*st.w, *st.v, *st.trace, *theta),
+                    (*got.w, *got.v, *got.trace, *got_th)):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == a.shape
+        np.testing.assert_array_equal(g.view(torch.int16).numpy()
+                                      .view(np.uint16), bits(a))
+    assert int(got.t) == int(st.t)

@@ -182,3 +182,46 @@ def test_adaptation_metrics_copy_agrees():
     r[100:] += 0.8
     assert TS.adaptation_metrics(torch.from_numpy(r), 60, 20) == \
         JS.adaptation_metrics(r, 60, 20)
+
+
+def test_bf16_closed_loop_within_jax_spread():
+    """The reference controller of stabilizer-wind in bfloat16, B = 8, 40
+    steps with a jittered wind onset; env state, schedule and rule carried
+    from JAX.  JAX's two paths differ here (``xla`` rounds every step,
+    ``pallas-interpret`` carries float32 across each window); the port's
+    windows follow the kernel, so its episode mean reward lies within
+    JAX's xla-vs-interpreter spread of the interpreter's, and its rewards
+    within atol = 1e-4 of the interpreter's (the env tolerance above)."""
+    import dataclasses
+    spec = JS.SCENARIOS["stabilizer-wind"]
+    env = spec.make_env()
+    sched = vst = theta = None
+    want = {}
+    for impl in ("xla", "pallas-interpret"):
+        scfg = dataclasses.replace(JS.controller_config(env, impl=impl),
+                                   dtype=jnp.bfloat16)
+        theta = JS.reference_rule(spec.env_name, scfg)
+        prog = JS.make_closed_loop(env, scfg, batch=8, steps=40)
+        vst = prog.venv.reset(jax.random.PRNGKey(3),
+                              tasks=prog.init_tasks("train"))
+        sched = JP.compile_schedule(
+            env, (JP.ParamShift(param="wind", add=3.0, step=10, jitter=6),),
+            jax.random.PRNGKey(1), 8)
+        want[impl] = np.asarray(prog._rollout(
+            prog.init_net(), vst, theta, sched, jnp.int32(41),
+            jax.random.PRNGKey(0)).rewards)
+    tspec = TS.SCENARIOS["stabilizer-wind"]
+    tenv = tspec.make_env()
+    tcfg = dataclasses.replace(TS.controller_config(tenv),
+                               dtype=torch.bfloat16)
+    tprog = TS.make_closed_loop(tenv, tcfg, batch=8, steps=40)
+    got = tprog.rollout(tprog.init_net(device="cpu"),
+                        convert.vec_env_state(vst, device="cpu"),
+                        convert.theta(theta, device="cpu"),
+                        convert.schedule(sched, device="cpu"), 41)
+    assert got.actions.dtype == torch.bfloat16
+    assert got.net.w[0].dtype == torch.bfloat16
+    pal, xla = want["pallas-interpret"], want["xla"]
+    spread = abs(float(xla.mean()) - float(pal.mean()))
+    assert abs(float(got.rewards.mean()) - float(pal.mean())) <= spread
+    np.testing.assert_allclose(got.rewards.numpy(), pal, rtol=0, atol=1e-4)

@@ -130,3 +130,44 @@ def test_shared_wrappers_take_the_plain_version_on_cpu():
     assert TK.shared_step_q.launches == launches
     with pytest.raises(ValueError):
         TK.shared_step_q(*(a.to("meta") for a in args), **kw)
+
+
+# (B, N, M) of tests/test_engine.py:54, the bf16 shapes of the JAX kernel
+BF16_SHAPES = [(1, 8, 8), (4, 32, 48), (2, 100, 130), (8, 128, 128),
+               (3, 17, 257)]
+
+
+@pytest.mark.parametrize("b,n,m", BF16_SHAPES)
+@pytest.mark.parametrize("impl", ("xla", "pallas-interpret"))
+def test_shared_step_bf16_matches_jax_bitwise(b, n, m, impl):
+    """bfloat16 state, weights and rule (the inputs of tests/test_engine.py
+    :_layer): the plain shared step equals jitted JAX bit for bit, on the
+    oracle and on the TPU kernel #4 run by the Pallas interpreter."""
+    import jax.numpy as jnp
+    from repro_torch import convert
+    rng = np.random.default_rng(b * 997 + n + m)
+    d = dict(x=(rng.random((b, n)) < 0.5).astype(np.float32),
+             w=rng.standard_normal((n, m)) * 0.1,
+             v=rng.standard_normal((b, m)) * 0.1,
+             tpre=rng.random((b, n)), tpost=rng.random((b, m)),
+             theta=rng.standard_normal((4, n, m)) * 0.01)
+    d = {k: np.asarray(jnp.asarray(v, jnp.bfloat16)) for k, v in d.items()}
+
+    def f(w, v, tpre, tpost, theta, x):
+        layer = JE.LayerState(w=w, v=v, trace_pre=tpre, trace_post=tpost,
+                              theta=theta)
+        layer, out = JE.layer_step(layer, x, params=JE.EngineParams(),
+                                   impl=impl)
+        return out, layer.w, layer.v, layer.trace_post
+    want = jax.jit(f)(d["w"], d["v"], d["tpre"], d["tpost"], d["theta"],
+                      d["x"])
+    t = {k: convert.tensor(v, "cpu") for k, v in d.items()}
+    layer = TE.LayerState(w=t["w"], v=t["v"], trace_pre=t["tpre"],
+                          trace_post=t["tpost"], theta=t["theta"])
+    layer, out = TE.layer_step(layer, t["x"], params=TE.EngineParams())
+    for name, a, g in zip(("out", "w", "v", "trace_post"), want,
+                          (out, layer.w, layer.v, layer.trace_post)):
+        assert g.dtype == torch.bfloat16, name
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(a, np.float32),
+                                      err_msg=name)
