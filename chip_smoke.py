@@ -12,8 +12,11 @@ Phases, each fatal on failure:
      window and the LIF forward kernel at the 784-1024-10 MNIST network;
  2c. the flash-attention kernel against its plain version at qwen3-4b's
      prefill shape (B = 4, S = 2048, H = 32, HKV = 8, D = 128), a ragged
-     S = 1000, a decode-shaped query against 2049 keys, a kv_len mask and
-     the serve CLI's 32-token prompts, bfloat16 and float32;
+     S = 1000, a decode-shaped query against 2049 keys, a kv_len mask, the
+     serve CLI's 32-token prompts, head width 64, Sq > Skv (rows with no
+     visible key exactly 0) and V at 8x scale, bfloat16 (the Hopper
+     kernel: TMA, mbarrier ring, wgmma with a split bf16 P) and float32
+     (the CUDA-core kernel);
   3. the recovery gate on the card: both gate scenarios x {float32, int8},
      plastic recovers >= 1/2 of the return drop, frozen <= 1/4;
   4. the controller path at full width: `firefly_snn.CONFIG` (8-128-8,
@@ -35,7 +38,9 @@ Phases, each fatal on failure:
      forward-only, sequential, windowed) and each new kernel's time with
      the L2 cache flushed between repetitions;
  7b. the attention kernel's time at the prefill shape beside its bound,
-     its plain version and `scaled_dot_product_attention` (the yardstick);
+     its plain version and `scaled_dot_product_attention` (the yardstick),
+     its TFLOP/s, its ratios to SDPA and to the bound, and the registers
+     and spills ptxas gave the bf16 kernel;
   8. LM serving at full width: random-init qwen3-4b (36 layers, bf16)
      serves 4 prompts of 2048 tokens and 32 greedy tokens through
      `launch.serve.generate`, plastic adapter in float32 and int8, each
@@ -121,6 +126,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1199,38 +1205,42 @@ ATTN_SHAPE = (LM_BATCH, 2048, 32, 8, 128)      # B, S, H, HKV, D at qwen3-4b
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-3)}
 
 
-def attention_inputs(gen, b, sq, skv, h, hkv, d, dtype, dev):
+def attention_inputs(gen, b, sq, skv, h, hkv, d, dtype, dev, v_scale=1.0):
     import torch
     q = torch.randn(b, sq, h, d, generator=gen, device=dev)
     k = torch.randn(b, skv, hkv, d, generator=gen, device=dev)
-    v = torch.randn(b, skv, hkv, d, generator=gen, device=dev)
+    v = v_scale * torch.randn(b, skv, hkv, d, generator=gen, device=dev)
     return tuple(t.to(dtype) for t in (q, k, v))
 
 
 def compare_attention(dev, results):
     """#7 against `ref.mha` on the same inputs: the prefill shape of
     qwen3-4b (B = 4, S = 2048, H = 32, HKV = 8, D = 128), a ragged
-    S = 1000, a decode-shaped query against 2049 keys, a kv_len mask and
-    the serve CLI's 32-token prompts (one partial query tile); bfloat16
-    and float32."""
+    S = 1000, a decode-shaped query against 2049 keys, a kv_len mask, the
+    serve CLI's 32-token prompts (one partial query tile), head width 64,
+    Sq > Skv (rows with no visible key, exactly 0) and V at 8x scale (where
+    a single bf16 P would leave the tolerance); bfloat16 and float32."""
     import torch
     from repro_torch.kernels.attention import kernel as TA
     gen = torch.Generator(dev).manual_seed(SEED + 7)
     b, s, h, hkv, d = ATTN_SHAPE
-    cases = [("prefill", b, s, s, True, None),
-             ("ragged", b, 1000, 1000, True, None),
-             ("decode", b, 1, s + 1, True, None),
-             ("kv_len", b, s, s, True, 1500),
-             ("cli", b, 32, 32, True, None)]
+    # (what, B, Sq, Skv, kv_len, D, V scale), all causal
+    cases = [("prefill", b, s, s, None, d, 1.0),
+             ("ragged", b, 1000, 1000, None, d, 1.0),
+             ("decode", b, 1, s + 1, None, d, 1.0),
+             ("kv_len", b, s, s, 1500, d, 1.0),
+             ("cli", b, 32, 32, None, d, 1.0),
+             ("d64", b, s, s, None, 64, 1.0),
+             ("sq>skv", b, 300, 200, None, d, 1.0),
+             ("v8x", b, s, s, None, d, 8.0)]
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         rtol, atol = ATTN_TOL[dname]
-        for what, bb, sq, skv, causal, kv_len in cases:
-            q, k, v = attention_inputs(gen, bb, sq, skv, h, hkv, d, dtype,
-                                       dev)
-            got = TA.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
-            want = TA.flash_attention_plain(q, k, v, causal=causal,
-                                            kv_len=kv_len)
+        for what, bb, sq, skv, kv_len, dd, v_scale in cases:
+            q, k, v = attention_inputs(gen, bb, sq, skv, h, hkv, dd, dtype,
+                                       dev, v_scale)
+            got = TA.flash_attention(q, k, v, kv_len=kv_len)
+            want = TA.flash_attention_plain(q, k, v, kv_len=kv_len)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             results["flash_attention"]["max_abs_err"] = max(
@@ -1240,8 +1250,12 @@ def compare_attention(dev, results):
                                        atol=atol),
                     f"flash_attention {dname} {what}: max err {err} "
                     f"outside rtol {rtol} atol {atol}")
+            require(sq <= skv or bool((got[:, :sq - skv] == 0).all()),
+                    f"flash_attention {dname} {what}: a row with no visible "
+                    f"key is not 0")
             log(f"  flash_attention  {dname:8s} {what:7s} Sq={sq} Skv={skv} "
-                f"kv_len={kv_len}: max |err| {err:.3g}")
+                f"D={dd} kv_len={kv_len} V x{v_scale:g}: max |err| "
+                f"{err:.3g}")
             del q, k, v, got, want
     torch.cuda.empty_cache()
 
@@ -1260,10 +1274,31 @@ def attention_bound(b, sq, skv, h, hkv, d, itemsize):
     return max(tb, to), "bytes" if tb >= to else "operations", tb, to
 
 
+def ptxas_usage(text):
+    """``{kernel: (registers, spill store bytes, spill load bytes)}`` from
+    the ``-Xptxas -v`` output of one source."""
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            usage[name] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in usage:
+            usage[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}
+
+
 def time_attention(dev, results):
     """#7 at the prefill shape in bfloat16, L2 flushed between calls; its
     plain version and `scaled_dot_product_attention` (GQA) on the same
-    inputs as the library yardstick (timed here only, never on the path)."""
+    inputs as the library yardstick (timed here only, never on the path);
+    the achieved rate at 4·D FLOP per visible pair, the ratios to SDPA and
+    to the bound, and the registers and spills ptxas gave each
+    instantiation of the Hopper kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import kernel as TA
@@ -1278,9 +1313,23 @@ def time_attention(dev, results):
     bms, kind, tb, to = attention_bound(b, s, s, h, hkv, d, 2)
     results["flash_attention"].update(ms=ms, plain_ms=plain, library_ms=lib,
                                       bound_ms=bms, bound_by=kind)
+    tflops = to * BF16_OPS_PER_S / 1e3 / ms / 1e9
     log(f"  flash_attention bf16 B={b} S={s} H={h}/{hkv} D={d}: {ms:.4f} ms "
         f"(bound {bms:.4f} ms by {kind}: bytes {tb:.4f} ms, operations "
         f"{to:.4f} ms; plain {plain:.4f} ms; SDPA {lib:.4f} ms)")
+    log(f"  flash_attention bf16: {tflops:.1f} TFLOP/s, {ms / lib:.2f}x "
+        f"SDPA, {ms / bms:.2f}x the bound")
+    from repro_torch.kernels import _build
+    text = _build.build_info.get("log", {}).get("flash_attention.cu")
+    usage = {f"flash_wgmma_kernel<{m.group(1)}>": v
+             for k, v in ptxas_usage(text or "").items()
+             for m in [re.search(r"flash_wgmma_kernelILi(\d+)E", k)] if m}
+    for name, (regs, st, ld) in usage.items():
+        log(f"  ptxas {name}: {regs} registers, spills {st} bytes stored, "
+            f"{ld} bytes loaded")
+    if not usage:
+        log("  ptxas: flash_attention.cu was not built in this process")
+    results["flash_attention"].update(tflops=tflops, ptxas=usage)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 

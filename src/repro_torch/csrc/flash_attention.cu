@@ -6,36 +6,52 @@
 // What it computes: o = softmax(scale * q k^T + mask) v for q (B, Sq, H, D)
 // and k, v (B, Skv, HKV, D), float32 or bfloat16, read in that layout through
 // their strides (no transpose copy); query head h reads KV head
-// h / (H / HKV) (GQA by index, K/V never repeated).  Scores, softmax and the
-// PV accumulation are float32.  Masked scores are -1e30 and their
-// probabilities exactly 0; the causal mask places the queries at the last Sq
+// h / (H / HKV) (GQA by index, K/V never repeated).  Masked scores get
+// probability exactly 0; the causal mask places the queries at the last Sq
 // key positions (q_offset = Skv - Sq); keys at or beyond kv_len are hidden;
 // a row with no visible key gives exactly 0.  The output is (B, Sq, H, D) in
 // the inputs' dtype.
 //
-// What bounds it on an H100: operations.  At the prefill shape B = 4,
+// What bounds it on an H100: operations.  At qwen3-4b's prefill shape B = 4,
 // S = 2048, H = 32, HKV = 8, D = 128, causal attention is ~1.4e11 FLOP per
 // call against ~0.17 GB of q, k, v and o: ~0.14 ms at the 989 TFLOP/s bf16
-// tensor-core peak, ~0.05 ms for the bytes.
+// tensor-core peak, ~0.05 ms for the bytes.  Only the tensor cores reach
+// that: at the 67 TFLOP/s of the CUDA cores the same FLOP take >= 2 ms.
 //
-// Design: the TPU kernel walks the KV axis as the innermost sequential grid
-// dimension and carries the running max, sum and accumulator in VMEM
-// scratch.  Here one CTA owns one (batch * head, 64-query) tile and loops
-// over 64-key blocks itself; causal blocks above the diagonal are skipped by
-// the loop bound, not visited.  The 64 x D query tile is staged in shared
-// memory as float32 once; each KV block's K tile, then its V tile, pass
-// through one shared buffer (so two CTAs fit an SM).  Thread (ty, tx) of 16 x
-// 16 owns query rows 4ty..4ty+3: it computes their scores against keys
-// tx + 16j with fp32 FMAs on the CUDA cores (float4 shared loads), keeps each
-// row's running max and sum in registers (reduced over the 16 lanes of the
-// row by shuffles), writes the probabilities to a shared P tile, and
-// accumulates its 4 x D/16 slice of the output in registers.  Ragged Sq and
-// Skv are masked in the kernel: out-of-range rows load zeros and are not
-// stored.  This is a simple, correct first kernel: no tensor cores (wgmma),
-// no TMA, no double buffering -- it runs at a fraction of the fp32 CUDA-core
-// rate (67 TFLOP/s), far from the bf16 tensor-core bound above.
+// bfloat16 (flash_wgmma_kernel) is a Hopper kernel.  One CTA owns one
+// (batch, head, 128-query) tile and walks its 128-key blocks; causal blocks
+// above the diagonal are skipped by the loop bound, and the heaviest tiles
+// launch first.  Three warpgroups: a producer, whose one elected thread
+// issues TMA loads (4-D tensor maps over q, k, v in their own strides,
+// 128-byte swizzle, the hardware's zero fill for ragged Sq and Skv) into a
+// ring of 2 K and 2 V stages guarded by full/empty mbarriers, so the loads
+// of block j + 1 fly while block j computes; and two consumers of 64 query
+// rows each.  A consumer computes S = Q K^T with wgmma m64n128k16 (both
+// operands in shared memory, K K-major), runs the online softmax on the
+// accumulator fragments in registers (row max over the 4 threads of a row,
+// masks only on the diagonal, ragged and kv_len blocks, scores scaled by
+// scale * log2(e) and exponentiated with exp2f), and adds P V with wgmma
+// whose A operand is P in registers (the accumulator layout is the
+// A-fragment layout) and whose B is V in shared memory, MN-major.
+// setmaxnreg moves registers from the producer to the consumers.
+//
+// The split-P contract.  Both references multiply P by V in float32; a
+// tensor-core product takes P in bf16, which alone leaves rtol 2e-2 /
+// atol 2e-3 once |V| is large (0.17% of the elements at |V| ~ 8).  So P is
+// split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), and O accumulates
+// P_hi V + P_lo V in float32: P carries ~16 significant bits.  The row sum
+// l is the float32 sum of the unrounded P, as in the references.
+//
+// float32 (flash_kernel) keeps a CUDA-core kernel, because its 1e-5
+// contract cannot go through bf16 or TF32 tensor cores: one CTA per
+// (batch * head, 64-query) tile, Q staged in shared memory, K then V passed
+// through one shared buffer, thread (ty, tx) of 16 x 16 owning query rows
+// 4ty..4ty+3 with fp32 FMAs (float4 shared loads), the probabilities in a
+// shared P tile and its 4 x D/16 output slice in registers.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cstdint>
 
 // Arguments of one launch; mirrored by kernels/attention/kernel.py _AttnArgs.
 // Strides are in elements; the head dim is contiguous.
@@ -53,22 +69,19 @@ struct AttnArgs {
 
 namespace {
 
+constexpr float kNegInf = -1e30f;        // the Pallas kernel's NEG_INF
+
+// ---- float32: the CUDA-core kernel ----------------------------------------
+
 constexpr int kBQ = 64;                  // queries per CTA
 constexpr int kBK = 64;                  // keys per KV block
 constexpr int kThreads = 256;            // 16 x 16
 constexpr int kRowsPer = kBQ / 16;       // query rows per thread
 constexpr int kColsPer = kBK / 16;       // score columns per thread
-constexpr float kNegInf = -1e30f;        // the Pallas kernel's NEG_INF
 static_assert(kBQ == kBK, "stage() fills kBK rows of the Q tile too");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -264,6 +277,453 @@ int launch(const AttnArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- bfloat16: the Hopper kernel (TMA, mbarrier ring, wgmma) ---------------
+
+constexpr int kWBQ = 128;                // queries per CTA: 2 consumers x 64
+constexpr int kWBK = 128;                // keys per KV block (one stage)
+constexpr int kStages = 2;               // K and V stages in the ring
+constexpr int kWThreads = 384;           // producer + 2 consumer warpgroups
+constexpr int kBox = 64;                 // TMA box width: 128 bytes of D
+constexpr int kRowBytes = kBox * 2;      // one swizzled row of a box
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct WLayout {          // byte offsets from a 1024-aligned base
+  static constexpr int kHalves = D / kBox;               // boxes along D
+  static constexpr int kQHalf = kWBQ * kRowBytes;        // 16 KB
+  static constexpr int kKVHalf = kWBK * kRowBytes;       // 16 KB
+  static constexpr int kQ = kHalves * kQHalf;
+  static constexpr int kKV = kHalves * kKVHalf;          // one K or V stage
+  static constexpr int kK0 = kQ;
+  static constexpr int kV0 = kK0 + kStages * kKV;
+  static constexpr int kBar = kV0 + kStages * kKV;
+  static constexpr int kBars = 1 + 4 * kStages;          // q, k/v full/empty
+  static constexpr int kBytes = kBar + 8 * kBars + 1024; // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.  A
+// phase that never completes is a fault: trap after ~2^35 cycles (~17 s)
+// rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 35)) __trap();
+  }
+}
+
+// One TMA box of a 4-D (D, heads, S, B) map into shared memory; completion
+// is reported to `bar` in bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0),
+         "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1): start
+// address, leading and stride byte offsets, all in 16-byte units.  The
+// stage bases are 1024-byte aligned, so the base offset field stays 0.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma region.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+#define WG_F8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32 WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+#define WG_F64 WG_F32, WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+#define WG_R32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31"
+#define WG_R64                                                          \
+  WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "    \
+  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "   \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x 128, float32) (+)= A (64 x 16) B^T: A and B (128 x 16) both
+// K-major in shared memory.  `acc` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F64 : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 128) += A (64 x 16, bf16 pairs in registers) B: B (16 x 128)
+// MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same with N = 64 (head dim 64).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo_k, float hi_k) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo_k, hi_k);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// P (two float32) as P_hi = bf16(P) and P_lo = bf16(P - P_hi), each a pair.
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = bf16_pair(x - __low2float(h), y - __high2float(h));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, AttnArgs a) {
+  using L = WLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar = base + L::kBar;   // q_full, k_full[], k_empty[],
+  const uint32_t q_full = bar;           // v_full[], v_empty[]
+  auto k_full = [&](int s) { return bar + 8u * (1 + s); };
+  auto k_empty = [&](int s) { return bar + 8u * (1 + kStages + s); };
+  auto v_full = [&](int s) { return bar + 8u * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bar + 8u * (1 + 3 * kStages + s); };
+
+  const int bh_count = a.batch * a.heads;
+  const int n_qb = (a.sq + kWBQ - 1) / kWBQ;
+  // heaviest causal tiles (last query blocks) are scheduled first
+  const int qb = n_qb - 1 - (int)(blockIdx.x / bh_count);
+  const int bh = (int)(blockIdx.x % bh_count);
+  const int b = bh / a.heads, h = bh % a.heads;
+  const int hk = h / (a.heads / a.kv_heads);
+  const int q0 = qb * kWBQ;
+  const int kv_lim = min(a.kv_len, a.skv);
+  int kv_end = kv_lim;
+  if (a.causal) kv_end = min(kv_end, q0 + kWBQ + a.q_offset);
+  const int n_kb = kv_end > 0 ? (kv_end + kWBK - 1) / kWBK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 2 * 128);    // every consumer thread arrives
+      mbar_init(v_empty(s), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kQ);
+      for (int x = 0; x < L::kHalves; ++x)
+        tma_load(base + x * L::kQHalf, &tq, q_full, x * kBox, h, q0, b);
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int s = kb % kStages;
+        const uint32_t ph = (kb / kStages) & 1;
+        const uint32_t ks = base + L::kK0 + s * L::kKV;
+        const uint32_t vs = base + L::kV0 + s * L::kKV;
+        mbar_wait(k_empty(s), ph ^ 1);
+        mbar_expect_tx(k_full(s), L::kKV);
+        for (int x = 0; x < L::kHalves; ++x)
+          tma_load(ks + x * L::kKVHalf, &tk, k_full(s), x * kBox, hk,
+                   kb * kWBK, b);
+        mbar_wait(v_empty(s), ph ^ 1);
+        mbar_expect_tx(v_full(s), L::kKV);
+        for (int x = 0; x < L::kHalves; ++x)
+          tma_load(vs + x * L::kKVHalf, &tv, v_full(s), x * kBox, hk,
+                   kb * kWBK, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = wg - 1;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int quad = lane % 4;
+  const int row0 = c * 64 + warp * 16 + lane / 4;        // and row0 + 8
+  const int qpos0 = q0 + row0 + a.q_offset, qpos1 = qpos0 + 8;
+  const int wg_lo = q0 + c * 64 + a.q_offset;            // first query pos
+  const float cl2 = a.scale * kLog2e;
+  constexpr int kNO = D / 2;                             // O floats/thread
+
+  // K-major operands: 16-element k-step kk is 32 bytes into box kk / 4;
+  // 8-row groups 1024 bytes apart.  V is MN-major: 16 keys are 2048 bytes,
+  // the two D boxes kKVHalf apart, 8-key groups 1024 bytes apart.
+  const uint64_t dq = wgmma_desc(base + c * 64 * kRowBytes, 16, 1024);
+  float o[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) o[i] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+
+  mbar_wait(q_full, 0);
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int s = kb % kStages;
+    const uint32_t ph = (kb / kStages) & 1;
+    const int k0 = kb * kWBK;
+    // a causal block wholly above this warpgroup's rows does nothing
+    const bool skip = a.causal && k0 > wg_lo + 63;
+    const uint64_t dk = wgmma_desc(base + L::kK0 + s * L::kKV, 16, 1024);
+    const uint64_t dv = wgmma_desc(base + L::kV0 + s * L::kKV, L::kKVHalf,
+                                   1024);
+    float sc[64];
+    mbar_wait(k_full(s), ph);
+    if (!skip) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = ((kk / 4) * L::kQHalf + (kk % 4) * 32) >> 4;
+        const uint32_t koff = ((kk / 4) * L::kKVHalf + (kk % 4) * 32) >> 4;
+        wgmma_ss_n128(sc, dq + off, dk + koff, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(sc);
+    }
+    mbar_arrive(k_empty(s));
+
+    uint32_t phi[8][4], plo[8][4];
+    if (!skip) {
+      // scores in log2 units; element 4i + e is row row0 (e < 2) or
+      // row0 + 8, key k0 + 8i + 2 quad + (e & 1)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] *= cl2;
+      const bool edge = k0 + kWBK > kv_lim ||
+                        (a.causal && k0 + kWBK - 1 > wg_lo);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * i + 2 * quad + (e & 1);
+            const int qp = e < 2 ? qpos0 : qpos1;
+            if (key >= kv_lim || (a.causal && key > qp))
+              sc[4 * i + e] = __int_as_float(0xff800000);   // -inf
+          }
+      }
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+#pragma unroll
+      for (int w = 1; w < 4; w <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // masked scores are -inf: exp2f gives exactly 0 (a row with nothing
+      // visible yet keeps m = -1e30 and alpha = 1)
+      float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        sc[4 * i] = exp2f(sc[4 * i] - mn0);
+        sc[4 * i + 1] = exp2f(sc[4 * i + 1] - mn0);
+        sc[4 * i + 2] = exp2f(sc[4 * i + 2] - mn1);
+        sc[4 * i + 3] = exp2f(sc[4 * i + 3] - mn1);
+        rs0 += sc[4 * i] + sc[4 * i + 1];
+        rs1 += sc[4 * i + 2] + sc[4 * i + 3];
+      }
+      l0 = l0 * al0 + rs0;               // this thread's share of the row
+      l1 = l1 * al1 + rs1;
+#pragma unroll
+      for (int i = 0; i < kNO / 4; ++i) {
+        o[4 * i] *= al0;
+        o[4 * i + 1] *= al0;
+        o[4 * i + 2] *= al1;
+        o[4 * i + 3] *= al1;
+      }
+      // the accumulator layout of keys 16kk..16kk+15 is the A fragment of
+      // k-step kk: (row0, k 2q), (row0 + 8, k 2q), (row0, 8 + 2q), ...
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_pair(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], phi[kk][r],
+                     plo[kk][r]);
+    }
+
+    mbar_wait(v_full(s), ph);
+    if (!skip) {
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, phi[kk], dv + kk * 128);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, plo[kk], dv + kk * 128);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
+    }
+    mbar_arrive(v_empty(s));
+  }
+
+  // epilogue: the row sums over the row's 4 threads, then O / l (a row with
+  // no visible key has l = 0 and O = 0, and stays 0), stored as bf16 pairs
+#pragma unroll
+  for (int w = 1; w < 4; w <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  }
+  const float den0 = l0 == 0.0f ? 1.0f : l0, den1 = l1 == 0.0f ? 1.0f : l1;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = q0 + row0 + 8 * half;
+    if (qi >= a.sq) continue;
+    const float den = half ? den1 : den0;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(
+        out + (((long long)b * a.sq + qi) * a.heads + h) * D + 2 * quad);
+#pragma unroll
+    for (int i = 0; i < kNO / 4; ++i)
+      orow[4 * i] = bf16_pair(o[4 * i + 2 * half] / den,
+                              o[4 * i + 2 * half + 1] / den);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    return found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a (B, S, heads, D) bf16 tensor with element strides
+// (sb, ss, sh, 1); boxes of 64 along D by `rows` along S, 128-byte swizzle,
+// zeros outside the tensor.
+bool encode(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
+            int d, long long sb, long long ss, long long sh, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const AttnArgs& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, a.q, a.batch, a.sq, a.heads, D, a.q_sb, a.q_ss, a.q_sh,
+              kWBQ) ||
+      !encode(&tk, a.k, a.batch, a.skv, a.kv_heads, D, a.k_sb, a.k_ss,
+              a.k_sh, kWBK) ||
+      !encode(&tv, a.v, a.batch, a.skv, a.kv_heads, D, a.v_sb, a.v_ss,
+              a.v_sh, kWBK))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = WLayout<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_qb = (a.sq + kWBQ - 1) / kWBQ;
+  const long long blocks = n_qb * a.batch * a.heads;
+  flash_wgmma_kernel<D><<<(unsigned)blocks, kWThreads, bytes, stream>>>(
+      tq, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_attention(const AttnArgs* a, cudaStream_t stream) {
@@ -274,10 +734,10 @@ extern "C" int flash_attention(const AttnArgs* a, cudaStream_t stream) {
   if (a->dtype != 0 && !bf16) return (int)cudaErrorInvalidValue;
   switch (a->head_dim) {
     case 64:
-      return bf16 ? launch<__nv_bfloat16, 64>(*a, stream)
+      return bf16 ? launch_bf16<64>(*a, stream)
                   : launch<float, 64>(*a, stream);
     case 128:
-      return bf16 ? launch<__nv_bfloat16, 128>(*a, stream)
+      return bf16 ? launch_bf16<128>(*a, stream)
                   : launch<float, 128>(*a, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -7,6 +7,14 @@ be contiguous), and returns (B, Sq, H, D) in q's dtype.  Causal masking
 puts the queries at the last Sq key positions; ``kv_len`` hides keys at
 and beyond it.  A CPU tensor takes the plain version (`ref.mha`); a CUDA
 tensor launches the kernel and counts it in ``flash_attention.launches``.
+
+On the card, bfloat16 runs a Hopper kernel: TMA loads through an mbarrier
+ring and ``wgmma`` for both products, with P split into two bf16 terms
+(P_hi + P_lo) so that P V keeps ~16 bits of P, as the float32 references
+need; float32 runs a CUDA-core kernel that holds 1e-5.  TMA reads a bf16
+tensor only from a 16-byte-aligned base with strides that are multiples
+of 16 bytes, so a bf16 view that fails that raises `ValueError` here: it
+is neither copied nor sent another way.
 """
 from __future__ import annotations
 
@@ -69,6 +77,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the kernel reads the head dim "
                              f"contiguously; got strides {t.stride()}")
+        if q.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16
+                or any(st * 2 % 16 for st in t.stride()[:3])):
+            raise ValueError(f"{name}: TMA needs a 16-byte-aligned base and "
+                             f"strides of whole 16 bytes; got address "
+                             f"{t.data_ptr():#x}, strides {t.stride()} "
+                             f"(elements of 2 bytes)")
     scale = d ** -0.5 if scale is None else scale
     kv_len = skv if kv_len is None else min(kv_len, skv)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)

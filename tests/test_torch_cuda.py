@@ -9,9 +9,11 @@ machine that has only PyTorch:
 
 int8 is held bit for bit; float32 within rtol = atol = 1e-5 (the kernels sum
 the psum in fan-in order, the plain versions as a batched product).  The
-attention kernel's bfloat16 output within rtol 2e-2, atol 2e-3: both compute
-in float32 and round once, so they differ by at most a bf16 step where the
-float32 sums straddle a rounding boundary.  The SSD scan walks the sequence
+attention kernel's bfloat16 output within rtol 2e-2, atol 2e-3: the kernel
+multiplies on the tensor cores, Q K^T exactly in float32 and P V as two bf16
+products P_hi V + P_lo V (P_hi = bf16(P), P_lo = bf16(P - P_hi)) summed in
+float32, so P keeps ~16 bits where the plain version's float32 P V keeps 24;
+both round the output to bf16 once.  The SSD scan walks the sequence
 in other sub-blocks than the plain chunked form, so float32 is held within
 rtol = atol = 2e-3 (the JAX package's bound between its chunked form and
 the recurrence) and bfloat16 y within one bf16 step of the largest |y|.
@@ -440,6 +442,44 @@ def test_flash_attention_kernel_matches_plain_on_card(dtype, cuda_device):
         if sq > skv and causal:          # no visible key: exactly zero
             assert (got[:, :sq - skv] == 0).all()
         del q, k, v, got, want
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_large_values_on_card(cuda_device):
+    """V at 8x unit scale: a single bf16 P would leave the tolerance here
+    (tests/test_torch_attention.py); the split P holds it."""
+    from repro_torch.kernels.attention import kernel as TA
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    b, s, h, hkv, d = 2, 1000, 32, 8, 128
+    q = torch.randn(b, s, h, d, generator=gen, device=cuda_device)
+    k = torch.randn(b, s, hkv, d, generator=gen, device=cuda_device)
+    v = 8 * torch.randn(b, s, hkv, d, generator=gen, device=cuda_device)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = TA.flash_attention(q, k, v)
+    want = TA.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_views_tma_cannot_read(cuda_device):
+    """A bf16 view whose base is not 16-byte aligned, or whose token
+    stride is not a whole 16 bytes, raises before any launch."""
+    from repro_torch.kernels.attention import kernel as TA
+    b, s, h, hkv, d = 1, 64, 4, 2, 64
+    flat = torch.zeros(b * s * h * d + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    q_off = flat[1:1 + b * s * h * d].view(b, s, h, d)      # base + 2 bytes
+    kv = torch.zeros(b, s, hkv, d, dtype=torch.bfloat16, device=cuda_device)
+    wide = torch.zeros(b, s, h * d + 4, dtype=torch.bfloat16,
+                       device=cuda_device)
+    q_stride = wide[..., :h * d].view(b, s, h, d)          # 8-byte rows
+    launches = TA.flash_attention.launches
+    for q in (q_off, q_stride):
+        with pytest.raises(ValueError, match="TMA"):
+            TA.flash_attention(q, kv, kv)
+    assert TA.flash_attention.launches == launches
 
 
 @pytest.mark.cuda
