@@ -36,7 +36,10 @@ Phases, each fatal on failure:
      is repeated through the plain versions and must give the same bits;
   7. the Table II timings on the card (per timestep at B = 1: fused,
      forward-only, sequential, windowed) and each new kernel's time with
-     the L2 cache flushed between repetitions;
+     the L2 cache flushed between repetitions; the shared-weight window's
+     K sweep (784-1024-10, B = 1, K = 1, 2, 4, 8, 16, float32, int8 and
+     bf16) fitted as fixed cost + K x per-step cost beside the bound's own
+     split, and the registers and spills ptxas gave each instantiation;
  7b. the attention kernel's time at the prefill shape beside its bound,
      its plain version and `scaled_dot_product_attention` (the yardstick),
      its TFLOP/s, its ratios to SDPA and to the bound, and the registers
@@ -1179,6 +1182,7 @@ def time_new_kernels(dev, results):
             bound_ms=b_ms, bound_by=kind)
     results["rollout_shared"].update(timed["float32"])
     results["rollout_shared"]["int8"] = timed["int8"]
+    results["rollout_shared"]["sweep"] = sweep_shared_window(dev)
     # lif_forward: the two layers of the forward-only baseline at B = 1;
     # library call: torch.matmul of the same product (the product only)
     ms, pms, lms, bms = [], [], [], []
@@ -1195,6 +1199,85 @@ def time_new_kernels(dev, results):
         ms=statistics.mean(ms), plain_ms=statistics.mean(pms),
         library_ms=statistics.mean(lms), bound_ms=statistics.mean(bms),
         bound_by="bytes", library_covers="the (B,K)x(K,M) product only")
+
+
+SWEEP_K = (1, 2, 4, 8, 16)
+
+
+def fit_line(xs, ys):
+    """Least-squares ``(intercept, slope)`` of ys against xs."""
+    mx, my = statistics.mean(xs), statistics.mean(ys)
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    return my - slope * mx, slope
+
+
+def sweep_shared_window(dev):
+    """#3 shared at 784-1024-10, B = 1, K in SWEEP_K, in float32, int8 and
+    bfloat16 (the rule in bf16), L2 flushed: ``ms = fixed + K * per_step``
+    fitted by least squares, beside the bound's own split."""
+    import torch
+    from repro_torch.core import snn
+    from repro_torch.kernels.plasticity import fused
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    sizes = mnist_cfg(False).layer_sizes
+    layers = [(sizes[i], sizes[i + 1]) for i in range(len(sizes) - 1)]
+    syn = sum(n * m for n, m in layers)
+    out = {}
+    for mode in ("float32", "int8", "bfloat16"):
+        quant, bf16 = mode == "int8", mode == "bfloat16"
+        cfg = mnist_cfg(quant)
+        if bf16:
+            cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+        st = snn.init_state(cfg, batch=1, device=dev)
+        if quant:
+            w = tuple(torch.randint(-40, 41, (n, m), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                      .to(torch.int8) for n, m in layers)
+        else:
+            w = tuple((torch.round((torch.rand(n, m, generator=gen,
+                                               device=dev) * 2 - 1) * 16)
+                       / 64).to(cfg.dtype) for n, m in layers)
+        st = dataclasses.replace(st, w=w)
+        theta = snn.init_theta(cfg, gen, scale=0.02)
+        kw = dict(spiking=[True, True], plastic=[True, True],
+                  tau_m=cfg.lif.tau_m, trace_decay=cfg.trace_decay,
+                  w_clip=cfg.w_clip, qcfg=cfg.quant)
+        if quant:
+            kw.update(scales=list(st.w_scale), seed=st.t)
+        ms, bms = [], []
+        for k in SWEEP_K:
+            drives = (torch.rand(k, 1, sizes[0], generator=gen, device=dev)
+                      < 0.3)
+            drives = (drives.int() * cfg.quant.one if quant
+                      else drives.to(cfg.dtype))
+            ms.append(device_ms(lambda: fused.rollout_shared(
+                drives, st.w, theta, st.v, st.trace, **kw)))
+            eb = 2 if bf16 else 4
+            bms.append(bound(window_bytes(1, sizes, k,
+                                          1 if quant else eb, sb=eb,
+                                          fleet=False, tb=eb),
+                             k * syn * (OPS_ROW + (OPS_UPD_Q if quant
+                                                   else OPS_UPD_F32)))[0])
+        fixed, per_step = fit_line(SWEEP_K, ms)
+        b_fixed, b_step = fit_line(SWEEP_K, bms)
+        out[mode] = dict(k=list(SWEEP_K), ms=ms, fixed_ms=fixed,
+                         per_step_ms=per_step, bound_ms=bms,
+                         bound_fixed_ms=b_fixed, bound_per_step_ms=b_step)
+        log(f"  rollout_shared {mode:8s} K sweep "
+            + ", ".join(f"K={k} {t:.4f}" for k, t in zip(SWEEP_K, ms))
+            + f" ms: fixed {fixed:.4f} ms + {per_step:.4f} ms/step (bound "
+            f"{b_fixed:.4f} + {b_step:.5f} ms/step)")
+    from repro_torch.kernels import _build
+    usage = ptxas_usage(_build.build_all()["log"].get("rollout_shared.cu",
+                                                        ""))
+    out["ptxas"] = {name: dict(registers=r, spill_store_bytes=st,
+                               spill_load_bytes=ld)
+                    for name, (r, st, ld) in usage.items()}
+    for name, (r, st, ld) in usage.items():
+        log(f"  ptxas {name}: {r} registers, spills {st} B stored / {ld} B "
+            f"loaded")
+    return out
 
 
 # ---- phase 2c: flash attention against its plain version -------------------

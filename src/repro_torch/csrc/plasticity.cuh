@@ -130,28 +130,34 @@ __device__ __forceinline__ void neuron_f(float v, float current, bool spiking,
   }
 }
 
-// fma(g, post, fma(a, hebb, b * pre)) + d — the contracted four-term sum.
-// The rule's planes are float32 or bfloat16 (promoted on load).
-template <typename TH>
-__device__ __forceinline__ float four_term(const TH* th, long plane,
+// fma(g, post, fma(a, hebb, b * pre)) + d — the contracted four-term sum,
+// from the rule's four coefficients of one synapse.
+__device__ __forceinline__ float four_term(float a, float b, float g, float d,
                                           float hebb, float pre, float post) {
-  const float a = cvt<float>(th[kAlpha * plane]);
-  const float b = cvt<float>(th[kBeta * plane]);
-  const float g = cvt<float>(th[kGamma * plane]);
-  const float d = cvt<float>(th[kDelta * plane]);
   float inner = __fmaf_rn(a, hebb, __fmul_rn(b, pre));
   return __fadd_rn(__fmaf_rn(g, post, inner), d);
 }
 
 // Float plasticity for one synapse from its Hebbian, pre and post terms:
-// clip(w + dw, +-w_clip).
+// clip(w + dw, +-w_clip); `coef` holds its (alpha, beta, gamma, delta).
+__device__ __forceinline__ float plastic_f_coef(float w, const float* coef,
+                                               float hebb, float pre,
+                                               float post, float w_clip) {
+  float dw = four_term(coef[0], coef[1], coef[2], coef[3], hebb, pre, post);
+  return fminf(fmaxf(w + dw, -w_clip), w_clip);
+}
+
+// The same with the rule's planes at th (plane apart; float32 or bfloat16,
+// promoted on load).
 template <typename TH>
 __device__ __forceinline__ float plastic_f_terms(float w, const TH* th,
                                                 long plane, float hebb,
                                                 float pre, float post,
                                                 float w_clip) {
-  float dw = four_term(th, plane, hebb, pre, post);
-  return fminf(fmaxf(w + dw, -w_clip), w_clip);
+  const float coef[4] = {
+      cvt<float>(th[kAlpha * plane]), cvt<float>(th[kBeta * plane]),
+      cvt<float>(th[kGamma * plane]), cvt<float>(th[kDelta * plane])};
+  return plastic_f_coef(w, coef, hebb, pre, post, w_clip);
 }
 
 // Per-stream (fleet) float plasticity: hebb = pre * post.
@@ -167,12 +173,13 @@ __device__ __forceinline__ float plastic_f(float w, const TH* th,
 // reductions (quant.dw_from_int_reductions): hebb = sum_b pre_b * post_b,
 // pre/post = the batch sums, scaled by q.inv2 / q.inv1.  Then the
 // stochastic round to grid steps and the clip to qclip(w_clip, scale).
-__device__ __forceinline__ int plastic_q_sums(int w, const float* th,
-                                             long plane, int hebb, int pre,
-                                             int post, float scale, int qmax,
-                                             int seed, int idx,
-                                             const QParams& q) {
-  float dw = four_term(th, plane, __fmul_rn(__int2float_rn(hebb), q.inv2),
+// `coef` holds the synapse's (alpha, beta, gamma, delta).
+__device__ __forceinline__ int plastic_q_coef(int w, const float* coef,
+                                             int hebb, int pre, int post,
+                                             float scale, int qmax, int seed,
+                                             int idx, const QParams& q) {
+  float dw = four_term(coef[0], coef[1], coef[2], coef[3],
+                       __fmul_rn(__int2float_rn(hebb), q.inv2),
                        __fmul_rn(__int2float_rn(pre), q.inv1),
                        __fmul_rn(__int2float_rn(post), q.inv1));
   float st = __fdiv_rn(dw, scale);
@@ -185,6 +192,17 @@ __device__ __forceinline__ int plastic_q_sums(int w, const float* th,
     steps = __float2int_rn(st);
   }
   return min(max(wadd(w, steps), -qmax), qmax);
+}
+
+// The same with the rule's planes at th (plane apart).
+__device__ __forceinline__ int plastic_q_sums(int w, const float* th,
+                                             long plane, int hebb, int pre,
+                                             int post, float scale, int qmax,
+                                             int seed, int idx,
+                                             const QParams& q) {
+  const float coef[4] = {th[kAlpha * plane], th[kBeta * plane],
+                         th[kGamma * plane], th[kDelta * plane]};
+  return plastic_q_coef(w, coef, hebb, pre, post, scale, qmax, seed, idx, q);
 }
 
 // Per-stream (fleet) fixed-point plasticity: the exact outer product.

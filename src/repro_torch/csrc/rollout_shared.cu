@@ -9,28 +9,63 @@
 // What bounds it on an H100: bytes once per window, latency per step.  The
 // least traffic is one read and one write of w, one read of theta, the state
 // and the K drive and readout rows: at the online-MNIST 784-1024-10 network
-// ~19.6 MB in float32 (~6 us).  Every timestep is a chain of dependent
-// layers, so a window costs at least K * (L - 1) grid-wide barriers.
+// ~19.6 MB in float32 (5.8 us at 3.35 TB/s).  Each step is a chain of
+// dependent layers, but the network is feed-forward: layer i's step k + 1
+// needs nothing from layer i + 1's step k.
 //
-// Design: the TPU runs the window as one program holding everything in
+// Design.  The TPU runs the window as one program holding everything in
 // VMEM.  At 784-1024-10, w1 is 3.2 MB and theta1 12.8 MB: far beyond one
 // CTA's 227 KB, within the ~30 MB of all 132 SMs' shared memory together.
 // So the window runs on a grid of co-resident CTAs (a cooperative launch;
-// the launcher refuses a grid that cannot be resident).  CTA g owns columns
-// [g * c_i, (g + 1) * c_i) of every layer i (c_i a power of two <= 32) and
-// keeps their weights, theta (when the whole layout fits), membranes and
-// post traces in shared memory for the whole window: loaded once, written
-// back once.  Per step and layer i:
-//   1. psum of the owned columns over the staged input events (lanes
-//      sharing a column reduce by warp shuffle, then across warps in warp
-//      order), neuron and trace update; the events and fresh post traces go
-//      to a small global bus (double-buffered by step parity);
-//   2. the owned synapses' batch-averaged update from the pre trace of the
-//      layer's input population and the owned post traces;
-//   3. one grid barrier, after which every CTA stages the bus as the next
-//      layer's input events and pre traces.
-// The input population's trace is updated redundantly (identically) by
-// every CTA.  Step k of layer i draws its stochastic round from
+// the launcher refuses a grid that cannot be resident), and the layers are
+// PIPELINED across them instead of run in lockstep:
+//   * Each CTA owns c_i columns of ONE layer i (fused.py shared_plan: at
+//     784-1024-10 on 132 SMs, 128 CTAs of 8 columns for layer 0 and 3 of 4
+//     for layer 1) and keeps their weights, theta, membranes and post
+//     traces in shared memory for the whole window: loaded once, written
+//     back once.
+//   * The owned slabs arrive asynchronously, all issued at the start: TMA
+//     boxes into shared memory with one mbarrier for w and one for theta
+//     where the 16-byte rules hold (16-byte aligned base, row stride and
+//     box width multiples of 16 bytes), else cp.async of the widest piece
+//     the alignment allows (16, 8 or 4 bytes), or of the 4-byte words that
+//     cover each row's span, repacked (int8 rows of 10 bytes).  The plan
+//     picks each plane's route; the kernel takes it.  Step 0's forward pass
+//     waits for w only; theta is awaited before the first update.  bf16
+//     weights land in a staging area and are promoted to float32 there.
+//   * Layer i hands step k's events and post traces to layer i + 1 through
+//     a bus in device memory, `bus_depth` steps deep (one slot per step;
+//     with K > depth a producer first takes a credit: every consumer has
+//     finished step k - depth).  Each CTA publishes its progress, the stamp
+//     base + k + 1 of the last step it finished, with a fence and a store
+//     at the end of the step (by then its slot's stores are long done, so
+//     the fence is cheap); a consumer polls every producer CTA's stamp with
+//     relaxed loads, all in flight at once, then fences (acquire) and reads
+//     the slot with L1-bypassing 16-byte loads.  The stamps grow across
+//     launches (the wrapper keeps the words per plan and stream and passes
+//     each launch its base), so no counter is zeroed and no zeroing step
+//     runs.  Every spin traps after ~2^35 cycles: a broken protocol ends
+//     the process with an error instead of hanging the card.
+//   * So layer 0 runs its K steps back to back and layer i follows one
+//     step behind: a step costs about the slowest layer's step, not the
+//     sum of the layers' steps plus a grid barrier.
+//   * A step is a chain of short dependent phases in one CTA, so it is
+//     latency that bounds it, not bytes: 512 threads a CTA, the update
+//     takes 4 consecutive columns a thread (16-byte loads of w and of each
+//     theta plane, four independent chains), the batch means of the pre
+//     and post traces are taken once a step (a division by B = 1 is
+//     skipped: x / 1 is x), the psum of a single batch row is not unrolled
+//     over 8, and layer 0's next drive row is loaded into registers during
+//     the update.
+//   * The write-back is vector stores of 16 (or the route's width) bytes.
+// Per step and layer the arithmetic is unchanged from one layout to the
+// next (int8 bit for bit with fused.rollout_plain at any plan): the psum of
+// the owned columns over the staged input events (strided row partials,
+// lanes sharing a column reduce by warp shuffle, then across warps in warp
+// order), neuron and trace update, then the owned synapses' batch-averaged
+// update from the layer's pre trace and the owned post traces.  The input
+// population's trace is updated redundantly (identically) by every layer-0
+// CTA.  Step k of layer i draws its stochastic round from
 // fold_seed(seed + k, i) and the synapse's flat (row * M + col) index, as
 // the per-step kernels do.
 //
@@ -41,12 +76,13 @@
 // traces), each step's readout row is rounded to bfloat16 on store, and
 // the state once, at write-back.  The rule may be float32 or bfloat16 and
 // stays in its own type in shared memory.
-#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cstring>
+#include <mutex>
 #include <type_traits>
 
 #include "plasticity.cuh"
 
-namespace cg = cooperative_groups;
 using ff::kMaxLayers;
 using ff::Types;
 
@@ -64,12 +100,21 @@ struct SharedRolloutArgs {
   void* v_out[kMaxLayers];
   const void* tr_in[kMaxLayers + 1];  // (B, N_i); tr[0] is the input
   void* tr_out[kMaxLayers + 1];
-  void* bus[kMaxLayers];              // (2 parities, 2 [events|trace], B,
-                                      // M_i) float32 | int32
+  void* bus[kMaxLayers];              // boundary i: (depth, 2 [events|trace],
+                                      // B, M_i) float32 | int32
+  unsigned* progress;                 // one stamp per CTA
   int sizes[kMaxLayers + 1];
+  int first_cta[kMaxLayers + 1];      // layer i: CTAs [first[i], first[i+1])
   int cols[kMaxLayers];               // columns per CTA, power of two <= 32
-  int n_layers, k_steps, batch;
-  int spiking_mask, plastic_mask, theta_in_smem;
+  int w_route[kMaxLayers];            // Route of w, its piece bytes and its
+  int w_width[kMaxLayers];            // TMA box rows
+  int w_box[kMaxLayers];
+  int th_route[kMaxLayers];           // the same for theta's (4 N_i, M_i)
+  int th_width[kMaxLayers];           // rows; kNone where not plastic
+  int th_box[kMaxLayers];
+  int n_layers, k_steps, batch, bus_depth;
+  int spiking_mask, plastic_mask;
+  unsigned base;                      // stamp of the step before step 0
   float w_clip;
   ff::FParams f;
   ff::QParams q;                      // inv1 / inv2 of this batch
@@ -79,54 +124,77 @@ struct SharedRolloutArgs {
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 8;             // batch rows per psum pass
+constexpr long long kSpinCycles = 1ll << 35;   // ~19 s: a hang is a fault
 
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~size_t(15);
+// How a plane reaches shared memory (fused.py ROUTES).
+enum Route { kTma = 0, kCpAsync = 1, kWords = 2, kL2 = 3, kNone = 4 };
+
+// The kernel's parameter: the arguments and a TMA map of w and of theta
+// (viewed as (4 N, M)) for each layer whose route is kTma.
+struct Params {
+  SharedRolloutArgs a;
+  CUtensorMap w_map[kMaxLayers];
+  CUtensorMap th_map[kMaxLayers];
+};
+static_assert(sizeof(Params) <= 4096, "kernel parameters exceed 4 KB");
+
+__host__ __device__ inline size_t align_up(size_t x, size_t a) {
+  return (x + a - 1) / a * a;
 }
 
-// Shared-memory layout (bytes); fused.py shared_smem_bytes computes the same
-// total and the launcher refuses a launch where the two disagree.
+__host__ __device__ inline size_t box_rows(size_t rows, int box) {
+  return box > 0 ? align_up(rows, (size_t)box) : rows;
+}
+
+// Shared-memory layout (bytes) of one CTA of layer i; fused.py
+// shared_smem_bytes computes the same and the launcher refuses a launch
+// whose largest role disagrees with the wrapper's count.
 struct Layout {
-  size_t theta[kMaxLayers], w[kMaxLayers], v[kMaxLayers], tp[kMaxLayers];
-  size_t tr0, xs, pres, pre_sum, post_sum, red, total;
+  size_t th, w, stage, pitch, v, tp, tr0, xs, pres, pre_sum, post_sum, red,
+      bars, total;
 };
 
-__host__ __device__ inline Layout layout(const SharedRolloutArgs& a,
+__host__ __device__ inline Layout layout(const SharedRolloutArgs& a, int i,
                                          bool quant) {
   Layout l;
   size_t off = 0;
-  const size_t bsz = a.batch;
-  int widest = 0;
-  for (int i = 0; i < a.n_layers; ++i)
-    widest = a.sizes[i] > widest ? a.sizes[i] : widest;
-  for (int i = 0; i < a.n_layers; ++i) {
-    const size_t nc = (size_t)a.sizes[i] * a.cols[i];
-    l.theta[i] = off;
-    if (a.theta_in_smem && ((a.plastic_mask >> i) & 1))
-      off += align16(4 * nc * (a.theta_bf16 ? 2 : 4));
-    l.w[i] = off;
-    off += align16(nc * (quant ? 1 : 4));
-    l.v[i] = off;
-    off += align16(bsz * a.cols[i] * 4);
-    l.tp[i] = off;
-    off += align16(bsz * a.cols[i] * 4);
-  }
+  const size_t bsz = a.batch, n = a.sizes[i], c = a.cols[i];
+  const size_t we = quant ? 1 : (a.bf16 ? 2 : 4);   // w's bytes in memory
+  const size_t held = quant ? 1 : 4;                 // w's bytes on chip
+  const size_t tb = a.theta_bf16 ? 2 : 4;
+  l.th = off;
+  if (a.th_route[i] == kTma || a.th_route[i] == kCpAsync)
+    off += align_up(box_rows(4 * n, a.th_route[i] == kTma ? a.th_box[i] : 0)
+                    * c * tb, 128);
+  const size_t w_rows = box_rows(n, a.w_route[i] == kTma ? a.w_box[i] : 0);
+  const bool staged = a.bf16 || a.w_route[i] == kWords;
+  l.w = off;
+  off += align_up((staged ? n : w_rows) * c * held, 128);
+  l.stage = off;
+  l.pitch = a.w_route[i] == kWords ? 4 * ((c * we + 3) / 4 + 1) : c * we;
+  if (staged) off += align_up(w_rows * l.pitch, 128);
+  l.v = off;
+  off += align_up(bsz * c * 4, 16);
+  l.tp = off;
+  off += align_up(bsz * c * 4, 16);
   l.tr0 = off;
-  off += align16(bsz * a.sizes[0] * 4);
+  if (i == 0) off += align_up(bsz * n * 4, 16);
   l.xs = off;
-  off += align16(bsz * widest * 4);
+  off += align_up(bsz * n * 4, 16);
   l.pres = off;
-  off += align16(bsz * widest * 4);
+  if (i > 0) off += align_up(bsz * n * 4, 16);
   l.pre_sum = off;
-  off += align16((size_t)widest * 4);
+  off += align_up(n * 4, 16);
   l.post_sum = off;
-  off += align16(32 * 4);
+  off += align_up(32 * 4, 16);
   l.red = off;
-  off += align16((size_t)kWarps * kChunk * 32 * 4);
-  l.total = off;
+  off += align_up((size_t)kWarps * kChunk * 32 * 4, 16);
+  l.bars = off;
+  off += 16;
+  l.total = off + 128;                // slack to align the base to 128
   return l;
 }
 
@@ -137,300 +205,777 @@ __device__ inline T shfl_xor(T v, int off) {
   return __shfl_xor_sync(0xffffffffu, v, off);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers and TMA --------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed; trap after
+// kSpinCycles rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > kSpinCycles) __trap();
+  }
+}
+
+// One box {c columns, rows} of a 2-D map at (col, row); completion is
+// reported to `bar` in bytes.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
+         "r"(row)
+      : "memory");
+}
+
+// ---- cp.async -----------------------------------------------------------
+// `src_bytes` < `width` zero-fills the rest (0: nothing is read).
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int width, int src_bytes) {
+  if (width == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+  else if (width == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Byte offset in device memory of element (r, col) of a row-major plane.
+__device__ __forceinline__ const unsigned char* at(const void* base, int r,
+                                                   int m, int col, int e) {
+  return (const unsigned char*)base + ((long)r * m + col) * e;
+}
+
+// The owned block [0, rows) x [col0, col0 + own) of a row-major (rows, m)
+// plane of `e`-byte elements, by cp.async: kCpAsync copies pieces of
+// `width` bytes into dst[rows][c] (zeros past `own`); kWords copies the
+// 4-byte words covering each row's span into rows of `pitch` bytes (the
+// span starts at byte (address & 3) of its row).  Issued by every thread.
+__device__ void copy_async(unsigned char* dst, const void* src, int rows,
+                           int m, int c, int own, int col0, int e, int route,
+                           int width, int pitch) {
+  if (route == kCpAsync) {
+    const int per_row = c * e / width, own_pieces = own * e / width;
+    for (int o = threadIdx.x; o < rows * per_row; o += blockDim.x) {
+      const int r = o / per_row, p = o - r * per_row;
+      const unsigned char* row = at(src, r, m, col0, e);
+      cp_async(smem_u32(dst + (long)o * width),
+               p < own_pieces ? row + p * width : row, width,
+               p < own_pieces ? width : 0);
+    }
+  } else {
+    const int words = pitch / 4;
+    for (int o = threadIdx.x; o < rows * words; o += blockDim.x) {
+      const int r = o / words, q = o - r * words;
+      const uintptr_t start = (uintptr_t)at(src, r, m, col0, e);
+      const uintptr_t first = start & ~(uintptr_t)3, word = first + 4 * q;
+      const uintptr_t end = start + (uintptr_t)own * e;
+      const int bytes = word >= end ? 0 : end - word >= 4 ? 4
+                                                          : (int)(end - word);
+      cp_async(smem_u32(dst + (long)r * pitch + 4 * q),
+               (const void*)(bytes ? word : first), 4, bytes);
+    }
+  }
+}
+
+// ---- the handoff between layers ------------------------------------------
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// Stamps compare modulo 2^32 (they grow across launches).
+__device__ __forceinline__ bool reached(unsigned stamp, unsigned want) {
+  return (int)(stamp - want) >= 0;
+}
+
+// The whole CTA waits until CTAs [first, first + count) have all published
+// a stamp >= want: warp 0 polls with relaxed loads (all in flight at once),
+// then one acquire fence orders the reads of what they published.
+__device__ void wait_for(const unsigned* progress, int first, int count,
+                         unsigned want) {
+  if (threadIdx.x < 32) {
+    long long start = 0;
+    for (;;) {
+      bool ok = true;
+      for (int g = threadIdx.x; g < count; g += 32)
+        ok &= reached(ld_relaxed(progress + first + g), want);
+      if (__all_sync(0xffffffffu, ok)) break;
+      if (start == 0) start = clock64();
+      else if (clock64() - start > kSpinCycles) __trap();
+    }
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// After every thread's stores of this step: publish the CTA's stamp.
+__device__ __forceinline__ void publish(unsigned* word, unsigned stamp) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+    st_relaxed(word, stamp);
+  }
+}
+
+// dst[e] = src[e] for e < count through L2 (not L1): 16-byte loads where
+// the count allows (src and dst are 16-byte aligned).
+template <typename S>
+__device__ void stage_l2(S* dst, const S* src, int count) {
+  if ((count & 3) == 0) {
+    using V = std::conditional_t<std::is_same<S, int>::value, int4, float4>;
+    for (int e = threadIdx.x; e < count / 4; e += blockDim.x)
+      reinterpret_cast<V*>(dst)[e] = __ldcg(reinterpret_cast<const V*>(src) + e);
+  } else {
+    for (int e = threadIdx.x; e < count; e += blockDim.x) dst[e] = __ldcg(src + e);
+  }
+}
+
+// Vector stores of the owned block from src[rows][c] (e-byte elements) to
+// a row-major (rows, m) plane, `width` bytes a piece.
+__device__ void store_pieces(void* dst, const unsigned char* src, int rows,
+                             int m, int c, int own, int col0, int e,
+                             int width) {
+  const int per_row = c * e / width, own_pieces = own * e / width;
+  for (int o = threadIdx.x; o < rows * per_row; o += blockDim.x) {
+    const int r = o / per_row, p = o - r * per_row;
+    if (p >= own_pieces) continue;
+    unsigned char* g = (unsigned char*)at(dst, r, m, col0, e) + p * width;
+    const unsigned char* s = src + (long)o * width;
+    if (width == 16) *(uint4*)g = *(const uint4*)s;
+    else if (width == 8) *(uint2*)g = *(const uint2*)s;
+    else *(uint32_t*)g = *(const uint32_t*)s;
+  }
+}
+
+// Layer 0 reads each step's drive row before the step: the first
+// kPrefetch of each thread's elements are loaded during the previous
+// step's update, into registers.
+constexpr int kPrefetch = 4;
+
+template <typename G>
+__device__ __forceinline__ void prefetch(G* pf, const G* row, int count) {
+#pragma unroll
+  for (int u = 0; u < kPrefetch; ++u) {
+    const int e = threadIdx.x + u * blockDim.x;
+    if (e < count) pf[u] = __ldg(row + e);
+  }
+}
+
+// Partial psums of U batch rows (nb of them real) of this thread's column
+// j over its rows r0, r0 + lanes, ... in order.
+template <bool Q, int U, typename S, typename W>
+__device__ __forceinline__ void row_partials(S* acc, const W* ws,
+                                             const S* xs, int n, int c, int j,
+                                             int r0, int lanes, int nb) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) acc[u] = S(0);
+#pragma unroll 4
+  for (int r = r0; r < n; r += lanes) {
+    const S wv = (S)ws[r * c + j];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (U == 1 || u < nb) {
+        const S xv = xs[u * n + r];
+        if constexpr (Q) acc[u] = ff::wadd(acc[u], ff::wmul(xv, wv));
+        else acc[u] = acc[u] + xv * wv;
+      }
+    }
+  }
+}
+
+// Lanes sharing a column reduce by shuffle; one partial per warp, column
+// and batch row goes to red[warp][u][column].
+template <bool Q, int U, typename S>
+__device__ __forceinline__ void column_partials(S* acc, S* red, int c,
+                                                int lane, int warp) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    for (int off = 16; off >= c; off >>= 1) {
+      if constexpr (Q) acc[u] = ff::wadd(acc[u], shfl_xor(acc[u], off));
+      else acc[u] = acc[u] + shfl_xor(acc[u], off);
+    }
+    if (lane < c) red[(warp * kChunk + u) * 32 + lane] = acc[u];
+  }
+}
+
+// Loads and stores of V consecutive elements as one access.
+template <int Bytes> struct Raw;
+template <> struct Raw<16> { using T = uint4; };
+template <> struct Raw<8> { using T = uint2; };
+template <> struct Raw<4> { using T = unsigned; };
+template <> struct Raw<2> { using T = unsigned short; };
+template <> struct Raw<1> { using T = unsigned char; };
+
+template <int V, typename X>
+__device__ __forceinline__ void ld_vec(X* dst, const X* src) {
+  using R = typename Raw<V * sizeof(X)>::T;
+  const R raw = *reinterpret_cast<const R*>(src);
+  memcpy(dst, &raw, sizeof(R));
+}
+
+template <int V, typename X>
+__device__ __forceinline__ void st_vec(X* dst, const X* src) {
+  using R = typename Raw<V * sizeof(X)>::T;
+  R raw;
+  memcpy(&raw, src, sizeof(R));
+  *reinterpret_cast<R*>(dst) = raw;
+}
+
+// The batch-averaged update of one thread's synapses: columns [jv, jv + V)
+// of rows r0, r0 + r_step, ... < n, theta's planes at th[r * row] (the
+// resident slab, or device memory with V = 1), `plane` apart.  Each
+// synapse's arithmetic is the per-step kernels'; V of them are loaded,
+// computed and stored together.
+template <bool Q, typename S, typename W>
+struct Update {
+  W* ws;
+  const S *pre, *tps, *pre_sum, *post_sum;
+  int n, c, m, B, col0, r0, r_step;
+  float w_clip, sc;
+  int qmax, seed;
+  ff::QParams q;
+
+  template <int V, typename TH>
+  __device__ __forceinline__ void rows(const TH* th, int jv, int row,
+                                       long plane) {
+    const float fb = (float)B;
+    S post[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) post[v] = post_sum[jv + v];
+#pragma unroll 2
+    for (int r = r0; r < n; r += r_step) {
+      const int o = r * c + jv;
+      S hebb[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) hebb[v] = S(0);
+      for (int b = 0; b < B; ++b) {
+        const S p = pre[b * n + r];
+        S tp[V];
+        ld_vec<V>(tp, tps + b * c + jv);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          if constexpr (Q) hebb[v] = ff::wadd(hebb[v], ff::wmul(p, tp[v]));
+          else hebb[v] = hebb[v] + p * tp[v];
+        }
+      }
+      TH t[4][V];
+      const TH* tr = th + (long)r * row;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ld_vec<V>(t[k], tr + k * plane);
+      W w[V];
+      ld_vec<V>(w, ws + o);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float coef[4] = {ff::cvt<float>(t[0][v]), ff::cvt<float>(t[1][v]),
+                               ff::cvt<float>(t[2][v]), ff::cvt<float>(t[3][v])};
+        if constexpr (Q)
+          w[v] = (int8_t)ff::plastic_q_coef((int)w[v], coef, hebb[v],
+                                            pre_sum[r], post[v], sc, qmax,
+                                            seed, r * m + col0 + jv + v, q);
+        else
+          w[v] = ff::plastic_f_coef(w[v], coef,
+                                    B == 1 ? hebb[v] : __fdiv_rn(hebb[v], fb),
+                                    pre_sum[r], post[v], w_clip);
+      }
+      st_vec<V>(ws + o, w);
+    }
+  }
+};
+
 // S and W: state and weights in shared memory; G and WG: in device memory
 // (T = float | bfloat16 on the float path); TH: the rules' type.
 template <bool Q, typename T, typename TH>
-__global__ void __launch_bounds__(kThreads)
-rollout_shared_kernel(SharedRolloutArgs a) {
+__global__ void __launch_bounds__(kThreads, 1)
+rollout_shared_kernel(const __grid_constant__ Params p) {
   using ff::cvt;
   using S = typename Types<Q>::S;
   using W = typename Types<Q>::W;
   using G = std::conditional_t<Q, int, T>;
   using WG = std::conditional_t<Q, int8_t, T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::grid_group grid = cg::this_grid();
-  const Layout lay = layout(a, Q);
-  const int L = a.n_layers, B = a.batch, n0 = a.sizes[0];
+  const SharedRolloutArgs& a = p.a;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+
+  // ---- this CTA's role: columns [col0, col0 + own) of layer i ----------
+  int i = 0;
+  while ((int)blockIdx.x >= a.first_cta[i + 1]) ++i;
+  const Layout lay = layout(a, i, Q);
+  const int L = a.n_layers, B = a.batch, K = a.k_steps, D = a.bus_depth;
+  const int n = a.sizes[i], m = a.sizes[i + 1], c = a.cols[i];
+  const int lc = log2i(c);
+  const int col0 = ((int)blockIdx.x - a.first_cta[i]) * c;
+  const int own = min(c, m - col0);
+  const bool last = i == L - 1, spiking = (a.spiking_mask >> i) & 1;
+  const bool plastic = (a.plastic_mask >> i) & 1;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const int we = Q ? 1 : (int)sizeof(T);
+  const int w_route = a.w_route[i], th_route = a.th_route[i];
+  const bool staged = (!Q && sizeof(T) == 2) || w_route == kWords;
+  const bool resident = th_route == kTma || th_route == kCpAsync;
 
+  TH* th = (TH*)(smem + lay.th);
+  W* ws = (W*)(smem + lay.w);
+  unsigned char* stage = smem + lay.stage;
+  S* vs = (S*)(smem + lay.v);
+  S* tps = (S*)(smem + lay.tp);
   S* tr0 = (S*)(smem + lay.tr0);
   S* xs = (S*)(smem + lay.xs);
   S* pres = (S*)(smem + lay.pres);
   S* pre_sum = (S*)(smem + lay.pre_sum);
   S* post_sum = (S*)(smem + lay.post_sum);
   S* red = (S*)(smem + lay.red);
+  const uint32_t bar_w = smem_u32(smem + lay.bars);
+  const uint32_t bar_th = bar_w + 8;
 
-  // ---- load the owned columns' working set ONCE ------------------------
-  for (int i = 0; i < L; ++i) {
-    const int n = a.sizes[i], m = a.sizes[i + 1], c = a.cols[i];
-    const int col0 = blockIdx.x * c, own = max(0, min(c, m - col0));
-    const int lc = log2i(c);
-    W* ws = (W*)(smem + lay.w[i]);
+  // ---- issue every load of the owned slabs at once ---------------------
+  if (tid == 0) {
+    mbar_init(bar_w, 1);
+    mbar_init(bar_th, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  unsigned char* w_dst = staged ? stage : (unsigned char*)ws;
+  if (w_route == kTma) {
+    if (tid == 0) {
+      const int r_box = a.w_box[i], boxes = (n + r_box - 1) / r_box;
+      mbar_expect_tx(bar_w, boxes * r_box * c * we);
+      for (int b = 0; b < boxes; ++b)
+        tma_load_2d(smem_u32(w_dst + (long)b * r_box * c * we), &p.w_map[i],
+                    bar_w, col0, b * r_box);
+    }
+  } else {
+    copy_async(w_dst, a.w_in[i], n, m, c, own, col0, we, w_route,
+               a.w_width[i], (int)lay.pitch);
+  }
+  cp_async_commit();
+  const int tb = sizeof(TH);
+  if (th_route == kTma) {
+    if (tid == 0) {
+      const int r_box = a.th_box[i], boxes = (4 * n + r_box - 1) / r_box;
+      mbar_expect_tx(bar_th, boxes * r_box * c * tb);
+      for (int b = 0; b < boxes; ++b)
+        tma_load_2d(smem_u32((unsigned char*)th + (long)b * r_box * c * tb),
+                    &p.th_map[i], bar_th, col0, b * r_box);
+    }
+  } else if (th_route == kCpAsync) {
+    copy_async((unsigned char*)th, a.theta[i], 4 * n, m, c, own, col0, tb,
+               kCpAsync, a.th_width[i], 0);
+  }
+  cp_async_commit();
+
+  // the small state while the slabs are in flight
+  for (int e = tid; e < B * c; e += nt) {
+    const int b = e >> lc, j = e & (c - 1);
+    const long g = (long)b * m + col0 + j;
+    vs[e] = j < own ? cvt<S>(((const G*)a.v_in[i])[g]) : S(0);
+    tps[e] = j < own ? cvt<S>(((const G*)a.tr_in[i + 1])[g]) : S(0);
+  }
+  if (i == 0)
+    for (int e = tid; e < B * n; e += nt)
+      tr0[e] = cvt<S>(((const G*)a.tr_in[0])[e]);
+  const float sc = Q ? *a.scale[i] : 0.0f;
+  const int base_seed = Q ? *a.seed : 0;
+
+  // ---- w must be in before the first forward pass ----------------------
+  if (w_route == kTma) mbar_wait(bar_w, 0);
+  cp_async_wait<1>();
+  __syncthreads();
+  if (staged) {                       // repack and / or promote to W
     for (int o = tid; o < n * c; o += nt) {
       const int r = o >> lc, j = o & (c - 1);
-      ws[o] = j < own ? cvt<W>(((const WG*)a.w_in[i])[(long)r * m + col0 + j])
-                      : W(0);
-    }
-    if (a.theta_in_smem && ((a.plastic_mask >> i) & 1)) {
-      TH* th = (TH*)(smem + lay.theta[i]);
-      const TH* src = (const TH*)a.theta[i];
-      for (int o = tid; o < 4 * n * c; o += nt) {
-        const int p = o / (n * c), rj = o % (n * c);
-        const int r = rj >> lc, j = rj & (c - 1);
-        th[o] = j < own ? src[((long)p * n + r) * m + col0 + j]
-                        : cvt<TH>(0.0f);
+      W x = W(0);
+      if (j < own) {
+        const unsigned char* s =
+            w_route == kWords
+                ? stage + (long)r * lay.pitch +
+                      ((uintptr_t)at(a.w_in[i], r, m, col0, we) & 3) + j * we
+                : stage + (long)o * we;
+        x = cvt<W>(*(const WG*)s);
       }
-    }
-    S* vs = (S*)(smem + lay.v[i]);
-    S* tps = (S*)(smem + lay.tp[i]);
-    for (int e = tid; e < B * c; e += nt) {
-      const int b = e >> lc, j = e & (c - 1);
-      const long g = (long)b * m + col0 + j;
-      vs[e] = j < own ? cvt<S>(((const G*)a.v_in[i])[g]) : S(0);
-      tps[e] = j < own ? cvt<S>(((const G*)a.tr_in[i + 1])[g]) : S(0);
-    }
-  }
-  for (int e = tid; e < B * n0; e += nt)
-    tr0[e] = cvt<S>(((const G*)a.tr_in[0])[e]);
-  float sc[kMaxLayers];
-  for (int i = 0; i < L; ++i) sc[i] = Q ? *a.scale[i] : 0.0f;
-  const int base_seed = Q ? *a.seed : 0;
-  __syncthreads();
-
-  for (int k = 0; k < a.k_steps; ++k) {
-    const int par = k & 1;
-    // ---- input population: drive onto the staging bus, trace update ---
-    const G* drive = (const G*)a.drives + (long)k * B * n0;
-    for (int e = tid; e < B * n0; e += nt) {
-      const S x = cvt<S>(drive[e]);
-      xs[e] = x;
-      if constexpr (Q) tr0[e] = ff::trace_q(tr0[e], x, a.q);
-      else tr0[e] = __fmaf_rn(a.f.decay, tr0[e], x);
+      ws[o] = x;
     }
     __syncthreads();
+  }
+  bool th_in = !resident;             // theta resident and arrived
 
-    for (int i = 0; i < L; ++i) {
-      const int n = a.sizes[i], m = a.sizes[i + 1], c = a.cols[i];
-      const int col0 = blockIdx.x * c, own = max(0, min(c, m - col0));
-      const int lc = log2i(c);
-      const bool spiking = (a.spiking_mask >> i) & 1;
-      const bool last = i == L - 1;
-      const S* pre = i == 0 ? tr0 : pres;
-      W* ws = (W*)(smem + lay.w[i]);
-      S* vs = (S*)(smem + lay.v[i]);
-      S* tps = (S*)(smem + lay.tp[i]);
-      S* bus_ev = last ? nullptr : (S*)a.bus[i] + (long)(2 * par) * B * m;
-      S* bus_tr = last ? nullptr : bus_ev + (long)B * m;
+  const unsigned* prog = a.progress;
+  unsigned* mine = a.progress + blockIdx.x;
+  const G* drives = (const G*)a.drives;
+  G pf[kPrefetch];                    // layer 0: this thread's next drives
+  if (i == 0) prefetch(pf, drives, B * n);
+  for (int k = 0; k < K; ++k) {
+    const unsigned stamp = a.base + (unsigned)k + 1u;
+    const int slot = D > 0 ? k % D : 0;
+    // a credit: every consumer has finished the step that used this slot
+    if (!last && k >= D)
+      wait_for(prog, a.first_cta[i + 1],
+               a.first_cta[i + 2] - a.first_cta[i + 1], stamp - D);
+    // ---- this step's input events and pre traces -----------------------
+    if (i == 0) {
+      const G* drive = drives + (long)k * B * n;
+      auto put = [&](int e, G g) {
+        const S x = cvt<S>(g);
+        xs[e] = x;
+        if constexpr (Q) tr0[e] = ff::trace_q(tr0[e], x, a.q);
+        else tr0[e] = __fmaf_rn(a.f.decay, tr0[e], x);
+      };
+#pragma unroll
+      for (int u = 0; u < kPrefetch; ++u)
+        if (tid + u * nt < B * n) put(tid + u * nt, pf[u]);
+      for (int e = tid + kPrefetch * nt; e < B * n; e += nt) put(e, drive[e]);
+    } else {
+      wait_for(prog, a.first_cta[i - 1], a.first_cta[i] - a.first_cta[i - 1],
+               stamp);
+      const S* ev_in = (const S*)a.bus[i - 1] + (long)(2 * slot) * B * n;
+      stage_l2(xs, ev_in, B * n);
+      stage_l2(pres, ev_in + (long)B * n, B * n);
+    }
+    __syncthreads();
+    const S* pre = i == 0 ? tr0 : pres;
+    S* bus_ev = last ? nullptr : (S*)a.bus[i] + (long)(2 * slot) * B * m;
+    S* bus_tr = last ? nullptr : bus_ev + (long)B * m;
 
-      if (own > 0) {                       // uniform across the CTA
-        // ---- 1. Forward Engine on the owned columns ------------------
-        const int j = tid & (c - 1), r0 = tid >> lc, lanes = nt >> lc;
-        for (int b0 = 0; b0 < B; b0 += kChunk) {
-          const int nb = min(kChunk, B - b0);
-          S acc[kChunk];
-#pragma unroll
-          for (int u = 0; u < kChunk; ++u) acc[u] = S(0);
-          for (int r = r0; r < n; r += lanes) {
-            const S wv = (S)ws[r * c + j];
-#pragma unroll
-            for (int u = 0; u < kChunk; ++u) {
-              if (u < nb) {
-                const S xv = xs[(b0 + u) * n + r];
-                if constexpr (Q) acc[u] = ff::wadd(acc[u], ff::wmul(xv, wv));
-                else acc[u] = acc[u] + xv * wv;
-              }
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kChunk; ++u) {
-            for (int off = 16; off >= c; off >>= 1) {
-              if constexpr (Q) acc[u] = ff::wadd(acc[u], shfl_xor(acc[u], off));
-              else acc[u] = acc[u] + shfl_xor(acc[u], off);
-            }
-            if (lane < c) red[(warp * kChunk + u) * 32 + lane] = acc[u];
-          }
-          __syncthreads();
-          for (int e = tid; e < nb * own; e += nt) {
-            const int u = e / own, jj = e % own, b = b0 + u;
-            S s = red[u * 32 + jj];
-            for (int wp = 1; wp < kWarps; ++wp) {
-              if constexpr (Q) s = ff::wadd(s, red[(wp * kChunk + u) * 32 + jj]);
-              else s = s + red[(wp * kChunk + u) * 32 + jj];
-            }
-            const long gt = ((long)k * B + b) * m + col0 + jj;
-            const int li = b * c + jj;
-            S ev, vn, tp;
-            if constexpr (Q) {
-              int i_fx = ff::current_fx(s, sc[i]);
-              if (last && a.teach)
-                i_fx = ff::wadd(i_fx, ((const int*)a.teach)[gt]);
-              ff::neuron_q(vs[li], i_fx, spiking, a.q, &ev, &vn);
-              tp = ff::trace_q(tps[li], ev, a.q);
-            } else {
-              if (last && a.teach) s = s + ((const float*)a.teach)[gt];
-              ff::neuron_f(vs[li], s, spiking, a.f, &ev, &vn);
-              tp = __fmaf_rn(a.f.decay, tps[li], ev);
-            }
-            vs[li] = vn;
-            tps[li] = tp;
-            const S out = spiking ? ev : vn;
-            if (last) {
-              ((G*)a.outs)[gt] = cvt<G>(out);
-            } else {
-              bus_ev[(long)b * m + col0 + jj] = out;
-              bus_tr[(long)b * m + col0 + jj] = tp;
-            }
-          }
-          __syncthreads();
+    // ---- 1. Forward Engine on the owned columns ------------------------
+    {
+      const int j = tid & (c - 1), r0 = tid >> lc, lanes = nt >> lc;
+      for (int b0 = 0; b0 < B; b0 += kChunk) {
+        const int nb = min(kChunk, B - b0);
+        S acc[kChunk];
+        if (nb == 1) {
+          row_partials<Q, 1>(acc, ws, xs + (long)b0 * n, n, c, j, r0, lanes,
+                             1);
+          column_partials<Q, 1>(acc, red, c, lane, warp);
+        } else {
+          row_partials<Q, kChunk>(acc, ws, xs + (long)b0 * n, n, c, j, r0,
+                                  lanes, nb);
+          column_partials<Q, kChunk>(acc, red, c, lane, warp);
         }
-
-        // ---- 2. Plasticity Engine on the owned synapses --------------
-        if ((a.plastic_mask >> i) & 1) {
-          for (int r = tid; r < n; r += nt) {
-            S s = S(0);
-            for (int b = 0; b < B; ++b) {
-              if constexpr (Q) s = ff::wadd(s, pre[b * n + r]);
-              else s = s + pre[b * n + r];
-            }
-            pre_sum[r] = s;
+        __syncthreads();
+        for (int e = tid; e < nb * own; e += nt) {
+          const int u = e / own, jj = e % own, b = b0 + u;
+          S s = red[u * 32 + jj];
+          for (int wp = 1; wp < kWarps; ++wp) {
+            if constexpr (Q) s = ff::wadd(s, red[(wp * kChunk + u) * 32 + jj]);
+            else s = s + red[(wp * kChunk + u) * 32 + jj];
           }
-          if (tid < own) {
-            S s = S(0);
-            for (int b = 0; b < B; ++b) {
-              if constexpr (Q) s = ff::wadd(s, tps[b * c + tid]);
-              else s = s + tps[b * c + tid];
-            }
-            post_sum[tid] = s;
-          }
-          __syncthreads();
-          const bool resident = a.theta_in_smem;
-          const TH* th_base = resident
-                                  ? (const TH*)(smem + lay.theta[i])
-                                  : (const TH*)a.theta[i];
-          const long plane = resident ? (long)n * c : (long)n * m;
-          int qmax = 0, seed_i = 0;
+          const long gt = ((long)k * B + b) * m + col0 + jj;
+          const int li = b * c + jj;
+          S ev, vn, tp;
           if constexpr (Q) {
-            qmax = ff::qclip(a.w_clip, sc[i]);
-            seed_i = ff::fold_seed(ff::wadd(base_seed, k), i);
+            int i_fx = ff::current_fx(s, sc);
+            if (last && a.teach)
+              i_fx = ff::wadd(i_fx, ((const int*)a.teach)[gt]);
+            ff::neuron_q(vs[li], i_fx, spiking, a.q, &ev, &vn);
+            tp = ff::trace_q(tps[li], ev, a.q);
+          } else {
+            if (last && a.teach) s = s + ((const float*)a.teach)[gt];
+            ff::neuron_f(vs[li], s, spiking, a.f, &ev, &vn);
+            tp = __fmaf_rn(a.f.decay, tps[li], ev);
           }
-          const float fb = (float)B;
-          for (int o = tid; o < n * c; o += nt) {
-            const int r = o >> lc, jj = o & (c - 1);
-            if (jj >= own) continue;
-            const TH* th =
-                th_base + (resident ? (long)o : (long)r * m + col0 + jj);
-            S hebb = S(0);
-            for (int b = 0; b < B; ++b) {
-              if constexpr (Q)
-                hebb = ff::wadd(hebb, ff::wmul(pre[b * n + r], tps[b * c + jj]));
-              else hebb = hebb + pre[b * n + r] * tps[b * c + jj];
-            }
-            if constexpr (Q)
-              ws[o] = (int8_t)ff::plastic_q_sums(
-                  (int)ws[o], th, plane, hebb, pre_sum[r], post_sum[jj], sc[i],
-                  qmax, seed_i, r * m + col0 + jj, a.q);
-            else
-              ws[o] = ff::plastic_f_terms(ws[o], th, plane, __fdiv_rn(hebb, fb),
-                                          __fdiv_rn(pre_sum[r], fb),
-                                          __fdiv_rn(post_sum[jj], fb),
-                                          a.w_clip);
+          vs[li] = vn;
+          tps[li] = tp;
+          const S out = spiking ? ev : vn;
+          if (last) {
+            ((G*)a.outs)[gt] = cvt<G>(out);
+          } else {
+            bus_ev[(long)b * m + col0 + jj] = out;
+            bus_tr[(long)b * m + col0 + jj] = tp;
           }
-          __syncthreads();
-        }
-      }
-
-      // ---- 3. grid barrier, then stage the next layer's inputs ---------
-      if (!last) {
-        grid.sync();
-        const S* ev_in = (const S*)a.bus[i] + (long)(2 * par) * B * m;
-        const S* tr_in = ev_in + (long)B * m;
-        for (int e = tid; e < B * m; e += nt) {
-          xs[e] = __ldcg(ev_in + e);
-          pres[e] = __ldcg(tr_in + e);
         }
         __syncthreads();
       }
     }
+    if (i == 0 && k + 1 < K)
+      prefetch(pf, drives + (long)(k + 1) * B * n, B * n);
+
+    // ---- 2. Plasticity Engine on the owned synapses --------------------
+    if (plastic) {
+      if (!th_in) {
+        if (th_route == kTma) mbar_wait(bar_th, 0);
+        cp_async_wait<0>();
+        th_in = true;
+      }
+      const float fb = (float)B;
+      // the batch means of the pre and post traces, once per step (x / 1
+      // is x: B = 1 divides nothing)
+      for (int r = tid; r < n; r += nt) {
+        S s = S(0);
+        for (int b = 0; b < B; ++b) {
+          if constexpr (Q) s = ff::wadd(s, pre[b * n + r]);
+          else s = s + pre[b * n + r];
+        }
+        if constexpr (Q) pre_sum[r] = s;
+        else pre_sum[r] = B == 1 ? s : __fdiv_rn(s, fb);
+      }
+      if (tid < c) {
+        S s = S(0);
+        for (int b = 0; b < B; ++b) {
+          if constexpr (Q) s = ff::wadd(s, tps[b * c + tid]);
+          else s = s + tps[b * c + tid];
+        }
+        if constexpr (Q) post_sum[tid] = s;
+        else post_sum[tid] = B == 1 ? s : __fdiv_rn(s, fb);
+      }
+      __syncthreads();
+      // V consecutive columns a thread (all c of them: the slab's columns
+      // past `own` are zeros and never written back), or one column of the
+      // owned ones with theta in device memory
+      Update<Q, S, W> up;
+      up.ws = ws; up.pre = pre; up.tps = tps; up.pre_sum = pre_sum;
+      up.post_sum = post_sum; up.n = n; up.c = c; up.m = m; up.B = B;
+      up.col0 = col0; up.w_clip = a.w_clip; up.q = a.q;
+      if constexpr (Q) {
+        up.sc = sc;
+        up.qmax = ff::qclip(a.w_clip, sc);
+        up.seed = ff::fold_seed(ff::wadd(base_seed, k), i);
+      }
+      const int vw = !resident ? 1 : (c & 3) == 0 ? 4 : (c & 1) == 0 ? 2 : 1;
+      const int groups = c / vw, jv = (tid % groups) * vw;
+      up.r0 = tid / groups;
+      up.r_step = nt / groups;
+      if (!resident) {
+        if (jv < own)
+          up.template rows<1>((const TH*)a.theta[i] + col0 + jv, jv, m,
+                              (long)n * m);
+      } else if (vw == 4) {
+        up.template rows<4>(th + jv, jv, c, (long)n * c);
+      } else if (vw == 2) {
+        up.template rows<2>(th + jv, jv, c, (long)n * c);
+      } else {
+        up.template rows<1>(th + jv, jv, c, (long)n * c);
+      }
+      __syncthreads();
+    }
+    // this step's slot is written (and its inputs consumed); published
+    // after the update, when the fence finds the bus stores long done
+    publish(mine, stamp);
   }
 
   // ---- single write-back of the owned state -----------------------------
-  for (int i = 0; i < L; ++i) {
-    const int n = a.sizes[i], m = a.sizes[i + 1], c = a.cols[i];
-    const int col0 = blockIdx.x * c, own = max(0, min(c, m - col0));
-    const int lc = log2i(c);
-    const W* ws = (const W*)(smem + lay.w[i]);
-    const S* vs = (const S*)(smem + lay.v[i]);
-    const S* tps = (const S*)(smem + lay.tp[i]);
+  if (!staged) {
+    store_pieces(a.w_out[i], (const unsigned char*)ws, n, m, c, own, col0, we,
+                 a.w_width[i]);
+  } else if (w_route != kWords) {     // bfloat16: round into the stage first
+    for (int o = tid; o < n * c; o += nt) ((WG*)stage)[o] = cvt<WG>(ws[o]);
+    __syncthreads();
+    store_pieces(a.w_out[i], stage, n, m, c, own, col0, we, a.w_width[i]);
+  } else {
     for (int o = tid; o < n * c; o += nt) {
       const int r = o >> lc, j = o & (c - 1);
-      if (j < own)
-        ((WG*)a.w_out[i])[(long)r * m + col0 + j] = cvt<WG>(ws[o]);
+      if (j < own) ((WG*)a.w_out[i])[(long)r * m + col0 + j] = cvt<WG>(ws[o]);
     }
-    for (int e = tid; e < B * c; e += nt) {
-      const int b = e >> lc, j = e & (c - 1);
-      if (j < own) {
-        ((G*)a.v_out[i])[(long)b * m + col0 + j] = cvt<G>(vs[e]);
-        ((G*)a.tr_out[i + 1])[(long)b * m + col0 + j] = cvt<G>(tps[e]);
-      }
+  }
+  for (int e = tid; e < B * c; e += nt) {
+    const int b = e >> lc, j = e & (c - 1);
+    if (j < own) {
+      ((G*)a.v_out[i])[(long)b * m + col0 + j] = cvt<G>(vs[e]);
+      ((G*)a.tr_out[i + 1])[(long)b * m + col0 + j] = cvt<G>(tps[e]);
     }
   }
   if (blockIdx.x == 0)
-    for (int e = tid; e < B * n0; e += nt)
+    for (int e = tid; e < B * n; e += nt)
       ((G*)a.tr_out[0])[e] = cvt<G>(tr0[e]);
 }
 
-template <bool Q, typename T, typename TH>
-int launch(const SharedRolloutArgs* a, int grid_size, size_t expected_smem,
-           cudaStream_t stream) {
-  const size_t smem = layout(*a, Q).total;
-  if (smem != expected_smem) return (int)cudaErrorInvalidValue;
-  void (*kernel)(SharedRolloutArgs) = rollout_shared_kernel<Q, T, TH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---- host side ---------------------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    return found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D map over a row-major (rows, m) plane of `e`-byte elements, boxes of
+// {c columns, box rows}, zeros outside the plane.
+bool encode(CUtensorMap* map, const void* ptr, int rows, int m, int e, int c,
+            int box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const CUtensorMapDataType type =
+      e == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+             : e == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const cuuint64_t dims[2] = {(cuuint64_t)m, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)m * e};
+  const cuuint32_t boxes[2] = {(cuuint32_t)c, (cuuint32_t)box};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, boxes, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The residency of one instantiation at one shared-memory size on one
+// device, found once: the attribute set and the CTAs the card can hold.
+struct Residency {
+  const void* kernel;
+  int device;
+  size_t smem;
+  long ctas;
+};
+
+int resident_ctas(const void* kernel, size_t smem, long* ctas) {
+  static std::mutex mu;
+  static Residency seen[32];
+  static int n_seen = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+  std::lock_guard<std::mutex> lock(mu);
+  for (int s = 0; s < n_seen; ++s)
+    if (seen[s].kernel == kernel && seen[s].device == device &&
+        seen[s].smem == smem) {
+      *ctas = seen[s].ctas;
+      return 0;
+    }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, kernel, kThreads, smem)) != cudaSuccess)
     return (int)err;
-  // every CTA must be resident at once for the grid barriers
-  if ((long)per_sm * sms < grid_size)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  SharedRolloutArgs args = *a;
-  void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel((void*)kernel, dim3(grid_size),
-                                    dim3(kThreads), params, smem, stream);
-  if (err != cudaSuccess) return (int)err;
+  *ctas = (long)per_sm * sms;
+  if (n_seen < 32) seen[n_seen++] = {kernel, device, smem, *ctas};
+  return 0;
+}
+
+template <bool Q, typename T, typename TH>
+int launch(const SharedRolloutArgs* a, size_t expected_smem,
+           cudaStream_t stream) {
+  size_t smem = 0;
+  for (int i = 0; i < a->n_layers; ++i) {
+    const size_t role = layout(*a, i, Q).total;
+    smem = role > smem ? role : smem;
+  }
+  if (smem != expected_smem) return (int)cudaErrorInvalidValue;
+  const void* kernel = (const void*)rollout_shared_kernel<Q, T, TH>;
+  const int grid = a->first_cta[a->n_layers];
+  long ctas = 0;
+  const int err = resident_ctas(kernel, smem, &ctas);
+  if (err != 0) return err;
+  // every CTA must be resident at once: consumers spin on producers
+  if (ctas < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Params prm;
+  prm.a = *a;
+  const int we = Q ? 1 : (int)sizeof(T), tb = sizeof(TH);
+  for (int i = 0; i < a->n_layers; ++i) {
+    const int n = a->sizes[i], m = a->sizes[i + 1], c = a->cols[i];
+    if (a->w_route[i] == kTma &&
+        !encode(&prm.w_map[i], a->w_in[i], n, m, we, c, a->w_box[i]))
+      return (int)cudaErrorInvalidValue;
+    if (a->th_route[i] == kTma &&
+        !encode(&prm.th_map[i], a->theta[i], 4 * n, m, tb, c, a->th_box[i]))
+      return (int)cudaErrorInvalidValue;
+  }
+  void* params[] = {&prm};
+  cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid),
+                                              dim3(kThreads), params, smem,
+                                              stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// grid_size: the CTAs the wrapper planned (max over layers of M_i / c_i);
-// expected_smem: its count of the layout, checked against this file's.
+// expected_smem: the wrapper's count of the largest role's layout, checked
+// against this file's.
 extern "C" int rollout_shared(const SharedRolloutArgs* a, int quant,
-                              int grid_size, size_t expected_smem,
-                              cudaStream_t stream) {
-  if (a->n_layers < 1 || a->n_layers > kMaxLayers || a->batch < 1 ||
-      grid_size < 1 || (quant && (a->bf16 || a->theta_bf16)) ||
-      (a->theta_bf16 && !a->bf16))
+                              size_t expected_smem, cudaStream_t stream) {
+  const int L = a->n_layers;
+  if (L < 1 || L > kMaxLayers || a->batch < 1 || a->k_steps < 1 ||
+      (L > 1 && a->bus_depth < 1) || a->first_cta[0] != 0 ||
+      (quant && (a->bf16 || a->theta_bf16)) || (a->theta_bf16 && !a->bf16))
     return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < a->n_layers; ++i) {
-    const int c = a->cols[i];
+  const int we = quant ? 1 : (a->bf16 ? 2 : 4);
+  const int tb = a->theta_bf16 ? 2 : 4;
+  for (int i = 0; i < L; ++i) {
+    const int c = a->cols[i], m = a->sizes[i + 1];
+    const bool plastic = (a->plastic_mask >> i) & 1;
     if (c < 1 || c > 32 || (c & (c - 1)) != 0 ||
-        (long)c * grid_size < a->sizes[i + 1])
+        a->first_cta[i + 1] - a->first_cta[i] != (m + c - 1) / c ||
+        (a->w_route[i] != kTma && a->w_route[i] != kCpAsync &&
+         a->w_route[i] != kWords) ||
+        (plastic ? a->th_route[i] == kNone || a->th_route[i] == kWords
+                 : a->th_route[i] != kNone))
+      return (int)cudaErrorInvalidValue;
+    // the 16-byte rules of a TMA box, and whole pieces of a cp.async
+    if ((a->w_route[i] == kTma && ((m * we) % 16 || (c * we) % 16)) ||
+        (a->th_route[i] == kTma && ((m * tb) % 16 || (c * tb) % 16)) ||
+        (a->w_route[i] == kCpAsync &&
+         ((m * we) % a->w_width[i] || (c * we) % a->w_width[i])) ||
+        (a->th_route[i] == kCpAsync &&
+         ((m * tb) % a->th_width[i] || (c * tb) % a->th_width[i])))
       return (int)cudaErrorInvalidValue;
   }
   using bf16 = __nv_bfloat16;
-  if (quant) return launch<true, float, float>(a, grid_size, expected_smem,
-                                               stream);
-  if (!a->bf16)
-    return launch<false, float, float>(a, grid_size, expected_smem, stream);
+  if (quant) return launch<true, float, float>(a, expected_smem, stream);
+  if (!a->bf16) return launch<false, float, float>(a, expected_smem, stream);
   return a->theta_bf16
-             ? launch<false, bf16, bf16>(a, grid_size, expected_smem, stream)
-             : launch<false, bf16, float>(a, grid_size, expected_smem, stream);
+             ? launch<false, bf16, bf16>(a, expected_smem, stream)
+             : launch<false, bf16, float>(a, expected_smem, stream);
 }

@@ -28,8 +28,9 @@ version).
 FLEET mode (``w (B, N, M)``) launches ``csrc/rollout.cu`` (`rollout`);
 SHARED-weight mode (``w (N, M)``, batched activations, batch-averaged dw)
 launches ``csrc/rollout_shared.cu`` (`rollout_shared`): one cooperative
-launch whose co-resident CTAs each own a slice of every layer's columns for
-the whole window, with one grid barrier per layer boundary per step.
+launch whose co-resident CTAs each own a slice of ONE layer's columns for
+the whole window, the layers pipelined: layer i hands each step's events
+and traces to layer i + 1 through a bus in device memory (`shared_plan`).
 
 Both kernels take the float window in float32 or bfloat16 (drives, weights,
 membranes and traces in one dtype; the rules in that dtype or float32).  A
@@ -126,70 +127,133 @@ class _SharedRolloutArgs(ctypes.Structure):
         (name, _P * MAX_LAYERS) for name in (
             "w_in", "w_out", "theta", "scale", "v_in", "v_out")] + [
         ("tr_in", _P * (MAX_LAYERS + 1)), ("tr_out", _P * (MAX_LAYERS + 1)),
-        ("bus", _P * MAX_LAYERS),
+        ("bus", _P * MAX_LAYERS), ("progress", _P),
         ("sizes", ctypes.c_int * (MAX_LAYERS + 1)),
-        ("cols", ctypes.c_int * MAX_LAYERS)] + [
+        ("first_cta", ctypes.c_int * (MAX_LAYERS + 1))] + [
+        (name, ctypes.c_int * MAX_LAYERS) for name in (
+            "cols", "w_route", "w_width", "w_box", "th_route", "th_width",
+            "th_box")] + [
         (name, ctypes.c_int) for name in (
-            "n_layers", "k_steps", "batch", "spiking_mask", "plastic_mask",
-            "theta_in_smem")] + [
-        ("w_clip", ctypes.c_float), ("f", _k.FParams), ("q", _k.QParams),
-        ("bf16", ctypes.c_int), ("theta_bf16", ctypes.c_int)]
+            "n_layers", "k_steps", "batch", "bus_depth", "spiking_mask",
+            "plastic_mask")] + [
+        ("base", ctypes.c_uint), ("w_clip", ctypes.c_float),
+        ("f", _k.FParams), ("q", _k.QParams), ("bf16", ctypes.c_int),
+        ("theta_bf16", ctypes.c_int)]
 
 
-SHARED_THREADS, SHARED_CHUNK = 256, 8      # csrc/rollout_shared.cu
+SHARED_THREADS, SHARED_CHUNK = 512, 8      # csrc/rollout_shared.cu
+SHARED_BUS_DEPTH = 32          # steps one layer boundary's bus holds at most
+SHARED_BUS_BYTES = 16 << 20    # and its bound in device memory
+TMA_BOX_ROWS = 256             # rows of one TMA box at most
+# How a plane reaches shared memory (csrc/rollout_shared.cu Route): a TMA
+# box, cp.async pieces, cp.async of the 4-byte words covering each row's
+# span (repacked), or not at all (theta read through L2).
+ROUTES = ("tma", "cp.async", "cp.async words", "l2")
 
 
-def shared_smem_bytes(sizes, cols, batch: int, plastic, quant: bool,
-                      theta_in_smem: bool, theta_bytes: int = 4) -> int:
-    """Shared memory of one CTA of the shared-weight window: per layer its
-    columns' theta (if resident, ``theta_bytes`` a coefficient), weights,
-    membranes and post traces; the input trace, two staging rows, the
-    pre/post sums and the partial-sum buffer — the layout of
-    ``csrc/rollout_shared.cu`` (float32 state and weights in a bfloat16
-    window too)."""
-    def al(x):
-        return (x + 15) // 16 * 16
-    n_layers = len(sizes) - 1
-    widest = max(sizes[:n_layers])
+def _al(x: int, a: int = 16) -> int:
+    return (x + a - 1) // a * a
+
+
+def shared_route(rows: int, m: int, c: int, e: int) -> tuple:
+    """``(route, width, box_rows)`` of the owned ``[rows) x [c)`` block of a
+    row-major ``(rows, m)`` plane of ``e``-byte elements: TMA where its
+    16-byte rules hold (row stride and box width multiples of 16 bytes), in
+    boxes of at most 256 rows whose bytes are a multiple of 128, stored back
+    16 bytes a piece; else cp.async of the widest piece (16, 8 or 4 bytes)
+    that divides the row stride and the owned width; else cp.async of the
+    4-byte words covering each row's span."""
+    row_b, span_b = m * e, c * e
+    if row_b % 16 == 0 and span_b % 16 == 0:
+        n_box = -(-rows // TMA_BOX_ROWS)
+        step = max(1, 128 // span_b)
+        return "tma", 16, _al(-(-rows // n_box), step)
+    for width in (16, 8, 4):
+        if row_b % width == 0 and span_b % width == 0:
+            return "cp.async", width, 0
+    return "cp.async words", 4, 0
+
+
+def shared_smem_bytes(n: int, c: int, batch: int, quant: bool,
+                      w_bytes: int, theta_bytes: int, w_plane: tuple,
+                      th_plane: tuple | None) -> int:
+    """Shared memory of one CTA owning ``c`` columns of a layer of ``n``
+    inputs: its theta slab if resident (``th_plane`` a TMA or cp.async route;
+    ``theta_bytes`` a coefficient), the weight slab (float32 on chip in a
+    bfloat16 window, int8 in fixed point), the staging area of a bfloat16
+    or word-copied slab (``w_bytes`` a weight in device memory), membranes
+    and post traces, the input trace (layer 0), the staged events and pre
+    traces, the pre/post sums, the partial-sum buffer, two mbarriers and
+    128 bytes to align the base — the layout of ``csrc/rollout_shared.cu``
+    (TMA slabs rounded up to whole boxes)."""
     total = 0
-    for i in range(n_layers):
-        nc = sizes[i] * cols[i]
-        if theta_in_smem and plastic[i]:
-            total += al(4 * theta_bytes * nc)
-        total += al(nc * (1 if quant else 4)) + 2 * al(batch * cols[i] * 4)
-    return (total + al(batch * sizes[0] * 4) + 2 * al(batch * widest * 4)
-            + al(widest * 4) + al(32 * 4)
-            + al(SHARED_THREADS // 32 * SHARED_CHUNK * 32 * 4))
+    if th_plane is not None and th_plane[0] in ("tma", "cp.async"):
+        rows = _al(4 * n, th_plane[2]) if th_plane[0] == "tma" else 4 * n
+        total += _al(rows * c * theta_bytes, 128)
+    w_rows = _al(n, w_plane[2]) if w_plane[0] == "tma" else n
+    staged = (not quant and w_bytes == 2) or w_plane[0] == "cp.async words"
+    total += _al((n if staged else w_rows) * c * (1 if quant else 4), 128)
+    if staged:
+        pitch = (4 * (-(-c * w_bytes // 4) + 1)
+                 if w_plane[0] == "cp.async words" else c * w_bytes)
+        total += _al(w_rows * pitch, 128)
+    total += 2 * _al(batch * c * 4) + 2 * _al(batch * n * 4)
+    return (total + _al(n * 4) + _al(32 * 4)
+            + _al(SHARED_THREADS // 32 * SHARED_CHUNK * 32 * 4) + 16 + 128)
 
 
 def shared_plan(sizes, batch: int, plastic, quant: bool, sms: int,
-                limit: int, theta_bytes: int = 4) -> dict:
-    """Grid and residency of the shared-weight window: CTA g owns columns
-    ``[g * c_i, (g + 1) * c_i)`` of layer i, with ``c_i`` the power of two
-    that spreads the widest layer over at most ``sms`` CTAs.  Theta is
-    resident when the whole layout fits, else read through L2; raises when
-    the owned weights and state alone do not fit one CTA."""
-    m_max = max(sizes[1:])
-    grid = min(sms, m_max)
-    cols = []
-    for m in sizes[1:]:
-        c = 1 << max(0, (-(-m // grid) - 1).bit_length())
-        if c > 32:
-            raise ValueError(f"shared-weight rollout: a layer of {m} columns "
-                             f"needs {c} columns per CTA on {sms} SMs; the "
-                             f"kernel takes at most 32")
-        cols.append(c)
-    grid = max(-(-m // c) for m, c in zip(sizes[1:], cols))
-    for theta_in_smem in (True, False):
-        smem = shared_smem_bytes(sizes, cols, batch, plastic, quant,
-                                 theta_in_smem, theta_bytes)
-        if smem <= limit:
-            return dict(grid=grid, cols=cols, smem=smem,
-                        theta_in_smem=theta_in_smem)
-    raise ValueError(
-        f"shared-weight rollout working set of {smem} bytes per CTA for "
-        f"layer sizes {list(sizes)} and B = {batch} exceeds the {limit} "
-        f"bytes of shared memory a CTA may use")
+                limit: int, w_bytes: int = 4, theta_bytes: int = 4) -> dict:
+    """Layers pipelined across co-resident CTAs: each CTA owns ``c_i``
+    columns of ONE layer i (a power of two <= 32).  Starting from one
+    column a CTA, the layer whose doubled share of synapses (N_i * 2 c_i) is
+    smallest doubles until all layers fit ``sms`` CTAs, so the slowest
+    role's work stays least.  Per layer: the copy route of w and of theta
+    (`shared_route`; theta is read through L2 where its slab would not fit
+    or cannot be copied 4 bytes at a time), the role's shared memory; and
+    the bus depth: `SHARED_BUS_DEPTH` steps, fewer where a boundary's bus
+    would exceed `SHARED_BUS_BYTES`.  Raises ValueError where the layers
+    cannot all be co-resident (one CTA a SM) or a role does not fit."""
+    n_layers = len(sizes) - 1
+    cols = [1] * n_layers
+    ctas = lambda: [-(-sizes[i + 1] // cols[i]) for i in range(n_layers)]
+    while sum(ctas()) > sms:
+        grow = [(sizes[i] * cols[i] * 2, i) for i, g in enumerate(ctas())
+                if g > 1 and cols[i] < 32]
+        if not grow:
+            raise ValueError(
+                f"shared-weight rollout: layers {list(sizes)} need "
+                f"{sum(ctas())} co-resident CTAs of at most 32 columns each; "
+                f"the card has {sms} SMs")
+        cols[min(grow)[1]] *= 2
+    w_planes, th_planes, role_smem = [], [], []
+    for i in range(n_layers):
+        n, m, c = sizes[i], sizes[i + 1], cols[i]
+        w_plane = shared_route(n, m, c, w_bytes)
+        th_plane = shared_route(4 * n, m, c, theta_bytes) \
+            if plastic[i] else None
+        if th_plane is not None and th_plane[0] == "cp.async words":
+            th_plane = ("l2", 0, 0)
+        smem = shared_smem_bytes(n, c, batch, quant, w_bytes, theta_bytes,
+                                 w_plane, th_plane)
+        if smem > limit and th_plane is not None:
+            th_plane = ("l2", 0, 0)
+            smem = shared_smem_bytes(n, c, batch, quant, w_bytes,
+                                     theta_bytes, w_plane, th_plane)
+        if smem > limit:
+            raise ValueError(
+                f"shared-weight rollout: a CTA of layer {i} ({n} x {c} "
+                f"synapses, B = {batch}) needs {smem} bytes of shared "
+                f"memory; a CTA may use {limit}")
+        w_planes.append(w_plane)
+        th_planes.append(th_plane)
+        role_smem.append(smem)
+    widest = max(sizes[1:-1], default=0)
+    depth = (min(SHARED_BUS_DEPTH,
+                 max(2, SHARED_BUS_BYTES // (8 * batch * widest)))
+             if widest else 0)
+    return dict(ctas=ctas(), cols=cols, w=w_planes, theta=th_planes,
+                role_smem=role_smem, smem=max(role_smem), bus_depth=depth)
 
 
 def _event_units(out, spiking: bool, qcfg):
@@ -482,6 +546,21 @@ rollout.telemetry_launches = 0      # the telemetry variant's share
 rollout.bf16_launches = 0           # the bfloat16 instantiation's share
 
 
+_shared_plans: dict = {}        # plan key -> shared_plan
+_shared_work: dict = {}         # (plan key, stream) -> [bus, progress, ticket]
+_ROUTE_CODES = {name: code for code, name in enumerate(ROUTES)}
+_NO_THETA = len(ROUTES)         # csrc/rollout_shared.cu kNone
+
+
+def _shared_launcher():
+    fn = _build.library("rollout_shared.cu").rollout_shared
+    if fn.restype is not ctypes.c_int:
+        fn.argtypes = [ctypes.POINTER(_SharedRolloutArgs), ctypes.c_int,
+                       ctypes.c_size_t, _P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,
                    tau_m: float = 2.0, v_th: float = 1.0,
                    v_reset: float = 0.0, trace_decay: float = 0.8,
@@ -489,11 +568,14 @@ def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,
                    teach=None):
     """K fused timesteps of a shared-weight layer stack in ONE cooperative
     launch of ``csrc/rollout_shared.cu`` (counted in
-    ``rollout_shared.launches``).
+    ``rollout_shared.launches``), its layers pipelined across CTAs as
+    `shared_plan` assigns them (the plan is kept per sizes, B, flags,
+    dtypes and device; the bus and the CTAs' progress words per plan and
+    stream).
 
     Arguments as `rollout` with ws (N_i, M_i), per-layer scales () and a
     scalar seed; state is batched (B, ·).  A CPU tensor runs
-    `rollout_plain`.  Raises where the grid cannot be co-resident.
+    `rollout_plain`.  Raises where the layers cannot be co-resident.
     """
     spiking, plastic = _layer_flags(spiking, plastic, thetas)
     if not _k.on_card(drives):
@@ -501,7 +583,8 @@ def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,
             drives, ws, thetas, vs, traces, spiking=spiking, plastic=plastic,
             tau_m=tau_m, v_th=v_th, v_reset=v_reset, trace_decay=trace_decay,
             w_clip=w_clip, qcfg=qcfg, scales=scales, seed=seed, teach=teach)
-    b, n_layers, quant = drives.shape[1], len(ws), qcfg is not None
+    k_steps, b, n_layers = drives.shape[0], drives.shape[1], len(ws)
+    quant = qcfg is not None
     sizes = [drives.shape[2]] + [w.shape[-1] for w in ws]
     a = _SharedRolloutArgs()
     out, alive, theta_bytes = _window_args(
@@ -510,29 +593,53 @@ def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,
         trace_decay=trace_decay, w_clip=w_clip, qcfg=qcfg, scales=scales,
         seed=seed, teach=teach)
     dev = drives.device
-    plan = shared_plan(
-        sizes, b, plastic, quant,
-        torch.cuda.get_device_properties(dev).multi_processor_count,
-        smem_limit(dev), theta_bytes)
-    bus = [torch.empty((2, 2, b, sizes[i + 1]), dtype=torch.int32 if quant
-                       else torch.float32, device=dev)
-           for i in range(n_layers - 1)]
+    w_bytes = 1 if quant else 2 if a.bf16 else 4
+    key = (tuple(sizes), b, plastic, quant, w_bytes, theta_bytes, dev)
+    plan = _shared_plans.get(key)
+    if plan is None:
+        plan = _shared_plans[key] = shared_plan(
+            sizes, b, plastic, quant,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            smem_limit(dev), w_bytes, theta_bytes)
+    stream = _k.stream_of(drives)
+    work = _shared_work.get((key, stream))
+    if work is None:
+        dt = torch.int32 if quant else torch.float32
+        work = _shared_work[(key, stream)] = [
+            [torch.empty((plan["bus_depth"], 2, b, m), dtype=dt, device=dev)
+             for m in sizes[1:-1]],
+            torch.zeros(sum(plan["ctas"]), dtype=torch.int32, device=dev), 0]
+    bus, progress, ticket = work
+    keep = []                 # 16-byte aligned copies of offset views
+    first = 0
     for i in range(n_layers):
+        for field, checked in (("w_in", alive[1]), ("theta", alive[4])):
+            p = getattr(a, field)[i]
+            if p is not None and p % 16:
+                keep.append(checked[i].clone())
+                getattr(a, field)[i] = keep[-1].data_ptr()
+        w_plane, th_plane = plan["w"][i], plan["theta"][i]
+        a.first_cta[i], a.cols[i] = first, plan["cols"][i]
+        first += plan["ctas"][i]
+        a.w_route[i] = _ROUTE_CODES[w_plane[0]]
+        a.w_width[i], a.w_box[i] = w_plane[1], w_plane[2]
+        a.th_route[i] = (_NO_THETA if th_plane is None
+                         else _ROUTE_CODES[th_plane[0]])
+        a.th_width[i], a.th_box[i] = (0, 0) if th_plane is None \
+            else th_plane[1:]
         a.bus[i] = _k.ptr(bus[i]) if i < n_layers - 1 else None
-        a.cols[i] = plan["cols"][i]
-    a.theta_in_smem = int(plan["theta_in_smem"])
-    fn = _build.library("rollout_shared.cu").rollout_shared
-    fn.argtypes = [ctypes.POINTER(_SharedRolloutArgs), ctypes.c_int,
-                   ctypes.c_int, ctypes.c_size_t, _P]
-    fn.restype = ctypes.c_int
-    err = fn(ctypes.byref(a), int(quant), plan["grid"], plan["smem"],
-             _k.stream_of(drives))
+    a.first_cta[n_layers] = first
+    a.progress, a.bus_depth, a.base = _k.ptr(progress), plan["bus_depth"], \
+        ticket
+    err = _shared_launcher()(ctypes.byref(a), int(quant), plan["smem"],
+                             stream)
     if err == 82:        # cudaErrorCooperativeLaunchTooLarge
         raise RuntimeError(
-            f"shared-weight rollout: {plan['grid']} CTAs of {plan['smem']} "
-            f"bytes cannot all be resident on this card; the window needs "
-            f"one co-resident grid")
+            f"shared-weight rollout: {first} CTAs of {plan['smem']} bytes "
+            f"cannot all be resident on this card; the window needs one "
+            f"co-resident grid")
     _build.check(err, "rollout_shared")
+    work[2] = (ticket + k_steps) & 0xFFFFFFFF
     rollout_shared.launches += 1
     rollout_shared.bf16_launches += a.bf16
     return out

@@ -363,15 +363,27 @@ def _shared_network(rng, sizes, b, quant, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
 def test_shared_rollout_kernel_matches_plain_on_card(quant, cuda_device):
-    """The cooperative shared-weight window: int8 bitwise at every K (the
-    step counter wraps inside K = 16), float32 within 1e-5 at K = 1;
-    batched and unbatched, with and without a teaching current."""
+    """The pipelined shared-weight window: int8 bitwise at every K (the
+    step counter wraps inside K = 16 and K = 33), float32 within 1e-5 at
+    K = 1; batched and unbatched, with and without a teaching current; a
+    three-layer net whose middle layer consumes and produces, every layer
+    on the cp.async route, at B = 5 and K = 33 (more steps than the bus
+    holds, so producers take credits); 784-1024-10 with layer 0 on TMA."""
     rng = np.random.default_rng(51)
     qc = TQ.QuantConfig() if quant else None
+    three = (64, 96, 48, 10)
+    plan = TF.shared_plan(three, 5, (True,) * 3, quant,
+                          torch.cuda.get_device_properties(
+                              cuda_device).multi_processor_count,
+                          TF.smem_limit(cuda_device), 1 if quant else 4)
+    assert all(r[0] != "tma" for r in plan["w"] + plan["theta"])
+    assert plan["bus_depth"] < 33
     for k, sizes, b, teach in ((1, (8, 32, 4), 3, True),
                                (4, (40, 100, 10), None, True),
                                (16, (8, 32, 4), 2, False),
-                               (8, (784, 1024, 10), None, True)):
+                               (8, (784, 1024, 10), None, True),
+                               (1, three, 5, True),
+                               (33, three, 5, True)):
         st = _shared_network(rng, sizes, b, quant, cuda_device)
         theta = [torch.from_numpy((rng.standard_normal(
             (4, sizes[i], sizes[i + 1])) * 0.02).astype(np.float32))
@@ -868,17 +880,24 @@ def test_bf16_shared_step_kernel_matches_plain_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fleet", (True, False), ids=("fleet", "shared"))
 def test_bf16_rollout_kernels_match_plain_on_card(fleet, cuda_device):
-    """#3 in bfloat16, fleet (with telemetry at K = 4) and shared-weight:
-    K = 1 within 3e-2, K = 4 and 16 with at most 1e-3 of the elements
-    outside it; inactive slots frozen; float16 raises."""
+    """#3 in bfloat16, fleet (with telemetry at K = 4) and shared-weight
+    (also a three-layer net at B = 5, every layer on the cp.async route,
+    K = 1 and 33): K = 1 within 3e-2, longer windows with at most 1e-3 of
+    the elements outside it; inactive slots frozen; float16 raises."""
     rng = np.random.default_rng(63)
     counter = TF.rollout if fleet else TF.rollout_shared
     launches = counter.bf16_launches
-    for k, sizes in ((1, (8, 32, 4)), (4, (8, 128, 8)), (16, (8, 32, 4))):
-        st = _network(rng, sizes, False, cuda_device)
-        if not fleet:
-            st = TE.NetworkState(w=tuple(w[0] for w in st.w), v=st.v,
-                                 trace=st.trace, t=st.t)
+    cases = [(1, (8, 32, 4), B), (4, (8, 128, 8), B), (16, (8, 32, 4), B)]
+    if not fleet:         # a middle layer, every layer on cp.async, credits
+        cases += [(1, (64, 96, 48, 10), 5), (33, (64, 96, 48, 10), 5)]
+    for k, sizes, b in cases:
+        if b != B:
+            st = _shared_network(rng, sizes, b, False, cuda_device)
+        else:
+            st = _network(rng, sizes, False, cuda_device)
+            if not fleet:
+                st = TE.NetworkState(w=tuple(w[0] for w in st.w), v=st.v,
+                                     trace=st.trace, t=st.t)
         bf = torch.bfloat16
         st = TE.NetworkState(w=tuple(w.to(bf) for w in st.w),
                              v=tuple(v.to(bf) for v in st.v),
@@ -887,8 +906,8 @@ def test_bf16_rollout_kernels_match_plain_on_card(fleet, cuda_device):
             (4, sizes[i], sizes[i + 1])) * 0.02).to(cuda_device).to(bf)
             for i in range(len(sizes) - 1)]
         drives = torch.from_numpy(np.round(rng.standard_normal(
-            (k, B, sizes[0])) * 16) / 16).to(cuda_device).to(bf)
-        tch = torch.from_numpy(rng.standard_normal((B, sizes[-1])) * 0.3
+            (k, b, sizes[0])) * 16) / 16).to(cuda_device).to(bf)
+        tch = torch.from_numpy(rng.standard_normal((b, sizes[-1])) * 0.3
                                ).to(cuda_device).to(bf)
         params = [TE.EngineParams(spiking=i < len(sizes) - 2)
                   for i in range(len(sizes) - 1)]
@@ -911,8 +930,8 @@ def test_bf16_rollout_kernels_match_plain_on_card(fleet, cuda_device):
                                            atol=2e-4)
         if fleet:
             off = kw["active"] == 0
-            for a, b in zip(got[0].w + got[0].v, st.w + st.v):
-                assert torch.equal(a[off], b[off])
-    assert counter.bf16_launches == launches + 3
+            for x, y in zip(got[0].w + got[0].v, st.w + st.v):
+                assert torch.equal(x[off], y[off])
+    assert counter.bf16_launches == launches + len(cases)
     with pytest.raises(ValueError):
         TE.rollout(st, theta, drives.to(torch.float16), **kw)

@@ -304,6 +304,96 @@ def test_shared_memory_plan():
         TF.smem_plan(sizes, 64, plastic, False, TF.DEFAULT_SMEM_LIMIT)
 
 
+# The shared-weight window's plan at 784-1024-10, B = 1, on 132 SMs, by
+# hand.  Layer 0 (N = 784) takes 128 CTAs of 8 columns, layer 1 (N = 1024,
+# M = 10) 3 of 4: starting from one column a CTA, the layer whose doubled
+# share N * 2c is least doubles until 1024 / c0 + 10 / c1 <= 132 (784 * 2
+# < 1024 * 2 < 784 * 4 < 1024 * 4 < 784 * 8).  Every role holds, beside its
+# slabs: membranes and post traces 2 * 16-aligned(4c), the input trace or
+# pre traces and the staged events 2 * 4N, the pre means 4N, the post sums
+# 128, the partial sums 16 warps * 8 rows * 32 * 4 = 16384, two mbarriers
+# 16 and 128 bytes of alignment slack.
+_ROLE0 = 2 * 32 + 2 * 3136 + 3136 + 128 + 16384 + 16 + 128     # 26128
+_ROLE1 = 2 * 16 + 2 * 4096 + 4096 + 128 + 16384 + 16 + 128     # 28976
+SHARED_PLANS = {
+    # theta (4N, M) of layer 0: 13 TMA boxes (3136 rows / 256, rounded up)
+    # of 242 rows rounded to a multiple of 128 / (c * 4) = 4 -> 244, i.e.
+    # 13 * 244 rows of 32 bytes; w 4 boxes of 196 rows.  Layer 1's rows of
+    # 40 bytes are no multiple of 16: cp.async in 8-byte pieces.
+    "float32": (4, 4, [("tma", 16, 196), ("cp.async", 8, 0)],
+                [("tma", 16, 244), ("cp.async", 8, 0)],
+                [13 * 244 * 32 + 784 * 32 + _ROLE0,
+                 4096 * 16 + 1024 * 16 + _ROLE1]),
+    # int8 w: 8-byte rows of the owned block (no TMA box), and layer 1's
+    # rows of 10 bytes take the 4-byte words covering them (2 a row),
+    # repacked into the int8 slab; theta float32 as above
+    "int8": (1, 4, [("cp.async", 8, 0), ("cp.async words", 4, 0)],
+             [("tma", 16, 244), ("cp.async", 8, 0)],
+             [13 * 244 * 32 + 784 * 8 + _ROLE0,
+              4096 * 16 + 1024 * 4 + 1024 * 8 + _ROLE1]),
+    # bf16: boxes of 16-byte rows, so rows a multiple of 8 (w 200, theta
+    # 248); the w slab float32 on chip beside its bf16 stage (4 * 200
+    # rows); layer 1's 20-byte rows in 4-byte pieces
+    "bfloat16": (2, 2, [("tma", 16, 200), ("cp.async", 4, 0)],
+                 [("tma", 16, 248), ("cp.async", 4, 0)],
+                 [13 * 248 * 16 + 784 * 32 + 800 * 16 + _ROLE0,
+                  4096 * 8 + 1024 * 16 + 1024 * 8 + _ROLE1]),
+    "bfloat16, float32 rule": (
+        2, 4, [("tma", 16, 200), ("cp.async", 4, 0)],
+        [("tma", 16, 244), ("cp.async", 8, 0)],
+        [13 * 244 * 32 + 784 * 32 + 800 * 16 + _ROLE0,
+         4096 * 16 + 1024 * 16 + 1024 * 8 + _ROLE1]),
+}
+
+
+@pytest.mark.parametrize("mode", list(SHARED_PLANS))
+def test_shared_window_plan_at_mnist_width(mode):
+    """The pipelined shared-weight window's plan at the online learner's
+    784-1024-10: CTAs and columns per layer, copy routes (layer 1 never
+    TMA), each role's shared memory and the bus depth, pinned by hand."""
+    w_bytes, th_bytes, w_routes, th_routes, role = SHARED_PLANS[mode]
+    plan = TF.shared_plan((784, 1024, 10), 1, (True, True), mode == "int8",
+                          132, TF.DEFAULT_SMEM_LIMIT, w_bytes, th_bytes)
+    assert plan["ctas"] == [128, 3] and plan["cols"] == [8, 4]
+    assert plan["w"] == w_routes and plan["theta"] == th_routes
+    assert plan["w"][1][0] != "tma" and plan["theta"][1][0] != "tma"
+    assert plan["role_smem"] == role and plan["smem"] == max(role)
+    assert plan["bus_depth"] == TF.SHARED_BUS_DEPTH == 32
+    for i, (n, c) in enumerate(((784, 8), (1024, 4))):
+        assert TF.shared_smem_bytes(
+            n, c, 1, mode == "int8", w_bytes, th_bytes, plan["w"][i],
+            plan["theta"][i]) == role[i]
+
+
+def test_shared_window_plan_raises_without_room():
+    """Layers that cannot all be co-resident raise (no lockstep fallback):
+    784-1024-10 needs 33 CTAs of 32 columns, more than 8 SMs; a batch
+    whose staged rows overflow a CTA raises too; a rule that does not fit
+    beside the slab is read through L2 instead."""
+    with pytest.raises(ValueError, match="co-resident"):
+        TF.shared_plan((784, 1024, 10), 1, (True, True), False, 8,
+                       TF.DEFAULT_SMEM_LIMIT)
+    with pytest.raises(ValueError, match="shared memory"):
+        TF.shared_plan((784, 1024, 10), 64, (True, True), False, 132,
+                       TF.DEFAULT_SMEM_LIMIT)
+    plan = TF.shared_plan((784, 1024, 10), 1, (True, True), False, 132,
+                          120_000)
+    assert plan["theta"][0] == ("l2", 0, 0) and plan["smem"] <= 120_000
+
+
+@pytest.mark.parametrize("rows,m,c,e,want", [
+    (784, 1024, 8, 4, ("tma", 16, 196)),       # float32 w of layer 0
+    (784, 1024, 16, 1, ("tma", 16, 200)),      # int8, 16 columns
+    (96, 48, 2, 4, ("cp.async", 8, 0)),        # 8-byte spans
+    (1024, 10, 4, 2, ("cp.async", 4, 0)),      # bf16 rows of 20 bytes
+    (1024, 10, 4, 1, ("cp.async words", 4, 0)),  # int8 rows of 10 bytes
+    (40, 100, 1, 1, ("cp.async words", 4, 0)),   # one int8 column
+    (600, 64, 4, 4, ("tma", 16, 200)),         # 3 boxes of 200 rows
+])
+def test_shared_window_copy_route(rows, m, c, e, want):
+    assert TF.shared_route(rows, m, c, e) == want
+
+
 
 # ---- bfloat16 windows ---------------------------------------------------------
 
