@@ -26,7 +26,12 @@ Phases, each fatal on failure:
      timestep), in float32 and int8; the int8 closed loop is repeated
      through the plain rollout and must give the same bits;
   5. time each kernel and its plain version with CUDA events, the L2 cache
-     flushed before each call;
+     flushed before each call; the fleet window's K sweep (8-128-8,
+     B = 4096, K = 1, 2, 4, 8, 16, float32, int8 and bf16) fitted as fixed
+     cost + K x per-step cost beside the bound's own split, each
+     instantiation's launch (threads, shared memory, CTAs an SM holds by
+     the occupancy query, CTAs launched) and its ptxas registers, spills
+     and stack;
   6. the online-learning path at full width: `firefly_snn.MNIST`
      (784-1024-10, T = 8, B = 1) on 120 procedural digits, predict then
      learn (one shared-weight rollout launch per `classify_window`), then
@@ -861,6 +866,86 @@ def time_kernels(dev, results):
     results["rollout"]["int8"] = timed["int8"]
 
 
+FLEET_MODES = ("float32", "int8", "bfloat16")
+
+
+def fleet_sweep_inputs(gen, mode, k, dev):
+    """`net_inputs` of the controller in one of FLEET_MODES (the rule in
+    bf16 for bfloat16) and the `fused.rollout` keywords of its window."""
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import snn
+    cfg = (snn.quant_config(firefly_snn.CONFIG) if mode == "int8"
+           else bf16_controller_cfg() if mode == "bfloat16"
+           else firefly_snn.CONFIG)
+    st, theta, drives = (bf16_net_inputs if mode == "bfloat16"
+                         else net_inputs)(gen, cfg, k, dev)
+    kw = dict(spiking=[cfg.engine_params(i).spiking
+                       for i in range(cfg.num_layers)],
+              plastic=[True] * cfg.num_layers, tau_m=cfg.lif.tau_m,
+              trace_decay=cfg.trace_decay, w_clip=cfg.w_clip, qcfg=cfg.quant,
+              block_b=cfg.block_b)
+    if cfg.quant is not None:
+        kw.update(scales=list(st.w_scale), seed=st.t.expand(B).contiguous())
+    return cfg, (drives, st.w, theta, st.v, st.trace), kw
+
+
+def sweep_fleet_window(dev):
+    """#3 fleet at 8-128-8, B = 4096, K in SWEEP_K, in float32, int8 and
+    bfloat16 (the rule in bf16), L2 flushed: ``ms = fixed + K * per_step``
+    fitted by least squares beside the bound's own split; the launch
+    (threads, shared memory, CTAs an SM holds by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, CTAs launched) of every
+    instantiation, and the registers, spills and stack ptxas gave each."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.plasticity import fused
+    gen = torch.Generator(dev).manual_seed(SEED + 14)
+    sizes = firefly_snn.CONFIG.layer_sizes
+    syn = sum(sizes[i] * sizes[i + 1] for i in range(len(sizes) - 1))
+    out = {}
+    for mode in FLEET_MODES:
+        quant, eb = mode == "int8", 2 if mode == "bfloat16" else 4
+        ms, bms = [], []
+        for k in SWEEP_K:
+            cfg, args, kw = fleet_sweep_inputs(gen, mode, k, dev)
+            ms.append(device_ms(lambda: fused.rollout(*args, **kw)))
+            bms.append(bound(window_bytes(B, sizes, k, 1 if quant else eb,
+                                          sb=eb, tb=eb),
+                             k * B * syn * (OPS_Q if quant else OPS_F32))[0])
+        fixed, per_step = fit_line(SWEEP_K, ms)
+        b_fixed, b_step = fit_line(SWEEP_K, bms)
+        out[mode] = dict(k=list(SWEEP_K), ms=ms, fixed_ms=fixed,
+                         per_step_ms=per_step, bound_ms=bms,
+                         bound_fixed_ms=b_fixed, bound_per_step_ms=b_step)
+        log(f"  rollout {mode:8s} K sweep "
+            + ", ".join(f"K={k} {t:.4f}" for k, t in zip(SWEEP_K, ms))
+            + f" ms: fixed {fixed:.4f} ms + {per_step:.4f} ms/step (bound "
+            f"{b_fixed:.4f} + {b_step:.5f} ms/step)")
+    out["launch"] = {}
+    bb = firefly_snn.CONFIG.block_b
+    for mode, th_bf16 in (("float32", False), ("int8", False),
+                          ("bfloat16", True), ("bfloat16, rule float32",
+                                               False)):
+        for tel in (False, True):
+            name = mode + (" telemetry" if tel else "")
+            info = fused.fleet_launch(
+                dev, sizes, B, bb, [True, True], quant=mode == "int8",
+                telemetry=tel, bf16=mode.startswith("bfloat16"),
+                theta_bf16=th_bf16)
+            out["launch"][name] = info
+            log(f"  rollout {name}: " + ", ".join(
+                f"{k} {v}" for k, v in info.items()))
+    usage = ptxas_usage(_build.build_all()["log"].get("rollout.cu", ""))
+    out["ptxas"] = {name: dict(registers=r, spill_store_bytes=st,
+                               spill_load_bytes=ld, stack_bytes=sk)
+                    for name, (r, st, ld, sk) in usage.items()}
+    for name, (r, st, ld, sk) in usage.items():
+        log(f"  ptxas {name}: {r} registers, spills {st} B stored / {ld} B "
+            f"loaded, stack {sk} B")
+    return out
+
+
 # ---- phase 6: the online-learning path at full width -------------------------
 
 def mnist_rule(cfg, dev):
@@ -1273,8 +1358,8 @@ def sweep_shared_window(dev):
                                                         ""))
     out["ptxas"] = {name: dict(registers=r, spill_store_bytes=st,
                                spill_load_bytes=ld)
-                    for name, (r, st, ld) in usage.items()}
-    for name, (r, st, ld) in usage.items():
+                    for name, (r, st, ld, _) in usage.items()}
+    for name, (r, st, ld, _) in usage.items():
         log(f"  ptxas {name}: {r} registers, spills {st} B stored / {ld} B "
             f"loaded")
     return out
@@ -1358,17 +1443,18 @@ def attention_bound(b, sq, skv, h, hkv, d, itemsize):
 
 
 def ptxas_usage(text):
-    """``{kernel: (registers, spill store bytes, spill load bytes)}`` from
-    the ``-Xptxas -v`` output of one source."""
+    """``{kernel: (registers, spill store bytes, spill load bytes, stack
+    frame bytes)}`` from the ``-Xptxas -v`` output of one source."""
     usage, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            usage[name] = [None, int(m.group(1)), int(m.group(2))]
+            usage[name] = [None, int(m.group(2)), int(m.group(3)),
+                           int(m.group(1))]
         m = re.search(r"Used (\d+) registers", line)
         if m and name in usage:
             usage[name][0] = int(m.group(1))
@@ -1407,7 +1493,7 @@ def time_attention(dev, results):
     usage = {f"flash_wgmma_kernel<{m.group(1)}>": v
              for k, v in ptxas_usage(text or "").items()
              for m in [re.search(r"flash_wgmma_kernelILi(\d+)E", k)] if m}
-    for name, (regs, st, ld) in usage.items():
+    for name, (regs, st, ld, _) in usage.items():
         log(f"  ptxas {name}: {regs} registers, spills {st} bytes stored, "
             f"{ld} bytes loaded")
     if not usage:
@@ -3113,6 +3199,7 @@ def main() -> int:
     with phase("phase 5: timing"):
         time_kernels(dev, results)
         time_telemetry(dev, results)
+        results["rollout"]["sweep"] = sweep_fleet_window(dev)
 
     with phase("phase 6: online-learning path, 784-1024-10, T = 8, B = 1"):
         online, online_launches = online_path(dev, online_counters, every)

@@ -280,7 +280,8 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
       seed:   fixed-point mode — base step counter (scalar or (B,)); step
               k draws from ``fold_seed(seed + k, layer)``.  Defaults to
               ``state.t``.
-      block_b: fleet streams per CTA of the rollout kernel (fleet only).
+      block_b: fleet only — the rollout kernel's tile, the streams one
+              CTA holds at once (`fused.fleet_plan`).
       telemetry: fleet only — also return an `obs.FleetTelemetry` of
               per-slot WINDOW means: spike_rate and sat_frac averaged over
               the K steps and the layers, mean_abs_dw the NET weight motion

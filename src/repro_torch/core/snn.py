@@ -56,8 +56,9 @@ class SNNConfig:
 
     layer_sizes = (obs_dim, *hidden..., act_dim).  ``quant`` switches the
     whole network onto the fixed-point datapath (use `quant_config` for a
-    consistent pair of decay and time constant).  ``block_b`` is the number
-    of fleet streams one CTA of the rollout kernel holds for a window.
+    consistent pair of decay and time constant).  ``block_b`` is the fleet
+    rollout kernel's tile: the streams one CTA holds at once, each run by
+    its own group of warps (`fused.fleet_plan`, the plan's input).
     """
     layer_sizes: Sequence[int] = (16, 128, 8)
     timesteps: int = 4                      # SNN timesteps per control step
@@ -69,7 +70,7 @@ class SNNConfig:
     dtype: torch.dtype = torch.float32
     plastic: bool = True                    # False => fixed-weight SNN
     quant: Optional[QuantConfig] = None     # fixed-point mode (None = float)
-    block_b: int = 8                        # rollout-kernel streams per CTA
+    block_b: int = 8                        # fleet rollout: streams a tile
 
     @property
     def num_layers(self) -> int:

@@ -169,6 +169,29 @@ __device__ __forceinline__ float plastic_f(float w, const TH* th,
                          w_clip);
 }
 
+// The fixed-point tail of one synapse's update from st = dw / scale: st
+// rounded to grid steps (stochastically from the synapse's hash, or to
+// nearest), added to w and clipped to +-qmax.
+__device__ __forceinline__ int q_steps_clip(int w, float st, int qmax,
+                                           int seed, int idx,
+                                           const QParams& q) {
+  int steps;
+  if (q.stoch_round) {
+    float fl = floorf(st);
+    float up = (__fsub_rn(st, fl) > uniform_hash(seed, idx)) ? 1.0f : 0.0f;
+    steps = (int)__fadd_rn(fl, up);
+  } else {
+    steps = __float2int_rn(st);
+  }
+  return min(max(wadd(w, steps), -qmax), qmax);
+}
+
+__device__ __forceinline__ int q_round_clip(int w, float dw, float scale,
+                                           int qmax, int seed, int idx,
+                                           const QParams& q) {
+  return q_steps_clip(w, __fdiv_rn(dw, scale), qmax, seed, idx, q);
+}
+
 // Fixed-point plasticity for one synapse from EXACT integer trace
 // reductions (quant.dw_from_int_reductions): hebb = sum_b pre_b * post_b,
 // pre/post = the batch sums, scaled by q.inv2 / q.inv1.  Then the
@@ -182,16 +205,7 @@ __device__ __forceinline__ int plastic_q_coef(int w, const float* coef,
                        __fmul_rn(__int2float_rn(hebb), q.inv2),
                        __fmul_rn(__int2float_rn(pre), q.inv1),
                        __fmul_rn(__int2float_rn(post), q.inv1));
-  float st = __fdiv_rn(dw, scale);
-  int steps;
-  if (q.stoch_round) {
-    float fl = floorf(st);
-    float up = (__fsub_rn(st, fl) > uniform_hash(seed, idx)) ? 1.0f : 0.0f;
-    steps = (int)__fadd_rn(fl, up);
-  } else {
-    steps = __float2int_rn(st);
-  }
-  return min(max(wadd(w, steps), -qmax), qmax);
+  return q_round_clip(w, dw, scale, qmax, seed, idx, q);
 }
 
 // The same with the rule's planes at th (plane apart).

@@ -3,9 +3,13 @@
 The per-step path launches one fleet-step kernel per layer per timestep —
 K * L launches per control window, each re-reading and re-writing the whole
 state through device memory.  `rollout` runs the entire window as one launch
-of ``csrc/rollout.cu``: each CTA keeps its block of streams' weights, the
-shared theta planes, membranes, all L+1 traces and the inter-layer event bus
-in shared memory for the window and writes the state back once.
+of ``csrc/rollout.cu``: a persistent grid (as many CTAs as the card holds at
+once, `fleet_launch`) whose CTAs keep the shared theta planes in shared
+memory and walk the fleet a tile of ``block_b`` streams at a time; each
+stream is run by its own group of warps, which holds the stream's weights,
+membranes, all L+1 traces and the inter-layer event bus in shared memory
+for the window, synchronises only itself between layers, writes the state
+back once and meanwhile fetches its next stream (`fleet_plan`).
 
 Semantics, identical to K per-step calls (`rollout_plain` is that loop):
 
@@ -72,29 +76,8 @@ class _RolloutArgs(ctypes.Structure):
         ("w_clip", ctypes.c_float), ("f", _k.FParams), ("q", _k.QParams),
         ("tel", _P), ("telemetry", ctypes.c_int), ("sat_q", ctypes.c_int),
         ("sat_f", ctypes.c_float), ("bf16", ctypes.c_int),
-        ("theta_bf16", ctypes.c_int)]
-
-
-def rollout_smem_bytes(sizes, block_b: int, plastic, quant: bool,
-                       theta_in_smem: bool, telemetry: bool = False,
-                       theta_bytes: int = 4) -> int:
-    """Shared memory of one CTA: theta planes (if resident, ``theta_bytes``
-    a coefficient), membranes, traces, the double-buffered event bus, the
-    active flags, the block's weights and, with ``telemetry``, the
-    (block_b, 2) float accumulator — the layout of ``csrc/rollout.cu``.  A
-    bfloat16 window holds its state, weights and bus in float32 there, so
-    only a bfloat16 rule changes the count."""
-    def al(x):
-        return (x + 15) // 16 * 16
-    n_layers = len(sizes) - 1
-    syn = sum(sizes[i] * sizes[i + 1] for i in range(n_layers))
-    th = sum(4 * sizes[i] * sizes[i + 1] for i in range(n_layers)
-             if plastic[i]) if theta_in_smem else 0
-    return (al(th * theta_bytes) + al(block_b * sum(sizes[1:]) * 4)
-            + al(block_b * sum(sizes) * 4)
-            + al(2 * block_b * max(sizes) * 4) + al(block_b * 4)
-            + al(block_b * syn * (1 if quant else 4))
-            + (al(block_b * 8) if telemetry else 0))
+        ("theta_bf16", ctypes.c_int), ("warps", ctypes.c_int),
+        ("double_buffer", ctypes.c_int), ("ctas", ctypes.c_int)]
 
 
 def smem_limit(device) -> int:
@@ -103,21 +86,102 @@ def smem_limit(device) -> int:
                        DEFAULT_SMEM_LIMIT))
 
 
-def smem_plan(sizes, block_b: int, plastic, quant: bool,
-              limit: int, telemetry: bool = False,
-              theta_bytes: int = 4) -> tuple[int, bool]:
-    """``(bytes, theta_in_smem)`` of one CTA: theta resident when it fits,
-    else read from device memory (through L2); raises when even the state
-    of ``block_b`` streams does not fit — the kernel does not fall back."""
-    for theta_in_smem in (True, False):
-        smem = rollout_smem_bytes(sizes, block_b, plastic, quant,
-                                  theta_in_smem, telemetry, theta_bytes)
+FLEET_MAX_THREADS = 1024       # csrc/rollout.cu kMaxThreads
+FLEET_BARRIER_GROUPS = 15      # named barriers 1..15: groups of > 1 warp
+FLEET_SYNAPSES_PER_THREAD = 16  # of the widest layer, per step: sets warps
+FLEET_BARRIER_BYTES = 16        # two mbarriers (csrc/rollout.cu kBarBytes)
+
+
+def _al(x: int, a: int = 16) -> int:
+    return (x + a - 1) // a * a
+
+
+def _state_bytes(sizes, wb: int, sb: int) -> int:
+    """One stream's weights (``wb`` bytes a weight), membranes and traces
+    (``sb`` an element), each array 16-byte aligned."""
+    return (sum(_al(sizes[i] * sizes[i + 1] * wb) + _al(sizes[i + 1] * sb)
+                for i in range(len(sizes) - 1))
+            + sum(_al(n * sb) for n in sizes))
+
+
+def fleet_plan(sizes, batch: int, block_b: int, plastic, *, quant: bool,
+               limit: int, w_bytes: int = 4, s_bytes: int = 4,
+               theta_bytes: int = 4, sms: int | None = None,
+               occupancy: int | None = None) -> dict:
+    """The fleet kernel's plan (``csrc/rollout.cu``): ``block_b`` streams
+    per tile, the tile's streams each run by a group of ``warps`` warps.
+
+    * ``tile``: min(block_b, B), at most 32 streams (1024 threads).
+    * ``warps``: a power of two, as many as give each thread about
+      `FLEET_SYNAPSES_PER_THREAD` synapses of the widest layer a step, at
+      most 1024 / (32 * tile); 1 when the tile has more streams than the
+      CTA has named barriers.
+    * ``buffers``: "double" (the next stream is fetched into a second state
+      buffer while the group computes) or, for a bfloat16 window, "staged"
+      (its next stream lands raw beside the float32 state buffer); where
+      those do not fit, "single" (the next stream is loaded once the last
+      has left).
+    * ``theta``: "smem" when the rules fit beside the slots, else "l2".
+      Preference: resident rules with two buffers, with one, then the rules
+      through L2 with two, with one; raises ValueError where none fits —
+      the kernel does not fall back.
+    * ``role_smem``: bytes of the rules, a state buffer (in fixed point
+      also the stream's scales and seed), the spare buffer, the bus and
+      the spare buffer's mbarriers; ``slot`` the last four, per stream;
+      ``smem`` the CTA's total with the rules' mbarrier.
+    * With ``sms`` and ``occupancy`` (CTAs an SM holds, by
+      `cudaOccupancyMaxActiveBlocksPerMultiprocessor`): ``ctas_per_sm`` and
+      ``ctas``, the persistent grid, sms * occupancy CTAs or fewer where
+      the tiles run out.
+
+    ``w_bytes``/``s_bytes``: a weight and a state element in device memory
+    (1/4 int8, 2/2 bfloat16, 4/4 float32); ``theta_bytes`` a coefficient.
+    """
+    n_layers = len(sizes) - 1
+    tile = max(1, min(block_b, batch))
+    if 32 * tile > FLEET_MAX_THREADS:
+        raise ValueError(
+            f"fleet rollout: block_b={block_b} streams a tile need "
+            f"{32 * tile} threads; a CTA has {FLEET_MAX_THREADS}")
+    warps = 1
+    if tile <= FLEET_BARRIER_GROUPS:
+        widest = max(sizes[i] * sizes[i + 1] for i in range(n_layers))
+        want = -(-widest // (32 * FLEET_SYNAPSES_PER_THREAD))
+        cap = FLEET_MAX_THREADS // (32 * tile)
+        while warps * 2 <= cap and warps < want:
+            warps *= 2
+    staged = not quant and s_bytes == 2
+    state = _state_bytes(sizes, 1 if quant else 4, 4) \
+        + (_al(4 * (n_layers + 1)) if quant else 0)
+    bus = _al(2 * max(sizes) * 4)
+    th = sum(4 * sizes[i] * sizes[i + 1] for i in range(n_layers)
+             if plastic[i])
+    ahead = "staged" if staged else "double"
+    for theta, buffers in (("smem", ahead), ("smem", "single"),
+                           ("l2", ahead), ("l2", "single")):
+        spare = (0 if buffers == "single" else
+                 _state_bytes(sizes, 2, 2) if staged else state)
+        th_b = _al(th * theta_bytes) if theta == "smem" else 0
+        bars = FLEET_BARRIER_BYTES if spare else 0
+        slot = state + spare + bus + bars
+        smem = FLEET_BARRIER_BYTES + th_b + tile * slot
         if smem <= limit:
-            return smem, theta_in_smem
-    raise ValueError(
-        f"rollout working set of {smem} bytes for block_b={block_b} and "
-        f"layer sizes {list(sizes)} exceeds the {limit} bytes of shared "
-        f"memory a CTA may use; lower block_b")
+            break
+    else:
+        raise ValueError(
+            f"fleet rollout: {tile} streams of layer sizes {list(sizes)} "
+            f"need {smem} bytes of shared memory even with the rules read "
+            f"through L2 and one buffer a stream; a CTA may use {limit}; "
+            f"lower block_b")
+    plan = dict(tile=tile, warps=warps, threads=32 * warps * tile,
+                buffers=buffers, theta=theta,
+                role_smem=dict(theta=th_b, state=state, spare=spare, bus=bus,
+                               barriers=bars, slot=slot),
+                smem=smem)
+    if sms is not None and occupancy is not None:
+        plan.update(ctas_per_sm=occupancy,
+                    ctas=min(sms * occupancy, -(-batch // tile)))
+    return plan
 
 
 class _SharedRolloutArgs(ctypes.Structure):
@@ -149,10 +213,6 @@ TMA_BOX_ROWS = 256             # rows of one TMA box at most
 # box, cp.async pieces, cp.async of the 4-byte words covering each row's
 # span (repacked), or not at all (theta read through L2).
 ROUTES = ("tma", "cp.async", "cp.async words", "l2")
-
-
-def _al(x: int, a: int = 16) -> int:
-    return (x + a - 1) // a * a
 
 
 def shared_route(rows: int, m: int, c: int, e: int) -> tuple:
@@ -461,6 +521,68 @@ def _window_args(a, drives, ws, thetas, vs, traces, *, fleet, spiking,
             th_dt.itemsize)
 
 
+_fleet_plans: dict = {}         # plan key -> fleet_plan with its grid
+
+
+def _fleet_entry(name: str):
+    """``rollout`` (args, quant, smem, stream) or ``rollout_occupancy``
+    (args, quant, smem, &blocks) of csrc/rollout.cu."""
+    fn = getattr(_build.library("rollout.cu"), name)
+    fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int,
+                   ctypes.c_size_t,
+                   _P if name == "rollout" else ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fill_plan(a, plan: dict) -> None:
+    """The plan's fields of a `_RolloutArgs`."""
+    a.block_b, a.warps, a.ctas = plan["tile"], plan["warps"], \
+        plan.get("ctas", 1)
+    a.theta_in_smem = int(plan["theta"] == "smem")
+    a.double_buffer = int(plan["buffers"] != "single")
+
+
+def fleet_launch(device, sizes, batch: int, block_b: int, plastic, *,
+                 quant: bool, telemetry: bool = False, bf16: bool = False,
+                 theta_bf16: bool = False) -> dict:
+    """`fleet_plan` on ``device`` with its persistent grid: the SM count and
+    the CTAs one SM holds of the instantiation the flags select, asked of
+    the card once per plan key (sizes, B, block_b, flags, device)."""
+    plastic = tuple(bool(p) for p in plastic)
+    key = (tuple(sizes), batch, block_b, plastic, quant, telemetry, bf16,
+           theta_bf16, torch.device(device))
+    plan = _fleet_plans.get(key)
+    if plan is None:
+        wb, sb = (1, 4) if quant else (2, 2) if bf16 else (4, 4)
+        kw = dict(quant=quant, limit=smem_limit(device), w_bytes=wb,
+                  s_bytes=sb, theta_bytes=2 if theta_bf16 else 4)
+        plan = fleet_plan(sizes, batch, block_b, plastic, **kw)
+        a = _RolloutArgs()
+        a.n_layers = len(sizes) - 1
+        for i, n in enumerate(sizes):
+            a.sizes[i] = n
+        a.plastic_mask = sum(1 << i for i, p in enumerate(plastic) if p)
+        a.telemetry, a.bf16, a.theta_bf16 = int(telemetry), int(bf16), \
+            int(theta_bf16)
+        _fill_plan(a, plan)
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _build.check(_fleet_entry("rollout_occupancy")(
+                ctypes.byref(a), int(quant), plan["smem"],
+                ctypes.byref(blocks)), "rollout_occupancy")
+            sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
+        if blocks.value < 1:
+            raise ValueError(
+                f"fleet rollout: a CTA of {plan['threads']} threads and "
+                f"{plan['smem']} bytes does not fit an SM")
+        plan = _fleet_plans[key] = fleet_plan(
+            sizes, batch, block_b, plastic, sms=sms, occupancy=blocks.value,
+            **kw)
+    return plan
+
+
 def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
             tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
             trace_decay: float = 0.8, w_clip: float = 4.0, qcfg=None,
@@ -481,7 +603,8 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
                the (B,) base step counters.
       teach:   optional (K, B, M_last) teaching current for the last layer.
       active:  optional (B,) slot mask, constant over the window.
-      block_b: streams per CTA (the kernel's residency unit).
+      block_b: streams per tile: the CTA's stream groups, each running one
+               stream's window at a time (`fleet_plan`).
       telemetry: fleet only — also return the window's (B, 3) telemetry
                row (the kernel's telemetry variant).
 
@@ -512,29 +635,30 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
     b, quant = drives.shape[1], qcfg is not None
     sizes = [drives.shape[2]] + [w.shape[-1] for w in ws]
     a = _RolloutArgs()
-    out, alive, theta_bytes = _window_args(
+    out, alive, _ = _window_args(
         a, drives, ws, thetas, vs, traces, fleet=True, spiking=spiking,
         plastic=plastic, tau_m=tau_m, v_th=v_th, v_reset=v_reset,
         trace_decay=trace_decay, w_clip=w_clip, qcfg=qcfg, scales=scales,
         seed=seed, teach=teach)
+    keep = []                 # 16-byte aligned copies of offset rules
+    for i, th in enumerate(alive[4]):
+        if th is not None and th.data_ptr() % 16:
+            keep.append(th.clone())
+            a.theta[i] = keep[-1].data_ptr()
     act = _k.active_mask(active, b, drives.device)
     a.active = _k.ptr(act)
-    a.block_b = bb = min(block_b, b)
     tel = (torch.empty((b, 3), dtype=torch.float32, device=drives.device)
            if telemetry else None)
     a.tel, a.telemetry = _k.ptr(tel), int(telemetry)
     a.sat_q = sat_threshold_q(v_th, qcfg) if quant else 0
     a.sat_f = sat_threshold(v_th)
-    smem, theta_in_smem = smem_plan(sizes, bb, plastic, quant,
-                                    smem_limit(drives.device), telemetry,
-                                    theta_bytes)
-    a.theta_in_smem = int(theta_in_smem)
-    fn = _build.library("rollout.cu").rollout
-    fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int,
-                   ctypes.c_size_t, _P]
-    fn.restype = ctypes.c_int
-    _build.check(fn(ctypes.byref(a), int(quant), smem,
-                    _k.stream_of(drives)), "rollout")
+    plan = fleet_launch(drives.device, sizes, b, block_b, plastic,
+                        quant=quant, telemetry=telemetry, bf16=bool(a.bf16),
+                        theta_bf16=bool(a.theta_bf16))
+    _fill_plan(a, plan)
+    _build.check(_fleet_entry("rollout")(ctypes.byref(a), int(quant),
+                                         plan["smem"], _k.stream_of(drives)),
+                 "rollout")
     rollout.launches += 1
     rollout.telemetry_launches += int(telemetry)
     rollout.bf16_launches += a.bf16

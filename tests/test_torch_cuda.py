@@ -117,25 +117,29 @@ def test_fleet_step_kernels_match_plain_on_card(quant, cuda_device):
     assert wrapper.launches == launches + len(STEP_CASES)
 
 
-def _network(rng, sizes, quant, dev):
-    """A random fleet state; int8 windows start 9 steps before the int32
-    wrap of the step counter, so seed + k wraps inside K = 16."""
+def _network(rng, sizes, quant, dev, b=B):
+    """A random fleet state of ``b`` streams; int8 windows start 9 steps
+    before the int32 wrap of the step counter, so seed + k wraps inside
+    K = 16.  Beyond B streams every third int8 scale is 0.03, no power of
+    two (the kernel divides by it; by 1/32 and 1/16 it multiplies)."""
     n_layers = len(sizes) - 1
     if quant:
-        w = [rng.integers(-40, 41, (B, sizes[i], sizes[i + 1]))
+        w = [rng.integers(-40, 41, (b, sizes[i], sizes[i + 1]))
              .astype(np.int8) for i in range(n_layers)]
-        v = [rng.integers(-300, 300, (B, m)).astype(np.int32)
+        v = [rng.integers(-300, 300, (b, m)).astype(np.int32)
              for m in sizes[1:]]
-        tr = [rng.integers(0, 900, (B, n)).astype(np.int32) for n in sizes]
-        sc = [np.where(np.arange(B) % 2 == 0, 1 / 32, 1 / 16)
+        tr = [rng.integers(0, 900, (b, n)).astype(np.int32) for n in sizes]
+        pick = np.arange(b)
+        sc = [np.where((pick % 3 == 0) & (b > B), 0.03,
+                       np.where(pick % 2 == 0, 1 / 32, 1 / 16))
               .astype(np.float32) for _ in range(n_layers)]
         t0 = 2 ** 31 - 9
     else:
-        w = [np.round(rng.uniform(-0.5, 0.5, (B, sizes[i], sizes[i + 1]))
+        w = [np.round(rng.uniform(-0.5, 0.5, (b, sizes[i], sizes[i + 1]))
                       * 64).astype(np.float32) / 64 for i in range(n_layers)]
-        v = [rng.uniform(-0.5, 0.9, (B, m)).astype(np.float32)
+        v = [rng.uniform(-0.5, 0.9, (b, m)).astype(np.float32)
              for m in sizes[1:]]
-        tr = [rng.uniform(0, 2, (B, n)).astype(np.float32) for n in sizes]
+        tr = [rng.uniform(0, 2, (b, n)).astype(np.float32) for n in sizes]
         sc, t0 = [], 0
     tup = lambda xs: tuple(torch.from_numpy(x).to(dev) for x in xs)
     return TE.NetworkState(w=tup(w), v=tup(v), trace=tup(tr),
@@ -143,34 +147,83 @@ def _network(rng, sizes, quant, dev):
                            w_scale=tup(sc))
 
 
+# A three-layer net whose window walks more tiles than the persistent grid
+# holds at once (132 SMs x 1-2 CTAs x 8 streams < 2117), the last one
+# ragged (2117 = 264 * 8 + 5).  int8 runs K = 16, across the step counter's
+# wrap; float32 K = 1, where its psums are exact and every value is held
+# (one spike flipped by a last-bit psum difference somewhere among the
+# 2117 streams would move a longer window's telemetry row by > 2e-4).
+WALK_SIZES, WALK_B = (8, 48, 24, 8), 2117
+WALK_K = {False: 1, True: 16}
+
+
+def _active(b):
+    """The slot mask: `ACTIVE` for B streams, else every fifth slot off."""
+    return ACTIVE if b == B else (np.arange(b) % 5 != 2).astype(np.int32)
+
+
+def _assert_walks(sizes, b, quant, dev, bf16=False):
+    """The fleet kernel's grid holds fewer than ``b`` streams at once."""
+    plan = TF.fleet_launch(dev, sizes, b, 8, [True] * (len(sizes) - 1),
+                           quant=quant, bf16=bf16, theta_bf16=bf16)
+    assert plan["ctas"] * plan["tile"] < b and b % plan["tile"], plan
+
+
+# Tiles of 20 streams at 8-128-8: one warp a stream (more groups than
+# named barriers), and in float32 and bf16 one state buffer a stream, the
+# float32 rule read through L2 (the routes the plan takes where shared
+# memory runs short).
+LONE_B = 20
+
+
+def _assert_lone(sizes, b, quant, bf16, dev):
+    plan = TF.fleet_launch(dev, sizes, b, LONE_B, [True] * (len(sizes) - 1),
+                           quant=quant, bf16=bf16, theta_bf16=bf16)
+    assert plan["warps"] == 1, plan
+    if not quant:
+        assert plan["buffers"] == "single", plan
+        assert plan["theta"] == ("smem" if bf16 else "l2"), plan
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
 def test_rollout_kernel_matches_plain_on_card(quant, cuda_device):
     """int8 bitwise at every K (the step counter wraps inside the window),
-    float32 within 1e-5 at K = 1."""
+    float32 within 1e-5 at K = 1; the fleet kernel's routes: more tiles
+    than its grid holds (`WALK_SIZES`), tiles of `LONE_B` streams."""
     rng = np.random.default_rng(21)
     qc = TQ.QuantConfig() if quant else None
-    for k, sizes, teach in ((1, (8, 32, 4), "per-step"), (4, (6, 4), "held"),
-                            (16, (8, 32, 4), None)):
-        st = _network(rng, sizes, quant, cuda_device)
+    for k, sizes, teach, b, bb in ((1, (8, 32, 4), "per-step", B, 8),
+                                   (4, (6, 4), "held", B, 8),
+                                   (16, (8, 32, 4), None, B, 8),
+                                   (WALK_K[quant], WALK_SIZES, "per-step",
+                                    WALK_B, 8),
+                                   (WALK_K[quant], (8, 128, 8), "held",
+                                    WALK_B, LONE_B)):
+        st = _network(rng, sizes, quant, cuda_device, b)
         theta = [torch.from_numpy((rng.standard_normal(
             (4, sizes[i], sizes[i + 1])) * 0.02).astype(np.float32))
             .to(cuda_device) for i in range(len(sizes) - 1)]
         if quant:
-            drives = rng.integers(-512, 512, (k, B, sizes[0])).astype(np.int32)
-            tch = rng.integers(-200, 200, (k, B, sizes[-1])).astype(np.int32)
+            drives = rng.integers(-512, 512, (k, b, sizes[0])).astype(np.int32)
+            tch = rng.integers(-200, 200, (k, b, sizes[-1])).astype(np.int32)
         else:
-            drives = (np.round(rng.standard_normal((k, B, sizes[0])) * 16)
+            drives = (np.round(rng.standard_normal((k, b, sizes[0])) * 16)
                       / 16).astype(np.float32)
-            tch = (rng.standard_normal((k, B, sizes[-1])) * 0.3
+            tch = (rng.standard_normal((k, b, sizes[-1])) * 0.3
                    ).astype(np.float32)
         tch = {None: None, "per-step": tch, "held": tch[0]}[teach]
-        t = _on(cuda_device, drives=drives, teach=tch, active=ACTIVE)
+        t = _on(cuda_device, drives=drives, teach=tch, active=_active(b))
+        if sizes == WALK_SIZES:
+            _assert_walks(sizes, b, qc is not None, cuda_device)
+        if bb == LONE_B:
+            _assert_lone(sizes, b, qc is not None, False, cuda_device)
         params = [TE.EngineParams(
             spiking=i < len(sizes) - 2, quant=qc, tau_m=2.0,
             trace_decay=0.75 if quant else 0.8)
             for i in range(len(sizes) - 1)]
-        kw = dict(params=params, teach=t["teach"], active=t["active"])
+        kw = dict(params=params, teach=t["teach"], active=t["active"],
+                  block_b=bb)
         launches = TF.rollout.launches
         got_st, got = TE.rollout(st, theta, t["drives"], **kw)
         assert TF.rollout.launches == launches + 1
@@ -707,40 +760,60 @@ def test_fleet_step_telemetry_variant_matches_plain_on_card(quant,
 def test_rollout_telemetry_variant_matches_plain_on_card(quant, cuda_device):
     rng = np.random.default_rng(43)
     qc = TQ.QuantConfig() if quant else None
-    sizes = (8, 128, 8)
-    for k in (1, 4, 16):
-        st = _network(rng, sizes, quant, cuda_device)
+    for k, sizes, b in ((1, (8, 128, 8), B), (4, (8, 128, 8), B),
+                        (16, (8, 128, 8), B),
+                        (WALK_K[quant], WALK_SIZES, WALK_B)):
+        st = _network(rng, sizes, quant, cuda_device, b)
         theta = [torch.from_numpy((rng.standard_normal(
             (4, sizes[i], sizes[i + 1])) * 0.02).astype(np.float32))
             .to(cuda_device) for i in range(len(sizes) - 1)]
         if quant:
-            drives = rng.integers(-512, 512, (k, B, sizes[0])).astype(np.int32)
-            tch = rng.integers(-200, 200, (B, sizes[-1])).astype(np.int32)
+            drives = rng.integers(-512, 512, (k, b, sizes[0])).astype(np.int32)
+            tch = rng.integers(-200, 200, (b, sizes[-1])).astype(np.int32)
         else:
-            drives = (np.round(rng.standard_normal((k, B, sizes[0])) * 16)
+            drives = (np.round(rng.standard_normal((k, b, sizes[0])) * 16)
                       / 16).astype(np.float32)
-            tch = (rng.standard_normal((B, sizes[-1])) * 0.3
+            tch = (rng.standard_normal((b, sizes[-1])) * 0.3
                    ).astype(np.float32)
-        t = _on(cuda_device, drives=drives, teach=tch, active=ACTIVE)
+        t = _on(cuda_device, drives=drives, teach=tch, active=_active(b))
+        if b == WALK_B:
+            _assert_walks(sizes, b, qc is not None, cuda_device)
         params = [TE.EngineParams(
             spiking=i < len(sizes) - 2, quant=qc, tau_m=2.0,
             trace_decay=0.75 if quant else 0.8)
             for i in range(len(sizes) - 1)]
         kw = dict(params=params, teach=t["teach"], active=t["active"])
+        launches = (TF.rollout.launches, TF.rollout.telemetry_launches)
         got_st, got, tel = TE.rollout(st, theta, t["drives"], telemetry=True,
                                       **kw)
         off_st, off = TE.rollout(st, theta, t["drives"], **kw)
+        assert (TF.rollout.launches, TF.rollout.telemetry_launches) == (
+            launches[0] + 2, launches[1] + 1)
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(TF, "rollout", lambda *a, block_b=None, **k:
                        TF.rollout_plain(*a, **k))
             want_st, want, want_tel = TE.rollout(st, theta, t["drives"],
                                                  telemetry=True, **kw)
+        if quant and b == WALK_B:
+            # PyTorch divides a CUDA tensor by a Python number as a product
+            # with its reciprocal, one ulp off true division where the
+            # divisor (M = 48 and 24, K * L = 48) is no power of two: hold
+            # these rows against the plain version on the CPU, which
+            # divides as the kernel and JAX do
+            cpu = lambda xs: tuple(x.cpu() for x in xs)
+            want_tel = TE.rollout(
+                TE.NetworkState(w=cpu(st.w), v=cpu(st.v),
+                                trace=cpu(st.trace), t=st.t.cpu(),
+                                w_scale=cpu(st.w_scale)),
+                cpu(theta), t["drives"].cpu(), telemetry=True,
+                params=params, teach=t["teach"].cpu(),
+                active=t["active"].cpu())[2]
         torch.cuda.synchronize()
         for a, b in zip((*got_st.w, *got_st.v, *got_st.trace, got),
                         (*off_st.w, *off_st.v, *off_st.trace, off)):
             assert torch.equal(a, b)
         for f in ("spike_rate", "mean_abs_dw", "sat_frac", "occupancy"):
-            g, w = getattr(tel, f), getattr(want_tel, f)
+            g, w = getattr(tel, f), getattr(want_tel, f).to(cuda_device)
             if quant:
                 assert torch.equal(g, w), f
             else:
@@ -880,24 +953,34 @@ def test_bf16_shared_step_kernel_matches_plain_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fleet", (True, False), ids=("fleet", "shared"))
 def test_bf16_rollout_kernels_match_plain_on_card(fleet, cuda_device):
-    """#3 in bfloat16, fleet (with telemetry at K = 4) and shared-weight
-    (also a three-layer net at B = 5, every layer on the cp.async route,
-    K = 1 and 33): K = 1 within 3e-2, longer windows with at most 1e-3 of
-    the elements outside it; inactive slots frozen; float16 raises."""
+    """#3 in bfloat16, fleet (with telemetry at K = 4; also `WALK_SIZES`
+    at B = 2117 and 8-128-8 in tiles of `LONE_B`, one buffer a stream) and
+    shared-weight (also a three-layer net at B = 5, every layer on the
+    cp.async route, K = 1 and 33): K = 1 within 3e-2, longer windows with
+    at most 1e-3 of the elements outside it; inactive slots frozen;
+    float16 raises."""
     rng = np.random.default_rng(63)
     counter = TF.rollout if fleet else TF.rollout_shared
     launches = counter.bf16_launches
-    cases = [(1, (8, 32, 4), B), (4, (8, 128, 8), B), (16, (8, 32, 4), B)]
-    if not fleet:         # a middle layer, every layer on cp.async, credits
-        cases += [(1, (64, 96, 48, 10), 5), (33, (64, 96, 48, 10), 5)]
-    for k, sizes, b in cases:
-        if b != B:
+    cases = [(1, (8, 32, 4), B, 8), (4, (8, 128, 8), B, 8),
+             (16, (8, 32, 4), B, 8)]
+    if fleet:     # three layers, more tiles than the grid holds; one buffer
+        cases += [(16, WALK_SIZES, WALK_B, 8),
+                  (16, (8, 128, 8), WALK_B, LONE_B)]
+    else:         # a middle layer, every layer on cp.async, credits
+        cases += [(1, (64, 96, 48, 10), 5, 8), (33, (64, 96, 48, 10), 5, 8)]
+    for k, sizes, b, bb in cases:
+        if not fleet and b != B:
             st = _shared_network(rng, sizes, b, False, cuda_device)
         else:
-            st = _network(rng, sizes, False, cuda_device)
+            st = _network(rng, sizes, False, cuda_device, b)
             if not fleet:
                 st = TE.NetworkState(w=tuple(w[0] for w in st.w), v=st.v,
                                      trace=st.trace, t=st.t)
+            elif sizes == WALK_SIZES:
+                _assert_walks(sizes, b, False, cuda_device, bf16=True)
+            elif bb == LONE_B:
+                _assert_lone(sizes, b, False, True, cuda_device)
         bf = torch.bfloat16
         st = TE.NetworkState(w=tuple(w.to(bf) for w in st.w),
                              v=tuple(v.to(bf) for v in st.v),
@@ -911,9 +994,9 @@ def test_bf16_rollout_kernels_match_plain_on_card(fleet, cuda_device):
                                ).to(cuda_device).to(bf)
         params = [TE.EngineParams(spiking=i < len(sizes) - 2)
                   for i in range(len(sizes) - 1)]
-        kw = dict(params=params, teach=tch)
+        kw = dict(params=params, teach=tch, block_b=bb)
         if fleet:
-            kw["active"] = torch.from_numpy(ACTIVE).to(cuda_device)
+            kw["active"] = torch.from_numpy(_active(b)).to(cuda_device)
         tel = fleet and k == 4
         got = TE.rollout(st, theta, drives, telemetry=tel, **kw)
         with pytest.MonkeyPatch.context() as mp:

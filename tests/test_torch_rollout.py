@@ -287,21 +287,79 @@ def test_value_error_contracts(name):
         fn()
 
 
-def test_shared_memory_plan():
-    """The rollout kernel's working set at the 8-128-8 controller fits a
-    CTA with theta resident; an oversized block raises instead of falling
-    back."""
-    sizes, plastic = (8, 128, 8), (True, True)
-    smem, resident = TF.smem_plan(sizes, 8, plastic, False,
-                                  TF.DEFAULT_SMEM_LIMIT)
-    assert resident and smem == 32768 + 4352 + 4608 + 8192 + 32 + 65536
-    q_smem, _ = TF.smem_plan(sizes, 8, plastic, True, TF.DEFAULT_SMEM_LIMIT)
-    assert q_smem == smem - 65536 + 16384
-    _, resident = TF.smem_plan(sizes, 20, plastic, False,
-                               TF.DEFAULT_SMEM_LIMIT)
-    assert not resident                   # theta read through L2 instead
-    with pytest.raises(ValueError, match="lower block_b"):
-        TF.smem_plan(sizes, 64, plastic, False, TF.DEFAULT_SMEM_LIMIT)
+# The fleet window's plan at the 8-128-8 controller, B = 4096, block_b = 8,
+# on 132 SMs holding one CTA each, by hand.  A tile of 8 streams, each run by
+# 2 warps (its widest layer's 1024 synapses over 16 a thread): 512
+# threads.  A state buffer in the compute types holds w (8 x 128 and
+# 128 x 8), v (128 and 8) and the traces (8, 128, 8), each 16-byte
+# aligned, in fixed point also the two scales and the seed (16 bytes); the
+# bus 2 x 128 floats; the spare buffer's two mbarriers 16 bytes; the rules
+# (4 x 2048 coefficients) resident behind their own mbarrier (16 bytes).
+_STATE_F32 = 2 * 4096 + (512 + 32) + (32 + 512 + 32)          # 9312
+_STATE_I8 = 2 * 1024 + (512 + 32) + (32 + 512 + 32) + 16      # 3184
+_RAW_BF16 = 2 * 2048 + (256 + 16) + (16 + 256 + 16)           # 4656
+FLEET_PLANS = {
+    # dtype: (w_bytes, s_bytes, theta_bytes, quant, buffers, theta bytes,
+    #         state, spare)
+    "float32": (4, 4, 4, False, "double", 32768, _STATE_F32, _STATE_F32),
+    "int8": (1, 4, 4, True, "double", 32768, _STATE_I8, _STATE_I8),
+    # the next stream lands raw (bf16) beside the float32 state buffer
+    "bfloat16": (2, 2, 2, False, "staged", 16384, _STATE_F32, _RAW_BF16),
+}
+
+
+@pytest.mark.parametrize("dtype,telemetry", [
+    ("float32", False), ("int8", False), ("bfloat16", False),
+    ("float32", True), ("int8", True)])
+def test_shared_memory_plan(dtype, telemetry):
+    """The fleet kernel's plan pinned at 8-128-8: tile, warps a stream,
+    per-role shared memory, the rules' route and the persistent grid.  The
+    telemetry variant keeps its accumulators in registers, so its plan is
+    its twin's (only the occupancy query, a stated 1 here, could differ)."""
+    wb, sb, tb, quant, buffers, th, state, spare = FLEET_PLANS[dtype]
+    plan = TF.fleet_plan((8, 128, 8), 4096, 8, (True, True), quant=quant,
+                         limit=TF.DEFAULT_SMEM_LIMIT, w_bytes=wb,
+                         s_bytes=sb, theta_bytes=tb, sms=132, occupancy=1)
+    slot = state + spare + 1024 + 16
+    assert plan == dict(
+        tile=8, warps=2, threads=512, buffers=buffers, theta="smem",
+        role_smem=dict(theta=th, state=state, spare=spare, bus=1024,
+                       barriers=16, slot=slot),
+        smem=16 + th + 8 * slot, ctas_per_sm=1, ctas=132)
+    # more CTAs than tiles: the grid is the tiles
+    few = TF.fleet_plan((8, 128, 8), 100, 8, (True, True), quant=quant,
+                        limit=TF.DEFAULT_SMEM_LIMIT, w_bytes=wb,
+                        s_bytes=sb, theta_bytes=tb, sms=132, occupancy=2)
+    assert few["ctas"] == 13 and few["ctas_per_sm"] == 2
+
+
+def test_fleet_plan_routes_and_raises():
+    """Where two buffers a stream do not fit, one does; where the rules do
+    not fit either, they are read through L2; where nothing fits, the plan
+    raises — the kernel never falls back.  float32 at 8-128-8: 10 streams
+    double-buffered with resident rules (229424 bytes), 11 single-buffered
+    (146480), 20 single-buffered with the rules in L2 (206736), 23 too
+    many (237744 > 232448); 33 streams need more than 1024 threads."""
+    kw = dict(quant=False, limit=TF.DEFAULT_SMEM_LIMIT)
+    net = ((8, 128, 8), 4096)
+    expect = {10: ("double", "smem", 2, 229424),
+              11: ("single", "smem", 2, 146480),
+              20: ("single", "l2", 1, 206736)}
+    for bb, (buffers, theta, warps, smem) in expect.items():
+        plan = TF.fleet_plan(*net, bb, (True, True), **kw)
+        assert (plan["buffers"], plan["theta"], plan["warps"],
+                plan["smem"]) == (buffers, theta, warps, smem), bb
+    # a non-plastic layer keeps no rule: layer 0's alone fits beside 20
+    half = TF.fleet_plan(*net, 20, (True, False), **kw)
+    assert (half["theta"], half["role_smem"]["theta"]) == ("smem", 16384)
+    assert TF.fleet_plan(*net, 8, (False, False), **kw)[
+        "role_smem"]["theta"] == 0
+    for bb in (23, 33):
+        with pytest.raises(ValueError, match="block_b"):
+            TF.fleet_plan(*net, bb, (True, True), **kw)
+    # one stream wider than shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        TF.fleet_plan((8, 2048, 64), 16, 1, (True, True), **kw)
 
 
 # The shared-weight window's plan at 784-1024-10, B = 1, on 132 SMs, by
