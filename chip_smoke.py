@@ -67,10 +67,15 @@ Phases, each fatal on failure:
  2d. the SSD-scan kernel against its plain version at mamba2-1.3b's
      prefill shape (B = 4, L = 2048, H = 64, P = 64, S = 128), ragged
      L = 1, 100 and 300, G = 2 groups by index, x, B and C cut from one
-     packed projection, bfloat16 and float32; and against the literal
-     recurrence at a small size;
+     packed projection (and from one shifted off 16 bytes: bfloat16's
+     cp.async route), bfloat16 (the Hopper kernel: TMA or cp.async ring,
+     wgmma with G, the state and w o x split into bf16 hi + lo) and
+     float32 (the CUDA-core kernel); and against the literal recurrence
+     at a small size;
  7c. the SSD-scan kernel's time at the prefill shape beside its bound and
-     its plain version;
+     its plain version, at B = 1, and over an L sweep (512 to 4096 at
+     B = 4) fitted as fixed + per-chunk cost beside the bound's own fit;
+     the CTAs an SM holds and the registers and spills ptxas gave it;
   9. phase 8 on random-init mamba2-1.3b (48 SSM layers, bf16): 48 SSD-scan
      launches per prefill, 32 fleet-step launches per decode, the adapter
      checks of phase 8, the bf16 full-depth comparison (beside two plain
@@ -1528,14 +1533,15 @@ def ssd_close(got, want):
         got, want, rtol=SSD_TOL[0], atol=SSD_TOL[1])
 
 
-def ssd_inputs(gen, b, length, h, p, s, g, dtype, dev):
+def ssd_inputs(gen, b, length, h, p, s, g, dtype, dev, shift=0):
     """x, B and C cut from one packed (B, L, H*P + 2*G*S) projection (x is
-    not contiguous), dt = softplus(N(0, 1)) and a = -exp(N(0, 0.25)): the
-    decay reaches exp(-100) and below within a chunk."""
+    not contiguous; ``shift`` leading elements move every base and token
+    stride off 16 bytes), dt = softplus(N(0, 1)) and a = -exp(N(0, 0.25)):
+    the decay reaches exp(-100) and below within a chunk."""
     import torch
     import torch.nn.functional as F
-    packed = torch.randn(b, length, h * p + 2 * g * s, generator=gen,
-                         device=dev).to(dtype)
+    packed = torch.randn(b, length, shift + h * p + 2 * g * s, generator=gen,
+                         device=dev).to(dtype)[..., shift:]
     x = packed[..., :h * p].unflatten(-1, (h, p))
     bm = packed[..., h * p:h * p + g * s].unflatten(-1, (g, s))
     cm = packed[..., h * p + g * s:].unflatten(-1, (g, s))
@@ -1547,19 +1553,26 @@ def ssd_inputs(gen, b, length, h, p, s, g, dtype, dev):
 def compare_ssd(dev, results):
     """#8 against `ssd_scan_plain` (the chunked form at the model's chunk)
     on the same inputs: the prefill shape, ragged L = 1, 100 and 300,
-    G = 2, and the serve CLI's 32-token prompts; bfloat16 and float32.
-    Then the kernel against the literal recurrence at a small size."""
+    G = 2, the serve CLI's 32-token prompts and a projection shifted by
+    one element (bfloat16 then takes the cp.async route); bfloat16 and
+    float32.  Then the kernel against the literal recurrence at a small
+    size."""
     import torch
     from repro_torch.kernels.ssd import kernel as SK, ref as SR
     gen = torch.Generator(dev).manual_seed(SEED + 9)
     b, length, h, p, s = SSD_SHAPE
-    cases = [("prefill", b, length, 1), ("L=1", b, 1, 1),
-             ("L=100", b, 100, 1), ("L=300", b, 300, 1),
-             ("G=2", 2, 300, 2), ("cli", b, 32, 1)]
+    cases = [("prefill", b, length, 1, 0), ("L=1", b, 1, 1, 0),
+             ("L=100", b, 100, 1, 0), ("L=300", b, 300, 1, 0),
+             ("G=2", 2, 300, 2, 0), ("cli", b, 32, 1, 0),
+             ("shifted", b, 300, 1, 1)]
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        for what, bb, ll, g in cases:
-            args = ssd_inputs(gen, bb, ll, h, p, s, g, dtype, dev)
+        for what, bb, ll, g, shift in cases:
+            args = ssd_inputs(gen, bb, ll, h, p, s, g, dtype, dev, shift)
+            route = SK.copy_route(args[0], args[3], args[4])
+            require(dtype != torch.bfloat16
+                    or route == ("cp.async" if shift else "tma"),
+                    f"ssd_scan {what}: the {route} route")
             got = SK.ssd_scan(*args)
             want = SK.ssd_scan_plain(*args, chunk=SSD_CHUNK)
             torch.cuda.synchronize()
@@ -1574,8 +1587,9 @@ def compare_ssd(dev, results):
                     f"{errs[1]} (y tolerance: "
                     + ("one bf16 step" if dtype == torch.bfloat16
                        else f"{SSD_TOL}") + f"; state {SSD_TOL})")
-            log(f"  ssd_scan {dname:8s} {what:7s} B={bb} L={ll} G={g}: "
-                f"max |err| y {errs[0]:.3g}, state {errs[1]:.3g}")
+            log(f"  ssd_scan {dname:8s} {what:7s} B={bb} L={ll} G={g}"
+                + (f" ({route})" if dtype == torch.bfloat16 else "")
+                + f": max |err| y {errs[0]:.3g}, state {errs[1]:.3g}")
             del args, got, want
     args = ssd_inputs(gen, 2, 200, 8, p, s, 2, torch.float32, dev)
     got, want = SK.ssd_scan(*args), SR.ssd_scan_ref(*args)
@@ -1605,11 +1619,19 @@ def ssd_bound(b, length, h, p, s, g, chunk, itemsize):
     return max(tb, to), "bytes" if tb >= to else "operations", tb, to
 
 
+SSD_SWEEP_L = (512, 1024, 2048, 4096)           # phase 7c's L sweep, B = 4
+
+
 def time_ssd(dev, results):
     """#8 at the prefill shape in bfloat16 (x, B, C cut from a packed
     projection, as the model passes them), L2 flushed between calls, beside
-    its plain version; no single PyTorch call computes an SSD scan."""
+    its plain version; no single PyTorch call computes an SSD scan.  Then
+    one prompt (B = 1), the L sweep fitted as fixed + per-chunk cost (64
+    rows a chunk) beside the bound's own fit, the CTAs an SM holds
+    (occupancy query) and the registers and spills ptxas gave each
+    kernel."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import kernel as SK
     gen = torch.Generator(dev).manual_seed(SEED + 10)
     b, length, h, p, s = SSD_SHAPE
@@ -1623,14 +1645,40 @@ def time_ssd(dev, results):
     one = [t[:1] for t in args[:2]] + [args[2]] + [t[:1] for t in args[3:]]
     ms_b1 = device_ms(lambda: SK.ssd_scan(*one))
     bms1 = ssd_bound(1, length, h, p, s, 1, SSD_CHUNK, 2)[0]
-    results["ssd_scan"].update(ms=ms, plain_ms=plain, library_ms=None,
-                               bound_ms=bms, bound_by=kind,
-                               blocks_per_sm=per_sm, ms_b1=ms_b1)
+    del args, one
+    sweep_ms, sweep_bound = [], []
+    for ll in SSD_SWEEP_L:
+        sw = ssd_inputs(gen, b, ll, h, p, s, 1, torch.bfloat16, dev)
+        sweep_ms.append(device_ms(lambda: SK.ssd_scan(*sw)))
+        sweep_bound.append(ssd_bound(b, ll, h, p, s, 1, SSD_CHUNK, 2)[0])
+        del sw
+    chunks = [ll // SK.CHUNK for ll in SSD_SWEEP_L]
+    fixed, per_chunk = fit_line(chunks, sweep_ms)
+    b_fixed, b_chunk = fit_line(chunks, sweep_bound)
+    usage = ptxas_usage(_build.build_all()["log"].get("ssd.cu", ""))
+    ptxas = {name: dict(registers=r, spill_store_bytes=st,
+                        spill_load_bytes=ld, stack_bytes=sk)
+             for name, (r, st, ld, sk) in usage.items()}
+    results["ssd_scan"].update(
+        ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=kind,
+        blocks_per_sm=per_sm, ms_b1=ms_b1, ptxas=ptxas,
+        sweep=dict(length=list(SSD_SWEEP_L), ms=sweep_ms,
+                   fixed_ms=fixed, per_chunk_ms=per_chunk,
+                   bound_ms=sweep_bound, bound_fixed_ms=b_fixed,
+                   bound_per_chunk_ms=b_chunk))
     log(f"  ssd_scan bf16 B={b} L={length} H={h} P={p} S={s}: {ms:.4f} ms "
         f"(bound {bms:.4f} ms by {kind}: bytes {tb:.4f} ms, operations "
         f"{to:.4f} ms; plain {plain:.4f} ms; {b * h} CTAs, {per_sm} per SM)"
         f"; B=1: {ms_b1:.4f} ms (bound {bms1:.4f} ms, {h} CTAs)")
-    del args, one
+    log(f"  ssd_scan bf16 L sweep (B={b}) "
+        + ", ".join(f"L={ll} {t:.4f}" for ll, t in zip(SSD_SWEEP_L, sweep_ms))
+        + f" ms: fixed {fixed:.4f} ms + {per_chunk * 1e3:.3f} us/chunk "
+        f"(bound {b_fixed:.4f} ms + {b_chunk * 1e3:.3f} us/chunk)")
+    for name, (r, st, ld, sk) in usage.items():
+        log(f"  ptxas {name}: {r} registers, spills {st} B stored / {ld} B "
+            f"loaded, stack {sk} B")
+    if not usage:
+        log("  ptxas: ssd.cu was not built in this process")
     torch.cuda.empty_cache()
 
 

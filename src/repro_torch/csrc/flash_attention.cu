@@ -48,10 +48,7 @@
 // through one shared buffer, thread (ty, tx) of 16 x 16 owning query rows
 // 4ty..4ty+3 with fp32 FMAs (float4 shared loads), the probabilities in a
 // shared P tile and its 4 x D/16 output slice in registers.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "hopper.cuh"
 
 // Arguments of one launch; mirrored by kernels/attention/kernel.py _AttnArgs.
 // Strides are in elements; the head dim is contiguous.
@@ -301,97 +298,6 @@ struct WLayout {          // byte offsets from a 1024-aligned base
   static constexpr int kBytes = kBar + 8 * kBars + 1024; // + alignment slack
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Spin until the phase of parity `parity` of the barrier has completed.  A
-// phase that never completes is a fault: trap after ~2^35 cycles (~17 s)
-// rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > (1ll << 35)) __trap();
-  }
-}
-
-// One TMA box of a 4-D (D, heads, S, B) map into shared memory; completion
-// is reported to `bar` in bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0),
-         "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1): start
-// address, leading and stride byte offsets, all in 16-byte units.  The
-// stage bases are 1024-byte aligned, so the base offset field stays 0.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma region.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-#define WG_F8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_F32 WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
-#define WG_F64 WG_F32, WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
-#define WG_R32                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
-  "%28, %29, %30, %31"
-#define WG_R64                                                          \
-  WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "    \
-  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "   \
-  "%56, %57, %58, %59, %60, %61, %62, %63"
-
 // d (64 x 128, float32) (+)= A (64 x 16) B^T: A and B (128 x 16) both
 // K-major in shared memory.  `acc` 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
@@ -426,19 +332,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WG_F32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t bf16_pair(float lo_k, float hi_k) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo_k, hi_k);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// P (two float32) as P_hi = bf16(P) and P_lo = bf16(P - P_hi), each a pair.
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = bf16_pair(x - __low2float(h), y - __high2float(h));
 }
 
 template <int D>
@@ -658,59 +551,16 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    return found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D map over a (B, S, heads, D) bf16 tensor with element strides
-// (sb, ss, sh, 1); boxes of 64 along D by `rows` along S, 128-byte swizzle,
-// zeros outside the tensor.
-bool encode(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
-            int d, long long sb, long long ss, long long sh, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
-                              (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch_bf16(const AttnArgs& a, cudaStream_t stream) {
+  // 4-D maps over (D, heads, S, B) in the tensors' own strides
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, a.q, a.batch, a.sq, a.heads, D, a.q_sb, a.q_ss, a.q_sh,
-              kWBQ) ||
-      !encode(&tk, a.k, a.batch, a.skv, a.kv_heads, D, a.k_sb, a.k_ss,
-              a.k_sh, kWBK) ||
-      !encode(&tv, a.v, a.batch, a.skv, a.kv_heads, D, a.v_sb, a.v_ss,
-              a.v_sh, kWBK))
+  if (!encode_bf16_4d(&tq, a.q, D, a.heads, a.sq, a.batch, 2 * a.q_sh,
+                      2 * a.q_ss, 2 * a.q_sb, kWBQ) ||
+      !encode_bf16_4d(&tk, a.k, D, a.kv_heads, a.skv, a.batch, 2 * a.k_sh,
+                      2 * a.k_ss, 2 * a.k_sb, kWBK) ||
+      !encode_bf16_4d(&tv, a.v, D, a.kv_heads, a.skv, a.batch, 2 * a.v_sh,
+                      2 * a.v_ss, 2 * a.v_sb, kWBK))
     return (int)cudaErrorInvalidValue;
   const int bytes = WLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(

@@ -9,8 +9,11 @@ never repeated to heads.  Any L: the kernel masks the ragged tail, the
 plain version pads it with dt = 0 steps (exact no-ops), so the final state
 does not depend on the padding.  A CPU tensor takes the plain version
 (`ssd_scan_plain`, the chunked form at ``chunk``); a CUDA tensor launches
-the kernel, which tiles the sequence its own way (``chunk`` does not reach
-it), and counts it in ``ssd_scan.launches``.
+the kernel, which walks the sequence in 64-row chunks of its own
+(``chunk`` does not reach it), and counts it in ``ssd_scan.launches``.
+bfloat16 launches the Hopper kernel (TMA or cp.async ring, wgmma with
+G, the state and w o x split into bf16 hi + lo); float32 the CUDA-core
+kernel.
 """
 from __future__ import annotations
 
@@ -25,13 +28,24 @@ from repro_torch.kernels.ssd import ref as _ref
 
 MAX_HEAD_DIM = 64                 # P the kernel's tiles hold
 MAX_STATE = 128                   # S the kernel's tiles hold (a multiple of 4)
-SUB_BLOCK = 64                    # rows of one step of the kernel's walk
-# one CTA's shared memory, recomputed by the C launcher (which refuses a
-# disagreeing count): x (64 x 64), B and C (64 x 128 each) and the state
-# (128 x 64) as float32, and dt, the log-decay and the update weights (64
-# each); 115,456 bytes, so that two CTAs share an SM
-SMEM_BYTES = 4 * (SUB_BLOCK * MAX_HEAD_DIM + 2 * SUB_BLOCK * MAX_STATE
-                  + MAX_STATE * MAX_HEAD_DIM + 3 * SUB_BLOCK)
+CHUNK = 64                        # rows of one step of the kernel's walk
+# one CTA's shared memory per dtype, recomputed by the C launcher (which
+# refuses a disagreeing count).  float32: x (64 x 64), B and C (64 x 128
+# each) and the state (128 x 64) as float32, and dt, the log-decay and the
+# update weights (64 each), 115,456 bytes.  bfloat16: two ring stages of
+# x, B and C as bf16 tiles of 64-element (128-byte) rows, the G tile's
+# bf16 hi and lo and the y tile (64 x 64 each), per stage five floats a
+# row (dt; lg and dt again, packed by row pairs; exp(lg); w), the stages'
+# mbarriers and 1 KB to align the tiles to 1024 bytes, 110,096 bytes.
+# Either lets two CTAs share an SM.
+_TILE = 2 * CHUNK * 64            # one 64 x 64 bf16 tile
+_STAGES = 2
+SMEM_BYTES = {
+    torch.float32: 4 * (CHUNK * MAX_HEAD_DIM + 2 * CHUNK * MAX_STATE
+                        + MAX_STATE * MAX_HEAD_DIM + 3 * CHUNK),
+    torch.bfloat16: (_STAGES * 5 * _TILE + 3 * _TILE + 4 * _STAGES * 5 * CHUNK
+                     + 8 * _STAGES + 1024)}
+ROUTES = ("tma", "cp.async")      # how the bf16 kernel loads x, B and C
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -47,7 +61,7 @@ class _SsdArgs(ctypes.Structure):
                                 "dt_sh", "b_sb", "b_sl", "b_sg", "c_sb",
                                 "c_sl", "c_sg")] + [
         (name, _I) for name in ("batch", "length", "heads", "groups",
-                                "head_dim", "state_dim", "dtype")]
+                                "head_dim", "state_dim", "dtype", "route")]
 
 
 def ssd_scan_plain(x, dt, a, bmat, c, *, chunk: int = 64):
@@ -98,6 +112,17 @@ def _check(x, dt, a, bmat, c):
                              f"contiguously; got strides {t.stride()}")
 
 
+def copy_route(x, bmat, c) -> str:
+    """How the bf16 kernel loads x, B and C: ``"tma"`` when every one has a
+    16-byte aligned base and strides (but the last) that are nonzero whole
+    16-byte multiples, as a tensor map needs; else ``"cp.async"``."""
+    def tma_readable(t):
+        return t.data_ptr() % 16 == 0 and all(
+            st > 0 and st * t.element_size() % 16 == 0
+            for st in t.stride()[:-1])
+    return ROUTES[0] if all(map(tma_readable, (x, bmat, c))) else ROUTES[1]
+
+
 def ssd_scan(x, dt, a, bmat, c, *, chunk: int = 64):
     """x (B,L,H,P), dt (B,L,H), a (H,), bmat/c (B,L,G,S) ->
     (y (B,L,H,P), state_final (B,H,S,P))."""
@@ -115,11 +140,12 @@ def ssd_scan(x, dt, a, bmat, c, *, chunk: int = 64):
                     bmat.data_ptr(), c.data_ptr(), y.data_ptr(),
                     state.data_ptr(), *x.stride()[:3], *dt.stride(),
                     *bmat.stride()[:3], *c.stride()[:3],
-                    b, length, h, g, p, s, _DTYPE_CODE[x.dtype])
+                    b, length, h, g, p, s, _DTYPE_CODE[x.dtype],
+                    ROUTES.index(copy_route(x, bmat, c)))
     fn = _build.library("ssd.cu").ssd_scan
     fn.argtypes = [ctypes.POINTER(_SsdArgs), ctypes.c_size_t, _P]
     fn.restype = ctypes.c_int
-    _build.check(fn(ctypes.byref(args), SMEM_BYTES, stream_of(x)),
+    _build.check(fn(ctypes.byref(args), SMEM_BYTES[x.dtype], stream_of(x)),
                  "ssd_scan")
     ssd_scan.launches += 1
     return y, state

@@ -16,7 +16,9 @@ float32, so P keeps ~16 bits where the plain version's float32 P V keeps 24;
 both round the output to bf16 once.  The SSD scan walks the sequence
 in other sub-blocks than the plain chunked form, so float32 is held within
 rtol = atol = 2e-3 (the JAX package's bound between its chunked form and
-the recurrence) and bfloat16 y within one bf16 step of the largest |y|.
+the recurrence) and bfloat16 y within one bf16 step of the largest |y|;
+its bf16 kernel multiplies on the tensor cores with G, the state and
+w o x split into bf16 hi + lo (tests/test_torch_ssd.py emulates it).
 The bfloat16 plasticity kernels compute in float32 and round each output
 once, as their plain versions do: steps and one-step windows within 3e-2
 (the JAX package's own bf16 tolerance, tests/test_fleet.py), longer
@@ -589,11 +591,14 @@ def test_lm_prefill_launches_attention_kernel_per_layer(cuda_device):
 
 
 # (B, L, H, P, S, G): one token, a ragged 100 with G = 2, a ragged 300,
-# mamba2-1.3b's head (P = 64, S = 128) over an exact 128, and the smoke
-# config's small head (P = S = 16)
+# mamba2-1.3b's head (P = 64, S = 128) over an exact 128 and over the
+# prefill's 2048, the smoke config's small head (P = S = 16), and heads of
+# 36 (72-byte rows: no tensor map reads them, so bf16 takes the cp.async
+# route) over a state of 64 with G = 2
 SSD_CASES = [(2, 1, 4, 64, 128, 1), (2, 100, 4, 64, 128, 2),
              (1, 300, 8, 64, 128, 1), (2, 128, 2, 64, 128, 1),
-             (3, 70, 4, 16, 16, 1)]
+             (2, 2048, 4, 64, 128, 1), (3, 70, 4, 16, 16, 1),
+             (2, 150, 4, 36, 64, 2)]
 SSD_TOL = dict(rtol=2e-3, atol=2e-3)
 
 
@@ -660,15 +665,27 @@ def test_ssd_kernel_matches_the_recurrence_on_card(cuda_device):
 @pytest.mark.cuda
 def test_ssd_kernel_reads_through_strides_on_card(cuda_device):
     """x, B and C cut from the packed projection give the same bits as
-    contiguous copies."""
+    contiguous copies, through the TMA route and, for views shifted by one
+    element (a base and a token stride off 16 bytes), the cp.async route."""
     from repro_torch.kernels.ssd import kernel as TS
     gen = torch.Generator(cuda_device).manual_seed(11)
-    args = _ssd_inputs(gen, 2, 333, 8, 64, 128, 2, torch.bfloat16,
+    b, length, h, p, s, g = 2, 333, 8, 64, 128, 2
+    args = _ssd_inputs(gen, b, length, h, p, s, g, torch.bfloat16,
                        cuda_device)
-    got = TS.ssd_scan(*args)
     want = TS.ssd_scan(*(t.contiguous() for t in args))
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert TS.copy_route(args[0], args[3], args[4]) == "tma"
+    packed = torch.cat([torch.zeros(b, length, 1, dtype=torch.bfloat16,
+                                    device=cuda_device),
+                        torch.cat([args[0].flatten(2), args[3].flatten(2),
+                                   args[4].flatten(2)], -1)], -1)
+    x = packed[..., 1:1 + h * p].unflatten(-1, (h, p))
+    bm = packed[..., 1 + h * p:1 + h * p + g * s].unflatten(-1, (g, s))
+    cm = packed[..., 1 + h * p + g * s:].unflatten(-1, (g, s))
+    assert TS.copy_route(x, bm, cm) == "cp.async"
+    for got in (TS.ssd_scan(*args),
+                TS.ssd_scan(x, args[1], args[2], bm, cm)):
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
 @pytest.mark.cuda

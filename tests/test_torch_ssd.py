@@ -13,6 +13,15 @@ The JAX side takes B and C per head; the port takes them per group and
 indexes group ``h // (H / G)``, so a G = 2 case feeds JAX the repeated
 groups.  The Mamba2 block at mamba2-1.3b's SMOKE config in float32: within
 1e-5 of the largest output.
+
+The card's bf16 kernel runs its chunk products on the tensor cores, which
+take bf16 operands.  `_emulate` repeats its arithmetic in torch (64-row
+chunks, the state transposed, G, the state and w o x each split into bf16
+hi + lo, float32 sums) and is held against JAX's interpreted TPU kernel
+and its chunked oracle at ``chip_smoke.py``'s bf16 gate: y within one
+bf16 step of the largest |y|, the state within rtol = atol = 2e-3.  A
+single bf16 rounding of w o x leaves that gate, and one of G or of the
+state doubles y's error to its edge, which is why the kernel splits them.
 """
 import dataclasses
 import functools
@@ -22,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs import get_smoke as j_get_smoke
 from repro.kernels.ssd import ref as j_ref
@@ -270,3 +280,141 @@ def test_plans_match_jax():
         assert tuple(tc[k].shape) == tuple(jc[k].shape)
         assert tc[k].dtype == jc[k].dtype
     assert dataclasses.asdict(tcfg.ssm) == dataclasses.asdict(jcfg.ssm)
+
+
+# ---- the bf16 kernel's arithmetic (csrc/ssd.cu ssd_wgmma_kernel) --------
+
+# (B, L, H, P, S, G): the model's head and the smoke config's, over a
+# ragged 300; a = -8 makes the decay underflow inside a 64-row chunk
+EMULATED = {"model": (2, 300, 4, 64, 128, 1), "smoke": (2, 300, 4, 16, 16, 1)}
+UNDERFLOW = (-0.3, -1.0, -3.0, -8.0)
+BF16_GATE = dict(rtol=2e-3, atol=2e-3)       # the state; y: one bf16 step
+
+
+def _hi_lo(v, split=True):
+    """v as bf16 hi + lo (or hi alone), each back in float32."""
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float() if split else torch.zeros_like(v)
+
+
+def _emulate(x, dt, a, bmat, c, *, single=(), chunk=64):
+    """The bf16 kernel's arithmetic in torch, per 64-row chunk (the ragged
+    tail padded with zeros and dt = 0): lg = a cumsum(dt); C B^T of the
+    bf16 inputs in float32; G = C B^T o 2^(lg_t log2(e) - lg_z log2(e)) o
+    dt_z for z <= t; y^T = exp(lg_t) (state^T C^T) + x^T G^T and the transposed
+    state's update exp(lg_end) state^T + (w o x)^T B, where G, the state
+    and w o x enter as bf16 hi + lo (``single`` names those rounded once
+    instead), every product summed in float32; y rounded once to bf16."""
+    b, length, h, p = x.shape
+    s = bmat.shape[-1]
+    pad = (-length) % chunk
+
+    def per_head(t):                         # (B, L, *, n) -> (B, H, L', n)
+        return F.pad(ref.heads(t, h).float(), (0, 0, 0, 0, 0, pad)
+                     ).permute(0, 2, 1, 3)
+    xf, bf, cf = per_head(x), per_head(bmat), per_head(c)
+    dtf = F.pad(dt, (0, 0, 0, pad)).permute(0, 2, 1)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    st = torch.zeros(b, h, p, s)
+    ys = []
+    for t0 in range(0, length + pad, chunk):
+        xs, dts, bs, cs = (t[:, :, t0:t0 + chunk] for t in (xf, dtf, bf, cf))
+        lg = a[:, None] * torch.cumsum(dts, -1)
+        lend = lg[..., -1:]
+        lg2 = lg * np.float32(np.log2(np.e))
+        diff = torch.where(tri, lg2[..., :, None] - lg2[..., None, :], 0.0)
+        g = torch.where(tri, (cs @ bs.transpose(-1, -2)) * torch.exp2(diff)
+                        * dts[..., None, :], 0.0)
+        ghi, glo = _hi_lo(g, "g" not in single)
+        shi, slo = _hi_lo(st, "state" not in single)
+        ct, xt = cs.transpose(-1, -2), xs.transpose(-1, -2)
+        yt = (shi @ ct + slo @ ct) * torch.exp(lg)[..., None, :]
+        yt = yt + xt @ ghi.transpose(-1, -2) + xt @ glo.transpose(-1, -2)
+        ys.append(yt.transpose(-1, -2))
+        whi, wlo = _hi_lo(xs * (torch.exp(lend - lg) * dts)[..., None],
+                          "wx" not in single)
+        st = (st * torch.exp(lend)[..., None] + whi.transpose(-1, -2) @ bs
+              + wlo.transpose(-1, -2) @ bs)
+    y = torch.cat(ys, 2)[:, :, :length].permute(0, 2, 1, 3)
+    return y.bfloat16(), st.transpose(-1, -2)
+
+
+def _bf16_inputs(b, length, h, p, s, g, a, seed=0):
+    """numpy-seeded x, B, C in bf16 (JAX's per head, the port's per
+    group), dt and a float32."""
+    x, dt, _, bm, cm = _inputs(b, length, h, p, s, groups=g, seed=seed)
+    a = np.asarray(a, np.float32)
+    jargs = [jnp.asarray(x, jnp.bfloat16), jnp.asarray(dt), jnp.asarray(a),
+             jnp.asarray(_per_head(bm, h), jnp.bfloat16),
+             jnp.asarray(_per_head(cm, h), jnp.bfloat16)]
+    targs = [torch.from_numpy(x).bfloat16(), torch.from_numpy(dt),
+             torch.from_numpy(a), torch.from_numpy(bm).bfloat16(),
+             torch.from_numpy(cm).bfloat16()]
+    return jargs, targs
+
+
+def _bf16_step(t):
+    """One bfloat16 step at the largest |t|."""
+    return 2.0 ** (np.floor(np.log2(np.abs(t).max())) - 7)
+
+
+def _gate_errors(got, want):
+    """(y's largest error in bf16 steps of the largest |y|, the share of
+    state elements outside rtol = atol = 2e-3)."""
+    (y, st), (wy, wst) = got, want
+    wy, wst = np.asarray(wy, np.float32), np.asarray(wst, np.float32)
+    assert y.shape == wy.shape and st.shape == wst.shape
+    y_steps = np.abs(y.float().numpy() - wy).max() / _bf16_step(wy)
+    outside = ~np.isclose(st.numpy(), wst, **BF16_GATE)
+    return y_steps, outside.mean()
+
+
+@pytest.mark.parametrize("impl", ("pallas", "xla"))
+@pytest.mark.parametrize("head", sorted(EMULATED))
+def test_bf16_kernel_emulation_matches_jax(head, impl):
+    """The split arithmetic against JAX's TPU kernel in the interpreter and
+    its chunked oracle, at the kernel's gate."""
+    b, length, h, p, s, g = EMULATED[head]
+    jargs, targs = _bf16_inputs(b, length, h, p, s, g, UNDERFLOW)
+    # the last head's decay reaches 0 in float32 inside the first chunk
+    first = np.cumsum(np.asarray(jargs[1])[:, :64, -1], axis=1)
+    assert (np.exp(np.float32(UNDERFLOW[-1]) * first) == 0).any()
+    y_steps, outside = _gate_errors(_emulate(*targs),
+                                    _jax_ssd(impl, 64)(*jargs))
+    assert y_steps <= 1.0 and outside == 0.0, (y_steps, outside)
+
+
+def test_single_bf16_rounding_leaves_the_gate():
+    """Why the kernel splits: with w o x rounded once to bf16 the state
+    leaves rtol = atol = 2e-3, and with G or the state rounded once y's
+    largest error doubles to the gate's edge of one bf16 step; slow decays
+    carry the state across chunks."""
+    b, length, h, p, s, g = EMULATED["model"]
+    jargs, targs = _bf16_inputs(b, length, h, p, s, g,
+                                (-0.01, -0.02, -0.05, -0.1), seed=1)
+    want = _jax_ssd("pallas", 64)(*jargs)
+    split_y, split_out = _gate_errors(_emulate(*targs), want)
+    assert split_y <= 0.5 and split_out == 0.0, (split_y, split_out)
+    _, outside = _gate_errors(_emulate(*targs, single=("wx",)), want)
+    assert outside > 1e-2, outside
+    for single in ("g", "state"):
+        y_steps, _ = _gate_errors(_emulate(*targs, single=(single,)), want)
+        assert y_steps >= 2 * split_y, (single, y_steps, split_y)
+
+
+def test_bf16_kernel_copy_route_and_shared_memory():
+    """Views TMA can read (16-byte aligned bases and strides, as the
+    packed projection gives) take the TMA route, others cp.async; the
+    wrapper's shared-memory counts are the C launcher's."""
+    h, p, g, s = 4, 64, 1, 128
+    packed = torch.zeros(2, 10, h * p + 2 * g * s + 8, dtype=torch.bfloat16)
+    x = packed[..., :h * p].unflatten(-1, (h, p))
+    bm = packed[..., h * p:h * p + g * s].unflatten(-1, (g, s))
+    cm = packed[..., h * p + g * s:h * p + 2 * g * s].unflatten(-1, (g, s))
+    assert TK.copy_route(x, bm, cm) == "tma"
+    shifted = packed[..., 1:1 + h * p].unflatten(-1, (h, p))   # base + 2 B
+    assert TK.copy_route(shifted, bm, cm) == "cp.async"
+    odd = torch.zeros(2, 10, h * 36, dtype=torch.bfloat16).unflatten(
+        -1, (h, 36))                                           # 72-byte heads
+    assert TK.copy_route(odd, bm, cm) == "cp.async"
+    assert TK.SMEM_BYTES == {torch.float32: 115456, torch.bfloat16: 110096}
