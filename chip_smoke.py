@@ -8,8 +8,9 @@ Phases, each fatal on failure:
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (parallel nvcc);
   2. compare every kernel with its plain PyTorch version on the card: the
      fleet kernels at the shapes of the paper's 8-128-8 controller with
-     B = 4096 streams; the shared-weight step, the shared-weight rollout
-     window and the LIF forward kernel at the 784-1024-10 MNIST network;
+     B = 4096 streams, the fleet steps also at the LM adapter's 128x128
+     with B = 4; the shared-weight step, the shared-weight rollout window
+     and the LIF forward kernel at the 784-1024-10 MNIST network;
  2c. the flash-attention kernel against its plain version at qwen3-4b's
      prefill shape (B = 4, S = 2048, H = 32, HKV = 8, D = 128), a ragged
      S = 1000, a decode-shaped query against 2049 keys, a kv_len mask, the
@@ -26,7 +27,11 @@ Phases, each fatal on failure:
      timestep), in float32 and int8; the int8 closed loop is repeated
      through the plain rollout and must give the same bits;
   5. time each kernel and its plain version with CUDA events, the L2 cache
-     flushed before each call; the fleet window's K sweep (8-128-8,
+     flushed before each call; the fleet steps per layer shape (8->128,
+     128->8 at B = 4096, the adapter's 128x128 at B = 4) in float32 and
+     int8, telemetry off and on, the kernel alone (`torch.profiler`)
+     beside the whole wrapper call, each launch's plan and CTAs an SM and
+     ptxas registers; the fleet window's K sweep (8-128-8,
      B = 4096, K = 1, 2, 4, 8, 16, float32, int8 and bf16) fitted as fixed
      cost + K x per-step cost beside the bound's own split, each
      instantiation's launch (threads, shared memory, CTAs an SM holds by
@@ -90,7 +95,9 @@ Phases, each fatal on failure:
      against its plain version on its own inputs;
  2e. the telemetry variants of the fleet-step and rollout kernels against
      their plain versions at 8-128-8, B = 4096, 3/4 of the slots active and
-     a teaching signal: the fleet steps at 8->128 and 128->8, the rollout
+     a teaching signal: the fleet steps at 8->128 and 128->8 and at the
+     adapter's 128x128 with B = 4 (traces and rule on a grid there, so
+     the 16,384-term float row is exact in any order), the rollout
      at K = 4 and 16, float32 and int8; each launch's state equals the same
      launch without telemetry bit for bit, its row equals the plain
      version's bit for bit (int8) or within 2e-4 (float32), vacant rows 0;
@@ -107,7 +114,8 @@ Phases, each fatal on failure:
      the plain versions gives the same final pool and persisted sessions.
  2f. the bfloat16 instantiations against their plain versions: the fleet
      step (with and without telemetry, the rule in bf16 or float32) at
-     8->128, 128->8 and a ragged 17->257 with B = 4096, with and without
+     8->128, 128->8 and a ragged 17->257 with B = 4096 and the adapter's
+     128x128 with B = 4, with and without
      a slot mask and teach; the fleet window at K = 1, 4, 32 with 90% of
      the slots active and its telemetry variant at K = 4, 16; the
      shared-weight window at 784-1024-10, K = 1 and 8; the shared step and
@@ -126,12 +134,18 @@ Phases, each fatal on failure:
      against the plain versions, and the Table II forward-only baseline;
  7f. each bf16 kernel's time beside its float32 twin (timed in the same
      phase), its plain version, its bound at 2 bytes per bf16 element and,
-     for `lif_forward`, a bf16 `torch.matmul` of the product.
+     for `lif_forward`, a bf16 `torch.matmul` of the product; the bf16
+     fleet steps per layer shape as in phase 5.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when there is no CUDA device or the package is not beside it.
 Each phase prints its seconds.
+
+``python3 chip_smoke.py --fleet-steps`` builds the kernels and times only
+the fleet steps per layer shape (phases 5 and 7f's table) and the
+per-event path's device ops (phase 4b), any tree's wrappers alike; it
+writes ``chiprun_out/fleet_steps.json`` and prints no result line.
 """
 from __future__ import annotations
 
@@ -369,18 +383,19 @@ def compare_fleet_steps(dev, results):
     from repro_torch.kernels.plasticity.quant import QuantConfig
     gen = torch.Generator(dev).manual_seed(SEED)
     qc = QuantConfig()
-    cases = [(8, 128, True, None), (128, 8, False, None), (40, 77, True, "mask")]
-    for n, m, spiking, mask in cases:
+    cases = [(B, 8, 128, True, None), (B, 128, 8, False, None),
+             (B, 40, 77, True, "mask"), (4, 128, 128, True, "mask")]
+    for b, n, m, spiking, mask in cases:
         active = None
         if mask:
-            active = (torch.rand(B, generator=gen, device=dev) < 0.7)
+            active = (torch.rand(b, generator=gen, device=dev) < 0.7)
         for quant in (False, True):
             x, w, theta, v, tpre, tpost = rand_fleet_inputs(
-                gen, B, n, m, quant, dev)
+                gen, b, n, m, quant, dev)
             if quant:
-                scale = torch.where(torch.arange(B, device=dev) % 2 == 0,
+                scale = torch.where(torch.arange(b, device=dev) % 2 == 0,
                                     1 / 32, 1 / 16).float()
-                seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,),
+                seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (b,),
                                      generator=gen, device=dev,
                                      dtype=torch.int64).int()
                 kw = dict(qcfg=qc, v_th=1.0, v_reset=0.0, w_clip=4.0,
@@ -398,7 +413,7 @@ def compare_fleet_steps(dev, results):
                 want = K.fleet_step_plain(x, w, theta, v, tpre, tpost, **kw)
                 name = "fleet_step"
             held(name, got, want, quant, results,
-                 f"N={n} M={m} spiking={spiking} "
+                 f"B={b} N={n} M={m} spiking={spiking} "
                  f"active={'mask' if mask else 'all'}")
             if active is not None:
                 off = ~active
@@ -752,8 +767,8 @@ def profile_window(fn, steps):
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -784,6 +799,41 @@ def profile_window(fn, steps):
         log(f"      {t['ms']:8.3f} ms  x{t['count']:<5d} {t['name']}")
     for name, r in sorted(ranges.items()):
         log(f"      host {r['host_ms']:8.3f} ms  x{r['count']:<5d} {name}")
+    return out
+
+
+def profile_per_event(dev, windows=5):
+    """Where the time goes over `windows` control windows of the per-event
+    path (`snn.timestep`: one fleet-step launch per layer per timestep) of
+    the 8-128-8 controller at B = 4096, float32 and int8, plain and with
+    telemetry under a bool slot mask (3/4 active, the serving pool's
+    per-step call); device ops per timestep."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import snn
+    gen = torch.Generator(dev).manual_seed(SEED + 16)
+    out = {}
+    for quant in (False, True):
+        cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
+               else firefly_snn.CONFIG)
+        theta = snn.init_theta(cfg, gen, scale=0.01)
+        drive = torch.rand(B, cfg.layer_sizes[0], generator=gen,
+                           device=dev) * 2 - 1
+        active = torch.rand(B, generator=gen, device=dev) < 0.75
+        steps = windows * cfg.timesteps
+        for tel in (False, True):
+            net = [snn.init_state(cfg, batch=B, fleet=True, device=dev)]
+            kw = dict(telemetry=True, active=active) if tel else {}
+
+            def run():
+                for _ in range(steps):
+                    net[0] = snn.timestep(cfg, net[0], theta, drive,
+                                          **kw)[0]
+            run()
+            key = ("int8" if quant else "float32") + (" telemetry" if tel
+                                                      else "")
+            log(f"  per-event {key}:")
+            out[key] = profile_window(run, steps)
     return out
 
 
@@ -1502,7 +1552,7 @@ def time_attention(dev, results):
         log(f"  ptxas {name}: {regs} registers, spills {st} bytes stored, "
             f"{ld} bytes loaded")
     if not usage:
-        log("  ptxas: flash_attention.cu was not built in this process")
+        log("  ptxas: no compiler log for flash_attention.cu")
     results["flash_attention"].update(tflops=tflops, ptxas=usage)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -2094,36 +2144,49 @@ def compare_telemetry(dev, results):
     gen = torch.Generator(dev).manual_seed(SEED + 9)
     qc = QuantConfig()
     active = torch.rand(B, generator=gen, device=dev) < 0.75
-    for n, m, spiking in ((8, 128, True), (128, 8, False)):
+    for b, n, m, spiking in ((B, 8, 128, True), (B, 128, 8, False),
+                             (4, 128, 128, True)):
+        act = active
+        if b < B:
+            act = active[:b].clone()
+            act[b // 2] = False          # a vacant slot among the four
         for quant in (False, True):
             x, w, theta, v, tpre, tpost = rand_fleet_inputs(
-                gen, B, n, m, quant, dev)
+                gen, b, n, m, quant, dev)
             if quant:
-                teach = torch.randint(-300, 300, (B, m), generator=gen,
+                teach = torch.randint(-300, 300, (b, m), generator=gen,
                                       device=dev, dtype=torch.int32)
-                scale = torch.where(torch.arange(B, device=dev) % 2 == 0,
+                scale = torch.where(torch.arange(b, device=dev) % 2 == 0,
                                     1 / 32, 1 / 16).float()
-                seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,),
+                seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (b,),
                                      generator=gen, device=dev,
                                      dtype=torch.int64).int()
                 args = (x, w, scale, theta, v, tpre, tpost)
                 kw = dict(qcfg=qc, spiking=spiking, seed=seed, teach=teach,
-                          active=active)
+                          active=act)
                 fn, plain, name = (K.fleet_step_q, K.fleet_step_q_plain,
                                    "fleet_step_q_telemetry")
             else:
-                teach = 0.5 * torch.randn(B, m, generator=gen, device=dev)
+                if n * m > 8192:
+                    # the row sums 16,384 |dw| near 1e3, where a float32
+                    # ulp is ~1e-4: traces on quarters and the rule on
+                    # 2^-8 make every partial sum exact, so TEL_TOL holds
+                    # the same number whatever the summation order
+                    tpre, tpost = (torch.round(t * 4) / 4
+                                   for t in (tpre, tpost))
+                    theta = torch.round(theta * 256) / 256
+                teach = 0.5 * torch.randn(b, m, generator=gen, device=dev)
                 args = (x, w, theta, v, tpre, tpost)
-                kw = dict(spiking=spiking, teach=teach, active=active)
+                kw = dict(spiking=spiking, teach=teach, active=act)
                 fn, plain, name = (K.fleet_step, K.fleet_step_plain,
                                    "fleet_step_telemetry")
             got = fn(*args, telemetry=True, **kw)
             off = fn(*args, **kw)
             want = plain(*args, telemetry=True, **kw)
             held(name, got[:4], want[:4], quant, results,
-                 f"N={n} M={m} state against plain")
+                 f"B={b} N={n} M={m} state against plain")
             held_telemetry(name, got, off, want, quant, results,
-                           f"N={n} M={m}", active)
+                           f"B={b} N={n} M={m}", act)
     for quant in (False, True):
         cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
                else firefly_snn.CONFIG)
@@ -2253,6 +2316,158 @@ def time_telemetry(dev, results):
         f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
 
 
+# ---- phases 5 and 7f: the fleet steps per layer shape ------------------------
+
+# (label, B, N, M, spiking): the controller's two layers at full width and
+# the LM adapter's one layer per decode step
+FLEET_SHAPES = (("8->128", B, 8, 128, True), ("128->8", B, 128, 8, False),
+                ("adapter 128->128", 4, 128, 128, True))
+PROFILE_CALLS = 10
+
+
+def fleet_shape_inputs(gen, mode, b, n, m, dev):
+    """Positional arguments of one fleet step in FLEET_MODES (the rule in
+    bf16 for bfloat16) and its fixed-point keywords."""
+    import torch
+    from repro_torch.kernels.plasticity.quant import QuantConfig
+    if mode == "bfloat16":
+        return bf16_fleet_inputs(gen, b, n, m, dev), {}
+    x, w, theta, v, tpre, tpost = rand_fleet_inputs(gen, b, n, m,
+                                                    mode == "int8", dev)
+    if mode == "float32":
+        return (x, w, theta, v, tpre, tpost), {}
+    scale = torch.full((b,), 1 / 32, device=dev)
+    seed = torch.arange(b, dtype=torch.int32, device=dev)
+    return (x, w, scale, theta, v, tpre, tpost), dict(qcfg=QuantConfig(),
+                                                     seed=seed)
+
+
+def kernel_split(fn, calls=PROFILE_CALLS):
+    """One wrapper call's device time split by `torch.profiler` into the
+    fleet-step kernel and the wrapper's other device ops, each call with
+    the L2 flushed before it (by a bitwise not, which no wrapper runs):
+    ``(kernel ms, other ops ms, other ops)`` per call, or Nones where the
+    profiler saw no device time.  Per call means per kernel event the
+    profiler kept, which need not be all ``calls``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not _flush_buf:
+        _flush_buf.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                      device="cuda"))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(calls):
+            _flush_buf[0].bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    kern = other = 0.0
+    n_kern = n_other = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.self_device_time_total <= 0 or "bitwise_not" in e.key:
+            continue
+        if "fleet_step" in e.key:
+            kern += e.self_device_time_total
+            n_kern += e.count
+        else:
+            other += e.self_device_time_total
+            n_other += e.count
+    if n_kern == 0:
+        return None, None, None
+    return kern / 1e3 / n_kern, other / 1e3 / n_kern, n_other / n_kern
+
+
+def fleet_step_launches(dev):
+    """Each fleet-step instantiation's launch at each `FLEET_SHAPES` shape
+    (warps, tile, buffers, rule route, shared memory, CTAs an SM holds by
+    the occupancy query, CTAs launched) and the registers, spills and stack
+    ptxas gave each kernel of ``csrc/fleet_step.cu``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.plasticity import kernel as K
+    out = {"launch": {}}
+    for kind, th_bf16 in (("float32", False), ("int8", False),
+                          ("bfloat16", True), ("bfloat16", False)):
+        for label, b, n, m, _ in FLEET_SHAPES:
+            for tel in (False, True):
+                info = K.fleet_step_launch(dev, b, n, m, True, kind=kind,
+                                           telemetry=tel,
+                                           theta_bf16=th_bf16)
+                rule = (", rule float32" if kind == "bfloat16"
+                        and not th_bf16 else "")
+                name = f"{kind}{rule} {label}" + (" telemetry" if tel
+                                                  else "")
+                out["launch"][name] = {k: v for k, v in info.items()
+                                       if k != "role_smem"}
+                log(f"  launch {name}: " + ", ".join(
+                    f"{k} {v}" for k, v in out["launch"][name].items()))
+    usage = ptxas_usage(_build.build_all()["log"].get("fleet_step.cu", ""))
+    out["ptxas"] = {name: dict(registers=r, spill_store_bytes=st,
+                               spill_load_bytes=ld, stack_bytes=sk)
+                    for name, (r, st, ld, sk) in usage.items()}
+    for name, (r, st, ld, sk) in usage.items():
+        log(f"  ptxas {name}: {r} registers, spills {st} B stored / {ld} B "
+            f"loaded, stack {sk} B")
+    if not usage:
+        log("  ptxas: no compiler log for fleet_step.cu")
+    return out
+
+
+# results' kernel names of the per-shape timings, by (mode, telemetry)
+SHAPE_NAMES = {("float32", False): "fleet_step",
+               ("float32", True): "fleet_step_telemetry",
+               ("int8", False): "fleet_step_q",
+               ("int8", True): "fleet_step_q_telemetry",
+               ("bfloat16", False): "fleet_step_bf16",
+               ("bfloat16", True): "fleet_step_bf16_telemetry"}
+
+
+def file_shapes(results, shapes):
+    """`time_fleet_shapes` rows into each kernel's ``shapes`` entry."""
+    for key, row in shapes.items():
+        mode, rest = key.split(" ", 1)
+        tel = rest.endswith(" telemetry")
+        label = rest[:-len(" telemetry")] if tel else rest
+        results[SHAPE_NAMES[mode, tel]].setdefault("shapes", {})[label] = row
+
+
+def time_fleet_shapes(dev, modes):
+    """#1 and #2 per layer shape (`FLEET_SHAPES`) in each of ``modes``,
+    3/4 of the slots active, telemetry off and on: the whole wrapper call
+    by `device_ms` (L2 flushed), the kernel alone and the wrapper's other
+    device ops by `kernel_split`, and the bound."""
+    import torch
+    from repro_torch.kernels.plasticity import kernel as K
+    gen = torch.Generator(dev).manual_seed(SEED + 15)
+    out = {}
+    for mode in modes:
+        quant, eb = mode == "int8", 2 if mode == "bfloat16" else 4
+        fn = K.fleet_step_q if quant else K.fleet_step
+        for label, b, n, m, spiking in FLEET_SHAPES:
+            args, kw = fleet_shape_inputs(gen, mode, b, n, m, dev)
+            kw.update(spiking=spiking,
+                      active=torch.rand(b, generator=gen, device=dev) < 0.75)
+            for tel in (False, True):
+                call = lambda: fn(*args, telemetry=tel, **kw)
+                ms = device_ms(call)
+                kern, other, ops = kernel_split(call)
+                syn_ops = OPS_Q if quant else OPS_F32
+                ops_total = b * n * m * (syn_ops + (OPS_TEL_SYN if tel
+                                                    else 0)) \
+                    + (b * m * OPS_TEL_COL if tel else 0)
+                b_ms, kind = bound(step_bytes(b, n, m, 1 if quant else eb,
+                                              sb=eb, tb=eb)
+                                   + (b * 3 * 4 if tel else 0), ops_total)
+                key = f"{mode} {label}" + (" telemetry" if tel else "")
+                out[key] = dict(ms=ms, kernel_ms=kern, other_ms=other,
+                                other_ops=ops, bound_ms=b_ms, bound_by=kind)
+                log(f"  {key:36s} {ms:.4f} ms a call: kernel "
+                    + ("not measured" if kern is None else
+                       f"{kern:.4f} ms + {ops:.0f} other ops {other:.4f} ms")
+                    + f"; bound {b_ms:.4f} ms ({kind})")
+    return out
+
+
 # ---- phase 2f: the bfloat16 kernels against their plain versions -----------
 
 BF16_TOL = 3e-2                 # JAX's own bf16 tolerance (tests/test_fleet.py)
@@ -2334,18 +2549,22 @@ def compare_bf16_steps(dev, results):
     from repro_torch.kernels.plasticity import kernel as K
     gen = torch.Generator(dev).manual_seed(SEED + 11)
     bf = torch.bfloat16
-    for n, m, spiking, theta_bf16 in ((8, 128, True, True),
-                                      (128, 8, False, True),
-                                      (17, 257, True, False)):
+    for b, n, m, spiking, theta_bf16 in ((B, 8, 128, True, True),
+                                         (B, 128, 8, False, True),
+                                         (B, 17, 257, True, False),
+                                         (4, 128, 128, True, True),
+                                         (4, 128, 128, True, False)):
         for extras in (False, True):
-            args = bf16_fleet_inputs(gen, B, n, m, dev, theta_bf16)
+            args = bf16_fleet_inputs(gen, b, n, m, dev, theta_bf16)
             kw = dict(spiking=spiking)
             if extras:
-                kw.update(active=torch.rand(B, generator=gen,
-                                            device=dev) < 0.7,
-                          teach=(0.5 * torch.randn(B, m, generator=gen,
+                act = torch.rand(b, generator=gen, device=dev) < 0.7
+                act[0] = False
+                kw.update(active=act,
+                          teach=(0.5 * torch.randn(b, m, generator=gen,
                                                    device=dev)).to(bf))
-            what = (f"N={n} M={m} theta={'bf16' if theta_bf16 else 'f32'} "
+            what = (f"B={b} N={n} M={m} "
+                    f"theta={'bf16' if theta_bf16 else 'f32'} "
                     f"{'mask+teach' if extras else 'all, no teach'}")
             off = K.fleet_step(*args, **kw)
             held_bf16("fleet_step_bf16", off, K.fleet_step_plain(*args, **kw),
@@ -3188,11 +3407,24 @@ def main() -> int:
 
     with phase("phase 1: build"):
         info = _build.build_all()
-        log(f"  built {len(info['log'])} sources in {info['seconds']:.1f} s")
+        log(f"  built {len(info['built'])} sources in "
+            f"{info['seconds']:.1f} s")
         for src, text in info["log"].items():
             for line in text.splitlines():
                 if "Used" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
+
+    if "--fleet-steps" in sys.argv[1:]:
+        out = {"card": smi}
+        with phase("phase 5/7f: the fleet steps per layer shape"):
+            out["shapes"] = time_fleet_shapes(dev, FLEET_MODES)
+        with phase("phase 4b: the per-event path's device ops"):
+            out["per_event"] = profile_per_event(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "fleet_steps.json").write_text(json.dumps(out, indent=1))
+        print(smi)
+        return 0
 
     counters = (K.fleet_step, K.fleet_step_q, fused.rollout)
     online_counters = (fused.rollout_shared, K.shared_step, K.shared_step_q,
@@ -3234,8 +3466,9 @@ def main() -> int:
             results[name]["launches"] = n
         plain_closed_loop_matches(dev, main)
     with phase("phase 4b: where the closed loop's time goes (20 control "
-               "steps)"):
+               "steps; 5 per-event windows)"):
         profiled = profile_closed_loop(dev, main)
+        profiled["per_event"] = profile_per_event(dev)
     with phase("phase 4f: main path in bfloat16, 8-128-8 controller, "
                "B = 4096"):
         bf16_main = bf16_controller_path(dev, main,
@@ -3247,6 +3480,8 @@ def main() -> int:
     with phase("phase 5: timing"):
         time_kernels(dev, results)
         time_telemetry(dev, results)
+        file_shapes(results, time_fleet_shapes(dev, ("float32", "int8")))
+        fleet_launches = fleet_step_launches(dev)
         results["rollout"]["sweep"] = sweep_fleet_window(dev)
 
     with phase("phase 6: online-learning path, 784-1024-10, T = 8, B = 1"):
@@ -3269,6 +3504,7 @@ def main() -> int:
         time_new_kernels(dev, results)
     with phase("phase 7f: the bfloat16 kernels' times (L2 flushed)"):
         time_bf16_kernels(dev, results)
+        file_shapes(results, time_fleet_shapes(dev, ("bfloat16",)))
     with phase("phase 7b: the attention kernel at the prefill shape (L2 "
                "flushed)"):
         time_attention(dev, results)
@@ -3325,6 +3561,7 @@ def main() -> int:
               "lm_path": lm, "lm_launches": lm_launches,
               "serve_path": served, "serve_launches": serve_launches,
               "profile": profiled, "profile_online": profiled_online,
+              "fleet_step_launches": fleet_launches,
               "build_seconds": info["seconds"], "card": smi,
               "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_all}

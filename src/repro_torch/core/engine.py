@@ -211,9 +211,7 @@ def layer_step(state: LayerState, x: torch.Tensor, *,
     up = (lambda a: a[None]) if unbatched else (lambda a: a)
     state_args = (up(state.v), up(state.trace_pre), up(state.trace_post))
     if qc is not None:
-        scale = (state.w_scale if state.w_scale is not None
-                 else torch.tensor(qc.w_scale, dtype=torch.float32,
-                                   device=x.device))
+        scale = state.w_scale if state.w_scale is not None else qc.w_scale
         args = (up(x), state.w, scale, state.theta, *state_args)
         fn = _kernel.fleet_step_q if fleet else _kernel.shared_step_q
     else:

@@ -5,7 +5,9 @@ a plain C interface and loaded with `ctypes`: no PyTorch headers, so a build
 takes seconds.  All sources compile in parallel, once per process, at the
 first launch of any kernel, into ``build/repro_torch/`` under the checkout;
 a library's file name carries a hash of its sources and flags, so an edited
-source is rebuilt and an unchanged one is reused.
+source is rebuilt and an unchanged one is reused.  Each build's compiler
+output (ptxas registers and spills) is kept beside its library as ``.log``,
+so a process that reuses a library still reads it.
 
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` and no ``--use_fast_math``: every
 float operation rounds once, as written, and the only fused multiply-adds are
@@ -26,14 +28,14 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("fleet_step.cu", "rollout.cu", "shared_step.cu",
            "rollout_shared.cu", "lif_forward.cu", "flash_attention.cu",
            "ssd.cu")
-HEADERS = ("plasticity.cuh", "hopper.cuh")
+HEADERS = ("plasticity.cuh", "hopper.cuh", "fleet.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict = {}
-build_info: dict = {}      # seconds and compiler output of this process's build
+build_info: dict = {}      # this process's build: seconds, sources, logs
 
 
 def build_dir() -> Path:
@@ -61,7 +63,9 @@ def _target(source: str) -> Path:
 
 def build_all() -> dict:
     """Compile every source whose library is missing, all at once; returns
-    ``{"seconds": ..., "log": {source: compiler output}}``."""
+    ``{"seconds": ..., "built": [sources compiled now], "log": {source:
+    compiler output}}``, the output of a reused library read from its
+    ``.log``."""
     with _lock:
         if build_info:
             return build_info
@@ -81,13 +85,19 @@ def build_all() -> dict:
         for src, (p, tmp, out) in procs.items():
             log[src] = p.communicate()[0]
             if p.returncode == 0:
+                out.with_suffix(".log").write_text(log[src])
                 os.replace(tmp, out)
             else:
                 failed.append(src)
         if failed:
             raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
                                + "\n".join(log[s] for s in failed))
-        build_info.update(seconds=time.perf_counter() - t0, log=log)
+        for src in SOURCES:
+            saved = _target(src).with_suffix(".log")
+            if src not in log and saved.exists():
+                log[src] = saved.read_text()
+        build_info.update(seconds=time.perf_counter() - t0,
+                          built=sorted(procs), log=log)
         return build_info
 
 

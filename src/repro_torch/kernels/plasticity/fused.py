@@ -57,7 +57,6 @@ from repro_torch.kernels.plasticity import ref as _ref
 from repro_torch.obs.telemetry import sat_threshold, sat_threshold_q
 
 MAX_LAYERS = 8                    # ff::kMaxLayers
-DEFAULT_SMEM_LIMIT = 232448       # H100: 227 KB of dynamic shared memory
 
 _P = ctypes.c_void_p
 
@@ -80,28 +79,16 @@ class _RolloutArgs(ctypes.Structure):
         ("double_buffer", ctypes.c_int), ("ctas", ctypes.c_int)]
 
 
-def smem_limit(device) -> int:
-    props = torch.cuda.get_device_properties(device)
-    return int(getattr(props, "shared_memory_per_block_optin",
-                       DEFAULT_SMEM_LIMIT))
-
-
-FLEET_MAX_THREADS = 1024       # csrc/rollout.cu kMaxThreads
-FLEET_BARRIER_GROUPS = 15      # named barriers 1..15: groups of > 1 warp
 FLEET_SYNAPSES_PER_THREAD = 16  # of the widest layer, per step: sets warps
-FLEET_BARRIER_BYTES = 16        # two mbarriers (csrc/rollout.cu kBarBytes)
-
-
-def _al(x: int, a: int = 16) -> int:
-    return (x + a - 1) // a * a
 
 
 def _state_bytes(sizes, wb: int, sb: int) -> int:
     """One stream's weights (``wb`` bytes a weight), membranes and traces
     (``sb`` an element), each array 16-byte aligned."""
-    return (sum(_al(sizes[i] * sizes[i + 1] * wb) + _al(sizes[i + 1] * sb)
+    return (sum(_k._al(sizes[i] * sizes[i + 1] * wb)
+                + _k._al(sizes[i + 1] * sb)
                 for i in range(len(sizes) - 1))
-            + sum(_al(n * sb) for n in sizes))
+            + sum(_k._al(n * sb) for n in sizes))
 
 
 def fleet_plan(sizes, batch: int, block_b: int, plastic, *, quant: bool,
@@ -139,21 +126,21 @@ def fleet_plan(sizes, batch: int, block_b: int, plastic, *, quant: bool,
     """
     n_layers = len(sizes) - 1
     tile = max(1, min(block_b, batch))
-    if 32 * tile > FLEET_MAX_THREADS:
+    if 32 * tile > _k.MAX_THREADS:
         raise ValueError(
             f"fleet rollout: block_b={block_b} streams a tile need "
-            f"{32 * tile} threads; a CTA has {FLEET_MAX_THREADS}")
+            f"{32 * tile} threads; a CTA has {_k.MAX_THREADS}")
     warps = 1
-    if tile <= FLEET_BARRIER_GROUPS:
+    if tile <= _k.BARRIER_GROUPS:
         widest = max(sizes[i] * sizes[i + 1] for i in range(n_layers))
         want = -(-widest // (32 * FLEET_SYNAPSES_PER_THREAD))
-        cap = FLEET_MAX_THREADS // (32 * tile)
+        cap = _k.MAX_THREADS // (32 * tile)
         while warps * 2 <= cap and warps < want:
             warps *= 2
     staged = not quant and s_bytes == 2
     state = _state_bytes(sizes, 1 if quant else 4, 4) \
-        + (_al(4 * (n_layers + 1)) if quant else 0)
-    bus = _al(2 * max(sizes) * 4)
+        + (_k._al(4 * (n_layers + 1)) if quant else 0)
+    bus = _k._al(2 * max(sizes) * 4)
     th = sum(4 * sizes[i] * sizes[i + 1] for i in range(n_layers)
              if plastic[i])
     ahead = "staged" if staged else "double"
@@ -161,10 +148,10 @@ def fleet_plan(sizes, batch: int, block_b: int, plastic, *, quant: bool,
                            ("l2", ahead), ("l2", "single")):
         spare = (0 if buffers == "single" else
                  _state_bytes(sizes, 2, 2) if staged else state)
-        th_b = _al(th * theta_bytes) if theta == "smem" else 0
-        bars = FLEET_BARRIER_BYTES if spare else 0
+        th_b = _k._al(th * theta_bytes) if theta == "smem" else 0
+        bars = _k.BARRIER_BYTES if spare else 0
         slot = state + spare + bus + bars
-        smem = FLEET_BARRIER_BYTES + th_b + tile * slot
+        smem = _k.BARRIER_BYTES + th_b + tile * slot
         if smem <= limit:
             break
     else:
@@ -227,7 +214,7 @@ def shared_route(rows: int, m: int, c: int, e: int) -> tuple:
     if row_b % 16 == 0 and span_b % 16 == 0:
         n_box = -(-rows // TMA_BOX_ROWS)
         step = max(1, 128 // span_b)
-        return "tma", 16, _al(-(-rows // n_box), step)
+        return "tma", 16, _k._al(-(-rows // n_box), step)
     for width in (16, 8, 4):
         if row_b % width == 0 and span_b % width == 0:
             return "cp.async", width, 0
@@ -248,18 +235,18 @@ def shared_smem_bytes(n: int, c: int, batch: int, quant: bool,
     (TMA slabs rounded up to whole boxes)."""
     total = 0
     if th_plane is not None and th_plane[0] in ("tma", "cp.async"):
-        rows = _al(4 * n, th_plane[2]) if th_plane[0] == "tma" else 4 * n
-        total += _al(rows * c * theta_bytes, 128)
-    w_rows = _al(n, w_plane[2]) if w_plane[0] == "tma" else n
+        rows = _k._al(4 * n, th_plane[2]) if th_plane[0] == "tma" else 4 * n
+        total += _k._al(rows * c * theta_bytes, 128)
+    w_rows = _k._al(n, w_plane[2]) if w_plane[0] == "tma" else n
     staged = (not quant and w_bytes == 2) or w_plane[0] == "cp.async words"
-    total += _al((n if staged else w_rows) * c * (1 if quant else 4), 128)
+    total += _k._al((n if staged else w_rows) * c * (1 if quant else 4), 128)
     if staged:
         pitch = (4 * (-(-c * w_bytes // 4) + 1)
                  if w_plane[0] == "cp.async words" else c * w_bytes)
-        total += _al(w_rows * pitch, 128)
-    total += 2 * _al(batch * c * 4) + 2 * _al(batch * n * 4)
-    return (total + _al(n * 4) + _al(32 * 4)
-            + _al(SHARED_THREADS // 32 * SHARED_CHUNK * 32 * 4) + 16 + 128)
+        total += _k._al(w_rows * pitch, 128)
+    total += 2 * _k._al(batch * c * 4) + 2 * _k._al(batch * n * 4)
+    return (total + _k._al(n * 4) + _k._al(32 * 4)
+            + _k._al(SHARED_THREADS // 32 * SHARED_CHUNK * 32 * 4) + 16 + 128)
 
 
 def shared_plan(sizes, batch: int, plastic, quant: bool, sms: int,
@@ -555,7 +542,7 @@ def fleet_launch(device, sizes, batch: int, block_b: int, plastic, *,
     plan = _fleet_plans.get(key)
     if plan is None:
         wb, sb = (1, 4) if quant else (2, 2) if bf16 else (4, 4)
-        kw = dict(quant=quant, limit=smem_limit(device), w_bytes=wb,
+        kw = dict(quant=quant, limit=_k.smem_limit(device), w_bytes=wb,
                   s_bytes=sb, theta_bytes=2 if theta_bf16 else 4)
         plan = fleet_plan(sizes, batch, block_b, plastic, **kw)
         a = _RolloutArgs()
@@ -724,7 +711,7 @@ def rollout_shared(drives, ws, thetas, vs, traces, *, spiking, plastic,
         plan = _shared_plans[key] = shared_plan(
             sizes, b, plastic, quant,
             torch.cuda.get_device_properties(dev).multi_processor_count,
-            smem_limit(dev), w_bytes, theta_bytes)
+            _k.smem_limit(dev), w_bytes, theta_bytes)
     stream = _k.stream_of(drives)
     work = _shared_work.get((key, stream))
     if work is None:

@@ -22,8 +22,11 @@ and the rule in that dtype or float32; a bfloat16 call computes in float32
 and rounds each output once (the Pallas bodies' generic dtype).
 
 ``telemetry=True`` on the fleet steps launches the kernels' telemetry
-variant and appends the raw (B, 3) float32 per-slot row of
-`ref._fleet_telemetry_raw` to the four outputs.
+variant, which writes the raw (B, 3) float32 per-slot row of
+`ref._fleet_telemetry_raw` itself; it is appended to the four outputs.
+
+The fleet kernels run a persistent grid of per-stream warp groups whose
+launch `fleet_step_plan` sizes (`fleet_step_launch` on the card).
 
 The backend follows the tensors: a CPU tensor takes the plain version
 (``ref.dual_engine_fleet_step[_q]``), a CUDA tensor launches the kernel, and
@@ -51,6 +54,17 @@ shared_step_q_plain = _ref.dual_engine_step_q
 
 MAX_SHARED_BATCH = 1024     # rows of one shared step (its traces in smem)
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)    # the float kernels' types
+DEFAULT_SMEM_LIMIT = 232448       # H100: 227 KB of dynamic shared memory
+MAX_THREADS = 1024                # csrc/fleet.cuh kMaxThreads
+BARRIER_GROUPS = 15               # named barriers 1..15: groups of > 1 warp
+BARRIER_BYTES = 16                # two mbarriers (csrc/fleet.cuh kBarBytes)
+# Synapses a thread of a stream's tile, which set a stream's warps: 16 in
+# float, 32 in fixed point (its stochastic round makes the step bound by
+# arithmetic, so it takes the most streams an SM holds, one warp each)
+STEP_SYNAPSES_PER_THREAD = 16
+STEP_SYNAPSES_PER_THREAD_Q = 32
+STEP_DOUBLE_TILE = 8              # streams a double-buffered CTA, at most
+STEP_THETA_SHARE = 4              # a resident rule: <= 1/4 of shared memory
 
 _P = ctypes.c_void_p
 
@@ -73,12 +87,19 @@ class _FleetStepArgs(ctypes.Structure):
     """``FleetStepArgs`` of csrc/fleet_step.cu."""
     _fields_ = [(name, _P) for name in (
         "x", "w", "theta", "v", "trace_pre", "trace_post", "teach", "active",
-        "scale", "seed", "events", "v_out", "trace_post_out", "w_out")] + [
+        "scale", "seed", "events", "v_out", "trace_post_out", "w_out",
+        "tel")] + [
         (name, ctypes.c_int) for name in (
             "batch", "n", "m", "plastic", "spiking")] + [
         ("w_clip", ctypes.c_float), ("f", FParams), ("q", QParams),
-        ("tel", _P), ("tiles", ctypes.c_int), ("sat_q", ctypes.c_int),
-        ("sat_f", ctypes.c_float), ("theta_bf16", ctypes.c_int)]
+        ("telemetry", ctypes.c_int), ("sat_q", ctypes.c_int),
+        ("sat_f", ctypes.c_float)] + [
+        (name, ctypes.c_int) for name in (
+            "theta_bf16", "scale_stride", "seed_stride")] + [
+        ("scale_val", ctypes.c_float)] + [
+        (name, ctypes.c_int) for name in (
+            "seed_val", "warps", "tile", "ctas", "theta_in_smem",
+            "double_buffer", "smem")]
 
 
 class _SharedStepArgs(ctypes.Structure):
@@ -165,27 +186,187 @@ def per_stream(val, b: int, dtype, device) -> torch.Tensor:
 
 
 def active_mask(active, b: int, device) -> torch.Tensor | None:
+    """The (B,) slot mask as bytes the kernels read (nonzero = active): a
+    contiguous bool or uint8 mask on ``device`` as it is, anything else
+    converted."""
     if active is None:
         return None
     if tuple(active.shape) != (b,):
         raise ValueError(f"active slot mask must have shape ({b},); got "
                          f"{tuple(active.shape)}")
+    if active.device == device and active.is_contiguous() \
+            and active.dtype in (torch.bool, torch.uint8):
+        return active
     return (active.to(device) != 0).to(torch.uint8).contiguous()
 
 
-def tel_tiles(m: int) -> int:
-    """Partials per stream of the fleet-step telemetry buffer: the most
-    32-lane warps that M contiguous (b, m) elements can touch."""
-    return (m - 1) // 32 + 2
+def stream_scalar(val, b: int, dtype, device):
+    """A fleet kernel's per-stream scalar (scale or seed) as ``(tensor,
+    stride, value)``: a (B,) tensor read at stride 1, a 0-d tensor on
+    ``device`` read at stride 0, or a number (a missing seed is 0; a 0-d
+    tensor elsewhere, its value) passed by value with no tensor."""
+    if val is None:
+        return None, 0, 0
+    if torch.is_tensor(val) and val.ndim:
+        return expect("per-stream operand", val.to(device=device, dtype=dtype),
+                      (b,), dtype, device), 1, 0
+    if torch.is_tensor(val) and val.device == device:
+        return val.to(dtype), 0, 0
+    # the value the plain version holds: torch.as_tensor(val, dtype), which
+    # raises on a seed outside int32
+    return None, 0, torch.as_tensor(val, dtype=dtype).item()
+
+
+def smem_limit(device) -> int:
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin",
+                       DEFAULT_SMEM_LIMIT))
+
+
+def _al(x: int, a: int = 16) -> int:
+    return (x + a - 1) // a * a
+
+
+def fleet_step_plan(b: int, n: int, m: int, plastic: bool, *, sms: int,
+                    limit: int = DEFAULT_SMEM_LIMIT, w_bytes: int = 4,
+                    s_bytes: int = 4, theta_bytes: int = 4,
+                    occupancy: int | None = None) -> dict:
+    """The fleet-step kernels' launch (``csrc/fleet_step.cu``) for B streams
+    of an (N, M) layer on a card of ``sms`` SMs.
+
+    * ``warps``: a stream's group, the power of two (at most 32) that gives
+      each thread about `STEP_SYNAPSES_PER_THREAD` synapses
+      (`STEP_SYNAPSES_PER_THREAD_Q` in fixed point, ``w_bytes`` 1).
+    * ``theta``: "smem" (loaded once per CTA) where the plastic rule takes
+      at most 1 / `STEP_THETA_SHARE` of ``limit``, else "l2".
+    * ``buffers`` and ``tile`` (groups a CTA): "single" with the streams an
+      SM takes in one wave, ceil(B / sms), where that many single-buffered
+      groups fit; else "double" (the next stream fetched while one
+      computes) with as many groups as fit, at most `STEP_DOUBLE_TILE`
+      (two such CTAs an SM overlap loads and stores best); else "single"
+      with as many as fit.  At most 1024 threads, and 15 groups of more
+      than one warp.  Where the resident rule leaves no room for one group
+      it goes through L2; where nothing fits this raises ValueError — the
+      kernel does not fall back.
+    * ``role_smem``: bytes of the rule, a stream buffer (weights, input,
+      pre traces, membranes and post traces in their device types), the new
+      post traces, the warps' telemetry partials and the buffers'
+      mbarriers; ``slot`` a group's; ``smem`` the CTA's total with the
+      rule's mbarrier — the layout csrc/fleet_step.cu checks.
+    * With ``occupancy`` (CTAs an SM holds): ``ctas_per_sm`` and ``ctas``,
+      the persistent grid, sms * occupancy CTAs or fewer where the tiles
+      run out.
+
+    ``w_bytes``/``s_bytes``: a weight and a state element in device memory
+    (1/4 int8, 2/2 bfloat16, 4/4 float32); ``theta_bytes`` a coefficient.
+    """
+    nm = n * m
+    want = -(-nm // (32 * (STEP_SYNAPSES_PER_THREAD_Q if w_bytes == 1
+                           else STEP_SYNAPSES_PER_THREAD)))
+    warps = 1
+    while warps < want and warps < 32:
+        warps *= 2
+    cap = MAX_THREADS // (32 * warps)
+    if warps > 1:
+        cap = min(cap, BARRIER_GROUPS)
+    buf = _al(nm * w_bytes) + 2 * _al(n * s_bytes) + 2 * _al(m * s_bytes)
+    post, red = _al(m * 4), _al(warps * 3 * 4)
+    rule = 4 * nm * theta_bytes
+    need = max(1, -(-b // sms))
+    routes = ("smem", "l2") if plastic and rule * STEP_THETA_SHARE <= limit \
+        else ("l2",)
+    for theta in routes:
+        th = _al(rule) if theta == "smem" else 0
+        room = limit - BARRIER_BYTES - th
+        slot = {k: k * buf + post + red + BARRIER_BYTES for k in (1, 2)}
+        fits = {k: min(cap, room // slot[k]) for k in (1, 2)}
+        if fits[1] >= need:
+            buffers, tile = "single", need
+        elif fits[2] >= 1:
+            buffers, tile = "double", min(fits[2], STEP_DOUBLE_TILE)
+        elif fits[1] >= 1:
+            buffers, tile = "single", fits[1]
+        else:
+            continue
+        break
+    else:
+        raise ValueError(
+            f"fleet step: one stream of an ({n}, {m}) layer needs "
+            f"{BARRIER_BYTES + slot[1]} bytes of shared memory with the rule "
+            f"read through L2; a CTA may use {limit}")
+    k = 1 if buffers == "single" else 2
+    plan = dict(warps=warps, tile=tile, threads=32 * warps * tile,
+                buffers=buffers, theta=theta,
+                role_smem=dict(theta=th, buffer=buf, post=post,
+                               telemetry=red, barriers=BARRIER_BYTES,
+                               slot=slot[k]),
+                smem=BARRIER_BYTES + th + tile * slot[k])
+    if occupancy is not None:
+        plan.update(ctas_per_sm=occupancy,
+                    ctas=min(sms * occupancy, -(-b // tile)))
+    return plan
+
+
+_step_plans: dict = {}          # plan key -> fleet_step_plan with its grid
+_KINDS = {"float32": 0, "bfloat16": 1, "int8": 2}   # fleet_step_occupancy
+
+
+def _fill_plan(a, plan: dict) -> None:
+    """The plan's fields of a `_FleetStepArgs`."""
+    a.warps, a.tile, a.ctas = plan["warps"], plan["tile"], \
+        plan.get("ctas", 1)
+    a.theta_in_smem = int(plan["theta"] == "smem")
+    a.double_buffer = int(plan["buffers"] == "double")
+    a.smem = plan["smem"]
+
+
+def fleet_step_launch(device, b: int, n: int, m: int, plastic: bool, *,
+                      kind: str, telemetry: bool = False,
+                      theta_bf16: bool = False) -> dict:
+    """`fleet_step_plan` on ``device`` with its persistent grid: the SM
+    count and the CTAs one SM holds of the instantiation ``kind``
+    ("float32", "bfloat16", "int8") and the flags select, asked of the card
+    once per plan key.  Raises where a CTA does not fit an SM."""
+    key = (b, n, m, bool(plastic), kind, bool(telemetry), bool(theta_bf16),
+           torch.device(device))
+    plan = _step_plans.get(key)
+    if plan is None:
+        eb = 2 if kind == "bfloat16" else 4
+        kw = dict(limit=smem_limit(device),
+                  w_bytes=1 if kind == "int8" else eb,
+                  s_bytes=4 if kind == "int8" else eb,
+                  theta_bytes=2 if theta_bf16 else 4,
+                  sms=torch.cuda.get_device_properties(
+                      device).multi_processor_count)
+        plan = fleet_step_plan(b, n, m, plastic, **kw)
+        a = _FleetStepArgs(n=n, m=m, plastic=int(plastic),
+                           telemetry=int(telemetry),
+                           theta_bf16=int(theta_bf16))
+        _fill_plan(a, plan)
+        blocks = ctypes.c_int(0)
+        fn = _build.library("fleet_step.cu").fleet_step_occupancy
+        fn.argtypes = [ctypes.POINTER(_FleetStepArgs), ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            _build.check(fn(ctypes.byref(a), _KINDS[kind],
+                            ctypes.byref(blocks)), "fleet_step_occupancy")
+        if blocks.value < 1:
+            raise ValueError(
+                f"fleet step: a CTA of {plan['threads']} threads and "
+                f"{plan['smem']} bytes does not fit an SM")
+        plan = _step_plans[key] = fleet_step_plan(
+            b, n, m, plastic, occupancy=blocks.value, **kw)
+    return plan
 
 
 def _launch(entry: str, x, w, theta, v, trace_pre, trace_post, *, state_dt,
             plastic, spiking, w_clip, teach, active, telemetry, v_th,
             scale=None, seed=None, f=None, q=None, qcfg=None):
-    """Check operands, allocate outputs, launch one fleet-step kernel;
-    with ``telemetry`` also fold its per-(stream, warp piece) partials into
-    the raw (B, 3) row.  A float kernel takes teach in float32 and the rule
-    in float32 or bfloat16, and sums telemetry in float32."""
+    """Check operands, allocate outputs, launch one fleet-step kernel (the
+    telemetry variant, which writes the raw (B, 3) row, with
+    ``telemetry``).  A float kernel takes teach in float32 and the rule in
+    float32 or bfloat16, and sums telemetry in float32."""
     b, n = x.shape
     m = w.shape[2]
     dev = x.device
@@ -201,41 +382,39 @@ def _launch(entry: str, x, w, theta, v, trace_pre, trace_post, *, state_dt,
         theta = expect("theta", theta, (4, n, m), torch.float32
                        if qcfg is not None else theta.dtype, dev)
     th_bf16 = plastic and theta.dtype == torch.bfloat16
+    if plastic and theta.data_ptr() % 16:   # 16-byte loads of the rule
+        theta = theta.clone()
     if teach is not None:
         teach = teach.to(device=dev, dtype=wide).expand(b, m).contiguous()
     active = active_mask(active, b, dev)
+    sc, sc_stride, sc_val = stream_scalar(scale, b, torch.float32, dev)
+    sd, sd_stride, sd_val = stream_scalar(seed, b, torch.int32, dev)
     events = torch.empty((b, m), dtype=state_dt, device=dev)
     v_out = torch.empty_like(v)
     tp_out = torch.empty_like(trace_post)
     w_out = torch.empty_like(w)
-    tiles = tel_tiles(m)
-    parts = (torch.zeros((b, tiles, 3), dtype=wide, device=dev)
-             if telemetry else None)
+    tel = (torch.empty((b, 3), dtype=torch.float32, device=dev)
+           if telemetry else None)
+    kind = "int8" if qcfg is not None else (
+        "bfloat16" if state_dt == torch.bfloat16 else "float32")
+    plan = fleet_step_launch(dev, b, n, m, plastic, kind=kind,
+                             telemetry=telemetry, theta_bf16=th_bf16)
     args = _FleetStepArgs(
         ptr(x), ptr(w), ptr(theta) if plastic else None, ptr(v),
-        ptr(trace_pre), ptr(trace_post), ptr(teach), ptr(active), ptr(scale),
-        ptr(seed), ptr(events), ptr(v_out), ptr(tp_out), ptr(w_out),
+        ptr(trace_pre), ptr(trace_post), ptr(teach), ptr(active), ptr(sc),
+        ptr(sd), ptr(events), ptr(v_out), ptr(tp_out), ptr(w_out), ptr(tel),
         b, n, m, int(plastic), int(spiking), w_clip, f or FParams(),
-        q or QParams(), ptr(parts), tiles,
+        q or QParams(), int(telemetry),
         sat_threshold_q(v_th, qcfg) if qcfg is not None else 0,
-        sat_threshold(v_th), int(th_bf16))
+        sat_threshold(v_th), int(th_bf16), sc_stride, sd_stride, sc_val,
+        sd_val)
+    _fill_plan(args, plan)
     fn = getattr(_build.library("fleet_step.cu"), entry)
     fn.argtypes, fn.restype = [ctypes.POINTER(_FleetStepArgs), _P], \
         ctypes.c_int
     _build.check(fn(ctypes.byref(args), stream_of(x)), entry)
     out = (events, v_out, tp_out, w_out)
-    if not telemetry:
-        return out
-    if qcfg is None:
-        raw = parts.sum(1)
-    else:   # exact integer counts until one division and one scaling
-        sums = parts.sum(1, dtype=torch.int32)
-        raw = torch.stack([sums[:, 0].float() / qcfg.one,
-                           sums[:, 1].float() * scale,
-                           sums[:, 2].float()], dim=1)
-    if active is not None:
-        raw = raw * active.reshape(-1, 1).float()
-    return out + (raw,)
+    return out if tel is None else out + (tel,)
 
 
 def fleet_step(x, w, theta, v, trace_pre, trace_post, *,
@@ -289,13 +468,10 @@ def fleet_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
     if w.dtype != torch.int8:
         raise ValueError(f"fixed-point fleet kernel needs int8 w; got "
                          f"{w.dtype}")
-    b, dev = x.shape[0], x.device
     out = _launch("fleet_step_q", x, w, theta, v, trace_pre, trace_post,
                   state_dt=torch.int32, plastic=plastic, spiking=spiking,
                   w_clip=w_clip, teach=teach, active=active,
-                  telemetry=telemetry, v_th=v_th,
-                  scale=per_stream(scale, b, torch.float32, dev),
-                  seed=per_stream(seed, b, torch.int32, dev),
+                  telemetry=telemetry, v_th=v_th, scale=scale, seed=seed,
                   q=q_params(qcfg, v_th, v_reset), qcfg=qcfg)
     fleet_step_q.launches += 1
     fleet_step_q.telemetry_launches += int(telemetry)

@@ -61,10 +61,59 @@ def _assert_match(got, want, quant):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
-# (N, M, spiking, teach, active): M = 200 is not a multiple of 128
-STEP_CASES = [(6, 2, True, None, False), (8, 128, True, None, True),
-              (16, 200, True, "per-stream", False),
-              (128, 8, False, None, True), (12, 5, False, "shared", True)]
+# (B, N, M, spiking, teach, active): M = 200 is not a multiple of 128; the
+# LM adapter's 128 x 128 at B = 4 takes 16 warps a stream and its rule
+# through L2
+STEP_CASES = [(B, 6, 2, True, None, False), (B, 8, 128, True, None, True),
+              (B, 16, 200, True, "per-stream", False),
+              (B, 128, 8, False, None, True),
+              (B, 12, 5, False, "shared", True),
+              (4, 128, 128, True, "per-stream", True)]
+
+
+def _step_inputs(rng, b, n, m, quant, dev, teach=None):
+    """One fleet step's state and rule: int8 with per-slot scales (1/32 and
+    1/16; beyond B streams every third 0.03, no power of two) and seeds;
+    float32 with uniform weights."""
+    tshape = {"per-stream": (b, m), "shared": (m,)}.get(teach)
+    if quant:
+        pick = np.arange(b)
+        return _on(dev,
+                   x=rng.choice([0, 256], (b, n)).astype(np.int32),
+                   w=rng.integers(-127, 128, (b, n, m)).astype(np.int8),
+                   v=rng.integers(-600, 600, (b, m)).astype(np.int32),
+                   tpre=rng.integers(0, 1200, (b, n)).astype(np.int32),
+                   tpost=rng.integers(-300, 1200, (b, m)).astype(np.int32),
+                   scale=np.where((pick % 3 == 0) & (b > B), 0.03,
+                                  np.where(pick % 2 == 0, 1 / 32, 1 / 16))
+                   .astype(np.float32),
+                   seed=rng.integers(-2 ** 31, 2 ** 31, b).astype(np.int32),
+                   teach=None if tshape is None else rng.integers(
+                       -300, 300, tshape).astype(np.int32),
+                   theta=(rng.standard_normal((4, n, m)) * 0.02
+                          ).astype(np.float32))
+    return _on(dev,
+               x=(rng.random((b, n)) < 0.4).astype(np.float32),
+               w=rng.uniform(-1, 1, (b, n, m)).astype(np.float32),
+               v=rng.standard_normal((b, m)).astype(np.float32),
+               tpre=(rng.random((b, n)) * 3).astype(np.float32),
+               tpost=(rng.random((b, m)) * 3).astype(np.float32),
+               teach=None if tshape is None else (
+                   rng.standard_normal(tshape) * 0.5).astype(np.float32),
+               theta=(rng.standard_normal((4, n, m)) * 0.02
+                      ).astype(np.float32))
+
+
+def _step_call(t, quant, **kw):
+    """The kernel's and the plain version's outputs on the inputs ``t``."""
+    if quant:
+        args = (t["x"], t["w"], t["scale"], t["theta"], t["v"], t["tpre"],
+                t["tpost"])
+        kw.update(qcfg=TQ.QuantConfig(), seed=t["seed"])
+        return TK.fleet_step_q(*args, **kw), TK.fleet_step_q_plain(*args,
+                                                                    **kw)
+    args = (t["x"], t["w"], t["theta"], t["v"], t["tpre"], t["tpost"])
+    return TK.fleet_step(*args, **kw), TK.fleet_step_plain(*args, **kw)
 
 
 @pytest.mark.cuda
@@ -73,50 +122,66 @@ def test_fleet_step_kernels_match_plain_on_card(quant, cuda_device):
     rng = np.random.default_rng(11)
     wrapper = TK.fleet_step_q if quant else TK.fleet_step
     launches = wrapper.launches
-    for n, m, spiking, teach, masked in STEP_CASES:
-        tshape = {"per-stream": (B, m), "shared": (m,)}.get(teach)
-        if quant:
-            t = _on(cuda_device,
-                    x=rng.choice([0, 256], (B, n)).astype(np.int32),
-                    w=rng.integers(-127, 128, (B, n, m)).astype(np.int8),
-                    v=rng.integers(-600, 600, (B, m)).astype(np.int32),
-                    tpre=rng.integers(0, 1200, (B, n)).astype(np.int32),
-                    tpost=rng.integers(-300, 1200, (B, m)).astype(np.int32),
-                    scale=np.where(np.arange(B) % 2 == 0, 1 / 32,
-                                   1 / 16).astype(np.float32),
-                    seed=rng.integers(-2 ** 31, 2 ** 31, B).astype(np.int32),
-                    teach=None if tshape is None else rng.integers(
-                        -300, 300, tshape).astype(np.int32))
-        else:
-            t = _on(cuda_device,
-                    x=(rng.random((B, n)) < 0.4).astype(np.float32),
-                    w=rng.uniform(-1, 1, (B, n, m)).astype(np.float32),
-                    v=rng.standard_normal((B, m)).astype(np.float32),
-                    tpre=(rng.random((B, n)) * 3).astype(np.float32),
-                    tpost=(rng.random((B, m)) * 3).astype(np.float32),
-                    teach=None if tshape is None else (
-                        rng.standard_normal(tshape) * 0.5).astype(np.float32))
-        theta = torch.from_numpy((rng.standard_normal((4, n, m)) * 0.02)
-                                 .astype(np.float32)).to(cuda_device)
-        active = (torch.from_numpy(ACTIVE).to(cuda_device) if masked
+    for b, n, m, spiking, teach, masked in STEP_CASES:
+        t = _step_inputs(rng, b, n, m, quant, cuda_device, teach)
+        active = (torch.from_numpy(_active(b)).to(cuda_device) if masked
                   else None)
-        kw = dict(spiking=spiking, teach=t["teach"], active=active)
-        if quant:
-            args = (t["x"], t["w"], t["scale"], theta, t["v"], t["tpre"],
-                    t["tpost"])
-            kw.update(qcfg=TQ.QuantConfig(), seed=t["seed"])
-            got, want = TK.fleet_step_q(*args, **kw), \
-                TK.fleet_step_q_plain(*args, **kw)
-        else:
-            args = (t["x"], t["w"], theta, t["v"], t["tpre"], t["tpost"])
-            got, want = TK.fleet_step(*args, **kw), \
-                TK.fleet_step_plain(*args, **kw)
+        got, want = _step_call(t, quant, spiking=spiking, teach=t["teach"],
+                               active=active)
         torch.cuda.synchronize()
         _assert_match(got, want, quant)
         if masked:
             off = active == 0
             assert torch.equal(got[3][off], t["w"][off])
     assert wrapper.launches == launches + len(STEP_CASES)
+
+
+# Fleets whose streams the persistent grid walks: 2117 streams at 8->48 in
+# one wave of 17-stream tiles, the last ragged (2117 = 124 * 17 + 9); 600
+# streams of the adapter's 128 x 128, double-buffered, more than the grid
+# holds at once.  int8 with every third scale 0.03 (divided by, not
+# multiplied with a reciprocal).
+WALK_STEPS = ((2117, 8, 48, True), (600, 128, 128, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("float32", "int8", "bfloat16"))
+def test_fleet_step_kernels_walk_the_fleet_on_card(mode, cuda_device):
+    """#1 and #2 over fleets larger than a tile of the grid, telemetry off
+    and on, a slot mask and a teaching current: int8 bit for bit, float32
+    within 1e-5, bf16 within 3e-2; state of the telemetry launch equal to
+    the telemetry-off launch's; vacant slots frozen with zero rows."""
+    rng = np.random.default_rng(12)
+    quant = mode == "int8"
+    for b, n, m, spiking in WALK_STEPS:
+        t = _step_inputs(rng, b, n, m, quant, cuda_device, "per-stream")
+        if mode == "bfloat16":
+            t = {k: None if a is None else a.to(torch.bfloat16)
+                 for k, a in t.items()}
+        plan = TK.fleet_step_launch(
+            cuda_device, b, n, m, True, kind=mode,
+            theta_bf16=mode == "bfloat16")
+        if n == 8:
+            assert plan["buffers"] == "single" and b % plan["tile"], plan
+        else:
+            assert plan["buffers"] == "double", plan
+            assert plan["ctas"] * plan["tile"] < b, plan
+        active = torch.from_numpy(_active(b)).to(cuda_device)
+        kw = dict(spiking=spiking, teach=t["teach"], active=active)
+        off, want = _step_call(t, quant, **kw)
+        got, want_tel = _step_call(t, quant, telemetry=True, **kw)
+        torch.cuda.synchronize()
+        if mode == "bfloat16":
+            _assert_bf16(off, want)
+        else:
+            _assert_match(off, want, quant)
+        for a, c in zip(got[:4], off):
+            assert torch.equal(a, c)
+        vacant = active == 0
+        assert torch.equal(got[3][vacant], t["w"][vacant])
+        assert (got[4][vacant] == 0).all()
+        if quant:
+            assert torch.equal(got[4], want_tel[4])
 
 
 def _network(rng, sizes, quant, dev, b=B):
@@ -430,7 +495,7 @@ def test_shared_rollout_kernel_matches_plain_on_card(quant, cuda_device):
     plan = TF.shared_plan(three, 5, (True,) * 3, quant,
                           torch.cuda.get_device_properties(
                               cuda_device).multi_processor_count,
-                          TF.smem_limit(cuda_device), 1 if quant else 4)
+                          TK.smem_limit(cuda_device), 1 if quant else 4)
     assert all(r[0] != "tma" for r in plan["w"] + plan["theta"])
     assert plan["bus_depth"] < 33
     for k, sizes, b, teach in ((1, (8, 32, 4), 3, True),
@@ -712,28 +777,35 @@ def test_mamba2_prefill_launches_ssd_kernel_per_layer(cuda_device):
 
 # ---- the telemetry variants and session serving -------------------------------
 
-def _tel_step_inputs(rng, n, m, quant, dev):
+def _tel_step_inputs(rng, n, m, quant, dev, b=B):
+    """A telemetry step's inputs.  In float32 beyond 8192 synapses a stream
+    the row's sum |dw| nears 1e3, where a float32 ulp is ~1e-4, so the
+    traces are drawn on a grid of quarters and the rule on one of 2^-8:
+    every partial sum of the row is then exact, and the 2e-4 tolerance
+    compares the same number whatever order the kernel sums in."""
     if quant:
-        return _on(dev, x=rng.choice([0, 256], (B, n)).astype(np.int32),
-                   w=rng.integers(-127, 128, (B, n, m)).astype(np.int8),
-                   v=rng.integers(-600, 600, (B, m)).astype(np.int32),
-                   tpre=rng.integers(0, 1200, (B, n)).astype(np.int32),
-                   tpost=rng.integers(-300, 1200, (B, m)).astype(np.int32),
-                   scale=np.where(np.arange(B) % 2 == 0, 1 / 32,
+        return _on(dev, x=rng.choice([0, 256], (b, n)).astype(np.int32),
+                   w=rng.integers(-127, 128, (b, n, m)).astype(np.int8),
+                   v=rng.integers(-600, 600, (b, m)).astype(np.int32),
+                   tpre=rng.integers(0, 1200, (b, n)).astype(np.int32),
+                   tpost=rng.integers(-300, 1200, (b, m)).astype(np.int32),
+                   scale=np.where(np.arange(b) % 2 == 0, 1 / 32,
                                   1 / 16).astype(np.float32),
-                   seed=rng.integers(-2 ** 31, 2 ** 31, B).astype(np.int32),
-                   teach=rng.integers(-300, 300, (B, m)).astype(np.int32),
+                   seed=rng.integers(-2 ** 31, 2 ** 31, b).astype(np.int32),
+                   teach=rng.integers(-300, 300, (b, m)).astype(np.int32),
                    theta=(rng.standard_normal((4, n, m)) * 0.02
                           ).astype(np.float32))
-    return _on(dev, x=(rng.random((B, n)) < 0.4).astype(np.float32),
-               w=(np.round(rng.uniform(-1, 1, (B, n, m)) * 64) / 64
+    grid = (lambda a, g: np.round(a * g) / g) if n * m > 8192 \
+        else (lambda a, g: a)
+    return _on(dev, x=(rng.random((b, n)) < 0.4).astype(np.float32),
+               w=(np.round(rng.uniform(-1, 1, (b, n, m)) * 64) / 64
                   ).astype(np.float32),
-               v=(rng.standard_normal((B, m)) * 0.8).astype(np.float32),
-               tpre=(rng.random((B, n)) * 3).astype(np.float32),
-               tpost=(rng.random((B, m)) * 3).astype(np.float32),
-               teach=(rng.standard_normal((B, m)) * 0.5).astype(np.float32),
-               theta=(rng.standard_normal((4, n, m)) * 0.02
-                      ).astype(np.float32))
+               v=(rng.standard_normal((b, m)) * 0.8).astype(np.float32),
+               tpre=grid(rng.random((b, n)) * 3, 4).astype(np.float32),
+               tpost=grid(rng.random((b, m)) * 3, 4).astype(np.float32),
+               teach=(rng.standard_normal((b, m)) * 0.5).astype(np.float32),
+               theta=grid(rng.standard_normal((4, n, m)) * 0.02, 256
+                          ).astype(np.float32))
 
 
 @pytest.mark.cuda
@@ -744,10 +816,11 @@ def test_fleet_step_telemetry_variant_matches_plain_on_card(quant,
     float32 within 2e-4), its state bit for bit against the same launch
     without telemetry, and zeros for vacant slots."""
     rng = np.random.default_rng(41)
-    active = torch.from_numpy(ACTIVE).to(cuda_device)
-    for n, m, spiking in ((8, 128, True), (128, 8, False), (7, 45, True),
-                          (16, 200, False)):
-        t = _tel_step_inputs(rng, n, m, quant, cuda_device)
+    for b, n, m, spiking in ((B, 8, 128, True), (B, 128, 8, False),
+                             (B, 7, 45, True), (B, 16, 200, False),
+                             (4, 128, 128, True)):
+        t = _tel_step_inputs(rng, n, m, quant, cuda_device, b)
+        active = torch.from_numpy(_active(b)).to(cuda_device)
         kw = dict(spiking=spiking, teach=t["teach"], active=active)
         if quant:
             args = (t["x"], t["w"], t["scale"], t["theta"], t["v"],
@@ -908,15 +981,15 @@ def test_bf16_fleet_step_kernel_matches_plain_on_card(theta_dtype,
     launch's, rows within 3e-2 relative, inactive slots frozen; float16
     and mixed dtypes raise."""
     rng = np.random.default_rng(61)
-    active = torch.from_numpy(ACTIVE).to(cuda_device)
     launches = TK.fleet_step.bf16_launches
-    for n, m, spiking, teach, masked in STEP_CASES:
-        tshape = {"per-stream": (B, m), "shared": (m,)}.get(teach)
+    for b, n, m, spiking, teach, masked in STEP_CASES:
+        active = torch.from_numpy(_active(b)).to(cuda_device)
+        tshape = {"per-stream": (b, m), "shared": (m,)}.get(teach)
         t = _bf16(dict(
-            x=(rng.random((B, n)) < 0.4).astype(np.float32),
-            w=np.round(rng.uniform(-1, 1, (B, n, m)) * 64) / 64,
-            v=rng.standard_normal((B, m)), tpre=rng.random((B, n)) * 3,
-            tpost=rng.random((B, m)) * 3,
+            x=(rng.random((b, n)) < 0.4).astype(np.float32),
+            w=np.round(rng.uniform(-1, 1, (b, n, m)) * 64) / 64,
+            v=rng.standard_normal((b, m)), tpre=rng.random((b, n)) * 3,
+            tpost=rng.random((b, m)) * 3,
             teach=None if tshape is None else
             rng.standard_normal(tshape) * 0.5), cuda_device)
         theta = torch.from_numpy(rng.standard_normal((4, n, m)) * 0.02).to(

@@ -213,3 +213,93 @@ def test_float_kernels_take_float32_or_bfloat16_only():
                         ([("x", bf)], [f32.half()])):
         with pytest.raises(ValueError):
             TK.float_dtype("k", ops, thetas)
+
+
+# The fleet-step kernels' launch on a 132-SM card with 227 KB a CTA:
+# (B, N, M, dtype) -> (warps, tile, buffers, rule route, shared memory,
+# CTAs at one CTA an SM).  The controller's layers at B = 4096 take, in
+# float, two warps a stream in double-buffered tiles of 8 streams, in int8
+# one wave of 32 single-buffered one-warp streams a CTA, the rule resident
+# in both; the LM adapter's 128 x 128 at B = 4 takes 32 warps a stream (16
+# in int8), the rule through L2; 600 adapter-sized streams are more than a
+# wave and are double-buffered.
+PLAN_CASES = [
+    ((4096, 8, 128, "float32"), (2, 8, "double", "smem", 103824, 132)),
+    ((4096, 128, 8, "float32"), (2, 8, "double", "smem", 99984, 132)),
+    ((4096, 8, 128, "int8"), (1, 32, "single", "smem", 101392, 128)),
+    ((4096, 128, 8, "bfloat16"), (2, 8, "double", "smem", 50320, 132)),
+    ((4, 128, 128, "float32"), (32, 1, "single", "l2", 68512, 4)),
+    ((4, 128, 128, "int8"), (16, 1, "single", "l2", 19168, 4)),
+    ((4, 128, 128, "bfloat16"), (32, 1, "single", "l2", 34720, 4)),
+    ((2117, 8, 48, "int8"), (1, 17, "single", "smem", 24112, 125)),
+    ((600, 128, 128, "float32"), (32, 1, "double", "l2", 136096, 132)),
+    ((600, 128, 128, "int8"), (16, 2, "double", "l2", 75184, 132)),
+]
+BYTES = {"float32": (4, 4, 4), "bfloat16": (2, 2, 2), "int8": (1, 4, 4)}
+
+
+@pytest.mark.parametrize("case,want", PLAN_CASES,
+                         ids=lambda c: "-".join(map(str, c))
+                         if isinstance(c[0], int) and len(c) == 4 else None)
+def test_fleet_step_plan_pins_the_launch(case, want):
+    b, n, m, kind = case
+    wb, sb, tb = BYTES[kind]
+    plan = TK.fleet_step_plan(b, n, m, True, sms=132, w_bytes=wb,
+                              s_bytes=sb, theta_bytes=tb, occupancy=1)
+    assert (plan["warps"], plan["tile"], plan["buffers"], plan["theta"],
+            plan["smem"], plan["ctas"]) == want
+    assert plan["threads"] == 32 * plan["warps"] * plan["tile"] <= 1024
+    roles = plan["role_smem"]
+    assert plan["smem"] == 16 + roles["theta"] + plan["tile"] * roles["slot"]
+    assert plan["smem"] <= TK.DEFAULT_SMEM_LIMIT
+
+
+def test_fleet_step_plan_routes_and_refusals():
+    """A frozen layer keeps no rule; a rule that would take more than a
+    quarter of shared memory goes through L2; a stream that does not fit
+    one CTA raises rather than falling back."""
+    kw = dict(sms=132, occupancy=1)
+    assert TK.fleet_step_plan(64, 8, 128, False, **kw)["theta"] == "l2"
+    assert TK.fleet_step_plan(64, 96, 192, True, **kw)["theta"] == "l2"
+    assert TK.fleet_step_plan(64, 32, 96, True, **kw)["theta"] == "smem"
+    with pytest.raises(ValueError, match="shared memory"):
+        TK.fleet_step_plan(4, 256, 256, True, **kw)
+    # the persistent grid: every CTA an SM holds, fewer where tiles run out
+    plan = TK.fleet_step_plan(4096, 8, 128, True, sms=132, occupancy=2)
+    assert (plan["ctas_per_sm"], plan["ctas"]) == (2, 264)
+    plan = TK.fleet_step_plan(1000, 8, 128, True, sms=132, occupancy=2)
+    assert (plan["ctas_per_sm"], plan["ctas"]) == (2, -(-1000 // 8))
+
+
+def test_fleet_step_scalars_and_masks_need_no_device_op():
+    """Scalar scales and seeds travel in the argument struct, a bool or
+    uint8 slot mask is read as it is; (B,) operands and other masks are
+    checked and converted."""
+    dev = torch.device("cpu")
+    assert TK.stream_scalar(None, 4, torch.int32, dev) == (None, 0, 0)
+    assert TK.stream_scalar(0.03125, 4, torch.float32, dev) == (
+        None, 0, 0.03125)
+    t, stride, _ = TK.stream_scalar(torch.tensor(0.5), 4, torch.float32, dev)
+    assert stride == 0 and t.ndim == 0 and float(t) == 0.5
+    per = torch.arange(4, dtype=torch.int32)
+    t, stride, _ = TK.stream_scalar(per, 4, torch.int32, dev)
+    assert stride == 1 and t is per
+    with pytest.raises(ValueError):
+        TK.stream_scalar(per, 5, torch.int32, dev)
+    # a number seed is held to int32 as the plain version holds it: a
+    # fraction truncated, a value outside int32 refused by both
+    assert TK.stream_scalar(7.9, 4, torch.int32, dev) == (None, 0, 7)
+    d = _inputs(np.random.default_rng(5), 8, 16, True, None, None)
+    for seed in (2 ** 31, -2 ** 31 - 1):
+        with pytest.raises(RuntimeError, match="overflow"):
+            TK.stream_scalar(seed, 4, torch.int32, dev)
+        with pytest.raises(RuntimeError, match="overflow"):
+            TK.fleet_step_q_plain(
+                *(torch.from_numpy(d[k]) for k in (
+                    "x", "w", "scale", "theta", "v", "tpre", "tpost")),
+                qcfg=TQ.QuantConfig(), seed=seed)
+    for mask in (torch.tensor([True, False, True]),
+                 torch.tensor([1, 0, 2], dtype=torch.uint8)):
+        assert TK.active_mask(mask, 3, dev) is mask
+    got = TK.active_mask(torch.tensor([3, 0, -1]), 3, dev)
+    assert got.dtype == torch.uint8 and got.tolist() == [1, 0, 1]

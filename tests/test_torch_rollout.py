@@ -19,6 +19,7 @@ from repro_torch import convert
 from repro_torch.core import engine as TE
 from repro_torch.core.plasticity import fma32
 from repro_torch.kernels.plasticity import fused as TF
+from repro_torch.kernels.plasticity import kernel as TK
 from repro_torch.kernels.plasticity import quant as TQ
 
 B = 5
@@ -318,7 +319,7 @@ def test_shared_memory_plan(dtype, telemetry):
     its twin's (only the occupancy query, a stated 1 here, could differ)."""
     wb, sb, tb, quant, buffers, th, state, spare = FLEET_PLANS[dtype]
     plan = TF.fleet_plan((8, 128, 8), 4096, 8, (True, True), quant=quant,
-                         limit=TF.DEFAULT_SMEM_LIMIT, w_bytes=wb,
+                         limit=TK.DEFAULT_SMEM_LIMIT, w_bytes=wb,
                          s_bytes=sb, theta_bytes=tb, sms=132, occupancy=1)
     slot = state + spare + 1024 + 16
     assert plan == dict(
@@ -328,7 +329,7 @@ def test_shared_memory_plan(dtype, telemetry):
         smem=16 + th + 8 * slot, ctas_per_sm=1, ctas=132)
     # more CTAs than tiles: the grid is the tiles
     few = TF.fleet_plan((8, 128, 8), 100, 8, (True, True), quant=quant,
-                        limit=TF.DEFAULT_SMEM_LIMIT, w_bytes=wb,
+                        limit=TK.DEFAULT_SMEM_LIMIT, w_bytes=wb,
                         s_bytes=sb, theta_bytes=tb, sms=132, occupancy=2)
     assert few["ctas"] == 13 and few["ctas_per_sm"] == 2
 
@@ -340,7 +341,7 @@ def test_fleet_plan_routes_and_raises():
     double-buffered with resident rules (229424 bytes), 11 single-buffered
     (146480), 20 single-buffered with the rules in L2 (206736), 23 too
     many (237744 > 232448); 33 streams need more than 1024 threads."""
-    kw = dict(quant=False, limit=TF.DEFAULT_SMEM_LIMIT)
+    kw = dict(quant=False, limit=TK.DEFAULT_SMEM_LIMIT)
     net = ((8, 128, 8), 4096)
     expect = {10: ("double", "smem", 2, 229424),
               11: ("single", "smem", 2, 146480),
@@ -411,7 +412,7 @@ def test_shared_window_plan_at_mnist_width(mode):
     TMA), each role's shared memory and the bus depth, pinned by hand."""
     w_bytes, th_bytes, w_routes, th_routes, role = SHARED_PLANS[mode]
     plan = TF.shared_plan((784, 1024, 10), 1, (True, True), mode == "int8",
-                          132, TF.DEFAULT_SMEM_LIMIT, w_bytes, th_bytes)
+                          132, TK.DEFAULT_SMEM_LIMIT, w_bytes, th_bytes)
     assert plan["ctas"] == [128, 3] and plan["cols"] == [8, 4]
     assert plan["w"] == w_routes and plan["theta"] == th_routes
     assert plan["w"][1][0] != "tma" and plan["theta"][1][0] != "tma"
@@ -430,10 +431,10 @@ def test_shared_window_plan_raises_without_room():
     beside the slab is read through L2 instead."""
     with pytest.raises(ValueError, match="co-resident"):
         TF.shared_plan((784, 1024, 10), 1, (True, True), False, 8,
-                       TF.DEFAULT_SMEM_LIMIT)
+                       TK.DEFAULT_SMEM_LIMIT)
     with pytest.raises(ValueError, match="shared memory"):
         TF.shared_plan((784, 1024, 10), 64, (True, True), False, 132,
-                       TF.DEFAULT_SMEM_LIMIT)
+                       TK.DEFAULT_SMEM_LIMIT)
     plan = TF.shared_plan((784, 1024, 10), 1, (True, True), False, 132,
                           120_000)
     assert plan["theta"][0] == ("l2", 0, 0) and plan["smem"] <= 120_000
