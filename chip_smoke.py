@@ -45,11 +45,17 @@ Phases, each fatal on failure:
      layer, then `apply_plasticity`), in float32 and int8; the int8 stream
      is repeated through the plain versions and must give the same bits;
   7. the Table II timings on the card (per timestep at B = 1: fused,
-     forward-only, sequential, windowed) and each new kernel's time with
+     forward-only, sequential, windowed), where 20 per-event timesteps'
+     time goes (`torch.profiler`), and each new kernel's time with
      the L2 cache flushed between repetitions; the shared-weight window's
      K sweep (784-1024-10, B = 1, K = 1, 2, 4, 8, 16, float32, int8 and
      bf16) fitted as fixed cost + K x per-step cost beside the bound's own
      split, and the registers and spills ptxas gave each instantiation;
+     the shared steps #4 and #5 per layer shape (784->1024 and 1024->10,
+     B = 1 and 8): the kernel alone (`torch.profiler`) beside the whole
+     call, which must run no device op beside the kernel (a 0-d scale and
+     a number seed in int8), each launch's plan and CTAs an SM, and the
+     registers and spills ptxas gave each kernel of `shared_step.cu`;
  7b. the attention kernel's time at the prefill shape beside its bound,
      its plain version and `scaled_dot_product_attention` (the yardstick),
      its TFLOP/s, its ratios to SDPA and to the bound, and the registers
@@ -135,7 +141,8 @@ Phases, each fatal on failure:
  7f. each bf16 kernel's time beside its float32 twin (timed in the same
      phase), its plain version, its bound at 2 bytes per bf16 element and,
      for `lif_forward`, a bf16 `torch.matmul` of the product; the bf16
-     fleet steps per layer shape as in phase 5.
+     fleet steps per layer shape as in phase 5 and the bf16 shared step
+     per layer shape as in phase 7.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -146,6 +153,10 @@ Each phase prints its seconds.
 the fleet steps per layer shape (phases 5 and 7f's table) and the
 per-event path's device ops (phase 4b), any tree's wrappers alike; it
 writes ``chiprun_out/fleet_steps.json`` and prints no result line.
+``python3 chip_smoke.py --shared-steps`` does the same for the shared steps
+per layer shape (phases 7 and 7f's table, each launch's plan where the
+wrappers plan it, ptxas registers and spills) and the online learner's
+per-event device ops (phase 7) into ``chiprun_out/shared_steps.json``.
 """
 from __future__ import annotations
 
@@ -1231,6 +1242,31 @@ def table2(dev, online):
     log(f"  fused / forward-only: "
         f"{out['float32']['fused_vs_forward_only']:.3f}; sequential / fused:"
         f" {out['float32']['sequential_vs_fused']:.3f}")
+    return out
+
+
+def profile_online_per_event(dev, steps=20):
+    """Where the time goes over `steps` per-event timesteps of the online
+    learner (`snn.timestep` at B = 1: one shared-step launch a layer), float32
+    and int8, from a fresh network and rule (seeded) on one digit's spikes;
+    any tree's wrappers alike."""
+    import torch
+    from repro_torch.core import snn
+    gen = torch.Generator(dev).manual_seed(SEED + 18)
+    out = {}
+    for mode in ("float32", "int8"):
+        cfg = mnist_cfg(mode == "int8")
+        theta = snn.init_theta(cfg, gen, scale=0.02)
+        net = [snn.init_state(cfg, batch=1, device=dev)]
+        xb = (torch.rand(1, cfg.layer_sizes[0], generator=gen, device=dev)
+              < 0.3).float()
+
+        def run():
+            for _ in range(steps):
+                net[0] = snn.timestep(cfg, net[0], theta, xb)[0]
+        run()
+        log(f"  per-event {mode}:")
+        out[mode] = profile_window(run, steps)
     return out
 
 
@@ -2342,10 +2378,11 @@ def fleet_shape_inputs(gen, mode, b, n, m, dev):
                                                      seed=seed)
 
 
-def kernel_split(fn, calls=PROFILE_CALLS):
+def kernel_split(fn, calls=PROFILE_CALLS, kernel="fleet_step"):
     """One wrapper call's device time split by `torch.profiler` into the
-    fleet-step kernel and the wrapper's other device ops, each call with
-    the L2 flushed before it (by a bitwise not, which no wrapper runs):
+    kernel whose name holds ``kernel`` and the wrapper's other device ops,
+    each call with the L2 flushed before it (by a bitwise not, which no
+    wrapper runs):
     ``(kernel ms, other ops ms, other ops)`` per call, or Nones where the
     profiler saw no device time.  Per call means per kernel event the
     profiler kept, which need not be all ``calls``."""
@@ -2367,7 +2404,7 @@ def kernel_split(fn, calls=PROFILE_CALLS):
         if e.device_type != torch.autograd.DeviceType.CUDA \
                 or e.self_device_time_total <= 0 or "bitwise_not" in e.key:
             continue
-        if "fleet_step" in e.key:
+        if kernel in e.key:
             kern += e.self_device_time_total
             n_kern += e.count
         else:
@@ -2465,6 +2502,108 @@ def time_fleet_shapes(dev, modes):
                     + ("not measured" if kern is None else
                        f"{kern:.4f} ms + {ops:.0f} other ops {other:.4f} ms")
                     + f"; bound {b_ms:.4f} ms ({kind})")
+    return out
+
+
+# (label, B, N, M): the online learner's two layers (784-1024-10), the
+# readout taught, at the per-event B = 1 and a batch of 8
+SHARED_SHAPES = tuple((f"{n}->{m} B={b}", b, n, m) for n, m in
+                      ((784, 1024), (1024, 10)) for b in (1, 8))
+SHARED_MODES = {"float32": "shared_step", "bfloat16": "shared_step_bf16",
+                "int8": "shared_step_q"}
+
+
+def shared_shape_call(gen, mode, b, n, m, dev):
+    """One call of #4 (float32, or bfloat16 with a bf16 rule) or #5 (a 0-d
+    scale on the card and a number seed) at one `SHARED_SHAPES` shape, the
+    readout (M = 10) taught; ``(wrapper, positional args, keywords)``."""
+    import torch
+    from repro_torch.kernels.plasticity import kernel as K
+    from repro_torch.kernels.plasticity.quant import QuantConfig
+    quant = mode == "int8"
+    x, w, theta, v, tpre, tpost, teach = shared_inputs(gen, b, n, m, quant,
+                                                       dev)
+    kw = dict(teach=teach if m == 10 else None)
+    if quant:
+        kw.update(qcfg=QuantConfig(), seed=12345)
+        args = (x, w, torch.tensor(1 / 32, device=dev), theta, v, tpre,
+                tpost)
+        return K.shared_step_q, args, kw
+    args = (x, w, theta, v, tpre, tpost)
+    if mode == "bfloat16":
+        args = tuple(t.to(torch.bfloat16) for t in args)
+    return K.shared_step, args, kw
+
+
+def shared_step_launches(dev):
+    """Each `SHARED_SHAPES` launch's plan (where the wrappers have
+    ``shared_step_launch``) and the registers, spills and stack ptxas gave
+    each kernel of ``csrc/shared_step.cu``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.plasticity import kernel as K
+    out = {"launch": {}}
+    if hasattr(K, "shared_step_launch"):
+        for mode in SHARED_MODES:
+            for label, b, n, m in SHARED_SHAPES:
+                info = K.shared_step_launch(dev, b, n, m, True, kind=mode,
+                                            theta_bf16=mode == "bfloat16")
+                name = f"{mode} {label}"
+                out["launch"][name] = info
+                log(f"  launch {name}: " + ", ".join(
+                    f"{k} {v}" for k, v in info.items()))
+    usage = ptxas_usage(_build.build_all()["log"].get("shared_step.cu", ""))
+    out["ptxas"] = {name: dict(registers=r, spill_store_bytes=st,
+                               spill_load_bytes=ld, stack_bytes=sk)
+                    for name, (r, st, ld, sk) in usage.items()}
+    for name, (r, st, ld, sk) in usage.items():
+        log(f"  ptxas {name}: {r} registers, spills {st} B stored / {ld} B "
+            f"loaded, stack {sk} B")
+    if not usage:
+        log("  ptxas: no compiler log for shared_step.cu")
+    return out
+
+
+def time_shared_shapes(dev, modes=tuple(SHARED_MODES), results=None):
+    """#4 (float32, bfloat16) and #5 per `SHARED_SHAPES` shape in each of
+    ``modes``: the whole wrapper call by `device_ms` (L2 flushed), the
+    kernel alone and the wrapper's other device ops by `kernel_split`, the
+    bound, and the time `torch.sum` takes to read w and the rule once from
+    a flushed L2 (what the card's memory path gives a launch of this
+    size).  With ``results`` (the full run), each row is also filed under
+    its kernel's ``shapes`` and a call that runs any device op beside the
+    kernel fails."""
+    import torch
+    gen = torch.Generator(dev).manual_seed(SEED + 17)
+    out = {}
+    for mode in modes:
+        name = SHARED_MODES[mode]
+        quant, eb = mode == "int8", 2 if mode == "bfloat16" else 4
+        for label, b, n, m in SHARED_SHAPES:
+            fn, args, kw = shared_shape_call(gen, mode, b, n, m, dev)
+            call = lambda: fn(*args, **kw)
+            ms = device_ms(call)
+            kern, other, ops = kernel_split(call, kernel="shared_step")
+            # a yardstick of the memory path, not of the function: one cold
+            # read of w and the rule by PyTorch's reductions
+            w, theta = args[1], args[3 if quant else 2]
+            read_ms = device_ms(lambda: (w.sum(), theta.sum()))
+            b_ms, kind = bound(step_bytes(b, n, m, 1 if quant else eb,
+                                          sb=eb, fleet=False, tb=eb),
+                               n * m * (b * OPS_ROW + (OPS_UPD_Q if quant
+                                                       else OPS_UPD_F32)))
+            key = f"{mode} {label}"
+            out[key] = dict(kernel=name, ms=ms, kernel_ms=kern,
+                            other_ms=other, other_ops=ops, bound_ms=b_ms,
+                            bound_by=kind, read_ms=read_ms)
+            log(f"  {key:28s} {ms:.4f} ms a call: kernel "
+                + ("not measured" if kern is None else
+                   f"{kern:.4f} ms + {ops:.0f} other ops {other:.4f} ms")
+                + f"; bound {b_ms:.4f} ms ({kind}); reading w and the rule "
+                f"{read_ms:.4f} ms")
+            if results is not None:
+                require(ops in (None, 0),
+                        f"{name} {label}: {ops} device ops beside the kernel")
+                results[name].setdefault("shapes", {})[label] = out[key]
     return out
 
 
@@ -3414,6 +3553,19 @@ def main() -> int:
                 if "Used" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
 
+    if "--shared-steps" in sys.argv[1:]:
+        out = {"card": smi}
+        with phase("phase 7/7f: the shared steps per layer shape"):
+            out["shapes"] = time_shared_shapes(dev)
+            out.update(shared_step_launches(dev))
+        with phase("phase 7: the online learner's per-event device ops"):
+            out["per_event"] = profile_online_per_event(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "shared_steps.json").write_text(json.dumps(out, indent=1))
+        print(smi)
+        return 0
+
     if "--fleet-steps" in sys.argv[1:]:
         out = {"card": smi}
         with phase("phase 5/7f: the fleet steps per layer shape"):
@@ -3501,10 +3653,14 @@ def main() -> int:
     with phase("phase 7: Table II timings and the new kernels (L2 "
                "flushed)"):
         table = table2(dev, online)
+        table["profile_per_event"] = profile_online_per_event(dev)
         time_new_kernels(dev, results)
+        time_shared_shapes(dev, ("float32", "int8"), results)
+        shared_launches = shared_step_launches(dev)
     with phase("phase 7f: the bfloat16 kernels' times (L2 flushed)"):
         time_bf16_kernels(dev, results)
         file_shapes(results, time_fleet_shapes(dev, ("bfloat16",)))
+        time_shared_shapes(dev, ("bfloat16",), results)
     with phase("phase 7b: the attention kernel at the prefill shape (L2 "
                "flushed)"):
         time_attention(dev, results)
@@ -3562,6 +3718,7 @@ def main() -> int:
               "serve_path": served, "serve_launches": serve_launches,
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
+              "shared_step_launches": shared_launches,
               "build_seconds": info["seconds"], "card": smi,
               "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_all}

@@ -77,10 +77,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
@@ -96,36 +92,6 @@ __device__ inline void fetch_bytes(unsigned char* dst,
   } else {
     for (int o = gt; o < bytes; o += nt) dst[o] = src[o];
   }
-}
-
-// ---- 1-D bulk copies (TMA), counted on hopper.cuh's mbarriers ---------------
-
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
-// into shared memory by the copy engine; completion is counted on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// The same from shared memory to device memory, in the thread's bulk group.
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
-}
-
-// The thread's bulk stores: committed; their shared memory read; done.
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // The group's barrier: its warp alone, or named barrier 1 + group.
@@ -275,11 +241,7 @@ struct QLayer {
 };
 
 __device__ inline QLayer q_layer(float scale, float w_clip) {
-  const unsigned bits = __float_as_uint(scale);
-  const unsigned e = (bits >> 23) & 0xff;
-  const bool pow2 = (bits & 0x7fffff) == 0 && e >= 1 && e <= 253;
-  return QLayer{scale, pow2 ? __fdiv_rn(1.0f, scale) : 0.0f,
-                ff::qclip(w_clip, scale)};
+  return QLayer{scale, ff::exact_inverse(scale), ff::qclip(w_clip, scale)};
 }
 
 // ---- Forward Engine: one layer's psums ----------------------------------------

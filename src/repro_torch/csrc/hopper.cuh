@@ -1,5 +1,5 @@
-// Hopper primitives shared by the wgmma kernels (flash_attention.cu, ssd.cu):
-// mbarriers, 4-D TMA loads, wgmma descriptors and fences, bf16 pairs and
+// Hopper primitives shared by the kernels: mbarriers, 1-D bulk copies and
+// cp.async groups, 4-D TMA loads, wgmma descriptors and fences, bf16 pairs and
 // their hi/lo split, and the driver's tensor-map encoder found at run time.
 #pragma once
 
@@ -72,6 +72,41 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
          "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---- 1-D bulk copies, counted on the mbarriers above ------------------------
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
+// into shared memory by the copy engine; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// The same from shared memory to device memory, in the thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+// The thread's bulk stores: committed; their shared memory read; done.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Close the thread's cp.async group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
 // Make this thread's generic-proxy writes to shared memory visible to the

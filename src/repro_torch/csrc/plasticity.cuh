@@ -228,6 +228,16 @@ __device__ __forceinline__ int plastic_q(int w, const float* th, long plane,
                         qmax, seed, idx, q);
 }
 
+// 1 / scale where the scale is a power of two with a normal reciprocal
+// (then dw * inv is dw / scale exactly: the same correctly rounded
+// quotient), else 0.
+__device__ __forceinline__ float exact_inverse(float scale) {
+  const unsigned bits = __float_as_uint(scale);
+  const unsigned e = (bits >> 23) & 0xff;
+  return (bits & 0x7fffff) == 0 && e >= 1 && e <= 253
+             ? __fdiv_rn(1.0f, scale) : 0.0f;
+}
+
 // quant.qclip: min(floor(w_clip / scale), 127).
 __device__ __forceinline__ int qclip(float w_clip, float scale) {
   return (int)fminf(floorf(__fdiv_rn(w_clip, scale)), 127.0f);

@@ -81,7 +81,7 @@
 #include <mutex>
 #include <type_traits>
 
-#include "plasticity.cuh"
+#include "slab.cuh"
 
 using ff::kMaxLayers;
 using ff::Types;
@@ -128,9 +128,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 8;             // batch rows per psum pass
 constexpr long long kSpinCycles = 1ll << 35;   // ~19 s: a hang is a fault
-
-// How a plane reaches shared memory (fused.py ROUTES).
-enum Route { kTma = 0, kCpAsync = 1, kWords = 2, kL2 = 3, kNone = 4 };
 
 // The kernel's parameter: the arguments and a TMA map of w and of theta
 // (viewed as (4 N, M)) for each layer whose route is kTma.
@@ -205,112 +202,6 @@ __device__ inline T shfl_xor(T v, int off) {
   return __shfl_xor_sync(0xffffffffu, v, off);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers and TMA --------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed; trap after
-// kSpinCycles rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > kSpinCycles) __trap();
-  }
-}
-
-// One box {c columns, rows} of a 2-D map at (col, row); completion is
-// reported to `bar` in bytes.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
-         "r"(row)
-      : "memory");
-}
-
-// ---- cp.async -----------------------------------------------------------
-// `src_bytes` < `width` zero-fills the rest (0: nothing is read).
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         int width, int src_bytes) {
-  if (width == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-  else if (width == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Byte offset in device memory of element (r, col) of a row-major plane.
-__device__ __forceinline__ const unsigned char* at(const void* base, int r,
-                                                   int m, int col, int e) {
-  return (const unsigned char*)base + ((long)r * m + col) * e;
-}
-
-// The owned block [0, rows) x [col0, col0 + own) of a row-major (rows, m)
-// plane of `e`-byte elements, by cp.async: kCpAsync copies pieces of
-// `width` bytes into dst[rows][c] (zeros past `own`); kWords copies the
-// 4-byte words covering each row's span into rows of `pitch` bytes (the
-// span starts at byte (address & 3) of its row).  Issued by every thread.
-__device__ void copy_async(unsigned char* dst, const void* src, int rows,
-                           int m, int c, int own, int col0, int e, int route,
-                           int width, int pitch) {
-  if (route == kCpAsync) {
-    const int per_row = c * e / width, own_pieces = own * e / width;
-    for (int o = threadIdx.x; o < rows * per_row; o += blockDim.x) {
-      const int r = o / per_row, p = o - r * per_row;
-      const unsigned char* row = at(src, r, m, col0, e);
-      cp_async(smem_u32(dst + (long)o * width),
-               p < own_pieces ? row + p * width : row, width,
-               p < own_pieces ? width : 0);
-    }
-  } else {
-    const int words = pitch / 4;
-    for (int o = threadIdx.x; o < rows * words; o += blockDim.x) {
-      const int r = o / words, q = o - r * words;
-      const uintptr_t start = (uintptr_t)at(src, r, m, col0, e);
-      const uintptr_t first = start & ~(uintptr_t)3, word = first + 4 * q;
-      const uintptr_t end = start + (uintptr_t)own * e;
-      const int bytes = word >= end ? 0 : end - word >= 4 ? 4
-                                                          : (int)(end - word);
-      cp_async(smem_u32(dst + (long)r * pitch + 4 * q),
-               (const void*)(bytes ? word : first), 4, bytes);
-    }
-  }
-}
-
 // ---- the handoff between layers ------------------------------------------
 __device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
   unsigned v;
@@ -371,23 +262,6 @@ __device__ void stage_l2(S* dst, const S* src, int count) {
   }
 }
 
-// Vector stores of the owned block from src[rows][c] (e-byte elements) to
-// a row-major (rows, m) plane, `width` bytes a piece.
-__device__ void store_pieces(void* dst, const unsigned char* src, int rows,
-                             int m, int c, int own, int col0, int e,
-                             int width) {
-  const int per_row = c * e / width, own_pieces = own * e / width;
-  for (int o = threadIdx.x; o < rows * per_row; o += blockDim.x) {
-    const int r = o / per_row, p = o - r * per_row;
-    if (p >= own_pieces) continue;
-    unsigned char* g = (unsigned char*)at(dst, r, m, col0, e) + p * width;
-    const unsigned char* s = src + (long)o * width;
-    if (width == 16) *(uint4*)g = *(const uint4*)s;
-    else if (width == 8) *(uint2*)g = *(const uint2*)s;
-    else *(uint32_t*)g = *(const uint32_t*)s;
-  }
-}
-
 // Layer 0 reads each step's drive row before the step: the first
 // kPrefetch of each thread's elements are loaded during the previous
 // step's update, into registers.
@@ -437,29 +311,6 @@ __device__ __forceinline__ void column_partials(S* acc, S* red, int c,
     }
     if (lane < c) red[(warp * kChunk + u) * 32 + lane] = acc[u];
   }
-}
-
-// Loads and stores of V consecutive elements as one access.
-template <int Bytes> struct Raw;
-template <> struct Raw<16> { using T = uint4; };
-template <> struct Raw<8> { using T = uint2; };
-template <> struct Raw<4> { using T = unsigned; };
-template <> struct Raw<2> { using T = unsigned short; };
-template <> struct Raw<1> { using T = unsigned char; };
-
-template <int V, typename X>
-__device__ __forceinline__ void ld_vec(X* dst, const X* src) {
-  using R = typename Raw<V * sizeof(X)>::T;
-  const R raw = *reinterpret_cast<const R*>(src);
-  memcpy(dst, &raw, sizeof(R));
-}
-
-template <int V, typename X>
-__device__ __forceinline__ void st_vec(X* dst, const X* src) {
-  using R = typename Raw<V * sizeof(X)>::T;
-  R raw;
-  memcpy(&raw, src, sizeof(R));
-  *reinterpret_cast<R*>(dst) = raw;
 }
 
 // The batch-averaged update of one thread's synapses: columns [jv, jv + V)
@@ -821,51 +672,6 @@ rollout_shared_kernel(const __grid_constant__ Params p) {
 }
 
 // ---- host side ---------------------------------------------------------------
-
-// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    return found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A 2-D map over a row-major (rows, m) plane of `e`-byte elements, boxes of
-// {c columns, box rows}, zeros outside the plane.
-bool encode(CUtensorMap* map, const void* ptr, int rows, int m, int e, int c,
-            int box) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const CUtensorMapDataType type =
-      e == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-             : e == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                      : CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  const cuuint64_t dims[2] = {(cuuint64_t)m, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)m * e};
-  const cuuint32_t boxes[2] = {(cuuint32_t)c, (cuuint32_t)box};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, boxes, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // The residency of one instantiation at one shared-memory size on one
 // device, found once: the attribute set and the CTAs the card can hold.

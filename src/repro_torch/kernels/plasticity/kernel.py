@@ -26,7 +26,9 @@ variant, which writes the raw (B, 3) float32 per-slot row of
 `ref._fleet_telemetry_raw` itself; it is appended to the four outputs.
 
 The fleet kernels run a persistent grid of per-stream warp groups whose
-launch `fleet_step_plan` sizes (`fleet_step_launch` on the card).
+launch `fleet_step_plan` sizes (`fleet_step_launch` on the card); the
+shared-step kernels a grid of column tiles whose fan-in a thread block
+cluster may share, as `shared_step_plan` decides (`shared_step_launch`).
 
 The backend follows the tensors: a CPU tensor takes the plain version
 (``ref.dual_engine_fleet_step[_q]``), a CUDA tensor launches the kernel, and
@@ -38,6 +40,7 @@ bfloat16 launches also in ``<wrapper>.bf16_launches``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -110,7 +113,12 @@ class _SharedStepArgs(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "batch", "n", "m", "plastic", "spiking")] + [
         ("w_clip", ctypes.c_float), ("f", FParams), ("q", QParams),
-        ("theta_bf16", ctypes.c_int)]
+        ("theta_bf16", ctypes.c_int), ("scale_val", ctypes.c_float),
+        ("seed_val", ctypes.c_int)] + [
+        (name, ctypes.c_int) for name in (
+            "cols", "split", "rows", "threads", "vec", "chunk_rows",
+            "stages", "stage_x", "w_route", "w_width", "th_route",
+            "th_width", "smem")]
 
 
 def f_params(tau_m, v_th, v_reset, trace_decay) -> FParams:
@@ -360,6 +368,216 @@ def fleet_step_launch(device, b: int, n: int, m: int, plastic: bool, *,
     return plan
 
 
+# The shared-step kernels' launch (csrc/shared_step.cu, kernel.py
+# shared_step_plan).
+STEP_PIECE = 16             # bytes of w a thread's piece: 4, 8 or 16 weights
+STEP_MAX_PIECES = 8         # pieces of a column tile's row, at most
+STEP_MAX_CLUSTER = 8        # CTAs sharing a fan-in (a portable cluster)
+STEP_ROW_ALIGN = 8          # a CTA's rows: a multiple of 8 (16 for bulk)
+STEP_CHUNK_ROWS = 128       # rows of a TMA box and of a rule chunk, about
+STEP_SYNAPSES = 4           # synapses of a thread, about: sets the threads
+STEP_THREADS = (128, 512)   # threads of a CTA, at least and at most
+STEP_RING = 2               # rule chunks a ring holds, at least
+STEP_CHUNK = 8              # batch rows of one psum pass (kChunk)
+# csrc/slab.cuh Route of each copy route the shared step takes
+STEP_ROUTES = {"tma": 0, "cp.async": 1, "l2": 3, "none": 4, "bulk": 5}
+STEP_BYTES = {"float32": (4, 4), "bfloat16": (2, 2), "int8": (1, 4)}
+
+
+def step_route(n: int, m: int, c: int, e: int, tiles: int) -> tuple:
+    """``(route, piece bytes)`` of a CTA's block of a row-major ``(n, m)``
+    plane of ``e``-byte elements in tiles of ``c`` columns: TMA where the
+    rows are in 16-byte pieces; one bulk copy where a tile is the whole row
+    and the plane is in 16-byte pieces; cp.async of the widest piece (16, 8
+    or 4 bytes) that divides a row; else "l2" (not staged by a copy
+    engine)."""
+    if m * e % 16 == 0 and c * e % 16 == 0:
+        return "tma", 16
+    if tiles == 1 and n * m * e % 16 == 0:
+        return "bulk", 16
+    for width in (16, 8, 4):
+        if m * e % width == 0:
+            return "cp.async", width
+    return "l2", 0
+
+
+def shared_step_plan(b: int, n: int, m: int, plastic: bool, dtype: str, *,
+                     sms: int, smem: int = DEFAULT_SMEM_LIMIT,
+                     theta_bf16: bool = False,
+                     occupancy: int | None = None) -> dict:
+    """The shared-step kernels' launch (``csrc/shared_step.cu``) for B rows
+    of an (N, M) layer in ``dtype`` ("float32", "bfloat16", "int8"; the rule
+    bfloat16 with ``theta_bf16``) on a card of ``sms`` SMs whose CTAs may
+    use ``smem`` bytes of shared memory.
+
+    * ``vec``: weights of a thread's piece, 16 bytes of w (4, 8 or 16), or 1
+      where M's rows are not in 16-byte pieces.
+    * ``cols``: columns of a tile, the fewest 16-byte pieces (at most
+      `STEP_MAX_PIECES`, and 32 pieces) that leave at most ``sms`` tiles;
+      where rows are not in 16-byte pieces but each plane is, one tile of
+      the whole row (its blocks contiguous: one bulk copy each).
+    * ``split``: the tile's fan-in cut into ``split`` shares of ``rows``
+      rows (a multiple of 8, of 16 for a bulk copy) across a cluster, as
+      many as the SMs the tiles leave, at most `STEP_MAX_CLUSTER`; more
+      where a share's slab does not fit.  ``ctas`` = tiles x split.
+    * ``w``, ``theta``: each plane's copy route (`step_route`); ``rule``
+      "resident" (every chunk of the rule slab held), "ring" (``stages``
+      chunks at a time) where it does not fit, "l2" (read in the update)
+      where no ring fits or no copy engine takes the rows, "none" for a
+      frozen layer.  ``chunk_rows``: rows of a TMA box and of a rule chunk,
+      about `STEP_CHUNK_ROWS`, their bytes a multiple of 128 (16 rows for
+      a bulk copy).
+    * ``stage_x``: the input events and pre traces of a CTA's rows staged
+      in shared memory, where they fit beside the rest.
+    * ``threads``: a power of two, about `STEP_SYNAPSES` synapses each,
+      within `STEP_THREADS`.
+    * ``role_smem``: bytes of the w slab, the rule's stages, the staged
+      rows, the partial psums, the post traces and their means, the warps'
+      partials and the mbarriers; ``smem`` the total with 128 bytes to
+      align the base — the layout csrc/shared_step.cu checks.
+    * With ``occupancy`` (CTAs an SM holds): ``ctas_per_sm``.
+
+    Raises ValueError where a share's w slab does not fit even at the
+    largest cluster — the kernel does not fall back."""
+    if dtype not in STEP_BYTES or (theta_bf16 and dtype != "bfloat16"):
+        raise ValueError(f"shared step: no kernel for {dtype} with a "
+                         f"{'bfloat16' if theta_bf16 else 'float32'} rule")
+    we, sb = STEP_BYTES[dtype]
+    tb = 2 if theta_bf16 else 4
+    piece = STEP_PIECE // we
+    vec = piece if m * we % 16 == 0 else 1
+
+    def share(c: int, want: int) -> tuple:
+        """(rows of a share, shares) of the fan-in cut for ``want``."""
+        align = 16 if "bulk" in (step_route(n, m, c, we, -(-m // c))[0],
+                                 step_route(n, m, c, tb, -(-m // c))[0]) \
+            else STEP_ROW_ALIGN
+        rows = _al(-(-n // want), align)
+        return rows, -(-n // rows)
+
+    c = piece
+    while -(-m // c) > sms and c < min(STEP_MAX_PIECES * piece, 32 * vec):
+        c *= 2
+    # rows not in 16-byte pieces of a plane that is: one tile of the whole
+    # row, each plane's block one bulk copy (not cp.async pieces)
+    whole = piece
+    while whole < m:
+        whole *= 2
+    if -(-m // c) > 1 and whole // vec <= 32 and all(
+            step_route(n, m, whole, e, 1)[0] == "bulk"
+            for e in ((we, tb) if plastic else (we,))):
+        c = whole
+    most = min(STEP_MAX_CLUSTER, max(1, -(-n // STEP_ROW_ALIGN)))
+    tiles = -(-m // c)
+    w_plane = step_route(n, m, c, we, tiles)
+    th_plane = step_route(n, m, c, tb, tiles) if plastic else ("none", 0)
+    pw = m if w_plane[0] == "bulk" else c
+    pt = m if th_plane[0] == "bulk" else c
+    step = 1
+    for plane, pitch, e in ((w_plane, pw, we), (th_plane, pt, tb)):
+        if plane[0] == "tma":
+            step = max(step, 128 // math.gcd(128, pitch * e))
+        elif plane[0] == "bulk":
+            step = max(step, 16)
+    staged = th_plane[0] in ("tma", "bulk", "cp.async")
+    bars = lambda st: _al((1 + st) * 8)
+    for want in range(min(most, max(1, sms // -(-m // c))), most + 1):
+        rows, split = share(c, want)
+        threads = STEP_THREADS[0]
+        while threads < rows * c // STEP_SYNAPSES \
+                and threads < STEP_THREADS[1]:
+            threads *= 2
+        r = _al(-(-rows // -(-rows // STEP_CHUNK_ROWS)), step)
+        chunks = -(-rows // r)
+        roles = dict(w=_al(chunks * r * pw * we, 128), ps=_al(b * c * 4),
+                     tp=_al(b * c * 4), post=_al(c * 4),
+                     red=_al(threads // 32 * STEP_CHUNK * c * 4))
+        base = sum(roles.values()) + 128
+        stage = _al(4 * r * pt * tb, 128)
+        rule = "none" if not plastic else "l2"
+        stages = 0
+        if staged:       # every chunk held, else the largest ring
+            for st in [chunks] + list(range(chunks - 1, STEP_RING - 1, -1)):
+                if base + st * stage + bars(st) <= smem:
+                    rule = "resident" if st == chunks else "ring"
+                    stages = st
+                    break
+        used = base + stages * stage + bars(stages)
+        if used <= smem:
+            break
+    else:
+        raise ValueError(
+            f"shared step: a CTA's share of an ({n}, {m}) layer at B = {b} "
+            f"({rows} rows x {c} columns) needs {used} bytes of shared "
+            f"memory; a CTA may use {smem}")
+    if rule == "l2":
+        th_plane = ("l2", 0)
+    xs = 2 * _al(b * rows * sb)
+    stage_x = used + xs <= smem
+    roles.update(theta=stages * stage if stages else 0,
+                 staged_rows=xs if stage_x else 0, barriers=bars(stages))
+    plan = dict(vec=vec, cols=c, tiles=tiles, split=split, rows=rows,
+                ctas=tiles * split, threads=threads, chunk_rows=r,
+                chunks=chunks, stages=stages, rule=rule, stage_x=stage_x,
+                w=w_plane, theta=th_plane, role_smem=roles,
+                smem=used + (xs if stage_x else 0))
+    if occupancy is not None:
+        plan["ctas_per_sm"] = occupancy
+    return plan
+
+
+_shared_plans: dict = {}        # plan key -> shared_step_plan with occupancy
+
+
+def _fill_shared(a, plan: dict) -> None:
+    """The plan's fields of a `_SharedStepArgs`."""
+    for field in ("cols", "split", "rows", "threads", "vec", "chunk_rows",
+                  "stages", "smem"):
+        setattr(a, field, plan[field])
+    a.stage_x = int(plan["stage_x"])
+    a.w_route, a.w_width = STEP_ROUTES[plan["w"][0]], plan["w"][1]
+    a.th_route, a.th_width = STEP_ROUTES[plan["theta"][0]], plan["theta"][1]
+
+
+def shared_step_launch(device, b: int, n: int, m: int, plastic: bool, *,
+                       kind: str, theta_bf16: bool = False) -> dict:
+    """`shared_step_plan` on ``device``, asked of the card once per plan key:
+    the instantiation may use the card's shared memory, ``ctas_per_sm`` is
+    what the occupancy query gives and, for a cluster, ``clusters`` the
+    clusters the card holds at once.  Raises where a CTA or a cluster does
+    not fit."""
+    key = (b, n, m, bool(plastic), kind, bool(theta_bf16),
+           torch.device(device))
+    plan = _shared_plans.get(key)
+    if plan is None:
+        kw = dict(sms=torch.cuda.get_device_properties(
+            device).multi_processor_count, smem=smem_limit(device),
+                  theta_bf16=theta_bf16)
+        plan = shared_step_plan(b, n, m, plastic, kind, **kw)
+        a = _SharedStepArgs(batch=b, n=n, m=m, plastic=int(plastic),
+                            theta_bf16=int(theta_bf16))
+        _fill_shared(a, plan)
+        blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        fn = _build.library("shared_step.cu").shared_step_occupancy
+        fn.argtypes = [ctypes.POINTER(_SharedStepArgs), ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            _build.check(fn(ctypes.byref(a), _KINDS[kind],
+                            ctypes.byref(blocks), ctypes.byref(clusters)),
+                         "shared_step_occupancy")
+        if blocks.value < 1 or (plan["split"] > 1 and clusters.value < 1):
+            raise ValueError(
+                f"shared step: a CTA of {plan['threads']} threads and "
+                f"{plan['smem']} bytes (cluster of {plan['split']}) does not "
+                f"fit the card")
+        plan = _shared_plans[key] = shared_step_plan(
+            b, n, m, plastic, kind, occupancy=blocks.value, **kw)
+        plan["clusters"] = clusters.value
+    return plan
+
+
 def _launch(entry: str, x, w, theta, v, trace_pre, trace_post, *, state_dt,
             plastic, spiking, w_clip, teach, active, telemetry, v_th,
             scale=None, seed=None, f=None, q=None, qcfg=None):
@@ -482,10 +700,31 @@ fleet_step_q.launches = 0
 fleet_step_q.telemetry_launches = 0       # the telemetry variant's share
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where it starts on 16 bytes (the copy engines' rule), else a
+    copy that does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def teach_operand(teach, b: int, m: int, dtype, device):
+    """The (B, M) teaching current a shared-step kernel reads: a contiguous
+    (B, M) tensor of ``dtype`` on ``device`` as it is, anything else
+    (a (M,) current, another type) converted."""
+    if teach is None or (teach.device == device and teach.dtype == dtype
+                         and tuple(teach.shape) == (b, m)
+                         and teach.is_contiguous()):
+        return teach
+    return teach.to(device=device, dtype=dtype).expand(b, m).contiguous()
+
+
 def _launch_shared(entry: str, x, w, theta, v, trace_pre, trace_post, *,
                    state_dt, plastic, spiking, w_clip, teach, scale=None,
                    seed=None, f=None, q=None):
-    """Check operands, allocate outputs, launch one shared-step kernel."""
+    """Check operands, allocate outputs, launch one shared-step kernel on
+    the plan of `shared_step_launch`.  A contiguous teach of the kernel's
+    type ((B, M) float32, int32 in fixed point) and a number or 0-d scale
+    and seed on the card pass as they are: the call runs no device op
+    beside the kernel."""
     if x.ndim != 2:
         raise ValueError(f"the shared-step kernel takes batched x (B, N); got "
                          f"{tuple(x.shape)} (engine.layer_step promotes "
@@ -499,27 +738,33 @@ def _launch_shared(entry: str, x, w, theta, v, trace_pre, trace_post, *,
     if plastic and theta is None:
         raise ValueError("plastic layer needs theta")
     x = expect("x", x, (b, n), state_dt, dev)
-    w = expect("w", w, (n, m), w.dtype, dev)
+    w = _aligned(expect("w", w, (n, m), w.dtype, dev))
     v = expect("v", v, (b, m), state_dt, dev)
     trace_post = expect("trace_post", trace_post, (b, m), state_dt, dev)
     trace_pre = expect("trace_pre", trace_pre, (b, n), state_dt, dev)
     if plastic:     # float32, or bfloat16 beside bfloat16 state
-        theta = expect("theta", theta, (4, n, m), torch.float32
-                       if q is not None else theta.dtype, dev)
+        theta = _aligned(expect("theta", theta, (4, n, m), torch.float32
+                                if q is not None else theta.dtype, dev))
     th_bf16 = plastic and theta.dtype == torch.bfloat16
-    if teach is not None:      # float32 on the float kernels
-        teach = teach.to(device=dev, dtype=torch.int32 if q else
-                         torch.float32).expand(b, m).contiguous()
+    teach = teach_operand(teach, b, m, torch.int32 if q is not None
+                          else torch.float32, dev)
+    sc, _, sc_val = stream_scalar(scale, 1, torch.float32, dev)
+    sd, _, sd_val = stream_scalar(seed, 1, torch.int32, dev)
     events = torch.empty((b, m), dtype=state_dt, device=dev)
     v_out = torch.empty_like(v)
     tp_out = torch.empty_like(trace_post)
     w_out = torch.empty_like(w)
+    kind = "int8" if q is not None else (
+        "bfloat16" if state_dt == torch.bfloat16 else "float32")
+    plan = shared_step_launch(dev, b, n, m, plastic, kind=kind,
+                              theta_bf16=th_bf16)
     args = _SharedStepArgs(
         ptr(x), ptr(w), ptr(theta) if plastic else None, ptr(v),
-        ptr(trace_pre), ptr(trace_post), ptr(teach), ptr(scale), ptr(seed),
+        ptr(trace_pre), ptr(trace_post), ptr(teach), ptr(sc), ptr(sd),
         ptr(events), ptr(v_out), ptr(tp_out), ptr(w_out), b, n, m,
         int(plastic), int(spiking), w_clip, f or FParams(), q or QParams(),
-        int(th_bf16))
+        int(th_bf16), sc_val, sd_val)
+    _fill_shared(args, plan)
     fn = getattr(_build.library("shared_step.cu"), entry)
     fn.argtypes, fn.restype = [ctypes.POINTER(_SharedStepArgs), _P], \
         ctypes.c_int
@@ -572,12 +817,10 @@ def shared_step_q(x, w, scale, theta, v, trace_pre, trace_post, *,
     if w.dtype != torch.int8:
         raise ValueError(f"fixed-point shared-step kernel needs int8 w; got "
                          f"{w.dtype}")
-    dev = x.device
     out = _launch_shared(
         "shared_step_q", x, w, theta, v, trace_pre, trace_post,
         state_dt=torch.int32, plastic=plastic, spiking=spiking, w_clip=w_clip,
-        teach=teach, scale=per_stream(scale, 1, torch.float32, dev),
-        seed=per_stream(seed, 1, torch.int32, dev),
+        teach=teach, scale=scale, seed=seed,
         q=q_params(qcfg, v_th, v_reset, batch=x.shape[0]))
     shared_step_q.launches += 1
     return out

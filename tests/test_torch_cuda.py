@@ -350,13 +350,20 @@ def test_plain_shared_q_step_runs_on_card(cuda_device):
 
 
 # (B, N, M, spiking, teach, plastic): M = 257 and 130 are not multiples of
-# the 8-column tile; 784 -> 1024 and 1024 -> 10 are the MNIST layers
+# a tile (257 bf16 or int8 rows take no copy engine); 784 -> 1024 and
+# 1024 -> 10 are the MNIST layers; a fan-in of 1000 splits unevenly across
+# an 8-CTA cluster (104 rows in the last CTA); 1000 int8 columns leave a
+# ragged 8-byte edge of a 16-byte piece; 4096 rows stream the rule through
+# a ring of chunks
 SHARED_CASES = [(1, 8, 8, True, False, True), (3, 17, 257, True, True, True),
                 (2, 100, 130, True, False, False),
                 (1, 784, 1024, True, False, True),
                 (8, 784, 1024, True, False, True),
                 (1, 1024, 10, True, True, True),
-                (4, 33, 12, False, True, True)]
+                (4, 33, 12, False, True, True),
+                (1, 1000, 10, True, True, True),
+                (1, 784, 1000, True, False, True),
+                (2, 4096, 1024, True, False, True)]
 
 
 @pytest.mark.cuda

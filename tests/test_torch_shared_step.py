@@ -171,3 +171,200 @@ def test_shared_step_bf16_matches_jax_bitwise(b, n, m, impl):
         np.testing.assert_array_equal(g.float().numpy(),
                                       np.asarray(a, np.float32),
                                       err_msg=name)
+
+
+# The shared-step kernels' launch on a 132-SM card with 227 KB a CTA:
+# (B, N, M, dtype) -> (columns of a tile, weights of a piece, CTAs of a
+# cluster, CTAs, threads, w's route, the rule's route, the rule held,
+# input rows staged, shared memory).  At 784 -> 1024 a tile is one or two
+# 16-byte pieces of w wide (8 columns in float, 128 CTAs of 512 threads),
+# the rule resident in 7 TMA chunks; int8's 16-column tiles split the
+# fan-in over a 2-CTA cluster.  The readout (M = 10, rows not in 16-byte
+# pieces, its planes in whole ones) takes one tile of the whole row and
+# cuts its fan-in across an 8-CTA cluster, each plane's block one bulk
+# copy.  Rows of 130 or 257 elements go by cp.async pieces of the widest
+# width that divides them; bf16 rows of 514 bytes take no copy engine: w
+# by plain loads, the rule through L2.
+STEP_PLANS = [
+    ((1, 784, 1024, "float32"),
+     (8, 4, 1, 128, 512, "tma", "tma",
+      "resident", True, 136096)),
+    ((8, 784, 1024, "float32"),
+     (8, 4, 1, 128, 512, "tma", "tma",
+      "resident", True, 180448)),
+    ((1, 1024, 10, "float32"),
+     (16, 1, 8, 8, 512, "bulk", "bulk",
+      "resident", True, 35152)),
+    ((8, 1024, 10, "float32"),
+     (16, 1, 8, 8, 512, "bulk", "bulk",
+      "resident", True, 43216)),
+    ((3, 17, 257, "float32"),
+     (4, 1, 2, 130, 128, "cp.async", "cp.async",
+      "resident", True, 2432)),
+    ((2, 100, 130, "float32"),
+     (4, 1, 4, 132, 128, "cp.async", "cp.async",
+      "resident", True, 3808)),
+    ((1, 784, 1024, "bfloat16"),
+     (8, 8, 1, 128, 512, "tma", "tma",
+      "resident", True, 70240)),
+    ((8, 784, 1024, "bfloat16"),
+     (8, 8, 1, 128, 512, "tma", "tma",
+      "resident", True, 92640)),
+    ((1, 1024, 10, "bfloat16"),
+     (16, 1, 8, 8, 512, "bulk", "bulk",
+      "resident", True, 21840)),
+    ((8, 1024, 10, "bfloat16"),
+     (16, 1, 8, 8, 512, "bulk", "bulk",
+      "resident", True, 26320)),
+    ((3, 17, 257, "bfloat16"),
+     (8, 1, 3, 99, 128, "l2", "l2",
+      "l2", True, 1616)),
+    ((2, 100, 130, "bfloat16"),
+     (8, 1, 7, 119, 128, "cp.async", "cp.async",
+      "resident", True, 2736)),
+    ((1, 784, 1024, "int8"),
+     (16, 16, 2, 128, 512, "tma", "tma",
+      "resident", True, 124848)),
+    ((8, 784, 1024, "int8"),
+     (16, 16, 2, 128, 512, "tma", "tma",
+      "resident", True, 147696)),
+    ((1, 1024, 10, "int8"),
+     (16, 1, 8, 8, 512, "bulk", "bulk",
+      "resident", True, 31312)),
+    ((8, 1024, 10, "int8"),
+     (16, 1, 8, 8, 512, "bulk", "bulk",
+      "resident", True, 39376)),
+    ((3, 17, 257, "int8"),
+     (16, 1, 3, 51, 128, "l2", "cp.async",
+      "resident", True, 5008)),
+    ((2, 100, 130, "int8"),
+     (16, 1, 7, 63, 128, "l2", "cp.async",
+      "resident", True, 7120)),
+]
+
+
+@pytest.mark.parametrize("case,want", STEP_PLANS,
+                         ids=["-".join(map(str, c)) for c, _ in STEP_PLANS])
+def test_shared_step_plan_pins_the_launch(case, want):
+    b, n, m, dtype = case
+    plan = TK.shared_step_plan(b, n, m, True, dtype, sms=132,
+                               theta_bf16=dtype == "bfloat16", occupancy=1)
+    assert (plan["cols"], plan["vec"], plan["split"], plan["ctas"],
+            plan["threads"], plan["w"][0], plan["theta"][0], plan["rule"],
+            plan["stage_x"], plan["smem"]) == want
+    # the grid: tiles of the columns times the fan-in's shares, each share
+    # a multiple of 8 rows (16 for a bulk copy) and the last one what is
+    # left
+    assert plan["tiles"] == -(-m // plan["cols"])
+    assert plan["ctas"] == plan["tiles"] * plan["split"] <= 132
+    assert plan["rows"] % (16 if "bulk" in (plan["w"][0], plan["theta"][0])
+                           else 8) == 0
+    assert (plan["split"] - 1) * plan["rows"] < n <= plan["split"] \
+        * plan["rows"]
+    assert plan["cols"] % plan["vec"] == 0 \
+        and plan["cols"] // plan["vec"] <= 32
+    assert plan["chunks"] == -(-plan["rows"] // plan["chunk_rows"])
+    assert plan["stages"] == (plan["chunks"] if plan["rule"] == "resident"
+                              else 0)
+    assert plan["smem"] == sum(plan["role_smem"].values()) + 128 \
+        <= TK.DEFAULT_SMEM_LIMIT
+    assert plan["ctas_per_sm"] == 1
+
+
+def test_shared_step_plan_rings_refusals_and_routes():
+    """A rule too large for shared memory streams through a ring of chunks
+    (the w slab stays resident); a frozen layer keeps no rule; w that does
+    not fit even split over the largest cluster raises rather than falling
+    back; so do a dtype with no kernel and a bf16 rule beside float32."""
+    plan = TK.shared_step_plan(1, 4096, 1024, True, "float32", sms=132)
+    assert (plan["rule"], plan["stages"], plan["chunks"]) == ("ring", 5, 32)
+    assert plan["smem"] <= TK.DEFAULT_SMEM_LIMIT
+    plan = TK.shared_step_plan(1, 784, 1024, False, "float32", sms=132)
+    assert (plan["rule"], plan["theta"], plan["stages"]) == (
+        "none", ("none", 0), 0)
+    assert plan["smem"] == 136096 - 100352 - 48       # no rule, 1 mbarrier
+    with pytest.raises(ValueError, match="shared memory"):
+        TK.shared_step_plan(1, 200_000, 1024, True, "float32", sms=132)
+    with pytest.raises(ValueError):
+        TK.shared_step_plan(1, 8, 8, True, "float16", sms=132)
+    with pytest.raises(ValueError):
+        TK.shared_step_plan(1, 8, 8, True, "float32", sms=132,
+                            theta_bf16=True)
+    # the routes: 16-byte rows by TMA, one contiguous block by bulk copy,
+    # else the widest cp.async piece, else no copy engine
+    assert TK.step_route(784, 1024, 8, 4, 128) == ("tma", 16)
+    assert TK.step_route(1024, 10, 16, 1, 1) == ("bulk", 16)
+    assert TK.step_route(1024, 10, 4, 4, 3) == ("cp.async", 8)
+    assert TK.step_route(1024, 10, 8, 2, 2) == ("cp.async", 4)
+    assert TK.step_route(17, 257, 8, 2, 33) == ("l2", 0)
+
+
+class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
+    """Every ATen op a block of code runs."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func.overloadpacket))
+        return func(*args, **(kwargs or {}))
+
+
+class _Entry:
+    """A kernel entry point that records its argument struct."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, args, stream):
+        self.calls.append(args._obj)
+        return 0
+
+
+@pytest.mark.parametrize("scale,seed", [
+    (0.03125, 7), (torch.tensor(0.03125), torch.tensor(7, dtype=torch.int32))],
+    ids=["numbers", "0-d tensors"])
+def test_shared_step_scalars_and_teach_need_no_device_op(monkeypatch, scale,
+                                                         seed):
+    """A number or 0-d scale and seed travel by value or pointer in the
+    argument struct and a contiguous (B, M) teach of the kernel's type is
+    read as it is: the wrapper runs no op beside the kernel but the
+    outputs' allocation.  A (M,) teach is converted."""
+    rng = np.random.default_rng(9)
+    d = _inputs(rng, 2, 24, 40, True, True)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in d.items()
+         if v is not None}
+    plan = TK.shared_step_plan(2, 24, 40, True, "int8", sms=132)
+    entry = _Entry()
+    monkeypatch.setattr(TK, "shared_step_launch", lambda *a, **k: plan)
+    monkeypatch.setattr(TK._build, "library",
+                        lambda src: type("Lib", (), {"shared_step_q": entry}))
+    monkeypatch.setattr(TK, "stream_of", lambda t: 0)
+    kw = dict(state_dt=torch.int32, plastic=True, spiking=True, w_clip=4.0,
+              scale=scale, seed=seed, teach=t["teach"],
+              q=TK.q_params(TQ.QuantConfig(), 1.0, 0.0, batch=2))
+    args = (t["x"], t["w"], t["theta"], t["v"], t["tpre"], t["tpost"])
+    with _Ops() as seen:
+        TK._launch_shared("shared_step_q", *args, **kw)
+    # a number is held to the plain version's type on the host, through a
+    # tensor that never leaves the CPU (torch.as_tensor(val, dtype).item())
+    host = {"aten.lift_fresh", "aten._local_scalar_dense"} \
+        if not torch.is_tensor(scale) else set()
+    assert set(seen.ops) <= {"aten.empty", "aten.empty_like"} | host, \
+        seen.ops
+    a = entry.calls[-1]
+    assert a.teach == t["teach"].data_ptr()
+    if torch.is_tensor(scale):
+        assert (a.scale, a.seed) == (scale.data_ptr(), seed.data_ptr())
+    else:
+        assert (a.scale, a.seed, a.scale_val, a.seed_val) == (
+            None, None, 0.03125, 7)
+    assert (a.cols, a.split, a.smem) == (plan["cols"], plan["split"],
+                                         plan["smem"])
+    kw["teach"] = t["teach"][0]                   # (M,): expanded
+    with _Ops() as seen:
+        TK._launch_shared("shared_step_q", *args, **kw)
+    assert "aten.expand" in seen.ops
+    assert TK.teach_operand(t["teach"], 2, 40, torch.int32,
+                            torch.device("cpu")) is t["teach"]
