@@ -10,7 +10,10 @@ Phases, each fatal on failure:
      fleet kernels at the shapes of the paper's 8-128-8 controller with
      B = 4096 streams, the fleet steps also at the LM adapter's 128x128
      with B = 4; the shared-weight step, the shared-weight rollout window
-     and the LIF forward kernel at the 784-1024-10 MNIST network;
+     and the LIF forward kernel at the 784-1024-10 MNIST network (the LIF
+     kernel at both layers with B = 1 and 8 and at ragged shapes, its
+     weights on a grid so that it equals its plain version bit for bit,
+     and a second launch gives the same bits);
  2c. the flash-attention kernel against its plain version at qwen3-4b's
      prefill shape (B = 4, S = 2048, H = 32, HKV = 8, D = 128), a ragged
      S = 1000, a decode-shaped query against 2049 keys, a kv_len mask, the
@@ -55,7 +58,10 @@ Phases, each fatal on failure:
      B = 1 and 8): the kernel alone (`torch.profiler`) beside the whole
      call, which must run no device op beside the kernel (a 0-d scale and
      a number seed in int8), each launch's plan and CTAs an SM, and the
-     registers and spills ptxas gave each kernel of `shared_step.cu`;
+     registers and spills ptxas gave each kernel of `shared_step.cu`; the
+     same for #6 (`lif_forward.cu`) at the same shapes, beside
+     `torch.matmul` of its product, each after an L2 flush that writes
+     the 1 GB buffer and after one that only reads it;
  7b. the attention kernel's time at the prefill shape beside its bound,
      its plain version and `scaled_dot_product_attention` (the yardstick),
      its TFLOP/s, its ratios to SDPA and to the bound, and the registers
@@ -124,8 +130,9 @@ Phases, each fatal on failure:
      128x128 with B = 4, with and without
      a slot mask and teach; the fleet window at K = 1, 4, 32 with 90% of
      the slots active and its telemetry variant at K = 4, 16; the
-     shared-weight window at 784-1024-10, K = 1 and 8; the shared step and
-     `lif_forward` at 784->1024 and 1024->10, B = 1.  Steps and one-step
+     shared-weight window at 784-1024-10, K = 1 and 8; the shared step at
+     784->1024 and 1024->10, B = 1, and `lif_forward` there at B = 1 and
+     8.  Steps and one-step
      windows within 3e-2 (JAX's own bf16 tolerance), K = 4 windows with at
      most 1e-3 of the elements outside it, telemetry launches' state bit
      for bit their telemetry-off twins', vacant slots frozen; each prints
@@ -142,7 +149,7 @@ Phases, each fatal on failure:
      phase), its plain version, its bound at 2 bytes per bf16 element and,
      for `lif_forward`, a bf16 `torch.matmul` of the product; the bf16
      fleet steps per layer shape as in phase 5 and the bf16 shared step
-     per layer shape as in phase 7.
+     and `lif_forward` per layer shape as in phase 7.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -157,6 +164,10 @@ writes ``chiprun_out/fleet_steps.json`` and prints no result line.
 per layer shape (phases 7 and 7f's table, each launch's plan where the
 wrappers plan it, ptxas registers and spills) and the online learner's
 per-event device ops (phase 7) into ``chiprun_out/shared_steps.json``.
+``python3 chip_smoke.py --lif-forward`` does the same for #6 per layer
+shape (phases 7 and 7f's table beside `torch.matmul`, after both flushes)
+and the device time of the forward-only and fused per-event timesteps
+into ``chiprun_out/lif_forward.json``.
 """
 from __future__ import annotations
 
@@ -250,22 +261,34 @@ def require(cond, what):
 _flush_buf = []
 
 
-def device_ms(fn, reps=20, warmup=3):
-    """Median device time of one call: CUDA events around each call, with
-    the L2 cache flushed before it by zeroing a 1 GB buffer.  Nothing
-    synchronises inside the loop, and the zeroing (~0.3 ms of device work)
-    keeps the card behind the host, so the events time the call's kernels
-    and not the host's dispatch."""
+def flush_l2(how="write"):
+    """Evict the L2 cache through a 1 GB buffer: "write" zeroes it (and
+    leaves up to 50 MB of dirty lines to write back), "read" sums its
+    8-byte words (clean lines only)."""
     import torch
     if not _flush_buf:
         _flush_buf.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
                                       device="cuda"))
+    if how == "read":
+        _flush_buf[0].view(torch.int64).sum()
+    else:
+        _flush_buf[0].zero_()
+
+
+def device_ms(fn, reps=20, warmup=3, flush="write"):
+    """Median device time of one call: CUDA events around each call, with
+    the L2 cache flushed before it (`flush_l2`, by default zeroing a 1 GB
+    buffer).  Nothing synchronises inside the loop, and the flush (~0.3 ms
+    of device work) keeps the card behind the host, so the events time the
+    call's kernels and not the host's dispatch."""
+    import torch
+    flush_l2(flush)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
-        _flush_buf[0].zero_()
+        flush_l2(flush)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -644,18 +667,31 @@ def compare_shared_rollouts(dev, results):
 
 
 def compare_lif(dev, results):
+    """#6 against its plain version at the online learner's layers (B = 1
+    and 8) and ragged shapes: an 8-CTA cluster cutting 1000 rows unevenly,
+    rows of 1001 weights (a ragged 16-byte edge).  The weights lie on a
+    grid of 1/64 and the events are 0 or 1, so every fold order gives the
+    same psum: the kernel equals the plain version bit for bit, and a
+    second launch gives the same bits."""
     import torch
     from repro_torch.kernels.lif import kernel as L
     gen = torch.Generator(dev).manual_seed(SEED + 5)
-    for b, k, m in ((1, 784, 1024), (8, 130, 250)):
+    for b, k, m in ((1, 784, 1024), (8, 784, 1024), (1, 1024, 10),
+                    (8, 1024, 10), (8, 130, 250), (1, 1000, 10),
+                    (1, 784, 1001)):
         x = (torch.rand(b, k, generator=gen, device=dev) < 0.5).float()
         w = torch.round(torch.randn(k, m, generator=gen, device=dev)
                         * 8) / 64
         v = 0.1 * torch.randn(b, m, generator=gen, device=dev)
         tr = torch.rand(b, m, generator=gen, device=dev)
-        held("lif_forward", L.lif_forward(x, w, v, tr),
-             L.lif_forward_plain(x, w, v, tr), False, results,
-             f"B={b} K={k} M={m}")
+        got = L.lif_forward(x, w, v, tr)
+        what = f"B={b} K={k} M={m}"
+        held("lif_forward", got, L.lif_forward_plain(x, w, v, tr), True,
+             results, what + " (weights on a 1/64 grid: bit for bit)")
+        again = L.lif_forward(x, w, v, tr)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, a) for g, a in zip(got, again)),
+                f"lif_forward {what}: a second launch gave other bits")
 
 
 # ---- phase 3: recovery gate ----------------------------------------------------
@@ -1281,10 +1317,10 @@ OPS_ROW, OPS_UPD_F32, OPS_UPD_Q = 5, 10, 29
 
 def time_new_kernels(dev, results):
     """Each new kernel at the online path's shapes (B = 1), L2 flushed
-    between repetitions; the plain version beside it."""
+    between repetitions; the plain version beside it; #6 per layer shape
+    (`time_lif_shapes`)."""
     import torch
     from repro_torch.core import engine, snn
-    from repro_torch.kernels.lif import kernel as L
     from repro_torch.kernels.plasticity import fused, kernel as K
     from repro_torch.kernels.plasticity.quant import QuantConfig
     gen = torch.Generator(dev).manual_seed(SEED + 6)
@@ -1359,22 +1395,7 @@ def time_new_kernels(dev, results):
     results["rollout_shared"].update(timed["float32"])
     results["rollout_shared"]["int8"] = timed["int8"]
     results["rollout_shared"]["sweep"] = sweep_shared_window(dev)
-    # lif_forward: the two layers of the forward-only baseline at B = 1;
-    # library call: torch.matmul of the same product (the product only)
-    ms, pms, lms, bms = [], [], [], []
-    for n, m in layers:
-        x = (torch.rand(1, n, generator=gen, device=dev) < 0.3).float()
-        w = torch.randn(n, m, generator=gen, device=dev) * n ** -0.5
-        v = 0.1 * torch.randn(1, m, generator=gen, device=dev)
-        tr = torch.rand(1, m, generator=gen, device=dev)
-        ms.append(device_ms(lambda: L.lif_forward(x, w, v, tr)))
-        pms.append(device_ms(lambda: L.lif_forward_plain(x, w, v, tr)))
-        lms.append(device_ms(lambda: torch.matmul(x, w)))
-        bms.append(bound(4 * (n + n * m + 5 * m), 2 * n * m + 5 * m)[0])
-    results["lif_forward"].update(
-        ms=statistics.mean(ms), plain_ms=statistics.mean(pms),
-        library_ms=statistics.mean(lms), bound_ms=statistics.mean(bms),
-        bound_by="bytes", library_covers="the (B,K)x(K,M) product only")
+    lif_row(results, time_lif_shapes(dev, ("float32",), results), "float32")
 
 
 SWEEP_K = (1, 2, 4, 8, 16)
@@ -2378,43 +2399,6 @@ def fleet_shape_inputs(gen, mode, b, n, m, dev):
                                                      seed=seed)
 
 
-def kernel_split(fn, calls=PROFILE_CALLS, kernel="fleet_step"):
-    """One wrapper call's device time split by `torch.profiler` into the
-    kernel whose name holds ``kernel`` and the wrapper's other device ops,
-    each call with the L2 flushed before it (by a bitwise not, which no
-    wrapper runs):
-    ``(kernel ms, other ops ms, other ops)`` per call, or Nones where the
-    profiler saw no device time.  Per call means per kernel event the
-    profiler kept, which need not be all ``calls``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    if not _flush_buf:
-        _flush_buf.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
-                                      device="cuda"))
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(calls):
-            _flush_buf[0].bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    kern = other = 0.0
-    n_kern = n_other = 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA \
-                or e.self_device_time_total <= 0 or "bitwise_not" in e.key:
-            continue
-        if kernel in e.key:
-            kern += e.self_device_time_total
-            n_kern += e.count
-        else:
-            other += e.self_device_time_total
-            n_other += e.count
-    if n_kern == 0:
-        return None, None, None
-    return kern / 1e3 / n_kern, other / 1e3 / n_kern, n_other / n_kern
-
-
 def fleet_step_launches(dev):
     """Each fleet-step instantiation's launch at each `FLEET_SHAPES` shape
     (warps, tile, buffers, rule route, shared memory, CTAs an SM holds by
@@ -2472,7 +2456,7 @@ def time_fleet_shapes(dev, modes):
     """#1 and #2 per layer shape (`FLEET_SHAPES`) in each of ``modes``,
     3/4 of the slots active, telemetry off and on: the whole wrapper call
     by `device_ms` (L2 flushed), the kernel alone and the wrapper's other
-    device ops by `kernel_split`, and the bound."""
+    device ops by `profiled_ms`, and the bound."""
     import torch
     from repro_torch.kernels.plasticity import kernel as K
     gen = torch.Generator(dev).manual_seed(SEED + 15)
@@ -2487,7 +2471,7 @@ def time_fleet_shapes(dev, modes):
             for tel in (False, True):
                 call = lambda: fn(*args, telemetry=tel, **kw)
                 ms = device_ms(call)
-                kern, other, ops = kernel_split(call)
+                kern, other, ops = profiled_ms(call, "write", "fleet_step")
                 syn_ops = OPS_Q if quant else OPS_F32
                 ops_total = b * n * m * (syn_ops + (OPS_TEL_SYN if tel
                                                     else 0)) \
@@ -2566,7 +2550,7 @@ def shared_step_launches(dev):
 def time_shared_shapes(dev, modes=tuple(SHARED_MODES), results=None):
     """#4 (float32, bfloat16) and #5 per `SHARED_SHAPES` shape in each of
     ``modes``: the whole wrapper call by `device_ms` (L2 flushed), the
-    kernel alone and the wrapper's other device ops by `kernel_split`, the
+    kernel alone and the wrapper's other device ops by `profiled_ms`, the
     bound, and the time `torch.sum` takes to read w and the rule once from
     a flushed L2 (what the card's memory path gives a launch of this
     size).  With ``results`` (the full run), each row is also filed under
@@ -2582,7 +2566,7 @@ def time_shared_shapes(dev, modes=tuple(SHARED_MODES), results=None):
             fn, args, kw = shared_shape_call(gen, mode, b, n, m, dev)
             call = lambda: fn(*args, **kw)
             ms = device_ms(call)
-            kern, other, ops = kernel_split(call, kernel="shared_step")
+            kern, other, ops = profiled_ms(call, "write", "shared_step")
             # a yardstick of the memory path, not of the function: one cold
             # read of w and the rule by PyTorch's reductions
             w, theta = args[1], args[3 if quant else 2]
@@ -2604,6 +2588,204 @@ def time_shared_shapes(dev, modes=tuple(SHARED_MODES), results=None):
                 require(ops in (None, 0),
                         f"{name} {label}: {ops} device ops beside the kernel")
                 results[name].setdefault("shapes", {})[label] = out[key]
+    return out
+
+
+# (label, B, K, M): the forward-only baseline's two layers (784-1024-10) at
+# the per-event B = 1 and a batch of 8
+LIF_SHAPES = tuple((f"{k}->{m} B={b}", b, k, m) for k, m in
+                   ((784, 1024), (1024, 10)) for b in (1, 8))
+LIF_MODES = {"float32": "lif_forward", "bfloat16": "lif_forward_bf16"}
+# each flush's device op, which the profiled splits leave out
+FLUSH_OPS = {"write": "bitwise_not", "read": "sum_functor"}
+
+
+def profiled_ms(fn, flush, kernel=None, calls=PROFILE_CALLS):
+    """`torch.profiler` over ``calls`` calls of ``fn``, the L2 flushed
+    before each (`flush_l2`; "write" by a bitwise not of the buffer, which
+    no wrapper runs): ``(kernel ms a launch, other ops ms a call, other ops
+    a call)`` for the kernel whose name holds ``kernel``, or with no
+    ``kernel`` ``(every device op's ms a call, 0, 0)``; Nones where the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush_l2(flush)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(calls):
+            if flush == "write":
+                _flush_buf[0].bitwise_not_()
+            else:
+                flush_l2(flush)
+            fn()
+        torch.cuda.synchronize()
+    kern = other = 0.0
+    n_kern = n_other = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.self_device_time_total <= 0 or FLUSH_OPS[flush] in e.key:
+            continue
+        if kernel is None or kernel in e.key:
+            kern += e.self_device_time_total
+            n_kern += e.count
+        else:
+            other += e.self_device_time_total
+            n_other += e.count
+    if n_kern == 0:
+        return None, None, None
+    if kernel is None:
+        return kern / 1e3 / calls, 0.0, 0
+    return kern / 1e3 / n_kern, other / 1e3 / n_kern, n_other / n_kern
+
+
+def lif_shape_inputs(gen, b, k, m, dtype, dev):
+    """x (30% events), w (unit-variance fan-in), v, trace of one shape."""
+    import torch
+    return ((torch.rand(b, k, generator=gen, device=dev) < 0.3).to(dtype),
+            (torch.randn(k, m, generator=gen, device=dev)
+             * k ** -0.5).to(dtype),
+            (0.1 * torch.randn(b, m, generator=gen, device=dev)).to(dtype),
+            torch.rand(b, m, generator=gen, device=dev).to(dtype))
+
+
+def ms_text(t):
+    return "not measured" if t is None else f"{t:.4f}"
+
+
+def time_lif_shapes(dev, modes=tuple(LIF_MODES), results=None):
+    """#6 per `LIF_SHAPES` shape in each of ``modes``: the whole wrapper
+    call by `device_ms`, its latency as the caller sees it (`latency_ms`)
+    and the kernel alone by `profiled_ms`, beside
+    `torch.matmul` of the same product (the product only: less work than
+    #6), each after a flush that writes the 1 GB buffer and after one that
+    reads it; the plain version and the bound.  With ``results`` (the full
+    run), each row is also filed under its kernel's ``shapes``, and a call
+    that runs any device op beside the kernel fails."""
+    import torch
+    from repro_torch.kernels.lif import kernel as L
+    gen = torch.Generator(dev).manual_seed(SEED + 19)
+    out = {}
+    for mode in modes:
+        name = LIF_MODES[mode]
+        dt = torch.bfloat16 if mode == "bfloat16" else torch.float32
+        eb = 2 if mode == "bfloat16" else 4
+        for label, b, k, m in LIF_SHAPES:
+            x, w, v, tr = lif_shape_inputs(gen, b, k, m, dt, dev)
+            call = lambda: L.lif_forward(x, w, v, tr)
+            mm = lambda: torch.matmul(x, w)
+            b_ms, kind = bound(eb * (b * k + k * m + 5 * b * m),
+                               2 * b * k * m + 5 * b * m)
+            row = dict(kernel=name, bound_ms=b_ms, bound_by=kind,
+                       plain_ms=device_ms(lambda: L.lif_forward_plain(
+                           x, w, v, tr), reps=5))
+            if mode == "bfloat16":      # the float32 twin, same inputs
+                up = [t.float() for t in (x, w, v, tr)]
+                row["f32_ms"] = device_ms(lambda: L.lif_forward(*up))
+            for flush in ("write", "read"):
+                kern, other, ops = profiled_ms(call, flush, "lif_forward")
+                cols = dict(ms=device_ms(call, flush=flush), kernel_ms=kern,
+                            matmul_ms=device_ms(mm, flush=flush),
+                            matmul_kernel_ms=profiled_ms(mm, flush)[0])
+                if flush == "write":
+                    row.update(cols, other_ms=other, other_ops=ops)
+                else:
+                    row["read_flush"] = cols
+            row["latency_ms"] = latency_ms(call)
+            key = f"{mode} {label}"
+            out[key] = row
+            rd = row["read_flush"]
+            log(f"  {key:27s} latency {row['latency_ms']:.4f} ms, call "
+                f"{row['ms']:.4f} ms, kernel "
+                f"{ms_text(row['kernel_ms'])} ms (+{row['other_ops']} other "
+                f"ops), torch.matmul {row['matmul_ms']:.4f} / kernels "
+                f"{ms_text(row['matmul_kernel_ms'])} ms; read flush: call "
+                f"{rd['ms']:.4f}, kernel {ms_text(rd['kernel_ms'])}, "
+                f"torch.matmul {rd['matmul_ms']:.4f} / "
+                f"{ms_text(rd['matmul_kernel_ms'])} ms; plain "
+                f"{row['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({kind})")
+            if results is not None:
+                require(row["other_ops"] in (None, 0),
+                        f"{name} {label}: {row['other_ops']} device ops "
+                        f"beside the kernel")
+                results[name].setdefault("shapes", {})[label] = row
+    return out
+
+
+def lif_row(results, shapes, mode):
+    """#6's row of the kernel table in ``mode``: the means of the two
+    layers' rows at B = 1 (the forward-only baseline's per-event calls);
+    the library call is `torch.matmul` of the same product, the product
+    only."""
+    rows = [shapes[f"{mode} {label}"] for label, b, _, _ in LIF_SHAPES
+            if b == 1]
+    cols = (("ms", "ms"), ("plain_ms", "plain_ms"),
+            ("library_ms", "matmul_ms"), ("bound_ms", "bound_ms")) + (
+        (("f32_ms", "f32_ms"),) if mode == "bfloat16" else ())
+    results[LIF_MODES[mode]].update(
+        {key: statistics.mean(r[col] for r in rows) for key, col in cols},
+        bound_by="bytes",
+        library_covers=f"the {mode} (B,K)x(K,M) product only")
+
+
+def lif_forward_launches(dev):
+    """Each `LIF_SHAPES` launch's plan (where the wrapper plans it) and the
+    registers, spills and stack ptxas gave each kernel of
+    ``csrc/lif_forward.cu``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lif import kernel as L
+    out = {"launch": {}}
+    if hasattr(L, "lif_forward_launch"):
+        for mode in LIF_MODES:
+            for label, b, k, m in LIF_SHAPES:
+                info = L.lif_forward_launch(dev, b, k, m, mode)
+                name = f"{mode} {label}"
+                out["launch"][name] = info
+                log(f"  launch {name}: " + ", ".join(
+                    f"{k} {v}" for k, v in info.items()))
+    usage = ptxas_usage(_build.build_all()["log"].get("lif_forward.cu", ""))
+    out["ptxas"] = {name: dict(registers=r, spill_store_bytes=st,
+                               spill_load_bytes=ld, stack_bytes=sk)
+                    for name, (r, st, ld, sk) in usage.items()}
+    for name, (r, st, ld, sk) in usage.items():
+        log(f"  ptxas {name}: {r} registers, spills {st} B stored / {ld} B "
+            f"loaded, stack {sk} B")
+    if not usage:
+        log("  ptxas: no compiler log for lif_forward.cu")
+    return out
+
+
+def profile_forward_only(dev, steps=20):
+    """Where the time goes over `steps` forward-only timesteps of the online
+    learner (`forward_only_step` at B = 1: one `lif_forward` launch a
+    layer), float32 and bfloat16, random weights (seeded) on one input's
+    events, and one timestep's latency as Table II times it; any tree's
+    wrappers alike."""
+    import torch
+    from repro_torch.core import snn
+    gen = torch.Generator(dev).manual_seed(SEED + 20)
+    out = {}
+    for mode, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        cfg = dataclasses.replace(mnist_cfg(False), dtype=dt)
+        sizes = cfg.layer_sizes
+        w = tuple((torch.randn(n, m, generator=gen, device=dev)
+                   * n ** -0.5).to(dt) for n, m in zip(sizes, sizes[1:]))
+        net = [dataclasses.replace(snn.init_state(cfg, batch=1, device=dev),
+                                   w=w)]
+        xb = (torch.rand(1, sizes[0], generator=gen, device=dev)
+              < 0.3).to(dt)
+
+        def run():
+            for _ in range(steps):
+                net[0] = forward_only_step(cfg, net[0], xb)[0]
+        run()
+        log(f"  forward-only {mode}:")
+        out[mode] = profile_window(run, steps)
+        out[mode]["timestep_latency_ms"] = latency_ms(
+            lambda: forward_only_step(cfg, net[0], xb))
+        log(f"    one timestep's latency, host included: "
+            f"{out[mode]['timestep_latency_ms']:.4f} ms")
     return out
 
 
@@ -2736,14 +2918,15 @@ def compare_bf16_steps(dev, results):
                       K.shared_step_plain(*args, **kw), results,
                       f"{n}->{m} B=1 theta={'bf16' if theta_bf16 else 'f32'}"
                       f" teach={i == 1}")
-        xl = (torch.rand(1, n, generator=gen, device=dev) < 0.5).to(bf)
-        wl = (torch.round(torch.randn(n, m, generator=gen, device=dev) * 8)
-              / 64).to(bf)
-        vl = (0.1 * torch.randn(1, m, generator=gen, device=dev)).to(bf)
-        tl = torch.rand(1, m, generator=gen, device=dev).to(bf)
-        held_bf16("lif_forward_bf16", L.lif_forward(xl, wl, vl, tl),
-                  L.lif_forward_plain(xl, wl, vl, tl), results,
-                  f"B=1 K={n} M={m}")
+        for b in (1, 8):
+            xl = (torch.rand(b, n, generator=gen, device=dev) < 0.5).to(bf)
+            wl = (torch.round(torch.randn(n, m, generator=gen, device=dev)
+                              * 8) / 64).to(bf)
+            vl = (0.1 * torch.randn(b, m, generator=gen, device=dev)).to(bf)
+            tl = torch.rand(b, m, generator=gen, device=dev).to(bf)
+            held_bf16("lif_forward_bf16", L.lif_forward(xl, wl, vl, tl),
+                      L.lif_forward_plain(xl, wl, vl, tl), results,
+                      f"B={b} K={n} M={m}")
 
 
 def bf16_controller_cfg():
@@ -3074,10 +3257,10 @@ def bf16_online_path(dev, online, counters):
 def time_bf16_kernels(dev, results):
     """Each bf16 kernel at its path's shapes, L2 flushed, beside its float32
     twin (timed in this call, same inputs rounded), its plain version and,
-    for #6, a bf16 `torch.matmul` of the product."""
+    for #6, a bf16 `torch.matmul` of the product (#6 per layer shape,
+    `time_lif_shapes`)."""
     import torch
     from repro_torch.configs import firefly_snn
-    from repro_torch.kernels.lif import kernel as L
     from repro_torch.kernels.plasticity import fused, kernel as K
     gen = torch.Generator(dev).manual_seed(SEED + 13)
     bf = torch.bfloat16
@@ -3170,24 +3353,8 @@ def time_bf16_kernels(dev, results):
         f32_ms=device_ms(lambda: fused.rollout_shared(*args32, **kw)),
         plain_ms=device_ms(lambda: fused.rollout_plain(*args, **kw), reps=5),
         bound_ms=b_ms, bound_by=kind)
-    ms, f32_ms, pms, lms, bms = [], [], [], [], []
-    for n, m in layers:
-        x = (torch.rand(1, n, generator=gen, device=dev) < 0.3).to(bf)
-        wl = (torch.randn(n, m, generator=gen, device=dev)
-              * n ** -0.5).to(bf)
-        v = (0.1 * torch.randn(1, m, generator=gen, device=dev)).to(bf)
-        tr = torch.rand(1, m, generator=gen, device=dev).to(bf)
-        args32 = up((x, wl, v, tr))
-        ms.append(device_ms(lambda: L.lif_forward(x, wl, v, tr)))
-        f32_ms.append(device_ms(lambda: L.lif_forward(*args32)))
-        pms.append(device_ms(lambda: L.lif_forward_plain(x, wl, v, tr)))
-        lms.append(device_ms(lambda: torch.matmul(x, wl)))
-        bms.append(bound(2 * (n + n * m + 5 * m), 2 * n * m + 5 * m)[0])
-    results["lif_forward_bf16"].update(
-        ms=statistics.mean(ms), f32_ms=statistics.mean(f32_ms),
-        plain_ms=statistics.mean(pms), library_ms=statistics.mean(lms),
-        bound_ms=statistics.mean(bms), bound_by="bytes",
-        library_covers="the bf16 (B,K)x(K,M) product only")
+    lif_row(results, time_lif_shapes(dev, ("bfloat16",), results),
+            "bfloat16")
     for name in BF16_NAMES:
         r = results[name]
         log(f"  {name:25s} {r['ms']:.4f} ms beside float32 "
@@ -3566,6 +3733,21 @@ def main() -> int:
         print(smi)
         return 0
 
+    if "--lif-forward" in sys.argv[1:]:
+        out = {"card": smi}
+        with phase("phase 7/7f: the LIF forward kernel per layer shape"):
+            out["shapes"] = time_lif_shapes(dev)
+            out.update(lif_forward_launches(dev))
+        with phase("phase 7: the online learner's forward-only and fused "
+                   "timesteps' device time"):
+            out["forward_only"] = profile_forward_only(dev)
+            out["per_event"] = profile_online_per_event(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "lif_forward.json").write_text(json.dumps(out, indent=1))
+        print(smi)
+        return 0
+
     if "--fleet-steps" in sys.argv[1:]:
         out = {"card": smi}
         with phase("phase 5/7f: the fleet steps per layer shape"):
@@ -3657,6 +3839,7 @@ def main() -> int:
         time_new_kernels(dev, results)
         time_shared_shapes(dev, ("float32", "int8"), results)
         shared_launches = shared_step_launches(dev)
+        lif_launches = lif_forward_launches(dev)
     with phase("phase 7f: the bfloat16 kernels' times (L2 flushed)"):
         time_bf16_kernels(dev, results)
         file_shapes(results, time_fleet_shapes(dev, ("bfloat16",)))
@@ -3719,6 +3902,7 @@ def main() -> int:
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
               "shared_step_launches": shared_launches,
+              "lif_forward_launches": lif_launches,
               "build_seconds": info["seconds"], "card": smi,
               "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_all}

@@ -16,7 +16,8 @@
 // ~0.2 MB and a launch's latency is the floor.
 //
 // Design (the launch is kernel.py shared_step_plan's; this file checks its
-// shared-memory count):
+// shared-memory count; the Forward Engine is csrc/forward.cuh's, shared with
+// lif_forward.cu):
 //  * The grid is column tiles x fan-in shares: a CTA owns `cols` columns of
 //    `rows` consecutive input rows.  Where the column tiles leave SMs idle
 //    (the readout, M = 10), the fan-in is cut across the CTAs of a thread
@@ -64,7 +65,7 @@
 #include <cuda.h>
 #include <type_traits>
 
-#include "slab.cuh"
+#include "forward.cuh"
 
 using ff::Types;
 
@@ -115,18 +116,6 @@ struct Params {
 };
 static_assert(sizeof(Params) <= 4096, "kernel parameters exceed 4 KB");
 
-__host__ __device__ inline size_t align_up(size_t x, size_t a) {
-  return (x + a - 1) / a * a;
-}
-
-// Batch rows of one psum pass: with a lane's piece of at most 4 weights,
-// at most 32 partial sums a thread.
-constexpr int kChunk = 8;
-
-__host__ __device__ inline bool staged(int route) {
-  return route == kTma || route == kBulk || route == kCpAsync;
-}
-
 // Shared-memory layout (bytes); kernel.py shared_step_plan counts the same
 // and the launcher refuses a launch whose total disagrees.
 struct Layout {
@@ -163,167 +152,6 @@ __host__ __device__ inline Layout layout(const SharedStepArgs& a, int we,
   off += align_up((size_t)(1 + a.stages) * 8, 16);
   l.total = off + 128;                // slack to align the base to 128
   return l;
-}
-
-// ---- clusters ---------------------------------------------------------------
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return (int)r;
-}
-
-// The .aligned forms need the whole warp converged (a lane may have
-// issued copies alone just before).
-__device__ __forceinline__ void cluster_arrive() {
-  __syncwarp();
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  __syncwarp();
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// A 4-byte word of CTA `rank`'s shared memory at this CTA's address `addr`.
-template <typename S>
-__device__ __forceinline__ S ld_peer(uint32_t addr, int rank) {
-  uint32_t remote, v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote) : "r"(addr), "r"(rank));
-  asm volatile("ld.shared::cluster.b32 %0, [%1];\n"
-               : "=r"(v) : "r"(remote) : "memory");
-  S s;
-  memcpy(&s, &v, 4);
-  return s;
-}
-
-// Barrier 1 over threads [0, n) (n a multiple of 32).
-__device__ __forceinline__ void sync_first(int n) {
-  __syncwarp();
-  asm volatile("bar.sync 1, %0;\n" :: "r"(n) : "memory");
-}
-
-// The thread's cp.async copies so far arrive on `bar` when they land.
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// ---- vector loads -----------------------------------------------------------
-// N elements from 16-byte aligned memory (8-byte for 8 bytes), as few loads
-// as their bytes allow.
-template <int N, typename X>
-__device__ __forceinline__ void lds(X* dst, const X* src) {
-  constexpr int kBytes = N * (int)sizeof(X);
-  if constexpr (kBytes > 16) {
-    constexpr int kPer = 16 / (int)sizeof(X);
-#pragma unroll
-    for (int i = 0; i < N / kPer; ++i)
-      ld_vec<kPer>(dst + i * kPer, src + i * kPer);
-  } else {
-    ld_vec<N>(dst, src);
-  }
-}
-
-// N weights of type WG converted to the compute type S.
-template <int N, typename S, typename WG>
-__device__ __forceinline__ void load_cvt(S* dst, const WG* src) {
-  WG raw[N];
-  lds<N>(raw, src);
-#pragma unroll
-  for (int v = 0; v < N; ++v) dst[v] = ff::cvt<S>(raw[v]);
-}
-
-template <typename T>
-__device__ __forceinline__ T shfl_xor(T v, int off) {
-  return __shfl_xor_sync(0xffffffffu, v, off);
-}
-
-// Partial psums of U batch rows (nb real) over the piece [pj, pj + V) of
-// the w slab (pitch pw), rows lr, lr + L, ... < rows; xs holds the rows'
-// events at b * xstride + r in their device type.
-template <bool Q, int U, int V, typename S, typename WG, typename G>
-__device__ __forceinline__ void psum_rows(S (&acc)[U][V], const WG* ws,
-                                          int pw, const G* xs, long xstride,
-                                          int rows, int lr, int L, int pj,
-                                          int nb) {
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[u][v] = S(0);
-#pragma unroll 4
-  for (int r = lr; r < rows; r += L) {
-    S wv[V];
-    load_cvt<V>(wv, ws + (long)r * pw + pj);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (U == 1 || u < nb) {
-        const S xv = ff::cvt<S>(xs[u * xstride + r]);
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          if constexpr (Q) acc[u][v] = ff::wadd(acc[u][v], ff::wmul(xv, wv[v]));
-          else acc[u][v] = acc[u][v] + xv * wv[v];
-        }
-      }
-    }
-  }
-}
-
-// One level of warp_fold's reduce-scatter at xor distance 16 >> L, then
-// the next; f holds the lane's K >> L sums still being folded.
-template <bool Q, int K, int L, typename S>
-__device__ __forceinline__ void fold_level(S (&f)[K], int& base, int& n,
-                                           int lane, int P) {
-  if constexpr (L < 5) {
-    constexpr int off = 16 >> L;
-    if (off < P) return;
-    const bool up = (lane & off) != 0;
-    if constexpr ((K >> L) >= 2) {
-      constexpr int half = K >> (L + 1);
-#pragma unroll
-      for (int i = 0; i < half; ++i) {
-        const S keep = up ? f[i + half] : f[i];
-        const S give = up ? f[i] : f[i + half];
-        const S got = shfl_xor(give, off);
-        if constexpr (Q) f[i] = ff::wadd(keep, got);
-        else f[i] = keep + got;
-      }
-      if (up) base += half;
-      n = half;
-    } else {
-      const S got = shfl_xor(f[0], off);
-      if constexpr (Q) f[0] = ff::wadd(f[0], got);
-      else f[0] = f[0] + got;
-    }
-    fold_level<Q, K, L + 1>(f, base, n, lane, P);
-  }
-}
-
-// The lanes sharing this lane's piece (lane % P) fold its U x V sums by a
-// reduce-scatter: at each xor distance 16, 8, ..., P a lane keeps one half
-// of its sums (the upper where its lane bit is set), adds its partner's
-// copy of that half and sends the other, so the shuffles halve level by
-// level; once one sum is left the levels add it across (both partners get
-// the same sum).  The adds run in one fixed order, the same bits on every
-// run.  Each lane then writes the sums it holds, [base, base + n), to
-// red[warp][u][column].
-template <bool Q, int U, int V, typename S>
-__device__ __forceinline__ void warp_fold(S (&acc)[U][V], S* red, int P,
-                                          int c, int lane, int warp,
-                                          int pj) {
-  constexpr int K = U * V;
-  S f[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) f[i] = acc[i / V][i % V];
-  int base = 0, n = K;
-  fold_level<Q, K, 0>(f, base, n, lane, P);
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    if (i < n) {
-      const int k = base + i;
-      red[(warp * kChunk + k / V) * c + pj + k % V] = f[i];
-    }
-  }
 }
 
 // ff::plastic_q_coef with the row's pre term already scaled, and dw / scale
@@ -367,7 +195,6 @@ shared_step_kernel(const __grid_constant__ Params p) {
   const int r0 = rank * a.rows, rows = min(a.rows, N - r0);
   const int chunks = (rows + R - 1) / R;
   const int tid = threadIdx.x, T_ = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
   const bool plastic = a.plastic != 0;
   const int th_route = a.th_route, stages = a.stages;
   // where one thread issues the rule's copies (TMA, bulk), it is lane 0 of
@@ -379,9 +206,8 @@ shared_step_kernel(const __grid_constant__ Params p) {
   const bool fwd = tid < TC;
   // the update's pieces: V weights (16 bytes) of a row a thread
   const int P = c / V, pj = (tid % P) * V, lr = tid / P, L = T_ / P;
-  // the psum's pieces: kF weights of a row a lane
+  // the psum's pieces: kF weights of a row a lane (forward.cuh)
   constexpr int kF = V < 4 ? V : 4;
-  const int fP = c / kF, fj = (tid % fP) * kF, flr = tid / fP, fL = TC / fP;
   const int pw = lay.pw, pt = lay.pt;
   const bool ring = staged(th_route) && stages < chunks;
 
@@ -404,25 +230,8 @@ shared_step_kernel(const __grid_constant__ Params p) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const unsigned char* w_in = (const unsigned char*)a.w;
-  if (a.w_route == kTma) {
-    if (tid == 0) {
-      mbar_expect_tx(bar_w, chunks * R * c * we);
-      for (int k = 0; k < chunks; ++k)
-        tma_load_2d(smem_u32((unsigned char*)ws + (long)k * R * c * we),
-                    &p.w_map, bar_w, col0, r0 + k * R);
-    }
-  } else if (a.w_route == kBulk) {
-    if (tid == 0) {
-      const uint32_t bytes = (uint32_t)rows * M * we;
-      mbar_expect_tx(bar_w, bytes);
-      bulk_load(ws, w_in + (long)r0 * M * we, bytes, bar_w);
-    }
-  } else if (a.w_route == kCpAsync && fwd) {
-    copy_async((unsigned char*)ws, w_in + (long)r0 * M * we, rows, M, c, own,
-               col0, we, kCpAsync, a.w_width, 0, TC);
-    cp_async_arrive(bar_w);
-  }
+  issue_slab((unsigned char*)ws, a.w, &p.w_map, a.w_route, a.w_width, bar_w,
+             r0, rows, M, c, own, col0, R, chunks, we, tid, fwd ? TC : 0);
   // rule chunk k into stage s (every thread calls it; the issuer alone
   // acts on a TMA or bulk route)
   const unsigned char* th_in = (const unsigned char*)a.theta;
@@ -466,13 +275,8 @@ shared_step_kernel(const __grid_constant__ Params p) {
       if (plastic) pre_s[e] = pre_in[(long)b * N + r0 + r];
     }
   }
-  if (a.w_route == kL2 && fwd) {
-    for (int o = tid; o < rows * c; o += TC) {
-      const int r = o / c, j = o - r * c;
-      ws[o] = j < own ? ((const WG*)a.w)[(long)(r0 + r) * M + col0 + j]
-                      : WG(0);
-    }
-  }
+  if (a.w_route == kL2 && fwd)
+    fill_slab(ws, (const WG*)a.w, r0, rows, M, c, own, col0, tid, TC);
   // the thread's first neuron's operands, fetched while the slabs land
   S v0 = S(0), tpo0 = S(0), teach0 = S(0);
   const bool have0 = fwd && tid < B * c && tid % c < own;
@@ -492,31 +296,9 @@ shared_step_kernel(const __grid_constant__ Params p) {
   if (fwd) {
     sync_first(TC);
     if (staged(a.w_route)) mbar_wait(bar_w, 0);
-    for (int b0 = 0; b0 < B; b0 += kChunk) {
-      const int nb = min(kChunk, B - b0);
-      if (nb == 1) {
-        S acc[1][kF];
-        psum_rows<Q, 1, kF>(acc, ws, pw, xs + b0 * xstride, xstride, rows,
-                            flr, fL, fj, 1);
-        warp_fold<Q, 1, kF>(acc, red, fP, c, lane, warp, fj);
-      } else {
-        S acc[kChunk][kF];
-        psum_rows<Q, kChunk, kF>(acc, ws, pw, xs + b0 * xstride, xstride,
-                                 rows, flr, fL, fj, nb);
-        warp_fold<Q, kChunk, kF>(acc, red, fP, c, lane, warp, fj);
-      }
-      sync_first(TC);
-      for (int e = tid; e < nb * c; e += TC) {
-        const int u = e / c, j = e - u * c;
-        S s = red[u * c + j];
-        for (int wp = 1; wp < TC / 32; ++wp) {
-          if constexpr (Q) s = ff::wadd(s, red[(wp * kChunk + u) * c + j]);
-          else s = s + red[(wp * kChunk + u) * c + j];
-        }
-        ps[(b0 + u) * c + j] = s;
-      }
-      sync_first(TC);
-    }
+    for (int b0 = 0; b0 < B; b0 += kChunk)
+      forward_psums<Q, kF>(ps + b0 * c, red, ws, pw, xs + b0 * xstride,
+                           xstride, rows, min(kChunk, B - b0), c, tid, TC);
   }
 
   // ---- the cluster's partials in rank order; neuron and trace -------------
@@ -531,20 +313,7 @@ shared_step_kernel(const __grid_constant__ Params p) {
     const int b = e / c, j = e - b * c;
     S tp = S(0);
     if (j < own) {
-      S s = ps[e];
-      if (split > 1) {                // every peer's load in flight at once
-        S part[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          if (q < split) part[q] = ld_peer<S>(ps_addr + 4 * e, q);
-        s = part[0];
-#pragma unroll
-        for (int q = 1; q < 8; ++q) {
-          if (q >= split) break;
-          if constexpr (Q) s = ff::wadd(s, part[q]);
-          else s = s + part[q];
-        }
-      }
+      S s = split > 1 ? fold_peers<Q, S>(ps_addr + 4 * e, split) : ps[e];
       const long g = (long)b * M + col0 + j;
       const bool first = e == tid && have0;
       const S vv = first ? v0 : cvt<S>(((const G*)a.v)[g]);
@@ -684,19 +453,6 @@ shared_step_kernel(const __grid_constant__ Params p) {
 }
 
 // ---- host side ------------------------------------------------------------
-
-// A plane's route against its rows: TMA's 16-byte rules, one contiguous
-// block for a bulk copy, whole pieces for cp.async.
-bool route_ok(int route, int width, long n, int m, int c, int e) {
-  switch (route) {
-    case kTma: return (m * e) % 16 == 0 && (c * e) % 16 == 0 && c <= 256;
-    case kBulk: return c >= m && (n * m * e) % 16 == 0 && (m * e) % 16 != 0;
-    case kCpAsync:
-      return (width == 4 || width == 8 || width == 16) &&
-             (m * e) % width == 0 && (c * e) % width == 0;
-    default: return route == kL2;
-  }
-}
 
 // The plan's constraints (kernel.py shared_step_plan builds them).
 bool valid(const SharedStepArgs* a, int pv, int we, int tb) {

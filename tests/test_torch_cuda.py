@@ -417,32 +417,51 @@ def test_unbatched_layer_step_launches_shared_kernel(quant, cuda_device):
                   quant)
 
 
-LIF_SHAPES = [(2, 16, 16), (4, 200, 64), (1, 784, 1024), (8, 130, 250)]
+# (1, 1000, 10): a fan-in cut unevenly across an 8-CTA cluster (the last
+# CTA 104 rows); (1, 784, 1001): rows of 1001 weights, a ragged 16-byte
+# edge (float32 by 4-byte cp.async pieces, bf16 by plain loads)
+LIF_SHAPES = [(2, 16, 16), (4, 200, 64), (1, 784, 1024), (8, 130, 250),
+              (1, 1000, 10), (1, 784, 1001)]
+LIF_BF16_SHAPES = [(8, 130, 250), (8, 784, 1024), (1, 1000, 10),
+                   (1, 784, 1001)]
+
+
+def _lif_inputs(rng, b, k, m, dev):
+    return _on(dev, x=(rng.random((b, k)) < 0.5).astype(np.float32),
+               w=(np.round(rng.standard_normal((k, m)) * 64) / 64
+                  * k ** -0.5).astype(np.float32),
+               v=(rng.standard_normal((b, m)) * 0.1).astype(np.float32),
+               tr=rng.random((b, m)).astype(np.float32))
 
 
 @pytest.mark.cuda
 def test_lif_forward_kernel_matches_plain_on_card(cuda_device):
+    """Each shape against the plain version, float32 and bf16; a second
+    launch gives the same bits (the psum folds in one fixed order)."""
     rng = np.random.default_rng(41)
     launches = TL.lif_forward.launches
     for b, k, m in LIF_SHAPES:
-        t = _on(cuda_device, x=(rng.random((b, k)) < 0.5).astype(np.float32),
-                w=(np.round(rng.standard_normal((k, m)) * 64) / 64
-                   * k ** -0.5).astype(np.float32),
-                v=(rng.standard_normal((b, m)) * 0.1).astype(np.float32),
-                tr=rng.random((b, m)).astype(np.float32))
+        t = _lif_inputs(rng, b, k, m, cuda_device)
         args = (t["x"], t["w"], t["v"], t["tr"])
         got = TL.lif_forward(*args)
         want = TL.lif_forward_plain(*args)
+        again = TL.lif_forward(*args)
         torch.cuda.synchronize()
         _assert_match(got, want, False)
-    assert TL.lif_forward.launches == launches + len(LIF_SHAPES)
-    bf16 = tuple(a.to(torch.bfloat16) for a in args)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert TL.lif_forward.launches == launches + 2 * len(LIF_SHAPES)
     bf16_launches = TL.lif_forward.bf16_launches
-    got = TL.lif_forward(*bf16)
-    want = TL.lif_forward_plain(*bf16)
-    torch.cuda.synchronize()
-    assert TL.lif_forward.bf16_launches == bf16_launches + 1
-    _assert_bf16(got, want)
+    for b, k, m in LIF_BF16_SHAPES:
+        t = _lif_inputs(rng, b, k, m, cuda_device)
+        bf16 = tuple(t[name].to(torch.bfloat16)
+                     for name in ("x", "w", "v", "tr"))
+        got = TL.lif_forward(*bf16)
+        want = TL.lif_forward_plain(*bf16)
+        torch.cuda.synchronize()
+        _assert_bf16(got, want)
+    assert TL.lif_forward.bf16_launches == bf16_launches \
+        + len(LIF_BF16_SHAPES)
+    args = (t["x"], t["w"], t["v"], t["tr"])
     with pytest.raises(ValueError):
         TL.lif_forward(*(a.to(torch.float16) for a in args))
     with pytest.raises(ValueError):
