@@ -18,9 +18,12 @@ Phases, each fatal on failure:
      prefill shape (B = 4, S = 2048, H = 32, HKV = 8, D = 128), a ragged
      S = 1000, a decode-shaped query against 2049 keys, a kv_len mask, the
      serve CLI's 32-token prompts, head width 64, Sq > Skv (rows with no
-     visible key exactly 0) and V at 8x scale, bfloat16 (the Hopper
-     kernel: TMA, mbarrier ring, wgmma with a split bf16 P) and float32
-     (the CUDA-core kernel);
+     visible key exactly 0) and V at 8x scale, then the other head widths
+     of the configs: zamba2-7b's D = 112 at its prefill shape (H = HKV =
+     32), decode-shaped and with a kv_len, and D = 16, 24, 32 at GQA over
+     S = 1000, decode-shaped and with a ragged kv_len; bfloat16 (the
+     Hopper kernel: TMA, mbarrier ring, wgmma with a split bf16 P) and
+     float32 (the CUDA-core kernel);
   3. the recovery gate on the card: both gate scenarios x {float32, int8},
      plastic recovers >= 1/2 of the return drop, frozen <= 1/4;
   4. the controller path at full width: `firefly_snn.CONFIG` (8-128-8,
@@ -65,7 +68,10 @@ Phases, each fatal on failure:
  7b. the attention kernel's time at the prefill shape beside its bound,
      its plain version and `scaled_dot_product_attention` (the yardstick),
      its TFLOP/s, its ratios to SDPA and to the bound, and the registers
-     and spills ptxas gave the bf16 kernel;
+     and spills ptxas gave the bf16 kernel; then at zamba2-7b's prefill
+     shape (H = HKV = 32) D = 112 beside D = 128, and D = 16, 24, 32
+     beside D = 64, each beside SDPA and its bound; the kernels line takes
+     zamba2-7b's D = 112, whose path its `launches` count;
   8. LM serving at full width: random-init qwen3-4b (36 layers, bf16)
      serves 4 prompts of 2048 tokens and 32 greedy tokens through
      `launch.serve.generate`, plastic adapter in float32 and int8, each
@@ -87,12 +93,26 @@ Phases, each fatal on failure:
      packed projection (and from one shifted off 16 bytes: bfloat16's
      cp.async route), bfloat16 (the Hopper kernel: TMA or cp.async ring,
      wgmma with G, the state and w o x split into bf16 hi + lo) and
-     float32 (the CUDA-core kernel); and against the literal recurrence
-     at a small size;
+     float32 (the CUDA-core kernel), then zamba2-7b's prefill shape
+     (H = 112, P = 64, S = 64; the TMA route) and its 32-token prompts;
+     and against the literal recurrence at a small size;
+ 2g. silu (one pass, rounding after each op as ``jax.nn.silu`` is
+     written) against its plain version, bit for bit, at every shape the
+     LM paths give it: each full-width MLP's gate times x @ up, each
+     Mamba2 conv activation and output gate (z read at the projection's
+     row stride, times bf16 y at prefill and float32 y at decode), in bf16
+     and the float32 of phases 8b, 9b and 11b;
  7c. the SSD-scan kernel's time at the prefill shape beside its bound and
      its plain version, at B = 1, and over an L sweep (512 to 4096 at
      B = 4) fitted as fixed + per-chunk cost beside the bound's own fit;
      the CTAs an SM holds and the registers and spills ptxas gave it;
+     then at zamba2-7b's prefill shape (H = 112, P = 64, S = 64, x, B
+     and C cut from the conv output, the TMA route), held against its
+     plain version, beside its bound: the kernels line takes this row;
+ 7d. silu's time at zamba2-7b's prefill MLP (4 x 2048 x 14336, times
+     x @ up; the kernels line's row), qwen3-4b's and zamba2-7b's conv
+     activation, beside its plain version, ``F.silu`` (which rounds once)
+     and its bound;
   9. phase 8 on random-init mamba2-1.3b (48 SSM layers, bf16): 48 SSD-scan
      launches per prefill, 32 fleet-step launches per decode, the adapter
      checks of phase 8, the bf16 full-depth comparison (beside two plain
@@ -105,6 +125,19 @@ Phases, each fatal on failure:
      token by token through the decode step within 2e-3; 9c. the serve CLI
      at its defaults with ``--arch mamba2-1.3b``, each SSD-scan launch
      against its plain version on its own inputs;
+ 11. phase 8 on random-init zamba2-7b (the hybrid layout: 9 super-blocks
+     of the one shared attention + MLP block and 8 SSM layers, heads of
+     112, bf16, 6.05 B parameters), after the previous model is freed:
+     9 attention and 72 SSD-scan launches per prefill, the adapter checks
+     of phase 8, the bf16 full-depth comparison (beside the two plain
+     paths of phase 9) and the profile; 11b. at full width with 4 layers
+     and a super-block of 3 (one super-block and one trailing SSM layer,
+     the remainder segment) in float32, the kernel path's logits within
+     1e-4 of the largest logit of the plain path's, the same greedy
+     tokens; 11c. the serve CLI at its defaults with ``--arch zamba2-7b``,
+     each attention, SSD-scan and silu launch against its plain version on
+     its own inputs.  Phases 8, 9 and 11 count the silu launches of each
+     prefill and decode step (one per MLP, two per Mamba2 block);
  2e. the telemetry variants of the fleet-step and rollout kernels against
      their plain versions at 8-128-8, B = 4096, 3/4 of the slots active and
      a teaching signal: the fleet steps at 8->128 and 128->8 and at the
@@ -156,23 +189,22 @@ last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when there is no CUDA device or the package is not beside it.
 Each phase prints its seconds.
 
-``python3 chip_smoke.py --fleet-steps`` builds the kernels and times only
-the fleet steps per layer shape (phases 5 and 7f's table) and the
-per-event path's device ops (phase 4b), any tree's wrappers alike; it
-writes ``chiprun_out/fleet_steps.json`` and prints no result line.
-``python3 chip_smoke.py --shared-steps`` does the same for the shared steps
-per layer shape (phases 7 and 7f's table, each launch's plan where the
-wrappers plan it, ptxas registers and spills) and the online learner's
-per-event device ops (phase 7) into ``chiprun_out/shared_steps.json``.
-``python3 chip_smoke.py --lif-forward`` does the same for #6 per layer
-shape (phases 7 and 7f's table beside `torch.matmul`, after both flushes)
-and the device time of the forward-only and fused per-event timesteps
-into ``chiprun_out/lif_forward.json``.
+``python3 chip_smoke.py --only <part>[,<part>...]`` builds the kernels,
+runs only the named A/B parts and writes them to
+``chiprun_out/chip_smoke_only.json`` (no result line), any tree's wrappers
+alike (unpack another tree under ``build/`` with this script beside it):
+``fleet-steps`` (phases 5 and 7f's per-shape table and phase 4b's
+per-event device ops), ``shared-steps`` and ``lif-forward`` (phase 7's
+per-shape tables and the online learner's per-event device time),
+``attention`` (phase 7b's per-width times and the ptxas registers and
+spills of ``flash_attention.cu``) and ``lm-prefill`` (one profiled
+prefill of each full-width LM).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -218,7 +250,8 @@ SOURCES = {"fleet_step": CSRC + "fleet_step.cu",
            "rollout_bf16_telemetry": CSRC + "rollout.cu",
            "rollout_shared_bf16": CSRC + "rollout_shared.cu",
            "shared_step_bf16": CSRC + "shared_step.cu",
-           "lif_forward_bf16": CSRC + "lif_forward.cu"}
+           "lif_forward_bf16": CSRC + "lif_forward.cu",
+           "silu": CSRC + "silu.cu"}
 REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "fleet_step_q": "src/repro/kernels/plasticity/kernel.py:559",
             "rollout": "src/repro/kernels/plasticity/fused.py:304",
@@ -240,7 +273,9 @@ REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
                 "src/repro/kernels/plasticity/fused.py:230",
             "rollout_shared_bf16": "src/repro/kernels/plasticity/fused.py:304",
             "shared_step_bf16": "src/repro/kernels/plasticity/kernel.py:132",
-            "lif_forward_bf16": "src/repro/kernels/lif/kernel.py:47"}
+            "lif_forward_bf16": "src/repro/kernels/lif/kernel.py:47",
+            # no Pallas kernel: the XLA fusion of jax.nn.silu (SwiGLU gate)
+            "silu": "src/repro/models/layers.py:142"}
 
 
 def log(*a):
@@ -1482,6 +1517,9 @@ def sweep_shared_window(dev):
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32      # the serving run (phase 8)
 ATTN_SHAPE = (LM_BATCH, 2048, 32, 8, 128)      # B, S, H, HKV, D at qwen3-4b
+ZAMBA_ATTN = (LM_BATCH, 2048, 32, 32, 112)     # the same at zamba2-7b
+# the narrow head widths of the smoke configs, each at GQA: D -> (H, HKV)
+NARROW_HEADS = {16: (8, 2), 24: (10, 5), 32: (32, 8)}
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-3)}
 
 
@@ -1499,24 +1537,37 @@ def compare_attention(dev, results):
     S = 1000, a decode-shaped query against 2049 keys, a kv_len mask, the
     serve CLI's 32-token prompts (one partial query tile), head width 64,
     Sq > Skv (rows with no visible key, exactly 0) and V at 8x scale (where
-    a single bf16 P would leave the tolerance); bfloat16 and float32."""
+    a single bf16 P would leave the tolerance); then the other head widths
+    of the repo's configs: zamba2-7b's D = 112 at its prefill shape (32
+    query over 32 KV heads), decode-shaped and with a kv_len, and the smoke
+    configs' D = 16, 24 and 32 at GQA over S = 1000, decode-shaped and with
+    a ragged kv_len; bfloat16 and float32."""
     import torch
     from repro_torch.kernels.attention import kernel as TA
     gen = torch.Generator(dev).manual_seed(SEED + 7)
     b, s, h, hkv, d = ATTN_SHAPE
-    # (what, B, Sq, Skv, kv_len, D, V scale), all causal
-    cases = [("prefill", b, s, s, None, d, 1.0),
-             ("ragged", b, 1000, 1000, None, d, 1.0),
-             ("decode", b, 1, s + 1, None, d, 1.0),
-             ("kv_len", b, s, s, 1500, d, 1.0),
-             ("cli", b, 32, 32, None, d, 1.0),
-             ("d64", b, s, s, None, 64, 1.0),
-             ("sq>skv", b, 300, 200, None, d, 1.0),
-             ("v8x", b, s, s, None, d, 8.0)]
+    zh, zkv, zd = ZAMBA_ATTN[2:]
+    # (what, B, Sq, Skv, kv_len, D, V scale, H, HKV), all causal
+    cases = [("prefill", b, s, s, None, d, 1.0, h, hkv),
+             ("ragged", b, 1000, 1000, None, d, 1.0, h, hkv),
+             ("decode", b, 1, s + 1, None, d, 1.0, h, hkv),
+             ("kv_len", b, s, s, 1500, d, 1.0, h, hkv),
+             ("cli", b, 32, 32, None, d, 1.0, h, hkv),
+             ("d64", b, s, s, None, 64, 1.0, h, hkv),
+             ("sq>skv", b, 300, 200, None, d, 1.0, h, hkv),
+             ("v8x", b, s, s, None, d, 8.0, h, hkv),
+             ("zamba2", b, s, s, None, zd, 1.0, zh, zkv),
+             ("zamba2 decode", b, 1, s + 1, None, zd, 1.0, zh, zkv),
+             ("zamba2 kv_len", b, s, s, 1500, zd, 1.0, zh, zkv)]
+    for nd, (nh, nkv) in NARROW_HEADS.items():
+        cases += [(f"d{nd} gqa", b, 1000, 1000, None, nd, 1.0, nh, nkv),
+                  (f"d{nd} decode", b, 1, s + 1, None, nd, 1.0, nh, nkv),
+                  (f"d{nd} kv_len", 2, 300, 300, 250, nd, 1.0, nh, nkv)]
+    results["flash_attention"]["head_dims"] = sorted({c[5] for c in cases})
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         rtol, atol = ATTN_TOL[dname]
-        for what, bb, sq, skv, kv_len, dd, v_scale in cases:
+        for what, bb, sq, skv, kv_len, dd, v_scale, h, hkv in cases:
             q, k, v = attention_inputs(gen, bb, sq, skv, h, hkv, dd, dtype,
                                        dev, v_scale)
             got = TA.flash_attention(q, k, v, kv_len=kv_len)
@@ -1533,9 +1584,9 @@ def compare_attention(dev, results):
             require(sq <= skv or bool((got[:, :sq - skv] == 0).all()),
                     f"flash_attention {dname} {what}: a row with no visible "
                     f"key is not 0")
-            log(f"  flash_attention  {dname:8s} {what:7s} Sq={sq} Skv={skv} "
-                f"D={dd} kv_len={kv_len} V x{v_scale:g}: max |err| "
-                f"{err:.3g}")
+            log(f"  flash_attention  {dname:8s} {what:13s} Sq={sq} Skv={skv} "
+                f"H={h}/{hkv} D={dd} kv_len={kv_len} V x{v_scale:g}: max "
+                f"|err| {err:.3g}")
             del q, k, v, got, want
     torch.cuda.empty_cache()
 
@@ -1574,50 +1625,122 @@ def ptxas_usage(text):
 
 
 def time_attention(dev, results):
-    """#7 at the prefill shape in bfloat16, L2 flushed between calls; its
-    plain version and `scaled_dot_product_attention` (GQA) on the same
-    inputs as the library yardstick (timed here only, never on the path);
-    the achieved rate at 4·D FLOP per visible pair, the ratios to SDPA and
-    to the bound, and the registers and spills ptxas gave each
-    instantiation of the Hopper kernel."""
+    """#7 at the prefill shapes (`time_attention_widths`), each beside its
+    plain version at qwen3-4b's D = 128 and zamba2-7b's D = 112: the
+    kernels line takes zamba2-7b's, as its `launches` are zamba2-7b's; the
+    registers and spills ptxas gave each instantiation of the Hopper
+    kernel."""
+    import torch
+    from repro_torch.kernels.attention import kernel as TA
+    widths = time_attention_widths(dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    for key, (b, s, h, hkv, d) in (("qwen3-4b D=128", ATTN_SHAPE),
+                                   ("zamba2-7b D=112", ZAMBA_ATTN)):
+        q, k, v = attention_inputs(gen, b, s, s, h, hkv, d, torch.bfloat16,
+                                   dev)
+        widths[key]["plain_ms"] = device_ms(
+            lambda: TA.flash_attention_plain(q, k, v), reps=5)
+        del q, k, v
+        log(f"  flash_attention bf16 {key}: plain "
+            f"{widths[key]['plain_ms']:.4f} ms")
+    row = widths["zamba2-7b D=112"]
+    results["flash_attention"].update(
+        shape=dict(zip(("B", "S", "H", "HKV", "D"), ZAMBA_ATTN)),
+        ms=row["ms"], plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        tflops=row["tflops"], widths=widths)
+    results["flash_attention"]["ptxas"] = attention_ptxas()
+    torch.cuda.empty_cache()
+
+
+def time_attention_widths(dev):
+    """#7 in bf16, L2 flushed between calls, at qwen3-4b's prefill shape
+    (D = 128) and at zamba2-7b's (B = 4, S = 2048, 32 query over 32 KV
+    heads) at every head width the wrapper takes, each beside
+    `scaled_dot_product_attention` on the same inputs (the yardstick, never
+    on the path) and its bound, with its TFLOP/s at 4·D FLOP per visible
+    pair (phase 7b, and ``--only attention``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import kernel as TA
-    gen = torch.Generator(dev).manual_seed(SEED + 8)
-    b, s, h, hkv, d = ATTN_SHAPE
-    q, k, v = attention_inputs(gen, b, s, s, h, hkv, d, torch.bfloat16, dev)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = device_ms(lambda: TA.flash_attention(q, k, v))
-    plain = device_ms(lambda: TA.flash_attention_plain(q, k, v), reps=5)
-    lib = device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    bms, kind, tb, to = attention_bound(b, s, s, h, hkv, d, 2)
-    results["flash_attention"].update(ms=ms, plain_ms=plain, library_ms=lib,
-                                      bound_ms=bms, bound_by=kind)
-    tflops = to * BF16_OPS_PER_S / 1e3 / ms / 1e9
-    log(f"  flash_attention bf16 B={b} S={s} H={h}/{hkv} D={d}: {ms:.4f} ms "
-        f"(bound {bms:.4f} ms by {kind}: bytes {tb:.4f} ms, operations "
-        f"{to:.4f} ms; plain {plain:.4f} ms; SDPA {lib:.4f} ms)")
-    log(f"  flash_attention bf16: {tflops:.1f} TFLOP/s, {ms / lib:.2f}x "
-        f"SDPA, {ms / bms:.2f}x the bound")
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    out = {}
+    shapes = [("qwen3-4b", ATTN_SHAPE)] + [
+        ("zamba2-7b", ZAMBA_ATTN[:4] + (d,)) for d in TA.HEAD_DIMS]
+    for label, (b, s, h, hkv, d) in shapes:
+        q, k, v = attention_inputs(gen, b, s, s, h, hkv, d, torch.bfloat16,
+                                   dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = device_ms(lambda: TA.flash_attention(q, k, v))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        bms, kind, tb, to = attention_bound(b, s, s, h, hkv, d, 2)
+        tflops = to * BF16_OPS_PER_S / 1e3 / ms / 1e9
+        out[f"{label} D={d}"] = dict(ms=ms, library_ms=lib, bound_ms=bms,
+                                     bound_by=kind, tflops=tflops)
+        log(f"  flash_attention bf16 {label} B={b} S={s} H={h}/{hkv} D={d}: "
+            f"{ms:.4f} ms (bound {bms:.4f} ms by {kind}: bytes {tb:.4f} ms, "
+            f"operations {to:.4f} ms), {tflops:.1f} TFLOP/s, {ms / bms:.2f}x "
+            f"the bound; SDPA {lib:.4f} ms ({ms / lib:.2f}x)")
+        del q, k, v, qt, kt, vt
+    if {"zamba2-7b D=112", "zamba2-7b D=128"} <= set(out):
+        ratio = out["zamba2-7b D=112"]["ms"] / out["zamba2-7b D=128"]["ms"]
+        log(f"  flash_attention bf16 at zamba2's shape: D=112 / D=128 = "
+            f"{ratio:.3f}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_ptxas():
+    """The registers and spills ptxas gave each instantiation of the bf16
+    attention kernel: ``{name: (registers, spill store bytes, spill load
+    bytes, stack frame bytes)}``."""
     from repro_torch.kernels import _build
-    text = _build.build_info.get("log", {}).get("flash_attention.cu")
-    usage = {f"flash_wgmma_kernel<{m.group(1)}>": v
-             for k, v in ptxas_usage(text or "").items()
-             for m in [re.search(r"flash_wgmma_kernelILi(\d+)E", k)] if m}
+    text = _build.build_all()["log"].get("flash_attention.cu", "")
+    usage = {f"flash_wgmma_kernel<{m.group(1)}, {m.group(2)}>": v
+             for k, v in ptxas_usage(text).items()
+             for m in [re.search(r"flash_wgmma_kernelILi(\d+)ELb(\d)E", k)]
+             if m}
     for name, (regs, st, ld, _) in usage.items():
         log(f"  ptxas {name}: {regs} registers, spills {st} bytes stored, "
             f"{ld} bytes loaded")
     if not usage:
         log("  ptxas: no compiler log for flash_attention.cu")
-    results["flash_attention"].update(tflops=tflops, ptxas=usage)
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
+    return usage
+
+
+def profile_lm_prefills(dev):
+    """``--only lm-prefill``: one prefill of 4 x 2048 tokens of each
+    full-width LM this tree carries (random init from the seed, bf16),
+    after one untimed prefill, under `torch.profiler`: device busy, wall
+    and kernel launches."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import factory
+    out = {}
+    for arch in ("qwen3-4b", "mamba2-1.3b", "zamba2-7b"):
+        if arch not in ARCHS:
+            continue
+        model = factory.build(arch)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        params = model.init(gen)
+        prompts = torch.randint(0, model.cfg.vocab, (LM_BATCH, LM_PROMPT),
+                                generator=gen, device=dev)
+        prefill = make_prefill(model.cfg, LM_PROMPT)
+        prefill(params, prompts)
+        log(f"  {arch}: one prefill of {LM_BATCH} x {LM_PROMPT} tokens:")
+        out[arch] = profile_window(lambda: prefill(params, prompts), 1)
+        del params, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---- phase 2d: the SSD scan against its plain version -----------------------
 
 SSD_SHAPE = (LM_BATCH, 2048, 64, 64, 128)      # B, L, H, P, S at mamba2-1.3b
+ZAMBA_SSD = (LM_BATCH, 2048, 112, 64, 64)      # the same at zamba2-7b
 SSD_CHUNK = 256                                # the model's chunk
 SSD_TOL = (2e-3, 2e-3)                         # float32; tests/test_kernels.py
 
@@ -1659,22 +1782,30 @@ def ssd_inputs(gen, b, length, h, p, s, g, dtype, dev, shift=0):
 
 def compare_ssd(dev, results):
     """#8 against `ssd_scan_plain` (the chunked form at the model's chunk)
-    on the same inputs: the prefill shape, ragged L = 1, 100 and 300,
-    G = 2, the serve CLI's 32-token prompts and a projection shifted by
-    one element (bfloat16 then takes the cp.async route); bfloat16 and
+    on the same inputs: mamba2-1.3b's prefill shape, ragged L = 1, 100 and
+    300, G = 2, the serve CLI's 32-token prompts, a projection shifted by
+    one element (bfloat16 then takes the cp.async route), and zamba2-7b's
+    prefill shape (H = 112, S = 64) and its 32-token prompts; bfloat16 and
     float32.  Then the kernel against the literal recurrence at a small
     size."""
     import torch
     from repro_torch.kernels.ssd import kernel as SK, ref as SR
     gen = torch.Generator(dev).manual_seed(SEED + 9)
     b, length, h, p, s = SSD_SHAPE
-    cases = [("prefill", b, length, 1, 0), ("L=1", b, 1, 1, 0),
-             ("L=100", b, 100, 1, 0), ("L=300", b, 300, 1, 0),
-             ("G=2", 2, 300, 2, 0), ("cli", b, 32, 1, 0),
-             ("shifted", b, 300, 1, 1)]
+    zh, zp, zs = ZAMBA_SSD[2:]
+    # (what, B, L, G, shift, (H, P, S))
+    cases = [("prefill", b, length, 1, 0, (h, p, s)),
+             ("L=1", b, 1, 1, 0, (h, p, s)),
+             ("L=100", b, 100, 1, 0, (h, p, s)),
+             ("L=300", b, 300, 1, 0, (h, p, s)),
+             ("G=2", 2, 300, 2, 0, (h, p, s)),
+             ("cli", b, 32, 1, 0, (h, p, s)),
+             ("shifted", b, 300, 1, 1, (h, p, s)),
+             ("zamba2", b, ZAMBA_SSD[1], 1, 0, (zh, zp, zs)),
+             ("zamba2 cli", b, 32, 1, 0, (zh, zp, zs))]
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        for what, bb, ll, g, shift in cases:
+        for what, bb, ll, g, shift, (h, p, s) in cases:
             args = ssd_inputs(gen, bb, ll, h, p, s, g, dtype, dev, shift)
             route = SK.copy_route(args[0], args[3], args[4])
             require(dtype != torch.bfloat16
@@ -1694,10 +1825,12 @@ def compare_ssd(dev, results):
                     f"{errs[1]} (y tolerance: "
                     + ("one bf16 step" if dtype == torch.bfloat16
                        else f"{SSD_TOL}") + f"; state {SSD_TOL})")
-            log(f"  ssd_scan {dname:8s} {what:7s} B={bb} L={ll} G={g}"
+            log(f"  ssd_scan {dname:8s} {what:10s} B={bb} L={ll} H={h} S={s} "
+                f"G={g}"
                 + (f" ({route})" if dtype == torch.bfloat16 else "")
                 + f": max |err| y {errs[0]:.3g}, state {errs[1]:.3g}")
             del args, got, want
+    b, length, h, p, s = SSD_SHAPE
     args = ssd_inputs(gen, 2, 200, 8, p, s, 2, torch.float32, dev)
     got, want = SK.ssd_scan(*args), SR.ssd_scan_ref(*args)
     torch.cuda.synchronize()
@@ -1730,13 +1863,15 @@ SSD_SWEEP_L = (512, 1024, 2048, 4096)           # phase 7c's L sweep, B = 4
 
 
 def time_ssd(dev, results):
-    """#8 at the prefill shape in bfloat16 (x, B, C cut from a packed
-    projection, as the model passes them), L2 flushed between calls, beside
-    its plain version; no single PyTorch call computes an SSD scan.  Then
-    one prompt (B = 1), the L sweep fitted as fixed + per-chunk cost (64
-    rows a chunk) beside the bound's own fit, the CTAs an SM holds
-    (occupancy query) and the registers and spills ptxas gave each
-    kernel."""
+    """#8 at mamba2-1.3b's prefill shape in bfloat16 (x, B, C cut from a
+    packed projection, as the model passes them), L2 flushed between calls,
+    beside its plain version; no single PyTorch call computes an SSD scan.
+    Then one prompt (B = 1), the L sweep fitted as fixed + per-chunk cost
+    (64 rows a chunk) beside the bound's own fit, the CTAs an SM holds
+    (occupancy query) and the registers and spills ptxas gave each kernel;
+    these go under ``mamba2-1.3b``.  Last zamba2-7b's prefill shape, held
+    against the plain version and then timed: the kernels line takes its
+    numbers, as its `launches` are zamba2-7b's."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import kernel as SK
@@ -1766,8 +1901,9 @@ def time_ssd(dev, results):
     ptxas = {name: dict(registers=r, spill_store_bytes=st,
                         spill_load_bytes=ld, stack_bytes=sk)
              for name, (r, st, ld, sk) in usage.items()}
-    results["ssd_scan"].update(
-        ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=kind,
+    results["ssd_scan"]["mamba2-1.3b"] = dict(
+        shape=dict(zip("BLHPS", SSD_SHAPE)),
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=kind,
         blocks_per_sm=per_sm, ms_b1=ms_b1, ptxas=ptxas,
         sweep=dict(length=list(SSD_SWEEP_L), ms=sweep_ms,
                    fixed_ms=fixed, per_chunk_ms=per_chunk,
@@ -1786,6 +1922,142 @@ def time_ssd(dev, results):
             f"loaded, stack {sk} B")
     if not usage:
         log("  ptxas: ssd.cu was not built in this process")
+    # zamba2-7b's prefill shape: x, B and C cut from the conv output of
+    # width 7168 + 2 * 64, as the model hands them over
+    b, length, h, p, s = ZAMBA_SSD
+    args = ssd_inputs(gen, b, length, h, p, s, 1, torch.bfloat16, dev)
+    route = SK.copy_route(args[0], args[3], args[4])
+    require(route == "tma", f"ssd_scan at zamba2's shape: the {route} route")
+    got = SK.ssd_scan(*args)
+    want = SK.ssd_scan_plain(*args, chunk=SSD_CHUNK)
+    require(all(ssd_close(x, w) for x, w in zip(got, want)),
+            "ssd_scan bf16 at zamba2's shape differs from its plain version")
+    del got, want
+    ms = device_ms(lambda: SK.ssd_scan(*args))
+    plain = device_ms(lambda: SK.ssd_scan_plain(*args, chunk=SSD_CHUNK),
+                      reps=5)
+    bms, kind, tb, to = ssd_bound(b, length, h, p, s, 1, SSD_CHUNK, 2)
+    results["ssd_scan"].update(
+        shape=dict(zip("BLHPS", ZAMBA_SSD)), ms=ms, plain_ms=plain,
+        library_ms=None, bound_ms=bms, bound_by=kind, route=route)
+    log(f"  ssd_scan bf16 B={b} L={length} H={h} P={p} S={s} ({route}): "
+        f"{ms:.4f} ms (bound {bms:.4f} ms by {kind}: bytes {tb:.4f} ms, "
+        f"operations {to:.4f} ms; plain {plain:.4f} ms; {b * h} CTAs)")
+    del args
+    torch.cuda.empty_cache()
+
+
+# ---- phase 2g / 7d: silu against its plain version, and its time -----------
+
+def silu_cases():
+    """Every silu the LM paths launch, per full-width LM: ``(what, shape,
+    x dtype, other dtype or None, out dtype, projection width or None)``.
+    The SwiGLU gate times x @ up (bf16); in a Mamba2 block the conv
+    activation (bf16), and the output gate on z cut from the input
+    projection (rows at the projection's stride) times y into float32:
+    bf16 y at prefill, float32 y at decode; and the float32 models of
+    phases 8b, 9b and 11b."""
+    from repro_torch.models import ssm as MS
+    cases = []
+    for arch in ("qwen3-4b", "mamba2-1.3b", "zamba2-7b"):
+        cfg = lm_config(arch)[0]
+        if cfg.d_ff:
+            for dt in ("bfloat16", "float32"):
+                cases.append((f"{arch} mlp {dt}", (LM_BATCH, LM_PROMPT,
+                              cfg.d_ff), dt, dt, dt, None))
+        if cfg.ssm is not None:
+            d_inner, heads, d_xbc = MS.dims(cfg)
+            proj = d_inner + d_xbc + heads
+            for s in (LM_PROMPT, 1):
+                step = "prefill" if s > 1 else "decode"
+                cases += [(f"{arch} conv {step}", (LM_BATCH, s, d_xbc),
+                           "bfloat16", None, "bfloat16", None),
+                          (f"{arch} gate {step}", (LM_BATCH, s, d_inner),
+                           "bfloat16", "bfloat16" if s > 1 else "float32",
+                           "float32", proj)]
+            cases += [(f"{arch} conv float32", (LM_BATCH, LM_PROMPT, d_xbc),
+                       "float32", None, "float32", None),
+                      (f"{arch} gate float32", (LM_BATCH, LM_PROMPT,
+                       d_inner), "float32", "float32", "float32", proj)]
+    return cases
+
+
+def silu_inputs(gen, shape, xd, od, proj, dev):
+    import torch
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    wide = 4 * torch.randn(*shape[:-1], proj or shape[-1], generator=gen,
+                           device=dev)
+    x = wide.to(dt[xd])[..., :shape[-1]]
+    other = None if od is None else torch.randn(
+        shape, generator=gen, device=dev).to(dt[od])
+    return x, other
+
+
+def compare_silu(dev, results):
+    """`layers.silu` (csrc/silu.cu, one pass) against `silu_plain` (the
+    five ops as ``jax.nn.silu`` writes them, each rounding to x's dtype)
+    at every shape the LM paths give it (`silu_cases`), bit for bit."""
+    import torch
+    from repro_torch.models import layers as ML
+    gen = torch.Generator(dev).manual_seed(SEED + 12)
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    for what, shape, xd, od, yd, proj in silu_cases():
+        x, other = silu_inputs(gen, shape, xd, od, proj, dev)
+        got = ML.silu(x, other, dt[yd])
+        want = ML.silu_plain(x, other, dt[yd])
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        results["silu"]["max_abs_err"] = max(results["silu"]["max_abs_err"],
+                                             err)
+        require(got.dtype == dt[yd] and torch.equal(got, want),
+                f"silu {what}: differs from its plain version (max err "
+                f"{err})")
+        log(f"  silu {what:26s} {tuple(shape)} x {xd}, other {od}, out {yd}"
+            f": bit for bit")
+        del x, other, got, want
+    torch.cuda.empty_cache()
+
+
+def time_silu(dev, results):
+    """silu times x @ up at zamba2-7b's prefill MLP (4 x 2048 rows of
+    14336, bf16), L2 flushed between calls, beside its plain version and
+    its bound (x and up read once, y written once); no single PyTorch call
+    rounds as ``jax.nn.silu`` is written (``F.silu`` rounds once), so
+    ``library_ms`` is null; ``F.silu(x) * up``, what the port ran before
+    it rounded as JAX does, is printed beside it.  Then qwen3-4b's MLP and
+    zamba2-7b's conv activation."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as ML
+    gen = torch.Generator(dev).manual_seed(SEED + 13)
+    out = {}
+    for label, d, mul in (("zamba2-7b mlp", 14336, True),
+                          ("qwen3-4b mlp", 9728, True),
+                          ("zamba2-7b conv", 7296, False)):
+        shape = (LM_BATCH, LM_PROMPT, d)
+        x, other = silu_inputs(gen, shape, "bfloat16",
+                               "bfloat16" if mul else None, None, dev)
+        ms = device_ms(lambda: ML.silu(x, other))
+        plain = device_ms(lambda: ML.silu_plain(x, other))
+        once = device_ms((lambda: F.silu(x) * other) if mul
+                         else (lambda: F.silu(x)))
+        n = LM_BATCH * LM_PROMPT * d
+        # neg, exp, add, divide, multiply (and the product) per element
+        bms, kind = bound(2 * n * (3 if mul else 2), n * (6 if mul else 5))
+        out[label] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                          bound_ms=bms, bound_by=kind, f_silu_ms=once)
+        log(f"  silu bf16 {label} {shape}{' x up' if mul else ''}: "
+            f"{ms:.4f} ms (bound {bms:.4f} ms by {kind}, {bms / ms:.0%} of "
+            f"the memory rate; plain, five ops{' and the product' if mul else ''}"
+            f" {plain:.4f} ms; F.silu{' x up' if mul else ''}, rounding once,"
+            f" {once:.4f} ms)")
+        del x, other
+    row = out["zamba2-7b mlp"]
+    results["silu"].update(shape=dict(B=LM_BATCH, S=LM_PROMPT, d_ff=14336),
+                           **{k: row[k] for k in ("ms", "plain_ms",
+                                                  "library_ms", "bound_ms",
+                                                  "bound_by")},
+                           shapes=out)
     torch.cuda.empty_cache()
 
 
@@ -1875,26 +2147,49 @@ def replay_launches(calls, plain, name, results, what, exact, tol,
 
 def plain_kernels():
     """Patches that send the LM path through the plain versions: the plain
-    attention and SSD scan in the model and the plain fleet steps in the
-    engine."""
+    attention, SSD scan and silu in the model and the plain fleet steps in
+    the engine."""
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.plasticity import kernel as K
     from repro_torch.kernels.ssd import kernel as SK
-    from repro_torch.models import attention as MA, ssm as MS
+    from repro_torch.models import attention as MA, layers as ML, ssm as MS
     return (mock.patch.object(MA, "attn_op", TA.flash_attention_plain),
             mock.patch.object(MS, "ssd_op", SK.ssd_scan_plain),
+            mock.patch.object(ML, "silu", ML.silu_plain),
+            mock.patch.object(MS, "silu", ML.silu_plain),
             mock.patch.object(K, "fleet_step", K.fleet_step_plain),
             mock.patch.object(K, "fleet_step_q", K.fleet_step_q_plain))
 
 
 def lm_config(arch):
-    """The full-width config of ``arch`` and the wrapper of the kernel its
-    prefill launches once per layer."""
+    """The full-width config of ``arch`` and ``{wrapper: launches}`` of the
+    kernels its prefill launches: the attention kernel once per attention
+    block (a zamba2 super-block's shared block included), the SSD scan
+    once per Mamba2 block.  silu launches in every forward, prefill or
+    decode step: `silu_per_forward`."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.models.transformer import segments
     cfg = get_config(arch)
-    return cfg, (SK.ssd_scan if cfg.layout == "ssm" else TA.flash_attention)
+    n = {TA.flash_attention: 0, SK.ssd_scan: 0}
+    for kind, count in segments(cfg):
+        n[SK.ssd_scan if kind == "ssm" else TA.flash_attention] += count
+        if kind == "zsuper":
+            n[SK.ssd_scan] += count * (cfg.ssm.attn_every - 1)
+    return cfg, {k: v for k, v in n.items() if v}
+
+
+def silu_per_forward(cfg):
+    """silu launches in one forward (a prefill or a decode step): one per
+    MLP, two per Mamba2 block (the conv activation and the output gate)."""
+    from repro_torch.models.transformer import segments
+    n = 0
+    for kind, count in segments(cfg):
+        n += {"dense": 1, "ssm": 2}.get(kind, 0) * count
+        if kind == "zsuper":
+            n += count * (1 + 2 * (cfg.ssm.attn_every - 1))
+    return n
 
 
 def rel_err(got, want):
@@ -1919,15 +2214,16 @@ def replay_adapter(cfg, params, hs, dev):
 def lm_path(dev, counters, every, results, arch="qwen3-4b"):
     """Serve 4 x 2048-token prompts with 32 greedy tokens on random-init
     ``arch`` at full width and depth (qwen3-4b: 36 attention layers;
-    mamba2-1.3b: 48 SSM layers; bf16), the plastic adapter in float32 then
-    int8, through `launch.serve.generate`: each datapath once to warm up,
+    mamba2-1.3b: 48 SSM layers; zamba2-7b: 9 super-blocks, each the shared
+    attention block and 8 SSM layers; bf16), the plastic adapter in float32
+    then int8, through `launch.serve.generate`: each datapath once to warm up,
     then once timed.  Every counter is set to 0 just before the timed run
     and read just after it."""
     import torch
     from repro_torch.kernels.plasticity import kernel as K
     from repro_torch.launch import serve
-    from repro_torch.models import factory, plastic
-    cfg, mixer = lm_config(arch)
+    from repro_torch.models import factory, layers as ML, plastic
+    cfg, mixers = lm_config(arch)
     cfg = cfg.with_(plastic_adapter=True, adapter_neurons=128)
     model = factory.build(cfg)
     gen = torch.Generator(dev).manual_seed(SEED)
@@ -1953,12 +2249,17 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b"):
                 qcfg, params, prompts, LM_PROMPT + LM_GEN, LM_GEN)
         torch.cuda.synchronize()
         launches = {c.__name__: c.launches for c in counters}
-        require(mixer.launches == cfg.n_layers,
-                f"{mode}: {mixer.launches} {mixer.__name__} launches in one "
-                f"prefill, want {cfg.n_layers}")
+        for mixer, want in mixers.items():
+            require(mixer.launches == want,
+                    f"{mode}: {mixer.launches} {mixer.__name__} launches in "
+                    f"one prefill, want {want}")
         require(step.launches == LM_GEN,
                 f"{mode}: {step.launches} {step.__name__} launches in "
                 f"{LM_GEN} decode steps, want {LM_GEN}")
+        want = silu_per_forward(cfg) * (1 + LM_GEN)
+        require(ML.silu.launches == want,
+                f"{mode}: {ML.silu.launches} silu launches in a prefill and "
+                f"{LM_GEN} decode steps, want {want}")
         ad = cache["adapter"]
         require(tuple(toks.shape) == (LM_BATCH, LM_GEN)
                 and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
@@ -1999,15 +2300,15 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b"):
                 f"max |diff| {err:.3g}, share outside 1e-4 {share:.3g}")
         del cache, ad, steps, state
     # full depth, bf16: kernel path against the plain path (not gated);
-    # for the SSM layout also two plain paths that differ only in the SSD
-    # chunk length, i.e. in float32 summation order: how far bf16 rounding
-    # alone moves this random-init model
+    # for the layouts with SSM blocks also two plain paths that differ only
+    # in the SSD chunk length, i.e. in float32 summation order: how far bf16
+    # rounding alone moves this random-init model
     got, toks = serve_logits(cfg, params, prompts, LM_GEN)
     with contextlib.ExitStack() as stack:
         for p in plain_kernels():
             stack.enter_context(p)
         want, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
-        if cfg.layout == "ssm":
+        if cfg.ssm is not None:
             from repro_torch.kernels.ssd import kernel as SK
             from repro_torch.models import ssm as MS
             stack.enter_context(mock.patch.object(
@@ -2015,7 +2316,7 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b"):
                     *a, chunk=64)))
             other, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
     pairs = [("kernel vs plain path", got, want)]
-    if cfg.layout == "ssm":
+    if cfg.ssm is not None:
         pairs.append(("plain path, chunk 64 vs 256", other, want))
     out["bf16_full_depth"] = {}
     for what, x, y in pairs:
@@ -2052,17 +2353,26 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b"):
     return out, total
 
 
+def shallow(cfg):
+    """``cfg`` cut to 2 layers (qwen3-4b, mamba2-1.3b), or for the hybrid to
+    4 with a super-block of 3: one super-block (the shared attention block
+    and 2 SSM layers) and one trailing SSM layer, the remainder segment."""
+    if cfg.layout == "hybrid":
+        return cfg.with_(n_layers=4, ssm=dataclasses.replace(cfg.ssm,
+                                                              attn_every=3))
+    return cfg.with_(n_layers=2)
+
+
 def lm_depth2_matches(dev, arch="qwen3-4b"):
-    """Full width, 2 layers, float32: prefill and decode logits through the
-    kernels equal the plain path's within 1e-4 of the largest logit, and
-    the greedy tokens are the same."""
+    """Full width, `shallow` depth, float32: prefill and decode logits
+    through the kernels equal the plain path's within 1e-4 of the largest
+    logit, and the greedy tokens are the same."""
     import torch
     from repro_torch.models import factory
     for quant in (False, True):
-        cfg = lm_config(arch)[0].with_(n_layers=2, dtype="float32",
-                                       plastic_adapter=True,
-                                       adapter_neurons=128,
-                                       adapter_quant=quant)
+        cfg = shallow(lm_config(arch)[0]).with_(
+            dtype="float32", plastic_adapter=True, adapter_neurons=128,
+            adapter_quant=quant)
         gen = torch.Generator(dev).manual_seed(SEED + 1)
         params = factory.build(cfg).init(gen)
         prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
@@ -2077,11 +2387,12 @@ def lm_depth2_matches(dev, arch="qwen3-4b"):
                    for g, w in zip(got, want))
         mode = "int8" if quant else "float32"
         require(err <= 1e-4 and same,
-                f"2-layer float32 ({mode} adapter): kernel path differs from "
-                f"the plain path (max rel logit diff {err:.3g}, greedy "
-                f"tokens {'equal' if same else 'differ'})")
-        log(f"  {arch}, 2 layers, float32, {mode} adapter: max rel logit diff "
-            f"{err:.3g} over prefill + {LM_GEN} steps, greedy tokens equal")
+                f"{cfg.n_layers}-layer float32 ({mode} adapter): kernel path "
+                f"differs from the plain path (max rel logit diff {err:.3g}, "
+                f"greedy tokens {'equal' if same else 'differ'})")
+        log(f"  {arch}, {cfg.n_layers} layers, float32, {mode} adapter: max "
+            f"rel logit diff {err:.3g} over prefill + {LM_GEN} steps, greedy "
+            f"tokens equal")
         del params, got, want
         torch.cuda.empty_cache()
 
@@ -2124,36 +2435,39 @@ def ssm_state_matches(dev):
 def serve_cli_default(results, arch="qwen3-4b"):
     """`python -m repro_torch.launch.serve --arch <arch> --plastic` at its
     defaults (4 prompts of 32 tokens, 16 generated), in this process; each
-    attention or SSD-scan launch and each fleet-step launch of the run is
-    then held against its plain version on its own inputs."""
+    attention, SSD-scan, silu and fleet-step launch of the run is then held
+    against its plain version on its own inputs (silu bit for bit)."""
     import io
     import torch
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.launch import serve
-    from repro_torch.models import attention as MA, plastic, ssm as MS
-    cfg, mixer = lm_config(arch)
-    ssm = cfg.layout == "ssm"
-    buf, mixes, steps = io.StringIO(), [], []
+    from repro_torch.models import attention as MA, layers as ML, plastic, \
+        ssm as MS
+    cfg, mixers = lm_config(arch)
+    buf, attns, scans, steps, silus = io.StringIO(), [], [], [], []
     with contextlib.redirect_stdout(buf), \
-            recording(MS if ssm else MA, "ssd_op" if ssm else "attn_op",
-                      mixes), \
+            recording(MA, "attn_op", attns), recording(MS, "ssd_op", scans), \
+            recording(ML, "silu", silus), recording(MS, "silu", silus), \
             recording(plastic, "decode_step", steps):
         rc = serve.main(["--arch", arch, "--plastic"])
     out = json.loads(buf.getvalue())
-    name = mixer.__name__
-    require(rc == 0 and out["launches"][name] == cfg.n_layers
-            and out["launches"]["fleet_step"] == 16,
+    require(rc == 0 and out["launches"]["fleet_step"] == 16
+            and all(out["launches"][m.__name__] == n
+                    for m, n in mixers.items())
+            and out["launches"]["silu"] == silu_per_forward(cfg) * 17,
             f"serve CLI default: rc {rc}, launches {out['launches']}")
-    if ssm:
-        replay_launches(mixes, SK.ssd_scan_plain, name, results,
+    if scans:
+        replay_launches(scans, SK.ssd_scan_plain, "ssd_scan", results,
                         "serve CLI", False, None, close=ssd_close)
-    else:
-        replay_launches(mixes, TA.flash_attention_plain, name, results,
-                        "serve CLI", False, ATTN_TOL["bfloat16"])
+    if attns:
+        replay_launches(attns, TA.flash_attention_plain, "flash_attention",
+                        results, "serve CLI", False, ATTN_TOL["bfloat16"])
+    replay_launches(silus, ML.silu_plain, "silu", results, "serve CLI", True,
+                    None)
     replay_launches(steps, plain_adapter_step, "fleet_step", results,
                     "serve CLI (adapter steps)", False, (1e-5, 1e-5))
-    del mixes, steps
+    del attns, scans, steps, silus
     log(f"  serve CLI default (4 x 32 + 16): prefill {out['prefill_ms']:.1f}"
         f" ms, decode p50 {out['decode_ms_p50']:.3f} ms, "
         f"{out['tokens_per_s']:.1f} tokens/s, launches {out['launches']}")
@@ -3678,6 +3992,32 @@ def nvidia_smi():
         return f"nvidia-smi: {e}"
 
 
+def only_fleet_steps(dev):
+    return {"shapes": time_fleet_shapes(dev, FLEET_MODES),
+            "per_event": profile_per_event(dev)}
+
+
+def only_shared_steps(dev):
+    return {"shapes": time_shared_shapes(dev), **shared_step_launches(dev),
+            "per_event": profile_online_per_event(dev)}
+
+
+def only_lif_forward(dev):
+    return {"shapes": time_lif_shapes(dev), **lif_forward_launches(dev),
+            "forward_only": profile_forward_only(dev),
+            "per_event": profile_online_per_event(dev)}
+
+
+def only_attention(dev):
+    return {"widths": time_attention_widths(dev), "ptxas": attention_ptxas()}
+
+
+# ``--only``'s parts: each runs one A/B measurement alone
+ONLY = {"fleet-steps": only_fleet_steps, "shared-steps": only_shared_steps,
+        "lif-forward": only_lif_forward, "attention": only_attention,
+        "lm-prefill": profile_lm_prefills}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3694,6 +4034,7 @@ def main() -> int:
     from repro_torch.kernels.lif import kernel as L
     from repro_torch.kernels.plasticity import fused, kernel as K
     from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.models import layers as ML
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch "
@@ -3720,52 +4061,30 @@ def main() -> int:
                 if "Used" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
 
-    if "--shared-steps" in sys.argv[1:]:
+    if "--only" in sys.argv[1:]:
+        parts = sys.argv[sys.argv.index("--only") + 1:][:1]
+        parts = parts[0].split(",") if parts else []
+        require(parts and set(parts) <= set(ONLY),
+                f"--only takes one or more of {', '.join(ONLY)} (comma "
+                f"separated); got {parts}")
         out = {"card": smi}
-        with phase("phase 7/7f: the shared steps per layer shape"):
-            out["shapes"] = time_shared_shapes(dev)
-            out.update(shared_step_launches(dev))
-        with phase("phase 7: the online learner's per-event device ops"):
-            out["per_event"] = profile_online_per_event(dev)
+        for part in parts:
+            with phase(f"--only {part}"):
+                out[part] = ONLY[part](dev)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        (out_dir / "shared_steps.json").write_text(json.dumps(out, indent=1))
-        print(smi)
-        return 0
-
-    if "--lif-forward" in sys.argv[1:]:
-        out = {"card": smi}
-        with phase("phase 7/7f: the LIF forward kernel per layer shape"):
-            out["shapes"] = time_lif_shapes(dev)
-            out.update(lif_forward_launches(dev))
-        with phase("phase 7: the online learner's forward-only and fused "
-                   "timesteps' device time"):
-            out["forward_only"] = profile_forward_only(dev)
-            out["per_event"] = profile_online_per_event(dev)
-        out_dir = ROOT / "chiprun_out"
-        out_dir.mkdir(exist_ok=True)
-        (out_dir / "lif_forward.json").write_text(json.dumps(out, indent=1))
-        print(smi)
-        return 0
-
-    if "--fleet-steps" in sys.argv[1:]:
-        out = {"card": smi}
-        with phase("phase 5/7f: the fleet steps per layer shape"):
-            out["shapes"] = time_fleet_shapes(dev, FLEET_MODES)
-        with phase("phase 4b: the per-event path's device ops"):
-            out["per_event"] = profile_per_event(dev)
-        out_dir = ROOT / "chiprun_out"
-        out_dir.mkdir(exist_ok=True)
-        (out_dir / "fleet_steps.json").write_text(json.dumps(out, indent=1))
+        (out_dir / "chip_smoke_only.json").write_text(
+            json.dumps(out, indent=1))
         print(smi)
         return 0
 
     counters = (K.fleet_step, K.fleet_step_q, fused.rollout)
     online_counters = (fused.rollout_shared, K.shared_step, K.shared_step_q,
                        L.lif_forward)
-    lm_counters = (TA.flash_attention, SK.ssd_scan, K.fleet_step,
+    lm_counters = (TA.flash_attention, SK.ssd_scan, ML.silu, K.fleet_step,
                    K.fleet_step_q)
-    every = counters + online_counters + (TA.flash_attention, SK.ssd_scan)
+    every = counters + online_counters + (TA.flash_attention, SK.ssd_scan,
+                                          ML.silu)
     results = {name: {"name": name, "route": "cuda",
                       "source": SOURCES[name], "replaces": REPLACES[name],
                       "launches": 0, "max_abs_err": 0.0, "ms": None,
@@ -3783,6 +4102,9 @@ def main() -> int:
         compare_attention(dev, results)
     with phase("phase 2d: the SSD scan against its plain version"):
         compare_ssd(dev, results)
+    with phase("phase 2g: silu against its plain version at the LM paths' "
+               "shapes"):
+        compare_silu(dev, results)
     with phase("phase 2e: the telemetry variants against their plain "
                "versions, 8-128-8, B = 4096"):
         compare_telemetry(dev, results)
@@ -3849,26 +4171,39 @@ def main() -> int:
         time_attention(dev, results)
     with phase("phase 7c: the SSD scan at the prefill shape (L2 flushed)"):
         time_ssd(dev, results)
+    with phase("phase 7d: silu at the prefill MLP (L2 flushed)"):
+        time_silu(dev, results)
 
     lm, lm_launches = {}, {}
-    for tag, arch, n_mix in (("8", "qwen3-4b", "36 attention"),
-                             ("9", "mamba2-1.3b", "48 SSM")):
+    for tag, arch, layers in (
+            ("8", "qwen3-4b", "36 attention layers"),
+            ("9", "mamba2-1.3b", "48 SSM layers"),
+            ("11", "zamba2-7b", "9 x (shared attention + 8 SSM layers)")):
+        # the previous model and its caches are gone before the next loads
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+            f"before {arch}")
         with phase(f"phase {tag}: LM serving, {arch} at full width "
-                   f"({n_mix} layers), B = 4, prompt 2048, 32 generated "
-                   f"tokens, plastic adapter"):
+                   f"({layers}), B = 4, prompt 2048, 32 generated tokens, "
+                   f"plastic adapter"):
             lm[arch], lm_launches[arch] = lm_path(dev, lm_counters, every,
                                                   results, arch)
-        with phase(f"phase {tag}b: {arch}, 2 layers at full width in "
-                   f"float32, kernels against the plain path"):
+        n_shallow = shallow(lm_config(arch)[0]).n_layers
+        with phase(f"phase {tag}b: {arch}, {n_shallow} layers at full width "
+                   f"in float32, kernels against the plain path"):
             lm_depth2_matches(dev, arch)
             if arch == "mamba2-1.3b":
                 ssm_state_matches(dev)
         with phase(f"phase {tag}c: the serve CLI at its defaults, --arch "
                    f"{arch}"):
             lm[arch]["serve_cli_default"] = serve_cli_default(results, arch)
-    results["flash_attention"]["launches"] = \
-        lm_launches["qwen3-4b"]["flash_attention"]
-    results["ssd_scan"]["launches"] = lm_launches["mamba2-1.3b"]["ssd_scan"]
+    # each LM kernel's launches in the timed runs of every path that ran
+    # it; `launches` is this slice's path, zamba2-7b's, which runs them all
+    for name in ("flash_attention", "ssd_scan", "silu"):
+        results[name]["launches_by_path"] = {
+            arch: n[name] for arch, n in lm_launches.items() if n[name]}
+        results[name]["launches"] = lm_launches["zamba2-7b"][name]
 
     with phase(f"phase 10: session serving, 8-128-8 FleetScheduler, "
                f"{B} slots, float32 and int8"):

@@ -10,7 +10,21 @@
 // probability exactly 0; the causal mask places the queries at the last Sq
 // key positions (q_offset = Skv - Sq); keys at or beyond kv_len are hidden;
 // a row with no visible key gives exactly 0.  The output is (B, Sq, H, D) in
-// the inputs' dtype.
+// the inputs' dtype.  D is any of 16, 24, 32, 64, 112 and 128 (the head
+// widths of the repo's configs); the C entry refuses any other.
+//
+// Head widths.  Both kernels are built for a padded width DP, 64 or 128,
+// and take the true D at run time: the columns from D up to DP load as
+// zeros (the staging loop's bound in float32, TMA's out-of-bounds fill in
+// bf16, whose maps carry the true D as the global extent), add nothing to
+// Q K^T and give zero columns of P V, which the epilogue does not store; o
+// is written at the row stride of the true D.  So D = 112 costs what
+// D = 128 costs, and D = 16-32 what D = 64 costs.  (Skipping the k-steps
+// of Q K^T that see only zeros, by a run-time bound on the unrolled wgmma
+// loop, made every width 10-12% slower: ptxas then injects a
+// warpgroup.arrive before each product, C7519.)  The bf16 kernel reads D
+// at run time only where it pads (kPad); 64 and 128 keep the compile-time
+// epilogue.
 //
 // What bounds it on an H100: operations.  At qwen3-4b's prefill shape B = 4,
 // S = 2048, H = 32, HKV = 8, D = 128, causal attention is ~1.4e11 FLOP per
@@ -80,29 +94,31 @@ static_assert(kBQ == kBK, "stage() fills kBK rows of the Q tile too");
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 
-template <int D>
+template <int DP>
 constexpr int smem_floats() {
-  return 2 * kBQ * (D + 4) + kBQ * (kBK + 4);
+  return 2 * kBQ * (DP + 4) + kBQ * (kBK + 4);
 }
 
-// Stage the kBK rows of one head that start at `src` (a (B, S, heads, D)
-// tensor, row stride `ss`) into a float32 tile of row stride D + 4; rows at
-// or beyond `rows` read zero.
-template <typename T, int D>
+// Stage the kBK rows of one head that start at `src` (a (B, S, heads, d)
+// tensor, row stride `ss`) into a float32 tile of DP columns and row stride
+// DP + 4; rows at or beyond `rows` and columns at or beyond `d` read zero.
+template <typename T, int DP>
 __device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
-                                      int rows) {
+                                      int rows, int d) {
 #pragma unroll 8
-  for (int e = threadIdx.x; e < kBK * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    dst[r * (D + 4) + d] = r < rows ? to_f(src[(long long)r * ss + d]) : 0.0f;
+  for (int e = threadIdx.x; e < kBK * DP; e += kThreads) {
+    const int r = e / DP, c = e % DP;
+    dst[r * (DP + 4) + c] =
+        r < rows && c < d ? to_f(src[(long long)r * ss + c]) : 0.0f;
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, 2) flash_kernel(AttnArgs a) {
-  constexpr int LD = D + 4;              // Q, K, V tile row stride (floats)
+  constexpr int LD = DP + 4;             // Q, K, V tile row stride (floats)
   constexpr int LP = kBK + 4;            // P tile row stride
-  constexpr int kVec = D / 64;           // float4 output chunks per thread
+  constexpr int kVec = DP / 64;          // float4 output chunks per thread
+  const int D = a.head_dim;              // the true width, <= DP
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sKV = sQ + kBQ * LD;
@@ -122,7 +138,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(AttnArgs a) {
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
-  stage<T, D>(sQ, q + (long long)q0 * a.q_ss, a.q_ss, a.sq - q0);
+  stage<T, DP>(sQ, q + (long long)q0 * a.q_ss, a.q_ss, a.sq - q0, D);
 
   // keys this tile can see: below kv_len and Skv, and under causality at
   // most the last query's position q0 + kBQ - 1 + q_offset
@@ -143,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(AttnArgs a) {
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();                       // last block's V and P reads done
-    stage<T, D>(sKV, k + (long long)k0 * a.k_ss, a.k_ss, a.skv - k0);
+    stage<T, DP>(sKV, k + (long long)k0 * a.k_ss, a.k_ss, a.skv - k0, D);
     __syncthreads();
 
     float s[kRowsPer][kColsPer];
@@ -152,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(AttnArgs a) {
 #pragma unroll
       for (int j = 0; j < kColsPer; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
       float4 qv[kRowsPer], kv[kColsPer];
 #pragma unroll
       for (int i = 0; i < kRowsPer; ++i)
@@ -211,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(AttnArgs a) {
       for (int c = 0; c < 4 * kVec; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();                       // scores done with K; P written
-    stage<T, D>(sKV, v + (long long)k0 * a.v_ss, a.v_ss, a.skv - k0);
+    stage<T, DP>(sKV, v + (long long)k0 * a.v_ss, a.v_ss, a.skv - k0, D);
     __syncthreads();
 
     // acc += P V over this block's keys; columns (16u + tx) * 4 + e
@@ -246,7 +262,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(AttnArgs a) {
   }
 
   // epilogue: divide by the row sum (a row with no visible key has l = 0
-  // and acc = 0, and stays 0) and store in the inputs' dtype
+  // and acc = 0, and stays 0) and store the true D columns in the inputs'
+  // dtype
   T* o = static_cast<T*>(a.o);
 #pragma unroll
   for (int i = 0; i < kRowsPer; ++i) {
@@ -257,20 +274,23 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(AttnArgs a) {
 #pragma unroll
     for (int u = 0; u < kVec; ++u)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        put(&orow[(16 * u + tx) * 4 + e], acc[i][4 * u + e] / den);
+      for (int e = 0; e < 4; ++e) {
+        const int col = (16 * u + tx) * 4 + e;
+        if (col < D) put(&orow[col], acc[i][4 * u + e] / den);
+      }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 int launch(const AttnArgs& a, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
+  const int bytes = smem_floats<DP>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return (int)err;
   const long long n_qb = (a.sq + kBQ - 1) / kBQ;
   const long long blocks = n_qb * a.batch * a.heads;
-  flash_kernel<T, D><<<(unsigned)blocks, kThreads, bytes, stream>>>(a);
+  flash_kernel<T, DP><<<(unsigned)blocks, kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -284,9 +304,9 @@ constexpr int kBox = 64;                 // TMA box width: 128 bytes of D
 constexpr int kRowBytes = kBox * 2;      // one swizzled row of a box
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int DP>
 struct WLayout {          // byte offsets from a 1024-aligned base
-  static constexpr int kHalves = D / kBox;               // boxes along D
+  static constexpr int kHalves = DP / kBox;              // boxes along D
   static constexpr int kQHalf = kWBQ * kRowBytes;        // 16 KB
   static constexpr int kKVHalf = kWBK * kRowBytes;       // 16 KB
   static constexpr int kQ = kHalves * kQHalf;
@@ -334,12 +354,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
+// kPad: D < DP, the true width read from the arguments; without it D is
+// DP at compile time and the epilogue stores every pair unconditionally
+// (a run-time D there cost the full widths 2-3%).
+template <int DP, bool kPad>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, AttnArgs a) {
-  using L = WLayout<D>;
+  using L = WLayout<DP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar = base + L::kBar;   // q_full, k_full[], k_empty[],
@@ -411,7 +434,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int qpos0 = q0 + row0 + a.q_offset, qpos1 = qpos0 + 8;
   const int wg_lo = q0 + c * 64 + a.q_offset;            // first query pos
   const float cl2 = a.scale * kLog2e;
-  constexpr int kNO = D / 2;                             // O floats/thread
+  constexpr int kNO = DP / 2;                            // O floats/thread
+  const int D = kPad ? a.head_dim : DP;                 // the true width
 
   // K-major operands: 16-element k-step kk is 32 bytes into box kk / 4;
   // 8-row groups 1024 bytes apart.  V is MN-major: 16 keys are 2048 bytes,
@@ -437,7 +461,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
     if (!skip) {
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         const uint32_t off = ((kk / 4) * L::kQHalf + (kk % 4) * 32) >> 4;
         const uint32_t koff = ((kk / 4) * L::kKVHalf + (kk % 4) * 32) >> 4;
         wgmma_ss_n128(sc, dq + off, dk + koff, kk > 0);
@@ -529,7 +553,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
 
   // epilogue: the row sums over the row's 4 threads, then O / l (a row with
-  // no visible key has l = 0 and O = 0, and stays 0), stored as bf16 pairs
+  // no visible key has l = 0 and O = 0, and stays 0), stored as bf16 pairs;
+  // a pair at column 8i + 2 quad is stored where it lies below the true D
+  // (D is a multiple of 8, so a pair is wholly in or out)
 #pragma unroll
   for (int w = 1; w < 4; w <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, w);
@@ -546,31 +572,35 @@ __global__ void __launch_bounds__(kWThreads, 1)
         out + (((long long)b * a.sq + qi) * a.heads + h) * D + 2 * quad);
 #pragma unroll
     for (int i = 0; i < kNO / 4; ++i)
-      orow[4 * i] = bf16_pair(o[4 * i + 2 * half] / den,
-                              o[4 * i + 2 * half + 1] / den);
+      if (!kPad || 8 * i + 2 * quad < D)
+        orow[4 * i] = bf16_pair(o[4 * i + 2 * half] / den,
+                                o[4 * i + 2 * half + 1] / den);
   }
 }
 
-template <int D>
+template <int DP, bool kPad>
 int launch_bf16(const AttnArgs& a, cudaStream_t stream) {
-  // 4-D maps over (D, heads, S, B) in the tensors' own strides
+  // 4-D maps over (D, heads, S, B) in the tensors' own strides, the true D
+  // as the extent: the boxes' columns from D to DP read the zero fill
+  const int d = a.head_dim;
   CUtensorMap tq, tk, tv;
-  if (!encode_bf16_4d(&tq, a.q, D, a.heads, a.sq, a.batch, 2 * a.q_sh,
+  if (!encode_bf16_4d(&tq, a.q, d, a.heads, a.sq, a.batch, 2 * a.q_sh,
                       2 * a.q_ss, 2 * a.q_sb, kWBQ) ||
-      !encode_bf16_4d(&tk, a.k, D, a.kv_heads, a.skv, a.batch, 2 * a.k_sh,
+      !encode_bf16_4d(&tk, a.k, d, a.kv_heads, a.skv, a.batch, 2 * a.k_sh,
                       2 * a.k_ss, 2 * a.k_sb, kWBK) ||
-      !encode_bf16_4d(&tv, a.v, D, a.kv_heads, a.skv, a.batch, 2 * a.v_sh,
+      !encode_bf16_4d(&tv, a.v, d, a.kv_heads, a.skv, a.batch, 2 * a.v_sh,
                       2 * a.v_ss, 2 * a.v_sb, kWBK))
     return (int)cudaErrorInvalidValue;
-  const int bytes = WLayout<D>::kBytes;
+  const int bytes = WLayout<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma_kernel<DP, kPad>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
   const long long n_qb = (a.sq + kWBQ - 1) / kWBQ;
   const long long blocks = n_qb * a.batch * a.heads;
-  flash_wgmma_kernel<D><<<(unsigned)blocks, kWThreads, bytes, stream>>>(
-      tq, tk, tv, a);
+  flash_wgmma_kernel<DP, kPad>
+      <<<(unsigned)blocks, kWThreads, bytes, stream>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }
 
@@ -582,12 +612,19 @@ extern "C" int flash_attention(const AttnArgs* a, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   const bool bf16 = a->dtype == 1;
   if (a->dtype != 0 && !bf16) return (int)cudaErrorInvalidValue;
+  // each head width runs the instantiation of its padded width DP
   switch (a->head_dim) {
-    case 64:
-      return bf16 ? launch_bf16<64>(*a, stream)
+    case 16: case 24: case 32:
+      return bf16 ? launch_bf16<64, true>(*a, stream)
                   : launch<float, 64>(*a, stream);
+    case 64:
+      return bf16 ? launch_bf16<64, false>(*a, stream)
+                  : launch<float, 64>(*a, stream);
+    case 112:
+      return bf16 ? launch_bf16<128, true>(*a, stream)
+                  : launch<float, 128>(*a, stream);
     case 128:
-      return bf16 ? launch_bf16<128>(*a, stream)
+      return bf16 ? launch_bf16<128, false>(*a, stream)
                   : launch<float, 128>(*a, stream);
     default:
       return (int)cudaErrorInvalidValue;

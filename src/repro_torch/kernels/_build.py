@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("fleet_step.cu", "rollout.cu", "shared_step.cu",
            "rollout_shared.cu", "lif_forward.cu", "flash_attention.cu",
-           "ssd.cu")
+           "ssd.cu", "silu.cu")
 HEADERS = ("plasticity.cuh", "hopper.cuh", "fleet.cuh", "slab.cuh",
            "forward.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -3,7 +3,11 @@ version.
 
 `flash_attention` takes q (B, Sq, H, D) and k/v (B, Skv, HKV, D) in float32
 or bfloat16, read in that layout through their strides (the last dim must
-be contiguous), and returns (B, Sq, H, D) in q's dtype.  Causal masking
+be contiguous), and returns (B, Sq, H, D) in q's dtype.  D is one of
+`HEAD_DIMS`, the head widths of the repo's configs (16, 24 and 32 in the
+smoke configs, 64, 112 in zamba2-7b, 128); the kernel runs at the padded
+width 64 or 128, the columns beyond D read as zeros and never stored, so
+D = 112 costs what D = 128 costs.  Any other D raises.  Causal masking
 puts the queries at the last Sq key positions; ``kv_len`` hides keys at
 and beyond it.  A CPU tensor takes the plain version (`ref.mha`); a CUDA
 tensor launches the kernel and counts it in ``flash_attention.launches``.
@@ -29,7 +33,7 @@ from repro_torch.kernels.plasticity.kernel import on_card, stream_of
 
 flash_attention_plain = _ref.mha
 
-HEAD_DIMS = (64, 128)             # head widths the kernel is built for
+HEAD_DIMS = (16, 24, 32, 64, 112, 128)   # head widths the kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p

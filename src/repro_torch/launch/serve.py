@@ -1,15 +1,18 @@
 """Batched serving: prefill + lockstep greedy decode with a KV cache
-(or, for ``--arch mamba2-1.3b``, an SSD state and conv window per layer),
-optionally with the FireFly-P plastic adapter (one online plasticity step
-per generated token).
+(``--arch qwen3-4b``), an SSD state and conv window per layer
+(``--arch mamba2-1.3b``) or both (``--arch zamba2-7b``: a KV cache per
+super-block's shared attention block, an SSD state and conv window per
+Mamba2 block), optionally with the FireFly-P plastic adapter (one online
+plasticity step per generated token).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --smoke --batch 4 --prompt-len 32 --gen 16 --plastic --device cpu
 
 On a CUDA device every prefill attention launches the flash-attention
-kernel, every prefill SSM block the SSD-scan kernel, and every decode step
-with ``--plastic`` the fleet-step kernel (``--adapter-quant``: its
-fixed-point twin); on the CPU the same code runs the kernels' plain
+kernel, every prefill SSM block the SSD-scan kernel, every MLP and SSM
+block of every step the silu kernel, and every decode step with
+``--plastic`` the fleet-step kernel (``--adapter-quant``: its fixed-point
+twin); on the CPU the same code runs the kernels' plain
 versions.  Weights are random, drawn from
 ``--seed``.  Prints one JSON object with the decode latencies, the
 throughput and the kernel launches of the run.
@@ -29,8 +32,9 @@ from repro_torch.kernels.plasticity.kernel import fleet_step, fleet_step_q
 from repro_torch.kernels.ssd.kernel import ssd_scan
 from repro_torch.launch.steps import make_decode_step, make_prefill
 from repro_torch.models import factory
+from repro_torch.models.layers import silu
 
-COUNTERS = (flash_attention, ssd_scan, fleet_step, fleet_step_q)
+COUNTERS = (flash_attention, ssd_scan, silu, fleet_step, fleet_step_q)
 
 
 def _sync(device: torch.device) -> None:

@@ -1,5 +1,7 @@
-"""GQA attention block: plan, full-sequence apply (prefill) and cached
-decode.
+"""GQA attention block: plan, the full-sequence update (prefill) and the
+cached decode update.  Each returns the block's update before its residual
+add: the caller adds it, since the MLP's norm after the block reads the
+sum before it rounds (`models.transformer._mlp_apply`).
 
 Grouped KV heads, optional QKV bias, optional per-head q/k RMSNorm (qwen3)
 and RoPE, as in the JAX package.  Prefill attention goes through
@@ -7,9 +9,9 @@ and RoPE, as in the JAX package.  Prefill attention goes through
 tensor); one-token decode attention is plain torch, as it is an einsum in
 the JAX package too.
 
-The port writes the decode cache IN PLACE: `decode_step` stores the new
-position into the ``(B, Smax, KV, HD)`` cache tensors it is given and
-returns the same tensors (the JAX package returns updated copies).
+The port writes the decode cache IN PLACE: `decode_update` stores the new
+position into the ``(B, Smax, KV, HD)`` cache tensors it is given (the JAX
+package's ``decode_step`` returns updated copies).
 """
 from __future__ import annotations
 
@@ -65,17 +67,17 @@ def _qkv(params, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def apply(params, x, cfg: ModelConfig, positions=None):
+def update(params, x, cfg: ModelConfig, positions=None):
     """Full-sequence causal attention (prefill).  x (B,S,D) ->
-    (x + attn (B,S,D), (k, v) each (B,S,KV,HD))."""
+    (the block's update attn (B,S,D), before the residual add;
+    (k, v) each (B,S,KV,HD))."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     q, k, v = _qkv(params, h, cfg, positions)
     o = attn_op(q, k, v, causal=True)
-    o = o.reshape(b, s, -1) @ params["wo"]
-    return x + o, (k, v)
+    return o.reshape(b, s, -1) @ params["wo"], (k, v)
 
 
 def _write_at(cache, row, index):
@@ -85,11 +87,11 @@ def _write_at(cache, row, index):
     return cache
 
 
-def decode_step(params, x, cache_k, cache_v, index, cfg: ModelConfig):
+def decode_update(params, x, cache_k, cache_v, index, cfg: ModelConfig):
     """One-token cached attention, every stream at the same length.
     x (B,1,D); cache (B,Smax,KV,HD), written in place at ``index`` (0-d
-    int tensor, the number of positions already resident).
-    Returns (out (B,1,D), cache_k, cache_v)."""
+    int tensor, the number of positions already resident).  Returns the
+    update (B,1,D), before the residual add."""
     if cfg.kv_quant:
         raise NotImplementedError(
             "the int8 KV cache (kv_quant) is not ported yet (ROADMAP.md, "
@@ -101,8 +103,7 @@ def decode_step(params, x, cache_k, cache_v, index, cfg: ModelConfig):
     _write_at(cache_k, k, index)
     _write_at(cache_v, v, index)
     o = _decode_attend(q, cache_k, cache_v, index, cfg)
-    o = o.reshape(b, 1, -1) @ params["wo"]
-    return x + o, cache_k, cache_v
+    return o.reshape(b, 1, -1) @ params["wo"]
 
 
 def _decode_attend(q, k, v, index, cfg: ModelConfig):

@@ -7,17 +7,24 @@ JAX package's logical sharding specs are gone: the port runs on one card.
 
 `rms_norm` and `rope` compute in float32 and cast back to the input's
 dtype, as the JAX package does, so a bfloat16 model rounds at the same
-places in both.
+places in both.  `silu` rounds after each op as ``jax.nn.silu`` is
+written, in one pass on the card (``csrc/silu.cu``).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.kernels import _build
+from repro_torch.kernels.plasticity.kernel import on_card, stream_of
 from repro_torch.models.config import torch_dtype
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,11 +121,71 @@ def rope(q, k, positions, theta: float):
     return rot(q), rot(k)
 
 
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def silu_plain(x, other=None, out_dtype=None):
+    """`silu`'s plain version: the five ops as ``jax.nn.silu`` writes
+    them, each rounding to x's dtype, then the product with ``other``."""
+    out_dtype = out_dtype or x.dtype
+    s = torch.neg(x).exp_().add_(1).reciprocal_().mul_(x)
+    if other is None:
+        return s.to(out_dtype)
+    return s.to(out_dtype) * other.to(out_dtype)
+
+
+def silu(x, other=None, out_dtype=None):
+    """``jax.nn.silu`` as JAX writes it, x * (1 / (1 + exp(-x))), every op
+    rounding to x's dtype (in bfloat16 ``F.silu``, which rounds once,
+    differs from it by one step on ~37% of the elements), times ``other``
+    if given, in ``out_dtype`` (x's dtype by default; float32 keeps the
+    product unrounded).  x is float32 or bfloat16; ``other`` has x's
+    shape and x's dtype or float32; the kernel reads rows at their stride
+    (a last dim that is not contiguous is copied first).  A CPU
+    tensor takes `silu_plain`; a CUDA tensor launches ``csrc/silu.cu`` in
+    one pass and counts it in ``silu.launches``."""
+    out_dtype = out_dtype or x.dtype
+    if not on_card(x):
+        return silu_plain(x, other, out_dtype)
+    kinds = ((x.dtype, None, x.dtype), (x.dtype, x.dtype, x.dtype),
+             (x.dtype, x.dtype, torch.float32),
+             (x.dtype, torch.float32, torch.float32))
+    got = (x.dtype, None if other is None else other.dtype, out_dtype)
+    if x.dtype not in _DTYPE_CODE or got not in kinds:
+        raise ValueError(f"silu takes float32 or bfloat16 x, other in x's "
+                         f"dtype or float32 and out_dtype x's or float32; "
+                         f"got (x, other, out) {got}")
+    if other is not None and (other.shape != x.shape
+                              or other.device != x.device):
+        raise ValueError(f"other must match x: {tuple(x.shape)} on "
+                         f"{x.device}; got {tuple(other.shape)} on "
+                         f"{other.device}")
+    cols = x.shape[-1] if x.ndim else 1
+    # rows at any stride, each row's elements contiguous
+    x2, u2 = (None if t is None else
+              (t if t.ndim and t.stride(-1) == 1 else t.contiguous())
+              .reshape(-1, cols) for t in (x, other))
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    fn = _build.library("silu.cu").silu
+    fn.argtypes = [_P, _L, _P, _L, _I, _P, _I, _L, _I, _I, _P]
+    fn.restype = _I
+    _build.check(fn(x2.data_ptr(), x2.stride(0),
+                    None if u2 is None else u2.data_ptr(),
+                    0 if u2 is None else u2.stride(0),
+                    0 if u2 is None else _DTYPE_CODE[u2.dtype],
+                    y.data_ptr(), _DTYPE_CODE[out_dtype], x2.shape[0], cols,
+                    _DTYPE_CODE[x.dtype], stream_of(x)), "silu")
+    _silu.launches += 1
+    return y
+
+
+_silu = silu      # counts the launches: a patch of `silu` leaves it alone
+silu.launches = 0
+
+
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU MLP: down( silu(x@gate) * (x@up) ), each product rounded to
-    the operands' dtype.  silu rounds once, where XLA's CPU expansion of
-    ``jax.nn.silu`` rounds after each of its ops: in bfloat16 a few
-    activations differ by one step."""
-    g = F.silu(x @ w_gate)
-    u = x @ w_up
-    return (g * u) @ w_down
+    the operands' dtype."""
+    return silu(x @ w_gate, x @ w_up) @ w_down

@@ -12,10 +12,13 @@ The decode cache is the SSD state (B, H, S, P) float32 and the conv window
 (B, W-1, C), O(1) per token; `decode_step` writes both IN PLACE into the
 cache tensors it is given (the JAX package returns updated copies).
 
-Rounding follows the JAX package: bfloat16 products round once, the conv
-sums in float32 and rounds once, and the decode step computes from the SSD
-state to the output projection in float32, as the JAX package's float32
-decode state promotes it there.
+Rounding follows the JAX package under ``jax.jit``: bfloat16 products
+round once, the conv sums in float32 and rounds once, silu rounds after
+each of its ops (`layers.silu`), the gate's product reaches the norm
+unrounded, and the decode step computes from the SSD state to the output
+projection in float32, as the JAX package's float32 decode state promotes
+it there.  A bfloat16 block's prefill equals the jitted JAX block bit for
+bit (tests/test_torch_ssd.py).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd import ssd as ssd_op
 from repro_torch.kernels.ssd import ssd_decode_step
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamDesc, rms_norm
+from repro_torch.models.layers import ParamDesc, rms_norm, silu
 
 
 def dims(cfg: ModelConfig):
@@ -73,7 +76,7 @@ def _conv(xbc, conv_w, conv_b):
     w, s = conv_w.shape[0], xbc.shape[1]
     pad = F.pad(xbc, (0, 0, w - 1, 0))
     out = sum(pad[:, i:i + s].float() * conv_w[i].float() for i in range(w))
-    return F.silu(out.to(xbc.dtype) + conv_b)
+    return silu(out.to(xbc.dtype) + conv_b)
 
 
 def _ssd_inputs(cfg, xbc, dt_raw, a_log, dt_bias):
@@ -96,7 +99,10 @@ def _out(params, y, xs, z, x, cfg: ModelConfig):
     """Skip term, gated RMSNorm and the output projection."""
     y = y + (params["d_skip"][:, None] * xs.float()).to(y.dtype)
     y = y.flatten(-2)                                     # (B,S,d_inner)
-    y = rms_norm(y * F.silu(z), params["out_norm"], cfg.norm_eps)
+    # the gate's product enters the norm unrounded: under jax.jit XLA
+    # upcasts the bf16 product straight into the norm's float32
+    gated = silu(z, y, torch.float32)
+    y = rms_norm(gated, params["out_norm"], cfg.norm_eps).to(y.dtype)
     out = y @ params["w_out"].to(y.dtype)
     return x + out.to(x.dtype)
 
@@ -140,7 +146,7 @@ def decode_step(params, x, ssm_state, conv_state, cfg: ModelConfig):
     conv = torch.einsum("bwc,wc->bc", window.float(),
                         params["conv_w"].float())[:, None]
     conv_state.copy_(window[:, 1:])
-    xbc = F.silu(conv.to(x.dtype) + params["conv_b"])
+    xbc = silu(conv.to(x.dtype) + params["conv_b"])
     xs, dt, a, bmat, cmat = _ssd_inputs(cfg, xbc, dt_raw,
                                         params["a_log"], params["dt_bias"])
     _, y = ssd_decode_step(ssm_state, xs[:, 0], dt[:, 0], a, bmat[:, 0],

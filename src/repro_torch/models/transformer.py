@@ -1,32 +1,38 @@
 """Decoder-only LM as a sequence of SEGMENTS, each a stack of identical
 blocks:
 
-  dense — GQA attention + SwiGLU MLP     (qwen3 and the other dense archs)
-  ssm   — Mamba2 SSD block               (mamba2)
+  dense  — GQA attention + SwiGLU MLP     (qwen3 and the other dense archs)
+  ssm    — Mamba2 SSD block               (mamba2; the hybrid's remainder)
+  zsuper — one SHARED attention + MLP block, then ``attn_every - 1`` Mamba2
+           blocks (zamba2; the shared block's parameters live once at the
+           top level, as ``shared_attn`` and ``shared_mlp``)
 
 The parameters keep the JAX package's tree: ``segments`` is a list of
-segments whose leaves are stacked over the segment's layers, and where the
-JAX package scans over that stack the port runs a Python loop over it.
-The MoE and hybrid layouts are not ported yet and raise.
+segments whose leaves are stacked over the segment's layers (a zsuper's
+Mamba2 leaves twice: super-block, then inner block), and where the JAX
+package scans over a stack the port runs a Python loop over it.  The MoE
+layout is not ported yet and raises.
 
 Entry points:
   plan / init                        — parameter plan and random init
   forward                            — full-sequence logits (or hidden)
   cache_plan / init_cache / prefill / decode_step — serving with a KV cache
-                                       (dense) or an SSD state and conv
-                                       window (ssm) per layer
+                                       per attention block and an SSD state
+                                       and conv window per Mamba2 block
 """
 from __future__ import annotations
 
 from typing import Any
+
+import dataclasses
 
 import torch
 
 from repro_torch.core.snn import resolve_device
 from repro_torch.models import attention, plastic, ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (ParamDesc, init_from_plan, param_count,
-                                       rms_norm, swiglu)
+from repro_torch.models.layers import (ParamDesc, init_from_plan, map_plan,
+                                       param_count, rms_norm, swiglu)
 
 
 def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -34,9 +40,21 @@ def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
         return [("dense", cfg.n_layers)]
     if cfg.layout == "ssm":
         return [("ssm", cfg.n_layers)]
+    if cfg.layout == "hybrid":
+        per = cfg.ssm.attn_every
+        n_super = cfg.n_layers // per
+        rem = cfg.n_layers - n_super * per
+        return [("zsuper", n_super)] + ([("ssm", rem)] if rem else [])
     raise NotImplementedError(
         f"layout {cfg.layout!r} is not ported to repro_torch yet "
-        f"(ROADMAP.md, Queue 1 item 9); the port carries 'dense' and 'ssm'")
+        f"(ROADMAP.md, Queue 1 item 9); the port carries 'dense', 'ssm' and "
+        f"'hybrid'")
+
+
+def _stack_plan(plan, n: int):
+    """The plan with a stacking dim of ``n`` before every leaf's shape."""
+    return map_plan(lambda d: dataclasses.replace(d, shape=(n, *d.shape)),
+                    plan)
 
 
 def _mlp_plan(cfg: ModelConfig, d_ff: int, stack: int = 0) -> dict:
@@ -57,6 +75,9 @@ def _mlp_plan(cfg: ModelConfig, d_ff: int, stack: int = 0) -> dict:
 def _segment_plan(cfg: ModelConfig, kind: str, count: int) -> dict:
     if kind == "ssm":
         return ssm_mod.plan(cfg, stack=count)
+    if kind == "zsuper":
+        inner = cfg.ssm.attn_every - 1
+        return {"ssm": _stack_plan(ssm_mod.plan(cfg, stack=inner), count)}
     return {"attn": attention.plan(cfg, stack=count),
             "mlp": _mlp_plan(cfg, cfg.d_ff, stack=count)}
 
@@ -68,6 +89,9 @@ def plan(cfg: ModelConfig) -> dict:
         "segments": [_segment_plan(cfg, k, n) for k, n in segments(cfg)],
         "final_norm": ParamDesc((d,), init="ones", dtype=cfg.dtype),
     }
+    if cfg.layout == "hybrid":
+        p["shared_attn"] = attention.plan(cfg)
+        p["shared_mlp"] = _mlp_plan(cfg, cfg.d_ff)
     if not cfg.tie_embeddings:
         p["lm_head"] = ParamDesc((d, v), fan_in=d, dtype=cfg.dtype)
     if cfg.plastic_adapter:
@@ -79,14 +103,20 @@ def init(cfg: ModelConfig, generator: torch.Generator):
     return init_from_plan(plan(cfg), generator)
 
 
-def _layer(seg: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked segment (views, no copies)."""
+def _layer(seg: dict, i) -> dict:
+    """Layer ``i`` (an index or a tuple of them) of a stacked segment
+    (views, no copies)."""
     return {k: _layer(t, i) if isinstance(t, dict) else t[i]
             for k, t in seg.items()}
 
 
-def _mlp_apply(p, x, cfg: ModelConfig):
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+def _mlp_apply(p, x, o, cfg: ModelConfig):
+    """The residual add of an attention update ``o``, then the MLP.  The
+    norm reads the sum before it rounds to x's dtype: under jax.jit XLA
+    upcasts the bf16 sum straight into the norm's float32."""
+    s = x.float() + o                    # o promotes to float32 exactly
+    h = rms_norm(s, p["norm"], cfg.norm_eps).to(x.dtype)
+    x = s.to(x.dtype)
     return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
 
@@ -94,13 +124,18 @@ def _head_w(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _block(kind: str, p, h, cfg: ModelConfig):
-    """One block of ``kind``: (h, its cache leaves)."""
-    if kind == "ssm":
-        h, state, conv = ssm_mod.apply(p, h, cfg)
-        return h, (state, conv)
-    h, kv = attention.apply(p["attn"], h, cfg)
-    return _mlp_apply(p["mlp"], h, cfg), kv
+def _shared(params, cfg: ModelConfig):
+    """The hybrid's shared attention + MLP block, in a dense block's tree
+    (the same tensors for every super-block, never copied)."""
+    if cfg.layout != "hybrid":
+        return None
+    return {"attn": params["shared_attn"], "mlp": params["shared_mlp"]}
+
+
+def _dense(p, h, cfg: ModelConfig):
+    """Attention + MLP: (h, (k, v))."""
+    o, kv = attention.update(p["attn"], h, cfg)
+    return _mlp_apply(p["mlp"], h, o, cfg), kv
 
 
 def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
@@ -109,19 +144,36 @@ def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
     ``input_mode="embeddings"``).  Returns logits (B,S,V), or with
     ``head=False`` the final normed hidden state (B,S,D).
     ``collect_cache(segment, layer, *leaves)``, if given, receives every
-    layer's cache leaves as they are made: the keys and values (B,S,KV,HD)
+    block's cache leaves as they are made: the keys and values (B,S,KV,HD)
     of an attention block, the final SSD state (B,H,S,P) and the raw conv
-    tail (B,<=W-1,C) of an SSM block."""
+    tail (B,<=W-1,C) of a Mamba2 block.  In a zsuper segment the shared
+    block reports at ``layer = i`` and its j-th Mamba2 block at
+    ``layer = (i, j)``."""
     if cfg.input_mode == "embeddings" and inputs.ndim == 3:
         h = inputs.to(cfg.adtype)
     else:
         h = params["embed"][inputs]
+    shared = _shared(params, cfg)
+
+    def keep(*a):
+        if collect_cache is not None:
+            collect_cache(*a)
+
     for seg_idx, (kind, count) in enumerate(segments(cfg)):
         seg = params["segments"][seg_idx]
         for i in range(count):
-            h, leaves = _block(kind, _layer(seg, i), h, cfg)
-            if collect_cache is not None:
-                collect_cache(seg_idx, i, *leaves)
+            p = _layer(seg, i)
+            if kind == "ssm":
+                h, state, conv = ssm_mod.apply(p, h, cfg)
+                keep(seg_idx, i, state, conv)
+                continue
+            h, kv = _dense(shared if kind == "zsuper" else p, h, cfg)
+            keep(seg_idx, i, *kv)
+            if kind == "zsuper":
+                for j in range(cfg.ssm.attn_every - 1):
+                    h, state, conv = ssm_mod.apply(_layer(p["ssm"], j), h,
+                                                   cfg)
+                    keep(seg_idx, (i, j), state, conv)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if not head:
         return h
@@ -135,9 +187,11 @@ def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
 
 def cache_plan(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """The decode cache: per segment a ``(L, B, max_len, KV, HD)`` K and V
-    (dense) or a ``(L, B, H, S, P)`` float32 SSD state and ``(L, B, W-1, C)``
-    conv window (ssm), the scalar ``index`` (positions resident, every
-    stream in lockstep) and, with the adapter, its per-stream state."""
+    (dense), a ``(L, B, H, S, P)`` float32 SSD state and ``(L, B, W-1, C)``
+    conv window (ssm), or both for a zsuper segment: K and V per
+    super-block and ``"ssm": {"ssm", "conv"}`` stacked (super-block, inner
+    block); the scalar ``index`` (positions resident, every stream in
+    lockstep) and, with the adapter, its per-stream state."""
     if cfg.kv_quant:
         raise NotImplementedError(
             "the int8 KV cache (kv_quant) is not ported yet (ROADMAP.md, "
@@ -150,6 +204,9 @@ def cache_plan(cfg: ModelConfig, batch: int, max_len: int) -> dict:
         kv = ParamDesc((count, batch, max_len, cfg.n_kv_heads, cfg.hd),
                        init="zeros", dtype=cfg.dtype)
         segs.append({"k": kv, "v": kv})
+        if kind == "zsuper":
+            inner = ssm_mod.plan_cache(cfg, batch, cfg.ssm.attn_every - 1)
+            segs[-1]["ssm"] = _stack_plan(inner, count)
     out = {"segments": segs,
            "index": ParamDesc((), init="zeros", dtype="int32")}
     if cfg.plastic_adapter:
@@ -174,8 +231,13 @@ def prefill(params, inputs, cfg: ModelConfig, max_len: int):
     kinds = [kind for kind, _ in segments(cfg)]
 
     def put(seg, layer, *leaves):
-        embed = _embed_ssm if kinds[seg] == "ssm" else _embed_kv
-        embed(cache["segments"][seg], layer, *leaves)
+        c = cache["segments"][seg]
+        if kinds[seg] == "ssm":
+            _embed_ssm(c, layer, *leaves)
+        elif isinstance(layer, tuple):          # a zsuper's Mamba2 block
+            _embed_ssm(c["ssm"], layer, *leaves)
+        else:
+            _embed_kv(c, layer, *leaves)
 
     hidden = forward(params, inputs, cfg, collect_cache=put, head=False)
     logits = hidden[:, -1] @ _head_w(params, cfg)
@@ -191,12 +253,13 @@ def _embed_kv(seg_cache: dict, layer: int, k, v):
     seg_cache["v"][layer, :, :s] = v
 
 
-def _embed_ssm(seg_cache: dict, layer: int, state, conv_tail):
-    """Place one layer's prefilled SSD state and raw conv tail in its slot
-    of the cache; a prompt shorter than the conv window leaves the zeros of
-    the missing history before it."""
+def _embed_ssm(seg_cache: dict, layer, state, conv_tail):
+    """Place one Mamba2 block's prefilled SSD state and raw conv tail in
+    its slot of the cache (``layer`` an index, or a tuple of them into a
+    zsuper's stack); a prompt shorter than the conv window leaves the zeros
+    of the missing history before it."""
     seg_cache["ssm"][layer] = state
-    seg_cache["conv"][layer, :, -conv_tail.shape[1]:] = conv_tail
+    seg_cache["conv"][layer][:, -conv_tail.shape[1]:] = conv_tail
 
 
 def _decode_backbone(params, cache, tokens, cfg: ModelConfig):
@@ -205,6 +268,7 @@ def _decode_backbone(params, cache, tokens, cfg: ModelConfig):
     the new index)."""
     index = cache["index"]
     h = params["embed"][tokens]
+    shared = _shared(params, cfg)
     for seg_idx, (kind, count) in enumerate(segments(cfg)):
         seg = params["segments"][seg_idx]
         c = cache["segments"][seg_idx]
@@ -214,9 +278,16 @@ def _decode_backbone(params, cache, tokens, cfg: ModelConfig):
                 h, _, _ = ssm_mod.decode_step(p, h, c["ssm"][i],
                                               c["conv"][i], cfg)
                 continue
-            h, _, _ = attention.decode_step(p["attn"], h, c["k"][i],
-                                            c["v"][i], index, cfg)
-            h = _mlp_apply(p["mlp"], h, cfg)
+            blk = shared if kind == "zsuper" else p
+            o = attention.decode_update(blk["attn"], h, c["k"][i], c["v"][i],
+                                        index, cfg)
+            h = _mlp_apply(blk["mlp"], h, o, cfg)
+            if kind == "zsuper":
+                inner = c["ssm"]
+                for j in range(cfg.ssm.attn_every - 1):
+                    h, _, _ = ssm_mod.decode_step(
+                        _layer(p["ssm"], j), h, inner["ssm"][i, j],
+                        inner["conv"][i, j], cfg)
     return h, index + 1
 
 

@@ -37,6 +37,13 @@ CASES = {
     "kv-len": (2, 130, 130, 4, 1, 64, True, 100),
     "kv-len-acausal": (1, 37, 161, 4, 2, 32, False, 90),
     "masked-rows": (1, 40, 30, 4, 2, 32, True, None),   # Sq > Skv
+    # the head widths of the repo's configs beside 64 and 128: the smoke
+    # configs' 16, 24 (qwen1.5-32b's 5 heads) and 32, and zamba2-7b's 112
+    "d16-gqa": (2, 70, 70, 4, 2, 16, True, None),
+    "d24": (1, 50, 50, 5, 5, 24, True, None),
+    "d32-gqa4": (2, 90, 90, 8, 2, 32, True, None),
+    "d112": (1, 130, 130, 4, 4, 112, True, None),
+    "d112-decode": (2, 1, 45, 4, 4, 112, True, None),
 }
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-3)}

@@ -566,13 +566,22 @@ def test_shared_rollout_kernel_matches_plain_on_card(quant, cuda_device):
 
 # (B, Sq, Skv, H, HKV, D, causal, kv_len): the prefill shape, a ragged
 # square, a decode-shaped query against a long cache, a kv_len mask, head
-# width 64, and Sq > Skv (rows with no visible key)
+# width 64, and Sq > Skv (rows with no visible key); then the other head
+# widths of the repo's configs: zamba2-7b's 112 at its prefill shape and a
+# decode-shaped query, acausal with a kv_len, and the smoke configs' 16,
+# 24 (5 heads) and 32, with GQA and a ragged kv_len
 ATTN_CASES = [(4, 2048, 2048, 32, 8, 128, True, None),
               (2, 1000, 1000, 32, 8, 128, True, None),
               (4, 1, 2049, 32, 8, 128, True, None),
               (2, 300, 700, 8, 2, 128, True, 650),
               (1, 257, 257, 4, 2, 64, False, 200),
-              (1, 80, 50, 4, 4, 64, True, None)]
+              (1, 80, 50, 4, 4, 64, True, None),
+              (4, 2048, 2048, 32, 32, 112, True, None),
+              (4, 1, 2049, 32, 32, 112, True, None),
+              (2, 77, 150, 4, 4, 112, False, 120),
+              (2, 300, 300, 4, 2, 16, True, None),
+              (1, 50, 50, 5, 5, 24, True, None),
+              (2, 200, 230, 8, 2, 32, True, 210)]
 ATTN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-3)}
 
@@ -618,6 +627,30 @@ def test_flash_attention_bf16_large_values_on_card(cuda_device):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(),
                                **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_other_head_widths(cuda_device):
+    """A head width outside HEAD_DIMS raises in the wrapper, before any
+    launch, and the C entry refuses it too."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import kernel as TA
+    launches = TA.flash_attention.launches
+    for d in (8, 48, 96, 256):
+        q = torch.zeros(1, 16, 2, d, dtype=torch.bfloat16, device=cuda_device)
+        with pytest.raises(ValueError, match="head_dim"):
+            TA.flash_attention(q, q, q)
+    assert TA.flash_attention.launches == launches
+    q = torch.zeros(1, 16, 2, 48, dtype=torch.bfloat16, device=cuda_device)
+    args = TA._AttnArgs(q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                        q.data_ptr(), *q.stride()[:3], *q.stride()[:3],
+                        *q.stride()[:3], 1, 16, 16, 2, 2, 48, 1, 16, 0, 1,
+                        48 ** -0.5)
+    fn = _build.library("flash_attention.cu").flash_attention
+    fn.argtypes = [ctypes.POINTER(TA._AttnArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    assert fn(ctypes.byref(args), None) != 0
 
 
 @pytest.mark.cuda
@@ -681,15 +714,91 @@ def test_lm_prefill_launches_attention_kernel_per_layer(cuda_device):
                                atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_hybrid_prefill_launches_both_kernels_on_card(cuda_device):
+    """zamba2-7b's SMOKE (heads of 16) at n_layers = 7 in float32: one
+    prefill launches the attention kernel once per super-block and the SSD
+    scan once per Mamba2 block, and matches the same prefill through the
+    plain versions, its cache included; then a decode step."""
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.ssd import kernel as TS
+    from repro_torch.models import attention as MA, factory, ssm as MS
+    model = factory.build("zamba2-7b", smoke=True, dtype="float32",
+                          n_layers=7)
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    toks = torch.randint(0, model.cfg.vocab, (2, 70), device=cuda_device)
+    attn, scans = TA.flash_attention.launches, TS.ssd_scan.launches
+    logits, cache = model.prefill(params, toks, 80)
+    assert TA.flash_attention.launches == attn + 2
+    assert TS.ssd_scan.launches == scans + 5
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(MA, "attn_op", TA.flash_attention_plain)
+        mp.setattr(MS, "ssd_op", TS.ssd_scan_plain)
+        want, want_cache = model.prefill(params, toks, 80)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    for got_leaf, want_leaf in zip(
+            (cache["segments"][0]["k"], cache["segments"][0]["ssm"]["ssm"],
+             cache["segments"][1]["ssm"]),
+            (want_cache["segments"][0]["k"],
+             want_cache["segments"][0]["ssm"]["ssm"],
+             want_cache["segments"][1]["ssm"])):
+        torch.testing.assert_close(got_leaf, want_leaf, **SSD_TOL)
+    tok = logits.argmax(-1)[:, None]
+    got, _ = model.decode_step(params, cache, tok)
+    want, _ = model.decode_step(params, want_cache, tok)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# (shape, x dtype, other dtype or None, out dtype, x's offset in a wider
+# row or None): the SwiGLU gate times x @ up at qwen3-4b's width, the
+# Mamba2 conv activation, its output gate in prefill (z cut from the
+# projection, times bf16 y into float32) and in decode (times float32 y),
+# float32 models, and views no 16-byte load can read (one element a thread)
+SILU_CASES = [((2, 70, 9728), "bfloat16", "bfloat16", "bfloat16", None),
+              ((2, 70, 4352), "bfloat16", None, "bfloat16", None),
+              ((2, 70, 4096), "bfloat16", "bfloat16", "float32", 0),
+              ((4, 1, 4096), "bfloat16", "float32", "float32", 0),
+              ((2, 70, 640), "float32", "float32", "float32", None),
+              ((2, 70, 160), "float32", None, "float32", 3),
+              ((3, 5, 37), "bfloat16", "bfloat16", "bfloat16", 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SILU_CASES,
+                         ids=lambda c: "x".join(map(str, c[0])) + f"-{c[1]}")
+def test_silu_kernel_matches_plain_on_card(case, cuda_device):
+    """`layers.silu` (csrc/silu.cu, one pass) equals its plain version, the
+    five ops that round as ``jax.nn.silu`` is written, bit for bit."""
+    from repro_torch.models import layers as ML
+    shape, xd, od, yd, offset = case
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    wide = (4 * torch.randn(*shape[:-1], 2 * shape[-1] + 3, generator=gen,
+                            device=cuda_device)).to(dt[xd])
+    x = (wide[..., :shape[-1]].contiguous() if offset is None
+         else wide[..., offset:offset + shape[-1]])
+    other = None if od is None else torch.randn(
+        shape, generator=gen, device=cuda_device).to(dt[od])
+    n = ML.silu.launches
+    got = ML.silu(x, other, dt[yd])
+    assert ML.silu.launches == n + 1
+    want = ML.silu_plain(x, other, dt[yd])
+    torch.cuda.synchronize()
+    assert got.dtype == dt[yd] and got.shape == x.shape
+    assert torch.equal(got, want)
+
+
 # (B, L, H, P, S, G): one token, a ragged 100 with G = 2, a ragged 300,
 # mamba2-1.3b's head (P = 64, S = 128) over an exact 128 and over the
-# prefill's 2048, the smoke config's small head (P = S = 16), and heads of
+# prefill's 2048, the smoke config's small head (P = S = 16), heads of
 # 36 (72-byte rows: no tensor map reads them, so bf16 takes the cp.async
-# route) over a state of 64 with G = 2
+# route) over a state of 64 with G = 2, and zamba2-7b's prefill (112 heads
+# of 64 over a state of 64)
 SSD_CASES = [(2, 1, 4, 64, 128, 1), (2, 100, 4, 64, 128, 2),
              (1, 300, 8, 64, 128, 1), (2, 128, 2, 64, 128, 1),
              (2, 2048, 4, 64, 128, 1), (3, 70, 4, 16, 16, 1),
-             (2, 150, 4, 36, 64, 2)]
+             (2, 150, 4, 36, 64, 2), (4, 2048, 112, 64, 64, 1)]
 SSD_TOL = dict(rtol=2e-3, atol=2e-3)
 
 
