@@ -183,6 +183,23 @@ Phases, each fatal on failure:
      for `lif_forward`, a bf16 `torch.matmul` of the product; the bf16
      fleet steps per layer shape as in phase 5 and the bf16 shared step
      and `lif_forward` per layer shape as in phase 7.
+ 12. the paper's two-phase protocol on `position` (150-step episodes) at
+     `AdaptationConfig`'s 11-128-2, T = 4, 24 pairs, 8 train goals, cut to
+     2 generations: first #3 fleet at 11-128-2 against its plain version
+     at B = 8, 72 and 384, every layer plastic or none (int8 bit for bit,
+     float32 within 1e-5), and its time at B = 8 and 384; then
+     `adaptation.optimize_rule`, plastic and weight-trained, through the
+     entry points (exactly 2 x 48 x 150 and 2 x 150 rollout launches),
+     each generation's mean fitness, seconds a generation and
+     control-steps/s; 4 candidates of the first generation (two
+     antithetic pairs) and one weight-trained candidate re-scored through
+     the plain rollout from the same resets (per-step rewards within 1e-4
+     over the first 20 control steps); `evaluate_generalization` of both
+     on the 72 unseen goals, clean and with actuator 0 dead from step 50;
+     arm-payload and position-noise with the reference rule, float32 and
+     int8, plastic against frozen (printed, not gated); a profile of one
+     candidate's loop (device busy time, idle share, device ops a control
+     step, #3's device time a launch at 11-128-2, B = 8).
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -197,8 +214,8 @@ alike (unpack another tree under ``build/`` with this script beside it):
 per-event device ops), ``shared-steps`` and ``lif-forward`` (phase 7's
 per-shape tables and the online learner's per-event device time),
 ``attention`` (phase 7b's per-width times and the ptxas registers and
-spills of ``flash_attention.cu``) and ``lm-prefill`` (one profiled
-prefill of each full-width LM).
+spills of ``flash_attention.cu``), ``lm-prefill`` (one profiled
+prefill of each full-width LM) and ``rule-search`` (phase 12).
 """
 from __future__ import annotations
 
@@ -3981,6 +3998,275 @@ def serve_path(dev, every):
     return report, launches
 
 
+# ---- phase 12: the rule search (PEPG, Phase 1) and Phase 2 at 11-128-2 ------
+
+SEARCH_ENV = "position"          # the paper's third task (Brax `ur5e`)
+SEARCH_GENERATIONS = 2           # of the paper's 60: the script's limit
+SEARCH_SIZES = (11, 128, 2)      # position's observation, 128 hidden, torques
+SEARCH_DEAD_FROM = 50            # Phase 2 stress: actuator 0 dead from here
+
+
+def search_window_inputs(gen, b, k, quant, plastic, dev):
+    """A random 11-128-2 fleet state of ``b`` streams, its rules (None where
+    no layer is plastic) and a drive window; float weights and drives on a
+    grid (exact psums at the first step)."""
+    import torch
+    from repro_torch.core import snn
+    from repro_torch.kernels.plasticity import quant as Q
+    cfg = snn.SNNConfig(layer_sizes=SEARCH_SIZES, plastic=plastic)
+    cfg = snn.quant_config(cfg) if quant else cfg
+    st = snn.init_state(cfg, batch=b, fleet=True, device=dev)
+    sizes = SEARCH_SIZES
+    if quant:
+        w = tuple(torch.randint(-40, 41, (b, sizes[i], sizes[i + 1]),
+                                generator=gen, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+                  for i in range(2))
+        st = dataclasses.replace(st, w=w)
+        drives = Q.to_fixed(torch.round(torch.randn(
+            k, b, sizes[0], generator=gen, device=dev) * 16) / 16, cfg.quant)
+    else:
+        w = tuple(torch.round((torch.rand(b, sizes[i], sizes[i + 1],
+                                          generator=gen, device=dev) * 2 - 1)
+                              * 32) / 64 for i in range(2))
+        st = dataclasses.replace(st, w=w)
+        drives = torch.round(torch.randn(k, b, sizes[0], generator=gen,
+                                         device=dev) * 16) / 16
+    theta = (snn.init_theta(cfg, gen, scale=0.02) if plastic
+             else [None, None])
+    return cfg, st, theta, drives
+
+
+def search_kernel_checks(dev, results):
+    """#3 fleet at the rule search's shapes against its plain version: B = 8
+    (a candidate's train tasks), 72 (the eval tasks) and 384 (the
+    weight-trained population), every layer plastic or none; int8 bit for
+    bit at K = 4, float32 within 1e-5 at K = 1 and, at B = 8, K = 4.  Then
+    its time at B = 8 (plastic) and B = 384 (no rule) beside its plain
+    version and its bound."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels.plasticity import fused
+    gen = torch.Generator(dev).manual_seed(SEED + 25)
+    err = 0.0
+    for quant in (False, True):
+        for plastic in (True, False):
+            cases = [(b, 4 if quant else 1) for b in (8, 72, 384)]
+            cases += [] if quant else [(8, 4)]
+            for b, k in cases:
+                plan = fused.fleet_launch(dev, SEARCH_SIZES, b, 8,
+                                          (plastic, plastic), quant=quant)
+                require(plan["ctas"] == -(-b // 8),
+                        f"11-128-2 B = {b}: plan {plan}")
+                cfg, st, theta, drives = search_window_inputs(
+                    gen, b, k, quant, plastic, dev)
+                params = [cfg.engine_params(i) for i in range(2)]
+                got = engine.rollout(st, theta, drives, params=params,
+                                     block_b=8)
+                with mock.patch.object(fused, "rollout", plain_rollout):
+                    want = engine.rollout(st, theta, drives, params=params,
+                                          block_b=8)
+                g = [got[1], *got[0].w, *got[0].v, *got[0].trace]
+                h = [want[1], *want[0].w, *want[0].v, *want[0].trace]
+                e, _ = drift(g, h)
+                err = max(err, e)
+                what = (f"rollout 11-128-2 {'int8' if quant else 'float32'} "
+                        f"{'plastic' if plastic else 'no rule'} B={b} K={k}")
+                if quant:
+                    require(all(torch.equal(a, c) for a, c in zip(g, h)),
+                            f"{what}: not bitwise equal to plain")
+                else:
+                    require(all(torch.allclose(a, c, rtol=1e-5, atol=1e-5)
+                                for a, c in zip(g, h)),
+                            f"{what}: max err {e} > 1e-5")
+                if not plastic:
+                    require(all(torch.equal(a, c) for a, c in
+                                zip(got[0].w, st.w)),
+                            f"{what}: weights moved without a rule")
+                log(f"  {what}: {plan['ctas']} CTAs, max |err| {e:.3g}")
+    results["rollout"]["max_abs_err"] = max(
+        results["rollout"]["max_abs_err"], err)
+    timed = {}
+    syn = sum(SEARCH_SIZES[i] * SEARCH_SIZES[i + 1] for i in range(2))
+    for label, b, plastic in (("plastic B=8", 8, True),
+                              ("no rule B=384", 384, False)):
+        k = 4
+        cfg, st, theta, drives = search_window_inputs(gen, b, k, False,
+                                                      plastic, dev)
+        kw = dict(spiking=[True, False], plastic=[plastic] * 2,
+                  trace_decay=cfg.trace_decay, w_clip=cfg.w_clip)
+        run = lambda: fused.rollout(drives, st.w, theta, st.v, st.trace,
+                                    block_b=8, **kw)
+        plain = lambda: fused.rollout_plain(drives, st.w, theta, st.v,
+                                            st.trace, **kw)
+        # no rule: nothing of theta read, 2 operations a synapse (psum)
+        nbytes = window_bytes(b, SEARCH_SIZES, k, 4, tb=4 if plastic else 0)
+        b_ms, kind = bound(nbytes, k * b * syn * (OPS_F32 if plastic else 2))
+        timed[label] = dict(ms=device_ms(run), plain_ms=device_ms(plain,
+                                                                  reps=5),
+                            bound_ms=b_ms, bound_by=kind)
+        log(f"  rollout 11-128-2 {label}, K = 4: "
+            f"{timed[label]['ms']:.4f} ms (plain "
+            f"{timed[label]['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+            f"{kind})")
+    return {"max_abs_err": err, "timed": timed}
+
+
+def search_held_against_plain(dev, env, cfg, scfg, wcfg):
+    """Re-score 4 candidates of the plastic search's first generation (two
+    antithetic pairs) and one weight-trained candidate through the plain
+    rollout, from the same resets: per-step rewards within 1e-4 over the
+    first 20 control steps; the largest fitness difference over the whole
+    episode is printed."""
+    import torch
+    from repro_torch.core import adaptation as A, es, snn
+    from repro_torch.kernels.plasticity import fused
+    tasks = env.train_tasks()
+    out = {}
+    for label, c, n in (("plastic", scfg, snn.theta_size(scfg)),
+                        ("weight-trained", wcfg, A.weight_size(wcfg))):
+        pcfg = es.PEPGConfig(num_params=n, pop_pairs=cfg.pop_pairs,
+                             sigma_init=cfg.theta_scale)
+        gen = torch.Generator(dev).manual_seed(cfg.seed)
+        pop, _ = es.ask(pcfg, es.init(pcfg, gen), gen)
+        seeds = A.candidate_seeds(es.fold_seed(cfg.seed, 0), pop.shape[0])
+        p = cfg.pop_pairs
+        pick = [0, 1, p, p + 1] if label == "plastic" else [0]
+        args = (env, c, pop[pick], tasks, [seeds[i] for i in pick])
+        got = A.population_rewards(*args)
+        with mock.patch.object(fused, "rollout", plain_rollout):
+            want = A.population_rewards(*args)
+        torch.cuda.synchronize()
+        by_step = (got - want).abs().flatten(1).max(dim=1).values.tolist()
+        first = max(by_step[:20])
+        fit = float((got.sum(0).mean(-1) - want.sum(0).mean(-1)).abs().max())
+        split = next((t for t, d in enumerate(by_step) if d > 1e-3), None)
+        log(f"  {label}: candidates {pick} of generation 1 through the "
+            f"plain rollout: first 20 steps max |dr| {first:.3g} (by step "
+            f"{', '.join(f'{d:.1e}' for d in by_step[:20])}), first step "
+            f"beyond 1e-3: {split}; whole-episode fitness max |d| {fit:.3g}")
+        require(first <= 1e-4, f"rule search {label}: the kernel's rewards "
+                f"differ from the plain version's by {first} > 1e-4 over "
+                f"the first 20 control steps")
+        out[label] = {"candidates": pick, "first_20_max_abs": first,
+                      "max_abs_by_step": by_step,
+                      "first_step_beyond_1e-3": split,
+                      "fitness_max_abs": fit}
+    return out
+
+
+def rule_search(dev, counters, every, results):
+    """Phase 1 (`adaptation.optimize_rule`, plastic and weight-trained) and
+    Phase 2 (`adaptation.evaluate_generalization` on the 72 unseen goals)
+    on position at 11-128-2, through the entry points on the card; then the
+    kernel's rewards against the plain version's, the new scenarios and
+    where one candidate's loop spends its time."""
+    import torch
+    from repro_torch import envs, scenarios as S
+    from repro_torch.core import adaptation as A
+    # position's 150-step episodes, AdaptationConfig's defaults (11-128-2,
+    # T = 4, lambda = 0.8, 24 pairs) cut to SEARCH_GENERATIONS generations
+    env = envs.make(SEARCH_ENV)
+    cfg = dataclasses.replace(A.AdaptationConfig(),
+                              generations=SEARCH_GENERATIONS)
+    steps, t_n, pop = env.episode_len, env.train_tasks().shape[0], \
+        2 * cfg.pop_pairs
+    out = {"kernel": search_kernel_checks(dev, results)}
+    found, launches = {}, {}
+    for plastic in (True, False):
+        label = "plastic" if plastic else "weight-trained"
+        for c in every:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, hist, scfg = A.optimize_rule(env, cfg, plastic=plastic)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[label] = {c.__name__: c.launches for c in counters}
+        n = launches[label]["rollout"]
+        want = cfg.generations * steps * (pop if plastic else 1)
+        require(n == want, f"rule search {label}: {n} rollout launches, "
+                f"expected {want}")
+        hist = [float(h) for h in hist]
+        require(all(math.isfinite(h) for h in hist) and params.shape[0] > 0
+                and bool(torch.isfinite(params).all()),
+                f"rule search {label}: non-finite fitness or parameters")
+        rate = cfg.generations * pop * t_n * steps / dt
+        found[label] = (params, scfg)
+        out[label] = {"mean_fitness": hist, "seconds": dt,
+                      "seconds_per_generation": dt / cfg.generations,
+                      "control_steps_per_s": rate, "rollout_launches": n,
+                      "params": int(params.shape[0])}
+        log(f"  Phase 1 {label}: {cfg.generations} generations x {pop} "
+            f"candidates x {t_n} tasks x {steps} steps in {dt:.2f} s = "
+            f"{dt / cfg.generations:.2f} s a generation, {rate:.4g} "
+            f"control-steps/s; mean fitness {hist}; {n} rollout launches")
+    log(f"  launches on the rule search: {launches}")
+    out["held"] = search_held_against_plain(
+        dev, env, cfg, found["plastic"][1], found["weight-trained"][1])
+    mask = torch.tensor([0.0, 1.0])
+    phase2 = {}
+    for label, (params, scfg) in found.items():
+        clean = A.evaluate_generalization(env, scfg, params)
+        dead = A.evaluate_generalization(env, scfg, params,
+                                         actuator_mask=mask,
+                                         mask_after=SEARCH_DEAD_FROM)
+        require(tuple(clean.shape) == (72,) and tuple(dead.shape) == (72,)
+                and bool(torch.isfinite(clean).all())
+                and bool(torch.isfinite(dead).all()),
+                f"Phase 2 {label}: bad returns")
+        phase2[label] = {"clean_mean": float(clean.mean()),
+                         "dead_mean": float(dead.mean()),
+                         "damage_delta": float(dead.mean() - clean.mean())}
+        log(f"  Phase 2 {label} on 72 unseen goals: clean "
+            f"{phase2[label]['clean_mean']:.4f}, actuator 0 dead from step "
+            f"{SEARCH_DEAD_FROM} {phase2[label]['dead_mean']:.4f} (delta "
+            f"{phase2[label]['damage_delta']:.4f})")
+    out["phase2"] = phase2
+    scen = {}
+    for name in ("arm-payload", "position-noise"):
+        spec = S.SCENARIOS[name]
+        senv = spec.make_env()
+        for quant in (False, True):
+            scfg = S.controller_config(senv, quant=quant)
+            theta = S.reference_rule(spec.env_name, scfg)
+            prog = S.make_closed_loop(senv, scfg, batch=spec.batch,
+                                      steps=spec.steps)
+            sched = S.compile_schedule(
+                senv, spec.perturbations,
+                torch.Generator(dev).manual_seed(123), spec.batch)
+            rp = prog.run(theta, 7, tasks=spec.tasks, schedule=sched,
+                          device=dev)
+            rf = prog.run(theta, 7, tasks=spec.tasks, schedule=sched,
+                          freeze_at=spec.onset, device=dev)
+            mp = S.adaptation_metrics(rp.rewards, spec.onset, spec.window)
+            mf = S.adaptation_metrics(rf.rewards, spec.onset, spec.window)
+            require(bool(torch.isfinite(rp.rewards).all())
+                    and bool(torch.isfinite(rf.rewards).all()),
+                    f"{name}: non-finite rewards")
+            mode = "int8" if quant else "float32"
+            scen[f"{name} {mode}"] = {"plastic": mp, "frozen": mf}
+            log(f"  {name:15s} {mode:7s}: drop {mp['drop']:.4f}, plastic "
+                f"recovers {mp['recovery_frac']:.3f}, frozen "
+                f"{mf['recovery_frac']:.3f} (not gated)")
+    out["scenarios"] = scen
+    # one candidate's loop (B = 8 train tasks, 150 control steps)
+    scfg = found["plastic"][1]
+    one = lambda: A.population_rewards(env, scfg, found["plastic"][0][None],
+                                       env.train_tasks(), [SEED])
+    one()
+    log("  one candidate's loop:")
+    prof = profile_window(one, steps)
+    kern = [t for t in prof["top"] if "rollout" in t["name"]]
+    if kern and prof["device_busy_ms"]:
+        prof["rollout_ms_per_launch"] = kern[0]["ms"] / kern[0]["count"]
+        log(f"    #3 at 11-128-2, B = 8: "
+            f"{prof['rollout_ms_per_launch']:.4f} ms a launch (device), "
+            f"idle share {prof['idle_share']:.3f}")
+    out["profile"] = prof
+    return out, launches
+
+
 def nvidia_smi():
     try:
         p = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4012,10 +4298,16 @@ def only_attention(dev):
     return {"widths": time_attention_widths(dev), "ptxas": attention_ptxas()}
 
 
+def only_rule_search(dev):
+    from repro_torch.kernels.plasticity import fused
+    results = {"rollout": {"max_abs_err": 0.0}}
+    return rule_search(dev, (fused.rollout,), (fused.rollout,), results)[0]
+
+
 # ``--only``'s parts: each runs one A/B measurement alone
 ONLY = {"fleet-steps": only_fleet_steps, "shared-steps": only_shared_steps,
         "lif-forward": only_lif_forward, "attention": only_attention,
-        "lm-prefill": profile_lm_prefills}
+        "lm-prefill": profile_lm_prefills, "rule-search": only_rule_search}
 
 
 def main() -> int:
@@ -4212,6 +4504,16 @@ def main() -> int:
                  "rollout_telemetry"):
         results[name]["launches"] = serve_launches[name]
 
+    with phase(f"phase 12: the rule search (PEPG) and Phase 2 on "
+               f"{SEARCH_ENV}, 11-128-2, {SEARCH_GENERATIONS} generations"):
+        search, search_launches = rule_search(dev, counters, every, results)
+    # #3 fleet's launches in each path that ran it; `launches` stays the
+    # controller's (phase 4)
+    results["rollout"]["launches_by_path"] = {
+        "controller": results["rollout"]["launches"],
+        **{f"rule search, {k}": v["rollout"]
+           for k, v in search_launches.items()}}
+
     for r in results.values():
         lib = (f", library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
@@ -4234,6 +4536,7 @@ def main() -> int:
               "table2": table,
               "lm_path": lm, "lm_launches": lm_launches,
               "serve_path": served, "serve_launches": serve_launches,
+              "rule_search": search, "rule_search_launches": search_launches,
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
               "shared_step_launches": shared_launches,

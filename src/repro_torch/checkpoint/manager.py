@@ -58,6 +58,17 @@ def flatten(tree, prefix: str = "") -> tuple[list, list]:
     return paths, leaves
 
 
+def signature(*operands, **flags) -> tuple:
+    """Static signature of one dispatch: each operand leaf's shape, dtype
+    and device (None for an absent operand) and the flags."""
+    sig = []
+    for op in operands:
+        leaves = flatten(op)[1] if op is not None else [None]
+        sig.append(tuple(None if t is None else
+                         (tuple(t.shape), t.dtype, t.device) for t in leaves))
+    return tuple(sig) + tuple(sorted(flags.items()))
+
+
 def unflatten(like, leaves):
     """A tree of `like`'s structure with `leaves` in flatten order."""
     it = iter(leaves)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import NetworkState
+from repro_torch.core.es import PEPGState
 from repro_torch.core.snn import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import torch_dtype
@@ -83,6 +84,13 @@ def fleet_telemetry(tel, device=None) -> FleetTelemetry:
 def theta(th, device=None) -> list:
     """Per-layer rule list (None entries stay None)."""
     return [None if t is None else tensor(t, device) for t in th]
+
+
+def pepg_state(state, device=None) -> PEPGState:
+    """``repro.core.es.PEPGState`` -> the port's `PEPGState`, so that both
+    searches can continue from one state."""
+    return PEPGState(*(tensor(getattr(state, f), device)
+                       for f in PEPGState._fields))
 
 
 def vec_env_state(vs, device=None) -> VecEnvState:

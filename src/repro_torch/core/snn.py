@@ -163,6 +163,12 @@ def init_theta(cfg: SNNConfig, generator: torch.Generator,
             for i in range(cfg.num_layers)]
 
 
+def theta_size(cfg: SNNConfig) -> int:
+    """Coefficients of the flat rule vector (`flatten_theta`)."""
+    return sum(P.NUM_TERMS * cfg.layer_sizes[i] * cfg.layer_sizes[i + 1]
+               for i in range(cfg.num_layers))
+
+
 def flatten_theta(theta) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in theta])
 

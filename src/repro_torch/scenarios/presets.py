@@ -1,12 +1,14 @@
 """Scenario registry + the reference adaptive rule.
 
 A `ScenarioSpec` names an env, a perturbation schedule and the episode
-geometry (onset, metric window, fleet batch).  The registry holds the
-scenarios whose envs the port carries.
+geometry (onset, metric window, fleet batch) — one row of the robustness
+sweep.
 
 `reference_rule` builds a hand-designed plasticity rule for the paper's
 single-layer error-feedback controller, so the adaptation claim is
-deterministic and cheap to evaluate.  In the four-term rule's language
+deterministic and cheap to evaluate (Phase-1 PEPG search,
+`core.adaptation.optimize_rule`, remains the path for *learned* rules).  In
+the four-term rule's language
 (``dw = alpha*pre*post + beta*pre + gamma*post + delta``):
 
   * ``delta`` rows on the env's error channels bootstrap the wiring from
@@ -29,7 +31,7 @@ from repro_torch import envs
 from repro_torch.core import snn
 from repro_torch.core.plasticity import ALPHA, DELTA
 from repro_torch.scenarios.perturb import (ActuatorDropout, GoalSwitch,
-                                           ParamShift)
+                                           ParamShift, SensorNoise)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +67,10 @@ SCENARIOS = {
             steps=260, onset=80, window=40, tasks=1),
         # -- sweep scenarios ------------------------------------------------
         ScenarioSpec(
+            name="arm-payload", env_name="arm",
+            perturbations=(ParamShift(param="payload", add=1.5, step=80),),
+            steps=260, onset=80, window=40, tasks="train"),
+        ScenarioSpec(
             name="stabilizer-dropout", env_name="stabilizer",
             env_kwargs=(("spring", 2.5), ("wind", 2.0)),
             perturbations=(ActuatorDropout(k=1, step=80),),
@@ -76,6 +82,10 @@ SCENARIOS = {
         ScenarioSpec(
             name="direction-goalswitch", env_name="direction",
             perturbations=(GoalSwitch(step=80, source="eval"),),
+            steps=260, onset=80, window=40, tasks="train"),
+        ScenarioSpec(
+            name="position-noise", env_name="position",
+            perturbations=(SensorNoise(std=0.4, bias=0.2, step=80),),
             steps=260, onset=80, window=40, tasks="train"),
     )
 }
@@ -115,6 +125,19 @@ def _wiring(env_name: str, env: envs.Env) -> tuple:
         g[5, :] = axes[:, 1]   # vel-err y -> thruster axis y
         a[4, :] = np.abs(axes[:, 0])
         a[5, :] = np.abs(axes[:, 1])
+    elif env_name in ("arm", "position"):
+        # obs layout [sin q(2), cos q(2), dq(2), goal(2), goal-tip(2), 1]:
+        # tip error rows 8, 9; joint-rate damping rows 4, 5.  Signs follow
+        # the Jacobian transpose averaged over the frontal, elbow-down
+        # workspace (x_tip > 0; sin(q1+q2) < 0): e_y drives both joints
+        # CCW, e_x mostly extends the elbow.
+        g[9, 0] = 1.0          # e_y -> shoulder torque
+        g[9, 1] = 1.0          # e_y -> elbow torque
+        g[8, 1] = 0.7          # e_x -> elbow extension
+        g[4, 0] = -0.4         # dq damping (bootstrap only)
+        g[5, 1] = -0.4
+        a[9, 0] = a[9, 1] = 1.0
+        a[8, 1] = 0.7
     else:
         raise ValueError(f"no reference wiring for env {env_name!r}")
     return g, a

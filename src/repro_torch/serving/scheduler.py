@@ -99,17 +99,6 @@ def uniform_axes(tree, axis=0):
     return _ckpt.tree_map(lambda _: axis, tree)
 
 
-def _signature(*operands, **flags) -> tuple:
-    """Static signature of one dispatch: each operand leaf's shape, dtype
-    and device (None for an absent operand) and the flags."""
-    sig = []
-    for op in operands:
-        leaves = _ckpt.flatten(op)[1] if op is not None else [None]
-        sig.append(tuple(None if t is None else
-                         (tuple(t.shape), t.dtype, t.device) for t in leaves))
-    return tuple(sig) + tuple(sorted(flags.items()))
-
-
 # ---- the generic pool ------------------------------------------------------
 
 
@@ -190,7 +179,7 @@ class SessionPool:
 
     def _dispatch(self, name: str, *operands, **flags) -> None:
         """Record the static signature of one call of entry point `name`."""
-        self._signatures[name].add(_signature(*operands, **flags))
+        self._signatures[name].add(_ckpt.signature(*operands, **flags))
 
     # ---- occupancy -------------------------------------------------------
 

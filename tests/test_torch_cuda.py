@@ -308,6 +308,63 @@ def test_rollout_kernel_matches_plain_on_card(quant, cuda_device):
             assert torch.equal(w_new[off], w_old[off])
 
 
+SEARCH_SIZES = (11, 128, 2)      # the rule search's controller (position)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plastic", (True, False),
+                         ids=("plastic", "weight-trained"))
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_rollout_kernel_at_the_rule_search_width_on_card(quant, plastic,
+                                                         cuda_device):
+    """#3 fleet at 11-128-2, the rule search's shapes: B = 8 (one
+    candidate's train tasks, one CTA), 72 (the eval tasks) and 384 (the
+    weight-trained population, 48 CTAs), every layer plastic or none (no
+    rule at all).  The 11-wide input rows (44 bytes) and 2-wide readout
+    rows (8 bytes) take the per-element copy route.  int8 bit for bit over
+    the control window (K = 4); float32 within 1e-5 at K = 1 (exact psums
+    from grid-valued weights and drives) and at K = 4 for B = 8."""
+    rng = np.random.default_rng(25)
+    qc = TQ.QuantConfig() if quant else None
+    flags = (plastic, plastic)
+    cases = [(b, 4 if quant else 1) for b in (8, 72, 384)]
+    if not quant:
+        cases.append((8, 4))
+    for b, k in cases:
+        plan = TF.fleet_launch(cuda_device, SEARCH_SIZES, b, 8, flags,
+                               quant=quant)
+        assert plan["ctas"] == -(-b // 8) and plan["warps"] == 4, plan
+        st = _network(rng, SEARCH_SIZES, quant, cuda_device, b)
+        theta = [torch.from_numpy((rng.standard_normal(
+            (4, SEARCH_SIZES[i], SEARCH_SIZES[i + 1])) * 0.02)
+            .astype(np.float32)).to(cuda_device) if plastic else None
+            for i in range(2)]
+        if quant:
+            drives = rng.integers(-512, 512, (k, b, 11)).astype(np.int32)
+        else:
+            drives = (np.round(rng.standard_normal((k, b, 11)) * 16)
+                      / 16).astype(np.float32)
+        drives = torch.from_numpy(drives).to(cuda_device)
+        params = [TE.EngineParams(
+            spiking=i == 0, plastic=plastic, quant=qc, tau_m=2.0,
+            trace_decay=0.75 if quant else 0.8) for i in range(2)]
+        launches = TF.rollout.launches
+        got_st, got = TE.rollout(st, theta, drives, params=params,
+                                 block_b=8)
+        assert TF.rollout.launches == launches + 1
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TF, "rollout", lambda *a, block_b=None, **kw:
+                       TF.rollout_plain(*a, **kw))
+            want_st, want = TE.rollout(st, theta, drives, params=params,
+                                       block_b=8)
+        torch.cuda.synchronize()
+        _assert_match((*got_st.w, *got_st.v, *got_st.trace, got),
+                      (*want_st.w, *want_st.v, *want_st.trace, want), quant)
+        if not plastic:
+            for w_new, w_old in zip(got_st.w, st.w):
+                assert torch.equal(w_new, w_old)
+
+
 def _shared_inputs(rng, b, n, m, quant, dev, teach):
     """Spike-like events and grid-valued weights (exact float psums)."""
     if quant:

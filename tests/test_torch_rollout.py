@@ -363,6 +363,35 @@ def test_fleet_plan_routes_and_raises():
         TF.fleet_plan((8, 2048, 64), 16, 1, (True, True), **kw)
 
 
+# The fleet plan of the rule search's controller, 11-128-2 (position's
+# observation and torques, the paper's 128 hidden), by hand.  Tile 8; the
+# widest layer 11 x 128 = 1408 synapses wants ceil(1408 / 512) = 3 warps a
+# stream, a power of two capped at 1024 / (32 x 8) = 4: 4 warps, 1024
+# threads.  A state buffer: w 5632 + 1024, v 512 + 8 -> 16, traces 44 -> 48,
+# 512, 8 -> 16 (7760); the bus 2 x 128 floats (1024), the spare buffer's
+# mbarriers 16: a slot 7760 + 7760 + 1024 + 16 = 16560.  The rules, 4 x
+# (1408 + 256) coefficients (26624 bytes), stay resident behind their
+# mbarrier (16); a weight-trained window (no layer plastic) keeps none.  One
+# tile a CTA: B = 8 (one candidate's train tasks) is one CTA, B = 72 (the
+# eval tasks) 9, B = 384 (24 pairs x 8 tasks, weight-trained) 48.
+_SEARCH_SLOT = 7760 + 7760 + 1024 + 16
+
+
+@pytest.mark.parametrize("plastic", (True, False),
+                         ids=("plastic", "weight-trained"))
+@pytest.mark.parametrize("batch,ctas", ((8, 1), (72, 9), (384, 48)))
+def test_fleet_plan_at_the_rule_search_width(batch, ctas, plastic):
+    plan = TF.fleet_plan((11, 128, 2), batch, 8, (plastic, plastic),
+                         quant=False, limit=TK.DEFAULT_SMEM_LIMIT, sms=132,
+                         occupancy=1)
+    th = 26624 if plastic else 0
+    assert plan == dict(
+        tile=8, warps=4, threads=1024, buffers="double", theta="smem",
+        role_smem=dict(theta=th, state=7760, spare=7760, bus=1024,
+                       barriers=16, slot=_SEARCH_SLOT),
+        smem=16 + th + 8 * _SEARCH_SLOT, ctas_per_sm=1, ctas=ctas)
+
+
 # The shared-weight window's plan at 784-1024-10, B = 1, on 132 SMs, by
 # hand.  Layer 0 (N = 784) takes 128 CTAs of 8 columns, layer 1 (N = 1024,
 # M = 10) 3 of 4: starting from one column a CTA, the layer whose doubled

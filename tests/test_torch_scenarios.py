@@ -61,6 +61,70 @@ def test_closed_loop_matches_jax(mode, freeze):
                                atol=1e-4)
 
 
+# the sweep scenarios of the position and arm envs, their perturbation moved
+# inside a 30-step episode and jittered per slot
+NEW_SCENARIOS = {
+    "arm-payload": lambda M: M.ParamShift(param="payload", add=1.5, step=10,
+                                          jitter=6),
+    "position-noise": lambda M: M.SensorNoise(std=0.4, bias=0.2, step=10,
+                                              jitter=6),
+}
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", sorted(NEW_SCENARIOS))
+def test_new_scenarios_closed_loop_match_jax(name, mode):
+    """B = 4, 30 steps of arm-payload and position-noise with the reference
+    rule; env state, schedule and rule carried from JAX, and the sensor
+    noise JAX draws at each step fed to the port's draw.  Rewards, actions
+    and physics within 1e-4; the int8 controller state (weights, membranes,
+    traces) bit for bit."""
+    from unittest import mock
+    quant = mode == "int8"
+    spec = JS.SCENARIOS[name]
+    env = spec.make_env()
+    scfg = JS.controller_config(env, impl="xla", quant=quant)
+    theta = JS.reference_rule(spec.env_name, scfg)
+    prog = JS.make_closed_loop(env, scfg, batch=4, steps=30)
+    vst = prog.venv.reset(jax.random.PRNGKey(3),
+                          tasks=prog.init_tasks("train"))
+    sched = JP.compile_schedule(env, (NEW_SCENARIOS[name](JP),),
+                                jax.random.PRNGKey(1), 4)
+    key = jax.random.PRNGKey(0)
+    want = prog._rollout(prog.init_net(), vst, theta, sched,
+                         jnp.int32(31), key)
+    # the rollout's observation noise: normal(fold_in(k_obs, t)) a step
+    k_obs = jax.random.split(key)[0]
+    noise = iter([torch.from_numpy(np.array(jax.random.normal(
+        jax.random.fold_in(k_obs, t), (4, env.obs_dim), jnp.float32)))
+        for t in range(30)])
+
+    tspec = TS.SCENARIOS[name]
+    tenv = tspec.make_env()
+    tcfg = TS.controller_config(tenv, quant=quant)
+    tprog = TS.make_closed_loop(tenv, tcfg, batch=4, steps=30)
+    with mock.patch.object(TP.torch, "randn",
+                           lambda *a, **k: next(noise)):
+        got = tprog.rollout(tprog.init_net(device="cpu"),
+                            convert.vec_env_state(vst, device="cpu"),
+                            convert.theta(theta, device="cpu"),
+                            convert.schedule(sched, device="cpu"), 31,
+                            torch.Generator())
+    assert next(noise, None) is None               # one draw a step, all fed
+    for f in ("rewards", "actions"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=0,
+                                   atol=1e-4, err_msg=f)
+    np.testing.assert_allclose(got.env_state.phys.numpy(),
+                               np.asarray(want.env_state.phys), rtol=0,
+                               atol=1e-4)
+    if quant:
+        for a, b in zip(got.net.w + got.net.v + got.net.trace,
+                        want.net.w + want.net.v + want.net.trace):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert any(w.any() for w in got.net.w)              # the rule acts
+
+
 @pytest.mark.parametrize("name", TS.GATE_SCENARIOS)
 @pytest.mark.parametrize("mode", MODES)
 def test_recovery_gate_in_port(name, mode):
