@@ -200,6 +200,33 @@ Phases, each fatal on failure:
      int8, plastic against frozen (printed, not gated); a profile of one
      candidate's loop (device busy time, idle share, device ops a control
      step, #3's device time a launch at 11-128-2, B = 8).
+ 2h. the recorder kernel (`obs.recorder.record_step`, csrc/recorder.cu:
+     the network weight norm, the drift against wnorm0, one ring row and
+     the four detectors in one launch) against its plain version at
+     8-128-8, B = 4096, float32 and int8, 90% of the slots active, 16
+     recorded steps of random telemetry rows with weights moving in half
+     the slots, a planted stuck, dead, bursting and out-of-corridor slot:
+     flags, streaks, steps and verdicts exact, int8 bit for bit, float32
+     ring, baselines and wnorm0 within rtol = atol = 1e-6, each planted
+     fault flagged;
+ 13. session health at full width: a `FleetScheduler` on 8-128-8 with
+     4096 slots, a RAM `SessionStore` and the incident drill's detectors,
+     float32 and int8: 4096 sessions run 12 recorded windows (the first 4
+     equal a record-off twin pool bit for bit, state and outputs),
+     `health_checkpoint()`, dead input into 64 sessions spread over the
+     pool until each is flagged (within 10 windows, no clean session
+     flagged), `remediate(flight_dir=...)` under the armed recompile
+     watchdog (0 violations; the `compiled_programs()` dict printed), 6
+     more windows equal to a control pool in which the 64 were evicted
+     and re-admitted by hand at the checkpoint, bit for bit, and exactly
+     one recorder launch per recorded window (the count read just after
+     the drills); then, in a fresh process (``--only health``), the
+     recorder's time (L2 flushed) beside its plain version and its bound
+     by bytes, a `torch.profiler` window of 8 telemetry-on windows beside
+     8 recorded ones on a full pool (the recorded side runs one more
+     device op a window and the same device-to-host copies), and the wall
+     of 8 recorded windows with the kernel and with its plain version, in
+     alternating turns.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -208,14 +235,18 @@ Each phase prints its seconds.
 
 ``python3 chip_smoke.py --only <part>[,<part>...]`` builds the kernels,
 runs only the named A/B parts and writes them to
-``chiprun_out/chip_smoke_only.json`` (no result line), any tree's wrappers
+``chiprun_out/chip_smoke_only.json`` or the file after ``--out`` (no
+result line), any tree's wrappers
 alike (unpack another tree under ``build/`` with this script beside it):
 ``fleet-steps`` (phases 5 and 7f's per-shape table and phase 4b's
 per-event device ops), ``shared-steps`` and ``lif-forward`` (phase 7's
 per-shape tables and the online learner's per-event device time),
 ``attention`` (phase 7b's per-width times and the ptxas registers and
 spills of ``flash_attention.cu``), ``lm-prefill`` (one profiled
-prefill of each full-width LM) and ``rule-search`` (phase 12).
+prefill of each full-width LM), ``rule-search`` (phase 12) and
+``health`` (phase 13's timings: the recorder's time, the profiled
+windows and the recorded windows' walls with the kernel and its plain
+version).
 """
 from __future__ import annotations
 
@@ -268,7 +299,8 @@ SOURCES = {"fleet_step": CSRC + "fleet_step.cu",
            "rollout_shared_bf16": CSRC + "rollout_shared.cu",
            "shared_step_bf16": CSRC + "shared_step.cu",
            "lif_forward_bf16": CSRC + "lif_forward.cu",
-           "silu": CSRC + "silu.cu"}
+           "silu": CSRC + "silu.cu",
+           "recorder": CSRC + "recorder.cu"}
 REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "fleet_step_q": "src/repro/kernels/plasticity/kernel.py:559",
             "rollout": "src/repro/kernels/plasticity/fused.py:304",
@@ -292,7 +324,10 @@ REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "shared_step_bf16": "src/repro/kernels/plasticity/kernel.py:132",
             "lif_forward_bf16": "src/repro/kernels/lif/kernel.py:47",
             # no Pallas kernel: the XLA fusion of jax.nn.silu (SwiGLU gate)
-            "silu": "src/repro/models/layers.py:142"}
+            "silu": "src/repro/models/layers.py:142",
+            # no Pallas kernel: the record variant's recorder and detectors,
+            # which XLA fuses into the jitted pool step
+            "recorder": "src/repro/serving/scheduler.py:870"}
 
 
 def log(*a):
@@ -4267,6 +4302,542 @@ def rule_search(dev, counters, every, results):
     return out, launches
 
 
+# ---- phase 2h: the recorder kernel against its plain version ---------------
+
+REC_STEPS = 16                  # recorded steps of phase 2h
+REC_TOL = 1e-6                  # float32 ring, baselines, wnorm0: rtol and
+#                                 atol (the drift channel is a difference)
+# planted slots of phase 2h: frozen channels and weights, spike rate 0, a
+# sustained burst on channel 0 from step 10, sat outside its corridor
+STUCK, DEAD, BURST, BOUND = 7, 11, 13, 17
+
+
+def tol_ratio(got, want, tol):
+    """Largest |got - want| / (tol + tol |want|): at most 1 where got is
+    within rtol = atol = tol of want."""
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / (tol + tol * w.abs())).max())
+
+
+def rec_leaves(rec):
+    from repro_torch.checkpoint import manager as CM
+    return CM.flatten(rec)[1]
+
+
+def compare_recorder(dev, results):
+    """`record_step` (csrc/recorder.cu, one launch) against
+    `record_step_plain` at 8-128-8, B = 4096, float32 and int8, 90% of the
+    slots active, over REC_STEPS steps of random telemetry rows and
+    weights that move in half the slots each step, with a planted stuck,
+    dead, bursting and out-of-corridor slot: flags, streaks, steps and
+    verdicts exact, int8 bit for bit, float32 ring, baselines and wnorm0
+    within rtol = atol = REC_TOL."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import snn
+    from repro_torch.obs import health as H, recorder as R
+    from repro_torch.obs.telemetry import FleetTelemetry
+    hcfg = H.HealthConfig(window=8, warmup=4, hysteresis=(2, 3, 4, 3))
+    gen = torch.Generator(dev).manual_seed(SEED + 30)
+    active = torch.rand(B, generator=gen, device=dev) < 0.9
+    active[[STUCK, DEAD, BURST, BOUND]] = True
+    span = torch.tensor([0.6, 0.02, 0.5], device=dev)
+    for quant in (False, True):
+        mode = "int8" if quant else "float32"
+        cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
+               else firefly_snn.CONFIG)
+        st = snn.init_state(cfg, batch=B, fleet=True, device=dev)
+
+        def draw():
+            if quant:
+                return [torch.randint(-127, 128, tuple(w.shape),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32).to(torch.int8)
+                        for w in st.w]
+            return [0.1 * torch.randn(tuple(w.shape), generator=gen,
+                                      device=dev) for w in st.w]
+        w = draw()
+        scales = tuple(torch.rand(B, generator=gen, device=dev) / 16 + 1 / 64
+                       for _ in st.w) if quant else ()
+        kern = R.init_recorder(hcfg, B, device=dev)
+        plain = R.init_recorder(hcfg, B, device=dev)
+        rows = None
+        err, ratio = 0.0, 0.0
+        for t in range(REC_STEPS):
+            move = torch.rand(B, generator=gen, device=dev) < 0.5
+            move[STUCK] = False
+            w = [torch.where(move[:, None, None], n, o)
+                 for n, o in zip(draw(), w)]
+            state = dataclasses.replace(st, w=tuple(w), w_scale=scales)
+            new = torch.rand(B, 3, generator=gen, device=dev) * span
+            if rows is not None:
+                new[STUCK] = rows[STUCK]
+            new[DEAD, 0] = 0.0
+            if t >= 10:
+                new[BURST, 0] = 7.5
+            new[BOUND, 2] = 1.5
+            rows = new
+            tel = FleetTelemetry(spike_rate=rows[:, 0],
+                                 mean_abs_dw=rows[:, 1], sat_frac=rows[:, 2],
+                                 occupancy=active.float())
+            n0 = R.record_step.launches
+            kern, kv = R.record_step(hcfg, kern, state, tel, t, active, quant)
+            require(R.record_step.launches == n0 + 1,
+                    "recorder: record_step did not launch its kernel")
+            plain, pv = R.record_step_plain(hcfg, plain, state, tel, t,
+                                            active, quant)
+            torch.cuda.synchronize()
+            got, want = rec_leaves(kern), rec_leaves(plain)
+            # ring, wnorm0, ewma_mean, ewma_var, last; streaks, flagged, steps
+            for i, (a, b) in enumerate(zip(got, want)):
+                if i >= 5 or quant:
+                    require(torch.equal(a, b),
+                            f"recorder {mode} step {t}: leaf {i} not bit for "
+                            f"bit its plain version's")
+                else:
+                    err = max(err, float((a - b).abs().max()))
+                    ratio = max(ratio, tol_ratio(a, b, REC_TOL))
+            require(torch.equal(kv, pv),
+                    f"recorder {mode} step {t}: verdict differs")
+        require(ratio <= 1, f"recorder {mode}: max |err| {err} outside rtol = "
+                f"atol = {REC_TOL}")
+        flags = kern.health.flagged
+        require(bool(flags[STUCK, 2]) and bool(flags[DEAD, 3])
+                and bool(flags[BURST, 0]) and bool(flags[BOUND, 1]),
+                f"recorder {mode}: a planted fault was not flagged "
+                f"({flags[[STUCK, DEAD, BURST, BOUND]].tolist()})")
+        r = results["recorder"]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        log(f"  recorder {mode}: {REC_STEPS} steps at 8-128-8, B = {B}, "
+            f"{int(active.sum())} active: flags, streaks, steps and "
+            f"verdicts exact, " + ("every leaf bit for bit" if quant else
+                                   f"floats max |err| {err:.3g}")
+            + f"; planted faults flagged, {int(kv.sum())} slots flagged "
+            f"in all")
+
+
+# ---- phase 13: session health of the controller fleet at full width --------
+
+HEALTH_SICK = 64                # sessions given dead input
+HEALTH_WARM, HEALTH_CONT = 12, 6
+HEALTH_MAX_ANOM = 10            # windows within which each must flag
+HEALTH_PROFILED = 8             # windows profiled of each kind
+HEALTH_EQUAL = 4                # record-on windows held against record-off
+HEALTH_AB_ROUNDS = 3            # turns of kernel against plain walls
+
+
+def health_config():
+    """The incident drill's detectors (tests/test_health.py:365): only
+    `dead` is on, two windows running below a spike rate of 1e-2."""
+    from repro_torch.obs import HealthConfig
+    off, never = 1e9, 9999
+    return HealthConfig(warmup=8, z_threshold=off, bounds=((0.0, off),) * 4,
+                        dead_floor=1e-2, hysteresis=(never, never, never, 2))
+
+
+class HealthRun:
+    """A 4096-slot FleetScheduler at 8-128-8 with a RAM SessionStore, every
+    slot filled, drives keyed on each session's own step counter (so a
+    rolled-back session replays the stream its control twin sees)."""
+
+    def __init__(self, dev, quant, health=True):
+        import numpy as np
+        import torch
+        from repro_torch.configs import firefly_snn
+        from repro_torch.core import snn
+        from repro_torch.serving import FleetScheduler, SessionStore
+        cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
+               else firefly_snn.CONFIG)
+        # the rule drawn on the host, so every run gets the same one
+        theta = [t.to(dev) for t in snn.init_theta(
+            cfg, torch.Generator().manual_seed(SEED + 31), scale=0.05)]
+        self.s = FleetScheduler(cfg, theta, slots=B, device=dev,
+                                store=SessionStore(),
+                                health=health_config() if health else None)
+        self.base = np.random.default_rng(SEED + 32).standard_normal(
+            (B, cfg.layer_sizes[0])).astype(np.float32)
+        self.sick = {f"u{i}" for i in range(0, B, B // HEALTH_SICK)}
+        for i in range(B):
+            self.s.admit(f"u{i}")
+
+    def drives(self, dead=False):
+        import numpy as np
+        from repro_torch.scenarios import AnomalyPreset, inject_anomaly
+        preset = AnomalyPreset("dead_input")
+        out = {}
+        for u, slot in self.s.user_slot.items():
+            t = int(self.s._steps[slot])
+            d = (np.sin(0.5 * t + self.base[int(u[1:])]) * 1.5).astype(
+                np.float32)
+            out[u] = inject_anomaly(preset, d, t) if dead and u in self.sick \
+                else d
+        return out
+
+    def window(self, **kw):
+        return self.s.pool_step(self.drives(kw.pop("dead", False)), **kw)
+
+    def rows(self, uids):
+        """The listed sessions' rows of every fleet leaf, stacked."""
+        slots = [self.s.user_slot[u] for u in sorted(uids)]
+        f = self.s.fleet
+        return [t[slots].clone() for t in f.w + f.v + f.trace + f.w_scale]
+
+
+def profile_ops(fn, windows, expect):
+    """Device ops, kernels, device-to-host copies and the recorder kernel's
+    device time over `windows` calls of ``fn`` (torch.profiler, device
+    activity only, after one warm-up call under the profiler).  `expect`
+    maps a kernel-name fragment to the launches the windows must show; a
+    trace that lacks some fails the run.  Late in the whole script's
+    process the profiler has lost the first windows' launches, the same
+    ones at every retake, and in a fresh process it never has: phase 13
+    takes these traces in one (`health_profiles`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)]
+    seen = {k: sum(e.count for e in ev if k in e.key) for k in expect}
+    require(seen == expect, f"the profiler's trace lacks launches: "
+            f"{json.dumps(seen)} of {json.dumps(expect)}")
+    ops = sum(e.count for e in ev)
+    d2h = sum(e.count for e in ev if "DtoH" in e.key)
+    copies = sum(e.count for e in ev if e.key.startswith(("Memcpy",
+                                                           "Memset")))
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    rec = [e for e in ev if "recorder_kernel" in e.key]
+    out = {"windows": windows, "wall_ms": wall,
+           "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall if busy else None,
+           "device_ops": ops, "device_ops_per_window": ops / windows,
+           "kernels": ops - copies, "kernels_per_window": (ops - copies)
+           / windows,
+           "d2h_copies": d2h, "d2h_per_window": d2h / windows,
+           "counts": {e.key[:80]: e.count for e in ev},
+           "top": [{"name": e.key[:60], "count": e.count,
+                    "ms": e.self_device_time_total / 1e3}
+                   for e in sorted(ev, key=lambda e:
+                                   -e.self_device_time_total)[:5]]}
+    if rec:
+        out["recorder_ms_per_launch"] = (
+            sum(e.self_device_time_total for e in rec) / 1e3
+            / sum(e.count for e in rec))
+        out["recorder_launches"] = sum(e.count for e in rec)
+    return out
+
+
+def recorder_bytes(b, sizes, wb, quant):
+    """One recorder launch: the weights (and int8 scales), the telemetry
+    and mask read once, the detector state read and written, a ring row
+    and the verdict written."""
+    syn = sum(sizes[i] * sizes[i + 1] for i in range(len(sizes) - 1))
+    layers = len(sizes) - 1
+    state = 4 + 3 * 4 * 4 + 4 * 4 + 4 + 4   # wnorm0, mean/var/last, streaks,
+    #                                         flagged, steps
+    return (b * syn * wb + (b * 4 * layers if quant else 0) + b * 3 * 4 + b
+            + 2 * b * state + b * 4 * 4 + b)
+
+
+def time_recorder(dev, results):
+    """`record_step`'s device time at 8-128-8, B = 4096 (L2 flushed) beside
+    its plain version and its bound by bytes, float32 and int8."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import snn
+    from repro_torch.obs import recorder as R
+    from repro_torch.obs.telemetry import FleetTelemetry
+    gen = torch.Generator(dev).manual_seed(SEED + 33)
+    hcfg = health_config()
+    active = torch.rand(B, generator=gen, device=dev) < 0.9
+    sizes = firefly_snn.CONFIG.layer_sizes
+    syn = sum(sizes[i] * sizes[i + 1] for i in range(len(sizes) - 1))
+    timed = {}
+    for quant in (False, True):
+        cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
+               else firefly_snn.CONFIG)
+        st = snn.init_state(cfg, batch=B, fleet=True, device=dev)
+        w = tuple((torch.randint(-127, 128, tuple(a.shape), generator=gen,
+                                 device=dev, dtype=torch.int32)
+                   .to(torch.int8) if quant
+                   else torch.randn(tuple(a.shape), generator=gen,
+                                    device=dev)) for a in st.w)
+        state = dataclasses.replace(st, w=w)
+        raw = torch.rand(B, 3, generator=gen, device=dev)
+        tel = FleetTelemetry(raw[:, 0], raw[:, 1], raw[:, 2],
+                             active.float())
+        rec = R.init_recorder(hcfg, B, device=dev)
+        pos = [0]
+
+        def call(fn=R.record_step):
+            fn(hcfg, rec, state, tel, pos[0], active, quant)
+            pos[0] += 1
+        ms = device_ms(call)
+        plain = device_ms(lambda: call(R.record_step_plain), reps=5)
+        b_ms, kind = bound(recorder_bytes(B, sizes, 1 if quant else 4, quant),
+                           2 * B * syn)
+        timed["int8" if quant else "float32"] = dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=kind)
+    results["recorder"].update(timed["float32"])
+    results["recorder"]["int8"] = timed["int8"]
+    for mode, r in timed.items():
+        log(f"  recorder {mode}: {r['ms']:.4f} ms a launch (cold L2), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({r['ms'] / r['bound_ms']:.1f}x)")
+    return timed
+
+
+def profile_recorded_windows(run, quant):
+    """HEALTH_PROFILED telemetry-on windows beside as many recorded ones
+    (record=True, telemetry=True: the same telemetry kernels, then the
+    recorder) on a full 4096-slot pool: device ops, kernels and
+    device-to-host copies of each; the recorded side must launch exactly
+    one more kernel a window (the recorder) and make the same copies."""
+    run.window(telemetry=True)                      # warm both variants
+    run.window(telemetry=True, record=True)
+    # each window launches one rollout and copies its gauges to the host
+    # once; a recorded one launches the recorder too
+    n = HEALTH_PROFILED
+    tel = profile_ops(lambda: run.window(telemetry=True), n,
+                      {"rollout_kernel": n, "DtoH": n, "recorder_kernel": 0})
+    rec = profile_ops(lambda: run.window(telemetry=True, record=True), n,
+                      {"rollout_kernel": n, "DtoH": n, "recorder_kernel": n})
+    mode = "int8" if quant else "float32"
+    for name, p in (("telemetry-on", tel), ("recorded", rec)):
+        log(f"  {mode} {name}: {p['kernels_per_window']:g} kernels, "
+            f"{p['device_ops_per_window']:g} device ops with copies and "
+            f"{p['d2h_per_window']:g} device-to-host copies a window, busy "
+            f"{p['device_busy_ms']:.3f} ms of {p['wall_ms']:.1f} ms wall "
+            f"(idle {p['idle_share']:.3f})")
+    require(rec["kernels"] == tel["kernels"] + HEALTH_PROFILED
+            and rec["d2h_copies"] == tel["d2h_copies"]
+            and rec.get("recorder_launches") == HEALTH_PROFILED,
+            f"{mode}: a recorded window is not a telemetry-on window plus "
+            f"one launch ({rec['kernels']} vs {tel['kernels']} kernels, "
+            f"{rec['d2h_copies']} vs {tel['d2h_copies']} copies over "
+            f"{HEALTH_PROFILED} windows; by name {json.dumps(tel['counts'])}"
+            f" vs {json.dumps(rec['counts'])})")
+    log(f"  {mode}: the recorder by the profiler "
+        f"{rec['recorder_ms_per_launch']:.4f} ms a launch")
+    return {"telemetry_on": tel, "recorded": rec}
+
+
+def recorded_walls(run, quant):
+    """Wall time of HEALTH_PROFILED recorded windows with the recorder's
+    kernel and with its plain version (`record_step_plain`, ~40 small ops)
+    in its place, in HEALTH_AB_ROUNDS alternating turns of each, on the
+    same pool."""
+    import torch
+    from repro_torch.obs import recorder as R
+    steps = {"kernel": R.record_step, "plain": R.record_step_plain}
+    walls = {k: [] for k in steps}
+    for turn in range(HEALTH_AB_ROUNDS + 1):
+        for name, fn in steps.items():
+            with mock.patch.object(R, "record_step", fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HEALTH_PROFILED if turn else 1):
+                    run.window(telemetry=True, record=True)
+                torch.cuda.synchronize()
+                if turn:                  # turn 0 warms both
+                    walls[name].append((time.perf_counter() - t0) * 1e3)
+    mode = "int8" if quant else "float32"
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"  {mode}: {HEALTH_PROFILED} recorded windows' wall, in "
+        f"alternating turns: the kernel {[round(w, 1) for w in walls['kernel']]}"
+        f" ms (median {med['kernel']:.1f}), the plain version "
+        f"{[round(w, 1) for w in walls['plain']]} ms (median "
+        f"{med['plain']:.1f})")
+    return {"windows": HEALTH_PROFILED, "kernel_ms": walls["kernel"],
+            "plain_ms": walls["plain"], "kernel_median_ms": med["kernel"],
+            "plain_median_ms": med["plain"]}
+
+
+def health_drill(dev, quant, flight_dir):
+    """Phase 13's drill on one datapath: returns its report."""
+    import torch
+    from repro_torch.obs import recorder as R
+    from repro_torch.obs.watchdog import watchdog
+    mode = "int8" if quant else "float32"
+    t0 = time.perf_counter()
+    a, b = HealthRun(dev, quant), HealthRun(dev, quant, health=False)
+    t_admit = time.perf_counter() - t0
+    n0 = R.record_step.launches
+    for w in range(HEALTH_WARM):
+        d = a.drives()
+        out_a = a.s.pool_step(d, record=True)
+        out_b = b.s.pool_step(d)
+        if w < HEALTH_EQUAL:
+            fa, fb = a.s.fleet, b.s.fleet
+            require(all(torch.equal(x, y) for x, y in zip(
+                fa.w + fa.v + fa.trace + fa.w_scale,
+                fb.w + fb.v + fb.trace + fb.w_scale))
+                and torch.equal(torch.stack(list(out_a.values())),
+                                torch.stack(list(out_b.values()))),
+                f"{mode}: record=True changed window {w}'s state or "
+                f"outputs")
+    require(a.s.flagged_sessions() == [],
+            f"{mode}: clean sessions flagged after warm-up: "
+            f"{a.s.flagged_sessions()[:8]}")
+    # a steady pool has churned: one round trip warms the recorder reset
+    a.s.evict("u1")
+    a.s.admit("u1")
+    t1 = time.perf_counter()
+    ckpt = a.s.health_checkpoint()
+    t_ckpt = time.perf_counter() - t1
+    require(ckpt == B, f"{mode}: health_checkpoint persisted {ckpt}")
+    watchdog.install()
+    watchdog.reset()
+    with watchdog.armed():
+        n_anom = 0
+        while n_anom < HEALTH_MAX_ANOM:
+            a.s.pool_step(a.drives(dead=True), record=True)
+            n_anom += 1
+            flagged = set(a.s.flagged_sessions())
+            require(flagged <= a.sick, f"{mode}: clean sessions flagged: "
+                    f"{sorted(flagged - a.sick)[:8]}")
+            if flagged == a.sick:
+                break
+        require(flagged == a.sick, f"{mode}: {len(flagged)} of "
+                f"{HEALTH_SICK} flagged within {HEALTH_MAX_ANOM} windows")
+        t2 = time.perf_counter()
+        reports = a.s.remediate(flight_dir=str(flight_dir / mode))
+        t_rem = time.perf_counter() - t2
+        require(len(reports) == HEALTH_SICK
+                and {r["uid"] for r in reports} == a.sick
+                and all(r["steps_lost"] == a.s.cfg.timesteps * n_anom
+                        and r["to_slot"] == r["from_slot"]
+                        and Path(r["incident"]).exists() for r in reports),
+                f"{mode}: remediation reports {reports[:2]}")
+        require(a.s.flagged_sessions() == [] and not a.s.quarantined_slots,
+                f"{mode}: sessions still flagged or quarantined")
+        outs_a = []
+        for _ in range(HEALTH_CONT):
+            o = a.window(record=True)
+            outs_a.append(torch.stack([o[u] for u in sorted(a.sick)]))
+        armed = {"violations": watchdog.violations,
+                 "compiles": watchdog.compiles}
+    require(watchdog.violations == 0,
+            f"{mode}: watchdog violations {watchdog.violation_signatures}")
+    launches = R.record_step.launches - n0
+    windows = HEALTH_WARM + n_anom + HEALTH_CONT
+    programs = a.s.compiled_programs()
+    log(f"  {mode}: {B} sessions, {HEALTH_WARM} recorded windows bit for "
+        f"bit record-off for the first {HEALTH_EQUAL} (state and outputs), "
+        f"no clean session flagged; health_checkpoint of {ckpt} sessions "
+        f"in {t_ckpt:.2f} s")
+    log(f"  {mode}: all {HEALTH_SICK} dead-input sessions flagged after "
+        f"{n_anom} windows; remediate (quarantine, incident dump, rollback) "
+        f"in {t_rem:.2f} s under the armed watchdog, "
+        f"{watchdog.violations} violations, {watchdog.compiles} compiles; "
+        f"steps lost {reports[0]['steps_lost']} each")
+    log(f"  {mode}: compiled_programs() = {json.dumps(programs)}")
+    # the control pool: the sick evicted and re-admitted by hand at the
+    # checkpoint, never given dead input
+    for u in sorted(b.sick):
+        b.s.evict(u)
+    for u in sorted(b.sick):
+        b.s.admit(u)
+    for i in range(HEALTH_CONT):
+        o = b.window()
+        require(torch.equal(outs_a[i],
+                            torch.stack([o[u] for u in sorted(b.sick)])),
+                f"{mode}: continuation window {i} differs from the control")
+    require(all(torch.equal(x, y) for x, y in zip(a.rows(a.sick),
+                                                   b.rows(b.sick))),
+            f"{mode}: the rolled-back sessions' state differs from the "
+            f"control's")
+    log(f"  {mode}: {HEALTH_CONT} windows after the rollback equal the "
+        f"control pool bit for bit (outputs and state of all "
+        f"{HEALTH_SICK}); {launches} recorder launches for {windows} "
+        f"recorded windows")
+    require(launches == windows, f"{mode}: {launches} recorder launches for "
+            f"{windows} recorded windows")
+    report = {"admit_seconds": t_admit, "checkpoint_seconds": t_ckpt,
+            "remediate_seconds": t_rem, "windows_to_flag": n_anom,
+            "steps_lost": reports[0]["steps_lost"],
+            "recorder_launches": launches, "compiled_programs": programs,
+            "watchdog_armed": armed}
+    return report, a
+
+
+def health_path(dev, results):
+    """Phase 13: the drill on both datapaths, the recorder's launch count
+    set to 0 just before the drills and read just after them; then its
+    timings and profiles in a fresh process (`health_profiles`)."""
+    import tempfile
+    import torch
+    from repro_torch.obs import recorder as R
+    work = ROOT / "build" / "chip_smoke_health"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        R.record_step.launches = 0
+        for quant in (False, True):
+            report, run = health_drill(dev, quant, Path(tmp))
+            out["int8" if quant else "float32"] = report
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+        results["recorder"]["launches"] = R.record_step.launches
+    timed = health_profiles(work)
+    results["recorder"].update(timed["timing"]["float32"])
+    results["recorder"]["int8"] = timed["timing"]["int8"]
+    for mode in ("float32", "int8"):
+        out[mode]["profile"] = timed[mode]
+    out["timing"] = timed["timing"]
+    return out
+
+
+def health_profiles(work):
+    """``chip_smoke.py --only health`` in a fresh process (the profiler
+    loses launches late in this one): its log lines, and its report, which
+    it fails without."""
+    report = work / "only_health.json"
+    report.unlink(missing_ok=True)
+    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--only", "health", "--out", str(report)],
+                       capture_output=True, text=True, timeout=300)
+    lines = p.stdout.splitlines()
+    start = next((i for i, line in enumerate(lines)
+                  if line.startswith("--only health")), len(lines))
+    for line in lines[start + 1:]:
+        if line.startswith("  ") and not line.startswith("  ("):
+            log(line)
+    require(p.returncode == 0 and report.exists(),
+            f"--only health exited {p.returncode}: {p.stderr[-2000:]}")
+    return json.loads(report.read_text())["health"]
+
+
+def only_health(dev):
+    """``--only health``: phase 13's timings (the recorder's time, and on
+    a fresh full pool the profiled windows and the walls of recorded
+    windows with the kernel and with its plain version)."""
+    import torch
+    results = {"recorder": {}}
+    out = {"timing": time_recorder(dev, results)}
+    for quant in (False, True):
+        run = HealthRun(dev, quant)
+        mode = "int8" if quant else "float32"
+        out[mode] = profile_recorded_windows(run, quant)
+        out[mode]["walls"] = recorded_walls(run, quant)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def nvidia_smi():
     try:
         p = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4307,7 +4878,8 @@ def only_rule_search(dev):
 # ``--only``'s parts: each runs one A/B measurement alone
 ONLY = {"fleet-steps": only_fleet_steps, "shared-steps": only_shared_steps,
         "lif-forward": only_lif_forward, "attention": only_attention,
-        "lm-prefill": profile_lm_prefills, "rule-search": only_rule_search}
+        "lm-prefill": profile_lm_prefills, "rule-search": only_rule_search,
+        "health": only_health}
 
 
 def main() -> int:
@@ -4363,10 +4935,11 @@ def main() -> int:
         for part in parts:
             with phase(f"--only {part}"):
                 out[part] = ONLY[part](dev)
-        out_dir = ROOT / "chiprun_out"
-        out_dir.mkdir(exist_ok=True)
-        (out_dir / "chip_smoke_only.json").write_text(
-            json.dumps(out, indent=1))
+        dest = (Path(sys.argv[sys.argv.index("--out") + 1])
+                if "--out" in sys.argv[1:]
+                else ROOT / "chiprun_out" / "chip_smoke_only.json")
+        dest.parent.mkdir(parents=True, exist_ok=True)
+        dest.write_text(json.dumps(out, indent=1))
         print(smi)
         return 0
 
@@ -4404,6 +4977,9 @@ def main() -> int:
                "versions"):
         compare_bf16_steps(dev, results)
         compare_bf16_windows(dev, results)
+    with phase("phase 2h: the recorder kernel against its plain version, "
+               "8-128-8, B = 4096"):
+        compare_recorder(dev, results)
 
     with phase("phase 3: recovery gate"):
         recovery_gate(dev)
@@ -4507,6 +5083,10 @@ def main() -> int:
     with phase(f"phase 12: the rule search (PEPG) and Phase 2 on "
                f"{SEARCH_ENV}, 11-128-2, {SEARCH_GENERATIONS} generations"):
         search, search_launches = rule_search(dev, counters, every, results)
+    with phase(f"phase 13: session health, 8-128-8 FleetScheduler, {B} "
+               f"slots, float32 and int8"):
+        health = health_path(dev, results)
+
     # #3 fleet's launches in each path that ran it; `launches` stays the
     # controller's (phase 4)
     results["rollout"]["launches_by_path"] = {
@@ -4537,6 +5117,7 @@ def main() -> int:
               "lm_path": lm, "lm_launches": lm_launches,
               "serve_path": served, "serve_launches": serve_launches,
               "rule_search": search, "rule_search_launches": search_launches,
+              "health_path": health,
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
               "shared_step_launches": shared_launches,

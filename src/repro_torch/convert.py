@@ -20,6 +20,8 @@ from repro_torch.core.snn import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import torch_dtype
 from repro_torch.models.layers import ParamDesc
+from repro_torch.obs.health import HealthConfig, HealthState
+from repro_torch.obs.recorder import RecorderState
 from repro_torch.obs.telemetry import FleetTelemetry
 from repro_torch.scenarios.perturb import Schedule
 from repro_torch.scenarios.vector_env import VecEnvState
@@ -79,6 +81,23 @@ def fleet_telemetry(tel, device=None) -> FleetTelemetry:
     """``repro.obs.FleetTelemetry`` -> the port's `FleetTelemetry`."""
     return FleetTelemetry(*(tensor(getattr(tel, f.name), device)
                             for f in dataclasses.fields(FleetTelemetry)))
+
+
+def health_config(cfg) -> HealthConfig:
+    """``repro.obs.HealthConfig`` -> the port's `HealthConfig` (the same
+    fields, validated again)."""
+    return HealthConfig(**{f.name: getattr(cfg, f.name)
+                           for f in dataclasses.fields(HealthConfig)})
+
+
+def recorder_state(rec, device=None) -> RecorderState:
+    """``repro.obs.RecorderState`` -> the port's `RecorderState`, so that
+    both packages can step one recorder state."""
+    h = rec.health
+    return RecorderState(
+        ring=tensor(rec.ring, device), wnorm0=tensor(rec.wnorm0, device),
+        health=HealthState(*(tensor(getattr(h, f.name), device)
+                             for f in dataclasses.fields(HealthState))))
 
 
 def theta(th, device=None) -> list:

@@ -126,11 +126,15 @@ def fold_seed(seed: int, i: int) -> int:
 def run(cfg: PEPGConfig,
         fitness_fn: Callable[[torch.Tensor, int], torch.Tensor],
         generator: torch.Generator,
-        generations: int) -> tuple[PEPGState, torch.Tensor]:
+        generations: int,
+        log_every: int = 0) -> tuple[PEPGState, torch.Tensor]:
     """Full ES loop.  fitness_fn(population, seed) -> (pop_size,) fitness;
-    generation g scores with ``fold_seed(generator.initial_seed(), g)``.  Returns (final_state, per-generation mean-fitness history).
-    ``log_every`` > 0 prints the mean fitness every that many
-    generations."""
+    generation g scores with ``fold_seed(generator.initial_seed(), g)``.
+    Returns (final_state, per-generation mean-fitness history).
+
+    ``log_every`` > 0 prints the generation and its mean fitness after
+    every ``log_every``-th generation (one host read each); 0, the
+    default, prints nothing.  The JAX package takes the same argument."""
     state = init(cfg, generator)
     seed = generator.initial_seed()
     history = []
@@ -139,4 +143,7 @@ def run(cfg: PEPGConfig,
         fit = fitness_fn(pop, fold_seed(seed, g))
         state = tell(cfg, state, eps, fit)
         history.append(fit.mean())
+        if log_every > 0 and (g + 1) % log_every == 0:
+            print(f"es generation {g + 1}/{generations}: mean fitness "
+                  f"{float(history[-1]):.6g}", flush=True)
     return state, torch.stack(history) if history else torch.zeros(0)

@@ -23,11 +23,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Callable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("fleet_step.cu", "rollout.cu", "shared_step.cu",
            "rollout_shared.cu", "lif_forward.cu", "flash_attention.cu",
-           "ssd.cu", "silu.cu")
+           "ssd.cu", "silu.cu", "recorder.cu")
 HEADERS = ("plasticity.cuh", "hopper.cuh", "fleet.cuh", "slab.cuh",
            "forward.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -102,13 +103,24 @@ def build_all() -> dict:
         return build_info
 
 
+# Called with ``"library:<source>"`` on a library's first load in the
+# process; the recompile watchdog registers one when it is installed.
+load_listeners: List[Callable[[str], None]] = []
+
+
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library of one source (building all of them first)."""
+    """The loaded library of one source (building all of them first).  A
+    library's first load in the process is reported to `load_listeners`."""
     build_all()
     with _lock:
-        if source not in _libs:
-            _libs[source] = ctypes.CDLL(str(_target(source)))
-        return _libs[source]
+        lib = _libs.get(source)
+        first = lib is None
+        if first:
+            lib = _libs[source] = ctypes.CDLL(str(_target(source)))
+    if first:
+        for listener in load_listeners:
+            listener(f"library:{source}")
+    return lib
 
 
 def check(err: int, what: str) -> None:

@@ -31,7 +31,19 @@ neighbours, or on evict -> persist -> re-admit round trips.
 audit: for each entry point, the number of distinct static signatures it
 has dispatched (operand shapes, dtypes and device; the telemetry flag;
 whether an active mask and a teaching signal were given).  After warm-up it
-stays constant under churn.
+stays constant under churn; each new signature is reported to the
+recompile watchdog (`obs.watchdog`) as ``"<Class>.<entry point>"``.
+
+Session health (``health=HealthConfig(...)``): the pools gain a flight
+recorder and streaming detectors (`obs.recorder`, `obs.health`) as a third
+variant of the stepping entry points (``record=``, like ``telemetry=``; on
+the card one more launch, ``csrc/recorder.cu``, after the telemetry
+kernels), and the base class turns the latched verdict into action:
+`flagged_sessions` -> `quarantine` (the slot joins the active-mask freeze
+vacant slots use) -> `rollback` (re-admit from the last healthy
+`SessionStore` checkpoint; `health_checkpoint` rides `persist_resident`)
+-> a bit-identical continuation.  `remediate()` runs the whole loop,
+optionally dumping a flight-recorder incident bundle per casualty first.
 """
 from __future__ import annotations
 
@@ -45,7 +57,10 @@ from repro_torch.checkpoint import manager as _ckpt
 from repro_torch.core import snn
 from repro_torch.core.engine import NetworkState
 from repro_torch.obs import MetricsRegistry, phase
+from repro_torch.obs import recorder as _recorder
+from repro_torch.obs.health import HealthConfig
 from repro_torch.obs.telemetry import record_fleet_telemetry
+from repro_torch.obs.watchdog import watchdog as _compile_watchdog
 from repro_torch.serving.sessions import SessionStore
 
 # Axis sentinel: a pool leaf marked SHARED has no slot rows — it is pool-
@@ -118,14 +133,19 @@ class SessionPool:
              store is created if omitted.
       registry: `obs.MetricsRegistry` for the pool's (and a private
              store's) metrics; a private one is created if omitted.
+      health: optional `obs.health.HealthConfig` enabling session health:
+             subclasses gain ``record=True`` stepping, this base gains
+             `flagged_sessions` / `health_checkpoint` / `remediate`.
+             Without it, recording and remediation raise.
     """
 
     # entry points of the static-signature audit, registered at 0
-    ENTRY_POINTS = ("slot_put", "slot_take")
+    ENTRY_POINTS = ("slot_put", "slot_take", "recorder_reset")
 
     def __init__(self, pool, axes, slots: int,
                  store: Optional[SessionStore] = None,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None,
+                 health: Optional[HealthConfig] = None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.slots = slots
@@ -146,6 +166,14 @@ class SessionPool:
         self._admit_seq = np.zeros(slots, np.int64)  # admission order (LRU)
         self._seq = 0
         self.evictions = 0
+        # session health: quarantined slots are occupied but frozen by the
+        # active mask; the recorder is built on the first recorded step, so
+        # a health-enabled pool that never records allocates nothing
+        self.health_cfg = health
+        self._quarantined: set = set()
+        self._rec = None                             # obs.recorder state
+        self._rec_pos = 0                            # global ring cursor
+        self.last_verdict = None                     # (B,) bool, on device
         self._signatures: Dict[str, set] = {n: set()
                                             for n in self.ENTRY_POINTS}
         self._m_admit = self.metrics.histogram(
@@ -158,9 +186,9 @@ class SessionPool:
             "pool_admissions_total", "sessions admitted")
         self._m_evictions = self.metrics.counter(
             "pool_evictions_total", "sessions evicted")
-        # The fault-tolerance and session-health metrics of the JAX pools,
-        # under the same names so both export one schema; they stay at 0
-        # until those subsystems are ported.
+        # The fault-tolerance metrics of the JAX pools, under the same names
+        # so both export one schema; they stay at 0 (the port has no lost
+        # slots).
         self.metrics.counter("pool_device_failures_total",
                              "device shards marked lost")
         self.metrics.counter("pool_drained_sessions_total",
@@ -168,18 +196,24 @@ class SessionPool:
         self.metrics.histogram("pool_drain_seconds",
                                "drain latency (restore + re-admit, per "
                                "drain_failed call)")
-        self.metrics.counter("pool_quarantined_total",
-                             "sessions quarantined as unhealthy")
-        self.metrics.counter("pool_rollbacks_total",
-                             "quarantined sessions rolled back to their "
-                             "last healthy checkpoint")
-        self.metrics.counter("pool_health_checkpoints_total",
-                             "health_checkpoint() sweeps (rollback restore "
-                             "points)")
+        self._m_quarantined = self.metrics.counter(
+            "pool_quarantined_total", "sessions quarantined as unhealthy")
+        self._m_rollbacks = self.metrics.counter(
+            "pool_rollbacks_total",
+            "quarantined sessions rolled back to their last healthy "
+            "checkpoint")
+        self._m_health_ckpts = self.metrics.counter(
+            "pool_health_checkpoints_total",
+            "health_checkpoint() sweeps (rollback restore points)")
 
     def _dispatch(self, name: str, *operands, **flags) -> None:
-        """Record the static signature of one call of entry point `name`."""
-        self._signatures[name].add(_ckpt.signature(*operands, **flags))
+        """Record the static signature of one call of entry point `name`;
+        a new one is reported to the recompile watchdog."""
+        sig = _ckpt.signature(*operands, **flags)
+        seen = self._signatures[name]
+        if sig not in seen:
+            seen.add(sig)
+            _compile_watchdog.notify(f"{type(self).__name__}.{name}")
 
     # ---- occupancy -------------------------------------------------------
 
@@ -192,7 +226,10 @@ class SessionPool:
         return sum(1 for u in self.slot_user if u is None)
 
     def _active_mask(self) -> torch.Tensor:
-        mask = np.fromiter((u is not None for u in self.slot_user),
+        # quarantined slots are masked out like vacant ones: an unhealthy
+        # session is frozen until rollback restores it
+        mask = np.fromiter((u is not None and s not in self._quarantined
+                            for s, u in enumerate(self.slot_user)),
                            np.bool_, self.slots)
         return torch.from_numpy(mask).to(self.device)
 
@@ -244,11 +281,15 @@ class SessionPool:
                              f"{self.user_slot[uid]}")
         free = [s for s in range(self.slots) if self.slot_user[s] is None]
         if not free:
-            if not evict_lru:
+            # quarantined residents are not LRU-evictable: evicting one
+            # would persist its diverged state over the healthy checkpoint
+            candidates = [s for s in range(self.slots)
+                          if s not in self._quarantined]
+            if not evict_lru or not candidates:
                 raise RuntimeError(
                     f"pool is full ({self.slots} slots); pass "
                     "evict_lru=True or evict a session first")
-            lru = min(range(self.slots), key=lambda s: self._admit_seq[s])
+            lru = min(candidates, key=lambda s: self._admit_seq[s])
             self.evict(self.slot_user[lru])
             free = [lru]
         slot = free[0]
@@ -263,6 +304,8 @@ class SessionPool:
         self._steps[slot] = step
         self._admit_seq[slot] = self._seq
         self._seq += 1
+        # the slot's recorder history belongs to the previous tenant
+        self._reset_recorder(slot)
         self._m_admissions.inc()
         self._m_occupancy.set(len(self.user_slot) / self.slots)
         return slot
@@ -272,6 +315,12 @@ class SessionPool:
         slot = self.user_slot.get(uid)
         if slot is None:
             raise KeyError(f"session {uid!r} is not in the pool")
+        if slot in self._quarantined:
+            raise RuntimeError(
+                f"session {uid!r} in slot {slot} is quarantined as "
+                "unhealthy; evicting would persist its diverged state over "
+                "the last healthy checkpoint — recover it with rollback() "
+                "or remediate() instead")
         self.user_slot.pop(uid)
         with self._m_evict.time(), phase("pool.evict"):
             with phase("pool.swap_out"):
@@ -283,6 +332,7 @@ class SessionPool:
             # lingers in the pool tensors (the mask already freezes them)
             self._put_slot(slot, self._zero_session)
         self._steps[slot] = 0
+        self._reset_recorder(slot)
         self.evictions += 1
         self._m_evictions.inc()
         self._m_occupancy.set(len(self.user_slot) / self.slots)
@@ -295,20 +345,142 @@ class SessionPool:
     def persist_resident(self) -> int:
         """Durably snapshot every resident session WITHOUT evicting it
         (`SessionStore.persist`; the warm cache is untouched).  Returns the
-        number of sessions persisted."""
+        number of sessions persisted.  Quarantined slots are skipped: their
+        rows are diverged state, and persisting one would overwrite the
+        checkpoint rollback needs."""
         n = 0
         for uid, slot in list(self.user_slot.items()):
+            if slot in self._quarantined:
+                continue
             user = self._take_slot(slot)
             user = self._finalize_session(user, int(self._steps[slot]))
             self.store.persist(uid, user, int(self._steps[slot]))
             n += 1
         return n
 
+    # ---- session health: detect -> quarantine -> rollback ----------------
+
+    @property
+    def quarantined_slots(self) -> frozenset:
+        """Slots frozen by `quarantine` (occupied, masked out, awaiting
+        rollback)."""
+        return frozenset(self._quarantined)
+
+    def _ensure_recorder(self):
+        """The flight-recorder state, built on first use."""
+        if self.health_cfg is None:
+            raise ValueError(
+                "this pool was built without health=HealthConfig(...); "
+                "recording and remediation are unavailable")
+        if self._rec is None:
+            self._rec = _recorder.init_recorder(self.health_cfg, self.slots,
+                                                device=self.device)
+        return self._rec
+
+    def _reset_recorder(self, slot: int) -> None:
+        """Zero one slot's recorder rows (a new tenancy starts clean)."""
+        if self._rec is not None:
+            self._dispatch("recorder_reset", self._rec)
+            _recorder.reset_slot(self._rec, slot)
+
+    def health_checkpoint(self) -> int:
+        """Durably snapshot every healthy resident session: the restore
+        point `rollback` recovers to.  Rides `persist_resident`
+        (quarantined slots are skipped); steps since the last call are the
+        blast radius of an incident.  Returns the number persisted."""
+        n = self.persist_resident()
+        self._m_health_ckpts.inc()
+        return n
+
+    def flagged_sessions(self) -> list:
+        """Uids whose latched device-side verdict is unhealthy (slot order).
+
+        The one host read of the health loop, a single ``(B,)`` copy on
+        demand, never per step.  Quarantined slots are excluded."""
+        if self._rec is None:
+            return []
+        flags = self._rec.health.flagged.any(dim=-1).cpu().numpy()
+        return [u for s, u in enumerate(self.slot_user)
+                if u is not None and flags[s] and s not in self._quarantined]
+
+    def quarantine(self, uid: str) -> int:
+        """Freeze `uid`'s slot by the active mask (no data moves): its state
+        stops evolving bit for bit, like a vacant slot's, until `rollback`
+        re-homes it.  Returns the quarantined slot."""
+        slot = self.user_slot.get(uid)
+        if slot is None:
+            raise KeyError(f"session {uid!r} is not in the pool")
+        self._quarantined.add(slot)
+        self._m_quarantined.inc()
+        return slot
+
+    def rollback(self, uid: str, evict_lru: bool = False) -> dict:
+        """Re-admit a quarantined session from its last healthy checkpoint.
+
+        Drops the diverged occupancy (nothing is gathered or persisted from
+        it), zeroes the slot and its recorder rows, then `admit(uid)`,
+        which restores the last durable snapshot from the `SessionStore`:
+        the continuation equals a manual evict-at-checkpoint -> re-admit of
+        the same checkpoint bit for bit.  Steps since the last
+        `health_checkpoint` or evict are lost; the report says how many.
+
+        Returns ``{uid, from_slot, to_slot, steps_lost}``.
+        """
+        slot = self.user_slot.get(uid)
+        if slot is None:
+            raise KeyError(f"session {uid!r} is not in the pool")
+        if slot not in self._quarantined:
+            raise RuntimeError(
+                f"session {uid!r} (slot {slot}) is not quarantined; "
+                "rollback only recovers quarantined sessions — call "
+                "quarantine(uid) first (or remediate(), which does both)")
+        steps_at_flag = int(self._steps[slot])
+        self.user_slot.pop(uid)
+        self.slot_user[slot] = None
+        self._steps[slot] = 0
+        self._put_slot(slot, self._zero_session)
+        self._quarantined.discard(slot)
+        self._reset_recorder(slot)
+        new_slot = self.admit(uid, evict_lru=evict_lru)
+        self._m_rollbacks.inc()
+        return {"uid": uid, "from_slot": slot, "to_slot": new_slot,
+                "steps_lost": steps_at_flag - int(self._steps[new_slot])}
+
+    def remediate(self, evict_lru: bool = False,
+                  flight_dir: Optional[str] = None) -> list:
+        """The health loop: quarantine every flagged session, optionally
+        dump its flight-recorder incident bundle into ``flight_dir``, and
+        roll it back to the last healthy checkpoint.  Returns one
+        `rollback` report per casualty (with an ``"incident"`` path when
+        dumping).  A clean pool is a no-op."""
+        reports = []
+        for uid in self.flagged_sessions():
+            slot = self.quarantine(uid)
+            incident = None
+            if flight_dir is not None:
+                incident = _recorder.dump_incident(
+                    flight_dir, uid=uid, slot=slot, rec=self._rec,
+                    cfg=self.health_cfg, pos=self._rec_pos,
+                    registry=self.metrics, watchdog=_compile_watchdog)
+            report = self.rollback(uid, evict_lru=evict_lru)
+            if incident is not None:
+                report["incident"] = incident
+            reports.append(report)
+        return reports
+
     # ---- whole-pool checkpointing ----------------------------------------
 
     def save_pool(self, directory: str) -> str:
         """Checkpoint the WHOLE pool — resident sessions in place — plus the
-        occupancy bookkeeping, in the `checkpoint.manager` layout."""
+        occupancy bookkeeping, in the `checkpoint.manager` layout.  A pool
+        with quarantined sessions refuses: `load_pool` restarts with none,
+        which would unfreeze diverged state as healthy."""
+        sick = [u for u, s in self.user_slot.items()
+                if s in self._quarantined]
+        if sick:
+            raise RuntimeError(
+                f"cannot checkpoint a pool with quarantined sessions "
+                f"{sick}; run remediate() first")
         extra = {
             "slots": self.slots,
             "slot_user": list(self.slot_user),
@@ -335,6 +507,12 @@ class SessionPool:
         self._steps = np.asarray(extra["steps"], np.int64).copy()
         self._admit_seq = np.asarray(extra["admit_seq"], np.int64).copy()
         self._seq = int(extra["seq"])
+        # the recorder is not checkpointed (detector baselines are cheap to
+        # rebuild): every slot restarts healthy and unrecorded
+        self._quarantined = set()
+        self._rec = None
+        self._rec_pos = 0
+        self.last_verdict = None
         self._m_occupancy.set(len(self.user_slot) / self.slots)
 
 
@@ -369,19 +547,23 @@ class FleetScheduler(SessionPool):
               store is created if omitted.
       device: where the pool lives; None is the card (and raises where
               there is none).
+      health: optional `obs.health.HealthConfig`: ``record=True`` stepping
+              and the remediation loop (see `SessionPool`).
     """
 
     ENTRY_POINTS = SessionPool.ENTRY_POINTS + (
         "pool_step", "pool_rollout", "pool_step_telemetry",
-        "pool_rollout_telemetry")
+        "pool_rollout_telemetry", "pool_step_record", "pool_rollout_record")
 
     def __init__(self, cfg: snn.SNNConfig, theta, slots: int,
                  store: Optional[SessionStore] = None,
-                 registry: Optional[MetricsRegistry] = None, device=None):
+                 registry: Optional[MetricsRegistry] = None, device=None,
+                 health: Optional[HealthConfig] = None):
         self.cfg = cfg
         self.theta = theta
         fleet = snn.init_state(cfg, batch=slots, fleet=True, device=device)
-        super().__init__(fleet, _network_axes(fleet), slots, store, registry)
+        super().__init__(fleet, _network_axes(fleet), slots, store, registry,
+                         health=health)
 
     # the historical attribute name: the pool tree IS the fleet state
     @property
@@ -440,9 +622,18 @@ class FleetScheduler(SessionPool):
         return {uid: out.select(axis, slot)
                 for uid, slot in self.user_slot.items()}
 
+    def _record(self, fleet: NetworkState, tel, active) -> None:
+        """The recorded tail of a step or window: one `record_step` (one
+        launch on the card) on the new fleet state and its telemetry; the
+        verdict stays on the device."""
+        self._rec, self.last_verdict = _recorder.record_step(
+            self.health_cfg, self._rec, fleet, tel, self._rec_pos, active,
+            self.cfg.quant is not None)
+        self._rec_pos += 1
+
     def step(self, drives: Mapping[str, Any],
              teach: Optional[Mapping[str, Any]] = None,
-             telemetry: bool = False):
+             telemetry: bool = False, record: bool = False):
         """One fused SNN timestep for the WHOLE pool (one fleet-step launch
         per layer).
 
@@ -452,16 +643,31 @@ class FleetScheduler(SessionPool):
         row.  ``telemetry=True`` launches the telemetry variants and returns
         ``(outputs, FleetTelemetry)``, recording the fleet gauges into
         ``self.metrics``.
+
+        ``record=True`` (needs ``health=HealthConfig(...)``) launches the
+        telemetry variants, then the recorder: the telemetry channels and
+        the weight norm feed the flight-recorder ring and the detectors,
+        with no host sync; the latched verdict waits on the device for
+        `flagged_sessions` / `remediate`.  Pass ``telemetry=True`` too to
+        also get the tuple return and the gauges.  Outputs and state are
+        those of ``record=False`` bit for bit.
         """
         drive, tarr = self._gather_rows(drives, teach)
+        rec = self._ensure_recorder() if record else None
         active, seeds = self._active_mask(), self._seeds()
-        name = "pool_step_telemetry" if telemetry else "pool_step"
-        self._dispatch(name, self.fleet, drive, active, tarr, seeds,
-                       telemetry=telemetry)
+        if record:
+            self._dispatch("pool_step_record", self.fleet, drive, active,
+                           tarr, seeds, rec)
+        else:
+            name = "pool_step_telemetry" if telemetry else "pool_step"
+            self._dispatch(name, self.fleet, drive, active, tarr, seeds,
+                           telemetry=telemetry)
         with phase("pool.step"):
             res = snn.timestep(self.cfg, self.fleet, self.theta, drive,
                                teach=tarr, active=active, seed=seeds,
-                               telemetry=telemetry)
+                               telemetry=telemetry or record)
+            if record:
+                self._record(res[0], res[2], active)
         self.fleet = res[0]
         self.advance_steps(1)
         outputs = self._rows(res[1])
@@ -470,20 +676,27 @@ class FleetScheduler(SessionPool):
         record_fleet_telemetry(self.metrics, res[2])
         return outputs, res[2]
 
-    def _window(self, drives, timesteps, teach, telemetry):
+    def _window(self, drives, timesteps, teach, telemetry, record=False):
         k = self.cfg.timesteps if timesteps is None else int(timesteps)
         if k < 1:
             raise ValueError(f"pool_step needs timesteps >= 1, got {k}")
         drive, tarr = self._gather_rows(drives, teach)
+        rec = self._ensure_recorder() if record else None
         window = drive[None].expand(k, *drive.shape)
         active, seeds = self._active_mask(), self._seeds()
-        name = "pool_rollout_telemetry" if telemetry else "pool_rollout"
-        self._dispatch(name, self.fleet, window, active, tarr, seeds,
-                       telemetry=telemetry)
+        if record:
+            self._dispatch("pool_rollout_record", self.fleet, window, active,
+                           tarr, seeds, rec)
+        else:
+            name = "pool_rollout_telemetry" if telemetry else "pool_rollout"
+            self._dispatch(name, self.fleet, window, active, tarr, seeds,
+                           telemetry=telemetry)
         with phase("pool.rollout"):
             res = snn.rollout_window(self.cfg, self.fleet, self.theta, window,
                                      teach=tarr, active=active, seed=seeds,
-                                     telemetry=telemetry)
+                                     telemetry=telemetry or record)
+            if record:
+                self._record(res[0], res[2], active)
         self.fleet = res[0]
         self.advance_steps(k)
         if not telemetry:
@@ -494,7 +707,7 @@ class FleetScheduler(SessionPool):
     def pool_step(self, drives: Mapping[str, Any],
                   timesteps: Optional[int] = None,
                   teach: Optional[Mapping[str, Any]] = None,
-                  telemetry: bool = False):
+                  telemetry: bool = False, record: bool = False):
         """K fused SNN timesteps for the WHOLE pool in ONE rollout launch.
 
         The time-fused form of calling `step` K times on held drives, with
@@ -505,8 +718,13 @@ class FleetScheduler(SessionPool):
         Returns uid -> (K, act_dim) readout window; with
         ``telemetry=True``, ``(outputs, FleetTelemetry)`` of window means,
         recording the fleet gauges into ``self.metrics``.
+
+        ``record=True`` (needs ``health=HealthConfig(...)``): the window's
+        mean telemetry channels write one flight-recorder row and one
+        detector update per call (see `step`).
         """
-        outs, tel = self._window(drives, timesteps, teach, telemetry)
+        outs, tel = self._window(drives, timesteps, teach, telemetry,
+                                 record)
         outputs = self._rows(outs, axis=1)
         return outputs if tel is None else (outputs, tel)
 

@@ -154,6 +154,30 @@ def test_run_is_deterministic_in_the_generator_seed():
     assert seeds[:4] == seeds[4:] and len(set(seeds[:4])) == 4
 
 
+def test_run_takes_the_jax_call_form_with_log_every(capsys):
+    """``es.run(cfg, fit, gen, n, log_every=k)``, as the JAX package's
+    callers write it, runs the same search and logs every k-th
+    generation; 0 logs nothing."""
+    cfg = TES.PEPGConfig(num_params=5, pop_pairs=4)
+
+    def fitness(pop, seed):
+        return -(pop ** 2).sum(dim=-1)
+
+    jstate, jhist = JES.run(JES.PEPGConfig(num_params=5, pop_pairs=4),
+                            lambda p, k: -(p ** 2).sum(-1),
+                            jax.random.PRNGKey(0), 4, log_every=2)
+    assert jhist.shape == (4,)
+    quiet = TES.run(cfg, fitness, torch.Generator().manual_seed(3), 4)
+    assert capsys.readouterr().out == ""
+    state, hist = TES.run(cfg, fitness, torch.Generator().manual_seed(3), 4,
+                          log_every=2)
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(":")[0] for ln in lines] == [
+        "es generation 2/4", "es generation 4/4"]
+    assert f"{float(hist[3]):.6g}" in lines[1]
+    assert torch.equal(state.mu, quiet[0].mu) and torch.equal(hist, quiet[1])
+
+
 # ---- Phase 1 fitness and Phase 2 against JAX ---------------------------------
 
 def _jax_episode_rewards(env, scfg, vec, task, key):

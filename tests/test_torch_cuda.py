@@ -1300,3 +1300,76 @@ def test_bf16_rollout_kernels_match_plain_on_card(fleet, cuda_device):
     assert counter.bf16_launches == launches + len(cases)
     with pytest.raises(ValueError):
         TE.rollout(st, theta, drives.to(torch.float16), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", ("float32", "bfloat16", "int8"))
+def test_recorder_kernel_matches_plain_on_card(wdtype, cuda_device):
+    """`obs.recorder.record_step` (csrc/recorder.cu, one launch a step)
+    equals `record_step_plain` over 14 steps of a 8-48-24-8 fleet at
+    B = 37 (a CTA's last warps idle), W = 5 (the ring wraps), telemetry
+    columns at stride 3, a partial bool mask and a planted stuck, dead and
+    out-of-corridor slot: flags, streaks, steps and verdicts exact; int8
+    every leaf bit for bit, float ring, baselines and wnorm0 within rtol =
+    atol = 1e-6 (the weight norm sums in another order, and the drift
+    channel is a difference of two norms)."""
+    from repro_torch.core.engine import NetworkState
+    from repro_torch.checkpoint import manager as TM
+    from repro_torch.obs import health as THl, recorder as TRec
+    from repro_torch.obs.telemetry import FleetTelemetry
+    dev = cuda_device
+    b, sizes, steps = 37, (8, 48, 24, 8), 14
+    stuck, dead, bound = 3, 5, 8
+    quant = wdtype == "int8"
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cfg = THl.HealthConfig(window=5, warmup=3, hysteresis=(2, 2, 3, 2),
+                           dead_floor=1e-3)
+    gen = torch.Generator(dev).manual_seed(23)
+    active = torch.rand(b, generator=gen, device=dev) < 0.8
+    active[[stuck, dead, bound]] = True
+
+    def draw():
+        shapes = [(b, sizes[i], sizes[i + 1]) for i in range(len(sizes) - 1)]
+        if quant:
+            return [torch.randint(-127, 128, s, generator=gen, device=dev,
+                                  dtype=torch.int32).to(torch.int8)
+                    for s in shapes]
+        return [torch.randn(s, generator=gen, device=dev).to(dt[wdtype])
+                for s in shapes]
+    w = draw()
+    scales = tuple(torch.rand(b, generator=gen, device=dev) / 8 + 0.01
+                   for _ in w) if quant else ()
+    kern = TRec.init_recorder(cfg, b, device=dev)
+    plain = TRec.init_recorder(cfg, b, device=dev)
+    raw = None
+    for t in range(steps):
+        move = torch.rand(b, generator=gen, device=dev) < 0.5
+        move[stuck] = False
+        w = [torch.where(move[:, None, None], n, o) for n, o in zip(draw(), w)]
+        st = NetworkState(w=tuple(w), v=(), trace=(),
+                          t=torch.zeros((), dtype=torch.int32, device=dev),
+                          w_scale=scales)
+        new = torch.rand(b, 3, generator=gen, device=dev)
+        if raw is not None:
+            new[stuck] = raw[stuck]
+        new[dead, 0] = 0.0
+        new[bound, 2] = 1.5
+        raw = new
+        tel = FleetTelemetry(raw[:, 0], raw[:, 1], raw[:, 2], active.float())
+        n = TRec.record_step.launches
+        kern, kv = TRec.record_step(cfg, kern, st, tel, t, active, quant)
+        assert TRec.record_step.launches == n + 1
+        plain, pv = TRec.record_step_plain(cfg, plain, st, tel, t, active,
+                                           quant)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv)
+        for i, (x, y) in enumerate(zip(TM.flatten(kern)[1],
+                                       TM.flatten(plain)[1])):
+            if i >= 5 or quant:
+                assert torch.equal(x, y), (t, i)
+            else:
+                np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                           rtol=1e-6, atol=1e-6)
+    flags = kern.health.flagged.cpu()
+    assert flags[stuck, 2] and flags[dead, 3] and flags[bound, 1]
+    assert not kern.ring[~active].any()

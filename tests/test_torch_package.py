@@ -79,7 +79,8 @@ def test_kernel_sources_ship_with_the_package():
     assert {p.name for p in csrc.iterdir()} >= {
         "fleet_step.cu", "rollout.cu", "shared_step.cu",
         "rollout_shared.cu", "lif_forward.cu", "flash_attention.cu",
-        "ssd.cu", "plasticity.cuh", "hopper.cuh", "fleet.cuh"}
+        "ssd.cu", "recorder.cu", "plasticity.cuh", "hopper.cuh",
+        "fleet.cuh"}
 
 
 @pytest.mark.parametrize("entry", ("init_state", "run", "reset", "serve",

@@ -28,8 +28,10 @@ from repro_torch.serving import (SHARED, FleetScheduler, SessionStore,
                                  uniform_axes)
 
 SIZES = (6, 12, 4)
-ENTRY_POINTS = {"slot_put", "slot_take", "pool_step", "pool_rollout",
-                "pool_step_telemetry", "pool_rollout_telemetry"}
+ENTRY_POINTS = {"slot_put", "slot_take", "recorder_reset", "pool_step",
+                "pool_rollout", "pool_step_telemetry",
+                "pool_rollout_telemetry", "pool_step_record",
+                "pool_rollout_record"}
 
 
 def _drive(uid, t, n=SIZES[0]):
