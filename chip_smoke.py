@@ -227,6 +227,33 @@ Phases, each fatal on failure:
      device op a window and the same device-to-host copies), and the wall
      of 8 recorded windows with the kernel and with its plain version, in
      alternating turns.
+ 14. the LM decode pool (`serving.LMScheduler`): first #3 fleet at the
+     adapter's one 128 -> 128 layer, B = 8 slots, one vacant, through
+     `plastic.decode_rollout` against the plain window at K = 1 and 4
+     (int8 bit for bit across the step counter's int32 wrap, float32
+     within 1e-5 and 1e-4), its plan and its time beside its bound, and
+     #1/#2 at the same shape against the plain step; then full-width
+     qwen3-4b with the adapter at N = 128, 8 slots of 1024 positions,
+     float32 then int8: the probe alone for 32 steps (pool Q), moved at
+     that boundary through a RAM store into pool W, which runs 6 windows
+     of K = 4 (the first against 4 steps of Q: the same greedy tokens, the
+     session bit for bit in int8, the float32 adapter within 1e-4); pool
+     C serves the probe beside 6 residents (slot 7 vacant), 2 of them
+     replaced every 4 steps by the next of 19 users (prompts of 64, 256
+     and 512 tokens; a returning user is restored), telemetry and record
+     variants among its 32 steps and 6 windows, the probe moved through
+     disk into another slot before window 3: the probe's tokens equal Q's,
+     its windows and session W's (bit for bit in int8; in float32 the
+     first differing leaf is reported and the logits held within 2e-2 of
+     the largest), the vacant row frozen, the launches exact (36 attention
+     per fresh admission, one fleet step a step, one rollout a window, one
+     recorder a recorded call, silu per forward), `compiled_programs()`
+     pinned, the pool's recorder against its plain version; admission,
+     step and window latencies; mamba2-1.3b and zamba2-7b at `shallow`
+     depth in a 4-slot pool (vacant frozen, window against steps, SSD
+     scans per admission); the CPU test's compile-audit sequence on a
+     smoke pool (its pinned dict); and in a fresh process (``--only
+     lm-pool-profile``) a `torch.profiler` of 4 pool steps.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -246,7 +273,8 @@ spills of ``flash_attention.cu``), ``lm-prefill`` (one profiled
 prefill of each full-width LM), ``rule-search`` (phase 12) and
 ``health`` (phase 13's timings: the recorder's time, the profiled
 windows and the recorded windows' walls with the kernel and its plain
-version).
+version), ``lm-pool`` (phase 14) and ``lm-pool-profile`` (its fresh
+process's profile of 4 pool steps).
 """
 from __future__ import annotations
 
@@ -2175,10 +2203,11 @@ def plain_adapter_step(*a, **kw):
 
 
 def replay_launches(calls, plain, name, results, what, exact, tol,
-                    close=None):
+                    close=None, quiet=False):
     """Each recorded call on the path, one launch of kernel ``name``,
     against ``plain`` on the same inputs: bit for bit if ``exact``, else
-    within ``tol = (rtol, atol)``, or as ``close(got, want)`` says."""
+    within ``tol = (rtol, atol)``, or as ``close(got, want)`` says.
+    Returns the largest error; ``quiet`` logs nothing."""
     import torch
     torch.cuda.synchronize()
     err = 0.0
@@ -2193,8 +2222,10 @@ def replay_launches(calls, plain, name, results, what, exact, tol,
                     f"{name} {what}: launch {i} differs from the plain "
                     f"version on its inputs (max err {e})")
     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-    log(f"  {name:14s} {what}: all {len(calls)} launches against the plain "
-        f"version on their inputs, max |err| {err:.3g}")
+    if not quiet:
+        log(f"  {name:14s} {what}: all {len(calls)} launches against the "
+            f"plain version on their inputs, max |err| {err:.3g}")
+    return err
 
 
 def plain_kernels():
@@ -4319,9 +4350,11 @@ def tol_ratio(got, want, tol):
     return float(((g - w).abs() / (tol + tol * w.abs())).max())
 
 
-def rec_leaves(rec):
+def tree_leaves(tree):
+    """The tensors of a tree (a recorder state, a session), in flatten
+    order."""
     from repro_torch.checkpoint import manager as CM
-    return CM.flatten(rec)[1]
+    return CM.flatten(tree)[1]
 
 
 def compare_recorder(dev, results):
@@ -4387,7 +4420,7 @@ def compare_recorder(dev, results):
             plain, pv = R.record_step_plain(hcfg, plain, state, tel, t,
                                             active, quant)
             torch.cuda.synchronize()
-            got, want = rec_leaves(kern), rec_leaves(plain)
+            got, want = tree_leaves(kern), tree_leaves(plain)
             # ring, wnorm0, ewma_mean, ewma_var, last; streaks, flagged, steps
             for i, (a, b) in enumerate(zip(got, want)):
                 if i >= 5 or quant:
@@ -4838,6 +4871,728 @@ def only_health(dev):
     return out
 
 
+# ---- phase 14: the LM decode pool (serving.lm.LMScheduler) ------------------
+
+POOL_SLOTS, POOL_MAX_LEN = 8, 1024
+POOL_PROMPTS = (64, 256, 512)   # prompt lengths, user i takes i % 3
+POOL_USERS = 20                 # the probe and u1..u19
+POOL_RESIDENTS = 6              # beside the probe: the last slot stays vacant
+POOL_STEPS, POOL_CHURN_EVERY = 32, 4
+POOL_WINDOWS, POOL_K = 6, 4
+POOL_DISK_BEFORE = 3            # the window before which the probe moves
+POOL_WINDOW_KW = {1: dict(telemetry=True), 4: dict(record=True)}
+POOL_SCALE = 0.5                # the adapter's readout scale (0 at init)
+POOL_TOL_F32 = 1e-4             # float32 adapter: window against steps
+POOL_LOGIT_TOL = 2e-2           # float32 logits, of the largest, if not equal
+PHASE8_P50 = 78.7               # phase 8's float32 lockstep step p50, B = 4
+
+
+def pool_model(dev, arch="qwen3-4b", cut=False):
+    """``arch`` at full width (``cut``: at `shallow` depth) with the
+    adapter at N = 128 and its readout scale set, random weights from
+    `SEED`."""
+    import torch
+    from repro_torch.models import factory
+    cfg = lm_config(arch)[0]
+    if cut:
+        cfg = shallow(cfg)
+    cfg = cfg.with_(plastic_adapter=True, adapter_neurons=128)
+    model = factory.build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 27))
+    params["adapter"]["scale"].fill_(POOL_SCALE)
+    return model, params
+
+
+def pool_prompts(vocab, dev):
+    import torch
+    gen = torch.Generator(dev).manual_seed(SEED + 28)
+    users = ["probe"] + [f"u{i}" for i in range(1, POOL_USERS)]
+    return {u: torch.randint(0, vocab, (POOL_PROMPTS[(i + 1) % 3],),
+                             generator=gen, device=dev)
+            for i, u in enumerate(users)}
+
+
+def first_diff(a, b):
+    """The first leaf path where two session trees differ, or None."""
+    import torch
+    from repro_torch.checkpoint import manager as TM
+    for path, x, y in zip(*TM.flatten(a), TM.flatten(b)[1]):
+        if not torch.equal(x, y):
+            return path
+    return None
+
+
+def sessions_match(got, want, quant, what):
+    """int8: bit for bit.  float32: the backbone rows and integers bit for
+    bit, the adapter's float leaves within `POOL_TOL_F32` (the window
+    kernel's float32 rounding, ROADMAP.md Queue 3)."""
+    import torch
+    from repro_torch.checkpoint import manager as TM
+    for path, x, y in zip(*TM.flatten(got), TM.flatten(want)[1]):
+        if quant or "adapter" not in path or not y.is_floating_point():
+            require(torch.equal(x, y), f"{what}: {path} differs")
+        else:
+            err = float((x - y).abs().max())
+            require(err <= POOL_TOL_F32, f"{what}: {path} differs by {err}")
+
+
+class PoolTimer:
+    """Host clock around pool calls that end in a device synchronise."""
+
+    def __init__(self):
+        self.times = {}
+
+    def __call__(self, kind, fn, *a, **kw):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.times.setdefault(kind, []).append(time.perf_counter() - t0)
+        return out
+
+    def p50_ms(self, kind):
+        return statistics.median(self.times[kind]) * 1e3
+
+
+def lm_pool_run(dev, model, params, prompts, quant, counters, tmp,
+                results):
+    """One datapath of the pool: the churned pool C (health recorder on),
+    the quiet pool Q (the probe alone, stepped) and the window pool W (the
+    probe restored from Q's boundary, windowed).  Every counter is set to
+    0 just before C's first admission and read just after its last
+    window.  Each attention launch of C's admissions (B = 1 prefills of
+    every prompt length) is then held against its plain version on its
+    own inputs, at phase 2c's bfloat16 tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.plasticity import fused
+    from repro_torch.models import attention as MA, factory
+    from repro_torch.obs import HealthConfig
+    from repro_torch.serving import LMScheduler, SessionStore
+    mode = "int8" if quant else "float32"
+    model = factory.build(model.cfg.with_(adapter_quant=quant))
+    cfg = model.cfg
+    vocab, n_layers = cfg.vocab, cfg.n_layers
+
+    def make(store, health=None):
+        return LMScheduler(model, params, POOL_SLOTS, POOL_MAX_LEN,
+                           store=store, health=health)
+
+    rng = np.random.default_rng(SEED + 29)
+    forced = rng.integers(0, vocab, (POOL_WINDOWS, POOL_K))
+    # Q: the probe alone for the steps, then through the shared RAM store
+    # into W at the boundary; 4 more steps give window 0's tokens
+    ram = SessionStore()
+    q = make(ram)
+    q.admit_prompt("probe", prompts["probe"])
+    q_toks = [q.step()["probe"] for _ in range(POOL_STEPS)]
+    q_sess = q.session_view("probe")
+    q.evict("probe")
+    q.admit_prompt("probe", prompts["probe"])        # the warm copy
+    w = make(ram)
+    w.admit_prompt("probe", prompts["probe"])        # the archived copy
+    require(ram.restores == 1 and ram.warm_hits == 1,
+            f"{mode}: the boundary state did not move through the store")
+    first = q.pending("probe")
+    q_next = [q.step()["probe"] for _ in range(POOL_K)]
+    forced[0] = [first] + q_next[:-1]
+    q_after = q.session_view("probe")
+    del q
+    w_logits, w_after0 = [], None
+    for i in range(POOL_WINDOWS):
+        w_logits.append(w.decode_window({"probe": forced[i]})["probe"])
+        if i == 0:
+            w_after0 = w.session_view("probe")
+    w_final = w.session_view("probe")
+    del w
+    require(w_logits[0].argmax(-1).tolist() == q_next,
+            f"{mode}: decode_window(K = {POOL_K}) gives other greedy tokens "
+            f"than {POOL_K} steps")
+    sessions_match(w_after0, q_after, quant,
+                   f"{mode} window against {POOL_K} steps")
+    log(f"  {mode}: decode_window(K = {POOL_K}) against {POOL_K} steps: the "
+        f"same greedy tokens, the session "
+        f"{'bit for bit' if quant else 'with the backbone bit for bit and the adapter within 1e-4'}")
+    del q_after, w_after0
+
+    # C: the probe and 6 residents, slot 7 vacant; every 4 steps the 2
+    # least recently admitted residents leave and the next 2 users arrive
+    timer = PoolTimer()
+    c = make(SessionStore(), health=HealthConfig())
+    ring = [f"u{i}" for i in range(1, POOL_USERS)]
+    nxt = iter(ring + ring)
+    fresh = 0
+
+    attns, held = [], {"n": 0, "err": 0.0, "shapes": set()}
+
+    def arrive(uid):
+        nonlocal fresh
+        known = c.store.known(uid)
+        slot = timer("admit" if not known else "restore", c.admit_prompt,
+                     uid, prompts[uid])
+        fresh += not known
+        # this admission's attention launches against the plain version,
+        # outside the timed call
+        held["n"] += len(attns)
+        held["shapes"].update(tuple(a[0].shape) for a, _, _ in attns)
+        held["err"] = max(held["err"], replay_launches(
+            attns, TA.flash_attention_plain, "flash_attention", results,
+            f"lm pool {mode}", False, ATTN_TOL["bfloat16"], quiet=True))
+        attns.clear()
+        return slot
+
+    def leave_lru():
+        lru = min((s for u, s in c.user_slot.items() if u != "probe"),
+                  key=lambda s: c._admit_seq[s])
+        c.evict(c.slot_user[lru])
+
+    watch = contextlib.ExitStack()
+    watch.enter_context(recording(MA, "attn_op", attns))
+    for cnt in counters:
+        cnt.launches = 0
+    t_run = time.perf_counter()
+    require(arrive("probe") == 0, "the probe is not in slot 0")
+    for _ in range(POOL_RESIDENTS):
+        arrive(next(nxt))
+    vacant = c._take(c.pool, POOL_SLOTS - 1)
+    toks, records = [], 0
+    for t in range(POOL_STEPS):
+        if t and t % POOL_CHURN_EVERY == 0:
+            for _ in range(2):
+                leave_lru()
+            for _ in range(2):
+                arrive(next(nxt))
+        kw = {3: dict(record=True), 7: dict(telemetry=True)}.get(t % 8, {})
+        records += bool(kw.get("record"))
+        out = timer("step" if not kw else "step_variant", c.step, **kw)
+        toks.append((out[0] if kw.get("telemetry") else out)["probe"])
+    require(toks == q_toks, f"{mode}: the probe's tokens under churn differ "
+            f"from the probe alone")
+    c_sess = c.session_view("probe")
+    diff = first_diff(c_sess, q_sess)
+    require(not quant or diff is None,
+            f"int8: the probe's session under churn differs at {diff}")
+    out_row = {"neighbour_first_diff": diff}
+    log(f"  {mode}: the probe under churn ({fresh} prefills so far): tokens "
+        f"equal to the probe alone, session "
+        f"{'bit for bit' if diff is None else 'differs first at ' + diff}")
+    del c_sess, q_sess
+    c_logits = []
+    for i in range(POOL_WINDOWS):
+        if i == POOL_DISK_BEFORE:
+            # the probe through disk into another slot, between windows
+            leave_lru()
+            ram_c, disk = c.store, SessionStore(root=str(tmp / mode))
+            c.store = disk
+            c.evict("probe")
+            disk._warm.clear()
+            c.store = ram_c
+            arrive(next(nxt))                   # takes the probe's slot
+            c.store = disk
+            slot = c.admit_prompt("probe", prompts["probe"])
+            c.store = ram_c
+            require(slot != 0 and disk.restores == 1,
+                    f"{mode}: the probe did not come back from disk into "
+                    f"another slot (slot {slot})")
+        kw = POOL_WINDOW_KW.get(i, {})
+        records += bool(kw.get("record"))
+        windows = {u: np.full(POOL_K, c.pending(u)) for u in c.user_slot}
+        windows["probe"] = forced[i]
+        out = timer("window" if not kw else "window_variant",
+                    c.decode_window, windows, **kw)
+        c_logits.append((out[0] if kw.get("telemetry") else out)["probe"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = {cnt.__name__: cnt.launches for cnt in counters}
+    watch.close()
+    step = "fleet_step_q" if quant else "fleet_step"
+    want = {"flash_attention": n_layers * fresh, step: POOL_STEPS,
+            "rollout": POOL_WINDOWS, "record_step": records,
+            "silu": silu_per_forward(cfg) * (fresh + POOL_STEPS
+                                             + POOL_WINDOWS * POOL_K)}
+    for name, n in want.items():
+        require(launches[name] == n, f"{mode}: {launches[name]} {name} "
+                f"launches in the pool's run, want {n}")
+    require(launches["ssd_scan"] == 0 and launches[
+        "fleet_step" if quant else "fleet_step_q"] == 0,
+        f"{mode}: launches of kernels off the path: {launches}")
+    require(held["n"] == launches["flash_attention"],
+            f"{mode}: {held['n']} attention calls held against the plain "
+            f"version, {launches['flash_attention']} launches")
+    log(f"  {mode}: all {held['n']} attention launches of the admissions "
+        f"(B = 1 prefills at (B, S, H, D) {sorted(held['shapes'])}) against "
+        f"the plain version on their inputs, max |err| {held['err']:.3g}")
+    out_row["admission_attention_max_abs_err"] = held["err"]
+    for x, y in zip(tree_leaves(vacant), tree_leaves(c._take(c.pool,
+                                                     POOL_SLOTS - 1))):
+        require(torch.equal(x, y), f"{mode}: the vacant slot's row moved")
+    # the probe's windows in C (disk move, telemetry, record, neighbours)
+    # against W's (alone, plain)
+    same = all(torch.equal(a, b) for a, b in zip(c_logits, w_logits))
+    c_final = c.session_view("probe")
+    diff = first_diff(c_final, w_final)
+    if quant:
+        require(same and diff is None,
+                f"int8: the probe's windows differ from the pool alone "
+                f"(logits {'equal' if same else 'differ'}, session at "
+                f"{diff})")
+    else:
+        err = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(c_logits, w_logits))
+        require(err <= POOL_LOGIT_TOL,
+                f"float32: the probe's window logits differ from the pool "
+                f"alone by {err} of the largest")
+        out_row["window_logit_rel_diff"] = err
+    out_row["windows_first_diff"] = diff
+    log(f"  {mode}: the probe's {POOL_WINDOWS} windows (through disk into "
+        f"slot {c.user_slot['probe']} before window {POOL_DISK_BEFORE}, "
+        f"telemetry and record "
+        f"variants among them) against the probe alone: logits "
+        f"{'bit for bit' if same else 'differ'}, session "
+        f"{'bit for bit' if diff is None else 'differs first at ' + diff}")
+    want_programs = {
+        "slot_put": 1, "slot_take": 1, "recorder_reset": 1,
+        "prefill": len(POOL_PROMPTS), "decode_step": 1,
+        "decode_window": 1, "decode_step_telemetry": 1,
+        "decode_window_telemetry": 1, "decode_step_record": 1,
+        "decode_window_record": 1}
+    require(c.compiled_programs() == want_programs,
+            f"{mode}: compiled_programs() {c.compiled_programs()}")
+    plan = fused.rollout.last_plan
+    out_row.update(
+        launches=launches, fresh_admissions=fresh, run_s=run_s,
+        admit_ms_p50=timer.p50_ms("admit"), step_ms_p50=timer.p50_ms("step"),
+        window_ms_per_token=timer.p50_ms("window") / POOL_K,
+        pool_nbytes=c.pool_nbytes(), plan=plan,
+        compiled_programs=c.compiled_programs())
+    log(f"  {mode}: {fresh} admissions, admission p50 "
+        f"{out_row['admit_ms_p50']:.1f} ms (B = 1 prefill + slot copy), "
+        f"step p50 {out_row['step_ms_p50']:.1f} ms at B = {POOL_SLOTS}, "
+        f"window {out_row['window_ms_per_token']:.1f} ms a token (K = "
+        f"{POOL_K}), pool {c.pool_nbytes() / 2**30:.2f} GiB; launches "
+        f"{launches}; #3's plan: tile {plan['tile']}, {plan['warps']} warps "
+        f"a stream, {plan['buffers']} buffer, theta via {plan['theta']}, "
+        f"{plan['smem']} B shared, {plan.get('ctas')} CTAs")
+    compare_pool_recorder(c, quant, out_row)
+    del c, c_final, w_final, vacant
+    return out_row
+
+
+def compare_pool_recorder(c, quant, row):
+    """The recorded step of the pool (`record_step`, csrc/recorder.cu, on
+    the adapter's one-layer view) against `record_step_plain` on copies of
+    the pool's recorder and its adapter: int8 bit for bit, float32 within
+    rtol = atol = `REC_TOL` (phase 2h's; the adapter's 16384-term weight
+    norm sums in another order than the plain version's)."""
+    import torch
+    from repro_torch.checkpoint import manager as TM
+    from repro_torch.obs import FleetTelemetry
+    from repro_torch.obs import recorder as R
+    gen = torch.Generator(c.device).manual_seed(SEED + 30)
+    b = c.slots
+    tel = FleetTelemetry(*(torch.rand(b, generator=gen, device=c.device)
+                           for _ in range(3)),
+                         occupancy=torch.ones(b, device=c.device))
+    active = c._active_mask()
+    layers = R.AdapterLayers.of(c.pool["cache"]["adapter"], quant)
+    copy = lambda: TM.tree_map(torch.clone, c._rec)
+    got, v1 = R.record_step(c.health_cfg, copy(), layers, tel, c._rec_pos,
+                            active, quant)
+    want, v2 = R.record_step_plain(c.health_cfg, copy(), layers, tel,
+                                   c._rec_pos, active, quant)
+    torch.cuda.synchronize()
+    err = 0.0
+    for path, x, y in zip(*TM.flatten(got), TM.flatten(want)[1]):
+        if x.is_floating_point() and not quant:
+            e = float((x - y).abs().max())
+            err = max(err, e)
+            require(tol_ratio(x, y, REC_TOL) <= 1, f"float32 recorder "
+                    f"{path}: {e} from its plain version")
+        else:
+            require(torch.equal(x, y), f"{'int8' if quant else 'float32'} "
+                    f"recorder {path} differs from its plain version")
+    require(torch.equal(v1, v2), "the recorder's verdict differs")
+    row["recorder_max_abs_err"] = err
+    log(f"  {'int8' if quant else 'float32'}: the pool's recorded step "
+        f"against its plain version: " + ("bit for bit" if quant else
+                                           f"max |err| {err:.3g}"))
+    if quant:
+        return
+    # the weight norm each route computes, latched into wnorm0 by a
+    # recorder whose slots have no recorded step yet, against the norm in
+    # float64: both float32 sums are as close to it as to each other
+    def unlatched():
+        r = copy()
+        r.health.steps.zero_()
+        return r
+    k_rec, _ = R.record_step(c.health_cfg, unlatched(), layers, tel,
+                             c._rec_pos, active, quant)
+    p_rec, _ = R.record_step_plain(c.health_cfg, unlatched(), layers, tel,
+                                   c._rec_pos, active, quant)
+    w = c.pool["cache"]["adapter"]["w_fast"]
+    exact = w.double().abs().sum(dim=(-2, -1)) / (w.shape[-2] * w.shape[-1])
+    on = active.bool()
+    dev_of = lambda x, y: float((x.double() - y.double())[on].abs().max())
+    norm = row["recorder_norm"] = dict(
+        terms=w.shape[-2] * w.shape[-1],
+        largest=float(exact[on].max()),
+        kernel_vs_float64=dev_of(k_rec.wnorm0, exact),
+        plain_vs_float64=dev_of(p_rec.wnorm0, exact),
+        kernel_vs_plain=dev_of(k_rec.wnorm0, p_rec.wnorm0))
+    log(f"  float32: the adapter's mean |w| over {norm['terms']} terms "
+        f"(largest {norm['largest']:.6g}): the kernel's sum is "
+        f"{norm['kernel_vs_float64']:.3g} from the float64 sum, the plain "
+        f"version's {norm['plain_vs_float64']:.3g}, and they are "
+        f"{norm['kernel_vs_plain']:.3g} apart")
+
+
+def compare_adapter_window(dev, results):
+    """#3 fleet at the adapter's one 128 -> 128 layer, B = 8 pool slots,
+    slot 5 vacant, through `plastic.decode_rollout` (the hidden states at
+    qwen3-4b's width 2560): against the plain window at K = 1 and 4 (int8
+    bit for bit across the step counter's int32 wrap; float32 within 1e-5
+    at K = 1 and 1e-4 at K = 4), and #1/#2 at the same shape against the
+    plain step; then #3's time at K = 4 beside its plain version and its
+    bound."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.kernels.plasticity import fused, kernel as K
+    from repro_torch.models import plastic
+    rng = np.random.default_rng(SEED + 33)
+    b, n, d = POOL_SLOTS, 128, 2560
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    params = {"p_in": on(rng.normal(0, 1.5 / np.sqrt(d), (d, n))
+                         .astype(np.float32)),
+              "p_out": on(rng.normal(0, 0.3, (n, d)).astype(np.float32)),
+              "theta": on(rng.normal(0, 0.02, (4, n, n)).astype(np.float32)),
+              "scale": torch.tensor(POOL_SCALE, device=dev)}
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    active[5] = False
+    timed, err = {}, 0.0
+    for quant in (False, True):
+        mode = "int8" if quant else "float32"
+        cfg = get_config("qwen3-4b").with_(
+            plastic_adapter=True, adapter_neurons=n, adapter_quant=quant)
+        if quant:
+            st = {"w_fast": on(rng.integers(-40, 41, (b, n, n))
+                               .astype(np.int8)),
+                  "v2": on(rng.integers(-300, 300, (b, n)).astype(np.int32)),
+                  "tr1": on(rng.integers(0, 900, (b, n)).astype(np.int32)),
+                  "tr2": on(rng.integers(0, 900, (b, n)).astype(np.int32)),
+                  "w_scale": on(np.where(np.arange(b) % 2, 1 / 16, 1 / 32)
+                                .astype(np.float32))}
+        else:
+            st = {k: on(rng.uniform(lo, hi, shape).astype(np.float32))
+                  for k, lo, hi, shape in (
+                      ("w_fast", -0.5, 0.5, (b, n, n)),
+                      ("v2", -0.5, 0.9, (b, n)), ("tr1", 0, 2, (b, n)),
+                      ("tr2", 0, 2, (b, n)))}
+        st["v1"] = on(rng.uniform(-0.5, 0.9, (b, n)).astype(np.float32))
+        st["t"] = on(np.full((b,), 2 ** 31 - 2, np.int32))
+        for k in (1, POOL_K):
+            h = on(rng.normal(0, 1, (b, k, d)).astype(np.float32))
+            launches = fused.rollout.launches
+            got_h, got = plastic.decode_rollout(params, st, h, cfg,
+                                                active=active)
+            require(fused.rollout.launches == launches + 1,
+                    f"{mode}: decode_rollout made "
+                    f"{fused.rollout.launches - launches} rollout launches")
+            with mock.patch.object(fused, "rollout", plain_rollout):
+                want_h, want = plastic.decode_rollout(params, st, h, cfg,
+                                                      active=active)
+            torch.cuda.synchronize()
+            tol = 1e-5 if k == 1 else 1e-4
+            for key in want:
+                e = float((got[key].double() - want[key].double()).abs()
+                          .max())
+                err = max(err, e)
+                require(torch.equal(got[key], want[key]) if quant
+                        and key != "v1" else e <= tol,
+                        f"#3 at the adapter shape, {mode}, K = {k}: {key} "
+                        f"differs from the plain window (max err {e})")
+                require(torch.equal(got[key][5], st[key][5]),
+                        f"#3 at the adapter shape: the vacant slot's {key} "
+                        f"moved")
+            require(torch.allclose(got_h, want_h, rtol=tol, atol=tol),
+                    f"#3 at the adapter shape, {mode}, K = {k}: the readout "
+                    f"differs")
+        plan = dict(fused.rollout.last_plan)
+        # #1/#2: one adapter step at the same shape
+        step = K.fleet_step_q if quant else K.fleet_step
+        h1 = on(rng.normal(0, 1, (b, 1, d)).astype(np.float32))
+        launches = step.launches
+        got_h, got = plastic.decode_step(params, st, h1, cfg, active=active)
+        require(step.launches == launches + 1, f"{mode}: no fleet step")
+        want_h, want = plain_adapter_step(params, st, h1, cfg, active=active)
+        torch.cuda.synchronize()
+        for key in want:
+            require(torch.equal(got[key], want[key]) if quant else
+                    torch.allclose(got[key], want[key], rtol=1e-5,
+                                   atol=1e-5),
+                    f"#{'2' if quant else '1'} at 128x128, B = {b}, {mode}: "
+                    f"{key} differs from the plain step")
+            require(torch.equal(got[key][5], st[key][5]),
+                    f"{step.__name__}: the vacant slot's {key} moved")
+        # the window kernel's time at K = 4
+        net = engine.NetworkState(
+            w=(st["w_fast"],), v=(st["v2"],), trace=(st["tr1"], st["tr2"]),
+            t=torch.zeros((), dtype=torch.int32, device=dev),
+            w_scale=(st["w_scale"],) if quant else ())
+        drives = on(rng.integers(0, 2, (POOL_K, b, n)).astype(np.float32))
+        if quant:
+            from repro_torch.kernels.plasticity import quant as Q
+            drives = Q.to_fixed(drives, plastic.QUANT)
+        ep = plastic._engine_params(cfg, 0.8, 4.0)
+        kw = dict(params=ep, active=active,
+                  seed=st["t"] if quant else None)
+        run = lambda: engine.rollout(net, [params["theta"]], drives,
+                                     block_b=plan["tile"], **kw)
+        with mock.patch.object(fused, "rollout", plain_rollout):
+            plain_ms = device_ms(run, reps=5)
+        b_ms, kind = bound(window_bytes(b, (n, n), POOL_K,
+                                        1 if quant else 4),
+                           POOL_K * b * n * n * (OPS_Q if quant else OPS_F32))
+        timed[mode] = dict(ms=device_ms(run), plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=kind, plan=plan)
+        log(f"  #3 at the adapter shape (128 -> 128, B = {b}, K = {POOL_K}), "
+            f"{mode}: {timed[mode]['ms']:.4f} ms a launch (plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {kind}); plan: tile "
+            f"{plan['tile']}, {plan['warps']} warps a stream, "
+            f"{plan['buffers']} buffer, theta via {plan['theta']}, "
+            f"{plan['smem']} B shared, {plan.get('ctas')} CTAs")
+    results["rollout"]["max_abs_err"] = max(results["rollout"]["max_abs_err"],
+                                            err)
+    results["rollout"]["adapter_shape"] = timed
+    return timed
+
+
+def ssd_blocks(cfg):
+    """Mamba2 blocks of ``cfg``: the SSD-scan launches of one prefill."""
+    from repro_torch.models.transformer import segments
+    return sum(count * (1 if kind == "ssm" else cfg.ssm.attn_every - 1)
+               for kind, count in segments(cfg) if kind != "dense")
+
+
+def pool_small_layout(dev, arch, results):
+    """``arch`` at `shallow` depth and full width in a 4-slot pool, float32
+    and int8: slot 1 vacant over 4 steps and a K = 4 window; the window
+    against the 4 steps (the same greedy tokens; sessions bit for bit in
+    int8, in float32 the backbone bit for bit and the adapter within
+    1e-4); the SSD-scan launches of each admission, one rollout launch for
+    the window.  Each SSD-scan and attention launch of the admissions (B =
+    1 prefills of every prompt length) is held against its plain version
+    on its own inputs, at phase 2d's and 2c's tolerances."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.plasticity import fused
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.models import attention as MA, factory, ssm as MS
+    from repro_torch.serving import LMScheduler
+    model, params = pool_model(dev, arch, cut=True)
+    prompts = pool_prompts(model.cfg.vocab, dev)
+    n_ssd = ssd_blocks(model.cfg)
+    out = {}
+    for quant in (False, True):
+        mode = "int8" if quant else "float32"
+        m = factory.build(model.cfg.with_(adapter_quant=quant))
+
+        def pool():
+            s = LMScheduler(m, params, 4, POOL_MAX_LEN)
+            for u in ("probe", "u1", "u2"):
+                s.admit_prompt(u, prompts[u])
+            s.evict("u1")
+            return s
+
+        launches = SK.ssd_scan.launches
+        scans, attns = [], []
+        with recording(MS, "ssd_op", scans), recording(MA, "attn_op", attns):
+            a = pool()
+        require(SK.ssd_scan.launches == launches + 3 * n_ssd
+                and len(scans) == 3 * n_ssd,
+                f"{arch} {mode}: {SK.ssd_scan.launches - launches} SSD-scan "
+                f"launches in 3 prefills, want {3 * n_ssd}")
+        lengths = sorted({a_[0].shape[1] for a_, _, _ in scans})
+        replay_launches(scans, SK.ssd_scan_plain, "ssd_scan", results,
+                        f"{arch} pool {mode}, B = 1 prefills at L "
+                        f"{lengths}", False, None, close=ssd_close)
+        if attns:
+            replay_launches(attns, TA.flash_attention_plain,
+                            "flash_attention", results,
+                            f"{arch} pool {mode}, B = 1 prefills",
+                            False, ATTN_TOL["bfloat16"])
+        del scans, attns
+        b = pool()
+        vacant = a._take(a.pool, 1)
+        first = {u: a.pending(u) for u in ("probe", "u2")}
+        seq = [a.step() for _ in range(POOL_K)]
+        windows = {u: np.array([first[u]] + [t[u] for t in seq[:-1]])
+                   for u in first}
+        launches = fused.rollout.launches
+        got = b.decode_window(windows)
+        require(fused.rollout.launches == launches + 1,
+                f"{arch} {mode}: the window made "
+                f"{fused.rollout.launches - launches} rollout launches")
+        for u in first:
+            require(got[u].argmax(-1).tolist() == [t[u] for t in seq],
+                    f"{arch} {mode}: the window's greedy tokens differ from "
+                    f"the steps'")
+            sessions_match(b.session_view(u), a.session_view(u), quant,
+                           f"{arch} {mode} window against steps")
+        for s in (a, b):
+            for x, y in zip(tree_leaves(vacant), tree_leaves(s._take(s.pool, 1))):
+                require(torch.equal(x, y),
+                        f"{arch} {mode}: the vacant slot's row moved")
+        out[mode] = {"plan": dict(fused.rollout.last_plan)}
+        del a, b
+    axes = sorted(set(tree_leaves(model.cache_axes(POOL_MAX_LEN))))
+    out["slot_axes"] = axes
+    log(f"  {arch} ({model.cfg.n_layers} layers at full width, 4 slots): "
+        f"{n_ssd} SSD scans an admission, the vacant slot frozen and the "
+        f"window equal to the steps in float32 and int8; slot axes {axes}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# tests/test_torch_serving_lm.py::test_pinned_program_counts, its sequence
+# and its dict
+AUDIT_PROGRAMS = {
+    "slot_put": 1, "slot_take": 1, "recorder_reset": 0, "prefill": 2,
+    "decode_step": 1, "decode_step_telemetry": 1, "decode_window": 1,
+    "decode_window_telemetry": 1, "decode_step_record": 0,
+    "decode_window_record": 0}
+
+
+def pool_compile_audit(dev):
+    """The CPU test's compile-audit sequence on the card (smoke qwen3-4b,
+    int8 adapter): `compiled_programs()` equals the dict it pins, and a
+    new window length grows only ``decode_window``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import factory
+    from repro_torch.serving import LMScheduler
+    model = factory.build("qwen3-4b", smoke=True, plastic_adapter=True,
+                          adapter_neurons=8, adapter_quant=True)
+    params = model.init(torch.Generator(dev).manual_seed(SEED))
+    s = LMScheduler(model, params, slots=3, max_len=24)
+    rng = np.random.default_rng(SEED + 34)
+    s.admit_prompt("a", rng.integers(0, model.cfg.vocab, 6))
+    s.admit_prompt("b", rng.integers(0, model.cfg.vocab, 4))
+    for _ in range(2):
+        s.step()
+    s.step(telemetry=True)
+    k2 = {u: np.full((2,), s.pending(u)) for u in ("a", "b")}
+    s.decode_window(k2)
+    s.decode_window(k2, telemetry=True)
+    s.evict("b")
+    require(s.compiled_programs() == AUDIT_PROGRAMS,
+            f"compile audit on the card: {s.compiled_programs()}")
+    s.decode_window({"a": np.full((3,), s.pending("a"))})
+    require(s.compiled_programs() == dict(AUDIT_PROGRAMS, decode_window=2),
+            f"compile audit, a new window length: {s.compiled_programs()}")
+    log("  compile audit (the CPU test's sequence, smoke qwen3-4b on the "
+        "card): compiled_programs() equals the pinned dict")
+    return s.compiled_programs()
+
+
+def lm_pool_profile(dev):
+    """``--only lm-pool-profile``: a fresh process's `torch.profiler` of 4
+    pool steps of full-width qwen3-4b, float32 adapter, B = 8 slots with 7
+    streams of 64-token prompts (after 2 warm-up steps): device busy time,
+    idle share and device ops a step."""
+    from repro_torch.serving import LMScheduler
+    model, params = pool_model(dev)
+    prompts = pool_prompts(model.cfg.vocab, dev)
+    s = LMScheduler(model, params, POOL_SLOTS, POOL_MAX_LEN)
+    for u in ["probe"] + [f"u{i}" for i in range(1, POOL_RESIDENTS + 2)]:
+        s.admit_prompt(u, prompts[u][:64])
+    for _ in range(2):
+        s.step()
+    log("  4 pool steps, B = 8, float32 adapter:")
+    return profile_window(lambda: [s.step() for _ in range(4)], 4)
+
+
+def lm_pool_profiles(work):
+    """``--only lm-pool-profile`` in a fresh process: its report."""
+    report = work / "only_lm_pool_profile.json"
+    report.unlink(missing_ok=True)
+    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--only", "lm-pool-profile", "--out", str(report)],
+                       capture_output=True, text=True, timeout=300)
+    for line in p.stdout.splitlines():
+        if line.startswith("    "):
+            log(line)
+    require(p.returncode == 0 and report.exists(),
+            f"--only lm-pool-profile exited {p.returncode}: "
+            f"{p.stderr[-2000:]}")
+    return json.loads(report.read_text())["lm-pool-profile"]
+
+
+def lm_pool(dev, results, lm=None):
+    """Phase 14: the LM decode pool on full-width qwen3-4b (float32 then
+    int8 adapter), then mamba2-1.3b and zamba2-7b at `shallow` depth, the
+    adapter window's kernel checks and time, and the fresh process's
+    profile.  ``lm``: phase 8's results, for its lockstep p50 beside."""
+    import tempfile
+    import torch
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.plasticity import fused, kernel as K
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.models import layers as ML
+    from repro_torch.obs import recorder as R
+    counters = (TA.flash_attention, SK.ssd_scan, ML.silu, K.fleet_step,
+                K.fleet_step_q, fused.rollout, R._record_step)
+    work = ROOT / "build" / "chip_smoke_lm_pool"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"adapter_window": compare_adapter_window(dev, results)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = pool_model(dev)
+    prompts = pool_prompts(model.cfg.vocab, dev)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        for quant in (False, True):
+            out["int8" if quant else "float32"] = lm_pool_run(
+                dev, model, params, prompts, quant, counters, Path(tmp),
+                results)
+            gc.collect()
+            torch.cuda.empty_cache()
+    del model, params, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    lockstep = (lm or {}).get("qwen3-4b", {}).get("float32", {}).get(
+        "decode_ms_p50")
+    log(f"  step p50 at B = {POOL_SLOTS}: float32 "
+        f"{out['float32']['step_ms_p50']:.1f} ms, int8 "
+        f"{out['int8']['step_ms_p50']:.1f} ms; phase 8's lockstep p50 at "
+        f"B = 4: " + (f"{lockstep:.1f} ms (this run)" if lockstep else
+                      f"{PHASE8_P50} ms (an earlier full run; phase 8 not run)"))
+    for arch in ("mamba2-1.3b", "zamba2-7b"):
+        out[arch] = pool_small_layout(dev, arch, results)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["compile_audit"] = pool_compile_audit(dev)
+    out["profile"] = prof = lm_pool_profiles(work)
+    smi = nvidia_smi()
+    for mode in ("float32", "int8"):
+        r, t = out[mode], out["adapter_window"][mode]
+        log(f"  lm pool {mode} ({smi}): admission p50 "
+            f"{r['admit_ms_p50']:.1f} ms, step p50 {r['step_ms_p50']:.1f} "
+            f"ms at B = {POOL_SLOTS}, window {r['window_ms_per_token']:.1f} "
+            f"ms a token, pool_nbytes {r['pool_nbytes']}; #3 at the adapter "
+            f"shape {t['ms']:.4f} ms against its bound {t['bound_ms']:.5f} "
+            f"ms ({t['bound_by']})")
+    if prof.get("idle_share") is not None:
+        log(f"  lm pool profile ({smi}): 4 steps, idle share "
+            f"{prof['idle_share']:.3f}, "
+            f"{prof['kernel_launches_per_step']:.0f} device ops a step")
+    return out
+
+
 def nvidia_smi():
     try:
         p = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4875,11 +5630,18 @@ def only_rule_search(dev):
     return rule_search(dev, (fused.rollout,), (fused.rollout,), results)[0]
 
 
+def only_lm_pool(dev):
+    results = {name: {"max_abs_err": 0.0}
+               for name in ("rollout", "flash_attention", "ssd_scan")}
+    return lm_pool(dev, results)
+
+
 # ``--only``'s parts: each runs one A/B measurement alone
 ONLY = {"fleet-steps": only_fleet_steps, "shared-steps": only_shared_steps,
         "lif-forward": only_lif_forward, "attention": only_attention,
         "lm-prefill": profile_lm_prefills, "rule-search": only_rule_search,
-        "health": only_health}
+        "health": only_health, "lm-pool": only_lm_pool,
+        "lm-pool-profile": lm_pool_profile}
 
 
 def main() -> int:
@@ -5087,12 +5849,27 @@ def main() -> int:
                f"slots, float32 and int8"):
         health = health_path(dev, results)
 
+    with phase(f"phase 14: the LM decode pool, qwen3-4b at full width, "
+               f"{POOL_SLOTS} slots, float32 and int8; mamba2-1.3b and "
+               f"zamba2-7b cut"):
+        pool = lm_pool(dev, results, lm)
+
     # #3 fleet's launches in each path that ran it; `launches` stays the
     # controller's (phase 4)
     results["rollout"]["launches_by_path"] = {
         "controller": results["rollout"]["launches"],
         **{f"rule search, {k}": v["rollout"]
            for k, v in search_launches.items()}}
+    # the LM pool's launches of each kernel it runs, per datapath
+    for mode in ("float32", "int8"):
+        for name, key in (("rollout", "rollout"),
+                          ("fleet_step_q" if mode == "int8" else
+                           "fleet_step", None),
+                          ("recorder", "record_step"),
+                          ("flash_attention", None), ("silu", None)):
+            by = results[name].setdefault(
+                "launches_by_path", {"main path": results[name]["launches"]})
+            by[f"lm pool, {mode}"] = pool[mode]["launches"][key or name]
 
     for r in results.values():
         lib = (f", library {r['library_ms']:.4f} ms"
@@ -5117,7 +5894,7 @@ def main() -> int:
               "lm_path": lm, "lm_launches": lm_launches,
               "serve_path": served, "serve_launches": serve_launches,
               "rule_search": search, "rule_search_launches": search_launches,
-              "health_path": health,
+              "health_path": health, "lm_pool": pool,
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
               "shared_step_launches": shared_launches,

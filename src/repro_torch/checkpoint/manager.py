@@ -110,11 +110,31 @@ def tree_map(fn, tree):
     return unflatten(tree, [fn(l) for l in flatten(tree)[1]])
 
 
+# numpy has no bfloat16: a bfloat16 leaf is stored as its 2-byte words,
+# the bytes (and the ``<V2`` descriptor) the JAX package's ml_dtypes arrays
+# save, with "bfloat16" in the manifest
+_BF16_WORDS = np.dtype("V2")
+
+
 def to_host(leaf) -> np.ndarray:
-    """One leaf as a host numpy array (a copy for a tensor)."""
+    """One leaf as a host numpy array (a copy for a tensor); a bfloat16
+    tensor as its 2-byte words."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().copy().view(_BF16_WORDS)
+        return t.numpy().copy()
     return np.array(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_WORDS else str(arr.dtype)
+
+
+def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save_checkpoint(directory: str, step: int, tree: Any,
@@ -134,7 +154,7 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         np.save(os.path.join(tmp_dir, fname), arr)
         manifest["leaves"].append({
             "path": path, "file": fname,
-            "shape": list(arr.shape), "dtype": str(arr.dtype)})
+            "shape": list(arr.shape), "dtype": _dtype_name(arr)})
     with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(step_dir):
@@ -184,7 +204,7 @@ def load_checkpoint(directory: str, tree_like: Any,
         if tuple(arr.shape) != want_shape:
             raise ValueError(
                 f"shape mismatch for {path}: ckpt {arr.shape} vs {want_shape}")
-        out.append(torch.from_numpy(arr).to(device))
+        out.append(_from_host(arr, entry["dtype"]).to(device))
     return unflatten(tree_like, out), step, manifest["extra"]
 
 

@@ -17,7 +17,7 @@ import torch
 from repro_torch.core.engine import NetworkState
 from repro_torch.core.es import PEPGState
 from repro_torch.core.snn import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import factory, plastic, transformer
 from repro_torch.models.config import torch_dtype
 from repro_torch.models.layers import ParamDesc
 from repro_torch.obs.health import HealthConfig, HealthState
@@ -39,33 +39,63 @@ def tensor(x, device=None) -> torch.Tensor:
     return t.to(resolve_device(device))
 
 
+def _walk(like, x, path: str, leaf):
+    """``like``'s tree (dicts and lists) with each leaf ``leaf(desc, x,
+    path)`` of the matching entry of ``x``; keys and lengths checked."""
+    if isinstance(like, dict):
+        if set(like) != set(x):
+            raise ValueError(f"{path}: keys {sorted(x)} differ from the "
+                             f"port's {sorted(like)}")
+        return {k: _walk(like[k], x[k], f"{path}/{k}", leaf)
+                for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        if len(like) != len(x):
+            raise ValueError(f"{path}: {len(x)} entries, the port's tree "
+                             f"has {len(like)}")
+        return [_walk(d, e, f"{path}[{i}]", leaf)
+                for i, (d, e) in enumerate(zip(like, x))]
+    return leaf(like, x, path)
+
+
+def _checked(shape, dtype, x, path, device):
+    t = tensor(x, device)
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{path}: the port has {tuple(shape)} {dtype}; got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    return t
+
+
 def lm_params(params, cfg, device=None):
     """The JAX LM parameter tree (``repro.models.factory.Model.init``; dicts
     and lists whose leaves convert with `numpy.asarray`) -> the port's tree
     for the same `ModelConfig`.  Every leaf is checked against the port's
     plan: same shape and dtype, or ValueError."""
-    def walk(desc, x, path):
-        if isinstance(desc, ParamDesc):
-            t = tensor(x, device)
-            want = torch_dtype(desc.dtype)
-            if tuple(t.shape) != tuple(desc.shape) or t.dtype != want:
-                raise ValueError(
-                    f"{path}: the port's plan has {tuple(desc.shape)} "
-                    f"{want}; got {tuple(t.shape)} {t.dtype}")
-            return t
-        if isinstance(desc, dict):
-            if set(desc) != set(x):
-                raise ValueError(f"{path}: keys {sorted(x)} differ from the "
-                                 f"port's plan {sorted(desc)}")
-            return {k: walk(desc[k], x[k], f"{path}/{k}")
-                    for k in sorted(desc)}
-        if len(desc) != len(x):
-            raise ValueError(f"{path}: {len(x)} entries, the port's plan "
-                             f"has {len(desc)}")
-        return [walk(d, e, f"{path}[{i}]")
-                for i, (d, e) in enumerate(zip(desc, x))]
+    return _walk(transformer.plan(cfg), params, "params",
+                 lambda d, x, path: _checked(d.shape, torch_dtype(d.dtype),
+                                             x, path, device))
 
-    return walk(transformer.plan(cfg), params, "params")
+
+def lm_session(session, cfg, max_len: int, device=None) -> dict:
+    """One session of JAX's ``repro.serving.LMScheduler`` (its
+    ``session_view`` or a `SessionStore` payload: ``{"cache", "tok"}``)
+    -> the port's session of the same `ModelConfig` and ``max_len``, each
+    leaf checked against `factory.Model.session_template`, so that both
+    pools can start from one state."""
+    like = {"cache": factory.build(cfg).session_template(max_len),
+            "tok": torch.empty((), dtype=torch.int32, device="meta")}
+    return _walk(like, session, "session",
+                 lambda t, x, path: _checked(t.shape, t.dtype, x, path,
+                                             device))
+
+
+def adapter_row(row, cfg, device=None) -> dict:
+    """One adapter session of JAX's ``repro.serving.AdapterPool`` (a dict
+    of the adapter cache's leaves, unbatched) -> the port's, checked
+    against `models.plastic.plan_cache`."""
+    return _walk(plastic.plan_cache(cfg, 1), row, "adapter",
+                 lambda d, x, path: _checked(d.shape[1:],
+                                             torch_dtype(d.dtype), x, path,
+                                             device))
 
 
 def network_state(state, device=None) -> NetworkState:

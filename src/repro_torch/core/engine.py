@@ -258,7 +258,7 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
             params, teach: Optional[torch.Tensor] = None,
             active: Optional[torch.Tensor] = None,
             seed: Optional[torch.Tensor] = None,
-            block_b: int = 8, telemetry: bool = False):
+            block_b: Optional[int] = None, telemetry: bool = False):
     """K fused timesteps of the WHOLE layer stack (one kernel launch).
 
     The time-fused analogue of calling `layer_step` K * num_layers times,
@@ -279,7 +279,9 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
               k draws from ``fold_seed(seed + k, layer)``.  Defaults to
               ``state.t``.
       block_b: fleet only — the rollout kernel's tile, the streams one
-              CTA holds at once (`fused.fleet_plan`).
+              CTA holds at once (`fused.fleet_plan`); None takes the
+              largest tile of at most 8 that fits (`fused.fleet_fit`),
+              and raises where not even one stream fits.
       telemetry: fleet only — also return an `obs.FleetTelemetry` of
               per-slot WINDOW means: spike_rate and sat_frac averaged over
               the K steps and the layers, mean_abs_dw the NET weight motion

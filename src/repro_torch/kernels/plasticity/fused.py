@@ -80,6 +80,7 @@ class _RolloutArgs(ctypes.Structure):
 
 
 FLEET_SYNAPSES_PER_THREAD = 16  # of the widest layer, per step: sets warps
+MAX_TILE = 8                    # streams a CTA holds where no tile is named
 
 
 def _state_bytes(sizes, wb: int, sb: int) -> int:
@@ -169,6 +170,23 @@ def fleet_plan(sizes, batch: int, block_b: int, plastic, *, quant: bool,
         plan.update(ctas_per_sm=occupancy,
                     ctas=min(sms * occupancy, -(-batch // tile)))
     return plan
+
+
+def fleet_fit(sizes, batch: int, plastic, **kw) -> dict:
+    """`fleet_plan` at the largest tile of at most `MAX_TILE` streams that
+    fits (``kw`` as `fleet_plan` takes them).  Raises ValueError where not
+    even one stream fits: the window does not fall back to per-step
+    launches or to the plain version."""
+    for block_b in range(min(MAX_TILE, batch), 0, -1):
+        try:
+            return fleet_plan(sizes, batch, block_b, plastic, **kw)
+        except ValueError as e:
+            err = e
+    raise ValueError(
+        f"fleet rollout: one stream of layer sizes {list(sizes)} does not "
+        f"fit a CTA ({err}); such widths wait for ROADMAP.md Queue 2's "
+        f"follow-up '#3 fleet for adapter widths whose stream exceeds an "
+        f"SM'")
 
 
 class _SharedRolloutArgs(ctypes.Structure):
@@ -530,12 +548,13 @@ def _fill_plan(a, plan: dict) -> None:
     a.double_buffer = int(plan["buffers"] != "single")
 
 
-def fleet_launch(device, sizes, batch: int, block_b: int, plastic, *,
+def fleet_launch(device, sizes, batch: int, block_b, plastic, *,
                  quant: bool, telemetry: bool = False, bf16: bool = False,
                  theta_bf16: bool = False) -> dict:
     """`fleet_plan` on ``device`` with its persistent grid: the SM count and
     the CTAs one SM holds of the instantiation the flags select, asked of
-    the card once per plan key (sizes, B, block_b, flags, device)."""
+    the card once per plan key (sizes, B, block_b, flags, device).
+    ``block_b=None`` takes the largest tile that fits (`fleet_fit`)."""
     plastic = tuple(bool(p) for p in plastic)
     key = (tuple(sizes), batch, block_b, plastic, quant, telemetry, bf16,
            theta_bf16, torch.device(device))
@@ -544,7 +563,8 @@ def fleet_launch(device, sizes, batch: int, block_b: int, plastic, *,
         wb, sb = (1, 4) if quant else (2, 2) if bf16 else (4, 4)
         kw = dict(quant=quant, limit=_k.smem_limit(device), w_bytes=wb,
                   s_bytes=sb, theta_bytes=2 if theta_bf16 else 4)
-        plan = fleet_plan(sizes, batch, block_b, plastic, **kw)
+        plan = (fleet_fit(sizes, batch, plastic, **kw) if block_b is None
+                else fleet_plan(sizes, batch, block_b, plastic, **kw))
         a = _RolloutArgs()
         a.n_layers = len(sizes) - 1
         for i, n in enumerate(sizes):
@@ -565,8 +585,8 @@ def fleet_launch(device, sizes, batch: int, block_b: int, plastic, *,
                 f"fleet rollout: a CTA of {plan['threads']} threads and "
                 f"{plan['smem']} bytes does not fit an SM")
         plan = _fleet_plans[key] = fleet_plan(
-            sizes, batch, block_b, plastic, sms=sms, occupancy=blocks.value,
-            **kw)
+            sizes, batch, plan["tile"], plastic, sms=sms,
+            occupancy=blocks.value, **kw)
     return plan
 
 
@@ -574,7 +594,7 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
             tau_m: float = 2.0, v_th: float = 1.0, v_reset: float = 0.0,
             trace_decay: float = 0.8, w_clip: float = 4.0, qcfg=None,
             scales=None, seed=None, teach=None, active=None,
-            block_b: int = 8, telemetry: bool = False):
+            block_b=None, telemetry: bool = False):
     """K fused timesteps of the whole layer stack.
 
     Args:
@@ -591,7 +611,8 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
       teach:   optional (K, B, M_last) teaching current for the last layer.
       active:  optional (B,) slot mask, constant over the window.
       block_b: streams per tile: the CTA's stream groups, each running one
-               stream's window at a time (`fleet_plan`).
+               stream's window at a time (`fleet_plan`); None takes the
+               largest tile of at most `MAX_TILE` that fits (`fleet_fit`).
       telemetry: fleet only — also return the window's (B, 3) telemetry
                row (the kernel's telemetry variant).
 
@@ -599,8 +620,8 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
     telemetry row with ``telemetry``.  A CPU tensor runs `rollout_plain`; a
     CUDA tensor launches the fleet kernel (counted in
     ``rollout.launches``, its telemetry variant also in
-    ``rollout.telemetry_launches``) or, for shared weights,
-    `rollout_shared`.
+    ``rollout.telemetry_launches``; its plan kept in ``rollout.last_plan``)
+    or, for shared weights, `rollout_shared`.
     """
     spiking, plastic = _layer_flags(spiking, plastic, thetas)
     if not _k.on_card(drives):
@@ -646,6 +667,7 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
     _build.check(_fleet_entry("rollout")(ctypes.byref(a), int(quant),
                                          plan["smem"], _k.stream_of(drives)),
                  "rollout")
+    rollout.last_plan = plan
     rollout.launches += 1
     rollout.telemetry_launches += int(telemetry)
     rollout.bf16_launches += a.bf16
@@ -655,6 +677,7 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
 rollout.launches = 0
 rollout.telemetry_launches = 0      # the telemetry variant's share
 rollout.bf16_launches = 0           # the bfloat16 instantiation's share
+rollout.last_plan = None            # the last fleet launch's plan
 
 
 _shared_plans: dict = {}        # plan key -> shared_plan

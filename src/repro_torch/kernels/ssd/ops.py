@@ -19,9 +19,11 @@ import torch
 from repro_torch.kernels.ssd.kernel import ssd_scan as ssd
 
 
-def ssd_decode_step(state, xt, dtt, a, bt, ct):
+def ssd_decode_step(state, xt, dtt, a, bt, ct, active=None):
     """state (B,H,S,P) float32, updated in place; xt (B,H,P); dtt (B,H);
-    bt/ct (B,G,S), head h reading group ``h // (H / G)``.
+    bt/ct (B,G,S), head h reading group ``h // (H / G)``.  ``active (B,)``
+    leaves a vacant stream's state as it was (the new rows are selected,
+    in the same float32 operations).
     Returns (state, y (B,H,P) float32: the JAX package's step returns
     float32 whatever xt's dtype, and the model computes on in float32)."""
     h, g = xt.shape[1], bt.shape[1]
@@ -32,6 +34,11 @@ def ssd_decode_step(state, xt, dtt, a, bt, ct):
     cf = ct.float().repeat_interleave(h // g, dim=1)
     da = torch.exp(a.float()[None, :] * dtf)                  # (B,H)
     upd = dtf[..., None, None] * bf[..., :, None] * xf[..., None, :]
-    state.mul_(da[..., None, None]).add_(upd)
+    if active is None:
+        state.mul_(da[..., None, None]).add_(upd)
+    else:
+        new = state * da[..., None, None] + upd
+        mask = active.to(torch.bool).reshape(-1, 1, 1, 1)
+        state.copy_(torch.where(mask, new, state))
     y = torch.einsum("bhs,bhsp->bhp", cf, state)
     return state, y

@@ -11,7 +11,12 @@ the JAX package too.
 
 The port writes the decode cache IN PLACE: `decode_update` stores the new
 position into the ``(B, Smax, KV, HD)`` cache tensors it is given (the JAX
-package's ``decode_step`` returns updated copies).
+package's ``decode_step`` returns updated copies).  Its index is a scalar
+(every stream at one length, the lockstep batch) or per slot, ``(B,)``
+(the continuous-batching pool of `serving.lm.LMScheduler`, whose streams
+sit at different lengths); ``active (B,)`` leaves a vacant slot's cache
+rows bit for bit as they were, by selecting the old row, so that no shape
+and no host read depends on the occupancy.
 """
 from __future__ import annotations
 
@@ -80,44 +85,62 @@ def update(params, x, cfg: ModelConfig, positions=None):
     return o.reshape(b, s, -1) @ params["wo"], (k, v)
 
 
-def _write_at(cache, row, index):
+def _write_at(cache, row, index, active=None):
     """Write one new position of every stream, ``row (B,1,...)``, into the
-    ``(B,Smax,...)`` cache at the scalar ``index``, in place."""
-    cache.index_copy_(1, index.reshape(1).long(), row.to(cache.dtype))
+    ``(B,Smax,...)`` cache, in place: at the scalar ``index`` for every
+    stream, or at each stream's own position for a ``(B,)`` index.  Under
+    ``active (B,)`` a vacant stream's row is written back as it was."""
+    if index.ndim == 0 and active is None:
+        cache.index_copy_(1, index.reshape(1).long(), row.to(cache.dtype))
+        return cache
+    b = cache.shape[0]
+    rows = torch.arange(b, device=cache.device)
+    idx = index.long().expand(b)
+    new = row[:, 0].to(cache.dtype)
+    if active is not None:
+        mask = active.to(torch.bool).reshape((b,) + (1,) * (new.ndim - 1))
+        new = torch.where(mask, new, cache[rows, idx])
+    cache[rows, idx] = new
     return cache
 
 
-def decode_update(params, x, cache_k, cache_v, index, cfg: ModelConfig):
-    """One-token cached attention, every stream at the same length.
-    x (B,1,D); cache (B,Smax,KV,HD), written in place at ``index`` (0-d
-    int tensor, the number of positions already resident).  Returns the
-    update (B,1,D), before the residual add."""
+def decode_update(params, x, cache_k, cache_v, index, cfg: ModelConfig,
+                  active=None):
+    """One-token cached attention.  x (B,1,D); cache (B,Smax,KV,HD),
+    written in place at ``index``: a 0-d int tensor (every stream at the
+    same length) or ``(B,)`` (per slot), the number of positions already
+    resident.  ``active (B,)`` freezes vacant slots' cache rows.  Returns
+    the update (B,1,D), before the residual add."""
     if cfg.kv_quant:
         raise NotImplementedError(
             "the int8 KV cache (kv_quant) is not ported yet (ROADMAP.md, "
             "Queue 1 item 9)")
     b = x.shape[0]
-    positions = index.reshape(1, 1).expand(b, 1)
+    positions = (index.reshape(1, 1).expand(b, 1) if index.ndim == 0
+                 else index[:, None])
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     q, k, v = _qkv(params, h, cfg, positions)
-    _write_at(cache_k, k, index)
-    _write_at(cache_v, v, index)
+    _write_at(cache_k, k, index, active)
+    _write_at(cache_v, v, index, active)
     o = _decode_attend(q, cache_k, cache_v, index, cfg)
     return o.reshape(b, 1, -1) @ params["wo"]
 
 
 def _decode_attend(q, k, v, index, cfg: ModelConfig):
     """q (B,1,H,HD) against the whole cache, positions above ``index``
-    masked.  Products of the storage-dtype operands accumulate in float32
-    (the JAX package's ``preferred_element_type``); the probabilities are
-    cast to the cache dtype before the PV product, as there."""
+    (scalar, or each stream's own) masked.  Products of the storage-dtype
+    operands accumulate in float32 (the JAX package's
+    ``preferred_element_type``); the probabilities are cast to the cache
+    dtype before the PV product, as there."""
     b, _, h, hd = q.shape
     smax, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     qg = q.reshape(b, 1, kvh, g, hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) \
         * (hd ** -0.5)
-    valid = torch.arange(smax, device=q.device) <= index
+    pos = torch.arange(smax, device=q.device)
+    valid = (pos <= index if index.ndim == 0
+             else (pos[None, :] <= index[:, None])[:, None, None, None, :])
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())

@@ -1,10 +1,18 @@
 """Config-driven model factory: one surface over the LM stack.
 
 `build(arch_or_cfg)` turns a `ModelConfig` into a `Model` whose entry
-points (`init` / `forward` / `prefill` / `decode_step` / `init_cache`) are
-what `launch/steps.py` and `launch/serve.py` consume; callers never import
-`models.transformer` directly.  The serving-pool plumbing of the JAX
-package's factory waits for the port of ``serving.lm.LMScheduler``.
+points (`init` / `forward` / `prefill` / `decode_step` / `decode_rollout` /
+the cache builders) are what `launch/steps.py`, `launch/serve.py` and
+`serving.lm.LMScheduler` consume; callers never import
+`models.transformer` directly.
+
+The factory also owns the serving pool's plumbing (`serving.scheduler`):
+which axis of each decode-cache leaf carries the slot rows (`cache_axes`,
+found structurally, so that a zsuper's stacked inner caches get axis 2
+without a table), a pooled cache with per-slot sequence indices
+(`pool_cache`), and the B = 1 prefill -> session row conversion
+(`session_from_prefill`) that makes admitting a freshly prefilled stream
+one slot copy.
 """
 from __future__ import annotations
 
@@ -12,9 +20,11 @@ from typing import Union
 
 import torch
 
+from repro_torch.checkpoint import manager as _ckpt
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.models import transformer as T
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.models.layers import ParamDesc, leaves, map_plan
 
 _LAYOUTS = ("dense", "moe", "ssm", "hybrid")
 
@@ -32,6 +42,28 @@ def _validate(cfg: ModelConfig) -> None:
     if cfg.plastic_adapter and cfg.adapter_neurons < 1:
         raise ValueError(f"{cfg.name}: plastic_adapter needs "
                          f"adapter_neurons >= 1")
+
+
+def _infer_axes(cfg: ModelConfig, max_len: int):
+    """Per-leaf slot axis of the pooled decode cache, found structurally:
+    the one axis whose extent follows the batch between two plans (so a
+    zsuper's stacked inner SSM caches come out at axis 2)."""
+    a = T.cache_plan(cfg, 2, max_len, per_slot_index=True)
+    b = T.cache_plan(cfg, 3, max_len, per_slot_index=True)
+    flat_b = iter(leaves(b))
+
+    def one(da: ParamDesc):
+        db = next(flat_b)
+        diff = [i for i, (x, y) in enumerate(zip(da.shape, db.shape))
+                if x != y]
+        if len(diff) != 1:
+            raise ValueError(
+                f"cannot infer the slot axis of cache leaf {da.shape} vs "
+                f"{db.shape}: expected exactly one batch-tracking axis, "
+                f"found {diff}")
+        return diff[0]
+
+    return map_plan(one, a)
 
 
 class Model:
@@ -55,11 +87,66 @@ class Model:
     def prefill(self, params, inputs, max_len: int):
         return T.prefill(params, inputs, self.cfg, max_len)
 
-    def decode_step(self, params, cache, tokens):
-        return T.decode_step(params, cache, tokens, self.cfg)
+    def decode_step(self, params, cache, tokens, active=None):
+        return T.decode_step(params, cache, tokens, self.cfg, active=active)
 
-    def init_cache(self, batch: int, max_len: int, device=None):
-        return T.init_cache(self.cfg, batch, max_len, device)
+    def decode_rollout(self, params, cache, tokens, active=None):
+        return T.decode_rollout(params, cache, tokens, self.cfg,
+                                active=active)
+
+    def cache_plan(self, batch: int, max_len: int,
+                   per_slot_index: bool = False):
+        return T.cache_plan(self.cfg, batch, max_len, per_slot_index)
+
+    def init_cache(self, batch: int, max_len: int, device=None,
+                   per_slot_index: bool = False):
+        return T.init_cache(self.cfg, batch, max_len, device, per_slot_index)
+
+    # ---- serving-pool plumbing (the SessionPool contract) -----------------
+
+    def pool_cache(self, slots: int, max_len: int, device=None):
+        """Zeroed pooled decode cache: per-slot ``(B,)`` sequence indices,
+        one session row per slot in every leaf."""
+        return T.init_cache(self.cfg, slots, max_len, device,
+                            per_slot_index=True)
+
+    def cache_axes(self, max_len: int):
+        """The slot-axes tree of `pool_cache` (see `serving.scheduler`)."""
+        return _infer_axes(self.cfg, max_len)
+
+    def session_from_prefill(self, cache1):
+        """A B = 1 prefill cache as one session row (the tree a
+        `SessionPool` copies into a slot and a `SessionStore` persists):
+        each leaf's slot axis dropped (views), the prefill's scalar index
+        passed through as the session's position."""
+        axes = _ckpt.flatten(self.cache_axes(1))[1]
+        paths, leaves = _ckpt.flatten(cache1)
+        out = []
+        for path, leaf, ax in zip(paths, leaves, axes):
+            if leaf.ndim == 0:                  # the scalar prefill index
+                out.append(leaf)
+            elif leaf.ndim > ax and leaf.shape[ax] == 1:
+                out.append(leaf.squeeze(ax))
+            else:
+                raise ValueError(
+                    f"session_from_prefill needs a batch = 1 cache; leaf "
+                    f"{path} has shape {tuple(leaf.shape)} with slot axis "
+                    f"{ax}")
+        return _ckpt.unflatten(cache1, out)
+
+    def session_template(self, max_len: int):
+        """One session's cache as tensors on ``meta`` (shapes and dtypes,
+        no storage): the `SessionStore` validation template of this pool
+        layout."""
+        plan = T.cache_plan(self.cfg, 1, max_len, per_slot_index=True)
+        axes = iter(_ckpt.flatten(self.cache_axes(max_len))[1])
+
+        def one(d: ParamDesc):
+            ax = next(axes)
+            shape = d.shape[:ax] + d.shape[ax + 1:]
+            return torch.empty(shape, dtype=torch_dtype(d.dtype),
+                               device="meta")
+        return map_plan(one, plan)
 
 
 def build(arch_or_cfg: Union[str, ModelConfig], smoke: bool = False,

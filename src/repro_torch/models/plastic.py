@@ -20,6 +20,11 @@ per-slot scale, int32 membranes and traces, and dw rounded to grid steps by
 the deterministic stochastic round keyed on the per-stream step counter
 ``t``.  The presynaptic population stays float; ``to_fixed(s1)`` is exact
 since spikes are 0/1.  ``active (B,)`` freezes vacant slots bit for bit.
+
+`decode_rollout` is the K-token form: the presynaptic LIF series is peeled
+token by token, then the synaptic layer's K steps run as ONE fleet rollout
+launch (``csrc/rollout.cu``, `engine.rollout`) at the largest tile its plan
+fits on the card (`fused.fleet_fit`).
 """
 from __future__ import annotations
 
@@ -130,3 +135,58 @@ def decode_step(params, state: dict, h, cfg: ModelConfig,
     if quant:
         new_state["w_scale"] = state["w_scale"]
     return h, new_state
+
+
+def decode_rollout(params, state: dict, h, cfg: ModelConfig,
+                   trace_decay: float = 0.8, w_clip: float = 4.0,
+                   active=None):
+    """h (B, K, D) -> (h', new_state).  K plasticity steps, ONE launch.
+
+    The multi-token form of K `decode_step` calls.  The presynaptic
+    population is feedforward (v1 and s1 depend only on the tokens), so
+    its LIF series runs first, token by token with the step's own
+    products; the synaptic layer's K steps then run as one
+    `engine.rollout` over ``NetworkState(w=(w_fast,), v=(v2,),
+    trace=(tr1, tr2))``, which on the card is one launch of the fleet
+    window kernel at the largest tile that fits (its plan kept in
+    ``fused.rollout.last_plan``; where not even one stream fits it
+    raises).  In fixed point step k draws its stochastic
+    round from the per-stream counter ``t + k``, as K steps would: the
+    int8 state equals theirs bit for bit.  ``active (B,)`` freezes vacant
+    slots."""
+    quant = cfg.adapter_quant
+    p_in, p_out = params["p_in"].float(), params["p_out"].float()
+    k_steps = h.shape[1]
+    v1, s1s = state["v1"], []
+    for k in range(k_steps):
+        v1_new, s1 = lif_step(v1, h[:, k].float() @ p_in, LIF)
+        v1 = _gate(active, v1_new, v1)
+        s1s.append(s1)
+    s1_series = torch.stack(s1s)                          # (K, B, N)
+    net = engine.NetworkState(
+        w=(state["w_fast"],), v=(state["v2"],),
+        trace=(state["tr1"], state["tr2"]),
+        t=torch.zeros((), dtype=torch.int32, device=h.device),
+        w_scale=(state["w_scale"],) if quant else ())
+    net, s2_series = engine.rollout(
+        net, [params["theta"].float()],
+        Q.to_fixed(s1_series, QUANT) if quant else s1_series,
+        params=_engine_params(cfg, trace_decay, w_clip), active=active,
+        seed=state["t"] if quant else None)
+    outs = []
+    for k in range(k_steps):
+        s2 = s2_series[k]
+        outs.append((Q.from_fixed(s2, QUANT) if quant else s2) @ p_out)
+    out = torch.stack(outs, dim=1)                        # (B, K, D)
+    if active is not None:
+        out = out * active.float()[:, None, None]
+    h = h + (params["scale"] * out).to(h.dtype)
+    step = (torch.full_like(state["t"], k_steps) if active is None
+            else (active != 0).to(torch.int32) * k_steps)
+    new_state = {"w_fast": net.w[0], "v1": v1, "v2": net.v[0],
+                 "tr1": net.trace[0], "tr2": net.trace[1],
+                 "t": state["t"] + step}
+    if quant:
+        new_state["w_scale"] = state["w_scale"]
+    return h, new_state
+

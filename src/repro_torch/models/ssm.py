@@ -10,7 +10,9 @@ The B/C groups stay (B, L, G, S): the kernel indexes group
 
 The decode cache is the SSD state (B, H, S, P) float32 and the conv window
 (B, W-1, C), O(1) per token; `decode_step` writes both IN PLACE into the
-cache tensors it is given (the JAX package returns updated copies).
+cache tensors it is given (the JAX package returns updated copies), and
+under an ``active (B,)`` slot mask leaves a vacant slot's rows as they
+were.
 
 Rounding follows the JAX package under ``jax.jit``: bfloat16 products
 round once, the conv sums in float32 and rounds once, silu rounds after
@@ -135,9 +137,11 @@ def plan_cache(cfg: ModelConfig, batch: int, n_layers: int) -> dict:
     }
 
 
-def decode_step(params, x, ssm_state, conv_state, cfg: ModelConfig):
+def decode_step(params, x, ssm_state, conv_state, cfg: ModelConfig,
+                active=None):
     """One-token recurrent step.  x (B,1,D); ssm_state (B,H,S,P) and
-    conv_state (B,W-1,C), both written in place.
+    conv_state (B,W-1,C), both written in place; under ``active (B,)`` a
+    vacant stream's rows of both stay bit for bit as they were.
     Returns (out (B,1,D), ssm_state, conv_state)."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     proj = h @ params["w_in"]
@@ -145,10 +149,14 @@ def decode_step(params, x, ssm_state, conv_state, cfg: ModelConfig):
     window = torch.cat([conv_state, xbc], dim=1)          # (B,W,C)
     conv = torch.einsum("bwc,wc->bc", window.float(),
                         params["conv_w"].float())[:, None]
-    conv_state.copy_(window[:, 1:])
+    if active is None:
+        conv_state.copy_(window[:, 1:])
+    else:
+        mask = active.to(torch.bool).reshape(-1, 1, 1)
+        conv_state.copy_(torch.where(mask, window[:, 1:], conv_state))
     xbc = silu(conv.to(x.dtype) + params["conv_b"])
     xs, dt, a, bmat, cmat = _ssd_inputs(cfg, xbc, dt_raw,
                                         params["a_log"], params["dt_bias"])
     _, y = ssd_decode_step(ssm_state, xs[:, 0], dt[:, 0], a, bmat[:, 0],
-                           cmat[:, 0])
+                           cmat[:, 0], active)
     return _out(params, y[:, None], xs, z, x, cfg), ssm_state, conv_state

@@ -19,6 +19,15 @@ Entry points:
   cache_plan / init_cache / prefill / decode_step — serving with a KV cache
                                        per attention block and an SSD state
                                        and conv window per Mamba2 block
+  decode_rollout                     — K known tokens per stream: the
+                                       backbone token by token, the adapter
+                                       once over the window
+
+The decode cache's ``index`` is a scalar for a lockstep batch, or one
+position per stream (``per_slot_index=True``) for the continuous-batching
+pool (`serving.lm.LMScheduler`), whose decode takes an ``active (B,)`` slot
+mask: a vacant slot's whole cache row (K/V, SSM and conv state, index,
+adapter state) stays bit for bit as it was.
 """
 from __future__ import annotations
 
@@ -185,13 +194,15 @@ def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
 # ---------------------------------------------------------------------------
 
 
-def cache_plan(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+def cache_plan(cfg: ModelConfig, batch: int, max_len: int,
+               per_slot_index: bool = False) -> dict:
     """The decode cache: per segment a ``(L, B, max_len, KV, HD)`` K and V
     (dense), a ``(L, B, H, S, P)`` float32 SSD state and ``(L, B, W-1, C)``
     conv window (ssm), or both for a zsuper segment: K and V per
     super-block and ``"ssm": {"ssm", "conv"}`` stacked (super-block, inner
-    block); the scalar ``index`` (positions resident, every stream in
-    lockstep) and, with the adapter, its per-stream state."""
+    block); the ``index`` (positions resident: a scalar, every stream in
+    lockstep, or ``(B,)`` with ``per_slot_index``, one length per stream)
+    and, with the adapter, its per-stream state."""
     if cfg.kv_quant:
         raise NotImplementedError(
             "the int8 KV cache (kv_quant) is not ported yet (ROADMAP.md, "
@@ -208,16 +219,19 @@ def cache_plan(cfg: ModelConfig, batch: int, max_len: int) -> dict:
             inner = ssm_mod.plan_cache(cfg, batch, cfg.ssm.attn_every - 1)
             segs[-1]["ssm"] = _stack_plan(inner, count)
     out = {"segments": segs,
-           "index": ParamDesc((), init="zeros", dtype="int32")}
+           "index": ParamDesc((batch,) if per_slot_index else (),
+                              init="zeros", dtype="int32")}
     if cfg.plastic_adapter:
         out["adapter"] = plastic.plan_cache(cfg, batch)
     return out
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               per_slot_index: bool = False):
     """The zeroed decode cache on ``device`` (None: the card)."""
     gen = torch.Generator(resolve_device(device))
-    return init_from_plan(cache_plan(cfg, batch, max_len), gen)
+    return init_from_plan(cache_plan(cfg, batch, max_len, per_slot_index),
+                          gen)
 
 
 def prefill(params, inputs, cfg: ModelConfig, max_len: int):
@@ -262,10 +276,13 @@ def _embed_ssm(seg_cache: dict, layer, state, conv_tail):
     seg_cache["conv"][layer][:, -conv_tail.shape[1]:] = conv_tail
 
 
-def _decode_backbone(params, cache, tokens, cfg: ModelConfig):
+def _decode_backbone(params, cache, tokens, cfg: ModelConfig, active=None):
     """Embed + all layers for ONE new token per stream, tokens (B,1); the
     cache is written in place.  Returns (h (B,1,D) before the final norm,
-    the new index)."""
+    the new index).  ``active (B,)`` makes a vacant slot a no-op on every
+    piece of its cache row: K/V rows write back what they held, SSM and
+    conv rows are selected, and a per-slot index holds; its hidden state
+    is computed and nothing persistent reads it."""
     index = cache["index"]
     h = params["embed"][tokens]
     shared = _shared(params, cfg)
@@ -276,19 +293,22 @@ def _decode_backbone(params, cache, tokens, cfg: ModelConfig):
             p = _layer(seg, i)
             if kind == "ssm":
                 h, _, _ = ssm_mod.decode_step(p, h, c["ssm"][i],
-                                              c["conv"][i], cfg)
+                                              c["conv"][i], cfg, active)
                 continue
             blk = shared if kind == "zsuper" else p
             o = attention.decode_update(blk["attn"], h, c["k"][i], c["v"][i],
-                                        index, cfg)
+                                        index, cfg, active)
             h = _mlp_apply(blk["mlp"], h, o, cfg)
             if kind == "zsuper":
                 inner = c["ssm"]
                 for j in range(cfg.ssm.attn_every - 1):
                     h, _, _ = ssm_mod.decode_step(
                         _layer(p["ssm"], j), h, inner["ssm"][i, j],
-                        inner["conv"][i, j], cfg)
-    return h, index + 1
+                        inner["conv"][i, j], cfg, active)
+    if index.ndim == 0 or active is None:
+        return h, index + 1
+    # per slot: a vacant slot's position holds
+    return h, index + (active != 0).to(index.dtype)
 
 
 def _head(params, h, cfg: ModelConfig):
@@ -296,15 +316,47 @@ def _head(params, h, cfg: ModelConfig):
     return h @ _head_w(params, cfg)
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig):
-    """One lockstep decode step.  tokens (B,1) int; the new token is written
-    at ``cache["index"]`` (in place).  Returns (logits (B,V), new_cache)."""
-    h, new_index = _decode_backbone(params, cache, tokens, cfg)
+def decode_step(params, cache, tokens, cfg: ModelConfig, active=None):
+    """One decode step.  tokens (B,1) int; the new token is written at
+    ``cache["index"]`` (in place; scalar for a lockstep batch, per slot
+    under the pool).  ``active (B,)`` marks resident streams: a vacant
+    slot's cache row and adapter state stay bit for bit, its logits are
+    garbage nothing reads.  Returns (logits (B,V), new_cache)."""
+    h, new_index = _decode_backbone(params, cache, tokens, cfg, active)
     new_cache = {"segments": cache["segments"], "index": new_index}
     if cfg.plastic_adapter:
         h, new_cache["adapter"] = plastic.decode_step(
-            params["adapter"], cache["adapter"], h, cfg)
+            params["adapter"], cache["adapter"], h, cfg, active=active)
     return _head(params, h, cfg)[:, 0], new_cache
+
+
+def decode_rollout(params, cache, tokens, cfg: ModelConfig, active=None):
+    """K known tokens per stream, tokens (B,K) int: teacher-forced decode
+    (the scheduler's `decode_window`, draft verification, prompt tails).
+    The backbone runs token by token (each token's attention sees the one
+    before it), writing the cache in place; the adapter sits after every
+    segment and touches only the final hidden state, so it then runs once
+    over the whole (B, K, D) window: `plastic.decode_rollout`, one fleet
+    rollout launch on the card.  The head runs per token, as a step runs
+    it.  Equal to K `decode_step` calls on the same tokens: the cache bit
+    for bit, the int8 adapter bit for bit, the float32 adapter within the
+    rollout kernel's float32 rounding (ROADMAP.md, Queue 3).
+
+    Returns (logits (B,K,V), new_cache)."""
+    index, hs = cache["index"], []
+    for k in range(tokens.shape[1]):
+        h, index = _decode_backbone(
+            params, {"segments": cache["segments"], "index": index},
+            tokens[:, k:k + 1], cfg, active)
+        hs.append(h)
+    h = torch.cat(hs, dim=1)                              # (B,K,D)
+    new_cache = {"segments": cache["segments"], "index": index}
+    if cfg.plastic_adapter:
+        h, new_cache["adapter"] = plastic.decode_rollout(
+            params["adapter"], cache["adapter"], h, cfg, active=active)
+    logits = torch.cat([_head(params, h[:, k:k + 1], cfg)
+                        for k in range(h.shape[1])], dim=1)
+    return logits, new_cache
 
 
 def n_params(cfg: ModelConfig) -> int:

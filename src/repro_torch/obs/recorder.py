@@ -22,6 +22,10 @@ recorder state in place.
 `dump_incident` is the post-mortem exit: one JSON (verdicts, streaks,
 config, registry snapshot, watchdog state) and one NPZ (the unrolled ring
 and the detector baselines) per flagged session, the JAX package's format.
+
+The LM adapter records through the same step on a one-layer view of its
+cache (`adapter_weight_norm`, `AdapterFlightRecorder` of the lockstep serve
+loop, the ``record=`` variants of `serving.lm.LMScheduler`).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from repro_torch.checkpoint import manager as _ckpt
 from repro_torch.kernels import _build
 from repro_torch.obs.health import (CHANNELS, DETECTORS, HealthConfig,
                                     HealthState, health_update, init_health)
+from repro_torch.obs.telemetry import adapter_telemetry
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -130,6 +135,27 @@ def network_weight_norm(state, quant: bool) -> torch.Tensor:
             a = a * state.w_scale[i]
         tot = a if tot is None else tot + a
     return tot.to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapterLayers:
+    """The LM adapter's cache as a one-layer fleet: what `record_step` and
+    `network_weight_norm` read of a `NetworkState` (``w`` and, in fixed
+    point, ``w_scale``)."""
+
+    w: tuple
+    w_scale: tuple = ()
+
+    @staticmethod
+    def of(adapter: dict, quant: bool) -> "AdapterLayers":
+        return AdapterLayers(w=(adapter["w_fast"],),
+                             w_scale=(adapter["w_scale"],) if quant else ())
+
+
+def adapter_weight_norm(adapter: dict, quant: bool) -> torch.Tensor:
+    """Per-slot mean |w_fast| of an LM adapter cache (``(B,) float32``, the
+    int8 grid dequantized by its per-slot scale)."""
+    return network_weight_norm(AdapterLayers.of(adapter, quant), quant)
 
 
 # ---- the fused recorded step ---------------------------------------------
@@ -315,3 +341,76 @@ def dump_incident(directory: str, *, uid: str, slot: int,
     with open(path, "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)
     return path
+
+
+# ---- the lockstep-batch recorder (launch/serve.py) --------------------------
+
+
+class AdapterFlightRecorder:
+    """Flight recorder of the lockstep serve loop (`launch.serve`).
+
+    `launch.serve` decodes a fixed batch with no scheduler in the loop, so this
+    helper owns the recorder state.  ``observe(before, after)`` per decode
+    step recovers the adapter's channels from its cache before and after
+    the step (`obs.telemetry.adapter_telemetry`) and records them with the
+    adapter's weight norm through `record_step` (one launch on the card,
+    no host sync); ``dump(directory, ...)`` writes one incident bundle per
+    flagged slot and always ``flight_summary.json``.
+
+    `qcfg`: the adapter's quant config (``models.plastic.QUANT``) for int8
+    pools, None for float32.  ``device=None`` is the card.
+    """
+
+    def __init__(self, cfg: HealthConfig, slots: int, qcfg=None,
+                 trace_decay: float = 0.8, device=None):
+        self.cfg = cfg
+        self.slots = int(slots)
+        self.qcfg = qcfg
+        self.trace_decay = trace_decay
+        self.rec = init_recorder(cfg, self.slots, device)
+        self.pos = 0
+
+    def observe(self, before: dict, after: dict, active=None) -> None:
+        """Record one decode step from the adapter cache before and after
+        it (``active (B,)`` bool, all slots when None)."""
+        dev = self.rec.ring.device
+        active = (torch.ones((self.slots,), dtype=torch.bool, device=dev)
+                  if active is None else active.to(dev, torch.bool))
+        quant = self.qcfg is not None
+        tel = adapter_telemetry(before, after, active, qcfg=self.qcfg,
+                                trace_decay=self.trace_decay)
+        record_step(self.cfg, self.rec, AdapterLayers.of(after, quant), tel,
+                    self.pos, active, quant)
+        self.pos += 1
+
+    def flagged_slots(self) -> list:
+        """Slots whose latched verdict is unhealthy (host read on demand)."""
+        flags = self.rec.health.flagged.any(dim=-1).cpu().numpy()
+        return [int(s) for s in np.nonzero(flags)[0]]
+
+    def dump(self, directory: str, uid_by_slot=None, registry=None,
+             watchdog=None) -> list:
+        """One incident bundle per flagged slot; returns the JSON paths.
+
+        Always writes ``flight_summary.json`` (steps recorded, flagged
+        slots, detector config): a missing directory means the recorder
+        never ran, an empty incident list that it ran and found nothing.
+        """
+        uid_by_slot = uid_by_slot or {}
+        flagged = self.flagged_slots()
+        os.makedirs(directory, exist_ok=True)
+        summary = {
+            "steps_recorded": self.pos,
+            "slots": self.slots,
+            "flagged_slots": flagged,
+            "channels": list(CHANNELS),
+            "detectors": list(DETECTORS),
+            "config": dataclasses.asdict(self.cfg),
+        }
+        with open(os.path.join(directory, "flight_summary.json"), "w") as f:
+            json.dump(summary, f, indent=1, sort_keys=True)
+        return [dump_incident(
+                    directory, uid=uid_by_slot.get(s, f"slot{s}"), slot=s,
+                    rec=self.rec, cfg=self.cfg, pos=self.pos,
+                    registry=registry, watchdog=watchdog)
+                for s in flagged]

@@ -23,6 +23,11 @@ frozen slot's stale membrane.
 lengths and datapaths.  Telemetry is a static variant: ``telemetry=`` is a
 Python bool that picks a kernel variant, and with it off the kernels compute
 exactly what they compute without it.
+
+`adapter_telemetry` is the LM adapter's health vector, recovered from its
+cache before and after a decode step or window in plain PyTorch (the JAX
+package computes it in XLA, not in a kernel): the LM pool's telemetry
+variants run the kernels' telemetry-off instantiations.
 """
 from __future__ import annotations
 
@@ -76,6 +81,50 @@ class FleetTelemetry:
         z = torch.zeros((batch,), dtype=torch.float32, device=device)
         return FleetTelemetry(spike_rate=z, mean_abs_dw=z, sat_frac=z,
                               occupancy=z)
+
+
+def adapter_telemetry(before: dict, after: dict, active, *, qcfg=None,
+                      trace_decay: float = 0.8,
+                      v_th: float = 1.0) -> FleetTelemetry:
+    """`FleetTelemetry` of the LM fast-weight adapter, from cache deltas.
+
+    The adapter's decode step is one fleet layer step inside the decode
+    path, so its three signals are recovered from the adapter cache (the
+    `models.plastic.plan_cache` schema) before and after it:
+
+      * spikes: the postsynaptic trace update is ``tr2' = decay * tr2 +
+        s2`` (fixed point: ``tr2' = tr2 - (tr2 >> trace_shift) + ev``), so
+        the events are ``tr2' - decay(tr2)``;
+      * |dw|: the ``w_fast`` delta (times the per-slot ``w_scale`` on the
+        int8 grid);
+      * saturation: the postsynaptic membrane ``v2`` after the step.
+
+    Everything is gated by ``active``: a frozen slot's unchanged trace
+    would otherwise show a phantom event ``(1 - decay) * tr2``.  For a
+    K-step window the caller divides spike_rate and mean_abs_dw by K (net
+    weight motion and recovered event mass over the window).
+    """
+    act = torch.as_tensor(active).to(device=after["tr2"].device,
+                                     dtype=torch.float32)
+    n = before["tr2"].shape[-1]
+    if qcfg is not None:
+        tr2_b = before["tr2"]
+        decayed = tr2_b - (tr2_b >> qcfg.trace_shift)
+        s2 = (after["tr2"] - decayed).float() / qcfg.one
+        dw = (after["w_fast"].to(torch.int32)
+              - before["w_fast"].to(torch.int32))
+        abs_dw = dw.abs().float() * before["w_scale"][:, None, None]
+        sat = after["v2"].abs() >= sat_threshold_q(v_th, qcfg)
+    else:
+        s2 = after["tr2"] - trace_decay * before["tr2"]
+        abs_dw = (after["w_fast"] - before["w_fast"]).abs()
+        sat = after["v2"].abs() >= sat_threshold(v_th)
+    spike_rate = s2.abs().mean(dim=-1).float()
+    mean_abs_dw = (abs_dw.sum(dim=(-2, -1)) / (n * n)).float()
+    sat_frac = sat.float().mean(dim=-1)
+    return FleetTelemetry(spike_rate=spike_rate * act,
+                          mean_abs_dw=mean_abs_dw * act,
+                          sat_frac=sat_frac * act, occupancy=act)
 
 
 def record_fleet_telemetry(registry, tel: FleetTelemetry,

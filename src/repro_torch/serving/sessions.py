@@ -215,7 +215,7 @@ class SessionStore:
                 # tensors cannot reach the archived snapshot
                 self._archive[uid] = (
                     _ckpt.tree_map(
-                        lambda a: torch.from_numpy(_ckpt.to_host(a)), state),
+                        lambda a: a.detach().to("cpu", copy=True), state),
                     int(step))
                 return
             self._manager(uid).save(int(step), state)

@@ -1373,3 +1373,129 @@ def test_recorder_kernel_matches_plain_on_card(wdtype, cuda_device):
     flags = kern.health.flagged.cpu()
     assert flags[stuck, 2] and flags[dead, 3] and flags[bound, 1]
     assert not kern.ring[~active].any()
+
+
+def _adapter_state(rng, quant, b, n, dev):
+    """An adapter cache of ``b`` streams at width ``n`` (the
+    `models.plastic.plan_cache` schema): int8 weights with per-slot scales
+    and step counters 2 before the int32 wrap, so a K = 4 window's seeds
+    wrap; float32 weights on a grid."""
+    if quant:
+        st = dict(w_fast=rng.integers(-40, 41, (b, n, n)).astype(np.int8),
+                  v2=rng.integers(-300, 300, (b, n)).astype(np.int32),
+                  tr1=rng.integers(0, 900, (b, n)).astype(np.int32),
+                  tr2=rng.integers(0, 900, (b, n)).astype(np.int32),
+                  w_scale=np.where(np.arange(b) % 2, 1 / 16, 1 / 32)
+                  .astype(np.float32))
+    else:
+        st = dict(w_fast=(np.round(rng.uniform(-0.5, 0.5, (b, n, n)) * 64)
+                          / 64).astype(np.float32),
+                  v2=rng.uniform(-0.5, 0.9, (b, n)).astype(np.float32),
+                  tr1=rng.uniform(0, 2, (b, n)).astype(np.float32),
+                  tr2=rng.uniform(0, 2, (b, n)).astype(np.float32))
+    st.update(v1=rng.uniform(-0.5, 0.9, (b, n)).astype(np.float32),
+              t=np.full((b,), 2 ** 31 - 2, np.int32))
+    return _on(dev, **st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", (False, True), ids=("float32", "int8"))
+def test_rollout_kernel_at_the_adapter_width_on_card(quant, cuda_device):
+    """#3 fleet through `plastic.decode_rollout` at the LM adapter's one
+    128 -> 128 layer, B = 8 pool slots, K = 4, slot 5 vacant: one launch at
+    the tile the plan picks (float32 3 streams a CTA, int8 8), against the
+    plain window on the same inputs and against 4 plain steps; int8 bit
+    for bit across the step counter's int32 wrap, float32 within 1e-4 over
+    the window."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import plastic
+    rng = np.random.default_rng(27)
+    b, n, d, k = 8, 128, 64, 4
+    cfg = get_smoke("qwen3-4b").with_(
+        d_model=d, dtype="float32", plastic_adapter=True,
+        adapter_neurons=n, adapter_quant=quant)
+    params = _on(cuda_device,
+                 p_in=rng.normal(0, 0.6, (d, n)).astype(np.float32),
+                 p_out=rng.normal(0, 0.3, (n, d)).astype(np.float32),
+                 theta=rng.normal(0, 0.02, (4, n, n)).astype(np.float32),
+                 scale=np.float32(0.5))
+    state = _adapter_state(rng, quant, b, n, cuda_device)
+    h = torch.from_numpy(rng.normal(0, 1, (b, k, d)).astype(np.float32)
+                         ).to(cuda_device)
+    active = torch.ones(b, dtype=torch.bool, device=cuda_device)
+    active[5] = False
+    launches = TF.rollout.launches
+    got_h, got = plastic.decode_rollout(params, state, h, cfg, active=active)
+    torch.cuda.synchronize()
+    assert TF.rollout.launches == launches + 1
+    assert TF.rollout.last_plan["tile"] == (8 if quant else 3)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TF, "rollout", lambda *a, block_b=None, **kw:
+                   TF.rollout_plain(*a, **kw))
+        want_h, want = plastic.decode_rollout(params, state, h, cfg,
+                                              active=active)
+        mp.setattr(TK, "fleet_step", TK.fleet_step_plain)
+        mp.setattr(TK, "fleet_step_q", TK.fleet_step_q_plain)
+        s, outs = state, []
+        for i in range(k):
+            o, s = plastic.decode_step(params, s, h[:, i:i + 1], cfg,
+                                       active=active)
+            outs.append(o)
+    for ref_h, ref in ((want_h, want), (torch.cat(outs, 1), s)):
+        for key in ref:
+            if quant and key != "v1":
+                assert torch.equal(got[key], ref[key]), key
+            else:
+                torch.testing.assert_close(got[key], ref[key], rtol=1e-4,
+                                           atol=1e-4)
+            assert torch.equal(got[key][5], state[key][5]), key
+        torch.testing.assert_close(got_h, ref_h, rtol=1e-4, atol=1e-4)
+    wrapped = 2 ** 31 - 2 + k - 2 ** 32             # int32 arithmetic
+    assert got["t"].tolist() == [2 ** 31 - 2 if i == 5 else wrapped
+                                 for i in range(b)]
+
+
+@pytest.mark.cuda
+def test_lm_pool_on_card(cuda_device):
+    """A smoke `LMScheduler` on the card with an int8 adapter: a vacant
+    slot's row stays bit-frozen over steps and a window, the window (one
+    rollout launch) equals as many steps (one fleet-step launch each) in
+    tokens and session bit for bit."""
+    from repro_torch.checkpoint import manager as TM
+    from repro_torch.models import factory
+    from repro_torch.serving import LMScheduler
+    model = factory.build("qwen3-4b", smoke=True, plastic_adapter=True,
+                          adapter_neurons=8, adapter_quant=True)
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    params["adapter"]["scale"].fill_(0.5)
+    rng = np.random.default_rng(3)
+    prompts = {u: rng.integers(0, model.cfg.vocab, n)
+               for u, n in (("a", 6), ("b", 4), ("c", 5))}
+
+    def pool():
+        s = LMScheduler(model, params, slots=3, max_len=32)
+        for u in "abc":
+            s.admit_prompt(u, prompts[u])
+        s.evict("b")
+        return s
+
+    a, b = pool(), pool()
+    frozen = a._take(a.pool, 1)
+    first = {u: a.pending(u) for u in "ac"}
+    steps = TK.fleet_step_q.launches
+    seq = [a.step() for _ in range(3)]
+    assert TK.fleet_step_q.launches == steps + 3
+    windows = {u: np.array([first[u]] + [t[u] for t in seq[:-1]])
+               for u in "ac"}
+    launches = TF.rollout.launches
+    out = b.decode_window(windows)
+    assert TF.rollout.launches == launches + 1
+    for u in "ac":
+        assert out[u].argmax(-1).tolist() == [t[u] for t in seq]
+        for x, y in zip(TM.flatten(a.session_view(u))[1],
+                        TM.flatten(b.session_view(u))[1]):
+            assert torch.equal(x, y)
+    for s in (a, b):
+        for x, y in zip(TM.flatten(frozen)[1],
+                        TM.flatten(s._take(s.pool, 1))[1]):
+            assert torch.equal(x, y)
