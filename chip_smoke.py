@@ -254,6 +254,30 @@ Phases, each fatal on failure:
      scans per admission); the CPU test's compile-audit sequence on a
      smoke pool (its pinned dict); and in a fresh process (``--only
      lm-pool-profile``) a `torch.profiler` of 4 pool steps.
+ 15. the MoE layout on deepseek-moe-16b at full width (a dense layer, then
+     27 layers of attention and 64 routed experts, top-6, beside 2 shared
+     ones; 16.38 B parameters): #7 at its prefill shape (B = 4, S = 2048,
+     16 query over 16 KV heads of 128) against its plain version in bf16
+     and float32, timed beside SDPA and its bound; 4 x 2048 + 32 tokens
+     served at full depth with the adapter in float32 then int8 (28
+     attention launches a prefill, one fleet step a step, silu twice a MoE
+     layer a forward, every #7 launch of the first prefill held on its
+     inputs, the bf16 comparison with the plain path as statistics: the
+     logit gap, greedy agreement and the share of (token, k) expert
+     assignments that agree); 2 layers (the dense one and a MoE one) in
+     float32 against the plain path within 1e-4 of the largest logit, the
+     same tokens and the same expert choices; an 8-slot `LMScheduler`
+     (int8 adapter, one slot vacant): at the default capacity the vacant
+     slot's pending token moves no active stream's logits or session, at
+     ``capacity_factor = 64`` a probe under churn equals the probe alone
+     bit for bit; the serve CLI at its defaults with each launch held;
+     and in a fresh process (``--only moe-profile``) a `torch.profiler` of
+     a prefill and 4 decode steps with the routing, dispatch, experts and
+     combine each in a range.
+
+The LM phases (8, 9, 11, 14, 15) and their ``--only`` parts arm
+`faulthandler` with a limit of a few minutes: a stall prints every
+thread's stack and exits with code 1 long before the script's limit.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -274,12 +298,14 @@ prefill of each full-width LM), ``rule-search`` (phase 12) and
 ``health`` (phase 13's timings: the recorder's time, the profiled
 windows and the recorded windows' walls with the kernel and its plain
 version), ``lm-pool`` (phase 14) and ``lm-pool-profile`` (its fresh
-process's profile of 4 pool steps).
+process's profile of 4 pool steps), ``moe`` (phase 15) and
+``moe-profile`` (its fresh process's profile).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
@@ -940,7 +966,8 @@ def profile_window(fn, steps):
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0 and not annotated(e)]
-    ranges = {e.key: {"host_ms": e.cpu_time_total / 1e3, "count": e.count}
+    ranges = {e.key: {"host_ms": e.cpu_time_total / 1e3, "count": e.count,
+                      "device_ms": e.device_time_total / 1e3}
               for e in events if annotated(e)
               and e.device_type == torch.autograd.DeviceType.CPU}
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -952,7 +979,7 @@ def profile_window(fn, steps):
            "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
                     "count": e.count} for e in top]}
     if ranges:
-        out["annotated_host_ms"] = ranges
+        out["annotated_ranges"] = ranges
     log(f"    {steps} steps in {wall_ms:.1f} ms wall, device busy "
         f"{busy_ms:.2f} ms ({launches / steps:.0f} kernel launches per "
         f"step)" if busy_ms else
@@ -960,7 +987,8 @@ def profile_window(fn, steps):
     for t in out["top"]:
         log(f"      {t['ms']:8.3f} ms  x{t['count']:<5d} {t['name']}")
     for name, r in sorted(ranges.items()):
-        log(f"      host {r['host_ms']:8.3f} ms  x{r['count']:<5d} {name}")
+        log(f"      host {r['host_ms']:8.3f} ms  x{r['count']:<5d} {name} "
+            f"(its kernels {r['device_ms']:.3f} ms on the device)")
     return out
 
 
@@ -2036,8 +2064,12 @@ def silu_cases():
     activation (bf16), and the output gate on z cut from the input
     projection (rows at the projection's stride) times y into float32:
     bf16 y at prefill, float32 y at decode; and the float32 models of
-    phases 8b, 9b and 11b."""
-    from repro_torch.models import ssm as MS
+    phases 8b, 9b and 11b.  In deepseek-moe-16b (phase 15) the dense
+    layer's and the shared experts' gates, and the routed experts' on
+    their ``(E, cap, d_expert)`` GEMM outputs: at prefill (cap 960), at
+    decode (cap 1) and at a pool admission of 512 tokens at
+    ``capacity_factor = num_experts`` (cap 3072)."""
+    from repro_torch.models import moe as MoE, ssm as MS
     cases = []
     for arch in ("qwen3-4b", "mamba2-1.3b", "zamba2-7b"):
         cfg = lm_config(arch)[0]
@@ -2059,6 +2091,21 @@ def silu_cases():
                        "float32", None, "float32", None),
                       (f"{arch} gate float32", (LM_BATCH, LM_PROMPT,
                        d_inner), "float32", "float32", "float32", proj)]
+    cfg = lm_config(MOE_ARCH)[0]
+    moe = cfg.moe
+    e, f = moe.num_experts, moe.d_expert
+    raised = cfg.with_(moe=dataclasses.replace(moe, capacity_factor=e))
+    for dt in ("bfloat16", "float32"):
+        cases += [(f"moe dense_ff {dt}", (LM_BATCH, LM_PROMPT,
+                   moe.first_dense_ff), dt, dt, dt, None),
+                  (f"moe shared {dt}", (LM_BATCH, LM_PROMPT,
+                   moe.n_shared * f), dt, dt, dt, None),
+                  (f"moe routed prefill {dt}", (e, MoE.capacity(
+                      cfg, LM_BATCH * LM_PROMPT), f), dt, dt, dt, None)]
+    for what, c, tokens in (("decode", cfg, POOL_SLOTS),
+                            ("pool admission", raised, max(POOL_PROMPTS))):
+        cases.append((f"moe routed {what}", (e, MoE.capacity(c, tokens), f),
+                      "bfloat16", "bfloat16", "bfloat16", None))
     return cases
 
 
@@ -2265,11 +2312,15 @@ def lm_config(arch):
 
 def silu_per_forward(cfg):
     """silu launches in one forward (a prefill or a decode step): one per
-    MLP, two per Mamba2 block (the conv activation and the output gate)."""
+    MLP, two per Mamba2 block (the conv activation and the output gate),
+    one per MoE FFN's routed experts and one more for its shared experts
+    if it has any."""
     from repro_torch.models.transformer import segments
     n = 0
+    moe = 1 + bool(cfg.moe is not None and cfg.moe.n_shared)
     for kind, count in segments(cfg):
-        n += {"dense": 1, "ssm": 2}.get(kind, 0) * count
+        n += {"dense": 1, "dense_ff": 1, "ssm": 2, "moe": moe}.get(
+            kind, 0) * count
         if kind == "zsuper":
             n += count * (1 + 2 * (cfg.ssm.attn_every - 1))
     return n
@@ -2279,6 +2330,32 @@ def rel_err(got, want):
     """Largest |got - want| over the largest |want| across steps."""
     return max(float((g - w).abs().max()) for g, w in zip(got, want)) / \
         max(float(w.abs().max()) for w in want)
+
+
+@contextlib.contextmanager
+def expert_choices(into):
+    """Append each MoE layer's expert choices ``(G, Tg, K)`` to ``into``
+    as `moe.route` makes them (nothing else of the call is kept)."""
+    from repro_torch.models import moe as MoE
+    real = MoE.route
+
+    def route(*a, **kw):
+        r = real(*a, **kw)
+        into.append(r.expert_idx)
+        return r
+
+    with mock.patch.object(MoE, "route", route):
+        yield into
+
+
+def assignment_agreement(got, want):
+    """The share of (token, k) expert assignments that agree between two
+    runs' `expert_choices`, call by call."""
+    require(len(got) == len(want) and all(
+        g.shape == w.shape for g, w in zip(got, want)),
+        "the two runs made different MoE calls")
+    same = sum(int((g == w).sum()) for g, w in zip(got, want))
+    return same / sum(g.numel() for g in got)
 
 
 def replay_adapter(cfg, params, hs, dev):
@@ -2294,18 +2371,25 @@ def replay_adapter(cfg, params, hs, dev):
     return state
 
 
-def lm_path(dev, counters, every, results, arch="qwen3-4b"):
+def lm_path(dev, counters, every, results, arch="qwen3-4b", profile=True):
     """Serve 4 x 2048-token prompts with 32 greedy tokens on random-init
     ``arch`` at full width and depth (qwen3-4b: 36 attention layers;
     mamba2-1.3b: 48 SSM layers; zamba2-7b: 9 super-blocks, each the shared
-    attention block and 8 SSM layers; bf16), the plastic adapter in float32
-    then int8, through `launch.serve.generate`: each datapath once to warm up,
-    then once timed.  Every counter is set to 0 just before the timed run
-    and read just after it."""
+    attention block and 8 SSM layers; deepseek-moe-16b: a dense layer and
+    27 MoE layers; bf16), the plastic adapter in float32 then int8, through
+    `launch.serve.generate`: each datapath once to warm up, then once
+    timed.  Every counter is set to 0 just before the timed run and read
+    just after it.  For a MoE model every attention launch of the first
+    prefill is held against its plain version on its own inputs, and the
+    full-depth comparison with the plain path also reports the share of
+    (token, k) expert assignments that agree.  ``profile``: profile a
+    prefill and 8 decode steps in this process."""
     import torch
+    from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.plasticity import kernel as K
     from repro_torch.launch import serve
-    from repro_torch.models import factory, layers as ML, plastic
+    from repro_torch.models import attention as MA, factory, layers as ML, \
+        plastic
     cfg, mixers = lm_config(arch)
     cfg = cfg.with_(plastic_adapter=True, adapter_neurons=128)
     model = factory.build(cfg)
@@ -2322,8 +2406,18 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b"):
         mode = "int8" if quant else "float32"
         qcfg = cfg.with_(adapter_quant=quant)
         step = K.fleet_step_q if quant else K.fleet_step
-        serve.generate(qcfg, params, prompts, LM_PROMPT + LM_GEN, LM_GEN)
+        attns = []
+        with (recording(MA, "attn_op", attns) if cfg.moe is not None
+              and not quant else contextlib.nullcontext()):
+            serve.generate(qcfg, params, prompts, LM_PROMPT + LM_GEN, LM_GEN)
         torch.cuda.synchronize()
+        if attns:
+            # the first prefill's attention launches, each on its inputs
+            replay_launches(attns, TA.flash_attention_plain,
+                            "flash_attention", results, f"{arch} prefill",
+                            False, ATTN_TOL["bfloat16"])
+            out["prefill_attention_held"] = len(attns)
+            del attns
         steps = []
         for c in every:
             c.launches = 0
@@ -2386,11 +2480,14 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b"):
     # for the layouts with SSM blocks also two plain paths that differ only
     # in the SSD chunk length, i.e. in float32 summation order: how far bf16
     # rounding alone moves this random-init model
-    got, toks = serve_logits(cfg, params, prompts, LM_GEN)
+    got_routes, want_routes = [], []
+    with expert_choices(got_routes):
+        got, toks = serve_logits(cfg, params, prompts, LM_GEN)
     with contextlib.ExitStack() as stack:
         for p in plain_kernels():
             stack.enter_context(p)
-        want, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
+        with expert_choices(want_routes):
+            want, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
         if cfg.ssm is not None:
             from repro_torch.kernels.ssd import kernel as SK
             from repro_torch.models import ssm as MS
@@ -2412,7 +2509,18 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b"):
         log(f"  bf16, {cfg.n_layers} layers, {what}: max rel logit diff "
             f"{err:.3g} (prefill logits {err0:.3g}), greedy agreement "
             f"{agree:.3f}")
-    del got, want, pairs
+    if got_routes:
+        share = assignment_agreement(got_routes, want_routes)
+        out["bf16_full_depth"]["kernel vs plain path"][
+            "assignment_agreement"] = share
+        log(f"  bf16, {cfg.n_layers} layers, kernel vs plain path: "
+            f"{share:.4f} of the (token, k) expert assignments agree over "
+            f"{len(got_routes)} MoE calls")
+    del got, want, pairs, got_routes, want_routes
+    if not profile:
+        del params
+        torch.cuda.empty_cache()
+        return out, total
     # profile one prefill, then 8 decode steps after it
     from repro_torch.launch.steps import make_decode_step, make_prefill
     prefill = make_prefill(cfg, LM_PROMPT + 8)
@@ -2449,7 +2557,8 @@ def shallow(cfg):
 def lm_depth2_matches(dev, arch="qwen3-4b"):
     """Full width, `shallow` depth, float32: prefill and decode logits
     through the kernels equal the plain path's within 1e-4 of the largest
-    logit, and the greedy tokens are the same."""
+    logit, and the greedy tokens are the same; in a MoE layer so are the
+    expert choices of every token."""
     import torch
     from repro_torch.models import factory
     for quant in (False, True):
@@ -2460,15 +2569,28 @@ def lm_depth2_matches(dev, arch="qwen3-4b"):
         params = factory.build(cfg).init(gen)
         prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
                                 generator=gen, device=dev)
-        got, toks = serve_logits(cfg, params, prompts, LM_GEN)
+        got_routes, want_routes = [], []
+        with expert_choices(got_routes):
+            got, toks = serve_logits(cfg, params, prompts, LM_GEN)
         with contextlib.ExitStack() as stack:
             for p in plain_kernels():
                 stack.enter_context(p)
-            want, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
+            with expert_choices(want_routes):
+                want, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
         err = rel_err(got, want)
         same = all(torch.equal(g.argmax(-1), w.argmax(-1))
                    for g, w in zip(got, want))
         mode = "int8" if quant else "float32"
+        if cfg.moe is not None:
+            share = assignment_agreement(got_routes, want_routes)
+            require(share == 1.0,
+                    f"{cfg.n_layers}-layer float32 ({mode} adapter): "
+                    f"{share:.6f} of the expert assignments agree with the "
+                    f"plain path's, want all")
+            log(f"  {arch}, {cfg.n_layers} layers, float32, {mode} adapter: "
+                f"every expert choice of {len(got_routes)} MoE calls equals "
+                f"the plain path's")
+        del got_routes, want_routes
         require(err <= 1e-4 and same,
                 f"{cfg.n_layers}-layer float32 ({mode} adapter): kernel path "
                 f"differs from the plain path (max rel logit diff {err:.3g}, "
@@ -5593,6 +5715,328 @@ def lm_pool(dev, results, lm=None):
     return out
 
 
+# ---- phase 15: the MoE layout on deepseek-moe-16b ---------------------------
+
+MOE_ARCH = "deepseek-moe-16b"
+MOE_ATTN = (LM_BATCH, 2048, 16, 16, 128)       # B, S, H, HKV, D at deepseek
+MOE_VACANT_STEPS = 4            # steps of each default-capacity pool
+MOE_CHURN_STEPS = 24            # steps of the probe, alone and under churn
+MOE_RANGES = ("route", "dispatch", "experts", "combine")
+
+
+def moe_attention(dev, results):
+    """(a) #7 at deepseek-moe-16b's prefill shape (B = 4, S = 2048, 16
+    query over 16 KV heads of 128) against its plain version, bfloat16 and
+    float32, within phase 2c's tolerances; the bf16 kernel timed (L2
+    flushed) beside its plain version, `scaled_dot_product_attention` and
+    its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import kernel as TA
+    gen = torch.Generator(dev).manual_seed(SEED + 31)
+    b, s, h, hkv, d = MOE_ATTN
+    out = {"shape": dict(zip(("B", "S", "H", "HKV", "D"), MOE_ATTN))}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        rtol, atol = ATTN_TOL[dname]
+        q, k, v = attention_inputs(gen, b, s, s, h, hkv, d, dtype, dev)
+        got = TA.flash_attention(q, k, v)
+        want = TA.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        results["flash_attention"]["max_abs_err"] = max(
+            results["flash_attention"]["max_abs_err"], err)
+        require(got.dtype == dtype and got.shape == q.shape
+                and torch.allclose(got.float(), want.float(), rtol=rtol,
+                                   atol=atol),
+                f"flash_attention {dname} at {MOE_ARCH}'s prefill shape: max "
+                f"err {err} outside rtol {rtol} atol {atol}")
+        out[f"{dname}_max_abs_err"] = err
+        log(f"  flash_attention  {dname:8s} {MOE_ARCH} B={b} S={s} "
+            f"H={h}/{hkv} D={d}: max |err| {err:.3g}")
+        if dtype == torch.bfloat16:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            ms = device_ms(lambda: TA.flash_attention(q, k, v))
+            plain = device_ms(lambda: TA.flash_attention_plain(q, k, v),
+                              reps=5)
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+            bms, kind, tb, to = attention_bound(b, s, s, h, hkv, d, 2)
+            out.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                       bound_by=kind,
+                       tflops=to * BF16_OPS_PER_S / 1e3 / ms / 1e9)
+            log(f"  flash_attention bf16 {MOE_ARCH}: {ms:.4f} ms (plain "
+                f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms by "
+                f"{kind}), {out['tflops']:.1f} TFLOP/s, {ms / lib:.2f}x SDPA, "
+                f"{ms / bms:.2f}x the bound")
+            del qt, kt, vt
+        del q, k, v, got, want
+    results["flash_attention"]["moe_shape"] = out
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_pool(dev, results):
+    """(d) An `LMScheduler` on full-width deepseek-moe-16b, 8 slots of 1024
+    positions, one vacant, int8 adapter.  At the default capacity (one row
+    an expert at decode) slot 0 is vacant and two pools differ only in its
+    pending token: over 4 steps the 7 active streams' logits, tokens and
+    sessions are bit for bit equal and the vacant row frozen.  At
+    ``capacity_factor = num_experts`` the probe under churn (2 of 6
+    residents replaced every 4 of 24 steps, slot 7 vacant) gives the same
+    tokens as the probe alone and the same session bit for bit.  The
+    attention launches (28 an admission) and fleet steps (one a step) are
+    counted; admission and step p50 on the host clock."""
+    import torch
+    from repro_torch.checkpoint import manager as TM
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.plasticity import kernel as K
+    from repro_torch.models import factory, moe as MoE
+    from repro_torch.serving import LMScheduler
+    model, params = pool_model(dev, MOE_ARCH)
+    model = factory.build(model.cfg.with_(adapter_quant=True))
+    cfg = model.cfg
+    prompts = pool_prompts(cfg.vocab, dev)
+    users = [f"u{i}" for i in range(1, POOL_USERS)]
+    timer, out = PoolTimer(), {}
+    require(MoE.capacity(cfg, POOL_SLOTS) == 1,
+            "deepseek-moe-16b's decode capacity is not 1")
+
+    def vacant_run(tok):
+        s = LMScheduler(model, params, POOL_SLOTS, POOL_MAX_LEN)
+        for u in ["probe"] + users[:POOL_SLOTS - 1]:
+            timer("admit", s.admit_prompt, u, prompts[u])
+        s.evict("probe")
+        s.pool["tok"][0] = tok
+        frozen = s._take(s.pool, 0)
+        seen, real = [], model.decode_step
+
+        def decode_step(*a, **kw):
+            logits, cache = real(*a, **kw)
+            seen.append(logits[1:].clone())
+            return logits, cache
+
+        with mock.patch.object(model, "decode_step", decode_step):
+            toks = [timer("step", s.step) for _ in range(MOE_VACANT_STEPS)]
+        for x, y in zip(TM.flatten(frozen)[1],
+                        TM.flatten(s._take(s.pool, 0))[1]):
+            require(torch.equal(x, y), "the vacant slot's row moved")
+        sessions = {u: s.session_view(u) for u in s.user_slot}
+        del s
+        return seen, toks, sessions
+
+    for c in (TA.flash_attention, K.fleet_step_q):
+        c.launches = 0
+    base = vacant_run(0)
+    other = vacant_run(cfg.vocab - 1)
+    n_admit = 2 * POOL_SLOTS
+    require(TA.flash_attention.launches == n_admit * cfg.n_layers
+            and K.fleet_step_q.launches == 2 * MOE_VACANT_STEPS,
+            f"default-capacity pools: {TA.flash_attention.launches} "
+            f"attention launches for {n_admit} admissions, "
+            f"{K.fleet_step_q.launches} fleet steps for "
+            f"{2 * MOE_VACANT_STEPS} steps")
+    require(base[1] == other[1] and all(
+        torch.equal(a, b) for a, b in zip(base[0], other[0])),
+        "the vacant slot's pending token moved an active stream's logits")
+    for u, sess in base[2].items():
+        require(first_diff(sess, other[2][u]) is None,
+                f"the vacant slot's pending token moved {u}'s session "
+                f"(first at {first_diff(sess, other[2][u])})")
+    log(f"  default capacity (1 row an expert at decode): {POOL_SLOTS - 1} "
+        f"streams, slot 0 vacant holding token 0 or {cfg.vocab - 1}: the "
+        f"active logits, tokens and sessions bit for bit over "
+        f"{MOE_VACANT_STEPS} steps, the vacant row frozen")
+    out["default_capacity"] = dict(
+        admit_ms_p50=timer.p50_ms("admit"), step_ms_p50=timer.p50_ms("step"))
+    del base, other
+
+    raised = factory.build(cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts))))
+    ctimer = PoolTimer()
+    alone = LMScheduler(raised, params, POOL_SLOTS, POOL_MAX_LEN)
+    alone.admit_prompt("probe", prompts["probe"])
+    a_toks = [alone.step()["probe"] for _ in range(MOE_CHURN_STEPS)]
+    a_sess = alone.session_view("probe")
+    del alone
+    c = LMScheduler(raised, params, POOL_SLOTS, POOL_MAX_LEN)
+    ring = iter(users)
+    ctimer("admit", c.admit_prompt, "probe", prompts["probe"])
+    for _ in range(POOL_RESIDENTS):
+        u = next(ring)
+        ctimer("admit", c.admit_prompt, u, prompts[u])
+    vacant = c._take(c.pool, POOL_SLOTS - 1)
+    c_toks = []
+    for t in range(MOE_CHURN_STEPS):
+        if t and t % POOL_CHURN_EVERY == 0:
+            for _ in range(2):
+                lru = min((s for u, s in c.user_slot.items()
+                           if u != "probe"), key=lambda s: c._admit_seq[s])
+                c.evict(c.slot_user[lru])
+                u = next(ring)
+                ctimer("admit", c.admit_prompt, u, prompts[u])
+        c_toks.append(ctimer("step", c.step)["probe"])
+    require(c_toks == a_toks,
+            "capacity_factor = num_experts: the probe's tokens under churn "
+            "differ from the probe alone")
+    diff = first_diff(c.session_view("probe"), a_sess)
+    require(diff is None, f"capacity_factor = num_experts: the probe's "
+            f"session under churn differs from the probe alone at {diff}")
+    require(first_diff(vacant, c._take(c.pool, POOL_SLOTS - 1)) is None,
+            "the churned pool's vacant slot moved")
+    log(f"  capacity_factor = {cfg.moe.num_experts}: the probe beside 6 "
+        f"residents, 2 replaced every {POOL_CHURN_EVERY} of "
+        f"{MOE_CHURN_STEPS} steps, equals the probe alone: tokens and "
+        f"session bit for bit; the vacant slot frozen")
+    out["raised_capacity"] = dict(
+        admit_ms_p50=ctimer.p50_ms("admit"),
+        step_ms_p50=ctimer.p50_ms("step"))
+    smi = nvidia_smi()
+    for what, r in out.items():
+        log(f"  moe pool, {what} ({smi}): admission p50 "
+            f"{r['admit_ms_p50']:.1f} ms, step p50 {r['step_ms_p50']:.1f} ms "
+            f"at B = {POOL_SLOTS}")
+    del c, vacant, a_sess, params, model, raised
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """`moe.route`, `dispatch`, `experts` and `combine` each inside a
+    `torch.profiler.record_function` range ``moe.<name>``."""
+    from torch.profiler import record_function
+    from repro_torch.models import moe as MoE
+    with contextlib.ExitStack() as stack:
+        for name in MOE_RANGES:
+            real = getattr(MoE, name)
+
+            def ranged(*a, _real=real, _name=name, **kw):
+                with record_function(f"moe.{_name}"):
+                    return _real(*a, **kw)
+            stack.enter_context(mock.patch.object(MoE, name, ranged))
+        yield
+
+
+def moe_split(prof):
+    """Device ms of each MoE range in a `profile_window` report and its
+    share of the device's busy time."""
+    ranges = prof.get("annotated_ranges", {})
+    busy = prof["device_busy_ms"]
+    out = {}
+    for name in MOE_RANGES:
+        ms = ranges.get(f"moe.{name}", {}).get("device_ms", 0.0)
+        out[name] = dict(device_ms=ms, share=ms / busy if busy else None)
+    return out
+
+
+def moe_profile(dev):
+    """``--only moe-profile``: a fresh process's `torch.profiler` of one
+    prefill of 4 x 2048 tokens and 4 decode steps after it (after one
+    untimed prefill and step) of full-width deepseek-moe-16b, float32
+    adapter: idle share, device ops a step, and the device time of the
+    routing, the dispatch, the experts (their GEMMs and silu) and the
+    combine, each beside the busy time."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill
+    from repro_torch.models import factory
+    cfg = lm_config(MOE_ARCH)[0].with_(plastic_adapter=True,
+                                        adapter_neurons=128)
+    model = factory.build(cfg)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    params = model.init(gen)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    prefill = make_prefill(cfg, LM_PROMPT + 8)
+    decode = make_decode_step(cfg)
+    logits, cache = prefill(params, prompts)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    decode(params, cache, tok)
+    del cache
+    made, out = [], {}
+    with moe_ranges():
+        log("  one prefill of 4 x 2048 tokens:")
+        out["prefill"] = profile_window(
+            lambda: made.append(prefill(params, prompts)), 1)
+        _, cache = made.pop()
+
+        def four():
+            nonlocal cache
+            for _ in range(4):
+                _, cache = decode(params, cache, tok)
+
+        log("  4 decode steps, float32 adapter:")
+        out["decode"] = profile_window(four, 4)
+    for what in ("prefill", "decode"):
+        out[what]["moe"] = split = moe_split(out[what])
+        log(f"  {what}: " + ", ".join(
+            f"{n} {r['device_ms']:.3f} ms"
+            + (f" ({r['share']:.3f} of busy)" if r["share"] is not None
+               else "") for n, r in split.items()))
+    return out
+
+
+def moe_profiles(work):
+    """``--only moe-profile`` in a fresh process: its report."""
+    report = work / "only_moe_profile.json"
+    report.unlink(missing_ok=True)
+    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--only", "moe-profile", "--out", str(report)],
+                       capture_output=True, text=True, timeout=300)
+    for line in p.stdout.splitlines():
+        if line.startswith("    ") or line.startswith("  prefill") or \
+                line.startswith("  decode"):
+            log(line)
+    require(p.returncode == 0 and report.exists(),
+            f"--only moe-profile exited {p.returncode}: {p.stderr[-2000:]}")
+    return json.loads(report.read_text())["moe-profile"]
+
+
+def moe_path(dev, results, counters, every):
+    """Phase 15: deepseek-moe-16b at full width.  (a) #7 at its prefill
+    shape; (b) lockstep serving at full depth (`lm_path`: 4 x 2048 + 32,
+    float32 then int8 adapter, exact launch counts, the first prefill's #7
+    launches on their inputs, the bf16 comparison with the plain path as
+    statistics); (c) 2 layers (the dense one and a MoE one) in float32
+    against the plain path (`lm_depth2_matches`: 1e-4 of the largest
+    logit, the same tokens and expert choices); (d) the pool's two
+    contracts (`moe_pool`); (e) the serve CLI at its defaults; (f) a fresh
+    process's profile (`moe_profile`).  Returns (report, the timed
+    lockstep runs' launches)."""
+    import torch
+    out = {"attention": moe_attention(dev, results)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lockstep"], launches = lm_path(dev, counters, every, results,
+                                        MOE_ARCH, profile=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_depth2_matches(dev, MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["pool"] = moe_pool(dev, results)
+    out["serve_cli_default"] = serve_cli_default(results, MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke_moe"
+    work.mkdir(parents=True, exist_ok=True)
+    out["profile"] = prof = moe_profiles(work)
+    smi = nvidia_smi()
+    for mode in ("float32", "int8"):
+        r = out["lockstep"][mode]
+        log(f"  {MOE_ARCH} serve {mode} ({smi}): prefill "
+            f"{r['prefill_ms']:.1f} ms, decode p50 {r['decode_ms_p50']:.2f} "
+            f"ms, {r['tokens_per_s']:.1f} tokens/s")
+    for what in ("prefill", "decode"):
+        p = prof[what]
+        if p.get("idle_share") is not None:
+            log(f"  {MOE_ARCH} profile ({smi}), {what}: idle share "
+                f"{p['idle_share']:.3f}, {p['kernel_launches_per_step']:.0f} "
+                f"device ops a step")
+    return out, launches
+
+
 def nvidia_smi():
     try:
         p = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5636,12 +6080,33 @@ def only_lm_pool(dev):
     return lm_pool(dev, results)
 
 
+def only_moe(dev):
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.plasticity import kernel as K
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.models import layers as ML
+    counters = (TA.flash_attention, SK.ssd_scan, ML.silu, K.fleet_step,
+                K.fleet_step_q)
+    results = {c.__name__: {"max_abs_err": 0.0} for c in counters}
+    out, launches = moe_path(dev, results, counters, counters)
+    out["launches"] = launches
+    out["max_abs_err"] = {k: v["max_abs_err"] for k, v in results.items()}
+    return out
+
+
 # ``--only``'s parts: each runs one A/B measurement alone
 ONLY = {"fleet-steps": only_fleet_steps, "shared-steps": only_shared_steps,
         "lif-forward": only_lif_forward, "attention": only_attention,
         "lm-prefill": profile_lm_prefills, "rule-search": only_rule_search,
         "health": only_health, "lm-pool": only_lm_pool,
-        "lm-pool-profile": lm_pool_profile}
+        "lm-pool-profile": lm_pool_profile, "moe": only_moe,
+        "moe-profile": moe_profile}
+# seconds after which a stalled LM phase (or ``--only`` part) prints every
+# thread's stack and exits non-zero (`faulthandler`), well before the
+# script's 1200 s
+STALL_LIMITS = {"8": 300, "9": 300, "11": 300, "14": 240, "15": 240,
+                "--only lm-pool": 240, "--only lm-pool-profile": 150,
+                "--only moe": 240, "--only moe-profile": 150}
 
 
 def main() -> int:
@@ -5671,12 +6136,23 @@ def main() -> int:
 
     @contextlib.contextmanager
     def phase(title):
-        """Log the phase's title, then its seconds when it ends."""
+        """Log the phase's title, then its seconds when it ends.  An LM
+        phase (`STALL_LIMITS`) that runs past its limit dumps every
+        thread's stack to stderr and exits with code 1."""
         log(title)
+        key = title.split(":")[0]
+        limit = STALL_LIMITS.get(key.replace("phase ", ""),
+                                 STALL_LIMITS.get(key))
         t0 = time.perf_counter()
-        yield
-        seconds[title.split(":")[0]] = dt = time.perf_counter() - t0
-        log(f"  ({title.split(':')[0]}: {dt:.1f} s)")
+        if limit:
+            faulthandler.dump_traceback_later(limit, exit=True)
+        try:
+            yield
+        finally:
+            if limit:
+                faulthandler.cancel_dump_traceback_later()
+        seconds[key] = dt = time.perf_counter() - t0
+        log(f"  ({key}: {dt:.1f} s)")
 
     with phase("phase 1: build"):
         info = _build.build_all()
@@ -5854,6 +6330,17 @@ def main() -> int:
                f"zamba2-7b cut"):
         pool = lm_pool(dev, results, lm)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"phase 15: the MoE layout, {MOE_ARCH} at full width (a "
+               f"dense layer and 27 MoE layers of 64 experts, top-6), "
+               f"lockstep B = 4 and in a {POOL_SLOTS}-slot pool"):
+        moe, lm_launches[MOE_ARCH] = moe_path(dev, results, lm_counters,
+                                              every)
+    for name in ("flash_attention", "silu"):
+        results[name]["launches_by_path"][MOE_ARCH] = \
+            lm_launches[MOE_ARCH][name]
+
     # #3 fleet's launches in each path that ran it; `launches` stays the
     # controller's (phase 4)
     results["rollout"]["launches_by_path"] = {
@@ -5894,7 +6381,7 @@ def main() -> int:
               "lm_path": lm, "lm_launches": lm_launches,
               "serve_path": served, "serve_launches": serve_launches,
               "rule_search": search, "rule_search_launches": search_launches,
-              "health_path": health, "lm_pool": pool,
+              "health_path": health, "lm_pool": pool, "moe_path": moe,
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
               "shared_step_launches": shared_launches,

@@ -9,10 +9,11 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["qwen3-4b", "mamba2-1.3b", "zamba2-7b", "firefly-snn"]
+ARCHS = ["qwen3-4b", "mamba2-1.3b", "zamba2-7b", "deepseek-moe-16b",
+         "grok-1-314b", "firefly-snn"]
 # the JAX package's other LM archs, in ROADMAP order
-PENDING = ["deepseek-moe-16b", "grok-1-314b", "qwen2-72b", "internlm2-20b",
-           "qwen1.5-32b", "musicgen-medium", "pixtral-12b"]
+PENDING = ["qwen2-72b", "internlm2-20b", "qwen1.5-32b", "musicgen-medium",
+           "pixtral-12b"]
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -1,21 +1,24 @@
 """Batched serving: prefill + lockstep greedy decode with a KV cache
-(``--arch qwen3-4b``), an SSD state and conv window per layer
-(``--arch mamba2-1.3b``) or both (``--arch zamba2-7b``: a KV cache per
-super-block's shared attention block, an SSD state and conv window per
-Mamba2 block), optionally with the FireFly-P plastic adapter (one online
-plasticity step per generated token).
+(``--arch qwen3-4b``; ``--arch deepseek-moe-16b``, and ``--arch
+grok-1-314b --smoke``, whose FFNs are routed experts), an SSD state and
+conv window per layer (``--arch mamba2-1.3b``) or both (``--arch
+zamba2-7b``: a KV cache per super-block's shared attention block, an SSD
+state and conv window per Mamba2 block), optionally with the FireFly-P
+plastic adapter (one online plasticity step per generated token).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --smoke --batch 4 --prompt-len 32 --gen 16 --plastic --device cpu
 
 On a CUDA device every prefill attention launches the flash-attention
-kernel, every prefill SSM block the SSD-scan kernel, every MLP and SSM
-block of every step the silu kernel, and every decode step with
+kernel, every prefill SSM block the SSD-scan kernel, every MLP, MoE FFN
+(its routed experts, and its shared experts if any) and SSM block of
+every step the silu kernel, and every decode step with
 ``--plastic`` the fleet-step kernel (``--adapter-quant``: its fixed-point
 twin); on the CPU the same code runs the kernels' plain
 versions.  Weights are random, drawn from
 ``--seed``.  Prints one JSON object with the decode latencies, the
-throughput and the kernel launches of the run.
+throughput, the parameter counts (all, and those a token touches) and the
+kernel launches of the run.
 
 With ``--session-dir`` the adapter's per-stream fast weights become
 SESSIONS: each batch row is a named user (``--users``) admitted into a
@@ -41,7 +44,8 @@ from repro_torch.kernels.attention.kernel import flash_attention
 from repro_torch.kernels.plasticity.fused import rollout
 from repro_torch.kernels.plasticity.kernel import fleet_step, fleet_step_q
 from repro_torch.kernels.ssd.kernel import ssd_scan
-from repro_torch.launch.steps import make_decode_step, make_prefill
+from repro_torch.launch.steps import (make_decode_step, make_prefill,
+                                     n_active_params)
 from repro_torch.models import factory, plastic
 from repro_torch.models.layers import silu
 from repro_torch.obs import (AdapterFlightRecorder, HealthConfig,
@@ -269,6 +273,8 @@ def main(argv=None):
         out = {
             "arch": cfg.name, "plastic": bool(cfg.plastic_adapter),
             "adapter_quant": bool(cfg.adapter_quant), "device": str(dev),
+            "n_params": model.n_params(),
+            "n_active_params": n_active_params(cfg),
             "batch": args.batch, "prompt_len": args.prompt_len,
             "generated": int(toks.shape[1]),
             "prefill_ms": prefill_s * 1e3,

@@ -1,7 +1,7 @@
 """GQA attention block: plan, the full-sequence update (prefill) and the
 cached decode update.  Each returns the block's update before its residual
 add: the caller adds it, since the MLP's norm after the block reads the
-sum before it rounds (`models.transformer._mlp_apply`).
+sum before it rounds (`models.transformer._ffn`).
 
 Grouped KV heads, optional QKV bias, optional per-head q/k RMSNorm (qwen3)
 and RoPE, as in the JAX package.  Prefill attention goes through

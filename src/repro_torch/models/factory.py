@@ -38,7 +38,6 @@ def _validate(cfg: ModelConfig) -> None:
     if cfg.layout not in _LAYOUTS:
         raise ValueError(f"unknown layout {cfg.layout!r}; expected one of "
                          f"{_LAYOUTS}")
-    T.segments(cfg)               # raises for the layouts not ported yet
     if cfg.plastic_adapter and cfg.adapter_neurons < 1:
         raise ValueError(f"{cfg.name}: plastic_adapter needs "
                          f"adapter_neurons >= 1")

@@ -1,17 +1,19 @@
 """Decoder-only LM as a sequence of SEGMENTS, each a stack of identical
 blocks:
 
-  dense  — GQA attention + SwiGLU MLP     (qwen3 and the other dense archs)
-  ssm    — Mamba2 SSD block               (mamba2; the hybrid's remainder)
-  zsuper — one SHARED attention + MLP block, then ``attn_every - 1`` Mamba2
-           blocks (zamba2; the shared block's parameters live once at the
-           top level, as ``shared_attn`` and ``shared_mlp``)
+  dense    — GQA attention + SwiGLU MLP   (qwen3 and the other dense archs)
+  dense_ff — dense with an override FFN width (deepseek-moe's first layer)
+  moe      — GQA attention + routed-expert FFN (deepseek-moe, grok-1;
+             `models.moe`)
+  ssm      — Mamba2 SSD block             (mamba2; the hybrid's remainder)
+  zsuper   — one SHARED attention + MLP block, then ``attn_every - 1``
+             Mamba2 blocks (zamba2; the shared block's parameters live
+             once at the top level, as ``shared_attn`` and ``shared_mlp``)
 
 The parameters keep the JAX package's tree: ``segments`` is a list of
 segments whose leaves are stacked over the segment's layers (a zsuper's
 Mamba2 leaves twice: super-block, then inner block), and where the JAX
-package scans over a stack the port runs a Python loop over it.  The MoE
-layout is not ported yet and raises.
+package scans over a stack the port runs a Python loop over it.
 
 Entry points:
   plan / init                        — parameter plan and random init
@@ -27,7 +29,8 @@ The decode cache's ``index`` is a scalar for a lockstep batch, or one
 position per stream (``per_slot_index=True``) for the continuous-batching
 pool (`serving.lm.LMScheduler`), whose decode takes an ``active (B,)`` slot
 mask: a vacant slot's whole cache row (K/V, SSM and conv state, index,
-adapter state) stays bit for bit as it was.
+adapter state) stays bit for bit as it was, and its token takes no expert
+capacity in a MoE layer (`moe.apply`'s ``token_mask``).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ import dataclasses
 import torch
 
 from repro_torch.core.snn import resolve_device
-from repro_torch.models import attention, plastic, ssm as ssm_mod
+from repro_torch.models import attention, moe as moe_mod, plastic, \
+    ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamDesc, init_from_plan, map_plan,
                                        param_count, rms_norm, swiglu)
@@ -47,6 +51,10 @@ from repro_torch.models.layers import (ParamDesc, init_from_plan, map_plan,
 def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
     if cfg.layout == "dense":
         return [("dense", cfg.n_layers)]
+    if cfg.layout == "moe":
+        fd = cfg.moe.first_dense
+        return ([("dense_ff", fd)] if fd else []) + [("moe",
+                                                       cfg.n_layers - fd)]
     if cfg.layout == "ssm":
         return [("ssm", cfg.n_layers)]
     if cfg.layout == "hybrid":
@@ -54,10 +62,7 @@ def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
         n_super = cfg.n_layers // per
         rem = cfg.n_layers - n_super * per
         return [("zsuper", n_super)] + ([("ssm", rem)] if rem else [])
-    raise NotImplementedError(
-        f"layout {cfg.layout!r} is not ported to repro_torch yet "
-        f"(ROADMAP.md, Queue 1 item 9); the port carries 'dense', 'ssm' and "
-        f"'hybrid'")
+    raise ValueError(f"unknown layout {cfg.layout!r}")
 
 
 def _stack_plan(plan, n: int):
@@ -87,8 +92,12 @@ def _segment_plan(cfg: ModelConfig, kind: str, count: int) -> dict:
     if kind == "zsuper":
         inner = cfg.ssm.attn_every - 1
         return {"ssm": _stack_plan(ssm_mod.plan(cfg, stack=inner), count)}
+    if kind == "moe":
+        return {"attn": attention.plan(cfg, stack=count),
+                "moe": moe_mod.plan(cfg, stack=count)}
+    d_ff = cfg.moe.first_dense_ff if kind == "dense_ff" else cfg.d_ff
     return {"attn": attention.plan(cfg, stack=count),
-            "mlp": _mlp_plan(cfg, cfg.d_ff, stack=count)}
+            "mlp": _mlp_plan(cfg, d_ff, stack=count)}
 
 
 def plan(cfg: ModelConfig) -> dict:
@@ -119,16 +128,6 @@ def _layer(seg: dict, i) -> dict:
             for k, t in seg.items()}
 
 
-def _mlp_apply(p, x, o, cfg: ModelConfig):
-    """The residual add of an attention update ``o``, then the MLP.  The
-    norm reads the sum before it rounds to x's dtype: under jax.jit XLA
-    upcasts the bf16 sum straight into the norm's float32."""
-    s = x.float() + o                    # o promotes to float32 exactly
-    h = rms_norm(s, p["norm"], cfg.norm_eps).to(x.dtype)
-    x = s.to(x.dtype)
-    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-
-
 def _head_w(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -141,10 +140,25 @@ def _shared(params, cfg: ModelConfig):
     return {"attn": params["shared_attn"], "mlp": params["shared_mlp"]}
 
 
+def _ffn(p, x, o, cfg: ModelConfig, token_mask=None):
+    """The residual add of the block's attention update ``o``, then its
+    FFN: the MLP, or in a MoE block the routed experts (``token_mask``
+    keeps a vacant slot's token out of their capacity).  The norm reads
+    the sum before it rounds to x's dtype: under jax.jit XLA upcasts the
+    bf16 sum straight into the norm's float32."""
+    s = x.float() + o                    # o promotes to float32 exactly
+    x = s.to(x.dtype)
+    f = p["moe"] if "moe" in p else p["mlp"]
+    h = rms_norm(s, f["norm"], cfg.norm_eps).to(x.dtype)
+    if "moe" in p:
+        return moe_mod.apply(f, x, h, cfg, token_mask=token_mask)
+    return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+
+
 def _dense(p, h, cfg: ModelConfig):
-    """Attention + MLP: (h, (k, v))."""
+    """Attention + MLP (or MoE FFN): (h, (k, v))."""
     o, kv = attention.update(p["attn"], h, cfg)
-    return _mlp_apply(p["mlp"], h, o, cfg), kv
+    return _ffn(p, h, o, cfg), kv
 
 
 def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
@@ -197,10 +211,10 @@ def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
 def cache_plan(cfg: ModelConfig, batch: int, max_len: int,
                per_slot_index: bool = False) -> dict:
     """The decode cache: per segment a ``(L, B, max_len, KV, HD)`` K and V
-    (dense), a ``(L, B, H, S, P)`` float32 SSD state and ``(L, B, W-1, C)``
-    conv window (ssm), or both for a zsuper segment: K and V per
-    super-block and ``"ssm": {"ssm", "conv"}`` stacked (super-block, inner
-    block); the ``index`` (positions resident: a scalar, every stream in
+    (dense, dense_ff, moe), a ``(L, B, H, S, P)`` float32 SSD state and
+    ``(L, B, W-1, C)`` conv window (ssm), or both for a zsuper segment: K
+    and V per super-block and ``"ssm": {"ssm", "conv"}`` stacked
+    (super-block, inner block); the ``index`` (positions resident: a scalar, every stream in
     lockstep, or ``(B,)`` with ``per_slot_index``, one length per stream)
     and, with the adapter, its per-stream state."""
     if cfg.kv_quant:
@@ -281,9 +295,11 @@ def _decode_backbone(params, cache, tokens, cfg: ModelConfig, active=None):
     cache is written in place.  Returns (h (B,1,D) before the final norm,
     the new index).  ``active (B,)`` makes a vacant slot a no-op on every
     piece of its cache row: K/V rows write back what they held, SSM and
-    conv rows are selected, and a per-slot index holds; its hidden state
-    is computed and nothing persistent reads it."""
+    conv rows are selected, a per-slot index holds, and its token is
+    masked out of every MoE layer's expert capacity; its hidden state is
+    computed and nothing persistent reads it."""
     index = cache["index"]
+    token_mask = None if active is None else active[:, None] != 0
     h = params["embed"][tokens]
     shared = _shared(params, cfg)
     for seg_idx, (kind, count) in enumerate(segments(cfg)):
@@ -298,7 +314,7 @@ def _decode_backbone(params, cache, tokens, cfg: ModelConfig, active=None):
             blk = shared if kind == "zsuper" else p
             o = attention.decode_update(blk["attn"], h, c["k"][i], c["v"][i],
                                         index, cfg, active)
-            h = _mlp_apply(blk["mlp"], h, o, cfg)
+            h = _ffn(blk, h, o, cfg, token_mask)
             if kind == "zsuper":
                 inner = c["ssm"]
                 for j in range(cfg.ssm.attn_every - 1):

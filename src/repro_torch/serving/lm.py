@@ -19,7 +19,12 @@ decodes all B slots at once per token (`step`) or per K-token window
 plasticity steps of every resident stream in one fleet window launch on
 the card).  Occupancy is an ``active (B,)`` operand, never a shape: vacant
 slots are bit-exact no-ops (the cache rows and index hold, the adapter
-freezes), and no host read of the mask happens inside a step.
+freezes, and in a MoE layer the vacant token takes the sentinel expert,
+so it never takes an active stream's expert capacity), and no host read
+of the mask happens inside a step.  Under a MoE model's default capacity
+an active stream's tokens still depend on its active neighbours (they
+share each expert's rows); at ``capacity_factor >= num_experts`` no
+assignment is dropped and they do not.
 
 `compiled_programs()` counts, per entry point, the static signatures
 dispatched (the port compiles nothing at serve time; see

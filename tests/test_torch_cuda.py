@@ -1499,3 +1499,124 @@ def test_lm_pool_on_card(cuda_device):
         for x, y in zip(TM.flatten(frozen)[1],
                         TM.flatten(s._take(s.pool, 1))[1]):
             assert torch.equal(x, y)
+
+
+def _moe_smoke(arch, dev, dtype="float32", **over):
+    """A MoE smoke model (deepseek-moe-16b: a dense first layer, then
+    routed and shared experts; grok-1-314b: 4 experts top-2) and its
+    parameters drawn on ``dev`` from seed 0."""
+    from repro_torch.models import factory
+    model = factory.build(arch, smoke=True, dtype=dtype, **over)
+    return model, model.init(torch.Generator(dev).manual_seed(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("deepseek-moe-16b", "grok-1-314b"))
+def test_moe_on_card(cuda_device, arch):
+    """A MoE smoke LM's prefill and 4 decode steps in float32 on the card
+    against the same code on the CPU (the same parameters and tokens):
+    every layer's expert choices and kept assignments equal, the logits
+    within 1e-4 of the largest; the prefill launches the attention kernel
+    once a layer and silu once an MLP or routed-expert FFN and once more
+    for shared experts."""
+    from repro_torch.checkpoint import manager as TM
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.models import layers as ML, moe as MoE
+    model, params = _moe_smoke(arch, cuda_device)
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (3, 24))).to(cuda_device)
+
+    def run(p, t):
+        routes, real = [], MoE.route
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(MoE, "route", lambda *a, **kw: routes.append(
+                real(*a, **kw)) or routes[-1])
+            logits, cache = model.prefill(p, t[:, :20], 24)
+            outs = [logits]
+            for i in range(20, 24):
+                logits, cache = model.decode_step(p, cache, t[:, i:i + 1])
+                outs.append(logits)
+        return outs, routes
+
+    attn, silu = TA.flash_attention.launches, ML.silu.launches
+    got, got_r = run(params, toks)
+    torch.cuda.synchronize()
+    n_moe = cfg.n_layers - cfg.moe.first_dense
+    assert TA.flash_attention.launches == attn + cfg.n_layers
+    per_step = cfg.moe.first_dense + n_moe * (2 if cfg.moe.n_shared else 1)
+    assert ML.silu.launches == silu + 5 * per_step
+    want, want_r = run(TM.tree_map(lambda t: t.cpu(), params), toks.cpu())
+    assert len(got_r) == len(want_r) == 5 * n_moe
+    for a, b in zip(got_r, want_r):
+        for name in ("expert_idx", "keep", "row", "tok"):
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_moe_block_is_deterministic_on_card(cuda_device, dtype):
+    """Two runs of a MoE FFN on the card at 64 experts top-6 over 2048
+    tokens (drops at the default capacity) give the same bits: the
+    combine sums each token's contributions in a fixed order, with no
+    atomics."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.layers import init_from_plan, rms_norm
+    full = get_config("deepseek-moe-16b")
+    cfg = full.with_(d_model=256, dtype=str(dtype).split(".")[1],
+                     moe=dataclasses.replace(full.moe, d_expert=128))
+    params = init_from_plan(MoE.plan(cfg),
+                            torch.Generator(cuda_device).manual_seed(0))
+    x = torch.randn(2, 1024, 256, generator=torch.Generator(
+        cuda_device).manual_seed(1), device=cuda_device).to(dtype)
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    runs = [MoE.apply(params, x, h, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    r = MoE.route(h, params["router"], cfg)
+    assert not bool(r.keep.all())
+    assert torch.equal(runs[0].view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32),
+                       runs[1].view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32))
+
+
+@pytest.mark.cuda
+def test_moe_pool_vacant_slot_on_card(cuda_device):
+    """deepseek-moe-16b's smoke `LMScheduler` on the card at the default
+    capacity with an int8 adapter, slot 0 vacant: whatever token it holds,
+    the active streams' tokens and sessions are bit for bit the same and
+    the vacant row stays frozen."""
+    from repro_torch.checkpoint import manager as TM
+    from repro_torch.serving import LMScheduler
+    model, params = _moe_smoke("deepseek-moe-16b", cuda_device,
+                               plastic_adapter=True, adapter_neurons=8,
+                               adapter_quant=True)
+    params["adapter"]["scale"].fill_(0.5)
+    rng = np.random.default_rng(3)
+    prompts = {u: rng.integers(0, model.cfg.vocab, 6)
+               for u in ("gone", "a", "b")}
+
+    def run(vacant_tok):
+        s = LMScheduler(model, params, slots=3, max_len=24)
+        for u in ("gone", "a", "b"):
+            s.admit_prompt(u, prompts[u])
+        s.evict("gone")
+        s.pool["tok"][0] = vacant_tok
+        frozen = s._take(s.pool, 0)
+        toks = [s.step() for _ in range(3)]
+        for x, y in zip(TM.flatten(frozen)[1],
+                        TM.flatten(s._take(s.pool, 0))[1]):
+            assert torch.equal(x, y)
+        return toks, [TM.flatten(s.session_view(u))[1] for u in "ab"]
+
+    base_toks, base = run(0)
+    for tok in (1, 300, 511):
+        toks, sessions = run(tok)
+        assert toks == base_toks
+        for got, want in zip(sessions, base):
+            assert all(torch.equal(x, y) for x, y in zip(got, want))

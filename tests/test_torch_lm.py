@@ -1,7 +1,8 @@
 """The port's LM serving path against the JAX reference, on the smoke
-configs of qwen3-4b (the ``dense`` layout), mamba2-1.3b (``ssm``) and
-zamba2-7b (``hybrid``: a shared attention + MLP block and Mamba2 blocks)
-with the plastic adapter.
+configs of qwen3-4b (the ``dense`` layout), mamba2-1.3b (``ssm``),
+zamba2-7b (``hybrid``: a shared attention + MLP block and Mamba2 blocks),
+deepseek-moe-16b and grok-1-314b (``moe``: a dense first layer for
+deepseek, then attention + routed experts) with the plastic adapter.
 
 The JAX parameters (``model.init``) are carried into the port by
 `convert.lm_params`; the JAX side runs jitted ``make_prefill`` /
@@ -43,10 +44,13 @@ from repro_torch.models.layers import leaves
 ROOT = Path(__file__).resolve().parents[1]
 B, S, GEN = 2, 40, 4          # S = 40 is ragged in mamba2's 16-token chunks
 MAX_LEN = S + GEN
-ARCHS = ("qwen3-4b", "mamba2-1.3b", "zamba2-7b")
+ARCHS = ("qwen3-4b", "mamba2-1.3b", "zamba2-7b", "deepseek-moe-16b",
+         "grok-1-314b")
+MOE_ARCHS = ARCHS[3:]
 # the JAX prefill's two implementations of each layout's sequence mixer;
 # the hybrid's name its attention's and its SSD's as "<attn>+<ssd>"
-IMPL_KW = {"qwen3-4b": "attn_impl", "mamba2-1.3b": "ssd_impl"}
+IMPL_KW = {"qwen3-4b": "attn_impl", "mamba2-1.3b": "ssd_impl",
+           "deepseek-moe-16b": "attn_impl", "grok-1-314b": "attn_impl"}
 
 
 def _impl_kw(arch, impl):
@@ -107,7 +111,8 @@ def _run(arch, dtype, quant, impl, params):
 @pytest.mark.parametrize("arch,impl", (
     ("qwen3-4b", "xla_flash"), ("qwen3-4b", "xla"),
     ("mamba2-1.3b", "xla"), ("mamba2-1.3b", "scan"),
-    ("zamba2-7b", "xla_flash+xla"), ("zamba2-7b", "xla+scan")))
+    ("zamba2-7b", "xla_flash+xla"), ("zamba2-7b", "xla+scan"),
+    ("deepseek-moe-16b", "xla_flash"), ("grok-1-314b", "xla")))
 @pytest.mark.parametrize("quant", (False, True), ids=("f32-adapter",
                                                       "int8-adapter"))
 def test_float32_prefill_and_decode_match_jax(quant, arch, impl,
@@ -131,8 +136,8 @@ def test_float32_prefill_and_decode_match_jax(quant, arch, impl,
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bfloat16_prefill_and_decode_match_jax(arch, jax_params):
-    impl = {"qwen3-4b": "xla_flash", "mamba2-1.3b": "xla",
-            "zamba2-7b": "xla_flash+xla"}[arch]
+    impl = {"mamba2-1.3b": "xla",
+            "zamba2-7b": "xla_flash+xla"}.get(arch, "xla_flash")
     pairs, _, _ = _run(arch, "bfloat16", False, impl,
                        jax_params(arch, "bfloat16"))
     for step, (a, b) in enumerate(pairs):
@@ -308,13 +313,15 @@ def _desc_leaves(plan):
 
 @pytest.mark.parametrize("arch,least", (("qwen3-4b", 4.0e9),
                                         ("mamba2-1.3b", 1.3e9),
-                                        ("zamba2-7b", 6.0e9)), ids=ARCHS)
+                                        ("zamba2-7b", 6.0e9),
+                                        ("deepseek-moe-16b", 16.3e9),
+                                        ("grok-1-314b", 316e9)), ids=ARCHS)
 def test_configs_and_plans_match_jax(arch, least):
     """Every field the port keeps equals the JAX config's; the full
     config's parameter count (counted from the plan, nothing allocated)
     equals the JAX package's; and so do the parameter and decode-cache
     plans, leaf for leaf, at full width (the hybrid's nested stacks
-    included)."""
+    included, and MoE's routed and shared experts)."""
     for jc, tc in ((j_get_config(arch), get_config(arch)),
                    (j_get_smoke(arch), get_smoke(arch))):
         for f in tc.__dataclass_fields__:
@@ -338,10 +345,9 @@ def test_configs_and_plans_match_jax(arch, least):
 
 def test_unported_archs_and_layouts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.build("deepseek-moe-16b")
-    for layout in ("moe",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            factory.build(get_smoke("qwen3-4b").with_(layout=layout))
+        factory.build("qwen2-72b")
+    with pytest.raises(ValueError, match="layout"):
+        factory.build(get_smoke("qwen3-4b").with_(layout="no-such-layout"))
     with pytest.raises(KeyError):
         factory.build("no-such-arch")
     with pytest.raises(TypeError, match="firefly-snn"):
@@ -392,3 +398,78 @@ def test_generate_greedy_and_sampled(arch):
             for _ in range(2)]
     assert torch.equal(runs[0], runs[1])
     assert int(runs[0].min()) >= 0 and int(runs[0].max()) < tcfg.vocab
+
+
+# ---- the MoE layout ------------------------------------------------------------
+
+
+def _moe_cfgs(arch, dtype, capacity=None):
+    jcfg, tcfg = (get(arch).with_(dtype=dtype)
+                  for get in (j_get_smoke, get_smoke))
+    if capacity is not None:
+        jcfg, tcfg = (c.with_(moe=dataclasses.replace(
+            c.moe, capacity_factor=capacity)) for c in (jcfg, tcfg))
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_matches_jax(arch, dtype):
+    """Full-sequence logits of the MoE smoke LMs against jitted JAX
+    ``transformer.forward`` at the default capacity (assignments dropped):
+    float32 within 1e-4 of the largest logit with the same argmax at
+    every position, bfloat16 within 2e-2 of it."""
+    jcfg, tcfg = _moe_cfgs(arch, dtype)
+    params = j_factory.build(jcfg).init(jax.random.PRNGKey(2))
+    tparams = convert.lm_params(params, tcfg, "cpu")
+    toks = _tokens(tcfg.vocab)
+    want, _ = jax.jit(lambda p, t: j_transformer.forward(
+        p, t, jcfg, attn_impl="xla_flash"))(params, jnp.asarray(toks))
+    want = np.asarray(want, np.float32)
+    got = transformer.forward(tparams, torch.from_numpy(toks).long(),
+                              tcfg).float().numpy()
+    scale = np.abs(want).max()
+    err = np.abs(got - want).max()
+    if dtype == "float32":
+        assert err <= 1e-4 * scale, err
+        np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    else:
+        assert err <= 2e-2 * scale, err
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_matches_forward(arch):
+    """Teacher-forced decode reproduces the full-sequence logits in
+    float32 (within 1e-4 of the largest) once ``capacity_factor = 64``
+    leaves every assignment its row: a decode step routes B tokens where
+    the forward routes B * S, so at the default capacity the two drop
+    different assignments (tests/test_models.py does the same)."""
+    _, tcfg = _moe_cfgs(arch, "float32", 64.0)
+    model = factory.build(tcfg)
+    params = model.init(torch.Generator().manual_seed(1))
+    toks = torch.from_numpy(_tokens(tcfg.vocab)[:, :12]).long()
+    full = model.forward(params, toks)
+    prefix = 4
+    logits, cache = model.prefill(params, toks[:, :prefix], 12)
+    outs = [logits]
+    for t in range(prefix, 12):
+        logits, cache = model.decode_step(params, cache, toks[:, t:t + 1])
+        outs.append(logits)
+    scale = float(full.abs().max())
+    for i, lg in enumerate(outs):
+        err = float((lg - full[:, prefix - 1 + i]).abs().max())
+        assert err <= 1e-4 * scale, (i, err)
+
+
+def test_n_active_params_equal_jax():
+    """`steps.n_active_params` of every ported LM arch, full width, with
+    and without the adapter, equals the JAX package's; deepseek-moe-16b
+    touches 2.62 B of its 16.38 B parameters a token."""
+    from repro.launch.steps import n_active_params as j_n_active
+    for arch in ARCHS:
+        for over in ({}, dict(plastic_adapter=True, adapter_neurons=128)):
+            assert (steps.n_active_params(get_config(arch).with_(**over))
+                    == j_n_active(j_get_config(arch).with_(**over))), arch
+    cfg = get_config("deepseek-moe-16b")
+    assert (factory.build(cfg).n_params(), steps.n_active_params(cfg)) == \
+        (16_375_728_128, 2_618_935_296)

@@ -11,14 +11,22 @@ and the port's on the same parameters (JAX's, carried over by
   * `decode_window(K)` equals K `step` calls (tokens, pending token and
     session bit for bit), and resumes bit for bit across a window boundary
     through an evict -> persist -> re-admit into another slot;
+  * the MoE layout (deepseek-moe-16b's smoke config): at
+    ``capacity_factor = num_experts`` the churn script's tokens equal the
+    stream's alone and JAX's; at the default capacity, where a decode
+    step's capacity is one row an expert, a vacant slot's pending token
+    takes no capacity: the active streams' logits and sessions are bit for
+    bit the same whatever it holds;
   * the compile audit: `compiled_programs()` pinned with JAX's keys;
   * the serve loop's `AdapterPool` round trip through a durable store,
     a JAX-persisted LM session restored and continued, and the serve CLI's
     JSON keys against JAX's.
 """
+import dataclasses
 import io
 import json
 from contextlib import redirect_stdout
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -137,6 +145,109 @@ def test_churn_invariance_and_vacant_freeze(datapath, models):
                   quant)
 
 
+# ---- the MoE layout ----------------------------------------------------------------
+
+def _moe_models(datapath, capacity=None):
+    """deepseek-moe-16b's smoke pool model in both packages (JAX's
+    parameters carried over), at ``capacity`` (the default if None)."""
+    jcfg, tcfg = _cfgs("deepseek-moe-16b", datapath)
+    if capacity is not None:
+        jcfg, tcfg = (c.with_(moe=dataclasses.replace(
+            c.moe, capacity_factor=capacity)) for c in (jcfg, tcfg))
+    jm = j_factory.build(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    jp["adapter"]["scale"] = jnp.float32(0.5)
+    return jm, jp, factory.build(tcfg), convert.lm_params(jp, tcfg, "cpu")
+
+
+def test_moe_churn_invariance_matches_jax():
+    """The mixed-occupancy script on deepseek-moe-16b's smoke config with
+    an int8 adapter and ``capacity_factor = num_experts`` (so that no
+    assignment is dropped and a stream's tokens cannot depend on its
+    neighbours, as tests/test_serving_lm.py sets it): the stream's tokens
+    under churn equal its tokens alone and JAX's, its session equals its
+    session alone bit for bit and JAX's (`_close_to_jax`), and the vacant
+    row stays frozen."""
+    jm, jp, tm, tp = _moe_models("int8", 8.0)
+    vocab = tm.cfg.vocab
+
+    def script(sched, churn):
+        sched.admit_prompt("keep", _prompt("keep", 6, vocab))
+        toks, frozen = [], None
+        for t in range(8):
+            if churn and t < 5:
+                sched.admit_prompt(f"r{t}", _prompt(f"r{t}", 6, vocab))
+            if churn and t == 5:
+                frozen = sched._take(sched.pool, 1)
+            toks.append(sched.step()["keep"])
+            if churn and t < 5:
+                sched.evict(f"r{t}")
+        return toks, frozen
+
+    ref = LMScheduler(tm, tp, slots=3, max_len=24)
+    ref_toks, _ = script(ref, False)
+    churn = LMScheduler(tm, tp, slots=3, max_len=24)
+    toks, frozen = script(churn, True)
+    assert toks == ref_toks
+    _same(frozen, churn._take(churn.pool, 1))
+    _same(ref.session_view("keep"), churn.session_view("keep"))
+    js = JLMScheduler(jm, jp, slots=3, max_len=24)
+    jtoks, _ = script(js, True)
+    assert toks == jtoks
+    _close_to_jax(churn.session_view("keep"), js.session_view("keep"), True)
+    # the session template (the store's validation) has the view's leaves
+    for t, v in zip(TM.flatten(tm.session_template(24))[1],
+                    TM.flatten(churn.session_view("keep"))[1]):
+        assert (t.shape, t.dtype) == (v.shape, v.dtype)
+
+
+@pytest.mark.parametrize("datapath", DATAPATHS)
+def test_moe_vacant_slot_takes_no_capacity(datapath):
+    """At the default capacity (one row an expert at decode), slot 0
+    vacant and the streams in slots 1 and 2: whatever token the vacant
+    slot holds, the active streams' logits, tokens and sessions are bit
+    for bit the same and the vacant row stays frozen.  Without the token
+    mask the vacant token, sorting first, does take capacity: some of the
+    same tokens then move the active logits."""
+    from repro_torch.models import moe as TMoE
+    _, _, tm, tp = _moe_models(datapath)
+    vocab = tm.cfg.vocab
+    assert TMoE.capacity(tm.cfg, 3) == 1
+
+    def run(vacant_tok, masked=True):
+        sched = LMScheduler(tm, tp, slots=3, max_len=24)
+        for u in ("gone", "a", "b"):
+            sched.admit_prompt(u, _prompt(u, 6, vocab))
+        sched.evict("gone")
+        sched.pool["tok"][0] = vacant_tok
+        frozen = sched._take(sched.pool, 0)
+        seen, real = [], tm.decode_step
+
+        def decode_step(*a, **kw):
+            logits, cache = real(*a, **kw)
+            seen.append(logits[1:].clone())
+            return logits, cache
+
+        apply = TMoE.apply
+        with mock.patch.object(tm, "decode_step", decode_step), \
+                mock.patch.object(TMoE, "apply", apply if masked else (
+                    lambda *a, token_mask=None, **kw: apply(*a, **kw))):
+            toks = [sched.step() for _ in range(3)]
+        _same(frozen, sched._take(sched.pool, 0))
+        return (seen, toks, sched.session_view("a"),
+                sched.session_view("b"))
+
+    base = run(0)
+    for tok in (1, 77, 300, 511):
+        seen, toks, a, b = run(tok)
+        assert toks == base[1]
+        assert all(torch.equal(x, y) for x, y in zip(seen, base[0]))
+        _same(a, base[2])
+        _same(b, base[3])
+    unmasked = [run(tok, masked=False)[0] for tok in (0, 1, 77, 300, 511)]
+    assert any(not torch.equal(x[0], unmasked[0][0]) for x in unmasked[1:])
+
+
 # ---- the windowed decode ---------------------------------------------------------
 
 @pytest.mark.parametrize("layout", ("ssm", "hybrid"))
@@ -229,7 +340,7 @@ def test_window_inputs_are_checked(models):
         LMScheduler(factory.build(tm.cfg.with_(plastic_adapter=False)),
                     tp, slots=2, max_len=16).step(telemetry=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        factory.build("deepseek-moe-16b", smoke=True)
+        factory.build("qwen2-72b", smoke=True)
 
 
 def test_a_stream_at_max_len_is_refused_before_dispatch(models):
@@ -508,8 +619,8 @@ JAX_FLIGHT_KEYS = {"dir", "steps_recorded", "flagged_slots", "incidents"}
 def test_serve_cli_flags_and_keys_equal_jax(tmp_path):
     """The serve CLI with sessions, the flight recorder and periodic
     metrics snapshots: JAX's JSON keys, plus the port's own (its kernel
-    launches and its prefill and run details); a second run resumes both
-    users from the store."""
+    launches, its prefill and run details and its parameter counts); a
+    second run resumes both users from the store."""
     argv = ["--arch", "qwen3-4b", "--smoke", "--batch", "2",
             "--prompt-len", "4", "--gen", "3", "--plastic",
             "--adapter-quant", "--users", "ann,bob", "--device", "cpu",
@@ -524,7 +635,8 @@ def test_serve_cli_flags_and_keys_equal_jax(tmp_path):
     port = run(["--flight-dir", str(tmp_path / "f"), "--metrics-json",
                 str(tmp_path / "m.json"), "--metrics-interval", "2"])
     assert set(port) - JAX_CLI_KEYS == {"launches", "adapter_quant",
-                                        "device", "prompt_len", "prefill_ms"}
+                                        "device", "prompt_len", "prefill_ms",
+                                        "n_params", "n_active_params"}
     assert JAX_CLI_KEYS <= set(port)
     assert set(port["sessions"]) == JAX_SESSION_KEYS
     assert set(port["flight"]) == JAX_FLIGHT_KEYS
