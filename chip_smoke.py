@@ -149,13 +149,13 @@ Phases, each fatal on failure:
      phase 5 also times each variant beside its telemetry-off twin;
  10. session serving at full width: `FleetScheduler` on 8-128-8 with 4096
      slots and a `SessionStore` on disk, float32 and int8: 4096 sessions
-     admitted from 8192 users, 24 windows under churn (2% of the residents
+     admitted from 8192 users, 8 windows under churn (2% of the residents
      leave before each, as many arrive; one rollout launch per window, the
      telemetry variant on every 4th), then 16 per-event telemetry steps;
      a probe moved through disk into another slot continues bit for bit
-     as without the move, 256 vacant slots stay frozen over 8 windows,
+     as without the move, 256 vacant slots stay frozen over 4 windows,
      the static signatures and loaded libraries stay constant after
-     warm-up, 8 windows are profiled, and the int8 run repeated through
+     warm-up, 4 windows are profiled, and the int8 run repeated through
      the plain versions gives the same final pool and persisted sessions.
  2f. the bfloat16 instantiations against their plain versions: the fleet
      step (with and without telemetry, the rule in bf16 or float32) at
@@ -274,8 +274,35 @@ Phases, each fatal on failure:
      and in a fresh process (``--only moe-profile``) a `torch.profiler` of
      a prefill and 4 decode steps with the routing, dispatch, experts and
      combine each in a range.
+ 16. the int8 KV cache (``kv_quant``: int8 codes and a float32 scale per
+     position and KV head) on qwen1.5-32b at full width (64 layers, 40
+     query over 40 KV heads of 128, QKV bias; 35.2 B parameters, ~66 GiB
+     in bf16): #7 at its prefill shape (B = 4, S = 2048) against its plain
+     version in bf16 and float32, timed beside SDPA and its bound; (a)
+     4 x 2048 + 32 at full depth with the int8 cache and int8 adapter
+     (every #7 launch of the warm-up's prefill held on its inputs as it
+     happens, exact launches, peak memory beside the cache's bytes by the
+     plan); (b) one prompt of 2048 + 16 with the int8 and the bf16 cache
+     (decode p50, peak memory), the per-layer device time of the decode
+     attention's float32 copy of the cache and of the dequantisation, and
+     whether (a) would fit with the bf16 cache, computed and then run; (d) an
+     8-slot `LMScheduler` of 1024 positions with the int8 cache and int8
+     adapter, one slot vacant: the probe under churn equals the probe
+     alone, a window of 4 its steps, a session back from disk the one
+     that left and the probe's window under churn the window alone, bit
+     for bit, the vacant slot's codes and scales frozen, launches exact;
+     then in a fresh process (``--only kv-quant-profile``) a
+     `torch.profiler` of 4 decode steps with each cache, the quantisation,
+     dequantisation and decode attention each in a range; (c) 2 layers in
+     float32 against the plain path (1e-4 of the largest logit, the same
+     tokens, at most 1e-3 of the int8 codes off by one); (e)
+     internlm2-20b with the int8 cache, pixtral-12b and musicgen-medium
+     through the embeddings prompt, each 4 x 2048 + 8 at full width with
+     every #7 launch of the warm-up's prefill held on its inputs and
+     exact launches, and qwen2-72b (~135 GiB in bf16) at smoke scale
+     beside its full-width plan's bytes.
 
-The LM phases (8, 9, 11, 14, 15) and their ``--only`` parts arm
+The LM phases (8, 9, 11, 14, 15, 16) and their ``--only`` parts arm
 `faulthandler` with a limit of a few minutes: a stall prints every
 thread's stack and exits with code 1 long before the script's limit.
 
@@ -299,7 +326,8 @@ prefill of each full-width LM), ``rule-search`` (phase 12) and
 windows and the recorded windows' walls with the kernel and its plain
 version), ``lm-pool`` (phase 14) and ``lm-pool-profile`` (its fresh
 process's profile of 4 pool steps), ``moe`` (phase 15) and
-``moe-profile`` (its fresh process's profile).
+``moe-profile`` (its fresh process's profile), ``kv-quant`` (phase 16)
+and ``kv-quant-profile`` (its fresh process's profile).
 """
 from __future__ import annotations
 
@@ -2068,7 +2096,9 @@ def silu_cases():
     layer's and the shared experts' gates, and the routed experts' on
     their ``(E, cap, d_expert)`` GEMM outputs: at prefill (cap 960), at
     decode (cap 1) and at a pool admission of 512 tokens at
-    ``capacity_factor = num_experts`` (cap 3072)."""
+    ``capacity_factor = num_experts`` (cap 3072).  The dense archs of
+    phase 16: their MLP gate in bf16, qwen1.5-32b's in float32 too (16c
+    runs it in float32)."""
     from repro_torch.models import moe as MoE, ssm as MS
     cases = []
     for arch in ("qwen3-4b", "mamba2-1.3b", "zamba2-7b"):
@@ -2106,6 +2136,11 @@ def silu_cases():
                             ("pool admission", raised, max(POOL_PROMPTS))):
         cases.append((f"moe routed {what}", (e, MoE.capacity(c, tokens), f),
                       "bfloat16", "bfloat16", "bfloat16", None))
+    for arch in (KVQ_ARCH,) + KVQ_OTHERS:
+        d_ff = lm_config(arch)[0].d_ff
+        for dt in ("bfloat16", "float32")[:2 if arch == KVQ_ARCH else 1]:
+            cases.append((f"{arch} mlp {dt}", (LM_BATCH, LM_PROMPT, d_ff),
+                          dt, dt, dt, None))
     return cases
 
 
@@ -2190,11 +2225,11 @@ def time_silu(dev, results):
 
 # ---- phase 8: LM serving at full width --------------------------------------
 
-def serve_logits(cfg, params, prompts, gen, tokens=None):
+def serve_logits(cfg, params, prompts, gen, tokens=None, keep_cache=False):
     """Prefill + ``gen`` decode steps through the serving step builders,
     every step's logits kept (float32, on the card).  Greedy, or
     teacher-forced on ``tokens (B, gen)``.  Returns (logits list, tokens);
-    the cache is freed."""
+    the cache is freed, or with ``keep_cache`` returned third."""
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill
     prefill = make_prefill(cfg, prompts.shape[1] + gen)
@@ -2208,6 +2243,8 @@ def serve_logits(cfg, params, prompts, gen, tokens=None):
         logits, cache = decode(params, cache, tok[:, None])
         outs.append(logits.float())
     torch.cuda.synchronize()
+    if keep_cache:
+        return outs, torch.stack(toks, 1), cache
     del cache
     return outs, torch.stack(toks, 1)
 
@@ -3886,12 +3923,12 @@ def time_bf16_kernels(dev, results):
 # ---- phase 10: session serving of the controller fleet at full width --------
 
 POPULATION = 2 * B              # users who come and go
-SERVE_WINDOWS = 24              # control windows under churn
+SERVE_WINDOWS = 8               # control windows under churn
 SERVE_STEPS = 16                # per-event telemetry steps after them
 DEPART_P = 0.02                 # per resident and window
-PROBE_CUT = 12                  # the window before which the probe moves
+PROBE_CUT = 4                   # the window before which the probe moves
 VACANT = 256                    # slots left empty for the frozen check
-TAIL_WINDOWS = 8                # windows of the frozen check, and profiled
+TAIL_WINDOWS = 4                # windows of the frozen check, and profiled
 
 
 def store_digest(root):
@@ -5724,18 +5761,20 @@ MOE_CHURN_STEPS = 24            # steps of the probe, alone and under churn
 MOE_RANGES = ("route", "dispatch", "experts", "combine")
 
 
-def moe_attention(dev, results):
-    """(a) #7 at deepseek-moe-16b's prefill shape (B = 4, S = 2048, 16
-    query over 16 KV heads of 128) against its plain version, bfloat16 and
-    float32, within phase 2c's tolerances; the bf16 kernel timed (L2
-    flushed) beside its plain version, `scaled_dot_product_attention` and
-    its bound."""
+def arch_attention(dev, results, arch=MOE_ARCH, shape=MOE_ATTN,
+                   key="moe_shape", seed=SEED + 31):
+    """#7 at ``arch``'s prefill ``shape`` (B, S, H, HKV, D; phase 15:
+    deepseek-moe-16b's 16 query over 16 KV heads of 128) against its plain
+    version, bfloat16 and float32, within phase 2c's tolerances; the bf16
+    kernel timed (L2 flushed) beside its plain version,
+    `scaled_dot_product_attention` and its bound.  Filed under ``key`` in
+    the kernels line's #7 row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import kernel as TA
-    gen = torch.Generator(dev).manual_seed(SEED + 31)
-    b, s, h, hkv, d = MOE_ATTN
-    out = {"shape": dict(zip(("B", "S", "H", "HKV", "D"), MOE_ATTN))}
+    gen = torch.Generator(dev).manual_seed(seed)
+    b, s, h, hkv, d = shape
+    out = {"shape": dict(zip(("B", "S", "H", "HKV", "D"), shape))}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         rtol, atol = ATTN_TOL[dname]
@@ -5749,10 +5788,10 @@ def moe_attention(dev, results):
         require(got.dtype == dtype and got.shape == q.shape
                 and torch.allclose(got.float(), want.float(), rtol=rtol,
                                    atol=atol),
-                f"flash_attention {dname} at {MOE_ARCH}'s prefill shape: max "
+                f"flash_attention {dname} at {arch}'s prefill shape: max "
                 f"err {err} outside rtol {rtol} atol {atol}")
         out[f"{dname}_max_abs_err"] = err
-        log(f"  flash_attention  {dname:8s} {MOE_ARCH} B={b} S={s} "
+        log(f"  flash_attention  {dname:8s} {arch} B={b} S={s} "
             f"H={h}/{hkv} D={d}: max |err| {err:.3g}")
         if dtype == torch.bfloat16:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -5765,13 +5804,13 @@ def moe_attention(dev, results):
             out.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                        bound_by=kind,
                        tflops=to * BF16_OPS_PER_S / 1e3 / ms / 1e9)
-            log(f"  flash_attention bf16 {MOE_ARCH}: {ms:.4f} ms (plain "
+            log(f"  flash_attention bf16 {arch}: {ms:.4f} ms (plain "
                 f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms by "
                 f"{kind}), {out['tflops']:.1f} TFLOP/s, {ms / lib:.2f}x SDPA, "
                 f"{ms / bms:.2f}x the bound")
             del qt, kt, vt
         del q, k, v, got, want
-    results["flash_attention"]["moe_shape"] = out
+    results["flash_attention"][key] = out
     torch.cuda.empty_cache()
     return out
 
@@ -6005,7 +6044,7 @@ def moe_path(dev, results, counters, every):
     process's profile (`moe_profile`).  Returns (report, the timed
     lockstep runs' launches)."""
     import torch
-    out = {"attention": moe_attention(dev, results)}
+    out = {"attention": arch_attention(dev, results)}
     gc.collect()
     torch.cuda.empty_cache()
     out["lockstep"], launches = lm_path(dev, counters, every, results,
@@ -6035,6 +6074,692 @@ def moe_path(dev, results, counters, every):
                 f"{p['idle_share']:.3f}, {p['kernel_launches_per_step']:.0f} "
                 f"device ops a step")
     return out, launches
+
+
+# ---- phase 16: the int8 KV cache on qwen1.5-32b, and the other dense archs --
+
+KVQ_ARCH = "qwen1.5-32b"
+KVQ_ATTN = (LM_BATCH, 2048, 40, 40, 128)       # B, S, H, HKV, D at qwen1.5
+KVQ_OTHERS = ("internlm2-20b", "pixtral-12b", "musicgen-medium")
+KVQ_B_GEN = 16                  # (b): one prompt of 2048, 16 tokens
+KVQ_OTHER_GEN = 8               # (e): 4 x 2048 + 8 on each other arch
+KVQ_POOL_STEPS = 8              # (d): the probe's steps, alone and churned
+KVQ_CODE_SHARE = 1e-3           # (c): codes off the plain path's, at most
+KVQ_RANGES = ("quantize_kv", "dequantize_kv", "_decode_attend")
+
+
+def tree_bytes(plan):
+    """Bytes of every leaf of a plan (nothing allocated)."""
+    from repro_torch.models.config import torch_dtype
+    from repro_torch.models.layers import leaves
+    return sum(math.prod(d.shape) * torch_dtype(d.dtype).itemsize
+               for d in leaves(plan))
+
+
+def cache_bytes(cfg, batch, max_len):
+    """Bytes of the attention caches (K/V and, int8, their scale planes)
+    of the decode cache `cache_plan` plans."""
+    from repro_torch.models.transformer import cache_plan
+    return tree_bytes([seg for seg in cache_plan(cfg, batch, max_len)[
+        "segments"] if "k" in seg])
+
+
+def gib(n):
+    return n / 2**30
+
+
+def host_copy(tree):
+    """A session tree copied to the host, to compare later without
+    holding its device memory."""
+    from repro_torch.checkpoint import manager as TM
+    return TM.tree_map(lambda t: t.cpu(), tree)
+
+
+def host_diff(tree, want):
+    """`first_diff` of a device tree against a host copy."""
+    return first_diff(host_copy(tree), want)
+
+
+@contextlib.contextmanager
+def attention_held(results, what):
+    """Every attention launch inside against `flash_attention_plain` on
+    its own inputs, as it happens (a full-width prefill's 64 launches'
+    inputs would not fit beside the weights if kept), one stream at a time
+    (the plain version's float32 scores of all 4 streams of 40 heads over
+    2048 positions, 2.5 GiB, would not fit either), at phase 2c's bf16
+    tolerance.  Yields {"n": launches held, "err": max |err|}."""
+    import torch
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.models import attention as MA
+    real, held = MA.attn_op, {"n": 0, "err": 0.0}
+    rtol, atol = ATTN_TOL["bfloat16"]
+
+    def check(q, k, v, **kw):
+        got = real(q, k, v, **kw)
+        for b in range(q.shape[0]):
+            want = TA.flash_attention_plain(q[b:b + 1], k[b:b + 1],
+                                            v[b:b + 1], **kw)
+            g = got[b:b + 1].float()
+            err = float((g - want.float()).abs().max())
+            require(torch.allclose(g, want.float(), rtol=rtol, atol=atol),
+                    f"flash_attention {what}: launch {held['n']} at "
+                    f"{tuple(q.shape)} differs from the plain version in "
+                    f"stream {b} (max err {err})")
+            held["err"] = max(held["err"], err)
+            del want, g
+        held["n"] += 1
+        return got
+
+    with mock.patch.object(MA, "attn_op", check):
+        yield held
+    results["flash_attention"]["max_abs_err"] = max(
+        results["flash_attention"]["max_abs_err"], held["err"])
+    log(f"  flash_attention  {what}: all {held['n']} launches against the "
+        f"plain version on their inputs, max |err| {held['err']:.3g}")
+
+
+def kvq_model(dev, arch=KVQ_ARCH, **over):
+    """``arch`` at full width with the int8 adapter at N = 128 (readout
+    scale set) and ``over``; random weights from `SEED`."""
+    import torch
+    from repro_torch.models import factory
+    cfg = lm_config(arch)[0].with_(plastic_adapter=True, adapter_neurons=128,
+                                   adapter_quant=True, **over)
+    model = factory.build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 41))
+    params["adapter"]["scale"].fill_(POOL_SCALE)
+    torch.cuda.synchronize()
+    log(f"  {arch}: {model.n_params() / 1e9:.3f} B parameters "
+        f"({gib(torch.cuda.memory_allocated()):.2f} GiB allocated), random "
+        f"init in {time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def kvq_prompts(cfg, batch, length, dev, seed=SEED + 42):
+    """Random prompts; an embeddings arch's through the stub frontend."""
+    import torch
+    from repro_torch.launch import serve
+    toks = torch.randint(0, cfg.vocab, (batch, length),
+                         generator=torch.Generator(dev).manual_seed(seed),
+                         device=dev)
+    return (serve.embed_stub(toks, cfg) if cfg.input_mode == "embeddings"
+            else toks)
+
+
+def kvq_generate(cfg, params, prompts, gen, counters, results=None,
+                 held=None):
+    """One untimed `serve.generate` of 2 tokens (``held``: its prefill's
+    attention launches held against the plain version, `attention_held`),
+    then a timed one of ``gen``: counters set to 0 just before it and read
+    just after, the peak memory of the timed run.  Returns (tokens,
+    report, cache)."""
+    import torch
+    from repro_torch.launch import serve
+    s = prompts.shape[1]
+    with (attention_held(results, held) if held
+          else contextlib.nullcontext({"n": 0})) as h:
+        serve.generate(cfg, params, prompts, s + 2, 2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    toks, lats, cache, prefill_s = serve.generate(cfg, params, prompts,
+                                                  s + gen, gen)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    p50 = sorted(lats)[len(lats) // 2] * 1e3
+    return toks, dict(prefill_ms=prefill_s * 1e3, decode_ms_p50=p50,
+                      decode_ms_mean=sum(lats) / len(lats) * 1e3,
+                      tokens_per_s=prompts.shape[0] * len(lats) / sum(lats),
+                      peak_bytes=torch.cuda.max_memory_allocated(),
+                      launches=launches, prefill_attention_held=h["n"]), \
+        cache
+
+
+def kvq_launches_exact(cfg, launches, gen, what):
+    """Exact launches of a prefill and ``gen`` decode steps: #7 as
+    `lm_config` counts it, silu per forward, one fleet step a step."""
+    _, mixers = lm_config(cfg.name)
+    want = {m.__name__: n for m, n in mixers.items()}
+    want.update(silu=silu_per_forward(cfg) * (1 + gen),
+                fleet_step_q=gen, fleet_step=0, ssd_scan=0)
+    for name, n in want.items():
+        require(launches.get(name, 0) == n,
+                f"{what}: {launches.get(name, 0)} {name} launches, want {n}")
+
+
+def kvq_lockstep(dev, model, params, counters, results):
+    """(a) 4 x 2048 + 32 on full-depth qwen1.5-32b, bf16, the int8 cache
+    and the int8 adapter: the warm-up's prefill holds every #7 launch
+    against its plain version; the timed run's launches exact, its peak
+    memory beside the cache's bytes by the plan."""
+    import torch
+    cfg = model.cfg
+    prompts = kvq_prompts(cfg, LM_BATCH, LM_PROMPT, dev)
+    toks, out, cache = kvq_generate(cfg, params, prompts, LM_GEN, counters,
+                                    results, f"{KVQ_ARCH} int8-cache prefill")
+    require(out["prefill_attention_held"] == cfg.n_layers,
+            f"{out['prefill_attention_held']} attention launches held in "
+            f"one prefill, want {cfg.n_layers}")
+    kvq_launches_exact(cfg, out["launches"], LM_GEN, "(a)")
+    seg = cache["segments"][0]
+    require(seg["k"].dtype == torch.int8 and seg["k_scale"].dtype ==
+            torch.float32 and int(cache["index"]) == LM_PROMPT + LM_GEN,
+            "(a): the cache is not the int8 cache at its length")
+    require(tuple(toks.shape) == (LM_BATCH, LM_GEN)
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab
+            and float(cache["adapter"]["w_fast"].float().abs().max()) > 0,
+            "(a): bad tokens, or the adapter did not move")
+    out.update(cache_bytes=cache_bytes(cfg, LM_BATCH, LM_PROMPT + LM_GEN),
+               cache_bytes_bf16=cache_bytes(cfg.with_(kv_quant=False),
+                                            LM_BATCH, LM_PROMPT + LM_GEN))
+    del cache
+    log(f"  (a) {KVQ_ARCH} int8 cache, 4 x {LM_PROMPT} + {LM_GEN}: prefill "
+        f"{out['prefill_ms']:.1f} ms, decode p50 {out['decode_ms_p50']:.2f} "
+        f"ms, {out['tokens_per_s']:.1f} tokens/s, peak "
+        f"{gib(out['peak_bytes']):.2f} GiB (cache {gib(out['cache_bytes']):.2f}"
+        f" GiB by the plan; bf16 {gib(out['cache_bytes_bf16']):.2f} GiB); "
+        f"launches {out['launches']}")
+    return out
+
+
+def kvq_against_bf16(dev, model, params, counters, lock, weights, free):
+    """(b) one prompt of 2048 and 16 tokens with the int8 cache and with
+    the bf16 cache: decode p50, peak memory and greedy agreement; then
+    what (a) would need with the bf16 cache beside the card's free memory
+    after the weights, computed, and (a) run with the bf16 cache."""
+    cfg = model.cfg
+    prompts = kvq_prompts(cfg, 1, LM_PROMPT, dev, seed=SEED + 43)
+    out, toks = {}, {}
+    for kv in (True, False):
+        mode = "int8" if kv else "bfloat16"
+        toks[mode], out[mode], cache = kvq_generate(
+            cfg.with_(kv_quant=kv), params, prompts, KVQ_B_GEN, counters)
+        out[mode]["cache_bytes"] = cache_bytes(cfg.with_(kv_quant=kv), 1,
+                                               LM_PROMPT + KVQ_B_GEN)
+        del cache
+        r = out[mode]
+        log(f"  (b) {mode:8s} cache, 1 x {LM_PROMPT} + {KVQ_B_GEN}: decode "
+            f"p50 {r['decode_ms_p50']:.2f} ms, peak {gib(r['peak_bytes']):.2f}"
+            f" GiB (cache {gib(r['cache_bytes']):.3f} GiB)")
+    out["greedy_agreement"] = float(
+        (toks["int8"] == toks["bfloat16"]).float().mean())
+    # (a) with the bf16 cache: its cache, and what (a)'s run held beyond
+    # the weights and the int8 cache
+    work = lock["peak_bytes"] - weights - lock["cache_bytes"]
+    need = lock["cache_bytes_bf16"] + work
+    out["a_with_bf16"] = dict(cache_bytes=lock["cache_bytes_bf16"],
+                              work_bytes=work, need_bytes=need,
+                              free_after_weights=free, fits=need < free)
+    log(f"  (b) greedy agreement int8 vs bf16 cache: "
+        f"{out['greedy_agreement']:.3f}; (a) with the bf16 cache would need "
+        f"{gib(lock['cache_bytes_bf16']):.2f} GiB of cache + "
+        f"{gib(work):.2f} GiB of work = {gib(need):.2f} GiB beside "
+        f"{gib(free):.2f} GiB free after the weights: computed "
+        f"{'fits' if need < free else 'does not fit'}")
+    out["a_with_bf16"]["run"] = kvq_lockstep_bf16(dev, cfg, params, counters)
+    return out
+
+
+def kvq_lockstep_bf16(dev, cfg, params, counters):
+    """(a)'s 4 x 2048 + 32 with the bf16 cache, run: its peak memory and
+    decode p50, or the allocation it failed on."""
+    import torch
+    prompts = kvq_prompts(cfg, LM_BATCH, LM_PROMPT, dev)
+    try:
+        _, r, cache = kvq_generate(cfg.with_(kv_quant=False), params,
+                                   prompts, LM_GEN, counters)
+        del cache
+        run = dict(fits=True, peak_bytes=r["peak_bytes"],
+                   prefill_ms=r["prefill_ms"],
+                   decode_ms_p50=r["decode_ms_p50"])
+        log(f"  (b) (a) with the bf16 cache, run: fits, peak "
+            f"{gib(r['peak_bytes']):.2f} GiB, prefill {r['prefill_ms']:.1f} "
+            f"ms, decode p50 {r['decode_ms_p50']:.2f} ms")
+    except torch.cuda.OutOfMemoryError as e:
+        run = dict(fits=False, error=str(e).splitlines()[0][:300])
+        log(f"  (b) (a) with the bf16 cache, run: out of memory "
+            f"({run['error']})")
+    del prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def kvq_copy_ms(dev, cfg):
+    """Device ms of the decode attention's per-layer passes over the
+    whole cache at (a)'s 4 x 2080: the float32 copy of one layer's bf16
+    K (what `_decode_attend` makes of K and of V), and the dequantisation
+    of one layer's int8 K; times 2 x n_layers for a step."""
+    import torch
+    from repro_torch.models import attention as MA
+    gen = torch.Generator(dev).manual_seed(SEED + 44)
+    shape = (LM_BATCH, LM_PROMPT + LM_GEN, cfg.n_kv_heads, cfg.hd)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q, sc = MA.quantize_kv(x)
+    f32 = device_ms(lambda: x.float())
+    deq = device_ms(lambda: MA.dequantize_kv(q, sc, torch.bfloat16))
+    n = 2 * cfg.n_layers
+    out = dict(float_copy_ms_per_layer=f32, dequantize_ms_per_layer=deq,
+               float_copy_ms_per_step=f32 * n,
+               dequantize_ms_per_step=deq * n)
+    log(f"  (b) at 4 x {LM_PROMPT + LM_GEN}, one layer's K: float32 copy "
+        f"{f32:.4f} ms, int8 dequantisation {deq:.4f} ms (L2 flushed); "
+        f"x {n} a step: {f32 * n:.2f} ms and {deq * n:.2f} ms")
+    del x, q, sc
+    return out
+
+
+def kvq_shallow(dev):
+    """(c) qwen1.5-32b at `shallow` depth, full width, float32, int8
+    cache, int8 adapter: the kernel path against the plain path, the same
+    greedy tokens, logits within 1e-4 of the largest, and the share of
+    int8 codes that differ at most `KVQ_CODE_SHARE` (float32 sums in
+    another order move a code only at a rounding tie), each by one."""
+    import torch
+    from repro_torch.models import factory
+    cfg = shallow(lm_config(KVQ_ARCH)[0]).with_(
+        dtype="float32", kv_quant=True, plastic_adapter=True,
+        adapter_neurons=128, adapter_quant=True)
+    gen = torch.Generator(dev).manual_seed(SEED + 45)
+    params = factory.build(cfg).init(gen)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    got, toks, gc_ = serve_logits(cfg, params, prompts, LM_GEN,
+                                  keep_cache=True)
+    with contextlib.ExitStack() as stack:
+        for p in plain_kernels():
+            stack.enter_context(p)
+        want, _, wc = serve_logits(cfg, params, prompts, LM_GEN, toks,
+                                   keep_cache=True)
+    err = rel_err(got, want)
+    same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+               for g, w in zip(got, want))
+    differ = total = worst = 0
+    for name in ("k", "v"):
+        a = gc_["segments"][0][name].int()
+        b = wc["segments"][0][name].int()
+        differ += int((a != b).sum())
+        total += a.numel()
+        worst = max(worst, int((a - b).abs().max()))
+    share = differ / total
+    require(err <= 1e-4 and same,
+            f"(c) {cfg.n_layers}-layer float32 int8 cache: kernel path "
+            f"differs from the plain path (max rel logit diff {err:.3g}, "
+            f"greedy tokens {'equal' if same else 'differ'})")
+    require(share <= KVQ_CODE_SHARE and worst <= 1,
+            f"(c): {share:.3g} of the int8 codes differ from the plain "
+            f"path's (by up to {worst}), bound {KVQ_CODE_SHARE}")
+    log(f"  (c) {KVQ_ARCH}, {cfg.n_layers} layers, float32, int8 cache: max "
+        f"rel logit diff {err:.3g} over prefill + {LM_GEN} steps, greedy "
+        f"tokens equal; {differ} of {total} int8 codes ({share:.3g}) differ "
+        f"from the plain path's, by at most {worst} (bound "
+        f"{KVQ_CODE_SHARE})")
+    del params, got, want, gc_, wc
+    torch.cuda.empty_cache()
+    return dict(max_rel_logit_diff=err, codes_differ=differ,
+                codes=total, share=share)
+
+
+def kvq_pool(dev, model, params, counters, results, tmp):
+    """(d) An `LMScheduler` on full-width qwen1.5-32b with the int8 cache
+    and the int8 adapter, 8 slots of 1024: Q serves the probe alone for 8
+    steps, then 4 more; W takes the probe's session at Q's boundary
+    through a RAM store and runs one window of those 4 tokens; C serves
+    the probe beside 6 residents (slot 7 vacant), 2 replaced after 4
+    steps, then moves the probe through disk into the slot a resident
+    left and runs the same window.  Held bit for bit: the probe's tokens and session
+    under churn equal Q's, the window equals the 4 steps (greedy tokens
+    and session), the session back from disk equals the one that left, C's
+    window equals W's, and the vacant slot's codes and scales stay
+    frozen.  Launches exact; every admission's #7 launch held against
+    its plain version as it happens."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import LMScheduler, SessionStore
+    cfg = model.cfg
+    prompts = pool_prompts(cfg.vocab, dev)
+    steps, k = KVQ_POOL_STEPS, POOL_K
+
+    def make(store):
+        return LMScheduler(model, params, POOL_SLOTS, POOL_MAX_LEN,
+                           store=store)
+
+    mem = {}
+
+    def note(what):
+        mem[what] = torch.cuda.memory_allocated()
+
+    note("start")
+    ram = SessionStore(capacity=1)
+    q = make(ram)
+    q.admit_prompt("probe", prompts["probe"])
+    q_toks = [q.step()["probe"] for _ in range(steps)]
+    q_sess = host_copy(q.session_view("probe"))
+    q.evict("probe")
+    q.admit_prompt("probe", prompts["probe"])        # the warm copy
+    first = q.pending("probe")
+    q_next = [q.step()["probe"] for _ in range(k)]
+    q_after = host_copy(q.session_view("probe"))
+    note("q")
+    del q
+    gc.collect()
+    w = make(ram)
+    w.admit_prompt("probe", prompts["probe"])        # the archived copy
+    require(ram.restores == 1 and ram.warm_hits == 1,
+            "(d): the boundary state did not move through the store")
+    window = np.array([first] + q_next[:-1])
+    w_logits = w.decode_window({"probe": window})["probe"].clone()
+    w_after = host_copy(w.session_view("probe"))
+    note("w")
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    note("before_c")
+    require(w_logits.argmax(-1).tolist() == q_next
+            and first_diff(w_after, q_after) is None,
+            f"(d): the window of {k} differs from {k} steps (tokens "
+            f"{w_logits.argmax(-1).tolist()} vs {q_next}, session at "
+            f"{first_diff(w_after, q_after)})")
+    del q_after
+
+    timer = PoolTimer()
+    c = make(SessionStore(capacity=0))       # evicted sessions to the host
+    note("c")
+    users = iter(f"u{i}" for i in range(1, POOL_USERS))
+    fresh = 0
+
+    def arrive(uid):
+        nonlocal fresh
+        fresh += not c.store.known(uid)
+        slot = timer("admit", c.admit_prompt, uid, prompts[uid])
+        note(f"admitted {uid}")
+        return slot
+
+    for cnt in counters:
+        cnt.launches = 0
+    with attention_held(results, f"{KVQ_ARCH} pool admissions") as held:
+        require(arrive("probe") == 0, "(d): the probe is not in slot 0")
+        for _ in range(POOL_RESIDENTS):
+            arrive(next(users))
+        note("admitted")
+        vacant = host_copy(c._take(c.pool, POOL_SLOTS - 1))
+        toks = []
+        def leave_lru():
+            lru = min((s for u, s in c.user_slot.items() if u != "probe"),
+                      key=lambda s: c._admit_seq[s])
+            c.evict(c.slot_user[lru])
+
+        for t in range(steps):
+            if t == steps // 2:
+                for _ in range(2):
+                    leave_lru()
+                for _ in range(2):
+                    arrive(next(users))
+            toks.append(timer("step", c.step)["probe"])
+        note("churned")
+        require(toks == q_toks and host_diff(c.session_view("probe"),
+                                             q_sess) is None,
+                f"(d): the probe under churn differs from the probe alone "
+                f"(tokens {'equal' if toks == q_toks else 'differ'})")
+        # the probe through disk into the slot a resident leaves
+        before = host_copy(c.session_view("probe"))
+        leave_lru()
+        note("left")
+        ram_c, disk = c.store, SessionStore(root=str(tmp))
+        c.store = disk
+        c.evict("probe")
+        disk._warm.clear()
+        c.store = ram_c
+        arrive(next(users))                         # takes the probe's slot
+        c.store = disk
+        slot = c.admit_prompt("probe", prompts["probe"])
+        c.store = ram_c
+        require(slot != 0 and disk.restores == 1
+                and host_diff(c.session_view("probe"), before) is None,
+                f"(d): the probe did not come back from disk bit for bit "
+                f"into another slot (slot {slot})")
+        # C's window from Q's boundary state: the probe's session is Q's
+        # at the boundary, so the probe's window must equal W's
+        windows = {u: np.full(k, c.pending(u)) for u in c.user_slot}
+        windows["probe"] = window
+        c_logits = timer("window", c.decode_window, windows)["probe"]
+        torch.cuda.synchronize()
+    launches = {cnt.__name__: cnt.launches for cnt in counters}
+    require(torch.equal(c_logits, w_logits)
+            and host_diff(c.session_view("probe"), w_after) is None,
+            "(d): the probe's window under churn differs from W's")
+    for x, y in zip(tree_leaves(vacant), tree_leaves(host_copy(c._take(
+            c.pool, POOL_SLOTS - 1)))):
+        require(torch.equal(x, y), "(d): the vacant slot's row moved")
+    seg = vacant["cache"]["segments"][0]
+    want = {"flash_attention": cfg.n_layers * fresh, "fleet_step_q": steps,
+            "rollout": 1, "silu": silu_per_forward(cfg) * (fresh + steps
+                                                           + k)}
+    for name, n in want.items():
+        require(launches[name] == n, f"(d): {launches[name]} {name} "
+                f"launches in the pool's run, want {n}")
+    require(held["n"] == launches["flash_attention"],
+            f"(d): {held['n']} attention launches held, "
+            f"{launches['flash_attention']} launched")
+    out = dict(launches=launches, fresh_admissions=fresh,
+               admit_ms_p50=timer.p50_ms("admit"),
+               step_ms_p50=timer.p50_ms("step"),
+               window_ms_per_token=timer.p50_ms("window") / k,
+               pool_nbytes=c.pool_nbytes(),
+               vacant_frozen=[tuple(seg["k"].shape), tuple(
+                   seg["k_scale"].shape)],
+               allocated_gib={k: gib(v) for k, v in mem.items()})
+    log(f"  (d) {KVQ_ARCH} pool, int8 cache and adapter, {POOL_SLOTS} x "
+        f"{POOL_MAX_LEN}: the probe under churn equals the probe alone, "
+        f"the window of {k} its steps, the session back from disk and C's "
+        f"window W's, bit for bit; the vacant slot's codes and scales "
+        f"frozen; {fresh} admissions (p50 {out['admit_ms_p50']:.1f} ms), "
+        f"step p50 {out['step_ms_p50']:.1f} ms, window "
+        f"{out['window_ms_per_token']:.1f} ms a token, pool "
+        f"{gib(c.pool_nbytes()):.2f} GiB; launches {launches}; allocated "
+        f"{gib(min(mem.values())):.2f}-{gib(max(mem.values())):.2f} GiB "
+        f"over the {len(mem)} stages and admissions")
+    del c, vacant, before, q_sess, w_after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kvq_other_archs(dev, counters, results):
+    """(e) internlm2-20b with the int8 cache, pixtral-12b and
+    musicgen-medium through the embeddings prompt: one 4 x 2048 + 8 each
+    at full width, every #7 launch of the warm-up's prefill held against
+    its plain version, launches exact, each model freed before the next; then
+    qwen2-72b at smoke scale on the card beside its full-width plan's
+    bytes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import factory, transformer
+    out = {}
+    for arch in KVQ_OTHERS:
+        over = {"kv_quant": True} if arch == "internlm2-20b" else {}
+        model, params = kvq_model(dev, arch, **over)
+        cfg = model.cfg
+        prompts = kvq_prompts(cfg, LM_BATCH, LM_PROMPT, dev)
+        toks, r, cache = kvq_generate(cfg, params, prompts, KVQ_OTHER_GEN,
+                                      counters, results, f"{arch} prefill")
+        require(r["prefill_attention_held"] == cfg.n_layers,
+                f"(e) {arch}: {r['prefill_attention_held']} attention "
+                f"launches held in one prefill, want {cfg.n_layers}")
+        kvq_launches_exact(cfg, r["launches"], KVQ_OTHER_GEN, f"(e) {arch}")
+        require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+                f"(e) {arch}: bad tokens")
+        r.update(kv_quant=cfg.kv_quant, input_mode=cfg.input_mode,
+                 n_params=model.n_params())
+        out[arch] = r
+        log(f"  (e) {arch} ({'int8' if cfg.kv_quant else 'bf16'} cache, "
+            f"{cfg.input_mode} prompt), 4 x {LM_PROMPT} + {KVQ_OTHER_GEN}: "
+            f"prefill {r['prefill_ms']:.1f} ms, decode p50 "
+            f"{r['decode_ms_p50']:.2f} ms, {r['tokens_per_s']:.1f} tokens/s, "
+            f"peak {gib(r['peak_bytes']):.2f} GiB; launches {r['launches']}")
+        del model, params, prompts, cache, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    # qwen2-72b: its full-width plan, then its smoke config on the card
+    full = get_config("qwen2-72b")
+    plan_bytes = tree_bytes(transformer.plan(full))
+    total = torch.cuda.mem_get_info()[1]
+    model = factory.build("qwen2-72b", smoke=True, kv_quant=True)
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 46))
+    prompts = kvq_prompts(model.cfg, LM_BATCH, 64, dev)
+    for c in counters:
+        c.launches = 0
+    _, _, cache, _ = serve.generate(model.cfg, params, prompts,
+                                   64 + KVQ_OTHER_GEN, KVQ_OTHER_GEN)
+    torch.cuda.synchronize()
+    n = {c.__name__: c.launches for c in counters}
+    require(n["flash_attention"] == model.cfg.n_layers
+            and cache["segments"][0]["k"].dtype == torch.int8,
+            f"(e) qwen2-72b smoke: launches {n}")
+    out["qwen2-72b"] = dict(
+        full_param_bytes=plan_bytes, card_bytes=total,
+        full_cache_bytes_int8=cache_bytes(full.with_(kv_quant=True),
+                                          LM_BATCH, LM_PROMPT + LM_GEN),
+        full_cache_bytes_bf16=cache_bytes(full, LM_BATCH,
+                                          LM_PROMPT + LM_GEN),
+        smoke_launches=n)
+    log(f"  (e) qwen2-72b: {gib(plan_bytes):.1f} GiB of bf16 weights at full "
+        f"width beside the card's {gib(total):.1f} GiB (its cache at 4 x "
+        f"{LM_PROMPT + LM_GEN}: int8 "
+        f"{gib(out['qwen2-72b']['full_cache_bytes_int8']):.2f} GiB, bf16 "
+        f"{gib(out['qwen2-72b']['full_cache_bytes_bf16']):.2f} GiB), so it "
+        f"runs at smoke scale: int8 cache, 4 x 64 + {KVQ_OTHER_GEN}, "
+        f"launches {n}")
+    del model, params, cache
+    return out
+
+
+@contextlib.contextmanager
+def kvq_ranges():
+    """`attention.quantize_kv`, `dequantize_kv` and `_decode_attend` each
+    inside a `torch.profiler.record_function` range ``kvq.<name>``."""
+    from torch.profiler import record_function
+    from repro_torch.models import attention as MA
+    with contextlib.ExitStack() as stack:
+        for name in KVQ_RANGES:
+            real = getattr(MA, name)
+
+            def ranged(*a, _real=real, _name=name, **kw):
+                with record_function(f"kvq.{_name}"):
+                    return _real(*a, **kw)
+            stack.enter_context(mock.patch.object(MA, name, ranged))
+        yield
+
+
+def kvq_profile(dev):
+    """``--only kv-quant-profile``: a fresh process's `torch.profiler` of
+    4 decode steps of full-width qwen1.5-32b at (b)'s one prompt of 2048,
+    int8 adapter, with the int8 cache and then the bf16 cache (after a
+    prefill and one untimed step each): idle share, device ops a step,
+    and the device time of the quantisation, the dequantisation and the
+    decode attention (with its float32 copies of the cache), each beside
+    the busy time."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill
+    model, params = kvq_model(dev, kv_quant=True)
+    prompts = kvq_prompts(model.cfg, 1, LM_PROMPT, dev, seed=SEED + 43)
+    out = {}
+    for kv in (True, False):
+        mode = "int8" if kv else "bfloat16"
+        cfg = model.cfg.with_(kv_quant=kv)
+        logits, cache = make_prefill(cfg, LM_PROMPT + 8)(params, prompts)
+        decode = make_decode_step(cfg)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        _, cache = decode(params, cache, tok)
+
+        def four():
+            nonlocal cache
+            for _ in range(4):
+                _, cache = decode(params, cache, tok)
+
+        log(f"  4 decode steps, {mode} cache:")
+        with kvq_ranges():
+            out[mode] = r = profile_window(four, 4)
+        ranges = r.get("annotated_ranges", {})
+        busy = r["device_busy_ms"]
+        r["kvq"] = {n: dict(device_ms=ranges.get(f"kvq.{n}", {}).get(
+            "device_ms", 0.0)) for n in KVQ_RANGES}
+        for n, x in r["kvq"].items():
+            x["share"] = x["device_ms"] / busy if busy else None
+        log(f"  {mode}: " + ", ".join(
+            f"{n} {x['device_ms']:.3f} ms"
+            + (f" ({x['share']:.3f} of busy)" if x["share"] is not None
+               else "") for n, x in r["kvq"].items()))
+        del cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def kvq_profiles(work):
+    """``--only kv-quant-profile`` in a fresh process: its report."""
+    report = work / "only_kv_quant_profile.json"
+    report.unlink(missing_ok=True)
+    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--only", "kv-quant-profile", "--out", str(report)],
+                       capture_output=True, text=True, timeout=300)
+    for line in p.stdout.splitlines():
+        if line.startswith("    ") or line.startswith("  int8") or \
+                line.startswith("  bfloat16") or line.startswith("  4 "):
+            log(line)
+    require(p.returncode == 0 and report.exists(),
+            f"--only kv-quant-profile exited {p.returncode}: "
+            f"{p.stderr[-2000:]}")
+    return json.loads(report.read_text())["kv-quant-profile"]
+
+
+def kvq_path(dev, results, counters):
+    """Phase 16: #7 at qwen1.5-32b's prefill shape; (a) lockstep with the
+    int8 cache at full depth; (b) int8 against bf16 cache at one prompt,
+    and the cache passes' device time; (d) the pool's contracts; (c) two
+    layers in float32 against the plain path; a fresh process's profile;
+    (e) the other dense archs.  Returns (report, (a)'s launches)."""
+    import tempfile
+    import torch
+    from repro_torch.kernels.plasticity import fused
+    out = {"attention": arch_attention(dev, results, KVQ_ARCH, KVQ_ATTN,
+                                       "kvq_shape", SEED + 47)}
+    _flush_buf.clear()              # its 1 GiB is wanted beside 66 GiB
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0, before = torch.cuda.mem_get_info()[0], torch.cuda.memory_allocated()
+    model, params = kvq_model(dev, kv_quant=True)
+    torch.cuda.empty_cache()
+    weights = torch.cuda.memory_allocated() - before
+    free = torch.cuda.mem_get_info()[0]
+    out.update(weights_bytes=weights, free_before_weights=free0,
+               free_after_weights=free)
+    out["lockstep"] = lock = kvq_lockstep(dev, model, params, counters,
+                                          results)
+    out["against_bf16"] = kvq_against_bf16(dev, model, params, counters,
+                                           lock, weights, free)
+    out["cache_passes"] = kvq_copy_ms(dev, model.cfg)
+    _flush_buf.clear()
+    work = ROOT / "build" / "chip_smoke_kv_quant"
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        out["pool"] = kvq_pool(dev, model, params,
+                               counters + (fused.rollout,), results, tmp)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["profile"] = kvq_profiles(work)
+    out["shallow"] = kvq_shallow(dev)
+    out["others"] = kvq_other_archs(dev, counters, results)
+    smi = nvidia_smi()
+    log(f"  {KVQ_ARCH} int8 cache ({smi}): prefill "
+        f"{lock['prefill_ms']:.1f} ms, decode p50 "
+        f"{lock['decode_ms_p50']:.2f} ms, {lock['tokens_per_s']:.1f} "
+        f"tokens/s, peak {gib(lock['peak_bytes']):.2f} GiB")
+    return out, lock["launches"]
 
 
 def nvidia_smi():
@@ -6080,6 +6805,20 @@ def only_lm_pool(dev):
     return lm_pool(dev, results)
 
 
+def only_kv_quant(dev):
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.plasticity import kernel as K
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.models import layers as ML
+    counters = (TA.flash_attention, SK.ssd_scan, ML.silu, K.fleet_step,
+                K.fleet_step_q)
+    results = {c.__name__: {"max_abs_err": 0.0} for c in counters}
+    out, launches = kvq_path(dev, results, counters)
+    out["launches"] = launches
+    out["max_abs_err"] = {k: v["max_abs_err"] for k, v in results.items()}
+    return out
+
+
 def only_moe(dev):
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.plasticity import kernel as K
@@ -6100,13 +6839,16 @@ ONLY = {"fleet-steps": only_fleet_steps, "shared-steps": only_shared_steps,
         "lm-prefill": profile_lm_prefills, "rule-search": only_rule_search,
         "health": only_health, "lm-pool": only_lm_pool,
         "lm-pool-profile": lm_pool_profile, "moe": only_moe,
-        "moe-profile": moe_profile}
+        "moe-profile": moe_profile, "kv-quant": only_kv_quant,
+        "kv-quant-profile": kvq_profile}
 # seconds after which a stalled LM phase (or ``--only`` part) prints every
 # thread's stack and exits non-zero (`faulthandler`), well before the
 # script's 1200 s
 STALL_LIMITS = {"8": 300, "9": 300, "11": 300, "14": 240, "15": 240,
-                "--only lm-pool": 240, "--only lm-pool-profile": 150,
-                "--only moe": 240, "--only moe-profile": 150}
+                "16": 480, "--only lm-pool": 240,
+                "--only lm-pool-profile": 150, "--only moe": 240,
+                "--only moe-profile": 150, "--only kv-quant": 480,
+                "--only kv-quant-profile": 240}
 
 
 def main() -> int:
@@ -6341,6 +7083,20 @@ def main() -> int:
         results[name]["launches_by_path"][MOE_ARCH] = \
             lm_launches[MOE_ARCH][name]
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"phase 16: the int8 KV cache, {KVQ_ARCH} at full width (64 "
+               f"layers, 40 heads of 128 over 40 KV heads), lockstep B = 4 "
+               f"and in a {POOL_SLOTS}-slot pool; {', '.join(KVQ_OTHERS)} "
+               f"at full width, qwen2-72b at smoke scale"):
+        kvq, lm_launches[KVQ_ARCH] = kvq_path(dev, results, lm_counters)
+    for name in ("flash_attention", "silu"):
+        results[name]["launches_by_path"][KVQ_ARCH] = \
+            lm_launches[KVQ_ARCH][name]
+    results["fleet_step_q"].setdefault("launches_by_path", {
+        "main path": results["fleet_step_q"]["launches"]})[
+        f"{KVQ_ARCH}, int8 cache"] = lm_launches[KVQ_ARCH]["fleet_step_q"]
+
     # #3 fleet's launches in each path that ran it; `launches` stays the
     # controller's (phase 4)
     results["rollout"]["launches_by_path"] = {
@@ -6382,6 +7138,7 @@ def main() -> int:
               "serve_path": served, "serve_launches": serve_launches,
               "rule_search": search, "rule_search_launches": search_launches,
               "health_path": health, "lm_pool": pool, "moe_path": moe,
+              "kv_quant_path": kvq,
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
               "shared_step_launches": shared_launches,

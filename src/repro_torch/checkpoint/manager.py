@@ -71,22 +71,21 @@ def signature(*operands, **flags) -> tuple:
 
 def unflatten(like, leaves):
     """A tree of `like`'s structure with `leaves` in flatten order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(x):
-        if x is None:
-            return None
-        if _is_dataclass(x):
-            return dataclasses.replace(x, **{
-                f.name: build(getattr(x, f.name))
-                for f in dataclasses.fields(x)})
-        if isinstance(x, (tuple, list)):
-            return type(x)(build(e) for e in x)
-        if isinstance(x, dict):
-            return {k: build(x[k]) for k in sorted(x)}
-        return next(it)
 
-    return build(like)
+def _build(x, it):
+    if x is None:
+        return None
+    if _is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _build(getattr(x, f.name), it)
+            for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(_build(e, it) for e in x)
+    if isinstance(x, dict):
+        return {k: _build(x[k], it) for k in sorted(x)}
+    return next(it)
 
 
 def structure(tree):

@@ -4,7 +4,12 @@ grok-1-314b --smoke``, whose FFNs are routed experts), an SSD state and
 conv window per layer (``--arch mamba2-1.3b``) or both (``--arch
 zamba2-7b``: a KV cache per super-block's shared attention block, an SSD
 state and conv window per Mamba2 block), optionally with the FireFly-P
-plastic adapter (one online plasticity step per generated token).
+plastic adapter (one online plasticity step per generated token).  Every
+arch of `configs.ARCHS` serves; ``--kv-quant`` keeps the KV cache as int8
+codes with a float32 scale per position and head.  The ``embeddings``
+archs (musicgen-medium, pixtral-12b) take their prompt through the JAX
+package's stub frontend, ``one_hot(prompt % d_model, d_model)``; their
+decode feeds tokens through the embedding table.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --smoke --batch 4 --prompt-len 32 --gen 16 --plastic --device cpu
@@ -156,6 +161,14 @@ def _sample(logits, temperature, generator):
         torch.int32)
 
 
+def embed_stub(tokens, cfg):
+    """The JAX package's stub frontend of an ``input_mode="embeddings"``
+    arch: tokens (B, S) -> one-hot frame embeddings (B, S, d_model) in
+    ``cfg.adtype``."""
+    return torch.nn.functional.one_hot(
+        tokens.long() % cfg.d_model, cfg.d_model).to(cfg.adtype)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
@@ -165,6 +178,9 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--plastic", action="store_true",
                     help="attach the FireFly-P plastic adapter at decode")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV cache: int8 codes and one float32 scale "
+                         "per position and KV head")
     ap.add_argument("--adapter-quant", action="store_true",
                     help="with --plastic: fixed-point adapter (int8 W_fast, "
                          "per-stream scales, int32 membranes/traces)")
@@ -214,12 +230,16 @@ def main(argv=None):
         cfg = cfg.with_(plastic_adapter=True,
                         adapter_neurons=min(128, cfg.d_model),
                         adapter_quant=args.adapter_quant)
+    if args.kv_quant:
+        cfg = cfg.with_(kv_quant=True)
     model = factory.build(cfg)
     max_len = args.prompt_len + args.gen
     gen = torch.Generator(dev).manual_seed(args.seed)
     params = model.init(gen)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
+    if cfg.input_mode == "embeddings":
+        prompts = embed_stub(prompts, cfg)
 
     registry = MetricsRegistry()
     watch = watchdog.install(registry)

@@ -9,6 +9,12 @@ and RoPE, as in the JAX package.  Prefill attention goes through
 tensor); one-token decode attention is plain torch, as it is an einsum in
 the JAX package too.
 
+With ``cfg.kv_quant`` the cache holds int8 codes and one float32 scale per
+(stream, position, KV head): `quantize_kv` / `dequantize_kv`, the JAX
+package's XLA ops written as the same torch ops (round half to even, then
+clip to +-127).  Decode writes the new row's codes and scales, then attends
+over the cache dequantised to ``cfg.adtype``, as the JAX package does.
+
 The port writes the decode cache IN PLACE: `decode_update` stores the new
 position into the ``(B, Smax, KV, HD)`` cache tensors it is given (the JAX
 package's ``decode_step`` returns updated copies).  Its index is a scalar
@@ -85,6 +91,21 @@ def update(params, x, cfg: ModelConfig, positions=None):
     return o.reshape(b, s, -1) @ params["wo"], (k, v)
 
 
+def quantize_kv(x):
+    """Symmetric int8 over the head_dim axis.  x (..., HD) ->
+    (codes int8 (..., HD), scale float32 (...,)), scale = max(amax, 1e-6)
+    / 127.  Jitted, XLA turns that division into a product with float32
+    1/127, which rounds differently in ~6% of the scales: so does this."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(-1), 1e-6) * (1.0 / 127.0)
+    q = torch.round(xf / scale[..., None]).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype=torch.bfloat16):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def _write_at(cache, row, index, active=None):
     """Write one new position of every stream, ``row (B,1,...)``, into the
     ``(B,Smax,...)`` cache, in place: at the scalar ``index`` for every
@@ -105,23 +126,30 @@ def _write_at(cache, row, index, active=None):
 
 
 def decode_update(params, x, cache_k, cache_v, index, cfg: ModelConfig,
-                  active=None):
+                  active=None, scale_k=None, scale_v=None):
     """One-token cached attention.  x (B,1,D); cache (B,Smax,KV,HD),
     written in place at ``index``: a 0-d int tensor (every stream at the
     same length) or ``(B,)`` (per slot), the number of positions already
-    resident.  ``active (B,)`` freezes vacant slots' cache rows.  Returns
-    the update (B,1,D), before the residual add."""
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "the int8 KV cache (kv_quant) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 9)")
+    resident.  ``active (B,)`` freezes vacant slots' cache rows.  Given
+    ``scale_k`` / ``scale_v`` (B,Smax,KV) float32, the cache is int8 and
+    they take the new row's scales, gated the same way.
+    Returns the update (B,1,D), before the residual add."""
     b = x.shape[0]
     positions = (index.reshape(1, 1).expand(b, 1) if index.ndim == 0
                  else index[:, None])
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     q, k, v = _qkv(params, h, cfg, positions)
-    _write_at(cache_k, k, index, active)
-    _write_at(cache_v, v, index, active)
+    if scale_k is not None:
+        for cache, scale, row in ((cache_k, scale_k, k), (cache_v, scale_v,
+                                                          v)):
+            codes, sc = quantize_kv(row)
+            _write_at(cache, codes, index, active)
+            _write_at(scale, sc, index, active)
+        cache_k = dequantize_kv(cache_k, scale_k, cfg.adtype)
+        cache_v = dequantize_kv(cache_v, scale_v, cfg.adtype)
+    else:
+        _write_at(cache_k, k, index, active)
+        _write_at(cache_v, v, index, active)
     o = _decode_attend(q, cache_k, cache_v, index, cfg)
     return o.reshape(b, 1, -1) @ params["wo"]
 

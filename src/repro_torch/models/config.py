@@ -76,7 +76,7 @@ class ModelConfig:
     adapter_neurons: int = 512
     adapter_quant: bool = False   # fixed-point adapter: int8 W_fast with
                                   # per-slot scales, int32 membranes/traces
-    kv_quant: bool = False        # int8 KV cache (not ported yet)
+    kv_quant: bool = False        # int8 KV cache, float32 scale planes
     dtype: str = "bfloat16"       # activations/params storage
 
     @property

@@ -58,10 +58,14 @@ def map_plan(fn, plan):
     return [map_plan(fn, p) for p in plan]
 
 
+_DRAW_CHUNK = 1 << 26
+
+
 def init_from_plan(plan, generator: torch.Generator):
     """Real parameters on the generator's device, one draw per ``normal``
-    leaf in `leaves` order: ``std = scale / sqrt(fan_in)`` with ``fan_in``
-    defaulting to the second-to-last dim (the last for vectors)."""
+    leaf in `leaves` order (in pieces of 2^26 elements):
+    ``std = scale / sqrt(fan_in)`` with ``fan_in`` defaulting to the
+    second-to-last dim (the last for vectors)."""
     dev = generator.device
 
     def mk(d: ParamDesc):
@@ -75,8 +79,15 @@ def init_from_plan(plan, generator: torch.Generator):
         fan = d.fan_in if d.fan_in else (
             d.shape[-2] if len(d.shape) >= 2 else d.shape[-1])
         std = d.scale / (fan ** 0.5)
-        x = torch.randn(d.shape, generator=generator, device=dev)
-        return x.mul_(std).to(dt)
+        # drawn in pieces, so that a large leaf's float32 draw (a full-width
+        # stacked MLP's is 36 GB) never sits beside the whole leaf
+        out = torch.empty(d.shape, dtype=dt, device=dev)
+        flat = out.view(-1)
+        for i in range(0, flat.numel(), _DRAW_CHUNK):
+            m = min(_DRAW_CHUNK, flat.numel() - i)
+            flat[i:i + m] = torch.randn(m, generator=generator,
+                                        device=dev).mul_(std)
+        return out
 
     return map_plan(mk, plan)
 

@@ -19,8 +19,10 @@ Entry points:
   plan / init                        — parameter plan and random init
   forward                            — full-sequence logits (or hidden)
   cache_plan / init_cache / prefill / decode_step — serving with a KV cache
-                                       per attention block and an SSD state
-                                       and conv window per Mamba2 block
+                                       per attention block (int8 codes and
+                                       float32 scales with ``kv_quant``)
+                                       and an SSD state and conv window per
+                                       Mamba2 block
   decode_rollout                     — K known tokens per stream: the
                                        backbone token by token, the adapter
                                        once over the window
@@ -216,19 +218,22 @@ def cache_plan(cfg: ModelConfig, batch: int, max_len: int,
     and V per super-block and ``"ssm": {"ssm", "conv"}`` stacked
     (super-block, inner block); the ``index`` (positions resident: a scalar, every stream in
     lockstep, or ``(B,)`` with ``per_slot_index``, one length per stream)
-    and, with the adapter, its per-stream state."""
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "the int8 KV cache (kv_quant) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 9)")
+    and, with the adapter, its per-stream state.  With ``cfg.kv_quant`` K
+    and V are int8 codes beside ``(L, B, max_len, KV)`` float32
+    ``k_scale`` and ``v_scale`` planes."""
     segs = []
     for kind, count in segments(cfg):
         if kind == "ssm":
             segs.append(ssm_mod.plan_cache(cfg, batch, count))
             continue
         kv = ParamDesc((count, batch, max_len, cfg.n_kv_heads, cfg.hd),
-                       init="zeros", dtype=cfg.dtype)
+                       init="zeros",
+                       dtype="int8" if cfg.kv_quant else cfg.dtype)
         segs.append({"k": kv, "v": kv})
+        if cfg.kv_quant:
+            sc = ParamDesc((count, batch, max_len, cfg.n_kv_heads),
+                           init="zeros", dtype="float32")
+            segs[-1].update(k_scale=sc, v_scale=sc)
         if kind == "zsuper":
             inner = ssm_mod.plan_cache(cfg, batch, cfg.ssm.attn_every - 1)
             segs[-1]["ssm"] = _stack_plan(inner, count)
@@ -275,10 +280,15 @@ def prefill(params, inputs, cfg: ModelConfig, max_len: int):
 
 def _embed_kv(seg_cache: dict, layer: int, k, v):
     """Place one layer's prefilled (B,S,KV,HD) keys and values at the
-    start of its (B,max_len,KV,HD) slot of the cache."""
+    start of its (B,max_len,KV,HD) slot of the cache; an int8 cache takes
+    their codes and scales (the scale is per stream, position and head,
+    so one layer at a time gives the codes of the whole stack)."""
     s = k.shape[1]
-    seg_cache["k"][layer, :, :s] = k
-    seg_cache["v"][layer, :, :s] = v
+    for name, x in (("k", k), ("v", v)):
+        if f"{name}_scale" in seg_cache:
+            x, scale = attention.quantize_kv(x)
+            seg_cache[f"{name}_scale"][layer, :, :s] = scale
+        seg_cache[name][layer, :, :s] = x
 
 
 def _embed_ssm(seg_cache: dict, layer, state, conv_tail):
@@ -312,8 +322,10 @@ def _decode_backbone(params, cache, tokens, cfg: ModelConfig, active=None):
                                               c["conv"][i], cfg, active)
                 continue
             blk = shared if kind == "zsuper" else p
+            scales = ((c["k_scale"][i], c["v_scale"][i]) if "k_scale" in c
+                      else ())
             o = attention.decode_update(blk["attn"], h, c["k"][i], c["v"][i],
-                                        index, cfg, active)
+                                        index, cfg, active, *scales)
             h = _ffn(blk, h, o, cfg, token_mask)
             if kind == "zsuper":
                 inner = c["ssm"]

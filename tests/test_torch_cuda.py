@@ -1620,3 +1620,103 @@ def test_moe_pool_vacant_slot_on_card(cuda_device):
         assert toks == base_toks
         for got, want in zip(sessions, base):
             assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("qwen3-4b", "deepseek-moe-16b",
+                                  "zamba2-7b"))
+def test_kv_quant_on_card(cuda_device, arch):
+    """The int8 KV cache (``kv_quant``) of a smoke LM in float32 on the
+    card against the same code on the CPU (the same parameters and
+    tokens): a prefill and 4 decode steps give the same greedy tokens,
+    logits within 5e-4 of the largest (a code that rounds the other way
+    at a tie moves them by ~1e-4 of it), the cache's codes equal but at
+    most 1e-3 of them, each off by one, and its scales within 1e-5; the
+    prefill launches the attention kernel once an attention block."""
+    import dataclasses
+    from repro_torch.checkpoint import manager as TM
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.models import factory
+    from repro_torch.models.transformer import segments
+    model = factory.build(arch, smoke=True, dtype="float32", kv_quant=True)
+    cfg = model.cfg
+    if cfg.moe is not None:
+        model = factory.build(cfg.with_(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts))))
+        cfg = model.cfg
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (3, 24))).to(cuda_device)
+
+    def run(p, t):
+        logits, cache = model.prefill(p, t[:, :20], 24)
+        outs = [logits]
+        for i in range(20, 24):
+            logits, cache = model.decode_step(p, cache, t[:, i:i + 1])
+            outs.append(logits)
+        return outs, cache
+
+    attn = TA.flash_attention.launches
+    got, gcache = run(params, toks)
+    torch.cuda.synchronize()
+    assert TA.flash_attention.launches == attn + sum(
+        n for kind, n in segments(cfg) if kind != "ssm")
+    want, wcache = run(TM.tree_map(lambda t: t.cpu(), params), toks.cpu())
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 5e-4 * scale
+        assert torch.equal(g.cpu().argmax(-1), w.argmax(-1))
+    differ = total = 0
+    for gs, ws in zip(gcache["segments"], wcache["segments"]):
+        if "k" not in gs:
+            continue
+        for name in ("k", "v"):
+            a, b = gs[name].cpu(), ws[name]
+            assert a.dtype == torch.int8
+            differ += int((a != b).sum())
+            total += a.numel()
+            assert int((a.int() - b.int()).abs().max()) <= 1
+            torch.testing.assert_close(gs[f"{name}_scale"].cpu(),
+                                       ws[f"{name}_scale"], rtol=1e-5,
+                                       atol=0)
+    assert differ <= 1e-3 * total
+
+
+@pytest.mark.cuda
+def test_int8_cache_session_round_trip_on_card(cuda_device, tmp_path):
+    """An int8-cache LM session on the card (zamba2-7b's smoke layout:
+    int8 K/V with scale planes beside SSM states) leaves a pool through a
+    disk `SessionStore` and comes back bit for bit into another slot,
+    decodes on, and a vacant slot's codes and scales stay frozen."""
+    from repro_torch.checkpoint import manager as TM
+    from repro_torch.models import factory
+    from repro_torch.serving import LMScheduler, SessionStore
+    model = factory.build("zamba2-7b", smoke=True, kv_quant=True,
+                          plastic_adapter=True, adapter_neurons=8,
+                          adapter_quant=True)
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    params["adapter"]["scale"].fill_(0.5)
+    rng = np.random.default_rng(4)
+    prompts = {u: rng.integers(0, model.cfg.vocab, 6) for u in "abc"}
+    s = LMScheduler(model, params, slots=4, max_len=24,
+                    store=SessionStore(root=str(tmp_path)))
+    for u in "abc":
+        s.admit_prompt(u, prompts[u])
+    frozen = s._take(s.pool, 3)
+    for _ in range(2):
+        s.step()
+    before = s.session_view("a")
+    assert before["cache"]["segments"][0]["k"].dtype == torch.int8
+    s.evict("a")
+    s.evict("b")
+    s.store._warm.clear()
+    s.admit_prompt("b", prompts["b"])              # back into slot 0
+    slot = s.admit_prompt("a", prompts["a"])
+    assert slot == 1 and s.store.restores == 2
+    for x, y in zip(TM.flatten(before)[1],
+                    TM.flatten(s.session_view("a"))[1]):
+        assert x.device.type == cuda_device.type and torch.equal(x, y)
+    s.step()
+    for x, y in zip(TM.flatten(frozen)[1], TM.flatten(s._take(s.pool,
+                                                              3))[1]):
+        assert torch.equal(x, y)

@@ -2,7 +2,11 @@
 configs of qwen3-4b (the ``dense`` layout), mamba2-1.3b (``ssm``),
 zamba2-7b (``hybrid``: a shared attention + MLP block and Mamba2 blocks),
 deepseek-moe-16b and grok-1-314b (``moe``: a dense first layer for
-deepseek, then attention + routed experts) with the plastic adapter.
+deepseek, then attention + routed experts) and the other dense archs:
+qwen2-72b and qwen1.5-32b (QKV bias), internlm2-20b, and musicgen-medium
+and pixtral-12b, whose prefill takes embeddings (``input_mode =
+"embeddings"``, the prompt through the stub frontend `serve.embed_stub`),
+with the plastic adapter.
 
 The JAX parameters (``model.init``) are carried into the port by
 `convert.lm_params`; the JAX side runs jitted ``make_prefill`` /
@@ -45,19 +49,29 @@ ROOT = Path(__file__).resolve().parents[1]
 B, S, GEN = 2, 40, 4          # S = 40 is ragged in mamba2's 16-token chunks
 MAX_LEN = S + GEN
 ARCHS = ("qwen3-4b", "mamba2-1.3b", "zamba2-7b", "deepseek-moe-16b",
-         "grok-1-314b")
-MOE_ARCHS = ARCHS[3:]
-# the JAX prefill's two implementations of each layout's sequence mixer;
-# the hybrid's name its attention's and its SSD's as "<attn>+<ssd>"
-IMPL_KW = {"qwen3-4b": "attn_impl", "mamba2-1.3b": "ssd_impl",
-           "deepseek-moe-16b": "attn_impl", "grok-1-314b": "attn_impl"}
+         "grok-1-314b", "qwen2-72b", "internlm2-20b", "qwen1.5-32b",
+         "musicgen-medium", "pixtral-12b")
+MOE_ARCHS = ARCHS[3:5]
 
 
 def _impl_kw(arch, impl):
+    """The JAX prefill's implementation of the arch's sequence mixer; the
+    hybrid's names its attention's and its SSD's as "<attn>+<ssd>"."""
     if arch == "zamba2-7b":
         attn, ssd = impl.split("+")
         return dict(attn_impl=attn, ssd_impl=ssd)
-    return {IMPL_KW[arch]: impl}
+    return {"ssd_impl" if arch == "mamba2-1.3b" else "attn_impl": impl}
+
+
+def _prompts(cfg, toks):
+    """Both packages' prompt: the tokens, or for an embeddings arch the
+    stub frontend's one-hot embeddings of them (the same values)."""
+    if cfg.input_mode != "embeddings":
+        return jnp.asarray(toks), torch.from_numpy(toks).long()
+    from repro_torch.launch.serve import embed_stub
+    t = embed_stub(torch.from_numpy(toks), cfg)
+    return (jax.nn.one_hot(jnp.asarray(toks) % cfg.d_model, cfg.d_model,
+                           dtype=getattr(jnp, cfg.dtype)), t)
 
 
 def _cfgs(dtype="float32", quant=False, arch="qwen3-4b", **kw):
@@ -91,11 +105,10 @@ def _run(arch, dtype, quant, impl, params):
     final adapter states."""
     jcfg, tcfg = _cfgs(dtype, quant, arch)
     tparams = convert.lm_params(params, tcfg, "cpu")
-    toks = _tokens(tcfg.vocab)
+    jin, tin = _prompts(tcfg, _tokens(tcfg.vocab))
     jl, jc = jax.jit(j_make_prefill(jcfg, MAX_LEN, **_impl_kw(arch, impl)))(
-        params, jnp.asarray(toks))
-    tl, tc = steps.make_prefill(tcfg, MAX_LEN)(
-        tparams, torch.from_numpy(toks).long())
+        params, jin)
+    tl, tc = steps.make_prefill(tcfg, MAX_LEN)(tparams, tin)
     pairs = [(np.asarray(jl, np.float32), tl.float().numpy())]
     jdec = jax.jit(j_make_decode_step(jcfg))
     tdec = steps.make_decode_step(tcfg)
@@ -112,7 +125,10 @@ def _run(arch, dtype, quant, impl, params):
     ("qwen3-4b", "xla_flash"), ("qwen3-4b", "xla"),
     ("mamba2-1.3b", "xla"), ("mamba2-1.3b", "scan"),
     ("zamba2-7b", "xla_flash+xla"), ("zamba2-7b", "xla+scan"),
-    ("deepseek-moe-16b", "xla_flash"), ("grok-1-314b", "xla")))
+    ("deepseek-moe-16b", "xla_flash"), ("grok-1-314b", "xla"),
+    ("qwen2-72b", "xla_flash"), ("internlm2-20b", "xla"),
+    ("qwen1.5-32b", "xla_flash"), ("musicgen-medium", "xla"),
+    ("pixtral-12b", "xla_flash")))
 @pytest.mark.parametrize("quant", (False, True), ids=("f32-adapter",
                                                       "int8-adapter"))
 def test_float32_prefill_and_decode_match_jax(quant, arch, impl,
@@ -315,7 +331,12 @@ def _desc_leaves(plan):
                                         ("mamba2-1.3b", 1.3e9),
                                         ("zamba2-7b", 6.0e9),
                                         ("deepseek-moe-16b", 16.3e9),
-                                        ("grok-1-314b", 316e9)), ids=ARCHS)
+                                        ("grok-1-314b", 316e9),
+                                        ("qwen2-72b", 72.7e9),
+                                        ("internlm2-20b", 19.8e9),
+                                        ("qwen1.5-32b", 35.1e9),
+                                        ("musicgen-medium", 1.8e9),
+                                        ("pixtral-12b", 12.2e9)), ids=ARCHS)
 def test_configs_and_plans_match_jax(arch, least):
     """Every field the port keeps equals the JAX config's; the full
     config's parameter count (counted from the plan, nothing allocated)
@@ -344,17 +365,31 @@ def test_configs_and_plans_match_jax(arch, least):
 
 
 def test_unported_archs_and_layouts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.build("qwen2-72b")
+    """Every arch of the JAX package resolves in the port, at full width
+    and smoke scale, and the int8 cache plans for each LM; unknown archs
+    and layouts still raise, and so does the SNN controller's arch."""
+    from repro.configs import ARCHS as J_ARCHS
+    from repro_torch.configs import ARCHS as T_ARCHS
+    assert T_ARCHS == J_ARCHS
+    for arch in J_ARCHS:
+        for get in (get_config, get_smoke):
+            cfg = get(arch)
+            if arch == "firefly-snn":
+                continue
+            assert factory.build(cfg).cfg is cfg
+            plan = transformer.cache_plan(cfg.with_(kv_quant=True), 1, 8)
+            for seg in plan["segments"]:
+                if "k" in seg:
+                    assert seg["k"].dtype == "int8"
+                    assert seg["k_scale"].dtype == "float32"
     with pytest.raises(ValueError, match="layout"):
         factory.build(get_smoke("qwen3-4b").with_(layout="no-such-layout"))
     with pytest.raises(KeyError):
         factory.build("no-such-arch")
+    with pytest.raises(KeyError):
+        get_smoke("qwen2-7b")
     with pytest.raises(TypeError, match="firefly-snn"):
         factory.build("firefly-snn")
-    cfg = get_smoke("qwen3-4b").with_(kv_quant=True)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        transformer.init_cache(cfg, 1, 8, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -385,7 +420,7 @@ def test_generate_greedy_and_sampled(arch):
     from repro_torch.launch import serve
     _, tcfg = _cfgs("float32", arch=arch)
     params = factory.build(tcfg).init(torch.Generator().manual_seed(0))
-    prompts = torch.from_numpy(_tokens(tcfg.vocab)).long()
+    prompts = _prompts(tcfg, _tokens(tcfg.vocab))[1]
     toks, lats, cache, prefill_s = serve.generate(tcfg, params, prompts,
                                                   MAX_LEN, GEN)
     assert toks.shape == (B, GEN) and len(lats) == GEN and prefill_s > 0

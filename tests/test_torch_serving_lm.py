@@ -339,8 +339,9 @@ def test_window_inputs_are_checked(models):
     with pytest.raises(ValueError, match="plastic_adapter=False"):
         LMScheduler(factory.build(tm.cfg.with_(plastic_adapter=False)),
                     tp, slots=2, max_len=16).step(telemetry=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        factory.build("qwen2-72b", smoke=True)
+    with pytest.raises(ValueError, match="not poolable"):
+        LMScheduler(factory.build("musicgen-medium", smoke=True), tp,
+                    slots=2, max_len=16)
 
 
 def test_a_stream_at_max_len_is_refused_before_dispatch(models):
