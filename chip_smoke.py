@@ -302,7 +302,33 @@ Phases, each fatal on failure:
      exact launches, and qwen2-72b (~135 GiB in bf16) at smoke scale
      beside its full-width plan's bytes.
 
-The LM phases (8, 9, 11, 14, 15, 16) and their ``--only`` parts arm
+ 17. LM training on the dense layout: (a) #7's backward kernel
+     (csrc/flash_attention_bwd.cu) against `flash_attention_bwd_plain` on
+     the forward kernel's o and lse at qwen3-4b's training shape (B = 1,
+     S = 4096, 32 query over 8 KV heads of 128) in bf16 and at every head
+     width at S = 512 in float32 and bf16 (float32 within 1e-5 of each
+     gradient's largest |x|, bf16 within rtol 2e-2 / atol 2e-3, a second
+     launch the same bits), timed per layer beside its plain version, its
+     bound by operations and SDPA's backward; (b) silu's backward
+     (csrc/silu.cu's ``silu_bwd``) bit for bit at the training MLP of
+     every dense arch, timed beside its bound by bytes, and AdamW's
+     update (csrc/adamw.cu) bit for bit at qwen3-4b's leaves, timed at
+     the largest beside its plain version and its bound by bytes; (c) 3
+     steps of full-width qwen3-4b (4.41 B parameters) at 2 x 4096 tokens
+     through `launch.train.build`: 2 microbatches into a float32
+     accumulator, float32 AdamW moments, warmup-cosine, remat per block;
+     each step's launches exact (144 #7 forwards, 72 backwards, 144 silu,
+     72 silu backwards, one AdamW launch a parameter leaf), finite losses, the first near ln(151936); step seconds,
+     tokens/s, model FLOP/s and its share of 989 TFLOP/s, peak memory;
+     (d) 2 layers at full width in float32 against the plain path (loss
+     within 1e-5 relative, every gradient leaf within 1e-4 of its largest
+     |g|); (e) the train CLI on the card and again, resuming at step 6;
+     then in a fresh process (``--only train-profile``) a `torch.profiler`
+     of one step, the device time grouped by kernel name (#7's forward
+     and backward, silu's, AdamW's, the GEMMs, the elementwise kernels,
+     the reductions) and the optimizer's update in a range.
+
+The LM phases (8, 9, 11, 14, 15, 16, 17) and their ``--only`` parts arm
 `faulthandler` with a limit of a few minutes: a stall prints every
 thread's stack and exits with code 1 long before the script's limit.
 
@@ -327,7 +353,8 @@ windows and the recorded windows' walls with the kernel and its plain
 version), ``lm-pool`` (phase 14) and ``lm-pool-profile`` (its fresh
 process's profile of 4 pool steps), ``moe`` (phase 15) and
 ``moe-profile`` (its fresh process's profile), ``kv-quant`` (phase 16)
-and ``kv-quant-profile`` (its fresh process's profile).
+and ``kv-quant-profile`` (its fresh process's profile), ``train`` (phase
+17) and ``train-profile`` (its fresh process's profile of one step).
 """
 from __future__ import annotations
 
@@ -337,6 +364,7 @@ import faulthandler
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -382,7 +410,10 @@ SOURCES = {"fleet_step": CSRC + "fleet_step.cu",
            "shared_step_bf16": CSRC + "shared_step.cu",
            "lif_forward_bf16": CSRC + "lif_forward.cu",
            "silu": CSRC + "silu.cu",
-           "recorder": CSRC + "recorder.cu"}
+           "recorder": CSRC + "recorder.cu",
+           "flash_attention_bwd": CSRC + "flash_attention_bwd.cu",
+           "silu_bwd": CSRC + "silu.cu",
+           "adamw": CSRC + "adamw.cu"}
 REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "fleet_step_q": "src/repro/kernels/plasticity/kernel.py:559",
             "rollout": "src/repro/kernels/plasticity/fused.py:304",
@@ -409,7 +440,14 @@ REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "silu": "src/repro/models/layers.py:142",
             # no Pallas kernel: the record variant's recorder and detectors,
             # which XLA fuses into the jitted pool step
-            "recorder": "src/repro/serving/scheduler.py:870"}
+            "recorder": "src/repro/serving/scheduler.py:870",
+            # the gradient of #7's port (JAX differentiates its XLA
+            # attention in training: src/repro/launch/steps.py:31)
+            "flash_attention_bwd": "src/repro/kernels/attention/kernel.py:79",
+            # no Pallas kernel: XLA's fusion of jax.vjp of the SwiGLU gate
+            "silu_bwd": "src/repro/models/layers.py:142",
+            # no Pallas kernel: XLA's fusion of the AdamW update
+            "adamw": "src/repro/optim/optimizers.py:67"}
 
 
 def log(*a):
@@ -975,11 +1013,12 @@ def plain_closed_loop_matches(dev, main):
         f"rewards and weights ({dt:.2f} s)")
 
 
-def profile_window(fn, steps):
+def profile_window(fn, steps, groups=None):
     """Device busy time, idle share and device time by kernel over one call
     of ``fn`` (torch.profiler, CUPTI), against its wall time.  Ranges
     annotated with `record_function` (the serving phases) are not kernels:
-    their host time is reported apart."""
+    their host time is reported apart.  ``groups`` ({name: regex}) adds the
+    device time of the kernels whose names each regex finds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1008,6 +1047,13 @@ def profile_window(fn, steps):
                     "count": e.count} for e in top]}
     if ranges:
         out["annotated_ranges"] = ranges
+    if groups:
+        out["groups"] = {
+            g: dict(ms=sum(e.self_device_time_total for e in kernels
+                           if re.search(rx, e.key)) / 1e3,
+                    count=sum(e.count for e in kernels
+                              if re.search(rx, e.key)))
+            for g, rx in groups.items()}
     log(f"    {steps} steps in {wall_ms:.1f} ms wall, device busy "
         f"{busy_ms:.2f} ms ({launches / steps:.0f} kernel launches per "
         f"step)" if busy_ms else
@@ -1017,6 +1063,8 @@ def profile_window(fn, steps):
     for name, r in sorted(ranges.items()):
         log(f"      host {r['host_ms']:8.3f} ms  x{r['count']:<5d} {name} "
             f"(its kernels {r['device_ms']:.3f} ms on the device)")
+    for name, r in (groups and out["groups"] or {}).items():
+        log(f"      {r['ms']:8.3f} ms  x{r['count']:<5d} {name} (by name)")
     return out
 
 
@@ -6762,6 +6810,555 @@ def kvq_path(dev, results, counters):
     return out, lock["launches"]
 
 
+# ---- phase 17: LM training on the dense layout -------------------------------
+
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 3   # train_4k's S; B cut
+TRAIN_ATTN = (1, TRAIN_SEQ, 32, 8, 128)    # one microbatch at qwen3-4b
+TRAIN_WIDTH_S = 512                        # (a)'s head-width sweep
+TRAIN_CLI_STEPS = 6
+
+
+def attention_bwd_bound(b, sq, skv, h, hkv, d, itemsize):
+    """Least time (ms) for the backward of causal attention: q, k, v, o,
+    dO and lse read once, dq, dk, dv written once, against 10·D FLOP for
+    every visible (query, key) pair (recomputing S, then dP, dV, dK and
+    dQ: the five products of the FA2 backward) at the bf16 tensor-core
+    peak."""
+    off = skv - sq
+    pairs = sum(min(skv, i + off + 1) for i in range(sq))
+    nbytes = ((4 * b * sq * h * d + 4 * b * skv * hkv * d) * itemsize
+              + 4 * b * h * sq)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = 10 * d * b * h * pairs / BF16_OPS_PER_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations", tb, to
+
+
+def bwd_close(got, want, dtype):
+    """#7's backward gate: float32 within 1e-5 of each gradient's largest
+    |x|, bf16 within rtol 2e-2 / atol 2e-3 (the forward's)."""
+    import torch
+    if dtype == torch.float32:
+        return bool((got - want).abs().max() <= 1e-5 * want.abs().max())
+    return torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-3)
+
+
+def train_attention_case(gen, dev, shape, dtype, results, what):
+    """One #7 backward case: the forward kernel's o and lse, then the
+    backward kernel twice (the same bits) against its plain version.
+    Returns the inputs for timing."""
+    import torch
+    from repro_torch.kernels.attention import kernel as TA
+    b, s, h, hkv, d = shape
+    q, k, v = attention_inputs(gen, b, s, s, h, hkv, d, dtype, dev)
+    do = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    o, lse = TA._forward(q, k, v, True, None, None, with_lse=True)
+    got = TA.flash_attention_bwd(q, k, v, o, lse, do)
+    again = TA.flash_attention_bwd(q, k, v, o, lse, do)
+    want = TA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        e = float((g.double() - w.double()).abs().max())
+        err = max(err, e)
+        require(torch.equal(g, a),
+                f"flash_attention_bwd {what} {name}: a second launch gave "
+                f"other bits")
+        require(bwd_close(g, w, dtype),
+                f"flash_attention_bwd {what} {name}: differs from the plain "
+                f"version (max |err| {e:.3g}, largest |x| "
+                f"{float(w.abs().max()):.3g})")
+    row = results["flash_attention_bwd"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    log(f"  flash_attention_bwd {what}: dq, dk, dv against the plain "
+        f"version, max |err| {err:.3g}; a second launch the same bits")
+    del got, again, want
+    return q, k, v, o, lse, do
+
+
+def train_attention(dev, results):
+    """(a): #7's backward at qwen3-4b's training shape in bf16, and at
+    every head width at S = 512 in float32 and bf16, against its plain
+    version; its time per layer (L2 flushed) beside its plain version,
+    the bound by operations and the backward of
+    `scaled_dot_product_attention` on the same inputs (timed only, never
+    on the path); the forward with its lse beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import kernel as TA
+    gen = torch.Generator(dev).manual_seed(SEED + 60)
+    for d in TA.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            train_attention_case(gen, dev, (2, TRAIN_WIDTH_S, 8, 2, d),
+                                 dtype, results,
+                                 f"{str(dtype)[6:]} D={d} S={TRAIN_WIDTH_S}")
+    torch.cuda.empty_cache()
+    q, k, v, o, lse, do = train_attention_case(
+        gen, dev, TRAIN_ATTN, torch.bfloat16, results,
+        f"bf16 {TRAIN_ARCH} training {TRAIN_ATTN}")
+    ms = device_ms(lambda: TA.flash_attention_bwd(q, k, v, o, lse, do),
+                   reps=5)
+    plain = device_ms(lambda: TA.flash_attention_bwd_plain(q, k, v, o, lse,
+                                                           do), reps=3)
+    fwd = device_ms(lambda: TA._forward(q, k, v, True, None, None,
+                                        with_lse=True), reps=5)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib = device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                retain_graph=True), reps=5)
+    bms, kind, tb, to = attention_bwd_bound(*TRAIN_ATTN[:1], TRAIN_SEQ,
+                                            TRAIN_SEQ, *TRAIN_ATTN[2:], 2)
+    tflops = to * BF16_OPS_PER_S / 1e3 / ms / 1e9
+    results["flash_attention_bwd"].update(
+        shape=dict(zip(("B", "S", "H", "HKV", "D"), TRAIN_ATTN)), ms=ms,
+        plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=kind,
+        tflops=tflops, forward_with_lse_ms=fwd)
+    log(f"  flash_attention_bwd bf16 {TRAIN_ATTN} (one layer of a "
+        f"microbatch): {ms:.4f} ms (bound {bms:.4f} ms by {kind}: bytes "
+        f"{tb:.4f} ms, operations {to:.4f} ms at 10·D FLOP a pair), "
+        f"{tflops:.1f} TFLOP/s, {ms / bms:.1f}x the bound; plain "
+        f"{plain:.4f} ms; SDPA's backward {lib:.4f} ms ({ms / lib:.2f}x); "
+        f"the forward with lse {fwd:.4f} ms")
+    del q, k, v, o, lse, do, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+
+
+def train_silu(dev, results):
+    """(b): silu's backward bit for bit against `silu_bwd_plain` at the
+    MLP of one training microbatch (4096 rows) of qwen3-4b and of the
+    other dense archs, bf16 and float32 at qwen3-4b; timed at qwen3-4b
+    beside its plain version and its bound by bytes (g, u and dy read
+    once, dg and du written once)."""
+    import torch
+    from repro_torch.models import layers as ML
+    gen = torch.Generator(dev).manual_seed(SEED + 61)
+    cases = [(TRAIN_ARCH, "bfloat16"), (TRAIN_ARCH, "float32")] + [
+        (a, "bfloat16") for a in ("qwen2-72b", "internlm2-20b",
+                                  "qwen1.5-32b", "musicgen-medium",
+                                  "pixtral-12b")]
+    for arch, dt in cases:
+        d_ff = lm_config(arch)[0].d_ff
+        dtype = getattr(torch, dt)
+        g, u, dy = (torch.randn(TRAIN_SEQ, d_ff, generator=gen,
+                                device=dev).mul_(s).to(dtype)
+                    for s in (4, 1, 0.5))
+        got = ML.silu_bwd(g, u, dy)
+        want = ML.silu_bwd_plain(g, u, dy)
+        torch.cuda.synchronize()
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        results["silu_bwd"]["max_abs_err"] = max(
+            results["silu_bwd"]["max_abs_err"], err)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"silu_bwd {arch} {dt} ({TRAIN_SEQ}, {d_ff}): differs from "
+                f"its plain version (max err {err})")
+        log(f"  silu_bwd {arch} mlp {dt} ({TRAIN_SEQ}, {d_ff}): dg and du "
+            f"bit for bit")
+        if arch == TRAIN_ARCH and dt == "bfloat16":
+            ms = device_ms(lambda: ML.silu_bwd(g, u, dy))
+            plain = device_ms(lambda: ML.silu_bwd_plain(g, u, dy))
+            n = TRAIN_SEQ * d_ff
+            # neg, exp, add, divide, 8 multiplies and adds, the rounding
+            bms, kind = bound(5 * 2 * n, 14 * n)
+            results["silu_bwd"].update(
+                shape=dict(rows=TRAIN_SEQ, d_ff=d_ff, dtype=dt), ms=ms,
+                plain_ms=plain, library_ms=None, bound_ms=bms,
+                bound_by=kind)
+            log(f"  silu_bwd bf16 ({TRAIN_SEQ}, {d_ff}): {ms:.4f} ms (bound "
+                f"{bms:.4f} ms by {kind}, {bms / ms:.0%} of the memory "
+                f"rate); plain {plain:.4f} ms")
+        del g, u, dy, got, want
+    torch.cuda.empty_cache()
+
+
+def train_adamw(dev, results):
+    """(b): AdamW's kernel bit for bit against `adamw_leaf_plain` (the
+    parameter and both moments, two steps) at qwen3-4b's leaves as the
+    step hands them over (bf16 parameters, float32 grads and moments,
+    clipped, weight decay): the stacked MLP weight (36 x 2560 x 9728),
+    the embedding and a stacked norm; and at 10^6 + 3 elements with a
+    float32 master copy and bf16 moments.  Timed at the largest leaf (L2
+    flushed) beside its plain version and its bound by bytes (p, g, m, v
+    read once, p, m, v written once).  ``library_ms`` is null:
+    ``torch._fused_adamw_`` takes grads and moments only in the
+    parameters' dtype."""
+    import torch
+    from repro_torch.optim import optimizers as O
+    cfg = lm_config(TRAIN_ARCH)[0]
+    gen = torch.Generator(dev).manual_seed(SEED + 63)
+    f32, bf16 = torch.float32, torch.bfloat16
+    big = cfg.n_layers * cfg.d_model * cfg.d_ff
+    cases = [(big, bf16, f32, f32, False), (cfg.vocab * cfg.d_model, bf16,
+                                            f32, f32, False),
+             (cfg.n_layers * cfg.d_model, bf16, f32, f32, False),
+             (10 ** 6 + 3, f32, f32, bf16, True)]
+
+    def scalars(step):
+        st = torch.full((), step, dtype=f32, device=dev)
+        return dict(scale=torch.full((), 0.37, device=dev),
+                    bc1=1 - 0.9 ** st, bc2=1 - 0.95 ** st,
+                    lr=torch.full((), 3e-4, device=dev), b1=0.9, b2=0.95,
+                    eps=1e-8, wd=0.1)
+
+    for n, pdt, gdt, mdt, master in cases:
+        p = torch.randn(n, generator=gen, device=dev).to(pdt)
+        m = (1e-3 * torch.randn(n, generator=gen, device=dev)).to(mdt)
+        v = (1e-3 * torch.randn(n, generator=gen, device=dev)).square_() \
+            .to(mdt)
+        w = p.float().clone() if master else None
+        twin = [None if t is None else t.clone() for t in (p, m, v, w)]
+        for step in (1, 2):
+            g = (1e-2 * torch.randn(n, generator=gen, device=dev)).to(gdt)
+            O.adamw_leaf(p, g, m, v, w, **scalars(step))
+            O.adamw_leaf_plain(twin[0], g, *twin[1:], **scalars(step))
+            torch.cuda.synchronize()
+            for name, a, b in zip("pmvw", (p, m, v, w), twin):
+                if a is None:
+                    continue
+                err = float((a.double() - b.double()).abs().max())
+                results["adamw"]["max_abs_err"] = max(
+                    results["adamw"]["max_abs_err"], err)
+                require(torch.equal(a, b),
+                        f"adamw n={n} {pdt}/{gdt}/{mdt} master={master} "
+                        f"step {step}: {name} differs from its plain "
+                        f"version (max err {err})")
+        log(f"  adamw n={n} (p {str(pdt)[6:]}, g {str(gdt)[6:]}, moments "
+            f"{str(mdt)[6:]}, master {master}): p, m, v bit for bit, two "
+            f"steps")
+        if n == big:
+            kw = scalars(3)
+            ms = device_ms(lambda: O.adamw_leaf(p, g, m, v, w, **kw))
+            plain = device_ms(lambda: O.adamw_leaf_plain(
+                twin[0], g, *twin[1:], **kw), reps=3)
+            # bf16 p read and written, float32 g read, float32 m and v
+            # read and written; a dozen float and four double operations
+            bms, kind = bound(n * (2 * 2 + 4 + 2 * 4 * 2), 16 * n)
+            results["adamw"].update(
+                shape=dict(n=n, params="bfloat16", grads="float32",
+                           moments="float32"),
+                ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms,
+                bound_by=kind)
+            log(f"  adamw n={n} ({cfg.n_layers} x {cfg.d_model} x "
+                f"{cfg.d_ff}): {ms:.4f} ms (bound {bms:.4f} ms by {kind}, "
+                f"{bms / ms:.0%} of the memory rate); plain {plain:.4f} ms")
+        del p, m, v, w, g, twin
+        torch.cuda.empty_cache()
+
+
+def train_counts():
+    """(forward #7, #7 backward, silu, silu backward, AdamW) launches so
+    far."""
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.models import layers as ML
+    from repro_torch.optim import optimizers as O
+    return (TA.flash_attention.launches, TA.flash_attention.bwd_launches,
+            ML.silu.launches, ML.silu.bwd_launches, O.adamw_leaf.launches)
+
+
+def zero_train_counts():
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.models import layers as ML
+    from repro_torch.optim import optimizers as O
+    for fn in (TA.flash_attention, ML.silu):
+        fn.launches = fn.bwd_launches = 0
+    O.adamw_leaf.launches = 0
+
+
+def smoke_leaves(arch):
+    """The number of parameter leaves of ``arch``'s smoke config (AdamW
+    launches once a leaf a step), counted on its init on the CPU."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import factory
+    from repro_torch.optim.optimizers import _leaves
+    return len(_leaves(factory.build(get_smoke(arch)).init(
+        torch.Generator().manual_seed(0))))
+
+
+def train_model(dev, steps_=TRAIN_STEPS):
+    """Full-width qwen3-4b's training run as `launch.train.build` makes it
+    (the arch's TRAIN_SETUP: 2 microbatches, float32 accumulator and
+    moments, remat per block, warmup-cosine), random init from the seed:
+    (cfg, step_fn, params, opt_state, the token pipeline)."""
+    import torch
+    from repro_torch.data import TokenPipelineConfig
+    from repro_torch.launch import train
+    from repro_torch.models import factory
+    cfg, opt, step_fn = train.build(TRAIN_ARCH, False, TRAIN_BATCH,
+                                    TRAIN_SEQ, 3e-4, steps_)
+    params = factory.build(cfg).init(torch.Generator(dev).manual_seed(SEED))
+    opt_state = opt.init(params)
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=SEED)
+    return cfg, step_fn, params, opt_state, pipe
+
+
+def train_path(dev, results):
+    """(c): 3 steps of full-width qwen3-4b at 2 x 4096 tokens through
+    `train.build` and its step function: each step's launches exact (with
+    remat 2 x 36 x 2 #7 forwards, 2 x 36 backwards, the same for silu, and
+    AdamW's kernel once a parameter leaf), finite losses, the first near ln(vocab); step seconds, tokens/s, model
+    FLOP/s and its share of the bf16 peak, peak memory."""
+    import torch
+    from repro_torch.data import batch_at_step
+    from repro_torch.launch.steps import model_flops
+    from repro_torch.optim.optimizers import _leaves
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg, step_fn, params, opt_state, pipe = train_model(dev)
+    torch.cuda.synchronize()
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in _leaves(tree))
+    p_bytes, o_bytes = nbytes(params), nbytes(opt_state)
+    mb = 2                                  # TRAIN_SETUP["qwen3-4b"]
+    want = (2 * mb * cfg.n_layers, mb * cfg.n_layers,
+            2 * mb * cfg.n_layers, mb * cfg.n_layers, len(_leaves(params)))
+    rows, total = [], [0] * len(want)
+    for step in range(TRAIN_STEPS):
+        batch = batch_at_step(pipe, step, device=dev)
+        torch.cuda.synchronize()
+        zero_train_counts()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = train_counts()
+        require(got == want,
+                f"train step {step}: launches (#7 forward, #7 backward, "
+                f"silu, silu backward, AdamW) {got}, want {want}")
+        total = [a + b for a, b in zip(total, got)]
+        require(math.isfinite(loss), f"train step {step}: loss {loss}")
+        rows.append(dict(step=step, loss=loss, seconds=dt))
+        log(f"  step {step}: loss {loss:.4f}, {dt:.3f} s, launches {got}")
+        del batch
+    first = rows[0]["loss"]
+    require(abs(first - math.log(cfg.vocab)) < 1.0,
+            f"first loss {first:.4f}, want near ln({cfg.vocab}) = "
+            f"{math.log(cfg.vocab):.4f}")
+    steady = statistics.median(r["seconds"] for r in rows[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    peak = torch.cuda.max_memory_allocated() - base
+    out = dict(arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               microbatches=mb, steps=rows, step_seconds_steady=steady,
+               tokens_per_s=tokens / steady, model_flops=flops,
+               model_flops_per_s=flops / steady,
+               mfu=flops / steady / BF16_OPS_PER_S,
+               params_bytes=p_bytes, opt_state_bytes=o_bytes,
+               peak_bytes=peak, launches_per_step=list(want),
+               launches=total)
+    for name, n in (("flash_attention_bwd", total[1]),
+                    ("silu_bwd", total[3]), ("adamw", total[4])):
+        results[name]["launches"] = n
+    log(f"  {cfg.name} at full width ({nvidia_smi()}): {steady:.3f} s a "
+        f"step (median of steps 1-{TRAIN_STEPS - 1}), {tokens / steady:.0f} "
+        f"tokens/s, {flops / steady / 1e12:.1f} TFLOP/s of model FLOPs "
+        f"({flops / steady / BF16_OPS_PER_S:.1%} of 989); peak "
+        f"{gib(peak):.2f} GiB (params {gib(p_bytes):.2f}, optimizer "
+        f"{gib(o_bytes):.2f})")
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_depth2_matches(dev):
+    """(d): qwen3-4b at full width cut to 2 layers, float32, one
+    microbatch of 4096 tokens: the loss and every gradient leaf through
+    the kernels against the plain path (the plain attention and silu,
+    differentiated by autograd), the loss within 1e-5 relative and each
+    leaf within 1e-4 of its largest |g|; launches exact."""
+    import torch
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as MA, factory, layers as ML
+    cfg = shallow(lm_config(TRAIN_ARCH)[0]).with_(dtype="float32")
+    gen = torch.Generator(dev).manual_seed(SEED + 62)
+    params = factory.build(cfg).init(gen)
+    toks = torch.randint(0, cfg.vocab, (1, TRAIN_SEQ + 1), generator=gen,
+                         device=dev)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def run():
+        tree, slots = steps._layer_leaves(params)
+        loss = steps.make_loss_fn(cfg)(tree, batch)
+        loss.backward()
+        return loss.detach(), [t.grad for t, _ in slots]
+
+    zero_train_counts()
+    loss, grads = run()
+    got = train_counts()
+    n = cfg.n_layers
+    require(got == (2 * n, n, 2 * n, n, 0),
+            f"2-layer float32 train step: launches {got}, want "
+            f"{(2 * n, n, 2 * n, n, 0)}")
+    with mock.patch.object(MA, "attn_op", TA.flash_attention_plain), \
+            mock.patch.object(ML, "silu", ML.silu_plain):
+        loss_p, grads_p = run()
+    rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    worst = max(float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(grads, grads_p))
+    require(rel <= 1e-5 and worst <= 1e-4,
+            f"2-layer float32 train step: loss rel diff {rel:.3g}, largest "
+            f"leaf diff {worst:.3g} of its largest |g| (want 1e-5, 1e-4)")
+    log(f"  {cfg.name}, 2 layers at full width, float32, 1 x {TRAIN_SEQ}: "
+        f"loss {float(loss):.6f}, rel diff {rel:.3g}; every gradient leaf "
+        f"within {worst:.3g} of its largest |g| of the plain path's")
+    del params, grads, grads_p
+    torch.cuda.empty_cache()
+    return dict(loss=float(loss), loss_rel_diff=rel, worst_leaf=worst)
+
+
+def train_cli():
+    """(e): the train CLI on the card, smoke qwen3-4b, 6 steps saved every
+    3, then the same command again: it resumes at step 6 and runs none.
+    Launches exact (one microbatch, and no remat in the smoke config, as
+    in the JAX package's: one #7 forward and one backward a layer a step,
+    silu the same, and AdamW's kernel once a parameter leaf a step)."""
+    import tempfile
+    work = ROOT / "build" / "chip_smoke_train"
+    work.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = []
+    with tempfile.TemporaryDirectory(dir=work) as ckpt:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               TRAIN_ARCH, "--smoke", "--steps", str(TRAIN_CLI_STEPS),
+               "--global-batch", "4", "--seq-len", "32", "--ckpt", ckpt,
+               "--save-every", "3"]
+        for _ in range(2):
+            p = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=240, env=env, cwd=str(ROOT))
+            require(p.returncode == 0,
+                    f"train CLI exited {p.returncode}: {p.stderr[-2000:]}")
+            out.append(json.loads(p.stdout[p.stdout.index("{"):]))
+    first, again = out
+    n = 2 * TRAIN_CLI_STEPS              # the smoke config's 2 layers
+    want = {"flash_attention": n, "flash_attention_bwd": n, "silu": n,
+            "silu_bwd": n,
+            "adamw": TRAIN_CLI_STEPS * smoke_leaves(TRAIN_ARCH)}
+    require(first["steps"] == TRAIN_CLI_STEPS and first["start_step"] == 0
+            and math.isfinite(first["last_loss"])
+            and first["launches"] == want,
+            f"train CLI: {first}, want {TRAIN_CLI_STEPS} steps from 0, "
+            f"launches {want}")
+    require(again["start_step"] == TRAIN_CLI_STEPS and again["steps"] == 0,
+            f"train CLI again: {again}, want a resume at step "
+            f"{TRAIN_CLI_STEPS}")
+    log(f"  train CLI --smoke: {first['steps']} steps, loss "
+        f"{first['first_loss']:.4f} -> {first['last_loss']:.4f}, launches "
+        f"{first['launches']}; again: resumed at step {again['start_step']}")
+    return dict(first=first, again=again)
+
+
+# the step's kernels by name: the hand kernels (launched through ctypes,
+# so a `record_function` range does not see them) and cuBLAS's GEMMs
+TRAIN_GROUPS = {"#7 backward": r"dkdv_kernel|dq_kernel",
+                "#7 forward": r"flash_wgmma_kernel|flash_kernel",
+                "silu backward": r"silu_bwd_kernel",
+                "silu": r"silu_kernel",
+                "AdamW": r"adamw_kernel",
+                "GEMMs": r"gemm|sm90_xmma|nvjet|cutlass",
+                "elementwise": r"elementwise_kernel",
+                "reductions": r"reduce_kernel"}
+
+
+@contextlib.contextmanager
+def optimizer_range(opt):
+    """The optimizer's update inside a `torch.profiler.record_function`
+    range ``train.optimizer``."""
+    from torch.profiler import record_function
+    real = type(opt).update
+
+    def ranged(*a, **kw):
+        with record_function("train.optimizer"):
+            return real(*a, **kw)
+    with mock.patch.object(type(opt), "update", ranged):
+        yield
+
+
+def train_profile(dev):
+    """``--only train-profile``: a fresh process's `torch.profiler` of one
+    full-width qwen3-4b training step (2 x 4096 tokens) after one untimed
+    step: device busy time and idle share, the top kernels, the device
+    time of each family of kernels by kernel name (`TRAIN_GROUPS`: #7's
+    forward and backward, silu's, AdamW's, the GEMMs, the elementwise
+    kernels and the reductions), and the optimizer's update (AdamW's
+    kernel, the clip's norm and the scalars) in a range."""
+    import torch
+    from repro_torch.data import batch_at_step
+    from repro_torch.optim import adamw
+    cfg, step_fn, params, opt_state, pipe = train_model(dev, steps_=2)
+    state = {"p": params, "o": opt_state}
+
+    def one(step):
+        batch = batch_at_step(pipe, step, device=dev)
+        state["p"], state["o"], m = step_fn(state["p"], state["o"], batch)
+        return float(m["loss"])
+
+    one(0)
+    log("  one training step, profiled:")
+    with optimizer_range(adamw()):
+        out = profile_window(lambda: one(1), 1, TRAIN_GROUPS)
+    busy = out["device_busy_ms"]
+    parts = {n: r["ms"] for n, r in out.get("groups", {}).items()}
+    parts["optimizer"] = out.get("annotated_ranges", {}).get(
+        "train.optimizer", {}).get("device_ms", 0.0)
+    out["shares"] = {n: ms / busy if busy else None
+                     for n, ms in parts.items()}
+    log("  shares of the device's busy time: " + ", ".join(
+        f"{n} {ms:.1f} ms"
+        + (f" ({out['shares'][n]:.3f})" if busy else "")
+        for n, ms in parts.items()))
+    return out
+
+
+def train_profiles(work):
+    """``--only train-profile`` in a fresh process: its report."""
+    report = work / "only_train_profile.json"
+    report.unlink(missing_ok=True)
+    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--only", "train-profile", "--out", str(report)],
+                       capture_output=True, text=True, timeout=360)
+    for line in p.stdout.splitlines():
+        if line.startswith("    ") or line.startswith("  one ") or \
+                line.startswith("  shares"):
+            log(line)
+    require(p.returncode == 0 and report.exists(),
+            f"--only train-profile exited {p.returncode}: "
+            f"{p.stderr[-2000:]}")
+    return json.loads(report.read_text())["train-profile"]
+
+
+def train_all(dev, results):
+    """Phase 17: (a) #7's backward, (b) silu's, (c) 3 full-width steps,
+    (d) 2 layers in float32 against the plain path, (e) the CLI and its
+    resume; then a fresh process's profile of one step."""
+    import torch
+    _flush_buf.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    train_attention(dev, results)
+    train_silu(dev, results)
+    train_adamw(dev, results)
+    _flush_buf.clear()              # its 1 GiB is wanted beside ~66 GiB
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path"] = train_path(dev, results)
+    out["depth2"] = train_depth2_matches(dev)
+    out["cli"] = train_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke_train"
+    work.mkdir(parents=True, exist_ok=True)
+    out["profile"] = train_profiles(work)
+    return out
+
+
 def nvidia_smi():
     try:
         p = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6819,6 +7416,15 @@ def only_kv_quant(dev):
     return out
 
 
+def only_train(dev):
+    """``--only train``: phase 17 alone."""
+    results = {name: {"max_abs_err": 0.0}
+               for name in ("flash_attention_bwd", "silu_bwd", "adamw")}
+    out = train_all(dev, results)
+    out["kernels"] = results
+    return out
+
+
 def only_moe(dev):
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.plasticity import kernel as K
@@ -6840,7 +7446,8 @@ ONLY = {"fleet-steps": only_fleet_steps, "shared-steps": only_shared_steps,
         "health": only_health, "lm-pool": only_lm_pool,
         "lm-pool-profile": lm_pool_profile, "moe": only_moe,
         "moe-profile": moe_profile, "kv-quant": only_kv_quant,
-        "kv-quant-profile": kvq_profile}
+        "kv-quant-profile": kvq_profile, "train": only_train,
+        "train-profile": train_profile}
 # seconds after which a stalled LM phase (or ``--only`` part) prints every
 # thread's stack and exits non-zero (`faulthandler`), well before the
 # script's 1200 s
@@ -6848,7 +7455,8 @@ STALL_LIMITS = {"8": 300, "9": 300, "11": 300, "14": 240, "15": 240,
                 "16": 480, "--only lm-pool": 240,
                 "--only lm-pool-profile": 150, "--only moe": 240,
                 "--only moe-profile": 150, "--only kv-quant": 480,
-                "--only kv-quant-profile": 240}
+                "--only kv-quant-profile": 240, "17": 420,
+                "--only train": 420, "--only train-profile": 300}
 
 
 def main() -> int:
@@ -7097,6 +7705,17 @@ def main() -> int:
         "main path": results["fleet_step_q"]["launches"]})[
         f"{KVQ_ARCH}, int8 cache"] = lm_launches[KVQ_ARCH]["fleet_step_q"]
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"phase 17: LM training, {TRAIN_ARCH} at full width "
+               f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens, 2 microbatches, AdamW, "
+               f"remat), #7's and silu's backward kernels"):
+        trained = train_all(dev, results)
+    for name in ("flash_attention", "silu"):
+        results[name]["launches_by_path"][f"{TRAIN_ARCH} training"] = \
+            trained["path"]["launches"][0 if name == "flash_attention"
+                                        else 2]
+
     # #3 fleet's launches in each path that ran it; `launches` stays the
     # controller's (phase 4)
     results["rollout"]["launches_by_path"] = {
@@ -7138,7 +7757,7 @@ def main() -> int:
               "serve_path": served, "serve_launches": serve_launches,
               "rule_search": search, "rule_search_launches": search_launches,
               "health_path": health, "lm_pool": pool, "moe_path": moe,
-              "kv_quant_path": kvq,
+              "kv_quant_path": kvq, "train_path": trained,
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
               "shared_step_launches": shared_launches,

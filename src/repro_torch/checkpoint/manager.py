@@ -13,8 +13,9 @@ A half-written ``step_*.tmp`` directory is ignored by loaders and reaped by
 `CheckpointManager.gc`.
 
 The layout and the leaf paths are those the JAX package writes (leaf paths
-such as ``.w/[0]``: ``.field`` for a dataclass field, ``[i]`` for a tuple or
-list entry, ``['key']`` for a dict entry, dict keys in sorted order), so a
+such as ``.w/[0]``: ``.field`` for a dataclass or named-tuple field (an
+optimizer's ``OptState``), ``[i]`` for another tuple's or a list's entry,
+``['key']`` for a dict entry, dict keys in sorted order), so a
 checkpoint written by either package loads in the other.  The flatten here
 is the port's own, over dataclasses, tuples, lists and dicts whose leaves
 are tensors or arrays; None is an empty subtree.  Leaves come off the card
@@ -37,6 +38,10 @@ def _is_dataclass(x) -> bool:
     return dataclasses.is_dataclass(x) and not isinstance(x, type)
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
+
+
 def flatten(tree, prefix: str = "") -> tuple[list, list]:
     """``(paths, leaves)`` of `tree` in flatten order."""
     if tree is None:
@@ -44,6 +49,8 @@ def flatten(tree, prefix: str = "") -> tuple[list, list]:
     if _is_dataclass(tree):
         items = [(f".{f.name}", getattr(tree, f.name))
                  for f in dataclasses.fields(tree)]
+    elif _is_namedtuple(tree):
+        items = [(f".{name}", getattr(tree, name)) for name in tree._fields]
     elif isinstance(tree, (tuple, list)):
         items = [(f"[{i}]", x) for i, x in enumerate(tree)]
     elif isinstance(tree, dict):
@@ -81,6 +88,8 @@ def _build(x, it):
         return dataclasses.replace(x, **{
             f.name: _build(getattr(x, f.name), it)
             for f in dataclasses.fields(x)})
+    if _is_namedtuple(x):
+        return type(x)(*(_build(e, it) for e in x))
     if isinstance(x, (tuple, list)):
         return type(x)(_build(e, it) for e in x)
     if isinstance(x, dict):
@@ -97,6 +106,9 @@ def structure(tree):
         return (type(tree).__qualname__,
                 tuple((f.name, structure(getattr(tree, f.name)))
                       for f in dataclasses.fields(tree)))
+    if _is_namedtuple(tree):
+        return (type(tree).__qualname__,
+                tuple((n, structure(x)) for n, x in zip(tree._fields, tree)))
     if isinstance(tree, (tuple, list)):
         return (type(tree).__name__, tuple(structure(x) for x in tree))
     if isinstance(tree, dict):

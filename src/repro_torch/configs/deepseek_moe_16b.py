@@ -23,4 +23,5 @@ SMOKE = ModelConfig(
     moe=MoEConfig(num_experts=8, top_k=2, d_expert=96, n_shared=2,
                   first_dense=1, first_dense_ff=192,
                   capacity_factor=1.25),
+    remat=False,
 )

@@ -21,4 +21,5 @@ SMOKE = ModelConfig(
     layout="moe",
     moe=MoEConfig(num_experts=4, top_k=2, d_expert=192, n_shared=0,
                   capacity_factor=1.25),
+    remat=False,
 )

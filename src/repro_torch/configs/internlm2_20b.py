@@ -17,4 +17,5 @@ SMOKE = ModelConfig(
     d_ff=192, vocab=512,
     rope_theta=1_000_000.0,
     layout="dense",
+    remat=False,
 )

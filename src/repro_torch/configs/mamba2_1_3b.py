@@ -21,4 +21,5 @@ SMOKE = ModelConfig(
     layout="ssm", sub_quadratic=True,
     ssm=SSMConfig(state=16, head_dim=16, expand=2, n_groups=1,
                   conv_width=4, chunk=16),
+    remat=False,
 )

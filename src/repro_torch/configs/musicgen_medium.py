@@ -19,4 +19,5 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=96, n_heads=6, n_kv_heads=6,
     d_ff=192, vocab=128,
     layout="dense", input_mode="embeddings",
+    remat=False,
 )

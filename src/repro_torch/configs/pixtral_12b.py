@@ -20,4 +20,5 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=128, n_heads=8, n_kv_heads=2,
     d_ff=256, vocab=512, head_dim=32,
     layout="dense", input_mode="embeddings",
+    remat=False,
 )

@@ -18,4 +18,5 @@ SMOKE = ModelConfig(
     d_ff=256, vocab=512,
     qkv_bias=True, rope_theta=1_000_000.0,
     layout="dense",
+    remat=False,
 )

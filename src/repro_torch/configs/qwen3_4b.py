@@ -17,4 +17,5 @@ SMOKE = ModelConfig(
     d_ff=256, vocab=512, head_dim=64,       # head_dim != d_model/H, as in full
     qk_norm=True, rope_theta=1_000_000.0,
     layout="dense",
+    remat=False,
 )

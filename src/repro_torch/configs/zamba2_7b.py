@@ -24,4 +24,5 @@ SMOKE = ModelConfig(
     layout="hybrid", sub_quadratic=True,
     ssm=SSMConfig(state=16, head_dim=16, expand=2, n_groups=1,
                   conv_width=4, chunk=16, attn_every=3),
+    remat=False,
 )

@@ -75,6 +75,31 @@ def lm_params(params, cfg, device=None):
                                              x, path, device))
 
 
+def opt_state(state, cfg, device=None, moment_dtype: str = "float32"):
+    """The JAX ``repro.optim.OptState`` of an LM's parameters (its fields
+    converting with `numpy.asarray`) -> the port's `optim.OptState`: step
+    a 0-d int32, mu and nu each leaf checked against the parameter plan's
+    shape in ``moment_dtype``, and master (float32) or None.  An SGD state
+    (nu a tree of 0-d zeros) converts with ``moment_dtype="float32"`` as
+    its momentum does, its nu leaves taken as they are."""
+    from repro_torch.optim import OptState
+
+    plan = transformer.plan(cfg)
+
+    def tree(x, dtype):
+        if x is None:
+            return None
+        return _walk(plan, x, "opt", lambda d, a, path: _checked(
+            d.shape if np.ndim(a) else (), torch_dtype(dtype), a, path,
+            device))
+
+    return OptState(step=_checked((), torch.int32, state.step, "opt/step",
+                                  device),
+                    mu=tree(state.mu, moment_dtype),
+                    nu=tree(state.nu, moment_dtype),
+                    master=tree(state.master, "float32"))
+
+
 def lm_session(session, cfg, max_len: int, device=None) -> dict:
     """One session of JAX's ``repro.serving.LMScheduler`` (its
     ``session_view`` or a `SessionStore` payload: ``{"cache", "tok"}``)

@@ -10,7 +10,11 @@
 // probability exactly 0; the causal mask places the queries at the last Sq
 // key positions (q_offset = Skv - Sq); keys at or beyond kv_len are hidden;
 // a row with no visible key gives exactly 0.  The output is (B, Sq, H, D) in
-// the inputs' dtype.  D is any of 16, 24, 32, 64, 112 and 128 (the head
+// the inputs' dtype.  Where the caller asks for it (lse not null, a forward
+// whose gradient will be taken), each row's float32 log-sum-exp of the
+// scaled scores, lse (B, H, Sq), is written beside it for the backward
+// (flash_attention_bwd.cu): m + log(l) in natural-log units, +inf for a row
+// with no visible key.  D is any of 16, 24, 32, 64, 112 and 128 (the head
 // widths of the repo's configs); the C entry refuses any other.
 //
 // Head widths.  Both kernels are built for a padded width DP, 64 or 128,
@@ -76,6 +80,7 @@ struct AttnArgs {
   int causal, kv_len, q_offset;
   int dtype;                // 0 float32, 1 bfloat16
   float scale;
+  float* lse;               // (B, H, Sq) out, or null: not wanted
 };
 
 namespace {
@@ -269,6 +274,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(AttnArgs a) {
   for (int i = 0; i < kRowsPer; ++i) {
     const int qi = q0 + ty * kRowsPer + i;
     if (qi >= a.sq) continue;
+    if (a.lse && tx == 0)
+      a.lse[((long long)b * a.heads + h) * a.sq + qi] =
+          l[i] == 0.0f ? __int_as_float(0x7f800000) : m[i] + logf(l[i]);
     const float den = l[i] == 0.0f ? 1.0f : l[i];
     T* orow = o + (((long long)b * a.sq + qi) * a.heads + h) * D;
 #pragma unroll
@@ -568,6 +576,13 @@ __global__ void __launch_bounds__(kWThreads, 1)
     const int qi = q0 + row0 + 8 * half;
     if (qi >= a.sq) continue;
     const float den = half ? den1 : den0;
+    if (a.lse && quad == 0) {
+      // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2
+      const float lr = half ? l1 : l0, mr = half ? m1 : m0;
+      a.lse[((long long)b * a.heads + h) * a.sq + qi] =
+          lr == 0.0f ? __int_as_float(0x7f800000)
+                     : (mr + log2f(lr)) * 0.6931471805599453f;
+    }
     uint32_t* orow = reinterpret_cast<uint32_t*>(
         out + (((long long)b * a.sq + qi) * a.heads + h) * D + 2 * quad);
 #pragma unroll

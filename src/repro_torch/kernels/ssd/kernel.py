@@ -125,9 +125,17 @@ def copy_route(x, bmat, c) -> str:
 
 def ssd_scan(x, dt, a, bmat, c, *, chunk: int = 64):
     """x (B,L,H,P), dt (B,L,H), a (H,), bmat/c (B,L,G,S) ->
-    (y (B,L,H,P), state_final (B,H,S,P))."""
+    (y (B,L,H,P), state_final (B,H,S,P)).  The kernel has no backward
+    yet: on a CUDA tensor under autograd (grad mode on, an input requiring
+    grad) it raises rather than hand back outputs without a gradient."""
     if not on_card(x):
         return ssd_scan_plain(x, dt, a, bmat, c, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, bmat, c)):
+        raise NotImplementedError(
+            "the SSD scan kernel (#8) has no backward yet: training the "
+            "ssm and hybrid layouts on the card is ROADMAP Queue 1 item "
+            "9.6 (ssm/hybrid training)")
     _check(x, dt, a, bmat, c)
     b, length, h, p = x.shape
     g, s = bmat.shape[2], bmat.shape[3]

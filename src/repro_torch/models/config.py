@@ -1,6 +1,7 @@
 """Model configuration of the LM stack (the fields of ``repro``'s
-`ModelConfig` that describe a model; sharding and backend selectors are
-gone: the port runs on one card and its backend follows the tensors).
+`ModelConfig` that describe a model; backend selectors are gone: the
+backend follows the tensors.  ``act_shard`` stays, a no-op on one card),
+and the input shapes assigned to the LM fleet (`SHAPES`).
 
 `ModelConfig` keeps the JAX package's names and defaults, so the same
 config describes the same model in both packages; ``dtype`` stays a string
@@ -9,7 +10,7 @@ and `ModelConfig.adtype` turns it into a torch dtype.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -78,6 +79,12 @@ class ModelConfig:
                                   # per-slot scales, int32 membranes/traces
     kv_quant: bool = False        # int8 KV cache, float32 scale planes
     dtype: str = "bfloat16"       # activations/params storage
+    remat: bool = True            # training: recompute each block in the
+                                  # backward (`transformer.loss_fn`)
+    # residual-stream activation sharding between blocks ("dp" | "sp");
+    # kept so the configs and `launch.specs.TRAIN_SETUP` read as the JAX
+    # package's, a no-op on one card
+    act_shard: str = "dp"
 
     @property
     def hd(self) -> int:
@@ -90,3 +97,33 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to the LM fleet (one set shared by all ten archs).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool,
+                                                                    str]:
+    """long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skipped: pure full-attention arch — 524k dense-"
+                       "attention KV decode is the quadratic regime the "
+                       "shape spec excludes")
+    return True, ""

@@ -1,9 +1,9 @@
 """Config-driven model factory: one surface over the LM stack.
 
 `build(arch_or_cfg)` turns a `ModelConfig` into a `Model` whose entry
-points (`init` / `forward` / `prefill` / `decode_step` / `decode_rollout` /
-the cache builders) are what `launch/steps.py`, `launch/serve.py` and
-`serving.lm.LMScheduler` consume; callers never import
+points (`init` / `forward` / `loss_fn` / `prefill` / `decode_step` /
+`decode_rollout` / the cache plans) are what `launch/steps.py`,
+`launch/serve.py` and `serving.lm.LMScheduler` consume; callers never import
 `models.transformer` directly.
 
 The factory also owns the serving pool's plumbing (`serving.scheduler`):
@@ -82,6 +82,9 @@ class Model:
 
     def forward(self, params, inputs, **kw):
         return T.forward(params, inputs, self.cfg, **kw)
+
+    def loss_fn(self, params, batch):
+        return T.loss_fn(params, batch, self.cfg)
 
     def prefill(self, params, inputs, max_len: int):
         return T.prefill(params, inputs, self.cfg, max_len)

@@ -8,7 +8,10 @@ JAX package's logical sharding specs are gone: the port runs on one card.
 `rms_norm` and `rope` compute in float32 and cast back to the input's
 dtype, as the JAX package does, so a bfloat16 model rounds at the same
 places in both.  `silu` rounds after each op as ``jax.nn.silu`` is
-written, in one pass on the card (``csrc/silu.cu``).
+written, in one pass on the card (``csrc/silu.cu``), and under autograd
+its gradient rounds where jitted ``jax.vjp`` of it rounds (`silu_bwd`,
+the same file's second entry point).  `cross_entropy` is the JAX
+package's mean token NLL in float32.
 """
 from __future__ import annotations
 
@@ -135,14 +138,61 @@ def rope(q, k, positions, theta: float):
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def cross_entropy(logits, labels, mask=None):
+    """Mean token NLL in float32.  logits (..., V); labels (...) int, each
+    in [0, V) (the caller masks pads, as `transformer.loss_fn` does); mask
+    (...) float or None.  lse - picked with the max held out of the
+    gradient, as the JAX package writes it; the label's logit is picked by
+    a gather, which equals JAX's one-hot contraction exactly for finite
+    logits and makes no (..., V) one-hot (2.3 GiB in float32 at
+    qwen3-4b's vocab and 4096 tokens)."""
+    lf = logits.float()
+    lmax = lf.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lf - lmax).sum(-1)) + lmax[..., 0]
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0].float()
+    nll = lse - picked
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1)
+    return nll.mean()
+
+
+def _sigmoid(x):
+    """1 / (1 + exp(-x)), each op rounding to x's dtype."""
+    return torch.reciprocal(torch.exp(torch.neg(x)) + 1)
+
+
 def silu_plain(x, other=None, out_dtype=None):
     """`silu`'s plain version: the five ops as ``jax.nn.silu`` writes
-    them, each rounding to x's dtype, then the product with ``other``."""
+    them, each rounding to x's dtype, then the product with ``other``
+    (none of them in place, so that autograd can differentiate it)."""
     out_dtype = out_dtype or x.dtype
-    s = torch.neg(x).exp_().add_(1).reciprocal_().mul_(x)
-    if other is None:
-        return s.to(out_dtype)
-    return s.to(out_dtype) * other.to(out_dtype)
+    s = (_sigmoid(x) * x).to(out_dtype)
+    return s if other is None else s * other.to(out_dtype)
+
+
+def silu_bwd_plain(x, other, dy):
+    """`silu_bwd`'s plain version: the gradient of ``silu(x) * other`` for
+    the output gradient ``dy``, all three in x's dtype, at the rounding sites of jitted ``jax.vjp`` of
+    ``jax.nn.silu(x) * other`` (each op rounds to x's dtype):
+      s = 1 / (1 + exp(-x)),  i = dy * other,
+      dx = i * s + (x * i) * (s * (1 - s)),  dother = (x * s) * dy.
+    In float32 nothing rounds between the ops and LLVM contracts the
+    outer sum into a fused multiply-add, fma(i, s, (x * i) * (s * (1 -
+    s))), taken here through float64 (the product of two float32 values
+    is exact there).  Returns (dx, dother)."""
+    s = _sigmoid(x)
+    i = dy * other
+    m = (x * i) * (s * (1 - s))
+    if x.dtype == torch.float32:
+        dx = (i.double() * s.double() + m.double()).float()
+    else:
+        dx = i * s + m
+    return dx, (s * x) * dy
+
+
+def _grad_wanted(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def silu(x, other=None, out_dtype=None):
@@ -154,8 +204,31 @@ def silu(x, other=None, out_dtype=None):
     shape and x's dtype or float32; the kernel reads rows at their stride
     (a last dim that is not contiguous is copied first).  A CPU
     tensor takes `silu_plain`; a CUDA tensor launches ``csrc/silu.cu`` in
-    one pass and counts it in ``silu.launches``."""
+    one pass and counts it in ``silu.launches``.
+
+    Under autograd (grad mode on, x or other requiring grad) the SwiGLU
+    gate's form, other and the output in x's dtype, runs as a
+    `torch.autograd.Function` whose backward is `silu_bwd`; on the card
+    the other forms raise there (only the Mamba2 block uses them, and its
+    training waits for ROADMAP Queue 1 item 9.6, ssm/hybrid training),
+    while on the CPU autograd differentiates `silu_plain`."""
     out_dtype = out_dtype or x.dtype
+    if _grad_wanted(x, other):
+        if (other is not None and out_dtype == x.dtype
+                and other.dtype == x.dtype):
+            return _Silu.apply(x, other)
+        if on_card(x):
+            raise NotImplementedError(
+                f"silu's gradient on the card covers x and other in one "
+                f"dtype; (x, other, out) {x.dtype}, "
+                f"{None if other is None else other.dtype}, {out_dtype} is "
+                f"the Mamba2 block's, whose training is ROADMAP Queue 1 "
+                f"item 9.6 (ssm/hybrid training)")
+        return silu_plain(x, other, out_dtype)
+    return _silu_forward(x, other, out_dtype)
+
+
+def _silu_forward(x, other, out_dtype):
     if not on_card(x):
         return silu_plain(x, other, out_dtype)
     kinds = ((x.dtype, None, x.dtype), (x.dtype, x.dtype, x.dtype),
@@ -173,9 +246,7 @@ def silu(x, other=None, out_dtype=None):
                          f"{other.device}")
     cols = x.shape[-1] if x.ndim else 1
     # rows at any stride, each row's elements contiguous
-    x2, u2 = (None if t is None else
-              (t if t.ndim and t.stride(-1) == 1 else t.contiguous())
-              .reshape(-1, cols) for t in (x, other))
+    x2, u2 = (None if t is None else _rows(t, cols) for t in (x, other))
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -192,8 +263,65 @@ def silu(x, other=None, out_dtype=None):
     return y
 
 
+def _rows(t, cols):
+    """t as (rows, cols) with each row's elements contiguous (a last dim
+    that is not contiguous is copied first)."""
+    return (t if t.ndim and t.stride(-1) == 1 else t.contiguous()
+            ).reshape(-1, cols)
+
+
+def silu_bwd(x, other, dy):
+    """The gradient of ``silu(x, other)`` (x's dtype out) for ``dy``: (dx,
+    dother), as `silu_bwd_plain` rounds it.  x, other and dy in
+    one dtype, float32 or bfloat16, of one shape.  A CPU tensor takes
+    `silu_bwd_plain`; a CUDA tensor launches ``csrc/silu.cu``'s
+    ``silu_bwd`` in one pass (x, other and dy read once, dx and dother
+    written once) and counts it in ``silu.bwd_launches``."""
+    if not on_card(x):
+        return silu_bwd_plain(x, other, dy)
+    for name, t in (("other", other), ("dy", dy)):
+        if (t.shape != x.shape or t.dtype != x.dtype
+                or t.device != x.device):
+            raise ValueError(f"{name} must match x: {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"silu_bwd takes float32 or bfloat16; got "
+                         f"{x.dtype}")
+    cols = x.shape[-1] if x.ndim else 1
+    x2, u2, d2 = (_rows(t, cols) for t in (x, other, dy))
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    du = torch.empty_like(dx)
+    if dx.numel() == 0:
+        return dx, du
+    fn = _build.library("silu.cu").silu_bwd
+    fn.argtypes = [_P, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _P]
+    fn.restype = _I
+    _build.check(fn(x2.data_ptr(), x2.stride(0), u2.data_ptr(), u2.stride(0),
+                    d2.data_ptr(), d2.stride(0), dx.data_ptr(),
+                    du.data_ptr(), x2.shape[0], cols,
+                    _DTYPE_CODE[x.dtype], stream_of(x)), "silu_bwd")
+    _silu.bwd_launches += 1
+    return dx, du
+
+
+class _Silu(torch.autograd.Function):
+    """`silu` (the gate's form) under autograd; backward `silu_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, other):
+        ctx.save_for_backward(x, other)
+        return _silu_forward(x, other, x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, other = ctx.saved_tensors
+        return silu_bwd(x, other, dy.to(x.dtype))
+
+
 _silu = silu      # counts the launches: a patch of `silu` leaves it alone
 silu.launches = 0
+silu.bwd_launches = 0
 
 
 def swiglu(x, w_gate, w_up, w_down):

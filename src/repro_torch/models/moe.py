@@ -159,7 +159,16 @@ def dispatch(h, r: Routing, cfg: ModelConfig):
 def experts(params, buf, out):
     """The routed experts on the expert-major buffer ``buf (E, R, D)``,
     written into ``out (E, R, D)``: per expert SwiGLU, each product
-    rounded to the operands' dtype and silu as ``jax.nn.silu`` rounds."""
+    rounded to the operands' dtype and silu as ``jax.nn.silu`` rounds.
+    It writes ``out`` in place and has no backward yet: under autograd it
+    raises rather than hand back outputs without a gradient."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (buf, params["w_gate"], params["w_up"],
+                                      params["w_down"])):
+        raise NotImplementedError(
+            "the routed experts have no backward yet (dispatch, combine "
+            "and the in-place expert product): training the MoE layout is "
+            "ROADMAP Queue 1 item 9.7 (MoE training)")
     g = torch.bmm(buf, params["w_gate"])
     u = torch.bmm(buf, params["w_up"])
     return torch.bmm(layers.silu(g, u), params["w_down"], out=out)

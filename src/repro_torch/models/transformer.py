@@ -17,7 +17,10 @@ package scans over a stack the port runs a Python loop over it.
 
 Entry points:
   plan / init                        — parameter plan and random init
-  forward                            — full-sequence logits (or hidden)
+  forward                            — full-sequence logits (or hidden);
+                                       ``remat=True`` recomputes each block
+                                       in the backward
+  loss_fn                            — next-token cross entropy
   cache_plan / init_cache / prefill / decode_step — serving with a KV cache
                                        per attention block (int8 codes and
                                        float32 scales with ``kv_quant``)
@@ -41,12 +44,14 @@ from typing import Any
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.snn import resolve_device
 from repro_torch.models import attention, moe as moe_mod, plastic, \
     ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (ParamDesc, init_from_plan, map_plan,
+from repro_torch.models.layers import (ParamDesc, cross_entropy,
+                                       init_from_plan, map_plan,
                                        param_count, rms_norm, swiglu)
 
 
@@ -163,8 +168,21 @@ def _dense(p, h, cfg: ModelConfig):
     return _ffn(p, h, o, cfg), kv
 
 
+def _remat(fn):
+    """``fn(h, p)`` run under `torch.utils.checkpoint`: the block keeps
+    only its input for the backward and recomputes the rest there, as
+    ``jax.checkpoint`` with ``nothing_saveable`` does."""
+    return lambda h, p: checkpoint(fn, h, p, use_reentrant=False)
+
+
+def _ssm_block(p, h, cfg: ModelConfig):
+    """A Mamba2 block: (h, (final SSD state, conv tail))."""
+    h, state, conv = ssm_mod.apply(p, h, cfg)
+    return h, (state, conv)
+
+
 def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
-            head: bool = True):
+            head: bool = True, remat: bool = False):
     """inputs: tokens (B,S) int (or embeddings (B,S,D) for
     ``input_mode="embeddings"``).  Returns logits (B,S,V), or with
     ``head=False`` the final normed hidden state (B,S,D).
@@ -173,7 +191,15 @@ def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
     of an attention block, the final SSD state (B,H,S,P) and the raw conv
     tail (B,<=W-1,C) of a Mamba2 block.  In a zsuper segment the shared
     block reports at ``layer = i`` and its j-th Mamba2 block at
-    ``layer = (i, j)``."""
+    ``layer = (i, j)``.
+
+    ``remat`` runs every block under `_remat` (training; no cache is
+    collected then).  A stacked leaf's layer is ``leaf[i]``, so the
+    segments' leaves may also be lists of per-layer tensors (the training
+    step's per-layer leaves, `launch.steps`)."""
+    if remat and collect_cache is not None:
+        raise ValueError("remat recomputes the blocks in the backward; it "
+                         "collects no cache")
     if cfg.input_mode == "embeddings" and inputs.ndim == 3:
         h = inputs.to(cfg.adtype)
     else:
@@ -184,25 +210,44 @@ def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
         if collect_cache is not None:
             collect_cache(*a)
 
+    def dense_block(h, p):
+        return _dense(p, h, cfg)
+
+    def ssm_block(h, p):
+        return _ssm_block(p, h, cfg)
+
+    if remat:
+        dense_block, ssm_block = _remat(dense_block), _remat(ssm_block)
     for seg_idx, (kind, count) in enumerate(segments(cfg)):
         seg = params["segments"][seg_idx]
         for i in range(count):
             p = _layer(seg, i)
             if kind == "ssm":
-                h, state, conv = ssm_mod.apply(p, h, cfg)
-                keep(seg_idx, i, state, conv)
+                h, leaves = ssm_block(h, p)
+                keep(seg_idx, i, *leaves)
                 continue
-            h, kv = _dense(shared if kind == "zsuper" else p, h, cfg)
+            h, kv = dense_block(h, shared if kind == "zsuper" else p)
             keep(seg_idx, i, *kv)
             if kind == "zsuper":
                 for j in range(cfg.ssm.attn_every - 1):
-                    h, state, conv = ssm_mod.apply(_layer(p["ssm"], j), h,
-                                                   cfg)
-                    keep(seg_idx, (i, j), state, conv)
+                    h, leaves = ssm_block(h, _layer(p["ssm"], j))
+                    keep(seg_idx, (i, j), *leaves)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if not head:
         return h
     return h @ _head_w(params, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """batch: {"inputs": tokens (B,S) or embeddings (B,S,D), "labels":
+    (B,S) int, -1 = pad}.  The mean next-token NLL over the labels that
+    are not pads, in float32.  With ``cfg.remat`` every block is
+    recomputed in the backward, as the JAX package's ``nothing_saveable``
+    policy does."""
+    logits = forward(params, batch["inputs"], cfg, remat=cfg.remat)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    return cross_entropy(logits, labels.clamp_min(0), mask)
 
 
 # ---------------------------------------------------------------------------

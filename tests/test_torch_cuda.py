@@ -22,7 +22,10 @@ w o x split into bf16 hi + lo (tests/test_torch_ssd.py emulates it).
 The bfloat16 plasticity kernels compute in float32 and round each output
 once, as their plain versions do: steps and one-step windows within 3e-2
 (the JAX package's own bf16 tolerance, tests/test_fleet.py), longer
-windows with at most 1e-3 of the elements outside it.
+windows with at most 1e-3 of the elements outside it.  The attention
+backward kernel and silu's backward are held like their forwards: float32
+within 1e-5 of each gradient's largest |x| (sums in another order), bf16
+within rtol 2e-2 / atol 2e-3, silu's bit for bit.
 """
 import numpy as np
 import pytest
@@ -1720,3 +1723,274 @@ def test_int8_cache_session_round_trip_on_card(cuda_device, tmp_path):
     for x, y in zip(TM.flatten(frozen)[1], TM.flatten(s._take(s.pool,
                                                               3))[1]):
         assert torch.equal(x, y)
+
+
+# ---- training: the backward kernels and a train step ------------------------
+
+# (B, Sq, Skv, H, HKV, D): ragged lengths, GQA 4:1, the padded widths (D =
+# 112 runs at 128, 16-32 at 64), queries at the last Sq of more keys
+ATTN_BWD_CASES = [(2, 70, 70, 4, 2, 16), (1, 50, 50, 5, 5, 24),
+                  (2, 90, 90, 8, 2, 32), (1, 40, 100, 4, 2, 64),
+                  (1, 130, 130, 4, 4, 112), (1, 300, 300, 8, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", ATTN_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain_on_card(case, dtype,
+                                                          cuda_device):
+    """`flash_attention_bwd` (csrc/flash_attention_bwd.cu) against
+    `flash_attention_bwd_plain` on the same q, k, v, o, lse and dO (the
+    forward kernel's o and lse): float32 within 1e-5 of each gradient's
+    largest |x|, bf16 within rtol 2e-2 / atol 2e-3; a second launch gives
+    the same bits (no atomics).  The forward kernel's lse is the plain
+    one's within 1e-4."""
+    from repro_torch.kernels.attention import kernel as TA
+    b, sq, skv, h, hkv, d = case
+    gen = torch.Generator(cuda_device).manual_seed(sq + d)
+    q = torch.randn(b, sq, h, d, generator=gen, device=cuda_device).to(dtype)
+    k, v = (torch.randn(b, skv, hkv, d, generator=gen,
+                        device=cuda_device).to(dtype) for _ in range(2))
+    do = torch.randn(b, sq, h, d, generator=gen, device=cuda_device
+                     ).to(dtype)
+    o, lse = TA._forward(q, k, v, True, None, None, with_lse=True)
+    _, lse_plain = TA._ref.mha_lse(q, k, v, causal=True)
+    torch.testing.assert_close(lse, lse_plain, rtol=1e-4, atol=1e-4)
+    n = TA.flash_attention.bwd_launches
+    got = TA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    again = TA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert TA.flash_attention.bwd_launches == n + 2
+    want = TA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        if dtype == torch.float32:
+            assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+        else:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card(cuda_device):
+    """Under autograd the wrapper launches the forward (with lse) and,
+    on backward, the backward kernel: one launch each."""
+    from repro_torch.kernels.attention import kernel as TA
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(1, 64, 4, 64, generator=gen, device=cuda_device,
+                           dtype=torch.float32).requires_grad_()
+               for _ in range(3))
+    n, nb = TA.flash_attention.launches, TA.flash_attention.bwd_launches
+    TA.flash_attention(q, k, v).square().sum().backward()
+    assert (TA.flash_attention.launches, TA.flash_attention.bwd_launches) \
+        == (n + 1, nb + 1)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    TA.flash_attention_plain(*leaves).square().sum().backward()
+    for a, w in zip((q, k, v), leaves):
+        assert (a.grad - w.grad).abs().max() <= 1e-5 * w.grad.abs().max()
+
+
+# (shape, dtype, column offset of a strided view or None): the vector
+# path, a ragged width on the scalar path, rows at a stride
+SILU_BWD_CASES = [((4, 96, 256), "bfloat16", None),
+                  ((4, 96, 256), "float32", None),
+                  ((3, 77), "bfloat16", 5),
+                  ((3, 77), "float32", None),
+                  ((2, 33, 130), "bfloat16", 2),
+                  ((4096, 9728), "bfloat16", None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SILU_BWD_CASES)
+def test_silu_bwd_kernel_matches_plain_on_card(case, cuda_device):
+    """`layers.silu_bwd` (csrc/silu.cu's second entry) equals
+    `silu_bwd_plain` bit for bit, and the autograd Function around `silu`
+    launches the forward and backward kernels once each."""
+    from repro_torch.models import layers as ML
+    shape, dt, offset = case
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    wide = (4 * torch.randn(*shape[:-1], 2 * shape[-1] + 7, generator=gen,
+                            device=cuda_device)).to(dtype)
+    g = (wide[..., :shape[-1]].contiguous() if offset is None
+         else wide[..., offset:offset + shape[-1]])
+    u = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    n = ML.silu.bwd_launches
+    got = ML.silu_bwd(g, u, dy)
+    assert ML.silu.bwd_launches == n + 1
+    want = ML.silu_bwd_plain(g, u, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    xg = g.detach().clone().requires_grad_()
+    xu = u.detach().clone().requires_grad_()
+    f, b = ML.silu.launches, ML.silu.bwd_launches
+    ML.silu(xg, xu).backward(dy)
+    assert (ML.silu.launches, ML.silu.bwd_launches) == (f + 1, b + 1)
+    assert torch.equal(xg.grad, want[0])
+    assert torch.equal(xu.grad, want[1])
+
+
+@pytest.mark.cuda
+def test_one_operand_silu_raises_under_grad_on_card(cuda_device):
+    """The Mamba2 block's one-operand silu has no backward kernel: on the
+    card it raises under autograd instead of returning a tensor without a
+    gradient, and launches nothing."""
+    from repro_torch.models import layers as ML
+    x = torch.randn(4, 64, device=cuda_device, requires_grad=True)
+    f, b = ML.silu.launches, ML.silu.bwd_launches
+    with pytest.raises(NotImplementedError, match="9.6"):
+        ML.silu(x)
+    assert (ML.silu.launches, ML.silu.bwd_launches) == (f, b)
+    with torch.no_grad():
+        assert ML.silu(x).shape == x.shape
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_plain(cuda_device):
+    """qwen3-4b's smoke config (2 layers) in float32, remat on: the loss
+    and every gradient leaf with the kernels against the plain path (the
+    plain attention and silu, differentiated by autograd), loss within
+    1e-5 relative and each leaf within 1e-4 of its largest |g|; with remat
+    the kernels launch 2 forwards (the forward and its recompute) and one
+    backward per layer."""
+    from unittest import mock
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as MA, factory, layers as ML
+    cfg = get_smoke("qwen3-4b").with_(dtype="float32", remat=True)
+    params = factory.build(cfg).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 48), generator=gen,
+                         device=cuda_device)
+    batch = {"inputs": toks, "labels": torch.roll(toks, -1, 1)}
+
+    def run():
+        tree, slots = steps._layer_leaves(params)
+        loss = steps.make_loss_fn(cfg)(tree, batch)
+        loss.backward()
+        return loss.detach(), [(i, j, t.grad) for t, (i, j) in slots]
+
+    before = (TA.flash_attention.launches, TA.flash_attention.bwd_launches,
+              ML.silu.launches, ML.silu.bwd_launches)
+    loss, grads = run()
+    after = (TA.flash_attention.launches, TA.flash_attention.bwd_launches,
+             ML.silu.launches, ML.silu.bwd_launches)
+    layers_ = cfg.n_layers
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        2 * layers_, layers_, 2 * layers_, layers_)
+    with mock.patch.object(MA, "attn_op", TA.flash_attention_plain), \
+            mock.patch.object(ML, "silu", ML.silu_plain):
+        loss_p, grads_p = run()
+    assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for (_, _, g), (_, _, w) in zip(grads, grads_p):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_autograd_on_card(cuda_device):
+    """#8 has no backward yet: under grad mode it raises, naming the
+    roadmap item, rather than return outputs without a gradient."""
+    from repro_torch.kernels.ssd import kernel as SK
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    x = torch.randn(1, 64, 2, 64, generator=gen, device=cuda_device,
+                    requires_grad=True)
+    dt = torch.rand(1, 64, 2, generator=gen, device=cuda_device)
+    a = -torch.rand(2, generator=gen, device=cuda_device)
+    bm, c = (torch.randn(1, 64, 1, 128, generator=gen, device=cuda_device)
+             for _ in range(2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SK.ssd_scan(x, dt, a, bm, c)
+    with torch.no_grad():
+        y, _ = SK.ssd_scan(x, dt, a, bm, c)
+    assert y.shape == x.shape
+
+
+# (elements, param dtype, grad dtype, moment dtype, master copy, clipped,
+# weight decay): a ragged length on each dtype mix, the step's own mix
+# (bf16 params, float32 grads and moments) at a leaf's size
+ADAMW_CASES = [(1000003, "bfloat16", "float32", "float32", False, True,
+                0.1),
+               (4097, "float32", "float32", "float32", True, False, 0.0),
+               (777, "bfloat16", "bfloat16", "bfloat16", True, True, 0.1),
+               (5, "float32", "bfloat16", "bfloat16", False, False, 0.1),
+               (2560 * 9728, "bfloat16", "float32", "float32", False, True,
+                0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ADAMW_CASES)
+def test_adamw_kernel_matches_plain_on_card(case, cuda_device):
+    """`adamw_leaf` (csrc/adamw.cu) equals `adamw_leaf_plain` bit for bit
+    on the parameter, both moments and the master copy, two steps in a
+    row, one launch each."""
+    from repro_torch.optim import optimizers as O
+    n, pdt, gdt, mdt, master, clipped, wd = case
+    gen = torch.Generator(cuda_device).manual_seed(n)
+
+    def rand(dt, s=1.0):
+        return (s * torch.randn(n, generator=gen, device=cuda_device)).to(
+            getattr(torch, dt))
+
+    p = rand(pdt)
+    w = p.float().clone() if master else None
+    m, v = rand(mdt, 1e-2), rand(mdt, 1e-2).square()
+    states = [[t.clone() if t is not None else None for t in (p, m, v, w)]
+              for _ in range(2)]
+    for step in (1, 2):
+        g = rand(gdt, 3e-3)
+        st = torch.full((), step, dtype=torch.float32, device=cuda_device)
+        kw = dict(scale=(torch.rand((), generator=gen, device=cuda_device)
+                         if clipped else None),
+                  bc1=1 - 0.9 ** st, bc2=1 - 0.95 ** st,
+                  lr=torch.full((), 3e-4 * step, device=cuda_device),
+                  b1=0.9, b2=0.95, eps=1e-8, wd=wd)
+        launches = O.adamw_leaf.launches
+        O.adamw_leaf(states[0][0], g, *states[0][1:], **kw)
+        assert O.adamw_leaf.launches == launches + 1
+        O.adamw_leaf_plain(states[1][0], g, *states[1][1:], **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(*states):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_adamw_update_launches_once_per_leaf_on_card(cuda_device):
+    """`adamw.update` on a tree on the card: one kernel launch a leaf, and
+    the tree the plain update makes, bit for bit."""
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.optim import optimizers as O
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    shapes = {"a": (33, 17), "b": {"c": (4, 8, 16), "d": (7,)}}
+
+    def tree(dt, s=1.0):
+        def make(sh):
+            if isinstance(sh, dict):
+                return {k: make(x) for k, x in sh.items()}
+            return (s * torch.randn(sh, generator=gen,
+                                    device=cuda_device)).to(dt)
+        return make(shapes)
+
+    params = tree(torch.bfloat16)
+    opt = adamw(lr=warmup_cosine(1e-3, 1, 4))
+    state = opt.init(params)
+    twin = O.flatten(params)
+    plain_p = O.unflatten(params, [t.clone() for t in twin[1]])
+    plain_s = opt.init(plain_p)
+    for _ in range(2):
+        grads = tree(torch.float32, 1e-2)
+        n = O.adamw_leaf.launches
+        params, state = opt.update(grads, state, params)
+        assert O.adamw_leaf.launches == n + 3
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(O, "adamw_leaf", O.adamw_leaf_plain)
+            plain_p, plain_s = opt.update(grads, plain_s, plain_p)
+    for a, b in zip(O.flatten((params, state.mu, state.nu))[1],
+                    O.flatten((plain_p, plain_s.mu, plain_s.nu))[1]):
+        assert torch.equal(a, b)
