@@ -302,16 +302,19 @@ Phases, each fatal on failure:
      exact launches, and qwen2-72b (~135 GiB in bf16) at smoke scale
      beside its full-width plan's bytes.
 
- 17. LM training on the dense layout: (a) #7's backward kernel
-     (csrc/flash_attention_bwd.cu) against `flash_attention_bwd_plain` on
-     the forward kernel's o and lse at qwen3-4b's training shape (B = 1,
-     S = 4096, 32 query over 8 KV heads of 128) in bf16 and at every head
-     width at S = 512 in float32 and bf16 (float32 within 1e-5 of each
-     gradient's largest |x|, bf16 within rtol 2e-2 / atol 2e-3, a second
-     launch the same bits), timed per layer beside its plain version, its
-     bound by operations and SDPA's backward; (b) silu's backward
-     (csrc/silu.cu's ``silu_bwd``) bit for bit at the training MLP of
-     every dense arch, timed beside its bound by bytes, and AdamW's
+ 17. LM training on the dense layout: (a) #7's backward kernels
+     (csrc/flash_attention_bwd.cu: in bf16 the Hopper kernels, wgmma with
+     P and dS split hi + lo, TMA through an mbarrier ring) against
+     `flash_attention_bwd_plain` on the forward kernel's o and lse at
+     qwen3-4b's training shape (B = 1, S = 4096, 32 query over 8 KV heads
+     of 128) in bf16 and at every head width at S = 512 in float32 and
+     bf16 (float32 within 1e-5 of each gradient's largest |x|, bf16
+     within rtol 2e-2 / atol 2e-3, a second launch the same bits), timed
+     per layer beside its plain version, its bound by operations and
+     SDPA's backward, with each kernel's registers and local (spill)
+     bytes from ``cudaFuncGetAttributes`` and ptxas's spills; (b) silu's
+     backward (csrc/silu.cu's ``silu_bwd``) bit for bit at the training
+     MLP of every dense arch, timed beside its bound by bytes, and AdamW's
      update (csrc/adamw.cu) bit for bit at qwen3-4b's leaves, timed at
      the largest beside its plain version and its bound by bytes; (c) 3
      steps of full-width qwen3-4b (4.41 B parameters) at 2 x 4096 tokens
@@ -6876,16 +6879,43 @@ def train_attention_case(gen, dev, shape, dtype, results, what):
     return q, k, v, o, lse, do
 
 
+def bwd_kernel_usage():
+    """Each kernel of csrc/flash_attention_bwd.cu as compiled: its
+    registers, local (spill) bytes a thread, shared bytes and threads
+    from ``cudaFuncGetAttributes`` (through the C entry
+    ``flash_attention_bwd_attrs``), and ptxas's spill stores and loads
+    from the build's log."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import kernel as TA
+    usage = TA.flash_attention_bwd_attrs()
+    text = _build.build_all()["log"].get("flash_attention_bwd.cu", "")
+    spills = {f"{m.group(1)}<{m.group(2)}>": v
+              for k, v in ptxas_usage(text).items()
+              for m in [re.search(r"(dq_wgmma_kernel|dkdv_wgmma_kernel|"
+                                  r"dq_kernel|dkdv_kernel)ILi(\d+)E", k)]
+              if m}
+    for name, u in usage.items():
+        st, ld = spills.get(name, (None, None, None))[1:3]
+        u.update(ptxas_spill_stores=st, ptxas_spill_loads=ld)
+        log(f"  {name}: {u['registers']} registers at launch, "
+            f"{u['local_bytes']} local (spill) bytes a thread, "
+            f"{u['shared_bytes']} shared bytes, {u['threads']} threads; "
+            f"ptxas spills {st} bytes stored, {ld} loaded")
+    return usage
+
+
 def train_attention(dev, results):
     """(a): #7's backward at qwen3-4b's training shape in bf16, and at
     every head width at S = 512 in float32 and bf16, against its plain
     version; its time per layer (L2 flushed) beside its plain version,
     the bound by operations and the backward of
     `scaled_dot_product_attention` on the same inputs (timed only, never
-    on the path); the forward with its lse beside it."""
+    on the path); the forward with its lse beside it; each kernel's
+    registers and spills."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import kernel as TA
+    results["flash_attention_bwd"]["kernels"] = bwd_kernel_usage()
     gen = torch.Generator(dev).manual_seed(SEED + 60)
     for d in TA.HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
@@ -6909,13 +6939,23 @@ def train_attention(dev, results):
     dot = do.transpose(1, 2)
     lib = device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                 retain_graph=True), reps=5)
+    # each of the two kernels alone, by `torch.profiler` (None where the
+    # profiler saw no launch of it)
+    by_kernel = {name: profiled_ms(
+        lambda: TA.flash_attention_bwd(q, k, v, o, lse, do), "write",
+        kernel=name, calls=5)[0]
+        for name in ("dq_wgmma_kernel", "dkdv_wgmma_kernel")}
     bms, kind, tb, to = attention_bwd_bound(*TRAIN_ATTN[:1], TRAIN_SEQ,
                                             TRAIN_SEQ, *TRAIN_ATTN[2:], 2)
     tflops = to * BF16_OPS_PER_S / 1e3 / ms / 1e9
     results["flash_attention_bwd"].update(
         shape=dict(zip(("B", "S", "H", "HKV", "D"), TRAIN_ATTN)), ms=ms,
         plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=kind,
-        tflops=tflops, forward_with_lse_ms=fwd)
+        tflops=tflops, forward_with_lse_ms=fwd, by_kernel_ms=by_kernel)
+    log("  flash_attention_bwd bf16 by kernel (torch.profiler, L2 "
+        "flushed): " + ", ".join(
+            f"{n} " + ("not seen" if t is None else f"{t:.4f} ms")
+            for n, t in by_kernel.items()))
     log(f"  flash_attention_bwd bf16 {TRAIN_ATTN} (one layer of a "
         f"microbatch): {ms:.4f} ms (bound {bms:.4f} ms by {kind}: bytes "
         f"{tb:.4f} ms, operations {to:.4f} ms at 10·D FLOP a pair), "
@@ -7256,7 +7296,7 @@ def train_cli():
 
 # the step's kernels by name: the hand kernels (launched through ctypes,
 # so a `record_function` range does not see them) and cuBLAS's GEMMs
-TRAIN_GROUPS = {"#7 backward": r"dkdv_kernel|dq_kernel",
+TRAIN_GROUPS = {"#7 backward": r"dkdv_(wgmma_)?kernel|dq_(wgmma_)?kernel",
                 "#7 forward": r"flash_wgmma_kernel|flash_kernel",
                 "silu backward": r"silu_bwd_kernel",
                 "silu": r"silu_kernel",

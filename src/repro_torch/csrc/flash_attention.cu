@@ -326,42 +326,6 @@ struct WLayout {          // byte offsets from a 1024-aligned base
   static constexpr int kBytes = kBar + 8 * kBars + 1024; // + alignment slack
 };
 
-// d (64 x 128, float32) (+)= A (64 x 16) B^T: A and B (128 x 16) both
-// K-major in shared memory.  `acc` 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_F64 : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64 x 128) += A (64 x 16, bf16 pairs in registers) B: B (16 x 128)
-// MN-major in shared memory (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_F64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// The same with N = 64 (head dim 64).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_F32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // kPad: D < DP, the true width read from the arguments; without it D is
 // DP at compile time and the epilogue stores every pair unconditionally
 // (a run-time D there cost the full widths 2-3%).

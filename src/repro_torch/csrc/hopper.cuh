@@ -1,6 +1,7 @@
 // Hopper primitives shared by the kernels: mbarriers, 1-D bulk copies and
-// cp.async groups, 4-D TMA loads, wgmma descriptors and fences, bf16 pairs and
-// their hi/lo split, and the driver's tensor-map encoder found at run time.
+// cp.async groups, 4-D TMA loads, wgmma descriptors, fences and the bf16
+// products of the attention kernels, bf16 pairs and their hi/lo split, and
+// the driver's tensor-map encoder found at run time.
 #pragma once
 
 #include <cuda.h>
@@ -157,6 +158,53 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "    \
   "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "   \
   "%56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x 128, float32) (+)= A (64 x 16) B^T: A and B (128 x 16) both
+// K-major in shared memory.  `acc` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F64 : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 128) += A (64 x 16, bf16 pairs in registers) B: B (16 x 128)
+// MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same with N = 64.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, float32) (+)= A (64 x 16) B^T: A and B (64 x 16) both
+// K-major in shared memory.  `acc` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_F32 : "l"(da), "l"(db), "r"(acc));
+}
 
 __device__ __forceinline__ uint32_t bf16_pair(float lo_k, float hi_k) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo_k, hi_k);

@@ -409,17 +409,6 @@ __device__ __forceinline__ void fetch_tile(uint8_t* dst,
   }
 }
 
-// d (64 x 64) (+)= A B: A (64 x 16) and B (16 x 64) K-major in shared
-// memory.  `acc` 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
-                                           uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_F32 : "l"(da), "l"(db), "r"(acc));
-}
-
 // d (64 x 64) (+)= A B: A (64 x 16, bf16 pairs in registers), B (16 x 64)
 // K-major in shared memory.
 __device__ __forceinline__ void wgmma_rs64(float (&d)[32],
@@ -431,19 +420,6 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32],
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : WG_F32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// d (64 x 128) += A B: A (64 x 16, bf16 pairs in registers), B (16 x 128)
-// MN-major in shared memory (transpose bit set).
-__device__ __forceinline__ void wgmma_rs128t(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_F64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // Four 8 x 8 bf16 matrices from registers (the mma fragment layout) into
@@ -627,7 +603,7 @@ __global__ void __launch_bounds__(kWThreads, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
-      wgmma_ss64(cb, kmajor(sa + W::kC, kk), kmajor(sa + W::kB, kk), kk > 0);
+      wgmma_ss_n64(cb, kmajor(sa + W::kC, kk), kmajor(sa + W::kB, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
@@ -709,9 +685,9 @@ __global__ void __launch_bounds__(kWThreads, 2)
       wgmma_rs64(acc, xf[kk], kmajor(base + W::kGlo, kk), 1);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs128t(st, whi[kk], db + kk * 128);
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(st, whi[kk], db + kk * 128);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs128t(st, wlo[kk], db + kk * 128);
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(st, wlo[kk], db + kk * 128);
     wgmma_commit();
     if (warp == 0 && i + 1 < n_chunks) decays(i + 1);
     wgmma_wait<1>();

@@ -24,11 +24,20 @@ Gradients.  Where autograd will differentiate the output (grad mode on and
 q, k or v requiring grad), `flash_attention` runs as a
 `torch.autograd.Function`: its forward also writes each row's float32
 log-sum-exp (B, H, Sq), and its backward is `flash_attention_bwd`, which on
-a CUDA tensor launches ``csrc/flash_attention_bwd.cu`` (dq per query
-block, dk and dv per key block with GQA summed inside, no atomics) and
-counts it in ``flash_attention.bwd_launches``, and on a CPU tensor takes
-`flash_attention_bwd_plain` (`ref.mha_bwd`).  Without grad (serving) the
-forward launches as before and writes no log-sum-exp.
+a CPU tensor takes `flash_attention_bwd_plain` (`ref.mha_bwd`) and on a
+CUDA tensor launches ``csrc/flash_attention_bwd.cu`` and counts it in
+``flash_attention.bwd_launches``: two kernels, dq per query tile (it
+also stores delta = rowsum(dO * O) for the second), then dk and dv per
+key tile with GQA summed inside, no atomics, so a second launch gives
+the same bits.  In bfloat16 both are Hopper kernels:
+TMA loads of q, k, v and dO through an mbarrier ring and ``wgmma`` for
+every product, with P and dS split hi + lo before the products that take
+them, as the forward splits P; so o and do, like q, k and v, must have a
+16-byte-aligned base and strides of whole 16 bytes, or it raises
+`ValueError`.  float32 runs CUDA-core kernels that hold 1e-5.
+`flash_attention_bwd_attrs` reads each compiled kernel's registers and
+local (spill) bytes.  Without grad (serving) the forward launches as
+before and writes no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -69,11 +78,23 @@ _STRIDED = ("q", "k", "v", "o", "do")
 class _AttnBwdArgs(ctypes.Structure):
     """``AttnBwdArgs`` of csrc/flash_attention_bwd.cu."""
     _fields_ = [(name, _P) for name in (
-        "q", "k", "v", "o", "lse", "dout", "dq", "dk", "dv", "delta")] + [
+        "q", "k", "v", "o", "lse", "dout", "dq", "dk", "dv", "delta",
+        "lse2")] + [
         (f"{t}_{s}", _L) for t in _STRIDED for s in ("sb", "ss", "sh")] + [
         (name, _I) for name in ("batch", "sq", "skv", "heads", "kv_heads",
                                 "head_dim", "causal", "kv_len", "q_offset",
-                                "dtype")] + [("scale", ctypes.c_float)]
+                                "dtype", "sq_pad")] + [
+        ("scale", ctypes.c_float)]
+
+
+_BWD_ROWS = 64        # the bf16 kernels' scratch rows are padded to this
+
+# the kernels of csrc/flash_attention_bwd.cu in the order
+# ``flash_attention_bwd_attrs`` reports them
+BWD_KERNELS = ("dq_wgmma_kernel<64>", "dq_wgmma_kernel<128>",
+               "dkdv_wgmma_kernel<64>", "dkdv_wgmma_kernel<128>",
+               "dq_kernel<64>", "dq_kernel<128>", "dkdv_kernel<64>",
+               "dkdv_kernel<128>")
 
 
 def _wants_grad(*ts) -> bool:
@@ -117,13 +138,18 @@ def _check(q, k, v):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the kernel reads the head dim "
                              f"contiguously; got strides {t.stride()}")
-        if q.dtype == torch.bfloat16 and (
-                t.data_ptr() % 16
-                or any(st * 2 % 16 for st in t.stride()[:3])):
-            raise ValueError(f"{name}: TMA needs a 16-byte-aligned base and "
-                             f"strides of whole 16 bytes; got address "
-                             f"{t.data_ptr():#x}, strides {t.stride()} "
-                             f"(elements of 2 bytes)")
+        _check_tma(name, t)
+
+
+def _check_tma(name, t):
+    """A bf16 operand's contract for TMA (and 16-byte loads): a
+    16-byte-aligned base and strides of whole 16 bytes."""
+    if t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16 or any(st * 2 % 16 for st in t.stride()[:3])):
+        raise ValueError(f"{name}: TMA needs a 16-byte-aligned base and "
+                         f"strides of whole 16 bytes; got address "
+                         f"{t.data_ptr():#x}, strides {t.stride()} "
+                         f"(elements of 2 bytes)")
 
 
 def _forward(q, k, v, causal, scale, kv_len, with_lse: bool):
@@ -176,28 +202,47 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"lse must be contiguous float32 {(b, h, sq)}; got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     o, do = (t if t.stride(3) == 1 else t.contiguous() for t in (o, do))
+    for name, t in (("o", o), ("do", do)):
+        _check_tma(name, t)
     scale = d ** -0.5 if scale is None else scale
     kv_len = skv if kv_len is None else min(kv_len, skv)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
+    # delta and lse * log2(e), each row padded to whole 64-query blocks
+    sq_pad = -(-sq // _BWD_ROWS) * _BWD_ROWS
+    scratch = torch.empty((2, b, h, sq_pad), dtype=torch.float32,
+                          device=q.device)
     args = _AttnBwdArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), lse.data_ptr(), do.data_ptr(),
                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        delta.data_ptr(),
+                        scratch[0].data_ptr(), scratch[1].data_ptr(),
                         *(st for t in (q, k, v, o, do)
                           for st in t.stride()[:3]),
                         b, sq, skv, h, hkv, d, int(causal), kv_len, skv - sq,
-                        _DTYPE_CODE[q.dtype], scale)
+                        _DTYPE_CODE[q.dtype], sq_pad, scale)
     fn = _build.library("flash_attention_bwd.cu").flash_attention_bwd
     fn.argtypes = [ctypes.POINTER(_AttnBwdArgs), _P]
     fn.restype = ctypes.c_int
     _build.check(fn(ctypes.byref(args), stream_of(q)), "flash_attention_bwd")
     _counts.bwd_launches += 1
     return dq, dk, dv
+
+
+def flash_attention_bwd_attrs() -> dict:
+    """``{kernel: {registers, local_bytes, shared_bytes, threads}}`` of
+    every kernel of ``csrc/flash_attention_bwd.cu`` as compiled
+    (``cudaFuncGetAttributes``; ``local_bytes`` a thread are its spills).
+    Needs the card."""
+    fn = _build.library("flash_attention_bwd.cu").flash_attention_bwd_attrs
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int), _I], ctypes.c_int
+    out = (ctypes.c_int * (4 * len(BWD_KERNELS)))()
+    _build.check(fn(out, len(BWD_KERNELS)), "flash_attention_bwd_attrs")
+    keys = ("registers", "local_bytes", "shared_bytes", "threads")
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, name in enumerate(BWD_KERNELS)}
 
 
 class _Flash(torch.autograd.Function):

@@ -1727,11 +1727,20 @@ def test_int8_cache_session_round_trip_on_card(cuda_device, tmp_path):
 
 # ---- training: the backward kernels and a train step ------------------------
 
-# (B, Sq, Skv, H, HKV, D): ragged lengths, GQA 4:1, the padded widths (D =
-# 112 runs at 128, 16-32 at 64), queries at the last Sq of more keys
-ATTN_BWD_CASES = [(2, 70, 70, 4, 2, 16), (1, 50, 50, 5, 5, 24),
-                  (2, 90, 90, 8, 2, 32), (1, 40, 100, 4, 2, 64),
-                  (1, 130, 130, 4, 4, 112), (1, 300, 300, 8, 2, 128)]
+# (B, Sq, Skv, H, HKV, D, kv_len, packed): ragged lengths, GQA 4:1, the
+# padded widths (D = 112 runs at 128, 16-32 at 64), queries at the last Sq
+# of more keys; keys hidden from kv_len on; q, k, v cut as strided views of
+# one packed (B, S, H + 2 HKV, D) projection; and at D = 128 an Sq that is
+# no multiple of the bf16 kernels' 64- and 128-row tiles
+ATTN_BWD_CASES = [(2, 70, 70, 4, 2, 16, None, False),
+                  (1, 50, 50, 5, 5, 24, None, False),
+                  (2, 90, 90, 8, 2, 32, None, False),
+                  (1, 40, 100, 4, 2, 64, None, False),
+                  (1, 130, 130, 4, 4, 112, None, False),
+                  (1, 300, 300, 8, 2, 128, None, False),
+                  (2, 260, 260, 8, 2, 128, 190, False),
+                  (1, 200, 200, 8, 2, 128, None, True),
+                  (1, 333, 333, 4, 1, 128, None, False)]
 
 
 @pytest.mark.cuda
@@ -1746,21 +1755,31 @@ def test_flash_attention_bwd_kernel_matches_plain_on_card(case, dtype,
     the same bits (no atomics).  The forward kernel's lse is the plain
     one's within 1e-4."""
     from repro_torch.kernels.attention import kernel as TA
-    b, sq, skv, h, hkv, d = case
+    b, sq, skv, h, hkv, d, kv_len, packed = case
     gen = torch.Generator(cuda_device).manual_seed(sq + d)
-    q = torch.randn(b, sq, h, d, generator=gen, device=cuda_device).to(dtype)
-    k, v = (torch.randn(b, skv, hkv, d, generator=gen,
-                        device=cuda_device).to(dtype) for _ in range(2))
+    if packed:
+        qkv = torch.randn(b, sq, h + 2 * hkv, d, generator=gen,
+                          device=cuda_device).to(dtype)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+        assert not q.is_contiguous() and not k.is_contiguous()
+    else:
+        q = torch.randn(b, sq, h, d, generator=gen,
+                        device=cuda_device).to(dtype)
+        k, v = (torch.randn(b, skv, hkv, d, generator=gen,
+                            device=cuda_device).to(dtype) for _ in range(2))
     do = torch.randn(b, sq, h, d, generator=gen, device=cuda_device
                      ).to(dtype)
-    o, lse = TA._forward(q, k, v, True, None, None, with_lse=True)
-    _, lse_plain = TA._ref.mha_lse(q, k, v, causal=True)
+    o, lse = TA._forward(q, k, v, True, None, kv_len, with_lse=True)
+    _, lse_plain = TA._ref.mha_lse(q, k, v, causal=True, kv_len=kv_len)
     torch.testing.assert_close(lse, lse_plain, rtol=1e-4, atol=1e-4)
     n = TA.flash_attention.bwd_launches
-    got = TA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    again = TA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    got = TA.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                 kv_len=kv_len)
+    again = TA.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                   kv_len=kv_len)
     assert TA.flash_attention.bwd_launches == n + 2
-    want = TA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    want = TA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                        kv_len=kv_len)
     torch.cuda.synchronize()
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and g.shape == w.shape
