@@ -331,7 +331,30 @@ Phases, each fatal on failure:
      and backward, silu's, AdamW's, the GEMMs, the elementwise kernels,
      the reductions) and the optimizer's update in a range.
 
-The LM phases (8, 9, 11, 14, 15, 16, 17) and their ``--only`` parts arm
+ 18. ssm and hybrid training: (a) #8's backward (csrc/ssd_bwd.cu: four
+     CUDA-core kernels, the chunks' state contributions, the carries
+     across chunks, each chunk's gradients, the heads of a group summed)
+     against `ssd_scan_bwd_plain` at mamba2-1.3b's and zamba2-7b's
+     training shapes (one microbatch of 4096 tokens; H = 64, S = 128 and
+     H = 112, S = 64), G = 2 at L = 300 and L = 1000, with and without a
+     final-state gradient, on x, B and C cut from a packed projection, in
+     bf16 and float32 (bf16 dx, dB, dC within one bf16 step of the
+     largest |g|, every float32 gradient within 1e-4; a second launch the
+     same bits), timed per layer beside its plain version and
+     its bound, each kernel by `torch.profiler`, registers and spills;
+     (b) silu's backward in the Mamba2 block's two forms (the conv's
+     ``silu(x)``, the gate's ``y * silu(z)``) bit for bit at both archs'
+     widths, timed; (c) 3 steps each of full-width mamba2-1.3b (2 x 4096,
+     2 microbatches) and zamba2-7b cut to 3 of its 9 super-blocks (4 x
+     4096, 4 microbatches) through `launch.train.build`, each step's
+     launches exact, finite losses, the first near ln(vocab); step
+     seconds, tokens/s, model FLOP/s and its share of 989 TFLOP/s, peak
+     memory; (d) each at full width and shallow depth in float32 against
+     the plain path; then in a fresh process (``--only
+     ssm-train-profile``) a `torch.profiler` of one mamba2-1.3b step by
+     kernel name.
+
+The LM phases (8, 9, 11, 14, 15, 16, 17, 18) and their ``--only`` parts arm
 `faulthandler` with a limit of a few minutes: a stall prints every
 thread's stack and exits with code 1 long before the script's limit.
 
@@ -416,7 +439,9 @@ SOURCES = {"fleet_step": CSRC + "fleet_step.cu",
            "recorder": CSRC + "recorder.cu",
            "flash_attention_bwd": CSRC + "flash_attention_bwd.cu",
            "silu_bwd": CSRC + "silu.cu",
-           "adamw": CSRC + "adamw.cu"}
+           "adamw": CSRC + "adamw.cu",
+           "ssd_scan_bwd": CSRC + "ssd_bwd.cu",
+           "silu_bwd_mamba2": CSRC + "silu.cu"}
 REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             "fleet_step_q": "src/repro/kernels/plasticity/kernel.py:559",
             "rollout": "src/repro/kernels/plasticity/fused.py:304",
@@ -450,7 +475,13 @@ REPLACES = {"fleet_step": "src/repro/kernels/plasticity/kernel.py:256",
             # no Pallas kernel: XLA's fusion of jax.vjp of the SwiGLU gate
             "silu_bwd": "src/repro/models/layers.py:142",
             # no Pallas kernel: XLA's fusion of the AdamW update
-            "adamw": "src/repro/optim/optimizers.py:67"}
+            "adamw": "src/repro/optim/optimizers.py:67",
+            # the gradient of #8's port (JAX differentiates its XLA chunked
+            # scan in training: src/repro/kernels/ssd/ref.py:50)
+            "ssd_scan_bwd": "src/repro/kernels/ssd/kernel.py:65",
+            # no Pallas kernel: XLA's fusions of jax.vjp of the Mamba2
+            # conv's silu (:75) and its output gate y * silu(z) (:111)
+            "silu_bwd_mamba2": "src/repro/models/ssm.py:75"}
 
 
 def log(*a):
@@ -7089,22 +7120,43 @@ def train_adamw(dev, results):
 
 
 def train_counts():
-    """(forward #7, #7 backward, silu, silu backward, AdamW) launches so
-    far."""
+    """(#8 forward, #8 backward, #7 forward, #7 backward, silu, silu
+    backward, AdamW) launches so far."""
     from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.models import layers as ML
     from repro_torch.optim import optimizers as O
-    return (TA.flash_attention.launches, TA.flash_attention.bwd_launches,
+    return (SK.ssd_scan.launches, SK.ssd_scan.bwd_launches,
+            TA.flash_attention.launches, TA.flash_attention.bwd_launches,
             ML.silu.launches, ML.silu.bwd_launches, O.adamw_leaf.launches)
 
 
 def zero_train_counts():
     from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.models import layers as ML
     from repro_torch.optim import optimizers as O
-    for fn in (TA.flash_attention, ML.silu):
+    for fn in (TA.flash_attention, SK.ssd_scan, ML.silu):
         fn.launches = fn.bwd_launches = 0
     O.adamw_leaf.launches = 0
+
+
+def train_launches(cfg, microbatches, leaves):
+    """`train_counts` a step with remat on, each microbatch: every dense
+    block and every use of a zsuper's shared block #7 and silu twice (its
+    forward and the recompute) and their backwards once; every Mamba2
+    block #8 twice and its backward once, silu 4 times (the conv's and
+    the gate's, twice) and its backward twice; AdamW once a leaf."""
+    from repro_torch.models.transformer import segments
+    n_ssm = n_attn = 0
+    for kind, count in segments(cfg):
+        n_ssm += count if kind == "ssm" else 0
+        n_attn += count if kind != "ssm" else 0
+        if kind == "zsuper":
+            n_ssm += count * (cfg.ssm.attn_every - 1)
+    mb = microbatches
+    return (2 * mb * n_ssm, mb * n_ssm, 2 * mb * n_attn, mb * n_attn,
+            mb * (4 * n_ssm + 2 * n_attn), mb * (2 * n_ssm + n_attn), leaves)
 
 
 def smoke_leaves(arch):
@@ -7136,27 +7188,24 @@ def train_model(dev, steps_=TRAIN_STEPS):
     return cfg, step_fn, params, opt_state, pipe
 
 
-def train_path(dev, results):
-    """(c): 3 steps of full-width qwen3-4b at 2 x 4096 tokens through
-    `train.build` and its step function: each step's launches exact (with
-    remat 2 x 36 x 2 #7 forwards, 2 x 36 backwards, the same for silu, and
-    AdamW's kernel once a parameter leaf), finite losses, the first near ln(vocab); step seconds, tokens/s, model
-    FLOP/s and its share of the bf16 peak, peak memory."""
+def train_steps(dev, cfg, step_fn, params, opt_state, pipe, rows, mb):
+    """`TRAIN_STEPS` steps of ``step_fn`` from the token pipeline: each
+    step's launches exact (`train_launches`), finite losses, the first near
+    ln(vocab); step seconds, tokens/s, model FLOP/s and its share of the
+    bf16 peak, peak memory (from the caller's `reset_peak_memory_stats`
+    and ``base``)."""
     import torch
     from repro_torch.data import batch_at_step
     from repro_torch.launch.steps import model_flops
+    from repro_torch.models import factory
     from repro_torch.optim.optimizers import _leaves
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    cfg, step_fn, params, opt_state, pipe = train_model(dev)
-    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() - sum(
+        t.numel() * t.element_size() for t in _leaves((params, opt_state)))
     nbytes = lambda tree: sum(t.numel() * t.element_size()
                               for t in _leaves(tree))
     p_bytes, o_bytes = nbytes(params), nbytes(opt_state)
-    mb = 2                                  # TRAIN_SETUP["qwen3-4b"]
-    want = (2 * mb * cfg.n_layers, mb * cfg.n_layers,
-            2 * mb * cfg.n_layers, mb * cfg.n_layers, len(_leaves(params)))
-    rows, total = [], [0] * len(want)
+    want = train_launches(cfg, mb, len(_leaves(params)))
+    steps_, total = [], [0] * len(want)
     for step in range(TRAIN_STEPS):
         batch = batch_at_step(pipe, step, device=dev)
         torch.cuda.synchronize()
@@ -7168,55 +7217,75 @@ def train_path(dev, results):
         dt = time.perf_counter() - t0
         got = train_counts()
         require(got == want,
-                f"train step {step}: launches (#7 forward, #7 backward, "
-                f"silu, silu backward, AdamW) {got}, want {want}")
+                f"{cfg.name} train step {step}: launches (#8, #8 backward, "
+                f"#7, #7 backward, silu, silu backward, AdamW) {got}, want "
+                f"{want}")
         total = [a + b for a, b in zip(total, got)]
-        require(math.isfinite(loss), f"train step {step}: loss {loss}")
-        rows.append(dict(step=step, loss=loss, seconds=dt))
+        require(math.isfinite(loss), f"{cfg.name} train step {step}: loss "
+                                     f"{loss}")
+        steps_.append(dict(step=step, loss=loss, seconds=dt))
         log(f"  step {step}: loss {loss:.4f}, {dt:.3f} s, launches {got}")
         del batch
-    first = rows[0]["loss"]
+    first = steps_[0]["loss"]
     require(abs(first - math.log(cfg.vocab)) < 1.0,
-            f"first loss {first:.4f}, want near ln({cfg.vocab}) = "
-            f"{math.log(cfg.vocab):.4f}")
-    steady = statistics.median(r["seconds"] for r in rows[1:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = model_flops(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+            f"{cfg.name} first loss {first:.4f}, want near ln({cfg.vocab}) "
+            f"= {math.log(cfg.vocab):.4f}")
+    steady = statistics.median(r["seconds"] for r in steps_[1:])
+    tokens = rows * TRAIN_SEQ
+    flops = model_flops(cfg, "train", rows, TRAIN_SEQ)
     peak = torch.cuda.max_memory_allocated() - base
-    out = dict(arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-               microbatches=mb, steps=rows, step_seconds_steady=steady,
-               tokens_per_s=tokens / steady, model_flops=flops,
-               model_flops_per_s=flops / steady,
-               mfu=flops / steady / BF16_OPS_PER_S,
-               params_bytes=p_bytes, opt_state_bytes=o_bytes,
-               peak_bytes=peak, launches_per_step=list(want),
-               launches=total)
-    for name, n in (("flash_attention_bwd", total[1]),
-                    ("silu_bwd", total[3]), ("adamw", total[4])):
-        results[name]["launches"] = n
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers,
+               params=factory.build(cfg).n_params(), batch=rows,
+               seq=TRAIN_SEQ, microbatches=mb, steps=steps_,
+               step_seconds_steady=steady, tokens_per_s=tokens / steady,
+               model_flops=flops, model_flops_per_s=flops / steady,
+               mfu=flops / steady / BF16_OPS_PER_S, params_bytes=p_bytes,
+               opt_state_bytes=o_bytes, peak_bytes=peak,
+               launches_per_step=list(want), launches=total)
     log(f"  {cfg.name} at full width ({nvidia_smi()}): {steady:.3f} s a "
         f"step (median of steps 1-{TRAIN_STEPS - 1}), {tokens / steady:.0f} "
         f"tokens/s, {flops / steady / 1e12:.1f} TFLOP/s of model FLOPs "
         f"({flops / steady / BF16_OPS_PER_S:.1%} of 989); peak "
         f"{gib(peak):.2f} GiB (params {gib(p_bytes):.2f}, optimizer "
         f"{gib(o_bytes):.2f})")
-    del params, opt_state
+    return out
+
+
+def train_path(dev, results):
+    """(c): 3 steps of full-width qwen3-4b at 2 x 4096 tokens through
+    `train.build` and its step function (`train_steps`: with remat 2 x 36
+    x 2 #7 forwards, 2 x 36 backwards, the same for silu, and AdamW's
+    kernel once a parameter leaf)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    cfg, step_fn, params, opt_state, pipe = train_model(dev)
+    torch.cuda.synchronize()
+    out = train_steps(dev, cfg, step_fn, params, opt_state, pipe,
+                      TRAIN_BATCH, 2)           # TRAIN_SETUP["qwen3-4b"]
+    for name, k in (("flash_attention_bwd", 3), ("silu_bwd", 5),
+                    ("adamw", 6)):
+        results[name]["launches"] = out["launches"][k]
+    del params, opt_state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def train_depth2_matches(dev):
-    """(d): qwen3-4b at full width cut to 2 layers, float32, one
-    microbatch of 4096 tokens: the loss and every gradient leaf through
-    the kernels against the plain path (the plain attention and silu,
-    differentiated by autograd), the loss within 1e-5 relative and each
-    leaf within 1e-4 of its largest |g|; launches exact."""
+def train_shallow_matches(dev, arch):
+    """(d): ``arch`` at full width and `shallow` depth (2 layers; a hybrid
+    4, a super-block of 3 and a trailing Mamba2 block, since it needs its
+    shared block), float32, remat on, one microbatch of 4096 tokens: the
+    loss and every gradient leaf through the kernels against the plain
+    path (the plain attention, SSD scan and silu, differentiated by
+    autograd), the loss within 1e-5 relative and each leaf within 1e-4 of
+    its largest |g|; launches exact."""
     import torch
     from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.launch import steps
     from repro_torch.models import attention as MA, factory, layers as ML
-    cfg = shallow(lm_config(TRAIN_ARCH)[0]).with_(dtype="float32")
+    from repro_torch.models import ssm as MS
+    cfg = shallow(lm_config(arch)[0]).with_(dtype="float32")
     gen = torch.Generator(dev).manual_seed(SEED + 62)
     params = factory.build(cfg).init(gen)
     toks = torch.randint(0, cfg.vocab, (1, TRAIN_SEQ + 1), generator=gen,
@@ -7229,28 +7298,32 @@ def train_depth2_matches(dev):
         loss.backward()
         return loss.detach(), [t.grad for t, _ in slots]
 
+    want = train_launches(cfg, 1, 0)
     zero_train_counts()
     loss, grads = run()
     got = train_counts()
-    n = cfg.n_layers
-    require(got == (2 * n, n, 2 * n, n, 0),
-            f"2-layer float32 train step: launches {got}, want "
-            f"{(2 * n, n, 2 * n, n, 0)}")
+    require(got == want, f"{arch} {cfg.n_layers} layers float32: launches "
+                         f"{got}, want {want}")
     with mock.patch.object(MA, "attn_op", TA.flash_attention_plain), \
+            mock.patch.object(MS, "ssd_op", SK.ssd_scan_plain), \
+            mock.patch.object(MS, "silu", ML.silu_plain), \
             mock.patch.object(ML, "silu", ML.silu_plain):
         loss_p, grads_p = run()
     rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
     worst = max(float((g - w).abs().max() / w.abs().max())
                 for g, w in zip(grads, grads_p))
     require(rel <= 1e-5 and worst <= 1e-4,
-            f"2-layer float32 train step: loss rel diff {rel:.3g}, largest "
-            f"leaf diff {worst:.3g} of its largest |g| (want 1e-5, 1e-4)")
-    log(f"  {cfg.name}, 2 layers at full width, float32, 1 x {TRAIN_SEQ}: "
-        f"loss {float(loss):.6f}, rel diff {rel:.3g}; every gradient leaf "
-        f"within {worst:.3g} of its largest |g| of the plain path's")
+            f"{arch} {cfg.n_layers} layers float32: loss rel diff {rel:.3g}, "
+            f"largest leaf diff {worst:.3g} of its largest |g| (want 1e-5, "
+            f"1e-4)")
+    log(f"  {cfg.name}, {cfg.n_layers} layers at full width, float32, 1 x "
+        f"{TRAIN_SEQ}: loss {float(loss):.6f}, rel diff {rel:.3g}; every "
+        f"gradient leaf within {worst:.3g} of its largest |g| of the plain "
+        f"path's; launches {got}")
     del params, grads, grads_p
     torch.cuda.empty_cache()
-    return dict(loss=float(loss), loss_rel_diff=rel, worst_leaf=worst)
+    return dict(n_layers=cfg.n_layers, loss=float(loss), loss_rel_diff=rel,
+                worst_leaf=worst)
 
 
 def train_cli():
@@ -7277,8 +7350,8 @@ def train_cli():
             out.append(json.loads(p.stdout[p.stdout.index("{"):]))
     first, again = out
     n = 2 * TRAIN_CLI_STEPS              # the smoke config's 2 layers
-    want = {"flash_attention": n, "flash_attention_bwd": n, "silu": n,
-            "silu_bwd": n,
+    want = {"flash_attention": n, "flash_attention_bwd": n, "ssd_scan": 0,
+            "ssd_scan_bwd": 0, "silu": n, "silu_bwd": n,
             "adamw": TRAIN_CLI_STEPS * smoke_leaves(TRAIN_ARCH)}
     require(first["steps"] == TRAIN_CLI_STEPS and first["start_step"] == 0
             and math.isfinite(first["last_loss"])
@@ -7389,13 +7462,391 @@ def train_all(dev, results):
     gc.collect()
     torch.cuda.empty_cache()
     out["path"] = train_path(dev, results)
-    out["depth2"] = train_depth2_matches(dev)
+    out["depth2"] = train_shallow_matches(dev, TRAIN_ARCH)
     out["cli"] = train_cli()
     gc.collect()
     torch.cuda.empty_cache()
     work = ROOT / "build" / "chip_smoke_train"
     work.mkdir(parents=True, exist_ok=True)
     out["profile"] = train_profiles(work)
+    return out
+
+
+# ---- phase 18: ssm and hybrid training ---------------------------------------
+
+# full-width mamba2-1.3b at train_4k's S with its global batch of 256 cut to
+# 2 rows (as phase 17 cuts qwen3-4b's); zamba2-7b (~6.05 B parameters,
+# ~85 GB of weights, accumulator and moments) cut to 3 of its 9
+# super-blocks (27 layers, ~2.3 B) to fit one card, 4 rows
+SSM_TRAIN = {"mamba2-1.3b": dict(batch=2, layers=None),
+             "zamba2-7b": dict(batch=4, layers=27)}
+# (B, L, H, P, S) of one microbatch's Mamba2 block at each arch
+SSM_TRAIN_SHAPES = {"mamba2-1.3b": (1, TRAIN_SEQ, 64, 64, 128),
+                    "zamba2-7b": (1, TRAIN_SEQ, 112, 64, 64)}
+SSM_TRAIN_GROUPS = {"#8 backward": r"ssd_bwd",
+                    "#8 forward": r"ssd_wgmma_kernel|ssd_kernel",
+                    "silu backward": r"silu_bwd_kernel",
+                    "silu": r"silu_kernel",
+                    "AdamW": r"adamw_kernel",
+                    "GEMMs": r"gemm|sm90_xmma|nvjet|cutlass",
+                    "elementwise": r"elementwise_kernel",
+                    "reductions": r"reduce_kernel"}
+
+
+def ssd_bwd_bound(b, length, h, p, s, g, itemsize):
+    """Least time (ms) for #8's backward: x, dy, B, C, dt and a read once,
+    dx, dB, dC, ddt and da written once, at the memory rate, against the
+    FLOP of each (b, h, chunk of q rows): the causal triangles of C B^T,
+    dy x^T, G^T dy, dG' B and dG'^T C, q(q+1)(3S + 2P), and the five
+    products with a chunk state (its contribution, its gradient's, B
+    dS_out, dy S_in^T and x dS_out^T), 10qSP, at the dense bf16
+    tensor-core peak; also that FLOP at the 67 TFLOP/s of the CUDA cores,
+    where the kernel runs them."""
+    nbytes = ((3 * b * length * h * p + 4 * b * length * g * s) * itemsize
+              + 4 * (2 * b * length * h + 2 * h))
+    qs = [min(64, length - i) for i in range(0, length, 64)]
+    flops = b * h * sum(q * (q + 1) * (3 * s + 2 * p) + 10 * q * s * p
+                        for q in qs)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = flops / BF16_OPS_PER_S * 1e3
+    return (max(tb, to), "bytes" if tb >= to else "operations", tb, to,
+            flops / FP32_OPS_PER_S * 1e3)
+
+
+def ssd_bwd_usage():
+    """Each kernel of csrc/ssd_bwd.cu as compiled (bf16 instantiations):
+    registers, local (spill) bytes a thread, shared bytes and threads from
+    ``cudaFuncGetAttributes``, and ptxas's spill stores and loads."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd import kernel as SK
+    usage = SK.ssd_scan_bwd_attrs()
+    text = _build.build_all()["log"].get("ssd_bwd.cu", "")
+    spills = ptxas_usage(text)
+    # each reported kernel's mangled name (its bf16 instantiation)
+    mangled = {"ssd_bwd_chunk_kernel<S<=128>":
+               "ssd_bwd_chunk_kernelI13__nv_bfloat16Li8E",
+               "ssd_bwd_scan_kernel": "ssd_bwd_scan_kernel",
+               "ssd_bwd_kernel<S<=128>": "ssd_bwd_kernelI13__nv_bfloat16Li8E",
+               "ssd_bwd_kernel<S<=64>": "ssd_bwd_kernelI13__nv_bfloat16Li4E",
+               "ssd_bwd_reduce_kernel":
+                   "ssd_bwd_reduce_kernelI13__nv_bfloat16"}
+    for name, u in usage.items():
+        hit = [v for k, v in spills.items() if mangled[name] in k]
+        st, ld = (hit[0][1], hit[0][2]) if hit else (None, None)
+        u.update(ptxas_spill_stores=st, ptxas_spill_loads=ld)
+        log(f"  {name}: {u['registers']} registers, {u['local_bytes']} "
+            f"local (spill) bytes a thread, {u['shared_bytes']} shared "
+            f"bytes, {u['threads']} threads; ptxas spills {st} B stored, "
+            f"{ld} B loaded")
+    return usage
+
+
+def ssd_bwd_close(got, want):
+    """#8's backward gate against its plain version at the model's chunk
+    (256 rows; the kernel's are 64): bf16 dx, dB, dC within one bf16 step
+    of the largest |g| (a float32 sum rounded once in both); every float32
+    gradient within 1e-4 of its largest |g|: the sums over 4096 steps run
+    in other sub-blocks and orders (measured 3.0e-5 at most)."""
+    import torch
+    err = float((got.double() - want.double()).abs().max())
+    if got.dtype == torch.bfloat16:
+        return err, err <= bf16_step(want)
+    return err, err <= 1e-4 * float(want.abs().max())
+
+
+def ssm_train_bwd(dev, results):
+    """(a): #8's backward (csrc/ssd_bwd.cu) against `ssd_scan_bwd_plain`
+    (the chunked form at the model's chunk) on x, B and C cut from a packed
+    projection: mamba2-1.3b's and zamba2-7b's training shapes (one
+    microbatch of 4096 tokens), G = 2 at a ragged L = 300 and zamba2's
+    heads at L = 1000, with and without a final-state gradient, in bf16 and
+    float32; a second launch the same bits.  Timed per layer in bf16 (L2
+    flushed) beside its plain version and its bound, each of its four
+    kernels by `torch.profiler`, and their registers and spills."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as SK
+    row = results["ssd_scan_bwd"]
+    row["kernels"] = ssd_bwd_usage()
+    gen = torch.Generator(dev).manual_seed(SEED + 70)
+    cases = [("mamba2-1.3b", SSM_TRAIN_SHAPES["mamba2-1.3b"], 1, False),
+             ("zamba2-7b", SSM_TRAIN_SHAPES["zamba2-7b"], 1, True),
+             ("G=2 L=300", (2, 300, 8, 64, 128), 2, True),
+             ("zamba2 L=1000", (1, 1000, 112, 64, 64), 1, False)]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for what, (b, length, h, p, s), g, with_ds in cases:
+            x, dt, a, bm, cm = ssd_inputs(gen, b, length, h, p, s, g, dtype,
+                                          dev)
+            dy = torch.randn(b, length, h, p, generator=gen,
+                             device=dev).to(dtype)
+            ds = (torch.randn(b, h, s, p, generator=gen, device=dev)
+                  if with_ds else None)
+            got = SK.ssd_scan_bwd(x, dt, a, bm, cm, dy, ds)
+            again = SK.ssd_scan_bwd(x, dt, a, bm, cm, dy, ds)
+            want = SK.ssd_scan_bwd_plain(x, dt, a, bm, cm, dy, ds,
+                                         chunk=SSD_CHUNK)
+            torch.cuda.synchronize()
+            rel = []
+            for name, u, v, w in zip(("dx", "ddt", "da", "dB", "dC"), got,
+                                     again, want):
+                require(torch.equal(u, v),
+                        f"ssd_scan_bwd {dname} {what} {name}: a second "
+                        f"launch gave other bits")
+                err, ok = ssd_bwd_close(u, w)
+                require(u.dtype == w.dtype and u.shape == w.shape and ok,
+                        f"ssd_scan_bwd {dname} {what} {name}: max |err| "
+                        f"{err:.3g} at largest |g| "
+                        f"{float(w.abs().max()):.3g}")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                rel.append(f"{name} {err / float(w.abs().max()):.2e}")
+            log(f"  ssd_scan_bwd {dname:8s} {what:13s} B={b} L={length} "
+                f"H={h} S={s} G={g}{' dstate' if with_ds else ''}: max "
+                f"|err| / largest |g|: {', '.join(rel)}; a second launch "
+                f"the same bits")
+            del x, dt, a, bm, cm, dy, ds, got, again, want
+    torch.cuda.empty_cache()
+    timed = {}
+    for arch, (b, length, h, p, s) in SSM_TRAIN_SHAPES.items():
+        x, dt, a, bm, cm = ssd_inputs(gen, b, length, h, p, s, 1,
+                                      torch.bfloat16, dev)
+        dy = torch.randn(b, length, h, p, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        ms = device_ms(lambda: SK.ssd_scan_bwd(x, dt, a, bm, cm, dy),
+                       reps=10)
+        plain = device_ms(lambda: SK.ssd_scan_bwd_plain(
+            x, dt, a, bm, cm, dy, chunk=SSD_CHUNK), reps=3)
+        fwd = device_ms(lambda: SK.ssd_scan(x, dt, a, bm, cm), reps=10)
+        by_kernel = {name: profiled_ms(
+            lambda: SK.ssd_scan_bwd(x, dt, a, bm, cm, dy), "write",
+            kernel=name, calls=5)[0]
+            for name in ("ssd_bwd_chunk_kernel", "ssd_bwd_scan_kernel",
+                         "ssd_bwd_kernel", "ssd_bwd_reduce_kernel")}
+        bms, kind, tb, to, to32 = ssd_bwd_bound(b, length, h, p, s, 1, 2)
+        timed[arch] = dict(shape=dict(zip("BLHPS", (b, length, h, p, s))),
+                           ms=ms, plain_ms=plain, bound_ms=bms,
+                           bound_by=kind, bytes_ms=tb, bf16_ops_ms=to,
+                           fp32_ops_ms=to32, forward_ms=fwd,
+                           by_kernel_ms=by_kernel)
+        log(f"  ssd_scan_bwd bf16 {arch} (B={b} L={length} H={h} P={p} "
+            f"S={s}, one layer of a microbatch): {ms:.4f} ms (bound "
+            f"{bms:.4f} ms by {kind}: bytes {tb:.4f} ms, operations "
+            f"{to:.4f} ms at the bf16 peak, {to32:.4f} ms at the CUDA "
+            f"cores' 67 TFLOP/s); {ms / bms:.1f}x the bound; plain "
+            f"{plain:.4f} ms; the forward kernel {fwd:.4f} ms; by kernel: "
+            + ", ".join(f"{n} " + ("not seen" if t is None else
+                                   f"{t:.4f} ms")
+                        for n, t in by_kernel.items()))
+        del x, dt, a, bm, cm, dy
+        torch.cuda.empty_cache()
+    main = timed["mamba2-1.3b"]
+    row.update({k: main[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                     "bound_by")}, library_ms=None,
+               by_arch=timed)
+
+
+def ssm_train_silu(dev, results):
+    """(b): silu's backward in the Mamba2 block's two forms bit for bit
+    against `silu_bwd_plain` at one training microbatch (4096 rows) of
+    each arch: the conv's one-operand form (the xBC width) in bf16 and
+    float32, the gate's (d_inner, with y) in bf16, also through the
+    autograd Function from a float32 output gradient; timed at
+    mamba2-1.3b in bf16 (a block's two launches) beside its plain version
+    and its bound by bytes."""
+    import torch
+    from repro_torch.models import layers as ML, ssm as MS
+    gen = torch.Generator(dev).manual_seed(SEED + 71)
+    row = results["silu_bwd_mamba2"]
+    for arch in SSM_TRAIN:
+        cfg = lm_config(arch)[0]
+        d_inner, _, d_xbc = MS.dims(cfg)
+        for form, cols, dt in (("conv", d_xbc, "bfloat16"),
+                               ("conv", d_xbc, "float32"),
+                               ("gate", d_inner, "bfloat16")):
+            dtype = getattr(torch, dt)
+            x, u, dy = (torch.randn(TRAIN_SEQ, cols, generator=gen,
+                                    device=dev).mul_(s).to(dtype)
+                        for s in (4, 1, 0.5))
+            other = u if form == "gate" else None
+            got = ML.silu_bwd(x, other, dy)
+            want = ML.silu_bwd_plain(x, other, dy)
+            torch.cuda.synchronize()
+            same = all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(got, want))
+            err = float((got[0].double() - want[0].double()).abs().max())
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            require(same, f"silu_bwd {arch} {form} {dt} ({TRAIN_SEQ}, "
+                          f"{cols}): differs from its plain version (max "
+                          f"err {err})")
+            if form == "gate":
+                xg, ug = (t.clone().requires_grad_() for t in (x, u))
+                d32 = torch.randn(TRAIN_SEQ, cols, generator=gen, device=dev)
+                ML.silu(xg, ug, torch.float32).backward(d32)
+                w = ML.silu_bwd_plain(x, u, d32.to(dtype))
+                require(torch.equal(xg.grad, w[0])
+                        and torch.equal(ug.grad, w[1]),
+                        f"silu gate {arch}: the Function's gradients differ "
+                        f"from silu_bwd_plain of the rounded gradient")
+                del xg, ug, d32, w
+            log(f"  silu_bwd {arch} {form} {dt} ({TRAIN_SEQ}, {cols}): bit "
+                f"for bit" + (", and through the Function from a float32 "
+                              "gradient" if form == "gate" else ""))
+            del x, u, dy, got, want
+    cfg = lm_config("mamba2-1.3b")[0]
+    d_inner, _, d_xbc = MS.dims(cfg)
+    bf = torch.bfloat16
+    xc, dyc = (torch.randn(TRAIN_SEQ, d_xbc, generator=gen,
+                           device=dev).to(bf) for _ in range(2))
+    z, y, dyg = (torch.randn(TRAIN_SEQ, d_inner, generator=gen,
+                             device=dev).to(bf) for _ in range(3))
+    conv = device_ms(lambda: ML.silu_bwd(xc, None, dyc))
+    gate = device_ms(lambda: ML.silu_bwd(z, y, dyg))
+    plain = (device_ms(lambda: ML.silu_bwd_plain(xc, None, dyc))
+             + device_ms(lambda: ML.silu_bwd_plain(z, y, dyg)))
+    n_c, n_g = TRAIN_SEQ * d_xbc, TRAIN_SEQ * d_inner
+    # conv: x, dy read and dx written; gate: z, y, dy read, dz, dy written;
+    # ~14 operations an element
+    bms, kind = bound(2 * (3 * n_c + 5 * n_g), 14 * (n_c + n_g))
+    row.update(shape=dict(rows=TRAIN_SEQ, conv_cols=d_xbc, gate_cols=d_inner,
+                          dtype="bfloat16"),
+               ms=conv + gate, conv_ms=conv, gate_ms=gate, plain_ms=plain,
+               library_ms=None, bound_ms=bms, bound_by=kind)
+    log(f"  silu_bwd mamba2-1.3b bf16, a block's two forms: conv ({TRAIN_SEQ}"
+        f", {d_xbc}) {conv:.4f} ms + gate ({TRAIN_SEQ}, {d_inner}) "
+        f"{gate:.4f} ms = {conv + gate:.4f} ms (bound {bms:.4f} ms by "
+        f"{kind}, {bms / (conv + gate):.0%} of the memory rate); plain "
+        f"{plain:.4f} ms")
+    del xc, dyc, z, y, dyg
+    torch.cuda.empty_cache()
+
+
+def ssm_train_cfg(arch):
+    """``arch``'s training config as `launch.train.build` makes it, at the
+    depth `SSM_TRAIN` gives it: zamba2-7b's ``get_config`` answered with
+    ``n_layers = 27`` (3 of its 9 super-blocks), so that the rest of the
+    build (TRAIN_SETUP, the optimizer, the step) is the CLI's.  Returns
+    (cfg, opt, step_fn)."""
+    from repro_torch.launch import train
+    layers = SSM_TRAIN[arch]["layers"]
+    real = train.get_config
+    cut = ((lambda a: real(a).with_(n_layers=layers)) if layers else real)
+    with mock.patch.object(train, "get_config", cut):
+        return train.build(arch, False, SSM_TRAIN[arch]["batch"], TRAIN_SEQ,
+                           3e-4, TRAIN_STEPS)
+
+
+def ssm_train_path(dev, arch):
+    """(c): 3 steps of ``arch`` through `ssm_train_cfg`'s step function at
+    `SSM_TRAIN`'s rows of 4096 tokens, random init from the seed
+    (`train_steps`)."""
+    import torch
+    from repro_torch.data import TokenPipelineConfig
+    from repro_torch.launch.specs import train_setup
+    from repro_torch.models import factory
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, opt, step_fn = ssm_train_cfg(arch)
+    rows = SSM_TRAIN[arch]["batch"]
+    mb = train_setup(arch)["microbatches"]
+    params = factory.build(cfg).init(torch.Generator(dev).manual_seed(SEED))
+    opt_state = opt.init(params)
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=rows, seed=SEED)
+    full = lm_config(arch)[0].n_layers
+    cut = (f", cut to {cfg.n_layers} of {full} layers "
+           f"({cfg.n_layers // cfg.ssm.attn_every} of "
+           f"{full // cfg.ssm.attn_every} super-blocks)"
+           if cfg.n_layers < full else "")
+    log(f"  {cfg.name}: {factory.build(cfg).n_params() / 1e9:.3f} B "
+        f"parameters{cut}, {rows} x {TRAIN_SEQ} tokens in {mb} microbatches")
+    out = train_steps(dev, cfg, step_fn, params, opt_state, pipe, rows, mb)
+    del params, opt_state, step_fn, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_train_profile(dev):
+    """``--only ssm-train-profile``: a fresh process's `torch.profiler` of
+    one full-width mamba2-1.3b training step (2 x 4096 tokens) after one
+    untimed step: device busy time and idle share, the top kernels, and
+    the device time of each family of kernels by kernel name
+    (`SSM_TRAIN_GROUPS`: #8's forward and backward, silu's, AdamW's, the
+    GEMMs, the elementwise kernels and the reductions)."""
+    import torch
+    from repro_torch.data import TokenPipelineConfig, batch_at_step
+    from repro_torch.models import factory
+    cfg, opt, step_fn = ssm_train_cfg("mamba2-1.3b")
+    params = factory.build(cfg).init(torch.Generator(dev).manual_seed(SEED))
+    state = {"p": params, "o": opt.init(params)}
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=SSM_TRAIN[cfg.name]["batch"],
+                               seed=SEED)
+
+    def one(step):
+        batch = batch_at_step(pipe, step, device=dev)
+        state["p"], state["o"], m = step_fn(state["p"], state["o"], batch)
+        return float(m["loss"])
+
+    one(0)
+    log("  one mamba2-1.3b training step, profiled:")
+    out = profile_window(lambda: one(1), 1, SSM_TRAIN_GROUPS)
+    busy = out["device_busy_ms"]
+    out["shares"] = {n: r["ms"] / busy if busy else None
+                     for n, r in out.get("groups", {}).items()}
+    log("  shares of the device's busy time: " + ", ".join(
+        f"{n} {r['ms']:.1f} ms"
+        + (f" ({out['shares'][n]:.3f})" if busy else "")
+        for n, r in out.get("groups", {}).items()))
+    return out
+
+
+def ssm_train_profiles(work):
+    """``--only ssm-train-profile`` in a fresh process: its report."""
+    report = work / "only_ssm_train_profile.json"
+    report.unlink(missing_ok=True)
+    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--only", "ssm-train-profile", "--out", str(report)],
+                       capture_output=True, text=True, timeout=360)
+    for line in p.stdout.splitlines():
+        if line.startswith("    ") or line.startswith("  one ") or \
+                line.startswith("  shares"):
+            log(line)
+    require(p.returncode == 0 and report.exists(),
+            f"--only ssm-train-profile exited {p.returncode}: "
+            f"{p.stderr[-2000:]}")
+    return json.loads(report.read_text())["ssm-train-profile"]
+
+
+def ssm_train_all(dev, results):
+    """Phase 18: (a) #8's backward, (b) silu's Mamba2 forms, (c) 3 steps
+    of each arch, (d) each shallow in float32 against the plain path; then
+    a fresh process's profile of one mamba2-1.3b step."""
+    import torch
+    _flush_buf.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    ssm_train_bwd(dev, results)
+    ssm_train_silu(dev, results)
+    _flush_buf.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path"] = {arch: ssm_train_path(dev, arch) for arch in SSM_TRAIN}
+    out["shallow"] = {arch: train_shallow_matches(dev, arch)
+                      for arch in SSM_TRAIN}
+    m = out["path"]["mamba2-1.3b"]["launches"]
+    results["ssd_scan_bwd"]["launches"] = m[1]
+    results["silu_bwd_mamba2"]["launches"] = m[5]
+    for name, k in (("ssd_scan_bwd", 1), ("silu_bwd_mamba2", 5)):
+        results[name]["launches_by_path"] = {
+            f"{arch} training": p["launches"][k]
+            for arch, p in out["path"].items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke_train"
+    work.mkdir(parents=True, exist_ok=True)
+    out["profile"] = ssm_train_profiles(work)
     return out
 
 
@@ -7465,6 +7916,15 @@ def only_train(dev):
     return out
 
 
+def only_ssm_train(dev):
+    """``--only ssm-train``: phase 18 alone."""
+    results = {name: {"max_abs_err": 0.0}
+               for name in ("ssd_scan_bwd", "silu_bwd_mamba2")}
+    out = ssm_train_all(dev, results)
+    out["kernels"] = results
+    return out
+
+
 def only_moe(dev):
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.plasticity import kernel as K
@@ -7487,7 +7947,8 @@ ONLY = {"fleet-steps": only_fleet_steps, "shared-steps": only_shared_steps,
         "lm-pool-profile": lm_pool_profile, "moe": only_moe,
         "moe-profile": moe_profile, "kv-quant": only_kv_quant,
         "kv-quant-profile": kvq_profile, "train": only_train,
-        "train-profile": train_profile}
+        "train-profile": train_profile, "ssm-train": only_ssm_train,
+        "ssm-train-profile": ssm_train_profile}
 # seconds after which a stalled LM phase (or ``--only`` part) prints every
 # thread's stack and exits non-zero (`faulthandler`), well before the
 # script's 1200 s
@@ -7496,7 +7957,9 @@ STALL_LIMITS = {"8": 300, "9": 300, "11": 300, "14": 240, "15": 240,
                 "--only lm-pool-profile": 150, "--only moe": 240,
                 "--only moe-profile": 150, "--only kv-quant": 480,
                 "--only kv-quant-profile": 240, "17": 420,
-                "--only train": 420, "--only train-profile": 300}
+                "--only train": 420, "--only train-profile": 300,
+                "18": 480, "--only ssm-train": 480,
+                "--only ssm-train-profile": 300}
 
 
 def main() -> int:
@@ -7753,8 +8216,23 @@ def main() -> int:
         trained = train_all(dev, results)
     for name in ("flash_attention", "silu"):
         results[name]["launches_by_path"][f"{TRAIN_ARCH} training"] = \
-            trained["path"]["launches"][0 if name == "flash_attention"
-                                        else 2]
+            trained["path"]["launches"][2 if name == "flash_attention"
+                                        else 4]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"phase 18: ssm and hybrid training, mamba2-1.3b at full "
+               f"width ({SSM_TRAIN['mamba2-1.3b']['batch']} x {TRAIN_SEQ} "
+               f"tokens, 2 microbatches) and zamba2-7b at 3 of its 9 "
+               f"super-blocks ({SSM_TRAIN['zamba2-7b']['batch']} x "
+               f"{TRAIN_SEQ}, 4 microbatches), #8's and silu's Mamba2 "
+               f"backward kernels"):
+        ssm_trained = ssm_train_all(dev, results)
+    for arch, p in ssm_trained["path"].items():
+        for name, k in (("ssd_scan", 0), ("silu", 4), ("flash_attention", 2)):
+            if p["launches"][k]:
+                results[name]["launches_by_path"][f"{arch} training"] = \
+                    p["launches"][k]
 
     # #3 fleet's launches in each path that ran it; `launches` stays the
     # controller's (phase 4)
@@ -7798,6 +8276,7 @@ def main() -> int:
               "rule_search": search, "rule_search_launches": search_launches,
               "health_path": health, "lm_pool": pool, "moe_path": moe,
               "kv_quant_path": kvq, "train_path": trained,
+              "ssm_train_path": ssm_trained,
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
               "shared_step_launches": shared_launches,

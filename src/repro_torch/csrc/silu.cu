@@ -25,15 +25,20 @@
 //
 //   silu_bwd  replaces the XLA fusion of jitted jax.vjp of
 //             jax.nn.silu(g) * u (no Pallas kernel): the gradient of the
-//             SwiGLU gate, src/repro/models/layers.py:142, in training.
+//             SwiGLU gate, src/repro/models/layers.py:142, and of the
+//             Mamba2 output gate y * silu(z), src/repro/models/ssm.py:111
+//             (its float32 output gradient rounded to bf16 first, as the
+//             transpose of the upcast into the norm rounds it), in
+//             training; and without u, of jax.nn.silu(g) alone: the Mamba2
+//             conv's activation, src/repro/models/ssm.py:75.
 //
 // What it computes: for g, u, dy (rows, cols) in one dtype, float32 or
 // bfloat16, at the rounding sites of the compiled vjp (r() rounds to the
 // dtype, as XLA's CPU fusion converts after every op):
 //   s  = r(1 / r(1 + r(exp(-g))))                 the forward's sigmoid
-//   i  = r(dy * u)
+//   i  = r(dy * u)                                (dy without u)
 //   dg = r(r(i * s) + r(r(g * i) * r(s * r(1 - s))))
-//   du = r(r(g * s) * dy)
+//   du = r(r(g * s) * dy)                         (not without u)
 // and in float32, where nothing rounds between the ops and LLVM contracts
 // the outer sum, dg = fma(i, s, (g * i) * (s * (1 - s))).
 // dg and du contiguous in the inputs' dtype.  What bounds it: bytes, as
@@ -102,8 +107,9 @@ silu_kernel(const T* __restrict__ x, long long x_rs,
   }
 }
 
-// One thread: V consecutive elements of one row of the gradient.
-template <typename T, int V>
+// One thread: V consecutive elements of one row of the gradient; without
+// u (HasU false) u and du are not read or written.
+template <typename T, int V, bool HasU>
 __global__ void __launch_bounds__(kThreads)
 silu_bwd_kernel(const T* __restrict__ g, long long g_rs,
                 const T* __restrict__ u, long long u_rs,
@@ -118,24 +124,25 @@ silu_bwd_kernel(const T* __restrict__ g, long long g_rs,
           reinterpret_cast<const Pack<T, V>*>(g + r * g_rs)[c];
       const Pack<T, V> dp =
           reinterpret_cast<const Pack<T, V>*>(dy + r * dy_rs)[c];
-      const Pack<T, V> up =
-          reinterpret_cast<const Pack<T, V>*>(u + r * u_rs)[c];
-      Pack<T, V> gout, uout;
+      Pack<T, V> up, gout, uout;
+      if constexpr (HasU)
+        up = reinterpret_cast<const Pack<T, V>*>(u + r * u_rs)[c];
 #pragma unroll
       for (int k = 0; k < V; ++k) {
         const float gv = to_f<T>(gp.v[k]), dyv = to_f<T>(dp.v[k]);
         const float e = rnd<T>(expf(-gv));
         const float s = rnd<T>(1.0f / rnd<T>(1.0f + e));
-        const float i = rnd<T>(dyv * to_f<T>(up.v[k]));
+        const float i = HasU ? rnd<T>(dyv * to_f<T>(up.v[k])) : dyv;
         const float m = rnd<T>(rnd<T>(gv * i) * rnd<T>(s * rnd<T>(1.0f - s)));
         if constexpr (sizeof(T) == 4)
           gout.v[k] = from_f<T>(__fmaf_rn(i, s, m));
         else
           gout.v[k] = from_f<T>(rnd<T>(i * s) + m);
-        uout.v[k] = from_f<T>(rnd<T>(s * gv) * dyv);
+        if constexpr (HasU) uout.v[k] = from_f<T>(rnd<T>(s * gv) * dyv);
       }
       reinterpret_cast<Pack<T, V>*>(dg + r * (long long)cols)[c] = gout;
-      reinterpret_cast<Pack<T, V>*>(du + r * (long long)cols)[c] = uout;
+      if constexpr (HasU)
+        reinterpret_cast<Pack<T, V>*>(du + r * (long long)cols)[c] = uout;
     }
   }
 }
@@ -190,11 +197,17 @@ cudaError_t launch_bwd(const void* g, long long g_rs, const void* u,
   const T* dt = static_cast<const T*>(dy);
   T* dgt = static_cast<T*>(dg);
   T* dut = static_cast<T*>(du);
-  if (vec)
-    silu_bwd_kernel<T, kV><<<grid, kThreads, 0, stream>>>(
+  if (vec && u)
+    silu_bwd_kernel<T, kV, true><<<grid, kThreads, 0, stream>>>(
+        gt, g_rs, ut, u_rs, dt, dy_rs, dgt, dut, rows, cols);
+  else if (vec)
+    silu_bwd_kernel<T, kV, false><<<grid, kThreads, 0, stream>>>(
+        gt, g_rs, ut, u_rs, dt, dy_rs, dgt, dut, rows, cols);
+  else if (u)
+    silu_bwd_kernel<T, 1, true><<<grid, kThreads, 0, stream>>>(
         gt, g_rs, ut, u_rs, dt, dy_rs, dgt, dut, rows, cols);
   else
-    silu_bwd_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
+    silu_bwd_kernel<T, 1, false><<<grid, kThreads, 0, stream>>>(
         gt, g_rs, ut, u_rs, dt, dy_rs, dgt, dut, rows, cols);
   return cudaGetLastError();
 }
@@ -240,13 +253,13 @@ extern "C" int silu(const void* x, long long x_rs, const void* u,
 
 // The gradient of silu(g) * u for dy: g, u, dy (rows, cols) at row
 // strides g_rs, u_rs, dy_rs (elements), all of dtype 0 float32 / 1
-// bfloat16; dg and du (rows, cols) contiguous in that dtype.  Returns a
-// cudaError_t.
+// bfloat16; dg and du (rows, cols) contiguous in that dtype.  u and du both
+// null: the gradient of silu(g).  Returns a cudaError_t.
 extern "C" int silu_bwd(const void* g, long long g_rs, const void* u,
                         long long u_rs, const void* dy, long long dy_rs,
                         void* dg, void* du, long long rows, int cols,
                         int dtype, cudaStream_t stream) {
-  if (rows < 0 || cols < 0 || (dtype != 0 && dtype != 1) || !u || !du)
+  if (rows < 0 || cols < 0 || (dtype != 0 && dtype != 1) || !u != !du)
     return (int)cudaErrorInvalidValue;
   if (rows == 0 || cols == 0) return (int)cudaSuccess;
   if (dtype == 0)

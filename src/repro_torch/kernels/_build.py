@@ -28,8 +28,8 @@ from typing import Callable, List
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("fleet_step.cu", "rollout.cu", "shared_step.cu",
            "rollout_shared.cu", "lif_forward.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "ssd.cu", "silu.cu", "recorder.cu",
-           "adamw.cu")
+           "flash_attention_bwd.cu", "ssd.cu", "ssd_bwd.cu", "silu.cu",
+           "recorder.cu", "adamw.cu")
 HEADERS = ("plasticity.cuh", "hopper.cuh", "fleet.cuh", "slab.cuh",
            "forward.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -14,6 +14,20 @@ the kernel, which walks the sequence in 64-row chunks of its own
 bfloat16 launches the Hopper kernel (TMA or cp.async ring, wgmma with
 G, the state and w o x split into bf16 hi + lo); float32 the CUDA-core
 kernel.
+
+Gradients.  Where autograd will differentiate the outputs (grad mode on
+and an input requiring grad), `ssd_scan` runs as a
+`torch.autograd.Function` that keeps its inputs; its backward is
+`ssd_scan_bwd`, which on a CPU tensor takes `ssd_scan_bwd_plain`
+(`ref.ssd_scan_bwd_plain`, the gradient written out in the kernel's
+order) and on a CUDA tensor launches ``csrc/ssd_bwd.cu`` (four kernels,
+one call: the chunks' state contributions, the carries across chunks,
+each chunk's gradients, the heads of a group summed; no atomics, so a
+second launch gives the same bits) and counts it in
+``ssd_scan.bwd_launches``.  It recomputes the forward's chunk states
+itself.  An unused final state's gradient counts as zero.
+`ssd_scan_bwd_attrs` reads each compiled kernel's registers and local
+(spill) bytes.
 """
 from __future__ import annotations
 
@@ -62,6 +76,28 @@ class _SsdArgs(ctypes.Structure):
                                 "c_sl", "c_sg")] + [
         (name, _I) for name in ("batch", "length", "heads", "groups",
                                 "head_dim", "state_dim", "dtype", "route")]
+
+
+class _SsdBwdArgs(ctypes.Structure):
+    """``SsdBwdArgs`` of csrc/ssd_bwd.cu (strides in elements)."""
+    _fields_ = [(name, _P) for name in (
+        "x", "dt", "a", "b", "c", "dy", "dstate", "dx", "ddt", "da", "db",
+        "dc", "states", "dstates", "decay", "dbp", "dcp", "dap")] + [
+        (name, _L) for name in ("x_sb", "x_sl", "x_sh", "dt_sb", "dt_sl",
+                                "dt_sh", "b_sb", "b_sl", "b_sg", "c_sb",
+                                "c_sl", "c_sg", "dy_sb", "dy_sl",
+                                "dy_sh")] + [
+        (name, _I) for name in ("batch", "length", "heads", "groups",
+                                "head_dim", "state_dim", "dtype")]
+
+
+# the kernels of csrc/ssd_bwd.cu in the order ``ssd_scan_bwd_attrs``
+# reports them
+BWD_KERNELS = ("ssd_bwd_chunk_kernel<S<=128>", "ssd_bwd_scan_kernel",
+               "ssd_bwd_kernel<S<=128>", "ssd_bwd_kernel<S<=64>",
+               "ssd_bwd_reduce_kernel")
+
+ssd_scan_bwd_plain = _ref.ssd_scan_bwd_plain
 
 
 def ssd_scan_plain(x, dt, a, bmat, c, *, chunk: int = 64):
@@ -125,17 +161,17 @@ def copy_route(x, bmat, c) -> str:
 
 def ssd_scan(x, dt, a, bmat, c, *, chunk: int = 64):
     """x (B,L,H,P), dt (B,L,H), a (H,), bmat/c (B,L,G,S) ->
-    (y (B,L,H,P), state_final (B,H,S,P)).  The kernel has no backward
-    yet: on a CUDA tensor under autograd (grad mode on, an input requiring
-    grad) it raises rather than hand back outputs without a gradient."""
-    if not on_card(x):
-        return ssd_scan_plain(x, dt, a, bmat, c, chunk=chunk)
+    (y (B,L,H,P), state_final (B,H,S,P))."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, a, bmat, c)):
-        raise NotImplementedError(
-            "the SSD scan kernel (#8) has no backward yet: training the "
-            "ssm and hybrid layouts on the card is ROADMAP Queue 1 item "
-            "9.6 (ssm/hybrid training)")
+        return _Ssd.apply(x, dt, a, bmat, c, chunk)
+    return _forward(x, dt, a, bmat, c, chunk)
+
+
+def _forward(x, dt, a, bmat, c, chunk):
+    """The plain version on a CPU tensor, else one launch of the kernel."""
+    if not on_card(x):
+        return ssd_scan_plain(x, dt, a, bmat, c, chunk=chunk)
     _check(x, dt, a, bmat, c)
     b, length, h, p = x.shape
     g, s = bmat.shape[2], bmat.shape[3]
@@ -155,11 +191,106 @@ def ssd_scan(x, dt, a, bmat, c, *, chunk: int = 64):
     fn.restype = ctypes.c_int
     _build.check(fn(ctypes.byref(args), SMEM_BYTES[x.dtype], stream_of(x)),
                  "ssd_scan")
-    ssd_scan.launches += 1
+    _counts.launches += 1
     return y, state
 
 
-ssd_scan.launches = 0
+def ssd_scan_bwd(x, dt, a, bmat, c, dy, dstate=None, *, chunk: int = 64):
+    """The gradient (dx, ddt, da, dB, dC) of `ssd_scan` at its inputs for
+    the output gradient ``dy`` (B,L,H,P) in x's dtype and the final state's
+    ``dstate`` (B,H,S,P) float32, or None for zero.  A CPU tensor takes
+    `ssd_scan_bwd_plain` (its chunked form at ``chunk``); a CUDA tensor
+    launches ``csrc/ssd_bwd.cu`` (its four kernels, one call, 64-row chunks
+    of its own) and counts it in ``ssd_scan.bwd_launches``.  dx, dB, dC
+    come back contiguous in x's dtype, ddt and da in float32."""
+    if not on_card(x):
+        return ssd_scan_bwd_plain(x, dt, a, bmat, c, dy, dstate, chunk=chunk)
+    _check(x, dt, a, bmat, c)
+    b, length, h, p = x.shape
+    g, s = bmat.shape[2], bmat.shape[3]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be x's shape {tuple(x.shape)}, dtype and "
+                         f"device; got {tuple(dy.shape)} {dy.dtype} on "
+                         f"{dy.device}")
+    if dy.numel() and dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    if dstate is not None:
+        if (tuple(dstate.shape) != (b, h, s, p)
+                or dstate.dtype != torch.float32
+                or dstate.device != x.device):
+            raise ValueError(f"dstate must be float32 {(b, h, s, p)} on "
+                             f"{x.device}; got {tuple(dstate.shape)} "
+                             f"{dstate.dtype} on {dstate.device}")
+        dstate = dstate.contiguous()
+    a = a.contiguous()
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((b, length, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, length, h), dtype=f32, device=dev)
+    da = torch.zeros((h,), dtype=f32, device=dev)
+    db = torch.empty((b, length, g, s), dtype=x.dtype, device=dev)
+    dc = torch.empty((b, length, g, s), dtype=x.dtype, device=dev)
+    if dx.numel() == 0 or db.numel() == 0:
+        return dx, ddt, da, db, dc
+    n = -(-length // CHUNK)
+    sizes = (b * n * h * s * p, b * n * h * s * p, b * n * h,
+             b * length * h * s, b * length * h * s, b * n * h)
+    scratch = torch.empty(sum(sizes), dtype=f32, device=dev)
+    states, dstates, decay, dbp, dcp, dap = scratch.split(sizes)
+    args = _SsdBwdArgs(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+        c.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        *(t.data_ptr() for t in (states, dstates, decay, dbp, dcp, dap)),
+        *x.stride()[:3], *dt.stride(), *bmat.stride()[:3], *c.stride()[:3],
+        *dy.stride()[:3], b, length, h, g, p, s, _DTYPE_CODE[x.dtype])
+    fn = _build.library("ssd_bwd.cu").ssd_scan_bwd
+    fn.argtypes = [ctypes.POINTER(_SsdBwdArgs), _P]
+    fn.restype = ctypes.c_int
+    _build.check(fn(ctypes.byref(args), stream_of(x)), "ssd_scan_bwd")
+    _counts.bwd_launches += 1
+    return dx, ddt, da, db, dc
+
+
+def ssd_scan_bwd_attrs() -> dict:
+    """``{kernel: {registers, local_bytes, shared_bytes, threads}}`` of the
+    kernels of ``csrc/ssd_bwd.cu`` as compiled (``cudaFuncGetAttributes``;
+    ``local_bytes`` a thread are its spills), bf16 instantiations.  Needs
+    the card."""
+    fn = _build.library("ssd_bwd.cu").ssd_scan_bwd_attrs
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int), _I], ctypes.c_int
+    out = (ctypes.c_int * (4 * len(BWD_KERNELS)))()
+    _build.check(fn(out, len(BWD_KERNELS)), "ssd_scan_bwd_attrs")
+    keys = ("registers", "local_bytes", "shared_bytes", "threads")
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, name in enumerate(BWD_KERNELS)}
+
+
+class _Ssd(torch.autograd.Function):
+    """`ssd_scan` under autograd: the forward keeps its inputs, the
+    backward is `ssd_scan_bwd` (a final state nobody reads has no
+    gradient: zero)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, c, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, bmat, c)
+        ctx.chunk = chunk
+        return _forward(x, dt, a, bmat, c, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, bmat, c = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddt, da, db, dc = ssd_scan_bwd(x, dt, a, bmat, c, dy, dstate,
+                                           chunk=ctx.chunk)
+        return dx, ddt, da, db, dc, None
+
+
+_counts = ssd_scan       # counts the launches: a patch of the name leaves
+ssd_scan.launches = 0    # the counters alone
+ssd_scan.bwd_launches = 0
 
 
 def blocks_per_sm(dtype=torch.bfloat16) -> int:

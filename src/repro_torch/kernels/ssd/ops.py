@@ -5,7 +5,9 @@ B/C (B,L,G,S) -> (y (B,L,H,P), final state (B,H,S,P) float32).  The
 backend follows the tensors' device: a CUDA tensor launches
 ``csrc/ssd.cu``, which masks a ragged length in the kernel; a CPU tensor
 takes its plain version, which pads the length with dt = 0 steps (see
-`kernel.ssd_scan`, whose launch counter this shares).
+`kernel.ssd_scan`, whose launch counters this shares).  Under autograd it
+runs as a Function whose backward is `kernel.ssd_scan_bwd`
+(``csrc/ssd_bwd.cu`` on the card).
 
 `ssd_decode_step` is one step of the recurrence for a decode token, plain
 PyTorch as it is plain jnp in the JAX package; it writes the new state IN

@@ -13,15 +13,18 @@ the useful FLOPs of a step.
 PyTorch runs eagerly, so these are plain closures where the JAX package
 hands them to ``jax.jit``.
 
-The train step runs the ``dense`` layout.  Its gradients come from
-autograd through the hand-written kernels' own backwards (attention's and
-silu's, `kernels.attention.kernel.flash_attention_bwd`, `layers.silu_bwd`).
+The train step runs the ``dense``, ``ssm`` and ``hybrid`` layouts (MoE
+training is ROADMAP Queue 1 item 9.7).  Its gradients come from autograd
+through the hand-written kernels' own backwards (attention's, the SSD
+scan's and silu's: `kernels.attention.kernel.flash_attention_bwd`,
+`kernels.ssd.kernel.ssd_scan_bwd`, `layers.silu_bwd`).
 Microbatches add into an accumulator (float32 by default) in the JAX
 package's order, ``(0 + g0) + g1``, then divide by their count; each
 leaf's gradient is folded in the moment autograd produces it (a post-
 accumulate-grad hook), and the loss runs on per-layer leaves (views of
-each stacked parameter's layers), so that no whole-model gradient of the
-parameters' dtype ever exists: at qwen3-4b's width that is 8.2 GiB beside
+each stacked parameter's layers; a zsuper segment's Mamba2 leaves down to
+each inner block), so that no whole-model gradient of the parameters'
+dtype ever exists: at qwen3-4b's width that is 8.2 GiB beside
 the 16.4 GiB accumulator.  The optimizer then updates the stacked
 parameters in place (`optim.optimizers`), and the views see it.
 """
@@ -35,7 +38,7 @@ from repro_torch.checkpoint.manager import flatten, unflatten
 from repro_torch.models import factory
 from repro_torch.models.config import ModelConfig, torch_dtype
 
-TRAIN_LAYOUTS = ("dense",)
+TRAIN_LAYOUTS = ("dense", "ssm", "hybrid")
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -48,22 +51,33 @@ def make_loss_fn(cfg: ModelConfig):
 
 def _layer_leaves(params):
     """The tree the loss differentiates: each segment's stacked leaf
-    replaced by the list of its layers (views), every leaf a fresh view
-    that requires grad; returns (tree, [(leaf, slot)]) where ``slot``
-    names the stacked leaf and layer the leaf's gradient belongs to."""
+    replaced by the list of its layers (views; a zsuper segment's Mamba2
+    leaves, stacked over super-block and inner block, by a list of lists),
+    every leaf a fresh view that requires grad; returns (tree, [(leaf,
+    slot)]) where ``slot = (i, j)`` names the stacked leaf ``i`` and the
+    index ``j`` (None, a layer, or a (super-block, inner block) pair) of
+    the leaf's gradient in it.  A leaf read more than once (the hybrid's
+    shared attention and MLP, once a super-block) gets one summed
+    gradient a backward."""
     paths, leaves = flatten(params)
-    seg = {i for i, path in enumerate(paths)
-           if path.startswith("['segments']")}
     out, slots = [], []
-    for i, leaf in enumerate(leaves):
+    for i, (path, leaf) in enumerate(zip(paths, leaves)):
         base = leaf.detach()
-        if i in seg:
-            layers = [base[j].requires_grad_() for j in range(base.shape[0])]
-            slots += [(t, (i, j)) for j, t in enumerate(layers)]
-            out.append(layers)
-        else:
+        if not path.startswith("['segments']"):
             slots.append((base.requires_grad_(), (i, None)))
             out.append(base)
+            continue
+        layers = []
+        for j in range(base.shape[0]):
+            if "['ssm']" in path:            # a zsuper's inner blocks
+                inner = [base[j, k].requires_grad_()
+                         for k in range(base.shape[1])]
+                slots += [(t, (i, (j, k))) for k, t in enumerate(inner)]
+                layers.append(inner)
+            else:
+                layers.append(base[j].requires_grad_())
+                slots.append((layers[-1], (i, j)))
+        out.append(layers)
     return unflatten(params, out), slots
 
 
@@ -78,8 +92,7 @@ def make_train_step(cfg: ModelConfig, opt, *, microbatches: int = 1,
     if cfg.layout not in TRAIN_LAYOUTS:
         raise NotImplementedError(
             f"training the {cfg.layout!r} layout is not ported yet (the "
-            f"port trains {TRAIN_LAYOUTS}): ROADMAP Queue 1 item "
-            f"{'9.7 (MoE' if cfg.layout == 'moe' else '9.6 (ssm/hybrid'} "
+            f"port trains {TRAIN_LAYOUTS}): ROADMAP Queue 1 item 9.7 (MoE "
             f"training)")
     loss_fn = make_loss_fn(cfg)
     adt = torch_dtype(accum_dtype)

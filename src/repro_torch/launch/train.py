@@ -1,4 +1,5 @@
-"""End-to-end training CLI of the port: the ``dense`` layout on one card.
+"""End-to-end training CLI of the port: the ``dense``, ``ssm`` and
+``hybrid`` layouts on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --smoke --steps 50 --ckpt RUN_DIR [--device cpu]
@@ -13,7 +14,9 @@ same ``--ckpt`` resumes from its latest checkpoint.
 On a CUDA device every attention block launches the flash-attention
 kernel forward (twice a step per microbatch with remat: the forward and
 its recompute) and its backward kernel, every MLP the silu kernel and
-its backward kernel, and AdamW its kernel once a parameter leaf; on the
+its backward kernel, every Mamba2 block the SSD scan kernel (#8) and its
+backward kernel and silu and its backward twice (the conv's activation
+and the output gate), and AdamW its kernel once a parameter leaf; on the
 CPU the same code runs their plain versions.  The ``embeddings`` archs take their tokens through the JAX
 package's stub frontend, ``one_hot(tokens % d_model, d_model)``.  One
 card: ``--data-par`` and ``--model-par`` above 1 raise.  Prints one JSON
@@ -34,6 +37,7 @@ from repro_torch.core.snn import resolve_device
 from repro_torch.data import TokenPipelineConfig, batch_at_step
 from repro_torch.distributed import FaultTolerantRunner
 from repro_torch.kernels.attention.kernel import flash_attention
+from repro_torch.kernels.ssd.kernel import ssd_scan
 from repro_torch.launch.serve import embed_stub
 from repro_torch.launch.specs import apply_setup, train_setup
 from repro_torch.launch.steps import make_train_step
@@ -67,6 +71,8 @@ def build(arch: str, smoke: bool, global_batch: int, seq_len: int,
 def _launches() -> dict:
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
+            "ssd_scan": ssd_scan.launches,
+            "ssd_scan_bwd": ssd_scan.bwd_launches,
             "silu": silu.launches, "silu_bwd": silu.bwd_launches,
             "adamw": adamw_leaf.launches}
 

@@ -9,9 +9,10 @@ JAX package's logical sharding specs are gone: the port runs on one card.
 dtype, as the JAX package does, so a bfloat16 model rounds at the same
 places in both.  `silu` rounds after each op as ``jax.nn.silu`` is
 written, in one pass on the card (``csrc/silu.cu``), and under autograd
-its gradient rounds where jitted ``jax.vjp`` of it rounds (`silu_bwd`,
-the same file's second entry point).  `cross_entropy` is the JAX
-package's mean token NLL in float32.
+its gradient, in each form the models train (the SwiGLU gate, the Mamba2
+conv's activation and output gate), rounds where jitted ``jax.vjp`` of it
+rounds (`silu_bwd`, the same file's second entry point).
+`cross_entropy` is the JAX package's mean token NLL in float32.
 """
 from __future__ import annotations
 
@@ -171,23 +172,24 @@ def silu_plain(x, other=None, out_dtype=None):
 
 
 def silu_bwd_plain(x, other, dy):
-    """`silu_bwd`'s plain version: the gradient of ``silu(x) * other`` for
-    the output gradient ``dy``, all three in x's dtype, at the rounding sites of jitted ``jax.vjp`` of
-    ``jax.nn.silu(x) * other`` (each op rounds to x's dtype):
-      s = 1 / (1 + exp(-x)),  i = dy * other,
+    """`silu_bwd`'s plain version: the gradient of ``silu(x) * other`` (or
+    of ``silu(x)`` where ``other`` is None) for the output gradient
+    ``dy``, all in x's dtype, at the rounding sites of jitted ``jax.vjp``
+    of ``jax.nn.silu(x) * other`` (each op rounds to x's dtype):
+      s = 1 / (1 + exp(-x)),  i = dy * other (dy without other),
       dx = i * s + (x * i) * (s * (1 - s)),  dother = (x * s) * dy.
     In float32 nothing rounds between the ops and LLVM contracts the
     outer sum into a fused multiply-add, fma(i, s, (x * i) * (s * (1 -
     s))), taken here through float64 (the product of two float32 values
-    is exact there).  Returns (dx, dother)."""
+    is exact there).  Returns (dx, dother), dother None without other."""
     s = _sigmoid(x)
-    i = dy * other
+    i = dy if other is None else dy * other
     m = (x * i) * (s * (1 - s))
     if x.dtype == torch.float32:
         dx = (i.double() * s.double() + m.double()).float()
     else:
         dx = i * s + m
-    return dx, (s * x) * dy
+    return dx, None if other is None else (s * x) * dy
 
 
 def _grad_wanted(*ts) -> bool:
@@ -206,24 +208,28 @@ def silu(x, other=None, out_dtype=None):
     tensor takes `silu_plain`; a CUDA tensor launches ``csrc/silu.cu`` in
     one pass and counts it in ``silu.launches``.
 
-    Under autograd (grad mode on, x or other requiring grad) the SwiGLU
-    gate's form, other and the output in x's dtype, runs as a
-    `torch.autograd.Function` whose backward is `silu_bwd`; on the card
-    the other forms raise there (only the Mamba2 block uses them, and its
-    training waits for ROADMAP Queue 1 item 9.6, ssm/hybrid training),
-    while on the CPU autograd differentiates `silu_plain`."""
+    Under autograd (grad mode on, x or other requiring grad) the three
+    forms the models train run as `torch.autograd.Function`s whose
+    backward is `silu_bwd`: the SwiGLU gate's (other and the output in
+    x's dtype), the Mamba2 conv's one-operand ``silu(x)`` and the Mamba2
+    output gate's (other in x's dtype, the output float32: the output's
+    float32 gradient rounds to x's dtype first, as the transpose of
+    JAX's upcast of the bf16 product does).  On the card any other form
+    raises there; on the CPU autograd differentiates `silu_plain`."""
     out_dtype = out_dtype or x.dtype
     if _grad_wanted(x, other):
-        if (other is not None and out_dtype == x.dtype
-                and other.dtype == x.dtype):
-            return _Silu.apply(x, other)
+        if (out_dtype == x.dtype if other is None else
+                other.dtype == x.dtype
+                and out_dtype in (x.dtype, torch.float32)):
+            return _Silu.apply(x, other, out_dtype)
         if on_card(x):
+            got = None if other is None else (tuple(other.shape),
+                                              other.dtype)
             raise NotImplementedError(
-                f"silu's gradient on the card covers x and other in one "
-                f"dtype; (x, other, out) {x.dtype}, "
-                f"{None if other is None else other.dtype}, {out_dtype} is "
-                f"the Mamba2 block's, whose training is ROADMAP Queue 1 "
-                f"item 9.6 (ssm/hybrid training)")
+                f"silu's gradient on the card takes silu(x), and silu(x, "
+                f"other) with other in x's dtype and the output in x's "
+                f"dtype or float32; got x {tuple(x.shape)} {x.dtype}, other "
+                f"{got}, out {out_dtype}")
         return silu_plain(x, other, out_dtype)
     return _silu_forward(x, other, out_dtype)
 
@@ -271,17 +277,18 @@ def _rows(t, cols):
 
 
 def silu_bwd(x, other, dy):
-    """The gradient of ``silu(x, other)`` (x's dtype out) for ``dy``: (dx,
-    dother), as `silu_bwd_plain` rounds it.  x, other and dy in
-    one dtype, float32 or bfloat16, of one shape.  A CPU tensor takes
-    `silu_bwd_plain`; a CUDA tensor launches ``csrc/silu.cu``'s
-    ``silu_bwd`` in one pass (x, other and dy read once, dx and dother
-    written once) and counts it in ``silu.bwd_launches``."""
+    """The gradient of ``silu(x, other)`` (x's dtype out), or of
+    ``silu(x)`` where ``other`` is None, for ``dy``: (dx, dother), as
+    `silu_bwd_plain` rounds it (dother None without other).  x, other and
+    dy in one dtype, float32 or bfloat16, of one shape.  A CPU tensor
+    takes `silu_bwd_plain`; a CUDA tensor launches ``csrc/silu.cu``'s
+    ``silu_bwd`` in one pass (the inputs read once, the gradients written
+    once) and counts it in ``silu.bwd_launches``."""
     if not on_card(x):
         return silu_bwd_plain(x, other, dy)
     for name, t in (("other", other), ("dy", dy)):
-        if (t.shape != x.shape or t.dtype != x.dtype
-                or t.device != x.device):
+        if t is not None and (t.shape != x.shape or t.dtype != x.dtype
+                              or t.device != x.device):
             raise ValueError(f"{name} must match x: {tuple(x.shape)} "
                              f"{x.dtype} on {x.device}; got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
@@ -289,34 +296,40 @@ def silu_bwd(x, other, dy):
         raise ValueError(f"silu_bwd takes float32 or bfloat16; got "
                          f"{x.dtype}")
     cols = x.shape[-1] if x.ndim else 1
-    x2, u2, d2 = (_rows(t, cols) for t in (x, other, dy))
+    x2, d2 = _rows(x, cols), _rows(dy, cols)
+    u2 = None if other is None else _rows(other, cols)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    du = torch.empty_like(dx)
+    du = None if other is None else torch.empty_like(dx)
     if dx.numel() == 0:
         return dx, du
     fn = _build.library("silu.cu").silu_bwd
     fn.argtypes = [_P, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _P]
     fn.restype = _I
-    _build.check(fn(x2.data_ptr(), x2.stride(0), u2.data_ptr(), u2.stride(0),
+    _build.check(fn(x2.data_ptr(), x2.stride(0),
+                    None if u2 is None else u2.data_ptr(),
+                    0 if u2 is None else u2.stride(0),
                     d2.data_ptr(), d2.stride(0), dx.data_ptr(),
-                    du.data_ptr(), x2.shape[0], cols,
+                    None if du is None else du.data_ptr(), x2.shape[0], cols,
                     _DTYPE_CODE[x.dtype], stream_of(x)), "silu_bwd")
     _silu.bwd_launches += 1
     return dx, du
 
 
 class _Silu(torch.autograd.Function):
-    """`silu` (the gate's form) under autograd; backward `silu_bwd`."""
+    """`silu(x, other, out_dtype)` under autograd, other None or in x's
+    dtype and the output in x's dtype or float32; backward `silu_bwd` on
+    the output gradient rounded to x's dtype."""
 
     @staticmethod
-    def forward(ctx, x, other):
+    def forward(ctx, x, other, out_dtype):
         ctx.save_for_backward(x, other)
-        return _silu_forward(x, other, x.dtype)
+        return _silu_forward(x, other, out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, other = ctx.saved_tensors
-        return silu_bwd(x, other, dy.to(x.dtype))
+        dx, du = silu_bwd(x, other, dy.to(x.dtype))
+        return dx, du, None
 
 
 _silu = silu      # counts the launches: a patch of `silu` leaves it alone

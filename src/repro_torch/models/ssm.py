@@ -8,6 +8,14 @@ the decode step are plain torch, as they are plain jnp in the JAX package.
 The B/C groups stay (B, L, G, S): the kernel indexes group
 ``h // (H / G)`` instead of repeating them to heads.
 
+Training differentiates the block with autograd: the SSD scan and both
+silu forms (the conv's activation and the output gate) are autograd
+Functions whose backwards are hand-written kernels on the card
+(`kernels.ssd.kernel.ssd_scan_bwd`, `layers.silu_bwd`); the conv, the
+softplus and ``-exp(a_log)`` of `_ssd_inputs`, the skip and the norm are
+plain PyTorch, as they are plain jnp in the JAX package, and none of the
+block's ops writes in place.
+
 The decode cache is the SSD state (B, H, S, P) float32 and the conv window
 (B, W-1, C), O(1) per token; `decode_step` writes both IN PLACE into the
 cache tensors it is given (the JAX package returns updated copies), and

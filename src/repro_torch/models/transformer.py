@@ -20,7 +20,9 @@ Entry points:
   forward                            — full-sequence logits (or hidden);
                                        ``remat=True`` recomputes each block
                                        in the backward
-  loss_fn                            — next-token cross entropy
+  loss_fn                            — next-token cross entropy (the
+                                       training loss of the dense, ssm and
+                                       hybrid layouts)
   cache_plan / init_cache / prefill / decode_step — serving with a KV cache
                                        per attention block (int8 codes and
                                        float32 scales with ``kv_quant``)
@@ -194,9 +196,11 @@ def forward(params, inputs, cfg: ModelConfig, *, collect_cache=None,
     ``layer = (i, j)``.
 
     ``remat`` runs every block under `_remat` (training; no cache is
-    collected then).  A stacked leaf's layer is ``leaf[i]``, so the
-    segments' leaves may also be lists of per-layer tensors (the training
-    step's per-layer leaves, `launch.steps`)."""
+    collected then): each dense block, each Mamba2 block and each use of
+    a zsuper's shared block.  A stacked leaf's layer is ``leaf[i]``, so
+    the segments' leaves may also be lists of per-layer tensors, a
+    zsuper's Mamba2 leaves lists of lists (the training step's per-layer
+    leaves, `launch.steps`)."""
     if remat and collect_cache is not None:
         raise ValueError("remat recomputes the blocks in the backward; it "
                          "collects no cache")

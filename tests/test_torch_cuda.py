@@ -25,7 +25,9 @@ once, as their plain versions do: steps and one-step windows within 3e-2
 windows with at most 1e-3 of the elements outside it.  The attention
 backward kernel and silu's backward are held like their forwards: float32
 within 1e-5 of each gradient's largest |x| (sums in another order), bf16
-within rtol 2e-2 / atol 2e-3, silu's bit for bit.
+within rtol 2e-2 / atol 2e-3, silu's bit for bit; the SSD scan's backward
+float32 within 1e-5 of each gradient's largest |x|, its bf16 dx, dB, dC
+within one bf16 step of the largest (a float32 sum rounded once).
 """
 import numpy as np
 import pytest
@@ -1853,18 +1855,30 @@ def test_silu_bwd_kernel_matches_plain_on_card(case, cuda_device):
 
 
 @pytest.mark.cuda
-def test_one_operand_silu_raises_under_grad_on_card(cuda_device):
-    """The Mamba2 block's one-operand silu has no backward kernel: on the
-    card it raises under autograd instead of returning a tensor without a
-    gradient, and launches nothing."""
+def test_silu_mamba2_backward_forms_on_card(cuda_device):
+    """silu's two Mamba2 forms under autograd on the card: the conv's
+    ``silu(x)`` (float32 and bf16) and the gate's ``silu(z, y, float32)``
+    (bf16): one forward and one backward launch each, the gradients bit
+    for bit `silu_bwd_plain`'s (the gate's float32 output gradient rounded
+    to bf16 first)."""
     from repro_torch.models import layers as ML
-    x = torch.randn(4, 64, device=cuda_device, requires_grad=True)
-    f, b = ML.silu.launches, ML.silu.bwd_launches
-    with pytest.raises(NotImplementedError, match="9.6"):
-        ML.silu(x)
-    assert (ML.silu.launches, ML.silu.bwd_launches) == (f, b)
-    with torch.no_grad():
-        assert ML.silu(x).shape == x.shape
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, u, dy = (torch.randn(300, 96, generator=gen, device=cuda_device)
+                    .mul_(s).to(dtype) for s in (4, 1, 0.5))
+        xg = x.clone().requires_grad_()
+        f, b = ML.silu.launches, ML.silu.bwd_launches
+        ML.silu(xg).backward(dy)
+        assert (ML.silu.launches, ML.silu.bwd_launches) == (f + 1, b + 1)
+        dx, du = ML.silu_bwd_plain(x, None, dy)
+        assert du is None and torch.equal(xg.grad, dx)
+        if dtype != torch.bfloat16:
+            continue
+        xg, ug = (t.clone().requires_grad_() for t in (x, u))
+        d32 = torch.randn(300, 96, generator=gen, device=cuda_device)
+        ML.silu(xg, ug, torch.float32).backward(d32)
+        want = ML.silu_bwd_plain(x, u, d32.to(dtype))
+        assert torch.equal(xg.grad, want[0]) and torch.equal(ug.grad, want[1])
 
 
 @pytest.mark.cuda
@@ -1910,23 +1924,126 @@ def test_train_step_on_card_matches_plain(cuda_device):
         assert (g - w).abs().max() <= 1e-4 * w.abs().max()
 
 
+SSD_BWD_CASES = [(1, 4096, 64, 64, 128, 1), (1, 1000, 112, 64, 64, 1),
+                 (2, 100, 4, 64, 128, 2), (3, 70, 4, 16, 16, 1),
+                 (2, 150, 4, 36, 64, 2), (1, 1, 2, 64, 128, 1)]
+
+
+def _bf16_step(t):
+    m = float(t.float().abs().max())
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
 @pytest.mark.cuda
-def test_ssd_kernel_refuses_autograd_on_card(cuda_device):
-    """#8 has no backward yet: under grad mode it raises, naming the
-    roadmap item, rather than return outputs without a gradient."""
-    from repro_torch.kernels.ssd import kernel as SK
-    gen = torch.Generator(cuda_device).manual_seed(2)
-    x = torch.randn(1, 64, 2, 64, generator=gen, device=cuda_device,
-                    requires_grad=True)
-    dt = torch.rand(1, 64, 2, generator=gen, device=cuda_device)
-    a = -torch.rand(2, generator=gen, device=cuda_device)
-    bm, c = (torch.randn(1, 64, 1, 128, generator=gen, device=cuda_device)
-             for _ in range(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SK.ssd_scan(x, dt, a, bm, c)
-    with torch.no_grad():
-        y, _ = SK.ssd_scan(x, dt, a, bm, c)
-    assert y.shape == x.shape
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_matches_plain_on_card(dtype, cuda_device):
+    """#8's backward (``csrc/ssd_bwd.cu``) on x, B and C cut from a packed
+    projection, every `SSD_BWD_CASES` shape (mamba2-1.3b's and zamba2-7b's
+    training heads, G = 2, ragged L, a 36-wide head, L = 1), with and
+    without a final-state gradient: a second launch the same bits; against
+    `ssd_scan_bwd_plain` float32 dx, dB, dC within 1e-5 of each one's
+    largest |g|, bf16 within one bf16 step; ddt and da (float32 in both)
+    within 1e-4: each ends in a float32 sum over many terms that the
+    kernel adds in another order (da over B x L; each ddt through its
+    chunk's <S_in, dS_out> over S x P), measured 1.7e-5 of the largest
+    |da| at B = 2, L = 100 on the card."""
+    from repro_torch.kernels.ssd import kernel as TS
+    gen = torch.Generator(cuda_device).manual_seed(12)
+    for k, (b, length, h, p, s, g) in enumerate(SSD_BWD_CASES):
+        x, dt, a, bm, cm = _ssd_inputs(gen, b, length, h, p, s, g, dtype,
+                                       cuda_device)
+        dy = torch.randn(b, length, h, p, generator=gen,
+                         device=cuda_device).to(dtype)
+        ds = (torch.randn(b, h, s, p, generator=gen, device=cuda_device)
+              if k % 2 else None)
+        n = TS.ssd_scan.bwd_launches
+        got = TS.ssd_scan_bwd(x, dt, a, bm, cm, dy, ds)
+        again = TS.ssd_scan_bwd(x, dt, a, bm, cm, dy, ds)
+        assert TS.ssd_scan.bwd_launches == n + 2
+        want = TS.ssd_scan_bwd_plain(x, dt, a, bm, cm, dy, ds)
+        torch.cuda.synchronize()
+        for name, u, v, w in zip(("dx", "ddt", "da", "dB", "dC"), got,
+                                 again, want):
+            assert torch.equal(u, v), name
+            assert u.dtype == w.dtype and u.shape == w.shape, name
+            err = float((u.double() - w.double()).abs().max())
+            tol = (_bf16_step(w) if u.dtype == torch.bfloat16
+                   else (1e-4 if name in ("ddt", "da") else 1e-5)
+                   * float(w.abs().max()))
+            assert err <= tol, f"{name} at {(b, length, h, p, s, g)}: " \
+                f"{err} > {tol}"
+
+
+@pytest.mark.cuda
+def test_ssd_autograd_launches_the_backward_on_card(cuda_device):
+    """Under autograd `ssd_scan` on the card launches the forward kernel
+    once and the backward kernel once, and its gradients are the
+    backward kernel's bits."""
+    from repro_torch.kernels.ssd import kernel as TS
+    gen = torch.Generator(cuda_device).manual_seed(13)
+    x, dt, a, bm, cm = _ssd_inputs(gen, 1, 200, 4, 64, 128, 1,
+                                   torch.bfloat16, cuda_device)
+    dy = torch.randn(x.shape, generator=gen, device=cuda_device).to(x.dtype)
+    ins = [t.detach().clone().requires_grad_() for t in (x, dt, a, bm, cm)]
+    f, b = TS.ssd_scan.launches, TS.ssd_scan.bwd_launches
+    y, _ = TS.ssd_scan(*ins)
+    y.backward(dy)
+    assert (TS.ssd_scan.launches, TS.ssd_scan.bwd_launches) == (f + 1, b + 1)
+    want = TS.ssd_scan_bwd(*(t.detach() for t in ins), dy)
+    for t, w in zip(ins, want):
+        assert torch.equal(t.grad, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
+def test_ssm_train_step_on_card_matches_plain(arch, cuda_device):
+    """The smoke config (2 Mamba2 layers; zamba2's: 2 super-blocks of the
+    shared block and 2 Mamba2 blocks) in float32, remat on: the loss and
+    every gradient leaf with the kernels against the plain path (the
+    plain SSD scan, attention and silu, differentiated by autograd), loss
+    within 1e-5 relative and each leaf within 1e-4 of its largest |g|;
+    each Mamba2 block launches #8 twice (the forward and its recompute)
+    and its backward once, silu 4 times and its backward twice."""
+    from unittest import mock
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as MA, factory, layers as ML
+    from repro_torch.models import ssm as MS
+    from repro_torch.kernels.ssd import kernel as TS
+    cfg = get_smoke(arch).with_(dtype="float32", remat=True)
+    params = factory.build(cfg).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=gen,
+                         device=cuda_device)
+    batch = {"inputs": toks, "labels": torch.roll(toks, -1, 1)}
+
+    def run():
+        tree, slots = steps._layer_leaves(params)
+        loss = steps.make_loss_fn(cfg)(tree, batch)
+        loss.backward()
+        return loss.detach(), [t.grad for t, _ in slots]
+
+    def counts():
+        return (TS.ssd_scan.launches, TS.ssd_scan.bwd_launches,
+                ML.silu.launches, ML.silu.bwd_launches)
+
+    before = counts()
+    loss, grads = run()
+    got = tuple(x - y for x, y in zip(counts(), before))
+    n_mlp = 0 if cfg.layout == "ssm" else cfg.n_layers // cfg.ssm.attn_every
+    n_ssm = cfg.n_layers - n_mlp
+    assert got == (2 * n_ssm, n_ssm, 4 * n_ssm + 2 * n_mlp,
+                   2 * n_ssm + n_mlp)
+    with mock.patch.object(MA, "attn_op", TA.flash_attention_plain), \
+            mock.patch.object(MS, "ssd_op", TS.ssd_scan_plain), \
+            mock.patch.object(MS, "silu", ML.silu_plain), \
+            mock.patch.object(ML, "silu", ML.silu_plain):
+        loss_p, grads_p = run()
+    assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for g, w in zip(grads, grads_p):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
 
 
 # (elements, param dtype, grad dtype, moment dtype, master copy, clipped,
