@@ -331,9 +331,11 @@ Phases, each fatal on failure:
      and backward, silu's, AdamW's, the GEMMs, the elementwise kernels,
      the reductions) and the optimizer's update in a range.
 
- 18. ssm and hybrid training: (a) #8's backward (csrc/ssd_bwd.cu: four
-     CUDA-core kernels, the chunks' state contributions, the carries
-     across chunks, each chunk's gradients, the heads of a group summed)
+ 18. ssm and hybrid training: (a) #8's backward (csrc/ssd_bwd.cu; bf16:
+     four Hopper kernels, the carries with each chunk's contribution
+     folded in (wgmma, the states split hi + lo), each chunk's gradients
+     with a slab of a group's heads a CTA (every product a wgmma), d(lg)
+     into ddt, the slabs summed; float32: the four CUDA-core kernels)
      against `ssd_scan_bwd_plain` at mamba2-1.3b's and zamba2-7b's
      training shapes (one microbatch of 4096 tokens; H = 64, S = 128 and
      H = 112, S = 64), G = 2 at L = 300 and L = 1000, with and without a
@@ -7501,7 +7503,7 @@ def ssd_bwd_bound(b, length, h, p, s, g, itemsize):
     products with a chunk state (its contribution, its gradient's, B
     dS_out, dy S_in^T and x dS_out^T), 10qSP, at the dense bf16
     tensor-core peak; also that FLOP at the 67 TFLOP/s of the CUDA cores,
-    where the kernel runs them."""
+    where the float32 kernels run them."""
     nbytes = ((3 * b * length * h * p + 4 * b * length * g * s) * itemsize
               + 4 * (2 * b * length * h + 2 * h))
     qs = [min(64, length - i) for i in range(0, length, 64)]
@@ -7514,22 +7516,21 @@ def ssd_bwd_bound(b, length, h, p, s, g, itemsize):
 
 
 def ssd_bwd_usage():
-    """Each kernel of csrc/ssd_bwd.cu as compiled (bf16 instantiations):
-    registers, local (spill) bytes a thread, shared bytes and threads from
-    ``cudaFuncGetAttributes``, and ptxas's spill stores and loads."""
+    """Each bf16 kernel of csrc/ssd_bwd.cu as compiled: registers, local
+    (spill) bytes a thread, shared bytes and threads from
+    ``cudaFuncGetAttributes``, and ptxas's spill stores and loads; none
+    may spill."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import kernel as SK
     usage = SK.ssd_scan_bwd_attrs()
     text = _build.build_all()["log"].get("ssd_bwd.cu", "")
     spills = ptxas_usage(text)
     # each reported kernel's mangled name (its bf16 instantiation)
-    mangled = {"ssd_bwd_chunk_kernel<S<=128>":
-               "ssd_bwd_chunk_kernelI13__nv_bfloat16Li8E",
-               "ssd_bwd_scan_kernel": "ssd_bwd_scan_kernel",
-               "ssd_bwd_kernel<S<=128>": "ssd_bwd_kernelI13__nv_bfloat16Li8E",
-               "ssd_bwd_kernel<S<=64>": "ssd_bwd_kernelI13__nv_bfloat16Li4E",
-               "ssd_bwd_reduce_kernel":
-                   "ssd_bwd_reduce_kernelI13__nv_bfloat16"}
+    mangled = {"ssd_bwd_walk_kernel": "ssd_bwd_walk_kernel",
+               "ssd_bwd_grad_kernel<S<=128>": "ssd_bwd_grad_kernelILi2E",
+               "ssd_bwd_grad_kernel<S<=64>": "ssd_bwd_grad_kernelILi1E",
+               "ssd_bwd_finish_kernel": "ssd_bwd_finish_kernel",
+               "ssd_bwd_slab_kernel": "ssd_bwd_slab_kernel"}
     for name, u in usage.items():
         hit = [v for k, v in spills.items() if mangled[name] in k]
         st, ld = (hit[0][1], hit[0][2]) if hit else (None, None)
@@ -7538,6 +7539,8 @@ def ssd_bwd_usage():
             f"local (spill) bytes a thread, {u['shared_bytes']} shared "
             f"bytes, {u['threads']} threads; ptxas spills {st} B stored, "
             f"{ld} B loaded")
+        require(u["local_bytes"] == 0 and not st and not ld,
+                f"{name} spills: {u}")
     return usage
 
 
@@ -7562,7 +7565,8 @@ def ssm_train_bwd(dev, results):
     heads at L = 1000, with and without a final-state gradient, in bf16 and
     float32; a second launch the same bits.  Timed per layer in bf16 (L2
     flushed) beside its plain version and its bound, each of its four
-    kernels by `torch.profiler`, and their registers and spills."""
+    bf16 kernels by `torch.profiler`, their registers and spills, and the
+    launch `bwd_plan` lays out."""
     import torch
     from repro_torch.kernels.ssd import kernel as SK
     row = results["ssd_scan_bwd"]
@@ -7619,11 +7623,13 @@ def ssm_train_bwd(dev, results):
         by_kernel = {name: profiled_ms(
             lambda: SK.ssd_scan_bwd(x, dt, a, bm, cm, dy), "write",
             kernel=name, calls=5)[0]
-            for name in ("ssd_bwd_chunk_kernel", "ssd_bwd_scan_kernel",
-                         "ssd_bwd_kernel", "ssd_bwd_reduce_kernel")}
+            for name in ("ssd_bwd_walk_kernel", "ssd_bwd_grad_kernel",
+                         "ssd_bwd_finish_kernel", "ssd_bwd_slab_kernel")}
         bms, kind, tb, to, to32 = ssd_bwd_bound(b, length, h, p, s, 1, 2)
+        plan = SK.bwd_plan(b, length, h, 1, p, s, sms=SK._sms(dev))
+        log(f"  ssd_scan_bwd bf16 {arch} plan: {plan}")
         timed[arch] = dict(shape=dict(zip("BLHPS", (b, length, h, p, s))),
-                           ms=ms, plain_ms=plain, bound_ms=bms,
+                           plan=plan, ms=ms, plain_ms=plain, bound_ms=bms,
                            bound_by=kind, bytes_ms=tb, bf16_ops_ms=to,
                            fp32_ops_ms=to32, forward_ms=fwd,
                            by_kernel_ms=by_kernel)

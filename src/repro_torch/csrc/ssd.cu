@@ -82,7 +82,7 @@
 // tiles (115,456 bytes: x, B, C/G and the state) let two CTAs share an SM;
 // B's float4 quads are XOR-swizzled by row so the 16 rows that the first
 // pass reads together fall in distinct banks.
-#include "hopper.cuh"
+#include "ssd.cuh"
 
 // Arguments of one launch; mirrored by kernels/ssd/kernel.py _SsdArgs.
 // Strides are in elements; x, B and C have a contiguous last dim.
@@ -355,9 +355,7 @@ int launch(const SsdArgs& a, cudaStream_t stream) {
 
 constexpr int kWThreads = 128;           // one warpgroup
 constexpr int kStages = 2;               // x, B, C and dt stages in the ring
-constexpr int kRow = 128;                // bytes of a swizzled row: 64 bf16
-constexpr int kBox = kQ * kRow;          // one 64 x 64 bf16 tile: 8 KB
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBox = kTileBytes;         // one 64 x 64 bf16 tile: 8 KB
 
 struct WLayout {          // byte offsets from a 1024-aligned base
   static constexpr int kX = 0;                         // x: rows z, cols p
@@ -377,38 +375,6 @@ struct WLayout {          // byte offsets from a 1024-aligned base
 };
 static_assert(WLayout::kBytes == 110096, "kernel.py SMEM_BYTES[bfloat16]");
 
-// byte offset of element (r, col) in a swizzled tile of 64-element rows
-// (TMA's 128-byte swizzle: 16-byte chunk col / 8 stored at chunk ^ r % 8)
-__device__ __forceinline__ int swz(int r, int col) {
-  return r * kRow + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-// One 64 x 64 tile of a bf16 tensor by the warpgroup: rows r < rows at
-// `src + r * ld`, columns c < cols; zeros elsewhere.  Thread t copies
-// column pair 2 (t % 32) of rows t / 32 + 4k: 4-byte cp.async where the
-// source allows, 2-byte loads elsewhere.
-__device__ __forceinline__ void fetch_tile(uint8_t* dst,
-                                           const unsigned short* src,
-                                           long long ld, int rows, int cols) {
-  const int c = 2 * (threadIdx.x % 32);
-  for (int r = threadIdx.x / 32; r < kQ; r += kWThreads / 32) {
-    uint8_t* d = dst + swz(r, c);
-    const unsigned short* p = src + r * ld + c;
-    if (r < rows && c + 1 < cols && ((uintptr_t)p & 3) == 0) {
-      cp_async4(d, p);
-    } else {
-      const uint32_t lo = r < rows && c < cols ? p[0] : 0u;
-      const uint32_t hi = r < rows && c + 1 < cols ? p[1] : 0u;
-      *reinterpret_cast<uint32_t*>(d) = lo | (hi << 16);
-    }
-  }
-}
-
 // d (64 x 64) (+)= A B: A (64 x 16, bf16 pairs in registers), B (16 x 64)
 // K-major in shared memory.
 __device__ __forceinline__ void wgmma_rs64(float (&d)[32],
@@ -420,40 +386,6 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32],
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : WG_F32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// Four 8 x 8 bf16 matrices from registers (the mma fragment layout) into
-// shared memory transposed: lane l gives the address of row l % 8 of
-// matrix l / 8.
-__device__ __forceinline__ void stmatrix_t(uint32_t addr, uint32_t r0,
-                                           uint32_t r1, uint32_t r2,
-                                           uint32_t r3) {
-  asm volatile(
-      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
-      "%4};\n" :: "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, transposed, into the mma
-// fragment layout: lane l gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t pair) {
-  return __uint_as_float(pair << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t pair) {
-  return __uint_as_float(pair & 0xffff0000u);
 }
 
 __global__ void __launch_bounds__(kWThreads, 2)
@@ -505,12 +437,14 @@ __global__ void __launch_bounds__(kWThreads, 2)
         }
       }
     } else {
-      fetch_tile(st + W::kX, xp + t0 * a.x_sl, a.x_sl, rows, P);
+      fetch_tile<kWThreads>(st + W::kX, xp + t0 * a.x_sl, a.x_sl, rows, P);
       for (int k = 0; k < 2; ++k) {
-        fetch_tile(st + W::kB + k * kBox, bp + t0 * a.b_sl + 64 * k, a.b_sl,
-                   rows, S - 64 * k);
-        fetch_tile(st + W::kC + k * kBox, cp + t0 * a.c_sl + 64 * k, a.c_sl,
-                   rows, S - 64 * k);
+        fetch_tile<kWThreads>(st + W::kB + k * kBox,
+                              bp + t0 * a.b_sl + 64 * k, a.b_sl, rows,
+                              S - 64 * k);
+        fetch_tile<kWThreads>(st + W::kC + k * kBox,
+                              cp + t0 * a.c_sl + 64 * k, a.c_sl, rows,
+                              S - 64 * k);
       }
     }
     if (warp == 0)

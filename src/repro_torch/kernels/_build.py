@@ -31,7 +31,7 @@ SOURCES = ("fleet_step.cu", "rollout.cu", "shared_step.cu",
            "flash_attention_bwd.cu", "ssd.cu", "ssd_bwd.cu", "silu.cu",
            "recorder.cu", "adamw.cu")
 HEADERS = ("plasticity.cuh", "hopper.cuh", "fleet.cuh", "slab.cuh",
-           "forward.cuh")
+           "forward.cuh", "ssd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -20,13 +20,15 @@ and an input requiring grad), `ssd_scan` runs as a
 `torch.autograd.Function` that keeps its inputs; its backward is
 `ssd_scan_bwd`, which on a CPU tensor takes `ssd_scan_bwd_plain`
 (`ref.ssd_scan_bwd_plain`, the gradient written out in the kernel's
-order) and on a CUDA tensor launches ``csrc/ssd_bwd.cu`` (four kernels,
-one call: the chunks' state contributions, the carries across chunks,
-each chunk's gradients, the heads of a group summed; no atomics, so a
-second launch gives the same bits) and counts it in
-``ssd_scan.bwd_launches``.  It recomputes the forward's chunk states
+order) and on a CUDA tensor launches ``csrc/ssd_bwd.cu`` and counts it in
+``ssd_scan.bwd_launches``.  bfloat16 runs four Hopper kernels (`BWD_KERNELS`:
+the carries with each chunk's contribution folded in, each (chunk, slab of
+a group's heads)'s gradients with every product a wgmma and the float32
+operands split hi + lo, d(lg) into ddt, the slabs summed), laid out by
+`bwd_plan`; float32 the four CUDA-core kernels.  No atomics: a second
+launch gives the same bits.  It recomputes the forward's chunk states
 itself.  An unused final state's gradient counts as zero.
-`ssd_scan_bwd_attrs` reads each compiled kernel's registers and local
+`ssd_scan_bwd_attrs` reads each compiled bf16 kernel's registers and local
 (spill) bytes.
 """
 from __future__ import annotations
@@ -82,20 +84,108 @@ class _SsdBwdArgs(ctypes.Structure):
     """``SsdBwdArgs`` of csrc/ssd_bwd.cu (strides in elements)."""
     _fields_ = [(name, _P) for name in (
         "x", "dt", "a", "b", "c", "dy", "dstate", "dx", "ddt", "da", "db",
-        "dc", "states", "dstates", "decay", "dbp", "dcp", "dap")] + [
+        "dc", "states", "dstates", "decay", "dbp", "dcp", "dap", "rowp",
+        "dotp")] + [
         (name, _L) for name in ("x_sb", "x_sl", "x_sh", "dt_sb", "dt_sl",
                                 "dt_sh", "b_sb", "b_sl", "b_sg", "c_sb",
                                 "c_sl", "c_sg", "dy_sb", "dy_sl",
                                 "dy_sh")] + [
         (name, _I) for name in ("batch", "length", "heads", "groups",
-                                "head_dim", "state_dim", "dtype")]
+                                "head_dim", "state_dim", "dtype", "slab",
+                                "route")]
 
 
-# the kernels of csrc/ssd_bwd.cu in the order ``ssd_scan_bwd_attrs``
-# reports them
-BWD_KERNELS = ("ssd_bwd_chunk_kernel<S<=128>", "ssd_bwd_scan_kernel",
-               "ssd_bwd_kernel<S<=128>", "ssd_bwd_kernel<S<=64>",
-               "ssd_bwd_reduce_kernel")
+# the bf16 kernels of csrc/ssd_bwd.cu in the order ``ssd_scan_bwd_attrs``
+# reports them (the float32 instantiations keep the CUDA-core kernels
+# ssd_bwd_chunk_kernel, ssd_bwd_scan_kernel, ssd_bwd_kernel and
+# ssd_bwd_reduce_kernel)
+BWD_KERNELS = ("ssd_bwd_walk_kernel", "ssd_bwd_grad_kernel<S<=128>",
+               "ssd_bwd_grad_kernel<S<=64>", "ssd_bwd_finish_kernel",
+               "ssd_bwd_slab_kernel")
+# shared bytes of the backward's kernels, recomputed by the C launcher
+# (which refuses a disagreeing count).  bfloat16: the walk holds two stages
+# of an operand tile and a 64-column piece of B or C (8 KB each) and dt,
+# the emitted state's hi and lo tiles, the step's coefficients and decay,
+# two mbarriers and 1 KB to align the tiles to 1024 bytes, 50,976 bytes;
+# the gradient CTA (at S <= 64 and S <= 128: NS = 1 or 2 tiles of 64
+# columns) B and C (NS tiles each), two stages of x, dy and the hi and lo
+# tiles of S_in and dS_out (2 + 4 NS tiles), C B^T by thread (16 KB), dt
+# per stage, each warpgroup's four row vectors, N's row sums by warp, the
+# <S_in, dS_out> partials, warpgroup 0's dG' sum (its causal 8-column
+# blocks, 10 KB), two mbarriers and the 1 KB slack, 145,952 and 227,872
+# bytes (one CTA an SM).  float32: the CUDA-core chunk-gradient
+# kernel's tiles, 135,488 and 201,536 bytes.
+_WALK_SMEM = 2 * 2 * _TILE + 2 * _TILE + 4 * (2 * CHUNK + CHUNK) + 32 + 1024
+
+
+def _grad_smem(ns):
+    return (2 * ns * _TILE + 2 * (2 + 4 * ns) * _TILE + 4 * 32 * 128
+            + 4 * (2 * CHUNK + 2 * 4 * CHUNK + 4 * CHUNK) + 16
+            + 4 * 128 * 4 * 5 + 16 + 1024)
+
+
+def _f32_grad_smem(njs):
+    ld = CHUNK + 1
+    return 4 * (4 * CHUNK * ld + 2 * CHUNK * (16 * njs + 1)
+                + 2 * 16 * njs * ld + 9 * CHUNK + 16)
+
+
+BWD_SMEM_BYTES = {
+    torch.bfloat16: {"ssd_bwd_walk_kernel": _WALK_SMEM,
+                     "ssd_bwd_grad_kernel<S<=64>": _grad_smem(1),
+                     "ssd_bwd_grad_kernel<S<=128>": _grad_smem(2)},
+    torch.float32: {"ssd_bwd_kernel<S<=64>": _f32_grad_smem(4),
+                    "ssd_bwd_kernel<S<=128>": _f32_grad_smem(8)}}
+H100_SMS = 132
+
+
+def slab_width(batch: int, n_chunks: int, groups: int, per: int,
+               sms: int = H100_SMS) -> int:
+    """Heads of one group a gradient CTA takes: the width w in 1..per that
+    minimises waves x (w + 1), where a wave is ``sms`` CTAs (one an SM) of
+    the batch x n_chunks x groups x ceil(per / w) the launch holds and a
+    CTA's own work (B and C, C B^T, dG' B and dG'^T C, its partials) counts
+    as one more head; the widest at a tie.  csrc/ssd_bwd.cu slab_width is
+    the same rule."""
+    best, best_cost = 1, None
+    for w in range(1, per + 1):
+        ctas = batch * n_chunks * groups * -(-per // w)
+        cost = -(-ctas // sms) * (w + 1)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = w, cost
+    return best
+
+
+def bwd_plan(batch: int, length: int, heads: int, groups: int,
+             head_dim: int, state_dim: int, sms: int = H100_SMS) -> dict:
+    """The bf16 backward's launch at a shape: ``heads_a_cta`` (the slab of
+    a group's heads one gradient CTA sums), ``slabs`` a group,
+    ``walk_split`` (64-column pieces of S a walk is cut into),
+    ``walk_ctas`` (both directions), ``grad_ctas``, ``finish_warps`` and
+    the two kernels' shared bytes.  Raises for a shape the kernels cannot
+    take (head_dim over 64, a state over 128 or not a multiple of 4,
+    groups that do not divide the heads)."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM or not 4 <= state_dim <= MAX_STATE \
+            or state_dim % 4 or groups < 1 or heads % groups:
+        raise ValueError(
+            f"the bf16 SSD backward takes head_dim <= {MAX_HEAD_DIM}, a state "
+            f"<= {MAX_STATE} that is a multiple of 4 and groups that divide "
+            f"the heads; got P = {head_dim}, S = {state_dim}, H = {heads}, "
+            f"G = {groups}")
+    n = -(-length // CHUNK)
+    per = heads // groups
+    w = slab_width(batch, n, groups, per, sms)
+    slabs = -(-per // w)
+    ns = -(-state_dim // 64)
+    grad = "ssd_bwd_grad_kernel<S<=64>" if ns == 1 \
+        else "ssd_bwd_grad_kernel<S<=128>"
+    smem = BWD_SMEM_BYTES[torch.bfloat16]
+    return dict(heads_a_cta=w, slabs=slabs, walk_split=ns,
+                walk_ctas=2 * batch * heads * ns,
+                grad_ctas=batch * n * groups * slabs,
+                finish_warps=batch * heads * n, grad_kernel=grad,
+                grad_smem=smem[grad], walk_smem=smem["ssd_bwd_walk_kernel"])
+
 
 ssd_scan_bwd_plain = _ref.ssd_scan_bwd_plain
 
@@ -148,15 +238,16 @@ def _check(x, dt, a, bmat, c):
                              f"contiguously; got strides {t.stride()}")
 
 
-def copy_route(x, bmat, c) -> str:
-    """How the bf16 kernel loads x, B and C: ``"tma"`` when every one has a
-    16-byte aligned base and strides (but the last) that are nonzero whole
-    16-byte multiples, as a tensor map needs; else ``"cp.async"``."""
+def copy_route(*tensors) -> str:
+    """How the bf16 kernels load x, B and C (and the backward dy):
+    ``"tma"`` when every one has a 16-byte aligned base and strides (but
+    the last) that are nonzero whole 16-byte multiples, as a tensor map
+    needs; else ``"cp.async"``."""
     def tma_readable(t):
         return t.data_ptr() % 16 == 0 and all(
             st > 0 and st * t.element_size() % 16 == 0
             for st in t.stride()[:-1])
-    return ROUTES[0] if all(map(tma_readable, (x, bmat, c))) else ROUTES[1]
+    return ROUTES[0] if all(map(tma_readable, tensors)) else ROUTES[1]
 
 
 def ssd_scan(x, dt, a, bmat, c, *, chunk: int = 64):
@@ -201,8 +292,9 @@ def ssd_scan_bwd(x, dt, a, bmat, c, dy, dstate=None, *, chunk: int = 64):
     ``dstate`` (B,H,S,P) float32, or None for zero.  A CPU tensor takes
     `ssd_scan_bwd_plain` (its chunked form at ``chunk``); a CUDA tensor
     launches ``csrc/ssd_bwd.cu`` (its four kernels, one call, 64-row chunks
-    of its own) and counts it in ``ssd_scan.bwd_launches``.  dx, dB, dC
-    come back contiguous in x's dtype, ddt and da in float32."""
+    of its own; bf16 as `bwd_plan` lays it out) and counts it in
+    ``ssd_scan.bwd_launches``.  dx, dB, dC come back contiguous in x's
+    dtype, ddt and da in float32."""
     if not on_card(x):
         return ssd_scan_bwd_plain(x, dt, a, bmat, c, dy, dstate, chunk=chunk)
     _check(x, dt, a, bmat, c)
@@ -232,31 +324,61 @@ def ssd_scan_bwd(x, dt, a, bmat, c, dy, dstate=None, *, chunk: int = 64):
     if dx.numel() == 0 or db.numel() == 0:
         return dx, ddt, da, db, dc
     n = -(-length // CHUNK)
-    sizes = (b * n * h * s * p, b * n * h * s * p, b * n * h,
-             b * length * h * s, b * length * h * s, b * n * h)
+    if x.dtype == torch.bfloat16:
+        plan = bwd_plan(b, length, h, g, p, s, sms=_sms(dev))
+        slab, route = plan["heads_a_cta"], copy_route(x, bmat, c, dy)
+        expected = (plan["grad_smem"], plan["walk_smem"])
+        # S_in and dS_out as bf16 hi/lo tiles of 64 x 64, 2 S/64 of them a
+        # (batch, head, chunk); (B, H, n, 4, 64) d(lg) pieces; a float a
+        # (batch, head, chunk) for <S_in, dS_out> and da; a slab's dB, dC
+        tiles = b * h * n * plan["walk_split"] * 64 * 64
+        sizes = (tiles, tiles, 0, plan["slabs"] * b * length * g * s,
+                 plan["slabs"] * b * length * g * s, b * n * h,
+                 b * h * n * 4 * CHUNK, b * n * h)
+    else:
+        slab, route = 0, 0
+        expected = (BWD_SMEM_BYTES[f32]["ssd_bwd_kernel<S<=64>" if s <= 64
+                                        else "ssd_bwd_kernel<S<=128>"], 0)
+        sizes = (b * n * h * s * p, b * n * h * s * p, b * n * h,
+                 b * length * h * s, b * length * h * s, b * n * h, 0, 0)
     scratch = torch.empty(sum(sizes), dtype=f32, device=dev)
-    states, dstates, decay, dbp, dcp, dap = scratch.split(sizes)
+    ptrs = [t.data_ptr() if t.numel() else None
+            for t in scratch.split(sizes)]
     args = _SsdBwdArgs(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
         c.data_ptr(), dy.data_ptr(),
         None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
-        ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-        *(t.data_ptr() for t in (states, dstates, decay, dbp, dcp, dap)),
+        ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(), *ptrs,
         *x.stride()[:3], *dt.stride(), *bmat.stride()[:3], *c.stride()[:3],
-        *dy.stride()[:3], b, length, h, g, p, s, _DTYPE_CODE[x.dtype])
+        *dy.stride()[:3], b, length, h, g, p, s, _DTYPE_CODE[x.dtype], slab,
+        route if isinstance(route, int) else ROUTES.index(route))
     fn = _build.library("ssd_bwd.cu").ssd_scan_bwd
-    fn.argtypes = [ctypes.POINTER(_SsdBwdArgs), _P]
+    fn.argtypes = [ctypes.POINTER(_SsdBwdArgs), ctypes.c_size_t,
+                   ctypes.c_size_t, _P]
     fn.restype = ctypes.c_int
-    _build.check(fn(ctypes.byref(args), stream_of(x)), "ssd_scan_bwd")
+    _build.check(fn(ctypes.byref(args), *expected, stream_of(x)),
+                 "ssd_scan_bwd")
     _counts.bwd_launches += 1
     return dx, ddt, da, db, dc
 
 
+_SMS: dict = {}
+
+
+def _sms(device) -> int:
+    """The card's SM count (the plan's wave)."""
+    key = torch.device(device).index or 0
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(
+            key).multi_processor_count
+    return _SMS[key]
+
+
 def ssd_scan_bwd_attrs() -> dict:
     """``{kernel: {registers, local_bytes, shared_bytes, threads}}`` of the
-    kernels of ``csrc/ssd_bwd.cu`` as compiled (``cudaFuncGetAttributes``;
-    ``local_bytes`` a thread are its spills), bf16 instantiations.  Needs
-    the card."""
+    bf16 kernels of ``csrc/ssd_bwd.cu`` (`BWD_KERNELS`) as compiled
+    (``cudaFuncGetAttributes``; ``local_bytes`` a thread are its spills).
+    Needs the card."""
     fn = _build.library("ssd_bwd.cu").ssd_scan_bwd_attrs
     fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int), _I], ctypes.c_int
     out = (ctypes.c_int * (4 * len(BWD_KERNELS)))()

@@ -1926,7 +1926,8 @@ def test_train_step_on_card_matches_plain(cuda_device):
 
 SSD_BWD_CASES = [(1, 4096, 64, 64, 128, 1), (1, 1000, 112, 64, 64, 1),
                  (2, 100, 4, 64, 128, 2), (3, 70, 4, 16, 16, 1),
-                 (2, 150, 4, 36, 64, 2), (1, 1, 2, 64, 128, 1)]
+                 (2, 150, 4, 36, 64, 2), (1, 1, 2, 64, 128, 1),
+                 (1, 1300, 14, 36, 128, 2), (1, 1500, 14, 64, 128, 2)]
 
 
 def _bf16_step(t):
@@ -1939,16 +1940,23 @@ def _bf16_step(t):
 def test_ssd_bwd_kernel_matches_plain_on_card(dtype, cuda_device):
     """#8's backward (``csrc/ssd_bwd.cu``) on x, B and C cut from a packed
     projection, every `SSD_BWD_CASES` shape (mamba2-1.3b's and zamba2-7b's
-    training heads, G = 2, ragged L, a 36-wide head, L = 1), with and
+    training heads, G = 2, ragged L, a 36-wide head, L = 1, and 7 heads a
+    group in slabs of 3 and of 4, whose last slab they do not fill: the
+    bf16 plan at 132 SMs), with and
     without a final-state gradient: a second launch the same bits; against
     `ssd_scan_bwd_plain` float32 dx, dB, dC within 1e-5 of each one's
     largest |g|, bf16 within one bf16 step; ddt and da (float32 in both)
     within 1e-4: each ends in a float32 sum over many terms that the
     kernel adds in another order (da over B x L; each ddt through its
     chunk's <S_in, dS_out> over S x P), measured 1.7e-5 of the largest
-    |da| at B = 2, L = 100 on the card."""
+    |da| at B = 2, L = 100 on the card.  The bf16 kernels spill nothing."""
     from repro_torch.kernels.ssd import kernel as TS
     gen = torch.Generator(cuda_device).manual_seed(12)
+    if dtype == torch.bfloat16:
+        sms = TS._sms(cuda_device)
+        assert any((h // g) % TS.bwd_plan(b, length, h, g, p, s,
+                                          sms=sms)["heads_a_cta"]
+                   for b, length, h, p, s, g in SSD_BWD_CASES)
     for k, (b, length, h, p, s, g) in enumerate(SSD_BWD_CASES):
         x, dt, a, bm, cm = _ssd_inputs(gen, b, length, h, p, s, g, dtype,
                                        cuda_device)
@@ -1972,6 +1980,10 @@ def test_ssd_bwd_kernel_matches_plain_on_card(dtype, cuda_device):
                    * float(w.abs().max()))
             assert err <= tol, f"{name} at {(b, length, h, p, s, g)}: " \
                 f"{err} > {tol}"
+    if dtype == torch.bfloat16:
+        usage = TS.ssd_scan_bwd_attrs()
+        assert set(usage) == set(TS.BWD_KERNELS)
+        assert all(u["local_bytes"] == 0 for u in usage.values()), usage
 
 
 @pytest.mark.cuda

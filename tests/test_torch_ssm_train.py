@@ -49,6 +49,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs import get_smoke as j_get_smoke
 from repro.kernels.ssd import ssd as j_ssd
@@ -197,6 +198,240 @@ def test_ssd_bwd_reads_strided_views():
     got = TK.ssd_scan_bwd(xv, dt, a, bv, cv, dy, chunk=chunk)
     want = TK.ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=chunk)
     assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+# ---- the bf16 Hopper backward's arithmetic (csrc/ssd_bwd.cu) ---------------
+
+# (B, L, H, P, S, G, heads a slab): the model's head over a ragged 200 with
+# its group's 4 heads in slabs of 3 (the last one not full), zamba2's
+# S = 64 with G = 2 over a ragged 150
+EMULATED_BWD = {"model": (1, 200, 4, 64, 128, 1, 3),
+                "s64-g2": (2, 150, 4, 32, 64, 2, 2)}
+
+
+def _hi_lo(v, split=True):
+    """v as bf16 hi and lo (lo zero unless ``split``), each in float32."""
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float() if split else torch.zeros_like(v)
+
+
+def _emulate_bwd(x, dt, a, bmat, c, dy, dstate=None, *, slab, single=()):
+    """The bf16 kernels' arithmetic in torch, per 64-row chunk (the ragged
+    tail padded with zeros and dt = 0): the walks carry the state and its
+    gradient in float32, each step taking the state as it stands in bf16
+    hi + lo (``single`` "S_in" or "dS_out": hi alone) and adding
+    (w o x)^T B or (exp(lg) o dy)^T C with w o x and exp(lg) o dy split;
+    per chunk and head, products of the bf16 inputs in float32, the decay
+    as 2^(lg_t log2(e) - lg_z log2(e)); dx = w o (B dS_out) + G^T dy with G
+    split ("G": hi alone); dC and dB summed over a slab's heads in head
+    order as exp(lg) o dy S_in^T and w o x dS_out^T, then the slab's dG'
+    sum times B and its transpose times C, split ("dG": hi alone); the
+    slabs summed in order; d(lg) in float32 into ddt and da; dx, dB, dC
+    rounded once to bf16."""
+    b, length, h, p = x.shape
+    g, s = bmat.shape[2:]
+    per, q = h // g, 64
+    pad = (-length) % q
+    n = (length + pad) // q
+
+    def chunks(t):                       # (B, L, K, m) -> (B, n, K, q, m)
+        t = F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return t.reshape(b, n, q, t.shape[2], t.shape[3]).transpose(2, 3)
+    xc, dyc = chunks(x), chunks(dy)                     # (B, n, H, q, P)
+    bc, cc = chunks(bmat), chunks(c)                    # (B, n, G, q, S)
+    bh, ch = (t.repeat_interleave(per, 2) for t in (bc, cc))
+    dtc = F.pad(dt, (0, 0, 0, pad)).reshape(b, n, q, h).transpose(2, 3)
+    cs = torch.cumsum(dtc, -1)                          # (B, n, H, q)
+    lg = a[:, None] * cs
+    lend = lg[..., -1:]
+    el, w, last = torch.exp(lg), torch.exp(lend - lg) * dtc, torch.exp(lend)
+    lg2 = lg * np.float32(np.log2(np.e))
+    tri = torch.ones(q, q, dtype=torch.bool).tril()
+
+    # the walks
+    st = torch.zeros(b, h, s, p)
+    sin = []
+    for i in range(n):
+        sin.append(_hi_lo(st, "S_in" not in single))
+        whi, wlo = _hi_lo(w[:, i, :, :, None] * xc[:, i])
+        st = (st * last[:, i, :, :, None] + bh[:, i].transpose(-1, -2) @ whi
+              + bh[:, i].transpose(-1, -2) @ wlo)
+    ds = torch.zeros(b, h, s, p) if dstate is None else dstate.float()
+    dso = [None] * n
+    for i in reversed(range(n)):
+        dso[i] = _hi_lo(ds, "dS_out" not in single)
+        ehi, elo = _hi_lo(el[:, i, :, :, None] * dyc[:, i])
+        ds = (ds * last[:, i, :, :, None] + ch[:, i].transpose(-1, -2) @ ehi
+              + ch[:, i].transpose(-1, -2) @ elo)
+    shi, slo = (torch.stack(t, 1) for t in zip(*sin))  # (B, n, H, S, P)
+    dhi, dlo = (torch.stack(t, 1) for t in zip(*dso))
+
+    # each chunk and head
+    dec = torch.where(tri, torch.exp2(torch.where(
+        tri, lg2[..., :, None] - lg2[..., None, :], 0.0)), 0.0)
+    dtz = dtc[..., None, :]
+    cb = ch @ bh.transpose(-1, -2)                      # (B, n, H, t, z)
+    dg = dyc @ xc.transpose(-1, -2)
+    dgp = dg * dec * dtz
+    nm = dg * cb * dec
+    col_n = nm.sum(-2)
+    row_m = (nm * dtz).sum(-1)
+    y = dyc @ shi.transpose(-1, -2) + dyc @ slo.transpose(-1, -2)
+    dlg_i = el * (ch * y).sum(-1)
+    bds = bh @ dhi + bh @ dlo                           # (B, n, H, z, P)
+    dw = (xc * bds).sum(-1)
+    ghi, glo = _hi_lo(cb * dec * dtz, "G" not in single)
+    dx = (w[..., None] * bds + ghi.transpose(-1, -2) @ dyc
+          + glo.transpose(-1, -2) @ dyc)
+    zz = xc @ dhi.transpose(-1, -2) + xc @ dlo.transpose(-1, -2)
+    dot = ((shi + slo) * (dhi + dlo)).sum((-2, -1))    # (B, n, H)
+    dcy, dbz = el[..., None] * y, w[..., None] * zz
+
+    # a slab's heads in head order, then the slabs in order
+    db = torch.zeros(b, n, g, q, s)
+    dc = torch.zeros(b, n, g, q, s)
+    for k in range(g):
+        for h0 in range(k * per, (k + 1) * per, slab):
+            heads = range(h0, min(h0 + slab, (k + 1) * per))
+            sc, sb, sg = dcy[:, :, h0], dbz[:, :, h0], dgp[:, :, h0]
+            for hh in heads[1:]:
+                sc, sb, sg = sc + dcy[:, :, hh], sb + dbz[:, :, hh], \
+                    sg + dgp[:, :, hh]
+            fhi, flo = _hi_lo(sg, "dG" not in single)
+            sc = sc + fhi @ bc[:, :, k] + flo @ bc[:, :, k]
+            sb = (sb + fhi.transpose(-1, -2) @ cc[:, :, k]
+                  + flo.transpose(-1, -2) @ cc[:, :, k])
+            dc[:, :, k] += sc
+            db[:, :, k] += sb
+
+    # d(lg) into ddt and da
+    m = dw * w
+    dlg = row_m - dtc * col_n + dlg_i - m
+    dlg[..., -1] += m.sum(-1) + last[..., 0] * dot
+    rev = torch.flip(torch.cumsum(torch.flip(dlg, (-1,)), -1), (-1,))
+    ddt = col_n + dw * torch.exp(lend - lg) + a[:, None] * rev
+    da = (dlg * cs).sum((0, 1, 3))
+
+    def rows(t):                         # (B, n, K, q, m) -> (B, L, K, m)
+        return t.transpose(2, 3).reshape(b, n * q, *t.shape[2:3],
+                                         t.shape[-1])[:, :length]
+    return (rows(dx).bfloat16(), rows(ddt[..., None])[..., 0], da,
+            rows(db).bfloat16(), rows(dc).bfloat16())
+
+
+def _bwd_inputs(case, dy_scale=1.0, seed=0):
+    """numpy-seeded bf16 x, B, C and dy (dy times ``dy_scale``, a power of
+    two), float32 dt, a and a final-state gradient."""
+    b, length, h, p, s, g, _ = EMULATED_BWD[case]
+    rng = np.random.default_rng(seed + 7 * length + h)
+    x = rng.standard_normal((b, length, h, p)).astype(np.float32)
+    dt = (0.5 * np.log1p(np.exp(rng.standard_normal((b, length, h))))
+          ).astype(np.float32)
+    a = (-np.exp(0.5 * rng.standard_normal(h))).astype(np.float32)
+    bm = rng.standard_normal((b, length, g, s)).astype(np.float32)
+    cm = rng.standard_normal((b, length, g, s)).astype(np.float32)
+    dy = (rng.standard_normal((b, length, h, p)) * dy_scale).astype(
+        np.float32)
+    ds = rng.standard_normal((b, h, s, p)).astype(np.float32)
+    bf = (lambda t: torch.from_numpy(t).bfloat16())
+    return (bf(x), torch.from_numpy(dt), torch.from_numpy(a), bf(bm), bf(cm),
+            bf(dy), torch.from_numpy(ds))
+
+
+def _bwd_gate(got, want):
+    """Each gradient's error in its gate's units: dx, dB, dC in bf16 steps
+    of the largest |g|, ddt and da in 1e-4 of the largest |g|; the gate is
+    passed at <= 1."""
+    out = {}
+    for name, u, w in zip(GRADS, got, want):
+        assert u.shape == tuple(w.shape), name
+        u, w = _f32(u), _f32(w)
+        err = float(np.abs(u - w).max())
+        out[name] = err / (_bf16_step(w) if name in ("dx", "dB", "dC")
+                           else 1e-4 * float(np.abs(w).max()))
+    return out
+
+
+@pytest.mark.parametrize("dy_scale", [1.0, 8.0])
+@pytest.mark.parametrize("case", sorted(EMULATED_BWD))
+def test_split_ssd_bwd_emulation_matches_plain_and_jax(case, dy_scale):
+    """The bf16 Hopper backward's arithmetic (`_emulate_bwd`: the states,
+    G and dG' split hi + lo) against `ssd_scan_bwd_plain` and jitted
+    ``jax.vjp`` of JAX's chunked oracle at the card's bf16 gate: dx, dB
+    and dC within one bf16 step of their largest |g|, ddt and da within
+    1e-4 of theirs; dy at unit and 8x scale, with a final-state
+    gradient."""
+    args = _bwd_inputs(case, dy_scale)
+    x, dt, a, bm, cm, dy, ds = args
+    got = _emulate_bwd(*args, slab=EMULATED_BWD[case][-1])
+    plain = TR.ssd_scan_bwd_plain(*args, chunk=64)
+    jx, jb, jc, jdy = (jnp.asarray(_f32(t), jnp.bfloat16)
+                       for t in (x, bm, cm, dy))
+    want = _jax_ssd_vjp(x.shape[2], 64)(
+        jx, jnp.asarray(dt.numpy()), jnp.asarray(a.numpy()), jb, jc, jdy,
+        jnp.asarray(ds.numpy()))
+    for ref in (plain, want):
+        errs = _bwd_gate(got, ref)
+        assert max(errs.values()) <= 1.0, errs
+
+
+def test_single_bf16_ssd_bwd_operands_leave_the_gate():
+    """Why the backward splits, against the plain version with dy at 8x
+    scale: S_in or dS_out rounded once to bf16 takes the gradients out of
+    the gate (measured 2.3-12x its width over two shapes, dy at 1x and 8x
+    and three seeds), and G (into dx) or the slab's dG' (into dB and dC)
+    rounded once doubles or more its gradients' largest error, to the
+    gate's edge of one bf16 step; split, every gradient stays inside."""
+    args = _bwd_inputs("model", 8.0, seed=1)
+    plain = TR.ssd_scan_bwd_plain(*args, chunk=64)
+    split = _bwd_gate(_emulate_bwd(*args, slab=3), plain)
+    assert max(split.values()) <= 0.5, split
+    for single in ("S_in", "dS_out"):
+        errs = _bwd_gate(_emulate_bwd(*args, slab=3, single=(single,)),
+                         plain)
+        assert max(errs.values()) > 2.0, (single, errs)
+    for single, grads in (("G", ("dx",)), ("dG", ("dB", "dC"))):
+        errs = _bwd_gate(_emulate_bwd(*args, slab=3, single=(single,)),
+                         plain)
+        worst = max(errs[k] for k in grads)
+        assert worst >= 1.0 and worst >= 2 * max(split[k] for k in grads), \
+            (single, errs, split)
+
+
+def test_bwd_plan_at_the_training_shapes():
+    """The bf16 backward's launch, as `bwd_plan` lays it out at 132 SMs and
+    the C launcher checks it: mamba2-1.3b's training block (1, 4096, 64,
+    64, 128) takes 32 heads a CTA in 2 slabs (128 CTAs), its walks 2
+    pieces of S (256 CTAs); zamba2-7b's (1, 4096, 112, 64, 64) 56 heads in
+    2 slabs, its walks one piece (224 CTAs); the shared bytes are the
+    kernels' own; 7 heads a group take slabs of 3, the last one not full;
+    a shape the kernels cannot take raises."""
+    got = TK.bwd_plan(1, 4096, 64, 1, 64, 128)
+    assert got == dict(heads_a_cta=32, slabs=2, walk_split=2, walk_ctas=256,
+                       grad_ctas=128, finish_warps=4096,
+                       grad_kernel="ssd_bwd_grad_kernel<S<=128>",
+                       grad_smem=227872, walk_smem=50976)
+    got = TK.bwd_plan(1, 4096, 112, 1, 64, 64)
+    assert got == dict(heads_a_cta=56, slabs=2, walk_split=1, walk_ctas=224,
+                       grad_ctas=128, finish_warps=7168,
+                       grad_kernel="ssd_bwd_grad_kernel<S<=64>",
+                       grad_smem=145952, walk_smem=50976)
+    got = TK.bwd_plan(1, 1300, 14, 2, 36, 128)
+    assert (got["heads_a_cta"], got["slabs"], got["grad_ctas"]) == (3, 3, 126)
+    assert TK.BWD_SMEM_BYTES == {
+        torch.bfloat16: {"ssd_bwd_walk_kernel": 50976,
+                         "ssd_bwd_grad_kernel<S<=64>": 145952,
+                         "ssd_bwd_grad_kernel<S<=128>": 227872},
+        torch.float32: {"ssd_bwd_kernel<S<=64>": 135488,
+                        "ssd_bwd_kernel<S<=128>": 201536}}
+    assert TK.BWD_KERNELS == (
+        "ssd_bwd_walk_kernel", "ssd_bwd_grad_kernel<S<=128>",
+        "ssd_bwd_grad_kernel<S<=64>", "ssd_bwd_finish_kernel",
+        "ssd_bwd_slab_kernel")
+    for bad in ((1, 64, 4, 1, 65, 128), (1, 64, 4, 1, 64, 132),
+                (1, 64, 4, 1, 64, 30), (1, 64, 6, 4, 64, 128)):
+        with pytest.raises(ValueError, match="bf16 SSD backward"):
+            TK.bwd_plan(*bad)
 
 
 # ---------------------------------------------------------------------------
