@@ -202,13 +202,16 @@ Phases, each fatal on failure:
      step, #3's device time a launch at 11-128-2, B = 8).
  2h. the recorder kernel (`obs.recorder.record_step`, csrc/recorder.cu:
      the network weight norm, the drift against wnorm0, one ring row and
-     the four detectors in one launch) against its plain version at
-     8-128-8, B = 4096, float32 and int8, 90% of the slots active, 16
-     recorded steps of random telemetry rows with weights moving in half
-     the slots, a planted stuck, dead, bursting and out-of-corridor slot:
-     flags, streaks, steps and verdicts exact, int8 bit for bit, float32
-     ring, baselines and wnorm0 within rtol = atol = 1e-6, each planted
-     fault flagged;
+     the four detectors in one launch, laid out by `recorder_plan`, which
+     is printed) against its plain version at 8-128-8, B = 4096, float32,
+     bfloat16 and int8, 90% of the slots active, 16 recorded steps of
+     random telemetry rows with weights moving in half the slots, a
+     planted stuck, dead, bursting and out-of-corridor slot: flags,
+     streaks, steps and verdicts exact, int8 bit for bit, float ring,
+     baselines and wnorm0 within rtol = atol = 1e-6, each planted fault
+     flagged; then the LM adapter's one N x N layer at B = 8, N = 128 and
+     512 (a slot on a cluster of CTAs), in the three dtypes, 8 steps, held
+     the same way;
  13. session health at full width: a `FleetScheduler` on 8-128-8 with
      4096 slots, a RAM `SessionStore` and the incident drill's detectors,
      float32 and int8: 4096 sessions run 12 recorded windows (the first 4
@@ -221,8 +224,11 @@ Phases, each fatal on failure:
      and re-admitted by hand at the checkpoint, bit for bit, and exactly
      one recorder launch per recorded window (the count read just after
      the drills); then, in a fresh process (``--only health``), the
-     recorder's time (L2 flushed) beside its plain version and its bound
-     by bytes, a `torch.profiler` window of 8 telemetry-on windows beside
+     recorder's time (L2 flushed by writing and by reading) beside its
+     plain version and its bound by bytes at 8-128-8 in float32, bfloat16
+     and int8 and at the adapter's N = 128 and 512 (B = 8), an empty
+     kernel's time (a launch's floor), a `torch.profiler` window of 8
+     telemetry-on windows beside
      8 recorded ones on a full pool (the recorded side runs one more
      device op a window and the same device-to-host copies), and the wall
      of 8 recorded windows with the kernel and with its plain version, in
@@ -4600,14 +4606,49 @@ def tree_leaves(tree):
     return CM.flatten(tree)[1]
 
 
+REC_DTYPES = ("float32", "bfloat16", "int8")
+# the recorder's kernels by name in a trace (recorder_tiles_kernel,
+# recorder_cluster_kernel)
+REC_KERNEL = "::recorder_"
+# the LM adapter's one layer (N x N) at B = 8: a slot spans a cluster
+REC_ADAPTERS, REC_ADAPTER_B, REC_ADAPTER_STEPS = (128, 512), 8, 8
+
+
+def plan_line(plan):
+    """`recorder_plan`'s launch in one line."""
+    return (f"{plan['route']}: {plan['slots']} slots a tile, "
+            f"{plan['cluster']} CTAs a slot, {plan['ctas']} CTAs, "
+            f"{plan['stages']} stage(s) of {plan['stage_bytes']} B, "
+            f"{plan['smem']} B shared, loads {'/'.join(plan['loads'])}")
+
+
+def recorder_leaves_held(kern, plain, quant, what):
+    """The recorder state's leaves against the plain version's: int8 all
+    and the integer leaves of every datapath bit for bit, float32 within
+    rtol = atol = REC_TOL; returns (max |err|, tolerance ratio)."""
+    import torch
+    err = ratio = 0.0
+    # ring, wnorm0, ewma_mean, ewma_var, last; streaks, flagged, steps
+    for i, (a, b) in enumerate(zip(tree_leaves(kern), tree_leaves(plain))):
+        if i >= 5 or quant:
+            require(torch.equal(a, b), f"recorder {what}: leaf {i} not bit "
+                    f"for bit its plain version's")
+        else:
+            err = max(err, float((a - b).abs().max()))
+            ratio = max(ratio, tol_ratio(a, b, REC_TOL))
+    return err, ratio
+
+
 def compare_recorder(dev, results):
-    """`record_step` (csrc/recorder.cu, one launch) against
-    `record_step_plain` at 8-128-8, B = 4096, float32 and int8, 90% of the
-    slots active, over REC_STEPS steps of random telemetry rows and
-    weights that move in half the slots each step, with a planted stuck,
-    dead, bursting and out-of-corridor slot: flags, streaks, steps and
-    verdicts exact, int8 bit for bit, float32 ring, baselines and wnorm0
-    within rtol = atol = REC_TOL."""
+    """`record_step` (csrc/recorder.cu, one launch, laid out by
+    `recorder_plan`, which is printed) against `record_step_plain` at
+    8-128-8, B = 4096, float32, bfloat16 and int8, 90% of the slots
+    active, over REC_STEPS steps of random telemetry rows and weights that
+    move in half the slots each step, with a planted stuck, dead, bursting
+    and out-of-corridor slot: flags, streaks, steps and verdicts exact,
+    int8 bit for bit, float ring, baselines and wnorm0 within rtol = atol
+    = REC_TOL; then the LM adapter's one layer at N = 128 and 512, B = 8
+    (`compare_recorder_adapters`)."""
     import torch
     from repro_torch.configs import firefly_snn
     from repro_torch.core import snn
@@ -4618,20 +4659,26 @@ def compare_recorder(dev, results):
     active = torch.rand(B, generator=gen, device=dev) < 0.9
     active[[STUCK, DEAD, BURST, BOUND]] = True
     span = torch.tensor([0.6, 0.02, 0.5], device=dev)
-    for quant in (False, True):
-        mode = "int8" if quant else "float32"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for mode in REC_DTYPES:
+        quant = mode == "int8"
         cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
                else firefly_snn.CONFIG)
         st = snn.init_state(cfg, batch=B, fleet=True, device=dev)
+        dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8}[mode]
+        log(f"  recorder {mode} plan at 8-128-8, B = {B}: " + plan_line(
+            R.recorder_plan(B, [w.shape[1] * w.shape[2] for w in st.w], dt,
+                            sms)))
 
         def draw():
             if quant:
-                return [torch.randint(-127, 128, tuple(w.shape),
+                return [torch.randint(-128, 128, tuple(w.shape),
                                       generator=gen, device=dev,
                                       dtype=torch.int32).to(torch.int8)
                         for w in st.w]
-            return [0.1 * torch.randn(tuple(w.shape), generator=gen,
-                                      device=dev) for w in st.w]
+            return [(0.1 * torch.randn(tuple(w.shape), generator=gen,
+                                       device=dev)).to(dt) for w in st.w]
         w = draw()
         scales = tuple(torch.rand(B, generator=gen, device=dev) / 16 + 1 / 64
                        for _ in st.w) if quant else ()
@@ -4663,16 +4710,9 @@ def compare_recorder(dev, results):
             plain, pv = R.record_step_plain(hcfg, plain, state, tel, t,
                                             active, quant)
             torch.cuda.synchronize()
-            got, want = tree_leaves(kern), tree_leaves(plain)
-            # ring, wnorm0, ewma_mean, ewma_var, last; streaks, flagged, steps
-            for i, (a, b) in enumerate(zip(got, want)):
-                if i >= 5 or quant:
-                    require(torch.equal(a, b),
-                            f"recorder {mode} step {t}: leaf {i} not bit for "
-                            f"bit its plain version's")
-                else:
-                    err = max(err, float((a - b).abs().max()))
-                    ratio = max(ratio, tol_ratio(a, b, REC_TOL))
+            e, q = recorder_leaves_held(kern, plain, quant,
+                                        f"{mode} step {t}")
+            err, ratio = max(err, e), max(ratio, q)
             require(torch.equal(kv, pv),
                     f"recorder {mode} step {t}: verdict differs")
         require(ratio <= 1, f"recorder {mode}: max |err| {err} outside rtol = "
@@ -4690,6 +4730,84 @@ def compare_recorder(dev, results):
                                    f"floats max |err| {err:.3g}")
             + f"; planted faults flagged, {int(kv.sum())} slots flagged "
             f"in all")
+    compare_recorder_adapters(dev, results, hcfg, sms)
+    usage = R.recorder_attrs()
+    results["recorder"]["registers"] = usage
+    log(f"  recorder kernels' registers and local (spill) bytes: "
+        f"{json.dumps(usage)}")
+    require(all(u["local_bytes"] == 0 for u in usage.values()),
+            f"a recorder kernel uses local memory: {json.dumps(usage)}")
+
+
+def compare_recorder_adapters(dev, results, hcfg, sms):
+    """The LM adapter's recorded step: one N x N layer at B = 8 for N in
+    REC_ADAPTERS (a slot on a cluster of CTAs), float32, bfloat16 and int8,
+    REC_ADAPTER_STEPS steps of moving weights and random telemetry, all
+    slots active but one, against `record_step_plain`: as phase 2h's fleet.
+    int8 weights lie in [-40, 40] with -128 planted in every slot, so a
+    slot's sum of |w| (N = 512: at most 262144 * 40) stays under 2^24,
+    where the plain version's float32 sum is exact."""
+    import torch
+    from repro_torch.core.engine import NetworkState
+    from repro_torch.obs import recorder as R
+    from repro_torch.obs.telemetry import FleetTelemetry
+    b = REC_ADAPTER_B
+    gen = torch.Generator(dev).manual_seed(SEED + 34)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    active[b - 1] = False
+    for n in REC_ADAPTERS:
+        for mode in REC_DTYPES:
+            quant = mode == "int8"
+            dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "int8": torch.int8}[mode]
+
+            def draw():
+                if quant:
+                    w = torch.randint(-40, 41, (b, n, n), generator=gen,
+                                      device=dev, dtype=torch.int32
+                                      ).to(torch.int8)
+                    w.view(b, -1)[:, ::97] = -128
+                    return w
+                return (0.05 * torch.randn(b, n, n, generator=gen,
+                                           device=dev)).to(dt)
+            w = draw()
+            scales = ((torch.rand(b, generator=gen, device=dev) / 16
+                       + 1 / 64,) if quant else ())
+            kern = R.init_recorder(hcfg, b, device=dev)
+            plain = R.init_recorder(hcfg, b, device=dev)
+            err = ratio = 0.0
+            for t in range(REC_ADAPTER_STEPS):
+                move = torch.rand(b, generator=gen, device=dev) < 0.5
+                w = torch.where(move[:, None, None], draw(), w)
+                st = NetworkState(w=(w,), v=(), trace=(),
+                                  t=torch.zeros((), dtype=torch.int32,
+                                                device=dev),
+                                  w_scale=scales)
+                raw = torch.rand(b, 3, generator=gen, device=dev)
+                tel = FleetTelemetry(raw[:, 0], raw[:, 1], raw[:, 2],
+                                     active.float())
+                n0 = R.record_step.launches
+                kern, kv = R.record_step(hcfg, kern, st, tel, t, active,
+                                         quant)
+                require(R.record_step.launches == n0 + 1,
+                        "recorder: record_step did not launch its kernel")
+                plain, pv = R.record_step_plain(hcfg, plain, st, tel, t,
+                                                active, quant)
+                torch.cuda.synchronize()
+                e, q = recorder_leaves_held(
+                    kern, plain, quant, f"adapter N = {n} {mode} step {t}")
+                err, ratio = max(err, e), max(ratio, q)
+                require(torch.equal(kv, pv), f"recorder adapter N = {n} "
+                        f"{mode} step {t}: verdict differs")
+            require(ratio <= 1, f"recorder adapter N = {n} {mode}: max "
+                    f"|err| {err} outside rtol = atol = {REC_TOL}")
+            r = results["recorder"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            plan = R.recorder_plan(b, [n * n], dt, sms)
+            log(f"  recorder adapter N = {n}, B = {b}, {mode}: "
+                f"{REC_ADAPTER_STEPS} steps, " +
+                ("every leaf bit for bit" if quant else
+                 f"floats max |err| {err:.3g}") + "; " + plan_line(plan))
 
 
 # ---- phase 13: session health of the controller fleet at full width --------
@@ -4793,7 +4911,7 @@ def profile_ops(fn, windows, expect):
     copies = sum(e.count for e in ev if e.key.startswith(("Memcpy",
                                                            "Memset")))
     busy = sum(e.self_device_time_total for e in ev) / 1e3
-    rec = [e for e in ev if "recorder_kernel" in e.key]
+    rec = [e for e in ev if REC_KERNEL in e.key]
     out = {"windows": windows, "wall_ms": wall,
            "device_busy_ms": busy,
            "idle_share": 1 - busy / wall if busy else None,
@@ -4827,50 +4945,83 @@ def recorder_bytes(b, sizes, wb, quant):
 
 
 def time_recorder(dev, results):
-    """`record_step`'s device time at 8-128-8, B = 4096 (L2 flushed) beside
-    its plain version and its bound by bytes, float32 and int8."""
+    """`record_step`'s device time (`device_ms`, L2 flushed by writing,
+    the default of every timing here, and by reading, which leaves no
+    dirty lines for the kernel to write back) beside its plain version and its bound by bytes:
+    8-128-8, B = 4096, in float32, bfloat16 and int8, and the LM adapter's
+    one N x N layer at B = 8 for N in REC_ADAPTERS, float32 and int8; and
+    an empty kernel's time by the same `device_ms`, a launch's floor."""
+    import ctypes
     import torch
-    from repro_torch.configs import firefly_snn
-    from repro_torch.core import snn
+    from repro_torch.core.engine import NetworkState
+    from repro_torch.kernels import _build
     from repro_torch.obs import recorder as R
     from repro_torch.obs.telemetry import FleetTelemetry
     gen = torch.Generator(dev).manual_seed(SEED + 33)
     hcfg = health_config()
-    active = torch.rand(B, generator=gen, device=dev) < 0.9
-    sizes = firefly_snn.CONFIG.layer_sizes
-    syn = sum(sizes[i] * sizes[i + 1] for i in range(len(sizes) - 1))
-    timed = {}
-    for quant in (False, True):
-        cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
-               else firefly_snn.CONFIG)
-        st = snn.init_state(cfg, batch=B, fleet=True, device=dev)
-        w = tuple((torch.randint(-127, 128, tuple(a.shape), generator=gen,
-                                 device=dev, dtype=torch.int32)
-                   .to(torch.int8) if quant
-                   else torch.randn(tuple(a.shape), generator=gen,
-                                    device=dev)) for a in st.w)
-        state = dataclasses.replace(st, w=w)
-        raw = torch.rand(B, 3, generator=gen, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.library("recorder.cu")
+    lib.recorder_empty.argtypes, lib.recorder_empty.restype = \
+        [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    timed = {"launch_floor": {
+        f: device_ms(lambda: lib.recorder_empty(stream), flush=f)
+        for f in ("write", "read")}}
+    shapes = [("float32", B, (8, 128, 8)), ("bfloat16", B, (8, 128, 8)),
+              ("int8", B, (8, 128, 8))]
+    shapes += [(f"adapter{n}-{m}", REC_ADAPTER_B, (n, n))
+               for n in REC_ADAPTERS for m in ("float32", "int8")]
+    for key, b, sizes in shapes:
+        mode = key.split("-")[-1]
+        quant = mode == "int8"
+        dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8}[mode]
+        w = tuple((torch.randint(-40, 41, (b, sizes[i], sizes[i + 1]),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.int8)
+                   if quant else
+                   torch.randn((b, sizes[i], sizes[i + 1]), generator=gen,
+                               device=dev).to(dt))
+                  for i in range(len(sizes) - 1))
+        scales = tuple(torch.rand(b, generator=gen, device=dev) / 16
+                       for _ in w) if quant else ()
+        state = NetworkState(w=w, v=(), trace=(),
+                             t=torch.zeros((), dtype=torch.int32,
+                                           device=dev), w_scale=scales)
+        raw = torch.rand(b, 3, generator=gen, device=dev)
+        active = torch.rand(b, generator=gen, device=dev) < 0.9
         tel = FleetTelemetry(raw[:, 0], raw[:, 1], raw[:, 2],
                              active.float())
-        rec = R.init_recorder(hcfg, B, device=dev)
+        rec = R.init_recorder(hcfg, b, device=dev)
         pos = [0]
 
         def call(fn=R.record_step):
             fn(hcfg, rec, state, tel, pos[0], active, quant)
             pos[0] += 1
         ms = device_ms(call)
+        ms_read = device_ms(call, flush="read")
         plain = device_ms(lambda: call(R.record_step_plain), reps=5)
-        b_ms, kind = bound(recorder_bytes(B, sizes, 1 if quant else 4, quant),
-                           2 * B * syn)
-        timed["int8" if quant else "float32"] = dict(
-            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=kind)
-    results["recorder"].update(timed["float32"])
-    results["recorder"]["int8"] = timed["int8"]
-    for mode, r in timed.items():
-        log(f"  recorder {mode}: {r['ms']:.4f} ms a launch (cold L2), plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']} ({r['ms'] / r['bound_ms']:.1f}x)")
+        wb = torch.empty((), dtype=dt).element_size()
+        syn = sum(sizes[i] * sizes[i + 1] for i in range(len(sizes) - 1))
+        b_ms, kind = bound(recorder_bytes(b, sizes, wb, quant), 2 * b * syn)
+        plan = R.recorder_plan(b, [x.shape[1] * x.shape[2] for x in w], dt,
+                               sms)
+        timed[key] = dict(ms=ms, ms_read_flush=ms_read, plain_ms=plain,
+                          bound_ms=b_ms, bound_by=kind, b=b,
+                          sizes=list(sizes), plan=plan_line(plan))
+    fleet = {k: timed.pop(k) for k in REC_DTYPES}
+    timed["adapter"] = {k: timed.pop(k) for k in list(timed)
+                        if k.startswith("adapter")}
+    timed.update(fleet)
+    floor = timed["launch_floor"]
+    log(f"  an empty kernel (a launch's floor): {floor['write']:.4f} ms "
+        f"(L2 flushed by writing), {floor['read']:.4f} ms (by reading)")
+    for key, r in list(fleet.items()) + list(timed["adapter"].items()):
+        log(f"  recorder {key} (B = {r['b']}, {r['sizes']}): {r['ms']:.4f} "
+            f"ms a launch (L2 flushed by writing), {r['ms_read_flush']:.4f} "
+            f"ms (by reading), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({r['ms'] / r['bound_ms']:.1f}x); {r['plan']}")
     return timed
 
 
@@ -4886,9 +5037,9 @@ def profile_recorded_windows(run, quant):
     # once; a recorded one launches the recorder too
     n = HEALTH_PROFILED
     tel = profile_ops(lambda: run.window(telemetry=True), n,
-                      {"rollout_kernel": n, "DtoH": n, "recorder_kernel": 0})
+                      {"rollout_kernel": n, "DtoH": n, REC_KERNEL: 0})
     rec = profile_ops(lambda: run.window(telemetry=True, record=True), n,
-                      {"rollout_kernel": n, "DtoH": n, "recorder_kernel": n})
+                      {"rollout_kernel": n, "DtoH": n, REC_KERNEL: n})
     mode = "int8" if quant else "float32"
     for name, p in (("telemetry-on", tel), ("recorded", rec)):
         log(f"  {mode} {name}: {p['kernels_per_window']:g} kernels, "
@@ -5068,8 +5219,10 @@ def health_path(dev, results):
             torch.cuda.empty_cache()
         results["recorder"]["launches"] = R.record_step.launches
     timed = health_profiles(work)
-    results["recorder"].update(timed["timing"]["float32"])
-    results["recorder"]["int8"] = timed["timing"]["int8"]
+    timing = timed["timing"]
+    results["recorder"].update(timing["float32"])
+    for key in ("bfloat16", "int8", "adapter", "launch_floor"):
+        results["recorder"][key] = timing[key]
     for mode in ("float32", "int8"):
         out[mode]["profile"] = timed[mode]
     out["timing"] = timed["timing"]
@@ -8075,7 +8228,7 @@ def main() -> int:
         compare_bf16_steps(dev, results)
         compare_bf16_windows(dev, results)
     with phase("phase 2h: the recorder kernel against its plain version, "
-               "8-128-8, B = 4096"):
+               "8-128-8, B = 4096, and the adapter's N = 128, 512, B = 8"):
         compare_recorder(dev, results)
 
     with phase("phase 3: recovery gate"):

@@ -17,7 +17,8 @@ what the scheduler calls: on the card it launches ``csrc/recorder.cu``,
 which reads the weights, latches ``wnorm0``, writes ring row ``pos % W``
 and runs the detectors in one launch (counted in ``record_step.launches``);
 on a CPU tensor it composes the plain versions.  Either way it updates the
-recorder state in place.
+recorder state in place.  `recorder_plan` lays the launch out from the
+shape (the kernel refuses another layout).
 
 `dump_incident` is the post-mortem exit: one JSON (verdicts, streaks,
 config, registry snapshot, watchdog state) and one NPZ (the unrolled ring
@@ -49,7 +50,30 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _W_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-MAX_LAYERS = 8                  # kMaxLayers of csrc/recorder.cu
+_W_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+# csrc/recorder.cu's constants: layers, threads a CTA, slots a CTA (four
+# threads each), CTAs a slot (portable clusters), CTAs an SM, a CTA's and
+# an SM's shared bytes (1 KB of the SM's kept a CTA), the bytes a tile aims
+# at, the least bytes a cluster rank takes, the layer table's bytes
+MAX_LAYERS = 8
+REC_THREADS = 256
+REC_MAX_TILE = REC_THREADS // 4
+REC_MAX_CLUSTER = 8
+REC_MAX_CTAS_SM = 4
+REC_SMEM_MAX = 232448
+REC_SMEM_SM = 233472
+REC_STAGE_TARGET = 32768
+REC_MIN_SHARE = 2048
+_LAYER_TABLE = 32 * MAX_LAYERS
+# the fields of a plan that the kernel's launcher checks, in its order
+_PLAN_FIELDS = ("cluster", "slots", "tiles", "stages", "ctas", "stage_bytes",
+                "smem", "words")
+RECORDER_KERNELS = ("recorder_tiles_kernel<float>",
+                    "recorder_tiles_kernel<bf16>",
+                    "recorder_tiles_kernel<int8>",
+                    "recorder_cluster_kernel<float>",
+                    "recorder_cluster_kernel<bf16>",
+                    "recorder_cluster_kernel<int8>")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +198,123 @@ def record_step_plain(cfg: HealthConfig, rec: RecorderState, state, tel,
     return rec, verdict
 
 
+# ---- the kernel's plan ------------------------------------------------------
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _extra_bytes(n_layers: int) -> int:
+    """Shared bytes after the stages: the (slot, layer) sums of a CTA's
+    slots (at most `REC_MAX_TILE`) or a cluster CTA's warp sums and
+    partials, 8 bytes each; two mbarriers; the layer table."""
+    return 8 * REC_MAX_TILE * n_layers + 16 + _LAYER_TABLE
+
+
+def _stage(nms, e: int, k: int, c: int):
+    """(bytes, shares, offsets) of a stage holding k slots' layers, each
+    layer's region 4 bytes over its span (a cp.async span starts at byte
+    address & 3) rounded to 16; a CTA takes ``share`` elements of a slot's
+    layer: all of it, or on a cluster of c CTAs a 16-byte multiple."""
+    v = 16 // e
+    s, shares, offs = 0, [], []
+    for nm in nms:
+        share = nm if c == 1 else -(-(-(-nm // c)) // v) * v
+        shares.append(share)
+        offs.append(s)
+        s += _align16(k * share * e + 4)
+    return s, tuple(shares), tuple(offs)
+
+
+def recorder_plan(b: int, nms, w_dtype, sm_count: int,
+                  aligned=None) -> dict:
+    """How ``csrc/recorder.cu`` lays out one recorded step of ``b`` slots
+    whose layers hold ``nms`` weights each (N * M) of ``w_dtype``, on a card
+    of ``sm_count`` SMs (``aligned``: each layer's base on 16 bytes; all by
+    default).  The launcher computes the same plan and refuses another.
+
+    ``route`` "tiles" (many small slots, the fleet): a CTA takes ``slots``
+    consecutive slots a tile, whose layers are one contiguous span each, so
+    one thread brings them in by bulk copies while the detector threads
+    load the state; ``ctas`` CTAs walk the ``tiles`` through ``stages``
+    buffers of ``stage_bytes``.  "cluster" (few large slots, the LM
+    adapter): one slot runs on ``cluster`` CTAs, each taking ``shares``
+    elements of every layer, their sums met in rank order.  ``loads``: each
+    layer by one "bulk" copy, or "cp_async" words where its N M bytes are
+    not a multiple of 16 or its base is off 16 bytes (``words``: their
+    bits).  ``smem``: dynamic shared bytes a CTA.  Raises for a shape no
+    plan fits: a slot whose eighth does not fit a CTA's shared memory, or
+    more than `MAX_LAYERS` layers."""
+    if w_dtype not in _W_BYTES:
+        raise ValueError(f"recorder_plan takes float32, bfloat16 or int8 "
+                         f"weights; got {w_dtype}")
+    e = _W_BYTES[w_dtype]
+    nms = tuple(int(n) for n in nms)
+    n = len(nms)
+    if not 1 <= n <= MAX_LAYERS or b < 1 or min(nms) < 1 or sm_count < 1:
+        raise ValueError(f"recorder_plan takes 1 to {MAX_LAYERS} layers of "
+                         f"at least one weight and B >= 1; got B = {b}, "
+                         f"N * M = {nms}")
+    aligned = (True,) * n if aligned is None else tuple(map(bool, aligned))
+    loads = tuple("bulk" if al and nm * e % 16 == 0 else "cp_async"
+                  for nm, al in zip(nms, aligned))
+    words = sum(1 << l for l, r in enumerate(loads) if r == "cp_async")
+    per_slot = sum(nms) * e
+    c = min(REC_MAX_CLUSTER, -(-sm_count // b),
+            max(1, per_slot // REC_MIN_SHARE))
+    if c == 1 and (2 * _stage(nms, e, 1, 1)[0] + _extra_bytes(n)
+                   <= REC_SMEM_MAX):
+        k = max(1, min(REC_MAX_TILE, REC_STAGE_TARGET // per_slot,
+                       -(-b // sm_count)))
+        tiles = -(-b // k)
+        stage, shares, offs = _stage(nms, e, k, 1)
+        extra = _extra_bytes(n)
+        per_sm = min(REC_MAX_CTAS_SM, REC_SMEM_SM // (stage + extra + 1024))
+        stages = 1 if tiles <= sm_count * per_sm else 2
+        if stages == 2:
+            per_sm = min(REC_MAX_CTAS_SM,
+                         REC_SMEM_SM // (2 * stage + extra + 1024))
+        # a CTA holds the detector state of at most REC_MAX_TILE slots
+        ctas = max(min(tiles, sm_count * per_sm),
+                   -(-tiles // (REC_MAX_TILE // k)))
+        plan = dict(route="tiles", cluster=1, slots=k, tiles=tiles,
+                    stages=stages, ctas=ctas, stage_bytes=stage,
+                    smem=stages * stage + extra)
+    else:
+        c = max(c, 2)
+        while c <= REC_MAX_CLUSTER and (_stage(nms, e, 1, c)[0]
+                                        + _extra_bytes(n) > REC_SMEM_MAX):
+            c += 1
+        if c > REC_MAX_CLUSTER:
+            raise ValueError(f"the recorder takes a slot of at most "
+                             f"{REC_MAX_CLUSTER} CTAs' shared memory; "
+                             f"{per_slot} bytes a slot (N * M = {nms}) do "
+                             f"not fit")
+        stage, shares, offs = _stage(nms, e, 1, c)
+        plan = dict(route="cluster", cluster=c, slots=1, tiles=b, stages=1,
+                    ctas=b * c, stage_bytes=stage,
+                    smem=stage + _extra_bytes(n))
+    # int8: a warp adds at most a stage's bytes into 32-bit partials
+    if e == 1 and 128 * plan["stage_bytes"] >= 2 ** 31:
+        raise ValueError("the recorder's int8 partials could overflow")
+    plan.update(threads=REC_THREADS, loads=loads, words=words, shares=shares,
+                offsets=offs)
+    return plan
+
+
+def recorder_attrs() -> dict:
+    """``{kernel: {registers, local_bytes}}`` of ``csrc/recorder.cu``'s
+    kernels (`RECORDER_KERNELS`) as compiled (``cudaFuncGetAttributes``;
+    ``local_bytes`` a thread are its spills and stack).  Needs the card."""
+    fn = _build.library("recorder.cu").recorder_attrs
+    fn.argtypes, fn.restype = [ctypes.POINTER(_I), _I], _I
+    out = (_I * (2 * len(RECORDER_KERNELS)))()
+    _build.check(fn(out, len(RECORDER_KERNELS)), "recorder_attrs")
+    return {name: dict(registers=out[2 * i], local_bytes=out[2 * i + 1])
+            for i, name in enumerate(RECORDER_KERNELS)}
+
+
 def _config_arrays(cfg: HealthConfig):
     a = float(cfg.ewma_alpha)
     floats = ([a, 1.0 - a, float(cfg.z_threshold), float(cfg.z_floor) ** 2,
@@ -196,10 +337,11 @@ def record_step(cfg: HealthConfig, rec: RecorderState, state, tel, pos,
     the detectors.  Returns ``(rec, verdict (B,) bool)``.
 
     A CPU recorder takes `record_step_plain`; on the card this launches
-    ``csrc/recorder.cu`` once, with ``pos`` passed by value, and counts it
-    in ``record_step.launches``.  The weights must be contiguous (a fleet's
-    are), the telemetry fields ``(B,)`` float32 at any stride, ``active`` a
-    ``(B,)`` bool or uint8 mask on the card."""
+    ``csrc/recorder.cu`` once, laid out by `recorder_plan`, with ``pos``
+    passed by value, and counts it in ``record_step.launches`` (B = 0
+    launches nothing).  The weights must be contiguous (a fleet's are), the
+    telemetry fields ``(B,)`` float32 at any stride, ``active`` a ``(B,)``
+    bool or uint8 mask on the card."""
     # the kernel helpers import obs.telemetry: imported here, not above
     from repro_torch.kernels.plasticity.kernel import on_card, stream_of
     if not on_card(rec.ring):
@@ -243,26 +385,35 @@ def record_step(cfg: HealthConfig, rec: RecorderState, state, tel, pos,
                          f"uint8 mask on {dev}")
     h = rec.health
     verdict = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0:
+        return rec, verdict
     n = len(layers)
+    nms = [w.shape[1] * w.shape[2] for w in layers]
+    plan = recorder_plan(b, nms, w_dt,
+                         torch.cuda.get_device_properties(dev)
+                         .multi_processor_count,
+                         [w.data_ptr() % 16 == 0 for w in layers])
     fc, ic = _config_arrays(cfg)
     fn = _build.library("recorder.cu").recorder_step
     fn.argtypes = [ctypes.POINTER(_P), ctypes.POINTER(_P),
                    ctypes.POINTER(_L), _I, _I, ctypes.POINTER(_P),
                    ctypes.POINTER(_L), _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _P, _L, _I, _I, ctypes.POINTER(ctypes.c_float),
-                   ctypes.POINTER(_I), _P]
+                   ctypes.POINTER(_I), ctypes.POINTER(_I), _P]
     fn.restype = _I
     _build.check(fn(
         (_P * n)(*[w.data_ptr() for w in layers]),
         (_P * n)(*[None if s is None else s.data_ptr() for s in scales]),
-        (_L * n)(*[w.shape[1] * w.shape[2] for w in layers]), n,
+        (_L * n)(*nms), n,
         _W_DTYPE[w_dt], (_P * 3)(*[t.data_ptr() for t in cols]),
         (_L * 3)(*[t.stride(0) for t in cols]),
         None if active is None else active.data_ptr(),
         rec.ring.data_ptr(), rec.wnorm0.data_ptr(), h.ewma_mean.data_ptr(),
         h.ewma_var.data_ptr(), h.last.data_ptr(), h.streaks.data_ptr(),
         h.flagged.data_ptr(), h.steps.data_ptr(), verdict.data_ptr(),
-        int(pos) % cfg.window, cfg.window, b, fc, ic, stream_of(rec.ring)),
+        int(pos) % cfg.window, cfg.window, b, fc, ic,
+        (_I * len(_PLAN_FIELDS))(*[plan[k] for k in _PLAN_FIELDS]),
+        stream_of(rec.ring)),
         "recorder_step")
     _record_step.launches += 1
     return rec, verdict

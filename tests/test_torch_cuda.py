@@ -1307,38 +1307,69 @@ def test_bf16_rollout_kernels_match_plain_on_card(fleet, cuda_device):
         TE.rollout(st, theta, drives.to(torch.float16), **kw)
 
 
+# (B, layer sizes) a recorder case: the three-layer net with a CTA of
+# warps left idle; the LM adapter's one 128 x 128 and 512 x 512 layer at
+# B = 8 (a slot spans a cluster); a second layer of 15 weights, whose rows
+# break the copy engine's 16-byte rules (the cp.async route); the fleet's
+# 8-128-8 at B = 4096 (a persistent grid through two stages in float32)
+RECORDER_CASES = {"8-48-24-8": (37, (8, 48, 24, 8)),
+                  "adapter-128": (8, (128, 128)),
+                  "adapter-512": (8, (512, 512)),
+                  "cp-async": (600, (8, 5, 3)),
+                  "fleet": (4096, (8, 128, 8))}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wdtype", ("float32", "bfloat16", "int8"))
-def test_recorder_kernel_matches_plain_on_card(wdtype, cuda_device):
-    """`obs.recorder.record_step` (csrc/recorder.cu, one launch a step)
-    equals `record_step_plain` over 14 steps of a 8-48-24-8 fleet at
-    B = 37 (a CTA's last warps idle), W = 5 (the ring wraps), telemetry
-    columns at stride 3, a partial bool mask and a planted stuck, dead and
+@pytest.mark.parametrize("case", tuple(RECORDER_CASES))
+def test_recorder_kernel_matches_plain_on_card(case, wdtype, cuda_device):
+    """`obs.recorder.record_step` (csrc/recorder.cu, one launch a step, laid
+    out by `recorder_plan`) equals `record_step_plain` over 14 steps of each
+    `RECORDER_CASES` fleet, W = 5 (the ring wraps), telemetry columns at
+    stride 3, a partial bool mask and a planted stuck, dead and
     out-of-corridor slot: flags, streaks, steps and verdicts exact; int8
-    every leaf bit for bit, float ring, baselines and wnorm0 within rtol =
-    atol = 1e-6 (the weight norm sums in another order, and the drift
-    channel is a difference of two norms)."""
+    every leaf bit for bit, with -128 among the weights; float ring,
+    baselines and wnorm0 within rtol = atol = 1e-6 (the weight norm sums in
+    another order, and the drift channel is a difference of two norms).  A
+    second launch from the same state gives the same bits, and no kernel of
+    the file uses local memory.  The adapters' int8 weights keep a slot's
+    sum of |w| under 2^24, where the plain version's float32 sum is exact
+    (above it the plain sum rounds in its own order; the kernel's is an
+    exact integer, rounded once)."""
     from repro_torch.core.engine import NetworkState
     from repro_torch.checkpoint import manager as TM
     from repro_torch.obs import health as THl, recorder as TRec
     from repro_torch.obs.telemetry import FleetTelemetry
     dev = cuda_device
-    b, sizes, steps = 37, (8, 48, 24, 8), 14
-    stuck, dead, bound = 3, 5, 8
+    b, sizes = RECORDER_CASES[case]
+    steps = 14
+    stuck, dead, bound = (3, 5, 8) if b > 8 else (1, 3, 6)
     quant = wdtype == "int8"
-    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}
     cfg = THl.HealthConfig(window=5, warmup=3, hysteresis=(2, 2, 3, 2),
                            dead_floor=1e-3)
     gen = torch.Generator(dev).manual_seed(23)
     active = torch.rand(b, generator=gen, device=dev) < 0.8
     active[[stuck, dead, bound]] = True
+    shapes = [(b, sizes[i], sizes[i + 1]) for i in range(len(sizes) - 1)]
+    nms = [n * m for _, n, m in shapes]
+    plan = TRec.recorder_plan(
+        b, nms, dt[wdtype],
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    wide = case.startswith("adapter")
+    assert plan["route"] == "cluster" or not wide
+    assert "cp_async" in plan["loads"] or case != "cp-async"
 
     def draw():
-        shapes = [(b, sizes[i], sizes[i + 1]) for i in range(len(sizes) - 1)]
         if quant:
-            return [torch.randint(-127, 128, s, generator=gen, device=dev,
-                                  dtype=torch.int32).to(torch.int8)
-                    for s in shapes]
+            lo, hi = (-40, 41) if wide else (-128, 128)
+            out = [torch.randint(lo, hi, s, generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.int8)
+                   for s in shapes]
+            for w in out:                       # -128 in every slot
+                w.view(b, -1)[:, ::97] = -128
+            return out
         return [torch.randn(s, generator=gen, device=dev).to(dt[wdtype])
                 for s in shapes]
     w = draw()
@@ -1361,6 +1392,9 @@ def test_recorder_kernel_matches_plain_on_card(wdtype, cuda_device):
         new[bound, 2] = 1.5
         raw = new
         tel = FleetTelemetry(raw[:, 0], raw[:, 1], raw[:, 2], active.float())
+        if t == steps - 1:          # the last step twice from one state
+            twin = TM.tree_map(torch.clone, kern)
+            _, tv = TRec.record_step(cfg, twin, st, tel, t, active, quant)
         n = TRec.record_step.launches
         kern, kv = TRec.record_step(cfg, kern, st, tel, t, active, quant)
         assert TRec.record_step.launches == n + 1
@@ -1375,9 +1409,14 @@ def test_recorder_kernel_matches_plain_on_card(wdtype, cuda_device):
             else:
                 np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
                                            rtol=1e-6, atol=1e-6)
+    assert torch.equal(tv, kv)
+    assert all(torch.equal(x, y) for x, y in zip(TM.flatten(twin)[1],
+                                                 TM.flatten(kern)[1]))
     flags = kern.health.flagged.cpu()
     assert flags[stuck, 2] and flags[dead, 3] and flags[bound, 1]
     assert not kern.ring[~active].any()
+    usage = TRec.recorder_attrs()
+    assert all(u["local_bytes"] == 0 for u in usage.values()), usage
 
 
 def _adapter_state(rng, quant, b, n, dev):
