@@ -311,8 +311,8 @@ Phases, each fatal on failure:
  17. LM training on the dense layout: (a) #7's backward kernels
      (csrc/flash_attention_bwd.cu: in bf16 the Hopper kernels, wgmma with
      P and dS split hi + lo, TMA through an mbarrier ring) against
-     `flash_attention_bwd_plain` on the forward kernel's o and lse at
-     qwen3-4b's training shape (B = 1, S = 4096, 32 query over 8 KV heads
+     `flash_attention_bwd_plain` on the forward kernel's o and lse (each
+     held against `mha_lse` first) at qwen3-4b's training shape (B = 1, S = 4096, 32 query over 8 KV heads
      of 128) in bf16 and at every head width at S = 512 in float32 and
      bf16 (float32 within 1e-5 of each gradient's largest |x|, bf16
      within rtol 2e-2 / atol 2e-3, a second launch the same bits), timed
@@ -362,7 +362,35 @@ Phases, each fatal on failure:
      ssm-train-profile``) a `torch.profiler` of one mamba2-1.3b step by
      kernel name.
 
-The LM phases (8, 9, 11, 14, 15, 16, 17, 18) and their ``--only`` parts arm
+ 19. MoE training: (a) #7's forward with lse and its backward at
+     deepseek-moe-16b's training shape (B = 1, S = 4096, 16 query over 16
+     KV heads of 128: a GQA group of 1) against their plain versions in
+     bf16 (o within phase 15's tolerance, lse within 1e-4; a second
+     backward launch the same bits), the backward timed beside its bound
+     by operations and SDPA's backward; silu and
+     its backward bit for bit at the step's three SwiGLU shapes (the
+     routed experts' (64, 480, 1408) buffer, the shared experts' 4096 x
+     2816, the dense first layer's 4096 x 10944); AdamW bit for bit at one
+     stacked expert leaf (7 x 64 x 2048 x 1408), timed beside its bound
+     by bytes; (b) one full-width MoE layer on 1 x 4096 tokens: in float32
+     the gradients through the dispatch's and combine's Functions within
+     1e-5 of autograd of their indexing forms, in bf16 its backward twice
+     the same bits (no atomics); (c) 3 steps of deepseek-moe-16b at full
+     width cut to its dense first layer and 7 of its 27 MoE layers (4.62
+     B parameters) at 2 x 4096 tokens through `launch.train.build` (2
+     microbatches, float32 accumulator and moments, remat per block):
+     each step's launches exact (32 #7 forwards, 16 backwards, 60 silu,
+     30 silu backwards, one AdamW launch a leaf), finite losses, the first
+     near ln(102400); step seconds, tokens/s, model FLOP/s and its share
+     of 989 TFLOP/s, peak memory; a 4th step taken twice from the same
+     state saved to the host: the same loss and parameters bit for bit;
+     (d) the dense layer and one MoE layer in float32 against the plain
+     path, both routing alike first; then in a fresh process (``--only
+     moe-train-profile``) a `torch.profiler` of one step by kernel name,
+     with the routing, dispatch, experts and combine in ranges in the
+     forward and the backward.
+
+The LM phases (8, 9, 11, 14, 15, 16, 17, 18, 19) and their ``--only`` parts arm
 `faulthandler` with a limit of a few minutes: a stall prints every
 thread's stack and exits with code 1 long before the script's limit.
 
@@ -388,7 +416,9 @@ version), ``lm-pool`` (phase 14) and ``lm-pool-profile`` (its fresh
 process's profile of 4 pool steps), ``moe`` (phase 15) and
 ``moe-profile`` (its fresh process's profile), ``kv-quant`` (phase 16)
 and ``kv-quant-profile`` (its fresh process's profile), ``train`` (phase
-17) and ``train-profile`` (its fresh process's profile of one step).
+17) and ``train-profile`` (its fresh process's profile of one step),
+``ssm-train`` (phase 18) and ``ssm-train-profile``, ``moe-train`` (phase
+19) and ``moe-train-profile``.
 """
 from __future__ import annotations
 
@@ -7033,15 +7063,32 @@ def bwd_close(got, want, dtype):
 
 
 def train_attention_case(gen, dev, shape, dtype, results, what):
-    """One #7 backward case: the forward kernel's o and lse, then the
-    backward kernel twice (the same bits) against its plain version.
-    Returns the inputs for timing."""
+    """One #7 training case: the forward kernel's o and lse against
+    `mha_lse` (o within `ATTN_TOL`, lse within 1e-4), then the backward
+    kernel twice (the same bits) against its plain version on that o and
+    lse.  Returns the inputs for timing."""
     import torch
     from repro_torch.kernels.attention import kernel as TA
     b, s, h, hkv, d = shape
     q, k, v = attention_inputs(gen, b, s, s, h, hkv, d, dtype, dev)
     do = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
     o, lse = TA._forward(q, k, v, True, None, None, with_lse=True)
+    o_plain, lse_plain = TA._ref.mha_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rtol, atol = ATTN_TOL[str(dtype)[6:]]
+    o_err = float((o.double() - o_plain.double()).abs().max())
+    lse_err = float((lse.double() - lse_plain.double()).abs().max())
+    require(torch.allclose(o.float(), o_plain.float(), rtol=rtol, atol=atol),
+            f"flash_attention {what} with lse: o differs from the plain "
+            f"version (max |err| {o_err:.3g})")
+    require(torch.allclose(lse, lse_plain, rtol=1e-4, atol=1e-4),
+            f"flash_attention {what}: lse differs from the plain version "
+            f"(max |err| {lse_err:.3g})")
+    row = results["flash_attention"]
+    row["max_abs_err"] = max(row["max_abs_err"], o_err)
+    log(f"  flash_attention {what} with lse: o against the plain version, "
+        f"max |err| {o_err:.3g}; lse max |err| {lse_err:.3g}")
+    del o_plain, lse_plain
     got = TA.flash_attention_bwd(q, k, v, o, lse, do)
     again = TA.flash_attention_bwd(q, k, v, o, lse, do)
     want = TA.flash_attention_bwd_plain(q, k, v, o, lse, do)
@@ -7299,19 +7346,24 @@ def zero_train_counts():
 def train_launches(cfg, microbatches, leaves):
     """`train_counts` a step with remat on, each microbatch: every dense
     block and every use of a zsuper's shared block #7 and silu twice (its
-    forward and the recompute) and their backwards once; every Mamba2
-    block #8 twice and its backward once, silu 4 times (the conv's and
-    the gate's, twice) and its backward twice; AdamW once a leaf."""
+    forward and the recompute) and their backwards once; a MoE block #7
+    the same and silu twice for each of its SwiGLUs (the routed experts',
+    and the shared experts' if it has them); every Mamba2 block #8 twice
+    and its backward once, silu 4 times (the conv's and the gate's,
+    twice) and its backward twice; AdamW once a leaf."""
     from repro_torch.models.transformer import segments
-    n_ssm = n_attn = 0
+    n_ssm = n_attn = n_mlp = 0
     for kind, count in segments(cfg):
-        n_ssm += count if kind == "ssm" else 0
-        n_attn += count if kind != "ssm" else 0
+        if kind == "ssm":
+            n_ssm += count
+            continue
+        n_attn += count
+        n_mlp += count * (1 + bool(cfg.moe.n_shared) if kind == "moe" else 1)
         if kind == "zsuper":
             n_ssm += count * (cfg.ssm.attn_every - 1)
     mb = microbatches
     return (2 * mb * n_ssm, mb * n_ssm, 2 * mb * n_attn, mb * n_attn,
-            mb * (4 * n_ssm + 2 * n_attn), mb * (2 * n_ssm + n_attn), leaves)
+            mb * (4 * n_ssm + 2 * n_mlp), mb * (2 * n_ssm + n_mlp), leaves)
 
 
 def smoke_leaves(arch):
@@ -7426,14 +7478,59 @@ def train_path(dev, results):
     return out
 
 
+@contextlib.contextmanager
+def routing_log(into):
+    """Append each `moe.route` call's (expert ids, kept assignments, rows,
+    the top-(k+1) router probabilities of every token) to ``into``."""
+    import torch
+    from repro_torch.models import moe as MoE
+    real = MoE.route
+
+    def route(h, router, cfg, *a, **kw):
+        r = real(h, router, cfg, *a, **kw)
+        with torch.no_grad():
+            probs = torch.softmax(h.reshape(r.expert_idx.shape[:2] + (-1,))
+                                  .float() @ router.float(), dim=-1)
+            top = probs.topk(cfg.moe.top_k + 1, dim=-1).values
+        into.append((r.expert_idx, r.keep, r.row, top))
+        return r
+
+    with mock.patch.object(MoE, "route", route):
+        yield into
+
+
+def routings_equal(got, want, what):
+    """Fail unless two runs' `routing_log`s route alike call by call:
+    expert ids, kept assignments and rows.  A differing token is printed
+    with its k-th and (k+1)-th router probabilities in each run."""
+    import torch
+    require(len(got) == len(want), f"{what}: {len(got)} MoE calls against "
+                                   f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if all(torch.equal(a, b) for a, b in zip(g[:3], w[:3])):
+            continue
+        bad = (g[0] != w[0]).any(-1).nonzero().tolist()
+        for grp, t in bad[:8]:
+            log(f"  {what}: call {i} token {t} (group {grp}) experts "
+                f"{g[0][grp, t].tolist()} / {w[0][grp, t].tolist()}, k-th and "
+                f"(k+1)-th probabilities {g[3][grp, t, -2:].tolist()} / "
+                f"{w[3][grp, t, -2:].tolist()}")
+        require(False, f"{what}: MoE call {i} routes {len(bad)} tokens "
+                        f"otherwise than the plain path")
+    return len(got)
+
+
 def train_shallow_matches(dev, arch):
     """(d): ``arch`` at full width and `shallow` depth (2 layers; a hybrid
     4, a super-block of 3 and a trailing Mamba2 block, since it needs its
-    shared block), float32, remat on, one microbatch of 4096 tokens: the
-    loss and every gradient leaf through the kernels against the plain
-    path (the plain attention, SSD scan and silu, differentiated by
-    autograd), the loss within 1e-5 relative and each leaf within 1e-4 of
-    its largest |g|; launches exact."""
+    shared block; deepseek-moe-16b its dense first layer and one MoE
+    layer), float32, remat on, one microbatch of 4096 tokens: the loss and
+    every gradient leaf through the kernels against the plain path (the
+    plain attention, SSD scan and silu, and the MoE dispatch and combine
+    as indexing, differentiated by autograd), the loss within 1e-5
+    relative and each leaf within 1e-4 of its largest |g|; launches
+    exact; in a MoE layer both paths route alike first (`routings_equal`,
+    every call: the forward and remat's recompute)."""
     import torch
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.ssd import kernel as SK
@@ -7455,15 +7552,24 @@ def train_shallow_matches(dev, arch):
 
     want = train_launches(cfg, 1, 0)
     zero_train_counts()
-    loss, grads = run()
+    routes, routes_p = [], []
+    with routing_log(routes):
+        loss, grads = run()
     got = train_counts()
     require(got == want, f"{arch} {cfg.n_layers} layers float32: launches "
                          f"{got}, want {want}")
-    with mock.patch.object(MA, "attn_op", TA.flash_attention_plain), \
-            mock.patch.object(MS, "ssd_op", SK.ssd_scan_plain), \
-            mock.patch.object(MS, "silu", ML.silu_plain), \
-            mock.patch.object(ML, "silu", ML.silu_plain):
+    with contextlib.ExitStack() as stack:
+        for p in (mock.patch.object(MA, "attn_op", TA.flash_attention_plain),
+                  mock.patch.object(MS, "ssd_op", SK.ssd_scan_plain),
+                  mock.patch.object(MS, "silu", ML.silu_plain),
+                  mock.patch.object(ML, "silu", ML.silu_plain),
+                  *(moe_indexing_forms() if cfg.moe else ()),
+                  routing_log(routes_p)):
+            stack.enter_context(p)
         loss_p, grads_p = run()
+    calls = routings_equal(routes, routes_p,
+                           f"{arch} {cfg.n_layers} layers float32") \
+        if cfg.moe else 0
     rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
     worst = max(float((g - w).abs().max() / w.abs().max())
                 for g, w in zip(grads, grads_p))
@@ -7474,11 +7580,13 @@ def train_shallow_matches(dev, arch):
     log(f"  {cfg.name}, {cfg.n_layers} layers at full width, float32, 1 x "
         f"{TRAIN_SEQ}: loss {float(loss):.6f}, rel diff {rel:.3g}; every "
         f"gradient leaf within {worst:.3g} of its largest |g| of the plain "
-        f"path's; launches {got}")
-    del params, grads, grads_p
+        f"path's; launches {got}"
+        + (f"; {calls} MoE calls routed alike (expert ids, kept "
+           f"assignments, rows)" if calls else ""))
+    del params, grads, grads_p, routes, routes_p
     torch.cuda.empty_cache()
     return dict(n_layers=cfg.n_layers, loss=float(loss), loss_rel_diff=rel,
-                worst_leaf=worst)
+                worst_leaf=worst, moe_calls_routed_alike=calls)
 
 
 def train_cli():
@@ -8009,6 +8117,457 @@ def ssm_train_all(dev, results):
     return out
 
 
+# ---- phase 19: MoE training ----------------------------------------------------
+
+# full-width deepseek-moe-16b (16.38 B parameters, ~229 GB of bf16 weights,
+# float32 accumulator and AdamW moments) cut to its dense first layer and
+# 7 of its 27 MoE layers (4.62 B, ~60.2 GiB of training state) to fit one
+# card; train_4k's S = 4096, its global batch cut to 2 rows (as phase 17)
+MOE_TRAIN_LAYERS = 8
+MOE_TRAIN_BATCH = 2
+MOE_TRAIN_ATTN = (1, TRAIN_SEQ, 16, 16, 128)   # one microbatch at deepseek
+# the step's kernels by name, the index kernels (gathers, scatters,
+# indexing) apart from the other elementwise ones
+MOE_TRAIN_GROUPS = {**TRAIN_GROUPS,
+                    "elementwise": r"^(?!.*(index|gather|scatter))"
+                                   r".*elementwise_kernel",
+                    "index": r"index|gather|scatter"}
+
+
+def moe_train_kernels(dev, results):
+    """(a): #7's forward with lse and its backward at deepseek-moe-16b's
+    training shape (MHA: 16 query over 16 KV heads of 128, S = 4096)
+    against their plain versions (`train_attention_case`), the backward
+    timed beside its bound by operations, SDPA's backward and the
+    forward; silu and its backward bit for bit at
+    the step's three SwiGLU shapes (the routed experts' (64, cap, 1408)
+    buffer at one microbatch, the shared experts' 4096 x 2816, the dense
+    first layer's 4096 x 10944); AdamW bit for bit at one stacked expert
+    leaf (7 x 64 x 2048 x 1408), timed beside its bound by bytes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import kernel as TA
+    from repro_torch.models import layers as ML, moe as MoE
+    from repro_torch.optim import optimizers as O
+    out = {}
+    gen = torch.Generator(dev).manual_seed(SEED + 70)
+    q, k, v, o, lse, do = train_attention_case(
+        gen, dev, MOE_TRAIN_ATTN, torch.bfloat16, results,
+        f"bf16 {MOE_ARCH} training {MOE_TRAIN_ATTN}")
+    ms = device_ms(lambda: TA.flash_attention_bwd(q, k, v, o, lse, do),
+                   reps=5)
+    plain = device_ms(lambda: TA.flash_attention_bwd_plain(q, k, v, o, lse,
+                                                           do), reps=3)
+    fwd = device_ms(lambda: TA._forward(q, k, v, True, None, None,
+                                        with_lse=True), reps=5)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib = device_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                                retain_graph=True), reps=5)
+    bms, kind, tb, to = attention_bwd_bound(1, TRAIN_SEQ, TRAIN_SEQ,
+                                            *MOE_TRAIN_ATTN[2:], 2)
+    out["attention_bwd"] = dict(
+        shape=dict(zip(("B", "S", "H", "HKV", "D"), MOE_TRAIN_ATTN)), ms=ms,
+        plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=kind,
+        tflops=to * BF16_OPS_PER_S / 1e3 / ms / 1e9, forward_with_lse_ms=fwd)
+    results["flash_attention_bwd"]["moe_shape"] = out["attention_bwd"]
+    log(f"  flash_attention_bwd bf16 {MOE_TRAIN_ATTN} (one layer of a "
+        f"microbatch): {ms:.4f} ms (bound {bms:.4f} ms by {kind}), "
+        f"{out['attention_bwd']['tflops']:.1f} TFLOP/s, {ms / bms:.1f}x the "
+        f"bound; plain {plain:.4f} ms; SDPA's backward {lib:.4f} ms "
+        f"({ms / lib:.2f}x); the forward with lse {fwd:.4f} ms")
+    del q, k, v, o, lse, do, qt, kt, vt, sdpa, dot
+    torch.cuda.empty_cache()
+
+    cfg = lm_config(MOE_ARCH)[0]
+    m = cfg.moe
+    shapes = {"routed experts": (m.num_experts, MoE.capacity(cfg, TRAIN_SEQ),
+                                 m.d_expert),
+              "shared experts": (TRAIN_SEQ, m.n_shared * m.d_expert),
+              "dense first layer": (TRAIN_SEQ, m.first_dense_ff)}
+    for what, shape in shapes.items():
+        g, u, dy = (torch.randn(shape, generator=gen, device=dev).mul_(s)
+                    .to(torch.bfloat16) for s in (4, 1, 0.5))
+        pairs = (("silu", (ML.silu(g, u),), (ML.silu_plain(g, u),)),
+                 ("silu_bwd", ML.silu_bwd(g, u, dy),
+                  ML.silu_bwd_plain(g, u, dy)))
+        torch.cuda.synchronize()
+        for name, got, want in pairs:
+            err = max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(got, want))
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err)
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"{name} {MOE_ARCH} {what} {shape}: differs from its "
+                    f"plain version (max err {err})")
+        log(f"  silu and silu_bwd {MOE_ARCH} {what} {shape} bf16: bit for "
+            f"bit")
+        del g, u, dy, pairs
+    out["silu_shapes"] = {k: list(v) for k, v in shapes.items()}
+
+    n = (MOE_TRAIN_LAYERS - m.first_dense) * m.num_experts * cfg.d_model \
+        * m.d_expert
+    f32, bf16 = torch.float32, torch.bfloat16
+    p = torch.randn(n, generator=gen, device=dev).to(bf16)
+    mo = 1e-3 * torch.randn(n, generator=gen, device=dev)
+    vo = (1e-3 * torch.randn(n, generator=gen, device=dev)).square_()
+    twin = [t.clone() for t in (p, mo, vo)]
+
+    def scalars(step):
+        st = torch.full((), step, dtype=f32, device=dev)
+        return dict(scale=torch.full((), 0.37, device=dev),
+                    bc1=1 - 0.9 ** st, bc2=1 - 0.95 ** st,
+                    lr=torch.full((), 3e-4, device=dev), b1=0.9, b2=0.95,
+                    eps=1e-8, wd=0.1)
+
+    for step in (1, 2):
+        g = 1e-2 * torch.randn(n, generator=gen, device=dev)
+        O.adamw_leaf(p, g, mo, vo, None, **scalars(step))
+        O.adamw_leaf_plain(twin[0], g, twin[1], twin[2], None,
+                           **scalars(step))
+        torch.cuda.synchronize()
+        for name, a, b in zip("pmv", (p, mo, vo), twin):
+            err = float((a.double() - b.double()).abs().max())
+            results["adamw"]["max_abs_err"] = max(
+                results["adamw"]["max_abs_err"], err)
+            require(torch.equal(a, b), f"adamw at {MOE_ARCH}'s stacked "
+                                       f"expert leaf (n={n}) step {step}: "
+                                       f"{name} differs (max err {err})")
+    kw = scalars(3)
+    ms = device_ms(lambda: O.adamw_leaf(p, g, mo, vo, None, **kw))
+    plain = device_ms(lambda: O.adamw_leaf_plain(twin[0], g, twin[1],
+                                                 twin[2], None, **kw), reps=3)
+    bms, kind = bound(n * (2 * 2 + 4 + 2 * 4 * 2), 16 * n)
+    out["adamw"] = dict(n=n, ms=ms, plain_ms=plain, library_ms=None,
+                        bound_ms=bms, bound_by=kind)
+    results["adamw"]["moe_expert_leaf"] = out["adamw"]
+    log(f"  adamw n={n} ({MOE_TRAIN_LAYERS - m.first_dense} x "
+        f"{m.num_experts} x {cfg.d_model} x {m.d_expert}, bf16 p, float32 "
+        f"g, m, v): p, m, v bit for bit, two steps; {ms:.4f} ms (bound "
+        f"{bms:.4f} ms by {kind}, {bms / ms:.0%} of the memory rate); plain "
+        f"{plain:.4f} ms")
+    del p, mo, vo, g, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_indexing_forms():
+    """Patches that send `moe.dispatch` and `moe.combine` through their
+    plain versions (indexing, which autograd differentiates with
+    accumulating scatters)."""
+    from repro_torch.models import moe as MoE
+    return (mock.patch.object(MoE, "dispatch", MoE.dispatch_plain),
+            mock.patch.object(MoE, "combine", MoE.combine_plain))
+
+
+def moe_block_backward(dev):
+    """(b): one full-width MoE layer of deepseek-moe-16b (64 routed
+    experts, top-6, 2 shared) on a microbatch of 1 x 4096 tokens: in
+    float32 the gradients of x and every parameter (the block's norm
+    included) through the dispatch's and combine's Functions against autograd of
+    their indexing forms, each within 1e-5 of its largest |g|; in bf16
+    the layer's backward run twice gives the same bits (the Functions
+    gather and use no atomics), and the indexing forms' twice is
+    printed beside it."""
+    import torch
+    from repro_torch.models import layers as ML, moe as MoE
+    cfg = lm_config(MOE_ARCH)[0]
+    out = {}
+
+    def grads(params, x, ct, cfg_d):
+        leaves = {k: t.detach().requires_grad_() for k, t in params.items()}
+        xg = x.detach().requires_grad_()
+        h = ML.rms_norm(xg, leaves["norm"], cfg.norm_eps)
+        MoE.apply(leaves, xg, h, cfg_d).backward(ct)
+        return [xg.grad] + [leaves[k].grad for k in sorted(leaves)]
+
+    for dtype in ("float32", "bfloat16"):
+        cfg_d = cfg.with_(dtype=dtype)
+        gen = torch.Generator(dev).manual_seed(SEED + 71)
+        params = ML.init_from_plan(MoE.plan(cfg_d), gen)
+        dt = getattr(torch, dtype)
+        x = torch.randn(1, TRAIN_SEQ, cfg.d_model, generator=gen,
+                        device=dev).to(dt)
+        ct = torch.randn(x.shape, generator=gen, device=dev).to(dt)
+        got = grads(params, x, ct, cfg_d)
+        again = grads(params, x, ct, cfg_d)
+        with contextlib.ExitStack() as stack:
+            for p in moe_indexing_forms():
+                stack.enter_context(p)
+            plain = grads(params, x, ct, cfg_d)
+            plain2 = grads(params, x, ct, cfg_d)
+        torch.cuda.synchronize()
+        names = ["x"] + sorted(params)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        plain_same = all(torch.equal(a, b) for a, b in zip(plain, plain2))
+        worst = max(float((g.double() - w.double()).abs().max()
+                          / w.double().abs().max())
+                    for g, w in zip(got, plain))
+        require(same, f"MoE layer {dtype}: a second backward gave other "
+                      f"bits")
+        if dtype == "float32":
+            bad = [n for n, g, w in zip(names, got, plain)
+                   if (g - w).abs().max() > 1e-5 * w.abs().max()]
+            require(not bad, f"MoE layer float32: {bad} differ from "
+                             f"autograd of the indexing forms by more than "
+                             f"1e-5 of their largest |g| (worst {worst:.3g})")
+        out[dtype] = dict(repeat_same_bits=same, worst_vs_indexing=worst,
+                          indexing_repeat_same_bits=plain_same)
+        log(f"  MoE layer {dtype}, 1 x {TRAIN_SEQ}: the Functions' backward "
+            f"twice the same bits; against the indexing forms' autograd the "
+            f"worst gradient within {worst:.3g} of its largest |g|; the "
+            f"indexing forms' backward twice "
+            f"{'the same bits' if plain_same else 'other bits'}")
+        del params, x, ct, got, again, plain, plain2
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_cfg(layers=MOE_TRAIN_LAYERS):
+    """deepseek-moe-16b's training config as `launch.train.build` makes it,
+    its ``get_config`` answered with ``n_layers = layers`` (the dense
+    first layer and ``layers - 1`` MoE layers), so that the rest of the
+    build (TRAIN_SETUP: 2 microbatches, float32 accumulator and moments;
+    the optimizer; the step) is the CLI's.  Returns (cfg, opt, step_fn)."""
+    from repro_torch.launch import train
+    real = train.get_config
+    with mock.patch.object(train, "get_config",
+                           lambda a: real(a).with_(n_layers=layers)):
+        return train.build(MOE_ARCH, False, MOE_TRAIN_BATCH, TRAIN_SEQ, 3e-4,
+                           TRAIN_STEPS + 2)
+
+
+def moe_train_repeat(dev, step_fn, params, opt_state, pipe, step):
+    """One step repeated from the same saved state: the parameters and
+    optimizer state copied to the host, step ``step`` taken and its loss
+    and parameters kept (the parameters on the host); the state copied
+    back and the step taken again: the same loss and parameters, bit for
+    bit."""
+    import torch
+    from repro_torch.data import batch_at_step
+    from repro_torch.optim.optimizers import _leaves
+    live = _leaves((params, opt_state))
+    t0 = time.perf_counter()
+    saved = [t.cpu() for t in live]
+    seconds = {"save": time.perf_counter() - t0}
+    batch = batch_at_step(pipe, step, device=dev)
+    _, _, metrics = step_fn(params, opt_state, batch)
+    first = metrics["loss"].detach().clone()
+    kept = [t.cpu() for t in _leaves(params)]
+    t0 = time.perf_counter()
+    for t, h in zip(live, saved):
+        t.copy_(h)
+    torch.cuda.synchronize()
+    seconds["restore"] = time.perf_counter() - t0
+    del saved
+    _, _, metrics = step_fn(params, opt_state, batch)
+    same_loss = torch.equal(first, metrics["loss"])
+    bad = [i for i, (t, h) in enumerate(zip(_leaves(params), kept))
+           if not torch.equal(t, h.to(dev))]
+    require(same_loss and not bad,
+            f"{MOE_ARCH} step {step} repeated from the same state: loss "
+            f"{float(first)!r} then {float(metrics['loss'])!r}, {len(bad)} "
+            f"parameter leaves differ")
+    log(f"  step {step} repeated from the same saved state: loss "
+        f"{float(first):.6f} both times, every parameter bit for bit (host "
+        f"copies of the state: save {seconds['save']:.1f} s, restore "
+        f"{seconds['restore']:.1f} s)")
+    del kept
+    gc.collect()
+    return dict(step=step, loss=float(first), same_bits=True, **seconds)
+
+
+def moe_train_path(dev):
+    """(c): 3 steps of deepseek-moe-16b cut to `MOE_TRAIN_LAYERS` layers
+    through `moe_train_cfg`'s step function at 2 x 4096 tokens, random
+    init from the seed (`train_steps`: launches exact, finite losses, the
+    first near ln(102400), step seconds, tokens/s, model FLOP/s, peak
+    memory); then a 4th step repeated from the same saved state
+    (`moe_train_repeat`)."""
+    import torch
+    from repro_torch.data import TokenPipelineConfig
+    from repro_torch.models import factory
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, opt, step_fn = moe_train_cfg()
+    params = factory.build(cfg).init(torch.Generator(dev).manual_seed(SEED))
+    opt_state = opt.init(params)
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=MOE_TRAIN_BATCH, seed=SEED)
+    full = lm_config(MOE_ARCH)[0].n_layers
+    log(f"  {cfg.name}: {factory.build(cfg).n_params() / 1e9:.3f} B "
+        f"parameters, cut to {cfg.n_layers} of {full} layers (the dense "
+        f"first layer and {cfg.n_layers - 1} MoE layers), "
+        f"{MOE_TRAIN_BATCH} x {TRAIN_SEQ} tokens in 2 microbatches")
+    out = train_steps(dev, cfg, step_fn, params, opt_state, pipe,
+                      MOE_TRAIN_BATCH, 2)    # TRAIN_SETUP["deepseek-moe-16b"]
+    out["repeat"] = moe_train_repeat(dev, step_fn, params, opt_state, pipe,
+                                     TRAIN_STEPS)
+    del params, opt_state, step_fn, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def moe_train_ranges():
+    """`moe.route`, `dispatch`, `experts` and `combine` each in a
+    `torch.profiler.record_function` range ``moe.<name>`` in the forward
+    (the recompute's included) and ``moe.<name>.backward`` in the
+    backward: an identity autograd node on the part's output opens the
+    range when the gradient reaches it (after unpacking a saved tensor,
+    so that remat's recompute of the block runs before, outside it), one
+    on its input closes it."""
+    import torch
+    from torch.autograd.profiler import record_function
+    from repro_torch.models import moe as MoE
+
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, name, held, opening):
+            ctx.name, ctx.held, ctx.opening = name, held, opening
+            ctx.save_for_backward(x)
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            ctx.saved_tensors
+            if ctx.opening:
+                ctx.held.append(record_function(ctx.name).__enter__())
+            elif ctx.held:
+                ctx.held.pop().__exit__(None, None, None)
+            return g, None, None, None
+
+    def ranged(name, real, first, wrap_out):
+        def fn(*a, **kw):
+            held = []
+            name_b = f"moe.{name}.backward"
+            a = list(a)
+            if torch.is_grad_enabled() and a[first].requires_grad:
+                a[first] = Mark.apply(a[first], name_b, held, False)
+            with record_function(f"moe.{name}"):
+                out = real(*a, **kw)
+            return wrap_out(out, lambda t: Mark.apply(t, name_b, held, True)
+                            if t.requires_grad else t)
+        return fn
+
+    def route_out(r, mark):
+        r.w = mark(r.w)
+        return r
+
+    parts = {"route": (0, route_out), "dispatch": (0, lambda o, m: m(o)),
+             "experts": (1, lambda o, m: m(o)),
+             "combine": (0, lambda o, m: m(o))}
+    with contextlib.ExitStack() as stack:
+        for name, (first, wrap) in parts.items():
+            stack.enter_context(mock.patch.object(
+                MoE, name, ranged(name, getattr(MoE, name), first, wrap)))
+        yield
+
+
+def moe_train_split(prof):
+    """Device ms of each MoE range, forward and backward, in a
+    `profile_window` report, and its share of the device's busy time."""
+    ranges = prof.get("annotated_ranges", {})
+    busy = prof["device_busy_ms"]
+    out = {}
+    for name in MOE_RANGES:
+        for key in (f"moe.{name}", f"moe.{name}.backward"):
+            ms = ranges.get(key, {}).get("device_ms", 0.0)
+            out[key[4:]] = dict(device_ms=ms,
+                                share=ms / busy if busy else None)
+    return out
+
+
+def moe_train_profile(dev):
+    """``--only moe-train-profile``: a fresh process's `torch.profiler` of
+    one step of phase 19's deepseek-moe-16b (the dense first layer and
+    ``MOE_TRAIN_LAYERS - 1`` MoE layers, 2 x 4096 tokens) after one untimed step: device busy time
+    and idle share, the device time of each family of kernels by kernel
+    name (`MOE_TRAIN_GROUPS`: #7's forward and backward, silu's, AdamW's,
+    the GEMMs, the elementwise kernels, the reductions, the index
+    kernels), and the routing, dispatch, experts and combine in ranges in
+    the forward and the backward (`moe_train_ranges`)."""
+    import torch
+    from repro_torch.data import TokenPipelineConfig, batch_at_step
+    from repro_torch.models import factory
+    cfg, opt, step_fn = moe_train_cfg()
+    params = factory.build(cfg).init(torch.Generator(dev).manual_seed(SEED))
+    state = {"p": params, "o": opt.init(params)}
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=MOE_TRAIN_BATCH, seed=SEED)
+
+    def one(step):
+        batch = batch_at_step(pipe, step, device=dev)
+        state["p"], state["o"], m = step_fn(state["p"], state["o"], batch)
+        return float(m["loss"])
+
+    one(0)
+    log(f"  one {MOE_ARCH} training step ({cfg.n_layers} layers), "
+        f"profiled:")
+    with moe_train_ranges():
+        out = profile_window(lambda: one(1), 1, MOE_TRAIN_GROUPS)
+    busy = out["device_busy_ms"]
+    out["shares"] = {n: r["ms"] / busy if busy else None
+                     for n, r in out.get("groups", {}).items()}
+    out["moe"] = split = moe_train_split(out)
+    log("  shares of the device's busy time: " + ", ".join(
+        f"{n} {r['ms']:.1f} ms"
+        + (f" ({out['shares'][n]:.3f})" if busy else "")
+        for n, r in out.get("groups", {}).items()))
+    log("  moe ranges: " + ", ".join(
+        f"{n} {r['device_ms']:.3f} ms"
+        + (f" ({r['share']:.3f})" if r["share"] is not None else "")
+        for n, r in split.items()))
+    return out
+
+
+def moe_train_profiles(work):
+    """``--only moe-train-profile`` in a fresh process: its report."""
+    report = work / "only_moe_train_profile.json"
+    report.unlink(missing_ok=True)
+    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--only", "moe-train-profile", "--out", str(report)],
+                       capture_output=True, text=True, timeout=360)
+    for line in p.stdout.splitlines():
+        if line.startswith("    ") or line.startswith("  one ") or \
+                line.startswith("  shares") or line.startswith("  moe "):
+            log(line)
+    require(p.returncode == 0 and report.exists(),
+            f"--only moe-train-profile exited {p.returncode}: "
+            f"{p.stderr[-2000:]}")
+    return json.loads(report.read_text())["moe-train-profile"]
+
+
+def moe_train_all(dev, results):
+    """Phase 19: (a) the kernels at the MoE step's shapes, (b) one MoE
+    layer's backward against the indexing forms and twice, (c) 3 steps of
+    deepseek-moe-16b at `MOE_TRAIN_LAYERS` and a repeated step, (d) the
+    dense layer
+    and one MoE layer in float32 against the plain path; then a fresh
+    process's profile of one step."""
+    import torch
+    _flush_buf.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"kernels": moe_train_kernels(dev, results),
+           "block": moe_block_backward(dev)}
+    _flush_buf.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path"] = moe_train_path(dev)
+    out["shallow"] = train_shallow_matches(dev, MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke_train"
+    work.mkdir(parents=True, exist_ok=True)
+    out["profile"] = moe_train_profiles(work)
+    return out
+
+
 def nvidia_smi():
     try:
         p = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8069,7 +8628,8 @@ def only_kv_quant(dev):
 def only_train(dev):
     """``--only train``: phase 17 alone."""
     results = {name: {"max_abs_err": 0.0}
-               for name in ("flash_attention_bwd", "silu_bwd", "adamw")}
+               for name in ("flash_attention", "flash_attention_bwd",
+                            "silu_bwd", "adamw")}
     out = train_all(dev, results)
     out["kernels"] = results
     return out
@@ -8080,6 +8640,16 @@ def only_ssm_train(dev):
     results = {name: {"max_abs_err": 0.0}
                for name in ("ssd_scan_bwd", "silu_bwd_mamba2")}
     out = ssm_train_all(dev, results)
+    out["kernels"] = results
+    return out
+
+
+def only_moe_train(dev):
+    """``--only moe-train``: phase 19 alone."""
+    results = {name: {"max_abs_err": 0.0}
+               for name in ("flash_attention", "flash_attention_bwd", "silu", "silu_bwd",
+                            "adamw")}
+    out = moe_train_all(dev, results)
     out["kernels"] = results
     return out
 
@@ -8107,7 +8677,8 @@ ONLY = {"fleet-steps": only_fleet_steps, "shared-steps": only_shared_steps,
         "moe-profile": moe_profile, "kv-quant": only_kv_quant,
         "kv-quant-profile": kvq_profile, "train": only_train,
         "train-profile": train_profile, "ssm-train": only_ssm_train,
-        "ssm-train-profile": ssm_train_profile}
+        "ssm-train-profile": ssm_train_profile, "moe-train": only_moe_train,
+        "moe-train-profile": moe_train_profile}
 # seconds after which a stalled LM phase (or ``--only`` part) prints every
 # thread's stack and exits non-zero (`faulthandler`), well before the
 # script's 1200 s
@@ -8118,7 +8689,8 @@ STALL_LIMITS = {"8": 300, "9": 300, "11": 300, "14": 240, "15": 240,
                 "--only kv-quant-profile": 240, "17": 420,
                 "--only train": 420, "--only train-profile": 300,
                 "18": 480, "--only ssm-train": 480,
-                "--only ssm-train-profile": 300}
+                "--only ssm-train-profile": 300, "19": 420,
+                "--only moe-train": 420, "--only moe-train-profile": 300}
 
 
 def main() -> int:
@@ -8393,6 +8965,19 @@ def main() -> int:
                 results[name]["launches_by_path"][f"{arch} training"] = \
                     p["launches"][k]
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"phase 19: MoE training, {MOE_ARCH} at full width cut to "
+               f"{MOE_TRAIN_LAYERS} layers ({MOE_TRAIN_BATCH} x {TRAIN_SEQ} "
+               f"tokens, 2 microbatches), the dispatch's and combine's "
+               f"backwards"):
+        moe_trained = moe_train_all(dev, results)
+    for name, k in (("flash_attention", 2), ("flash_attention_bwd", 3),
+                    ("silu", 4), ("silu_bwd", 5), ("adamw", 6)):
+        results[name].setdefault("launches_by_path", {
+            f"{TRAIN_ARCH} training": results[name]["launches"]})[
+            f"{MOE_ARCH} training"] = moe_trained["path"]["launches"][k]
+
     # #3 fleet's launches in each path that ran it; `launches` stays the
     # controller's (phase 4)
     results["rollout"]["launches_by_path"] = {
@@ -8435,7 +9020,7 @@ def main() -> int:
               "rule_search": search, "rule_search_launches": search_launches,
               "health_path": health, "lm_pool": pool, "moe_path": moe,
               "kv_quant_path": kvq, "train_path": trained,
-              "ssm_train_path": ssm_trained,
+              "ssm_train_path": ssm_trained, "moe_train_path": moe_trained,
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
               "shared_step_launches": shared_launches,

@@ -13,17 +13,20 @@ the useful FLOPs of a step.
 PyTorch runs eagerly, so these are plain closures where the JAX package
 hands them to ``jax.jit``.
 
-The train step runs the ``dense``, ``ssm`` and ``hybrid`` layouts (MoE
-training is ROADMAP Queue 1 item 9.7).  Its gradients come from autograd
-through the hand-written kernels' own backwards (attention's, the SSD
-scan's and silu's: `kernels.attention.kernel.flash_attention_bwd`,
-`kernels.ssd.kernel.ssd_scan_bwd`, `layers.silu_bwd`).
+The train step runs every layout: ``dense``, ``ssm``, ``hybrid`` and
+``moe``.  Its gradients come from autograd through the hand-written
+kernels' own backwards (attention's, the SSD scan's and silu's:
+`kernels.attention.kernel.flash_attention_bwd`,
+`kernels.ssd.kernel.ssd_scan_bwd`, `layers.silu_bwd`) and, in a MoE
+layer, through the dispatch's and combine's own backwards, which gather
+and use no atomics (`models.moe`).
 Microbatches add into an accumulator (float32 by default) in the JAX
 package's order, ``(0 + g0) + g1``, then divide by their count; each
 leaf's gradient is folded in the moment autograd produces it (a post-
 accumulate-grad hook), and the loss runs on per-layer leaves (views of
-each stacked parameter's layers; a zsuper segment's Mamba2 leaves down to
-each inner block), so that no whole-model gradient of the parameters'
+each stacked parameter's layers, a MoE segment's ``(L, E, D, F)``
+experts down to each layer's ``(E, D, F)``; a zsuper segment's Mamba2
+leaves down to each inner block), so that no whole-model gradient of the parameters'
 dtype ever exists: at qwen3-4b's width that is 8.2 GiB beside
 the 16.4 GiB accumulator.  The optimizer then updates the stacked
 parameters in place (`optim.optimizers`), and the views see it.
@@ -38,7 +41,7 @@ from repro_torch.checkpoint.manager import flatten, unflatten
 from repro_torch.models import factory
 from repro_torch.models.config import ModelConfig, torch_dtype
 
-TRAIN_LAYOUTS = ("dense", "ssm", "hybrid")
+TRAIN_LAYOUTS = ("dense", "ssm", "hybrid", "moe")
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -90,10 +93,8 @@ def make_train_step(cfg: ModelConfig, opt, *, microbatches: int = 1,
     gradients stay in the parameters' dtype, as the JAX package keeps
     them."""
     if cfg.layout not in TRAIN_LAYOUTS:
-        raise NotImplementedError(
-            f"training the {cfg.layout!r} layout is not ported yet (the "
-            f"port trains {TRAIN_LAYOUTS}): ROADMAP Queue 1 item 9.7 (MoE "
-            f"training)")
+        raise ValueError(f"unknown layout {cfg.layout!r}: the port trains "
+                         f"{TRAIN_LAYOUTS}")
     loss_fn = make_loss_fn(cfg)
     adt = torch_dtype(accum_dtype)
 

@@ -1,5 +1,5 @@
-"""End-to-end training CLI of the port: the ``dense``, ``ssm`` and
-``hybrid`` layouts on one card.
+"""End-to-end training CLI of the port: the ``dense``, ``ssm``, ``hybrid``
+and ``moe`` layouts on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --smoke --steps 50 --ckpt RUN_DIR [--device cpu]
@@ -14,7 +14,8 @@ same ``--ckpt`` resumes from its latest checkpoint.
 On a CUDA device every attention block launches the flash-attention
 kernel forward (twice a step per microbatch with remat: the forward and
 its recompute) and its backward kernel, every MLP the silu kernel and
-its backward kernel, every Mamba2 block the SSD scan kernel (#8) and its
+its backward kernel (a MoE layer's routed experts and its shared experts
+one each), every Mamba2 block the SSD scan kernel (#8) and its
 backward kernel and silu and its backward twice (the conv's activation
 and the output gate), and AdamW its kernel once a parameter leaf; on the
 CPU the same code runs their plain versions.  The ``embeddings`` archs take their tokens through the JAX

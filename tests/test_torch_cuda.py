@@ -1921,46 +1921,67 @@ def test_silu_mamba2_backward_forms_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_train_step_on_card_matches_plain(cuda_device):
-    """qwen3-4b's smoke config (2 layers) in float32, remat on: the loss
-    and every gradient leaf with the kernels against the plain path (the
-    plain attention and silu, differentiated by autograd), loss within
-    1e-5 relative and each leaf within 1e-4 of its largest |g|; with remat
-    the kernels launch 2 forwards (the forward and its recompute) and one
-    backward per layer."""
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b"])
+def test_train_step_on_card_matches_plain(cuda_device, arch):
+    """The smoke config (qwen3-4b: 2 dense layers; deepseek-moe-16b: a
+    dense layer, then 2 MoE layers) with remat on: in float32 the loss and
+    every gradient leaf with the kernels against the plain path (the plain
+    attention and silu, and the MoE dispatch and combine as indexing,
+    differentiated by autograd), loss within 1e-5 relative and each leaf
+    within 1e-4 of its largest |g|; #7 twice a layer (the forward and its
+    recompute) and its backward once, silu twice a SwiGLU (the dense MLPs,
+    each MoE layer's routed and shared experts) and its backward once.
+    For the MoE layout, in bf16 the backward run twice gives the same bits
+    (the dispatch's and combine's backwards use no atomics)."""
     from unittest import mock
     from repro_torch.configs import get_smoke
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.launch import steps
     from repro_torch.models import attention as MA, factory, layers as ML
-    cfg = get_smoke("qwen3-4b").with_(dtype="float32", remat=True)
-    params = factory.build(cfg).init(
-        torch.Generator(cuda_device).manual_seed(0))
-    gen = torch.Generator(cuda_device).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab, (2, 48), generator=gen,
-                         device=cuda_device)
-    batch = {"inputs": toks, "labels": torch.roll(toks, -1, 1)}
+    from repro_torch.models import moe as MoE
 
-    def run():
-        tree, slots = steps._layer_leaves(params)
-        loss = steps.make_loss_fn(cfg)(tree, batch)
-        loss.backward()
-        return loss.detach(), [(i, j, t.grad) for t, (i, j) in slots]
+    dtypes = ("float32", "bfloat16") if arch == "deepseek-moe-16b" else (
+        "float32",)
+    for dtype in dtypes:
+        cfg = get_smoke(arch).with_(dtype=dtype, remat=True)
+        params = factory.build(cfg).init(
+            torch.Generator(cuda_device).manual_seed(0))
+        gen = torch.Generator(cuda_device).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (2, 48), generator=gen,
+                             device=cuda_device)
+        batch = {"inputs": toks, "labels": torch.roll(toks, -1, 1)}
 
-    before = (TA.flash_attention.launches, TA.flash_attention.bwd_launches,
-              ML.silu.launches, ML.silu.bwd_launches)
-    loss, grads = run()
-    after = (TA.flash_attention.launches, TA.flash_attention.bwd_launches,
-             ML.silu.launches, ML.silu.bwd_launches)
-    layers_ = cfg.n_layers
-    assert tuple(a - b for a, b in zip(after, before)) == (
-        2 * layers_, layers_, 2 * layers_, layers_)
-    with mock.patch.object(MA, "attn_op", TA.flash_attention_plain), \
-            mock.patch.object(ML, "silu", ML.silu_plain):
-        loss_p, grads_p = run()
-    assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
-    for (_, _, g), (_, _, w) in zip(grads, grads_p):
-        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+        def run():
+            tree, slots = steps._layer_leaves(params)
+            loss = steps.make_loss_fn(cfg)(tree, batch)
+            loss.backward()
+            return loss.detach(), [t.grad for t, _ in slots]
+
+        counts = lambda: (TA.flash_attention.launches,  # noqa: E731
+                          TA.flash_attention.bwd_launches, ML.silu.launches,
+                          ML.silu.bwd_launches)
+        before = counts()
+        loss, grads = run()
+        after = counts()
+        n = cfg.n_layers
+        mlps = n
+        if cfg.moe is not None and cfg.moe.n_shared:
+            mlps += n - cfg.moe.first_dense
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            2 * n, n, 2 * mlps, mlps)
+        if dtype == "bfloat16":
+            again, grads2 = run()
+            assert torch.equal(loss, again)
+            assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+            continue
+        with mock.patch.object(MA, "attn_op", TA.flash_attention_plain), \
+                mock.patch.object(ML, "silu", ML.silu_plain), \
+                mock.patch.object(MoE, "dispatch", MoE.dispatch_plain), \
+                mock.patch.object(MoE, "combine", MoE.combine_plain):
+            loss_p, grads_p = run()
+        assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+        for g, w in zip(grads, grads_p):
+            assert (g - w).abs().max() <= 1e-4 * w.abs().max()
 
 
 SSD_BWD_CASES = [(1, 4096, 64, 64, 128, 1), (1, 1000, 112, 64, 64, 1),

@@ -1,4 +1,5 @@
-"""The port's LM training (the ``dense`` layout) against the JAX reference
+"""The port's LM training (the ``dense`` layout; the ``moe`` layout's own
+tests are ``tests/test_torch_moe_train.py``) against the JAX reference
 on the CPU: the schedules and optimizers, cross entropy, the backwards of
 silu and attention, the loss and every gradient leaf of the six dense
 smoke archs, remat, three microbatched train steps, the fault-tolerant
@@ -592,12 +593,13 @@ def test_loss_and_grads_match_jax(arch, dtype):
         assert np.abs(g - w).max() <= leaf_tol * max(np.abs(w).max(), 1e-30)
 
 
-def test_remat_on_and_off_are_bit_for_bit():
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b"])
+def test_remat_on_and_off_are_bit_for_bit(arch):
     """The smoke configs keep the JAX package's remat=False; with remat on
-    the loss and every gradient leaf are the bits of remat off."""
-    cfg = _cfgs("qwen3-4b", "float32")[1]
-    jp = j_factory.build(_cfgs("qwen3-4b", "float32")[0]).init(
-        jax.random.PRNGKey(1))
+    the loss and every gradient leaf are the bits of remat off (in a MoE
+    layer the recompute routes as the forward did)."""
+    jcfg, cfg = _cfgs(arch, "float32")
+    jp = j_factory.build(jcfg).init(jax.random.PRNGKey(1))
     _, tb = _batch(cfg, seed=1)
     out = []
     for remat in (False, True):
@@ -659,29 +661,6 @@ def test_train_step_accumulates_as_value_and_grad():
             want = g if not want else [a + b for a, b in zip(want, g)]
         want = [w / mb for w in want] if mb > 1 else want
         assert all(torch.equal(a, b) for a, b in zip(seen["grads"], want))
-
-
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b"])
-def test_other_layouts_are_refused(arch):
-    cfg = get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_train_step(cfg, adamw())
-
-
-def test_moe_experts_refuse_autograd():
-    """The routed experts have no backward yet (their product writes in
-    place): under autograd they raise, naming the roadmap item."""
-    from repro_torch.models import moe
-    cfg = get_smoke("deepseek-moe-16b").with_(dtype="float32")
-    e, f, d = cfg.moe.num_experts, cfg.moe.d_expert, cfg.d_model
-    params = {"w_gate": torch.randn(e, d, f, requires_grad=True),
-              "w_up": torch.randn(e, d, f), "w_down": torch.randn(e, f, d)}
-    buf = torch.randn(e, 3, d)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.experts(params, buf, torch.empty(e, 3, d))
-    with torch.no_grad():
-        out = moe.experts(params, buf, torch.empty(e, 3, d))
-    assert out.shape == (e, 3, d)
 
 
 def test_model_flops_matches_jax():
