@@ -75,13 +75,15 @@ Phases, each fatal on failure:
   8. LM serving at full width: random-init qwen3-4b (36 layers, bf16)
      serves 4 prompts of 2048 tokens and 32 greedy tokens through
      `launch.serve.generate`, plastic adapter in float32 and int8, each
-     datapath once untimed and then timed: 36 attention launches per
+     datapath once untimed (the prefill and 2 steps) and then timed: 36
+     attention launches per
      prefill, 32 fleet-step launches per decode, each of those fleet-step
      launches against the plain step on its own inputs (int8 bit for bit,
      float32 within 1e-5), and the int8 adapter state after the timed run
      bit for bit against the plain fleet steps fed the same hidden states;
      the kernel path against the plain path at full depth in bf16
-     (printed, not gated) and a profile of 8 decode steps; 8b. at full
+     (a prefill and 8 steps; printed, not gated) and a profile of 2
+     decode steps; 8b. at full
      width with 2 layers in float32 the kernel path's logits equal the
      plain path's within 1e-4 of the largest logit and the greedy tokens
      are the same; 8c. the serve CLI at its defaults (4 x 32 + 16), each
@@ -155,7 +157,7 @@ Phases, each fatal on failure:
      a probe moved through disk into another slot continues bit for bit
      as without the move, 256 vacant slots stay frozen over 4 windows,
      the static signatures and loaded libraries stay constant after
-     warm-up, 4 windows are profiled, and the int8 run repeated through
+     warm-up, 2 windows are profiled, and the int8 run repeated through
      the plain versions gives the same final pool and persisted sessions.
  2f. the bfloat16 instantiations against their plain versions: the fleet
      step (with and without telemetry, the rule in bf16 or float32) at
@@ -259,7 +261,7 @@ Phases, each fatal on failure:
      depth in a 4-slot pool (vacant frozen, window against steps, SSD
      scans per admission); the CPU test's compile-audit sequence on a
      smoke pool (its pinned dict); and in a fresh process (``--only
-     lm-pool-profile``) a `torch.profiler` of 4 pool steps.
+     lm-pool-profile``) a `torch.profiler` of 2 pool steps.
  15. the MoE layout on deepseek-moe-16b at full width (a dense layer, then
      27 layers of attention and 64 routed experts, top-6, beside 2 shared
      ones; 16.38 B parameters): #7 at its prefill shape (B = 4, S = 2048,
@@ -278,7 +280,7 @@ Phases, each fatal on failure:
      ``capacity_factor = 64`` a probe under churn equals the probe alone
      bit for bit; the serve CLI at its defaults with each launch held;
      and in a fresh process (``--only moe-profile``) a `torch.profiler` of
-     a prefill and 4 decode steps with the routing, dispatch, experts and
+     a prefill and 2 decode steps with the routing, dispatch, experts and
      combine each in a range.
  16. the int8 KV cache (``kv_quant``: int8 codes and a float32 scale per
      position and KV head) on qwen1.5-32b at full width (64 layers, 40
@@ -298,7 +300,7 @@ Phases, each fatal on failure:
      that left and the probe's window under churn the window alone, bit
      for bit, the vacant slot's codes and scales frozen, launches exact;
      then in a fresh process (``--only kv-quant-profile``) a
-     `torch.profiler` of 4 decode steps with each cache, the quantisation,
+     `torch.profiler` of 2 decode steps with each cache, the quantisation,
      dequantisation and decode attention each in a range; (c) 2 layers in
      float32 against the plain path (1e-4 of the largest logit, the same
      tokens, at most 1e-3 of the int8 codes off by one); (e)
@@ -382,17 +384,51 @@ Phases, each fatal on failure:
      each step's launches exact (32 #7 forwards, 16 backwards, 60 silu,
      30 silu backwards, one AdamW launch a leaf), finite losses, the first
      near ln(102400); step seconds, tokens/s, model FLOP/s and its share
-     of 989 TFLOP/s, peak memory; a 4th step taken twice from the same
-     state saved to the host: the same loss and parameters bit for bit;
+     of 989 TFLOP/s, peak memory; a 4th step, then the state made anew
+     from the seed and steps 0-3 taken on it: the same loss and
+     parameters bit for bit;
      (d) the dense layer and one MoE layer in float32 against the plain
      path, both routing alike first; then in a fresh process (``--only
      moe-train-profile``) a `torch.profiler` of one step by kernel name,
      with the routing, dispatch, experts and combine in ranges in the
      forward and the backward.
 
-The LM phases (8, 9, 11, 14, 15, 16, 17, 18, 19) and their ``--only`` parts arm
-`faulthandler` with a limit of a few minutes: a stall prints every
-thread's stack and exits with code 1 long before the script's limit.
+ 20. sharded session pools: `firefly_snn.CONFIG` (8-128-8, T = 4) in a
+     4096-slot `FleetScheduler` with a RAM `SessionStore`, float32 and
+     int8, split over D = 4 shards (`distributed.fleet_mesh(devices=...)`,
+     the visible cards in turn: all four on one card) beside an unmeshed
+     control pool running the same sequence, and at D = every visible
+     card: (a) 3072 sessions in slots 0-3071, 4 windows of K = 4 under 2%
+     churn a window, then 4 per-event steps, outputs and state bit for
+     bit the control's, D rollout launches a window on 1024 slots each,
+     shard 1's window repeated through the plain window (int8 bit for
+     bit, float32 within 1e-5); (b) `persist_resident`, `fail_device(1)`
+     with poison, one window with its 1024 sessions stranded (survivors
+     the control's bit for bit, the control pausing those sessions:
+     evicted before the window, re-admitted after it; stranded outputs
+     exactly 0), `drain_failed` into shard 3 (its seconds printed), 4
+     windows bit for bit with every `steps_lost` 0 and no new signature;
+     (c) `save_pool` at D = 4, `load_pool` at D = 2 and unmeshed, 2
+     windows bit for bit; (d) 4 recorded windows at D = 4 against an
+     unmeshed recording pool (ring, baselines and verdicts bit for bit,
+     one recorder launch a shard a window), one quarantine planted and
+     rolled back; (e) the LM decode pool on qwen3-4b at full width and
+     `shallow` depth, D = 2 against unmeshed: the same tokens; (f) the
+     sharded window's device time beside the unmeshed one (CUDA events
+     behind a sleep kernel, L2 flushed; printed, not gated).  #1, #2, #3
+     fleet and the recorder count their launches in the sharded pools'
+     calls.
+
+Phases 8 to 20 and their ``--only`` parts arm `faulthandler` with a limit
+of a few minutes: a stall prints every thread's stack and exits with code
+1 long before the script's limit.
+
+``python3 chip_smoke.py --profiles`` adds the `torch.profiler` traces of
+where each path's time goes: phases 4b and 6b, phase 7's per-event
+profile, the prefill and decode steps of phases 8, 9 and 11, and the fresh
+processes of phases 14 to 19 (``--only *-profile``).  Without it those
+calls print their wall time only; the traces that gate a path or time a
+kernel alone (phases 5, 7 and 13) run in either case.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -413,12 +449,12 @@ prefill of each full-width LM), ``rule-search`` (phase 12) and
 ``health`` (phase 13's timings: the recorder's time, the profiled
 windows and the recorded windows' walls with the kernel and its plain
 version), ``lm-pool`` (phase 14) and ``lm-pool-profile`` (its fresh
-process's profile of 4 pool steps), ``moe`` (phase 15) and
+process's profile of 2 pool steps), ``moe`` (phase 15) and
 ``moe-profile`` (its fresh process's profile), ``kv-quant`` (phase 16)
 and ``kv-quant-profile`` (its fresh process's profile), ``train`` (phase
 17) and ``train-profile`` (its fresh process's profile of one step),
 ``ssm-train`` (phase 18) and ``ssm-train-profile``, ``moe-train`` (phase
-19) and ``moe-train-profile``.
+19) and ``moe-train-profile``, ``sharded-pool`` (phase 20).
 """
 from __future__ import annotations
 
@@ -445,6 +481,12 @@ FP32_OPS_PER_S = 67e12           # H100 SXM scalar fp32 (non-tensor) peak
 B = 4096                         # fleet streams at full width
 STEPS = 260                      # closed-loop env steps (a gate episode)
 SEED = 0
+# Whether `profile_window` takes `torch.profiler` traces and the LM phases
+# start their fresh profile processes (`Fresh`): with ``--profiles`` and in
+# every ``--only`` part; `main` sets it.  Without it those calls time the
+# wall only: the traces' start and stop and the profile processes cost
+# minutes of host time.  `profiled_ms` and `profile_ops` always trace.
+PROFILES = False
 
 MNIST_DIGITS = 120               # the Table II stream (mnist_throughput.py)
 TEACH = 2.0                      # teaching-current amplitude
@@ -533,6 +575,51 @@ class Check(Exception):
 def require(cond, what):
     if not cond:
         raise Check(what)
+
+
+class Fresh:
+    """``chip_smoke.py --only <part> --wait`` in a fresh process, started
+    at once: it imports torch and loads the kernels' libraries while this
+    process works on, then waits on its standard input and touches the
+    card only after `result` sends ``go`` (at end of input it exits).
+    The profiles run in such a process because late in this one the
+    profiler has lost launches.  A ``*-profile`` part starts only with
+    `PROFILES`; without it `result` returns ``{}``."""
+
+    def __init__(self, part, work):
+        self.part, self.proc = part, None
+        if part.endswith("-profile") and not PROFILES:
+            return
+        self.report = work / f"only_{part.replace('-', '_')}.json"
+        self.report.unlink(missing_ok=True)
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--only", part,
+             "--out", str(self.report), "--wait"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def result(self, keep, timeout=300):
+        """Run the part; log each line of its output after the part's
+        title for which ``keep(line)`` holds, and return its report."""
+        p = self.proc
+        if p is None:
+            log(f"  --only {self.part}: not run (--profiles runs it)")
+            return {}
+        try:
+            out, err = p.communicate("go\n", timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise
+        lines = out.splitlines()
+        start = next((i for i, line in enumerate(lines)
+                      if line.startswith(f"--only {self.part}")), len(lines))
+        for line in lines[start + 1:]:
+            if keep(line):
+                log(line)
+        require(p.returncode == 0 and self.report.exists(),
+                f"--only {self.part} exited {p.returncode}: {err[-2000:]}")
+        return json.loads(self.report.read_text())[self.part]
 
 
 # ---- timing and bounds -------------------------------------------------------
@@ -1087,13 +1174,24 @@ def plain_closed_loop_matches(dev, main):
 
 def profile_window(fn, steps, groups=None):
     """Device busy time, idle share and device time by kernel over one call
-    of ``fn`` (torch.profiler, CUPTI), against its wall time.  Ranges
+    of ``fn`` (torch.profiler, CUPTI), against its wall time; the wall time
+    alone without `PROFILES`.  Ranges
     annotated with `record_function` (the serving phases) are not kernels:
     their host time is reported apart.  ``groups`` ({name: regex}) adds the
     device time of the kernels whose names each regex finds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    if not PROFILES:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        log(f"    {steps} steps in {wall_ms:.1f} ms wall (device time not "
+            f"measured: --profiles measures it)")
+        return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": None,
+                "idle_share": None, "kernel_launches_per_step": None,
+                "top": []}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
@@ -1772,6 +1870,9 @@ def sweep_shared_window(dev):
 
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32      # the serving run (phase 8)
+LM_WARM = 2                     # decode steps of each untimed warm-up run
+LM_COMPARE_GEN = 8              # steps of the full-depth bf16 comparison
+PROFILED_STEPS = 2              # decode or pool steps of each LM profile
 ATTN_SHAPE = (LM_BATCH, 2048, 32, 8, 128)      # B, S, H, HKV, D at qwen3-4b
 ZAMBA_ATTN = (LM_BATCH, 2048, 32, 32, 112)     # the same at zamba2-7b
 # the narrow head widths of the smoke configs, each at GQA: D -> (H, HKV)
@@ -2534,13 +2635,15 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b", profile=True):
     mamba2-1.3b: 48 SSM layers; zamba2-7b: 9 super-blocks, each the shared
     attention block and 8 SSM layers; deepseek-moe-16b: a dense layer and
     27 MoE layers; bf16), the plastic adapter in float32 then int8, through
-    `launch.serve.generate`: each datapath once to warm up, then once
-    timed.  Every counter is set to 0 just before the timed run and read
-    just after it.  For a MoE model every attention launch of the first
-    prefill is held against its plain version on its own inputs, and the
-    full-depth comparison with the plain path also reports the share of
-    (token, k) expert assignments that agree.  ``profile``: profile a
-    prefill and 8 decode steps in this process."""
+    `launch.serve.generate`: each datapath once to warm up (the prefill
+    and `LM_WARM` steps), then once timed.  Every counter is set to 0 just
+    before the timed run and read just after it.  For a MoE model every
+    attention launch of the first prefill is held against its plain
+    version on its own inputs.  The full-depth comparison with the plain
+    path runs the prefill and `LM_COMPARE_GEN` steps; for a MoE model it
+    also reports the share of (token, k) expert assignments that agree.
+    ``profile``: profile a prefill and `PROFILED_STEPS` decode steps in
+    this process."""
     import torch
     from repro_torch.kernels.attention import kernel as TA
     from repro_torch.kernels.plasticity import kernel as K
@@ -2566,7 +2669,7 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b", profile=True):
         attns = []
         with (recording(MA, "attn_op", attns) if cfg.moe is not None
               and not quant else contextlib.nullcontext()):
-            serve.generate(qcfg, params, prompts, LM_PROMPT + LM_GEN, LM_GEN)
+            serve.generate(qcfg, params, prompts, LM_PROMPT + LM_GEN, LM_WARM)
         torch.cuda.synchronize()
         if attns:
             # the first prefill's attention launches, each on its inputs
@@ -2639,19 +2742,21 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b", profile=True):
     # rounding alone moves this random-init model
     got_routes, want_routes = [], []
     with expert_choices(got_routes):
-        got, toks = serve_logits(cfg, params, prompts, LM_GEN)
+        got, toks = serve_logits(cfg, params, prompts, LM_COMPARE_GEN)
     with contextlib.ExitStack() as stack:
         for p in plain_kernels():
             stack.enter_context(p)
         with expert_choices(want_routes):
-            want, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
+            want, _ = serve_logits(cfg, params, prompts, LM_COMPARE_GEN,
+                                   toks)
         if cfg.ssm is not None:
             from repro_torch.kernels.ssd import kernel as SK
             from repro_torch.models import ssm as MS
             stack.enter_context(mock.patch.object(
                 MS, "ssd_op", lambda *a, chunk: SK.ssd_scan_plain(
                     *a, chunk=64)))
-            other, _ = serve_logits(cfg, params, prompts, LM_GEN, toks)
+            other, _ = serve_logits(cfg, params, prompts, LM_COMPARE_GEN,
+                                    toks)
     pairs = [("kernel vs plain path", got, want)]
     if cfg.ssm is not None:
         pairs.append(("plain path, chunk 64 vs 256", other, want))
@@ -2663,9 +2768,9 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b", profile=True):
         out["bf16_full_depth"][what] = dict(
             max_rel_logit_diff=err, prefill_rel_logit_diff=err0,
             greedy_agreement=agree)
-        log(f"  bf16, {cfg.n_layers} layers, {what}: max rel logit diff "
-            f"{err:.3g} (prefill logits {err0:.3g}), greedy agreement "
-            f"{agree:.3f}")
+        log(f"  bf16, {cfg.n_layers} layers, {what}, prefill + "
+            f"{LM_COMPARE_GEN} steps: max rel logit diff {err:.3g} (prefill "
+            f"logits {err0:.3g}), greedy agreement {agree:.3f}")
     if got_routes:
         share = assignment_agreement(got_routes, want_routes)
         out["bf16_full_depth"]["kernel vs plain path"][
@@ -2678,7 +2783,7 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b", profile=True):
         del params
         torch.cuda.empty_cache()
         return out, total
-    # profile one prefill, then 8 decode steps after it
+    # profile one prefill, then PROFILED_STEPS decode steps after it
     from repro_torch.launch.steps import make_decode_step, make_prefill
     prefill = make_prefill(cfg, LM_PROMPT + 8)
     made = []
@@ -2689,13 +2794,13 @@ def lm_path(dev, counters, every, results, arch="qwen3-4b", profile=True):
     decode = make_decode_step(cfg)
     tok = logits.argmax(-1).to(torch.int32)[:, None]
 
-    def eight():
+    def steps():
         nonlocal cache
-        for _ in range(8):
+        for _ in range(PROFILED_STEPS):
             _, cache = decode(params, cache, tok)
 
-    log("  8 decode steps, float32 adapter:")
-    out["profile_decode"] = profile_window(eight, 8)
+    log(f"  {PROFILED_STEPS} decode steps, float32 adapter:")
+    out["profile_decode"] = profile_window(steps, PROFILED_STEPS)
     del params, cache
     torch.cuda.empty_cache()
     return out, total
@@ -4048,7 +4153,8 @@ SERVE_STEPS = 16                # per-event telemetry steps after them
 DEPART_P = 0.02                 # per resident and window
 PROBE_CUT = 4                   # the window before which the probe moves
 VACANT = 256                    # slots left empty for the frozen check
-TAIL_WINDOWS = 4                # windows of the frozen check, and profiled
+TAIL_WINDOWS = 4                # windows of the frozen check
+SERVE_PROFILED = 2              # windows under churn after it, profiled
 
 
 def store_digest(root):
@@ -4196,10 +4302,10 @@ def serve_run(dev, quant, root, profile=None):
     require(all(torch.equal(a, b) for a, b in zip(after, before)),
             f"{len(vacant)} vacant slots moved over {TAIL_WINDOWS} windows")
     out["vacant_frozen"] = len(vacant)
-    # TAIL_WINDOWS more windows under churn, profiled in the main run
-    tail = lambda: [run.call("window") for _ in range(TAIL_WINDOWS)]
+    # SERVE_PROFILED more windows under churn, profiled in the main run
+    tail = lambda: [run.call("window") for _ in range(SERVE_PROFILED)]
     if profile is not None:
-        out["profile"] = profile(tail, TAIL_WINDOWS)
+        out["profile"] = profile(tail, SERVE_PROFILED)
     else:
         tail()
     torch.cuda.synchronize()
@@ -4915,7 +5021,7 @@ def profile_ops(fn, windows, expect):
     trace that lacks some fails the run.  Late in the whole script's
     process the profiler has lost the first windows' launches, the same
     ones at every retake, and in a fresh process it never has: phase 13
-    takes these traces in one (`health_profiles`)."""
+    takes these traces in one (`Fresh`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -5232,12 +5338,13 @@ def health_drill(dev, quant, flight_dir):
 def health_path(dev, results):
     """Phase 13: the drill on both datapaths, the recorder's launch count
     set to 0 just before the drills and read just after them; then its
-    timings and profiles in a fresh process (`health_profiles`)."""
+    timings and profiles in a fresh process (`Fresh`)."""
     import tempfile
     import torch
     from repro_torch.obs import recorder as R
     work = ROOT / "build" / "chip_smoke_health"
     work.mkdir(parents=True, exist_ok=True)
+    fresh = Fresh("health", work)
     out = {}
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         R.record_step.launches = 0
@@ -5248,7 +5355,8 @@ def health_path(dev, results):
             gc.collect()
             torch.cuda.empty_cache()
         results["recorder"]["launches"] = R.record_step.launches
-    timed = health_profiles(work)
+    timed = fresh.result(lambda line: line.startswith("  ")
+                         and not line.startswith("  ("))
     timing = timed["timing"]
     results["recorder"].update(timing["float32"])
     for key in ("bfloat16", "int8", "adapter", "launch_floor"):
@@ -5257,26 +5365,6 @@ def health_path(dev, results):
         out[mode]["profile"] = timed[mode]
     out["timing"] = timed["timing"]
     return out
-
-
-def health_profiles(work):
-    """``chip_smoke.py --only health`` in a fresh process (the profiler
-    loses launches late in this one): its log lines, and its report, which
-    it fails without."""
-    report = work / "only_health.json"
-    report.unlink(missing_ok=True)
-    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--only", "health", "--out", str(report)],
-                       capture_output=True, text=True, timeout=300)
-    lines = p.stdout.splitlines()
-    start = next((i for i, line in enumerate(lines)
-                  if line.startswith("--only health")), len(lines))
-    for line in lines[start + 1:]:
-        if line.startswith("  ") and not line.startswith("  ("):
-            log(line)
-    require(p.returncode == 0 and report.exists(),
-            f"--only health exited {p.returncode}: {p.stderr[-2000:]}")
-    return json.loads(report.read_text())["health"]
 
 
 def only_health(dev):
@@ -5927,10 +6015,10 @@ def pool_compile_audit(dev):
 
 
 def lm_pool_profile(dev):
-    """``--only lm-pool-profile``: a fresh process's `torch.profiler` of 4
-    pool steps of full-width qwen3-4b, float32 adapter, B = 8 slots with 7
-    streams of 64-token prompts (after 2 warm-up steps): device busy time,
-    idle share and device ops a step."""
+    """``--only lm-pool-profile``: a fresh process's `torch.profiler` of
+    `PROFILED_STEPS` pool steps of full-width qwen3-4b, float32 adapter,
+    B = 8 slots with 7 streams of 64-token prompts (after 2 warm-up
+    steps): device busy time, idle share and device ops a step."""
     from repro_torch.serving import LMScheduler
     model, params = pool_model(dev)
     prompts = pool_prompts(model.cfg.vocab, dev)
@@ -5939,24 +6027,9 @@ def lm_pool_profile(dev):
         s.admit_prompt(u, prompts[u][:64])
     for _ in range(2):
         s.step()
-    log("  4 pool steps, B = 8, float32 adapter:")
-    return profile_window(lambda: [s.step() for _ in range(4)], 4)
-
-
-def lm_pool_profiles(work):
-    """``--only lm-pool-profile`` in a fresh process: its report."""
-    report = work / "only_lm_pool_profile.json"
-    report.unlink(missing_ok=True)
-    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--only", "lm-pool-profile", "--out", str(report)],
-                       capture_output=True, text=True, timeout=300)
-    for line in p.stdout.splitlines():
-        if line.startswith("    "):
-            log(line)
-    require(p.returncode == 0 and report.exists(),
-            f"--only lm-pool-profile exited {p.returncode}: "
-            f"{p.stderr[-2000:]}")
-    return json.loads(report.read_text())["lm-pool-profile"]
+    log(f"  {PROFILED_STEPS} pool steps, B = 8, float32 adapter:")
+    return profile_window(lambda: [s.step() for _ in range(PROFILED_STEPS)],
+                          PROFILED_STEPS)
 
 
 def lm_pool(dev, results, lm=None):
@@ -5975,6 +6048,7 @@ def lm_pool(dev, results, lm=None):
                 K.fleet_step_q, fused.rollout, R._record_step)
     work = ROOT / "build" / "chip_smoke_lm_pool"
     work.mkdir(parents=True, exist_ok=True)
+    fresh = Fresh("lm-pool-profile", work)
     out = {"adapter_window": compare_adapter_window(dev, results)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -6002,7 +6076,8 @@ def lm_pool(dev, results, lm=None):
         gc.collect()
         torch.cuda.empty_cache()
     out["compile_audit"] = pool_compile_audit(dev)
-    out["profile"] = prof = lm_pool_profiles(work)
+    out["profile"] = prof = fresh.result(
+        lambda line: line.startswith("    "))
     smi = nvidia_smi()
     for mode in ("float32", "int8"):
         r, t = out[mode], out["adapter_window"][mode]
@@ -6013,7 +6088,7 @@ def lm_pool(dev, results, lm=None):
             f"shape {t['ms']:.4f} ms against its bound {t['bound_ms']:.5f} "
             f"ms ({t['bound_by']})")
     if prof.get("idle_share") is not None:
-        log(f"  lm pool profile ({smi}): 4 steps, idle share "
+        log(f"  lm pool profile ({smi}): {PROFILED_STEPS} steps, idle share "
             f"{prof['idle_share']:.3f}, "
             f"{prof['kernel_launches_per_step']:.0f} device ops a step")
     return out
@@ -6239,9 +6314,9 @@ def moe_split(prof):
 
 def moe_profile(dev):
     """``--only moe-profile``: a fresh process's `torch.profiler` of one
-    prefill of 4 x 2048 tokens and 4 decode steps after it (after one
-    untimed prefill and step) of full-width deepseek-moe-16b, float32
-    adapter: idle share, device ops a step, and the device time of the
+    prefill of 4 x 2048 tokens and `PROFILED_STEPS` decode steps after it
+    (after one untimed prefill and step) of full-width deepseek-moe-16b,
+    float32 adapter: idle share, device ops a step, and the device time of the
     routing, the dispatch, the experts (their GEMMs and silu) and the
     combine, each beside the busy time."""
     import torch
@@ -6267,13 +6342,13 @@ def moe_profile(dev):
             lambda: made.append(prefill(params, prompts)), 1)
         _, cache = made.pop()
 
-        def four():
+        def steps():
             nonlocal cache
-            for _ in range(4):
+            for _ in range(PROFILED_STEPS):
                 _, cache = decode(params, cache, tok)
 
-        log("  4 decode steps, float32 adapter:")
-        out["decode"] = profile_window(four, 4)
+        log(f"  {PROFILED_STEPS} decode steps, float32 adapter:")
+        out["decode"] = profile_window(steps, PROFILED_STEPS)
     for what in ("prefill", "decode"):
         out[what]["moe"] = split = moe_split(out[what])
         log(f"  {what}: " + ", ".join(
@@ -6281,22 +6356,6 @@ def moe_profile(dev):
             + (f" ({r['share']:.3f} of busy)" if r["share"] is not None
                else "") for n, r in split.items()))
     return out
-
-
-def moe_profiles(work):
-    """``--only moe-profile`` in a fresh process: its report."""
-    report = work / "only_moe_profile.json"
-    report.unlink(missing_ok=True)
-    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--only", "moe-profile", "--out", str(report)],
-                       capture_output=True, text=True, timeout=300)
-    for line in p.stdout.splitlines():
-        if line.startswith("    ") or line.startswith("  prefill") or \
-                line.startswith("  decode"):
-            log(line)
-    require(p.returncode == 0 and report.exists(),
-            f"--only moe-profile exited {p.returncode}: {p.stderr[-2000:]}")
-    return json.loads(report.read_text())["moe-profile"]
 
 
 def moe_path(dev, results, counters, every):
@@ -6311,6 +6370,9 @@ def moe_path(dev, results, counters, every):
     process's profile (`moe_profile`).  Returns (report, the timed
     lockstep runs' launches)."""
     import torch
+    work = ROOT / "build" / "chip_smoke_moe"
+    work.mkdir(parents=True, exist_ok=True)
+    fresh = Fresh("moe-profile", work)
     out = {"attention": arch_attention(dev, results)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -6325,9 +6387,8 @@ def moe_path(dev, results, counters, every):
     out["serve_cli_default"] = serve_cli_default(results, MOE_ARCH)
     gc.collect()
     torch.cuda.empty_cache()
-    work = ROOT / "build" / "chip_smoke_moe"
-    work.mkdir(parents=True, exist_ok=True)
-    out["profile"] = prof = moe_profiles(work)
+    out["profile"] = prof = fresh.result(lambda line: line.startswith(
+        ("    ", "  prefill", "  decode")))
     smi = nvidia_smi()
     for mode in ("float32", "int8"):
         r = out["lockstep"][mode]
@@ -6335,7 +6396,7 @@ def moe_path(dev, results, counters, every):
             f"{r['prefill_ms']:.1f} ms, decode p50 {r['decode_ms_p50']:.2f} "
             f"ms, {r['tokens_per_s']:.1f} tokens/s")
     for what in ("prefill", "decode"):
-        p = prof[what]
+        p = prof.get(what, {})
         if p.get("idle_share") is not None:
             log(f"  {MOE_ARCH} profile ({smi}), {what}: idle share "
                 f"{p['idle_share']:.3f}, {p['kernel_launches_per_step']:.0f} "
@@ -6924,12 +6985,12 @@ def kvq_ranges():
 
 def kvq_profile(dev):
     """``--only kv-quant-profile``: a fresh process's `torch.profiler` of
-    4 decode steps of full-width qwen1.5-32b at (b)'s one prompt of 2048,
-    int8 adapter, with the int8 cache and then the bf16 cache (after a
-    prefill and one untimed step each): idle share, device ops a step,
-    and the device time of the quantisation, the dequantisation and the
-    decode attention (with its float32 copies of the cache), each beside
-    the busy time."""
+    `PROFILED_STEPS` decode steps of full-width qwen1.5-32b at (b)'s one
+    prompt of 2048, int8 adapter, with the int8 cache and then the bf16
+    cache (after a prefill and one untimed step each): idle share, device
+    ops a step, and the device time of the quantisation, the
+    dequantisation and the decode attention (with its float32 copies of
+    the cache), each beside the busy time."""
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill
     model, params = kvq_model(dev, kv_quant=True)
@@ -6943,14 +7004,14 @@ def kvq_profile(dev):
         tok = logits.argmax(-1).to(torch.int32)[:, None]
         _, cache = decode(params, cache, tok)
 
-        def four():
+        def steps():
             nonlocal cache
-            for _ in range(4):
+            for _ in range(PROFILED_STEPS):
                 _, cache = decode(params, cache, tok)
 
-        log(f"  4 decode steps, {mode} cache:")
+        log(f"  {PROFILED_STEPS} decode steps, {mode} cache:")
         with kvq_ranges():
-            out[mode] = r = profile_window(four, 4)
+            out[mode] = r = profile_window(steps, PROFILED_STEPS)
         ranges = r.get("annotated_ranges", {})
         busy = r["device_busy_ms"]
         r["kvq"] = {n: dict(device_ms=ranges.get(f"kvq.{n}", {}).get(
@@ -6966,23 +7027,6 @@ def kvq_profile(dev):
     return out
 
 
-def kvq_profiles(work):
-    """``--only kv-quant-profile`` in a fresh process: its report."""
-    report = work / "only_kv_quant_profile.json"
-    report.unlink(missing_ok=True)
-    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--only", "kv-quant-profile", "--out", str(report)],
-                       capture_output=True, text=True, timeout=300)
-    for line in p.stdout.splitlines():
-        if line.startswith("    ") or line.startswith("  int8") or \
-                line.startswith("  bfloat16") or line.startswith("  4 "):
-            log(line)
-    require(p.returncode == 0 and report.exists(),
-            f"--only kv-quant-profile exited {p.returncode}: "
-            f"{p.stderr[-2000:]}")
-    return json.loads(report.read_text())["kv-quant-profile"]
-
-
 def kvq_path(dev, results, counters):
     """Phase 16: #7 at qwen1.5-32b's prefill shape; (a) lockstep with the
     int8 cache at full depth; (b) int8 against bf16 cache at one prompt,
@@ -6992,6 +7036,9 @@ def kvq_path(dev, results, counters):
     import tempfile
     import torch
     from repro_torch.kernels.plasticity import fused
+    work = ROOT / "build" / "chip_smoke_kv_quant"
+    work.mkdir(parents=True, exist_ok=True)
+    fresh = Fresh("kv-quant-profile", work)
     out = {"attention": arch_attention(dev, results, KVQ_ARCH, KVQ_ATTN,
                                        "kvq_shape", SEED + 47)}
     _flush_buf.clear()              # its 1 GiB is wanted beside 66 GiB
@@ -7010,15 +7057,14 @@ def kvq_path(dev, results, counters):
                                            lock, weights, free)
     out["cache_passes"] = kvq_copy_ms(dev, model.cfg)
     _flush_buf.clear()
-    work = ROOT / "build" / "chip_smoke_kv_quant"
-    work.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         out["pool"] = kvq_pool(dev, model, params,
                                counters + (fused.rollout,), results, tmp)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    out["profile"] = kvq_profiles(work)
+    out["profile"] = fresh.result(lambda line: line.startswith(
+        ("    ", "  int8", "  bfloat16", f"  {PROFILED_STEPS} ")))
     out["shallow"] = kvq_shallow(dev)
     out["others"] = kvq_other_archs(dev, counters, results)
     smi = nvidia_smi()
@@ -7395,12 +7441,14 @@ def train_model(dev, steps_=TRAIN_STEPS):
     return cfg, step_fn, params, opt_state, pipe
 
 
-def train_steps(dev, cfg, step_fn, params, opt_state, pipe, rows, mb):
+def train_steps(dev, cfg, step_fn, params, opt_state, pipe, rows, mb,
+                final=None):
     """`TRAIN_STEPS` steps of ``step_fn`` from the token pipeline: each
     step's launches exact (`train_launches`), finite losses, the first near
     ln(vocab); step seconds, tokens/s, model FLOP/s and its share of the
     bf16 peak, peak memory (from the caller's `reset_peak_memory_stats`
-    and ``base``)."""
+    and ``base``).  ``final``: a list that receives the parameters and
+    the optimizer state the last step handed back."""
     import torch
     from repro_torch.data import batch_at_step
     from repro_torch.launch.steps import model_flops
@@ -7433,6 +7481,8 @@ def train_steps(dev, cfg, step_fn, params, opt_state, pipe, rows, mb):
         steps_.append(dict(step=step, loss=loss, seconds=dt))
         log(f"  step {step}: loss {loss:.4f}, {dt:.3f} s, launches {got}")
         del batch
+    if final is not None:
+        final[:] = [params, opt_state]
     first = steps_[0]["loss"]
     require(abs(first - math.log(cfg.vocab)) < 1.0,
             f"{cfg.name} first loss {first:.4f}, want near ln({cfg.vocab}) "
@@ -7692,28 +7742,14 @@ def train_profile(dev):
     return out
 
 
-def train_profiles(work):
-    """``--only train-profile`` in a fresh process: its report."""
-    report = work / "only_train_profile.json"
-    report.unlink(missing_ok=True)
-    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--only", "train-profile", "--out", str(report)],
-                       capture_output=True, text=True, timeout=360)
-    for line in p.stdout.splitlines():
-        if line.startswith("    ") or line.startswith("  one ") or \
-                line.startswith("  shares"):
-            log(line)
-    require(p.returncode == 0 and report.exists(),
-            f"--only train-profile exited {p.returncode}: "
-            f"{p.stderr[-2000:]}")
-    return json.loads(report.read_text())["train-profile"]
-
-
 def train_all(dev, results):
     """Phase 17: (a) #7's backward, (b) silu's, (c) 3 full-width steps,
     (d) 2 layers in float32 against the plain path, (e) the CLI and its
     resume; then a fresh process's profile of one step."""
     import torch
+    work = ROOT / "build" / "chip_smoke_train"
+    work.mkdir(parents=True, exist_ok=True)
+    fresh = Fresh("train-profile", work)
     _flush_buf.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -7729,9 +7765,8 @@ def train_all(dev, results):
     out["cli"] = train_cli()
     gc.collect()
     torch.cuda.empty_cache()
-    work = ROOT / "build" / "chip_smoke_train"
-    work.mkdir(parents=True, exist_ok=True)
-    out["profile"] = train_profiles(work)
+    out["profile"] = fresh.result(lambda line: line.startswith(
+        ("    ", "  one ", "  shares")), timeout=360)
     return out
 
 
@@ -8068,28 +8103,14 @@ def ssm_train_profile(dev):
     return out
 
 
-def ssm_train_profiles(work):
-    """``--only ssm-train-profile`` in a fresh process: its report."""
-    report = work / "only_ssm_train_profile.json"
-    report.unlink(missing_ok=True)
-    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--only", "ssm-train-profile", "--out", str(report)],
-                       capture_output=True, text=True, timeout=360)
-    for line in p.stdout.splitlines():
-        if line.startswith("    ") or line.startswith("  one ") or \
-                line.startswith("  shares"):
-            log(line)
-    require(p.returncode == 0 and report.exists(),
-            f"--only ssm-train-profile exited {p.returncode}: "
-            f"{p.stderr[-2000:]}")
-    return json.loads(report.read_text())["ssm-train-profile"]
-
-
 def ssm_train_all(dev, results):
     """Phase 18: (a) #8's backward, (b) silu's Mamba2 forms, (c) 3 steps
     of each arch, (d) each shallow in float32 against the plain path; then
     a fresh process's profile of one mamba2-1.3b step."""
     import torch
+    work = ROOT / "build" / "chip_smoke_train"
+    work.mkdir(parents=True, exist_ok=True)
+    fresh = Fresh("ssm-train-profile", work)
     _flush_buf.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -8111,9 +8132,8 @@ def ssm_train_all(dev, results):
             for arch, p in out["path"].items()}
     gc.collect()
     torch.cuda.empty_cache()
-    work = ROOT / "build" / "chip_smoke_train"
-    work.mkdir(parents=True, exist_ok=True)
-    out["profile"] = ssm_train_profiles(work)
+    out["profile"] = fresh.result(lambda line: line.startswith(
+        ("    ", "  one ", "  shares")), timeout=360)
     return out
 
 
@@ -8339,44 +8359,48 @@ def moe_train_cfg(layers=MOE_TRAIN_LAYERS):
                            TRAIN_STEPS + 2)
 
 
-def moe_train_repeat(dev, step_fn, params, opt_state, pipe, step):
-    """One step repeated from the same saved state: the parameters and
-    optimizer state copied to the host, step ``step`` taken and its loss
-    and parameters kept (the parameters on the host); the state copied
-    back and the step taken again: the same loss and parameters, bit for
-    bit."""
+def moe_train_repeat(dev, make, step_fn, state, pipe, step):
+    """Step ``step`` taken on the state that `train_steps` left, its loss
+    and parameters kept (the parameters on the host); then that state
+    dropped, made again from the seed by ``make()`` and steps 0 to
+    ``step`` taken on it: the same loss and parameters, bit for bit.
+    ``state`` is ``[params, opt_state]``, emptied here so that only one
+    state is on the card at a time."""
     import torch
     from repro_torch.data import batch_at_step
     from repro_torch.optim.optimizers import _leaves
-    live = _leaves((params, opt_state))
+
+    def take(s):
+        batch = batch_at_step(pipe, s, device=dev)
+        state[0], state[1], metrics = step_fn(*state, batch)
+        return metrics["loss"].detach().clone()
+
+    first = take(step)
+    kept = [t.cpu() for t in _leaves(state[0])]
+    state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    saved = [t.cpu() for t in live]
-    seconds = {"save": time.perf_counter() - t0}
-    batch = batch_at_step(pipe, step, device=dev)
-    _, _, metrics = step_fn(params, opt_state, batch)
-    first = metrics["loss"].detach().clone()
-    kept = [t.cpu() for t in _leaves(params)]
-    t0 = time.perf_counter()
-    for t, h in zip(live, saved):
-        t.copy_(h)
+    state.extend(make())
+    for s in range(step + 1):
+        again = take(s)
     torch.cuda.synchronize()
-    seconds["restore"] = time.perf_counter() - t0
-    del saved
-    _, _, metrics = step_fn(params, opt_state, batch)
-    same_loss = torch.equal(first, metrics["loss"])
-    bad = [i for i, (t, h) in enumerate(zip(_leaves(params), kept))
+    seconds = time.perf_counter() - t0
+    same_loss = torch.equal(first, again)
+    bad = [i for i, (t, h) in enumerate(zip(_leaves(state[0]), kept))
            if not torch.equal(t, h.to(dev))]
     require(same_loss and not bad,
-            f"{MOE_ARCH} step {step} repeated from the same state: loss "
-            f"{float(first)!r} then {float(metrics['loss'])!r}, {len(bad)} "
-            f"parameter leaves differ")
-    log(f"  step {step} repeated from the same saved state: loss "
-        f"{float(first):.6f} both times, every parameter bit for bit (host "
-        f"copies of the state: save {seconds['save']:.1f} s, restore "
-        f"{seconds['restore']:.1f} s)")
+            f"{MOE_ARCH} step {step} taken again from the seed: loss "
+            f"{float(first)!r} then {float(again)!r}, {len(bad)} parameter "
+            f"leaves differ")
+    log(f"  step {step} taken again from the seed (steps 0-{step} on a "
+        f"fresh state in {seconds:.1f} s): loss {float(first):.6f} both "
+        f"times, every parameter bit for bit")
     del kept
+    state.clear()
     gc.collect()
-    return dict(step=step, loss=float(first), same_bits=True, **seconds)
+    return dict(step=step, loss=float(first), same_bits=True,
+                again_seconds=seconds)
 
 
 def moe_train_path(dev):
@@ -8384,8 +8408,8 @@ def moe_train_path(dev):
     through `moe_train_cfg`'s step function at 2 x 4096 tokens, random
     init from the seed (`train_steps`: launches exact, finite losses, the
     first near ln(102400), step seconds, tokens/s, model FLOP/s, peak
-    memory); then a 4th step repeated from the same saved state
-    (`moe_train_repeat`)."""
+    memory); then a 4th step, taken again on a state made anew from the
+    seed (`moe_train_repeat`)."""
     import torch
     from repro_torch.data import TokenPipelineConfig
     from repro_torch.models import factory
@@ -8393,8 +8417,13 @@ def moe_train_path(dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg, opt, step_fn = moe_train_cfg()
-    params = factory.build(cfg).init(torch.Generator(dev).manual_seed(SEED))
-    opt_state = opt.init(params)
+
+    def make():
+        params = factory.build(cfg).init(
+            torch.Generator(dev).manual_seed(SEED))
+        return [params, opt.init(params)]
+
+    params, opt_state = make()
     pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                global_batch=MOE_TRAIN_BATCH, seed=SEED)
     full = lm_config(MOE_ARCH)[0].n_layers
@@ -8402,11 +8431,14 @@ def moe_train_path(dev):
         f"parameters, cut to {cfg.n_layers} of {full} layers (the dense "
         f"first layer and {cfg.n_layers - 1} MoE layers), "
         f"{MOE_TRAIN_BATCH} x {TRAIN_SEQ} tokens in 2 microbatches")
+    state = []
     out = train_steps(dev, cfg, step_fn, params, opt_state, pipe,
-                      MOE_TRAIN_BATCH, 2)    # TRAIN_SETUP["deepseek-moe-16b"]
-    out["repeat"] = moe_train_repeat(dev, step_fn, params, opt_state, pipe,
+                      MOE_TRAIN_BATCH, 2,    # TRAIN_SETUP["deepseek-moe-16b"]
+                      final=state)
+    del params, opt_state
+    out["repeat"] = moe_train_repeat(dev, make, step_fn, state, pipe,
                                      TRAIN_STEPS)
-    del params, opt_state, step_fn, opt
+    del state, step_fn, opt
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -8525,23 +8557,6 @@ def moe_train_profile(dev):
     return out
 
 
-def moe_train_profiles(work):
-    """``--only moe-train-profile`` in a fresh process: its report."""
-    report = work / "only_moe_train_profile.json"
-    report.unlink(missing_ok=True)
-    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--only", "moe-train-profile", "--out", str(report)],
-                       capture_output=True, text=True, timeout=360)
-    for line in p.stdout.splitlines():
-        if line.startswith("    ") or line.startswith("  one ") or \
-                line.startswith("  shares") or line.startswith("  moe "):
-            log(line)
-    require(p.returncode == 0 and report.exists(),
-            f"--only moe-train-profile exited {p.returncode}: "
-            f"{p.stderr[-2000:]}")
-    return json.loads(report.read_text())["moe-train-profile"]
-
-
 def moe_train_all(dev, results):
     """Phase 19: (a) the kernels at the MoE step's shapes, (b) one MoE
     layer's backward against the indexing forms and twice, (c) 3 steps of
@@ -8550,6 +8565,9 @@ def moe_train_all(dev, results):
     and one MoE layer in float32 against the plain path; then a fresh
     process's profile of one step."""
     import torch
+    work = ROOT / "build" / "chip_smoke_train"
+    work.mkdir(parents=True, exist_ok=True)
+    fresh = Fresh("moe-train-profile", work)
     _flush_buf.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -8562,10 +8580,542 @@ def moe_train_all(dev, results):
     out["shallow"] = train_shallow_matches(dev, MOE_ARCH)
     gc.collect()
     torch.cuda.empty_cache()
-    work = ROOT / "build" / "chip_smoke_train"
-    work.mkdir(parents=True, exist_ok=True)
-    out["profile"] = moe_train_profiles(work)
+    out["profile"] = fresh.result(lambda line: line.startswith(
+        ("    ", "  one ", "  shares", "  moe ")), timeout=360)
     return out
+
+
+# ---- phase 20: sharded session pools ----------------------------------------
+
+SHARD_D = 4                     # shards of the main sharded pool
+SHARD_RESIDENTS = 3 * B // 4    # 3072 sessions: shards 0-2 full, 3 empty
+SHARD_POPULATION = B + 512      # users who come and go
+SHARD_WINDOWS = 4               # windows of (a), (b)'s continuation, (d)
+SHARD_K = 4                     # steps a window (the controller's T)
+SHARD_STEPS = 4                 # per-event steps of (a)
+SHARD_DEPART = 0.02             # per resident and window
+SHARD_LOST = 1                  # the shard (b) loses
+SHARD_LM_STEPS = 8              # (e)'s decode steps
+
+
+def shard_mesh(d):
+    """D shards on the visible cards in turn (all on one card where there
+    is one)."""
+    import torch
+    from repro_torch.distributed import fleet_mesh
+    n = torch.cuda.device_count()
+    return fleet_mesh(devices=[torch.device("cuda", i % n)
+                               for i in range(d)])
+
+
+def shard_counters():
+    """The launch counters of the kernels a sharded fleet pool runs."""
+    from repro_torch.kernels.plasticity import fused, kernel as K
+    from repro_torch.obs import recorder as R
+    return {"fleet_step": K.fleet_step, "fleet_step_q": K.fleet_step_q,
+            "rollout": fused.rollout, "recorder": R.record_step}
+
+
+class ShardDrives:
+    """Drives of the population at a running time, and the kernel launches
+    of the sharded pool's calls (``mcall``; the control's do not count)."""
+
+    def __init__(self, n_in, t=0):
+        import numpy as np
+        self.base = np.random.default_rng(SEED + 52).standard_normal(
+            (SHARD_POPULATION, n_in)).astype(np.float32)
+        self.t = t
+        self.launches = {k: 0 for k in shard_counters()}
+
+    def __call__(self, users):
+        import numpy as np
+        mat = (np.sin(0.5 * self.t + self.base) * 1.5).astype(np.float32)
+        self.t += 1
+        return {u: mat[int(u[1:])] for u in users}
+
+    def mcall(self, fn, *a, **kw):
+        counters = shard_counters()
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn(*a, **kw)
+        for k, c in counters.items():
+            self.launches[k] += c.launches - before[k]
+        return out
+
+
+def shard_cfg(dev, quant):
+    """`firefly_snn.CONFIG` (or its int8 twin) and the rule on ``dev``."""
+    import torch
+    from repro_torch.configs import firefly_snn
+    from repro_torch.core import snn
+    cfg = (snn.quant_config(firefly_snn.CONFIG) if quant
+           else firefly_snn.CONFIG)
+    return cfg, [t.to(dev) for t in snn.init_theta(
+        cfg, torch.Generator().manual_seed(SEED + 51), scale=0.05)]
+
+
+class ShardPair:
+    """One serving sequence on an unmeshed control pool ``c`` and on a pool
+    ``m`` split over ``mesh``: 8-128-8, 4096 slots, RAM stores, the same
+    rule, the same sessions (3072 admitted into slots 0-3071) and the same
+    churn.  The first pair of a datapath admits them into ``c`` and saves
+    it at ``seed``; ``m``, and both pools of a later pair, resume that
+    checkpoint (`load_pool`, each on its own layout)."""
+
+    def __init__(self, dev, quant, mesh, seed):
+        import numpy as np
+        from repro_torch.serving import FleetScheduler, SessionStore
+        self.cfg, self.theta = shard_cfg(dev, quant)
+        self.c = FleetScheduler(self.cfg, self.theta, slots=B, device=dev,
+                                store=SessionStore())
+        self.m = FleetScheduler(self.cfg, self.theta, slots=B, mesh=mesh,
+                                store=SessionStore())
+        self.drives = ShardDrives(self.cfg.layer_sizes[0])
+        self.rng = np.random.default_rng(SEED + 53)
+        if not os.path.isdir(seed):
+            for i in range(SHARD_RESIDENTS):
+                require(self.c.admit(f"u{i}") == i,
+                        "a session did not land in its slot")
+            self.c.save_pool(seed)
+        else:
+            self.c.load_pool(seed)
+        self.m.load_pool(seed)
+        require(self.m.slot_user == self.c.slot_user
+                == [f"u{i}" for i in range(SHARD_RESIDENTS)]
+                + [None] * (B - SHARD_RESIDENTS),
+                "the sessions are not in slots 0-3071")
+
+    def churn(self):
+        """Each resident departs with SHARD_DEPART; as many arrivals come
+        from the population's non-residents, into the freed slots."""
+        c, m = self.c, self.m
+        residents = [u for u in c.slot_user if u is not None]
+        gone = [u for u, r in zip(residents, self.rng.random(len(residents)))
+                if r < SHARD_DEPART]
+        for u in gone:
+            c.evict(u)
+            m.evict(u)
+        out = sorted(set(f"u{i}" for i in range(SHARD_POPULATION))
+                     - set(c.user_slot), key=lambda u: int(u[1:]))
+        for u in self.rng.choice(out, len(gone), replace=False):
+            require(c.admit(str(u)) == m.admit(str(u)),
+                    "the two pools admitted into other slots")
+        return len(gone)
+
+
+def rows_equal(a, b, what, users=None):
+    """Two pools' outputs (uid -> row) equal bit for bit on ``users``."""
+    import torch
+    users = sorted(a) if users is None else users
+    # stacked where they live, then one copy to the host each
+    x = torch.stack([a[u] for u in users]).cpu()
+    y = torch.stack([b[u] for u in users]).cpu()
+    require(x.dtype == y.dtype and torch.equal(x, y),
+            f"{what}: outputs differ (largest {float((x.float() - y.float()).abs().nan_to_num(1e30).max())})")
+
+
+def sessions_equal(pa, pb, users, what):
+    """The listed sessions' rows of every fleet leaf equal in two pools,
+    whatever slots they sit in (a sharded pool gathered on the host)."""
+    import torch
+    from repro_torch.distributed import sharding as dsh
+    fa, fb = dsh.gather(pa.fleet), dsh.gather(pb.fleet)
+    ia = torch.tensor([pa.user_slot[u] for u in users])
+    ib = torch.tensor([pb.user_slot[u] for u in users])
+    for x, y in zip(fa.w + fa.v + fa.trace + fa.w_scale,
+                    fb.w + fb.v + fb.trace + fb.w_scale):
+        require(torch.equal(x[ia], y[ib]), f"{what}: session state differs")
+
+
+def plain_shard_window(pair, d, drives, k):
+    """Shard ``d``'s window through the plain window on host copies of its
+    rows, drives, mask and seeds: ``(outs, new state)`` to hold against the
+    kernels' (taken before ``m``'s window runs)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import snn
+    from repro_torch.core.engine import NetworkState
+    m, per = pair.m, B // SHARD_D
+    lo = d * per
+    f = m.fleet
+    host = [tuple(x.pieces[d].cpu() for x in leaf)
+            for leaf in (f.w, f.v, f.trace, f.w_scale)]
+    st = NetworkState(w=host[0], v=host[1], trace=host[2],
+                      t=f.t.cpu(), w_scale=host[3])
+    x = np.zeros((per, pair.cfg.layer_sizes[0]), np.float32)
+    for u, row in drives.items():
+        if lo <= m.user_slot[u] < lo + per:
+            x[m.user_slot[u] - lo] = row
+    x = torch.from_numpy(x)
+    active = m._active_mask()[lo:lo + per]
+    seeds = m._seeds()[lo:lo + per]
+    return snn.rollout_window(
+        pair.cfg, st, [t.cpu() for t in pair.theta],
+        x[None].expand(k, *x.shape), active=active, seed=seeds)
+
+
+def held_shard(name, got, want, quant, what):
+    """A shard's kernel window against its plain repeat: int8 bit for bit,
+    float32 within 1e-5 (relative to the largest value, as `held`)."""
+    import torch
+    got, want = got.cpu(), want.cpu()
+    if quant or not got.is_floating_point():
+        require(torch.equal(got, want), f"{what}: {name} differs from the "
+                f"plain window")
+        return 0.0
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    require(err <= 1e-5 * scale, f"{what}: {name} off the plain window by "
+            f"{err}")
+    return err
+
+
+def sharded_serving(dev, quant, mesh, tmp, report):
+    """(a), (b) where the mesh has `SHARD_D` shards, and (c) on one
+    datapath; returns the pair and (c)'s checkpoint."""
+    import time
+    import torch
+    from repro_torch.kernels.plasticity import fused
+    from repro_torch.serving import FleetScheduler, SessionStore
+    d = mesh.size
+    tag = f"{'int8' if quant else 'float32'}, D = {d}"
+    t_part = time.perf_counter()
+    pair = ShardPair(dev, quant, mesh, os.path.join(
+        tmp, f"seed-{'q' if quant else 'f'}"))
+    seconds = {"admit": time.perf_counter() - t_part}
+    c, m, drives = pair.c, pair.m, pair.drives
+    per = B // d
+    require(all(p.shape[0] == per for p in m.fleet.w[0].pieces),
+            f"{tag}: a shard does not hold {per} slots")
+    out = {}
+    # (a) windows and per-event steps under churn
+    churned = 0
+    for w in range(SHARD_WINDOWS):
+        churned += pair.churn()
+        drv = drives(c.active_users)
+        repeat = d == SHARD_D and w == 1
+        if repeat:
+            plain = plain_shard_window(pair, 1, drv, SHARD_K)
+        oc = c.pool_step(dict(drv), timesteps=SHARD_K)
+        before = fused.rollout.launches
+        om = drives.mcall(m.pool_step, dict(drv), timesteps=SHARD_K)
+        require(fused.rollout.launches - before == d,
+                f"{tag}: {fused.rollout.launches - before} rollout "
+                f"launches in a window, not {d}")
+        rows_equal(oc, om, f"{tag} (a) window {w}")
+        if repeat:
+            mine = sorted((u for u in om if per <= m.user_slot[u] < 2 * per),
+                          key=m.user_slot.get)
+            err = held_shard(
+                "outputs", torch.stack([om[u] for u in mine]),
+                torch.stack([plain[1][:, m.user_slot[u] - per]
+                             for u in mine]), quant, f"{tag} (a) shard 1")
+            f, g = m.fleet, plain[0]
+            for name, a, b in (("w", f.w, g.w), ("v", f.v, g.v),
+                               ("trace", f.trace, g.trace),
+                               ("w_scale", f.w_scale, g.w_scale)):
+                for x, y in zip(a, b):
+                    err = max(err, held_shard(name, x.pieces[1], y, quant,
+                                              f"{tag} (a) shard 1"))
+            out["plain_window_max_abs_err"] = err
+    for step in range(SHARD_STEPS):
+        drv = drives(c.active_users)
+        rows_equal(c.step(dict(drv)), drives.mcall(m.step, dict(drv)),
+                   f"{tag} (a) step {step}")
+    sessions_equal(c, m, c.active_users, f"{tag} (a)")
+    out["churned"] = churned
+    seconds["a"] = time.perf_counter() - t_part - sum(seconds.values())
+    log(f"  {tag}: (a) {SHARD_WINDOWS} windows under churn ({churned} "
+        f"sessions replaced) and {SHARD_STEPS} steps bit for bit the "
+        f"unmeshed pool's" + (
+            f"; shard 1's window against the plain window within "
+            f"{out['plain_window_max_abs_err']:.3g}"
+            if "plain_window_max_abs_err" in out else ""))
+    if d == SHARD_D:
+        # (b) a shard lost, its sessions drained into the empty shard
+        warm = m.compiled_programs()
+        require(m.persist_resident() == len(m.user_slot), "persist_resident")
+        stranded = m.fail_device(SHARD_LOST, poison=True)
+        require(len(stranded) == sum(
+            1 for u in m.slot_user[SHARD_LOST * per:(SHARD_LOST + 1) * per]
+            if u is not None), f"{tag} (b): stranded sessions")
+        for u in stranded:          # the control pauses them
+            c.evict(u)
+        drv = drives(m.active_users)
+        om = drives.mcall(m.pool_step, dict(drv), timesteps=SHARD_K)
+        oc = c.pool_step({u: drv[u] for u in c.active_users},
+                         timesteps=SHARD_K)
+        rows_equal(oc, om, f"{tag} (b) survivors", sorted(oc))
+        require(bool((torch.stack([om[u] for u in stranded]) == 0).all()),
+                f"{tag} (b): a stranded output is not exactly 0")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = m.drain_failed()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+        for u in stranded:
+            c.admit(u)
+        to = sorted({r["to_device"] for r in rep})
+        require(sorted(r["uid"] for r in rep) == sorted(stranded)
+                and all(r["from_device"] == SHARD_LOST for r in rep)
+                and all(r["steps_lost"] == 0 for r in rep)
+                and to == [SHARD_D - 1], f"{tag} (b): drain report "
+                f"{rep[:2]}, into shards {to}")
+        for w in range(SHARD_WINDOWS):
+            drv = drives(c.active_users)
+            rows_equal(c.pool_step(dict(drv), timesteps=SHARD_K),
+                       drives.mcall(m.pool_step, dict(drv),
+                                    timesteps=SHARD_K),
+                       f"{tag} (b) window {w} after the drain")
+        sessions_equal(c, m, c.active_users, f"{tag} (b)")
+        require(m.compiled_programs() == warm, f"{tag} (b): new signatures "
+                f"{m.compiled_programs()} after {warm}")
+        out.update(stranded=len(stranded), drain_s=drain_s, to_devices=to)
+        seconds["b"] = time.perf_counter() - t_part - sum(seconds.values())
+        log(f"  {tag}: (b) shard {SHARD_LOST} lost: {len(stranded)} "
+            f"sessions stranded (outputs 0, survivors bit for bit), drained "
+            f"into shard {to} in {drain_s:.3f} s, steps_lost 0, "
+            f"{SHARD_WINDOWS} windows bit for bit, no new signature")
+    # (c) the elastic re-mesh
+    path = os.path.join(tmp, f"pool-{'q' if quant else 'f'}-{d}")
+    t0 = time.perf_counter()
+    m.save_pool(path)
+    save_s = time.perf_counter() - t0
+    loaded = []
+    for dd in ((2, None) if d == SHARD_D else (None,)):
+        p = FleetScheduler(pair.cfg, pair.theta, slots=B,
+                           store=SessionStore(),
+                           **(dict(mesh=shard_mesh(dd)) if dd
+                              else dict(device=dev)))
+        p.load_pool(path)
+        require(p.slot_user == m.slot_user, "load_pool occupancy")
+        loaded.append((dd, p))
+    for w in range(2):
+        drv = drives(m.active_users)
+        om = drives.mcall(m.pool_step, dict(drv), timesteps=SHARD_K)
+        for dd, p in loaded:
+            rows_equal(om, p.pool_step(dict(drv), timesteps=SHARD_K),
+                       f"{tag} (c) window {w} at D = {dd or 'unmeshed'}")
+    for dd, p in loaded:
+        sessions_equal(m, p, m.active_users, f"{tag} (c) D = {dd}")
+    out.update(save_s=save_s, resumed_at=[dd or 1 for dd, _ in loaded])
+    seconds["c"] = time.perf_counter() - t_part - sum(seconds.values())
+    out["seconds"] = seconds
+    log(f"  {tag}: (c) saved in {save_s:.2f} s, resumed at D = "
+        f"{[dd or 'unmeshed' for dd, _ in loaded]}: 2 windows bit for bit; "
+        f"seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
+    report[tag] = out
+    return pair, path
+
+
+def sharded_record(dev, quant, path, report):
+    """(d): recorded windows at D = 4 against an unmeshed recording pool,
+    both resumed from (c)'s checkpoint; one quarantine rolled back.
+    Returns the sharded pool's recorder launches."""
+    import torch
+    from repro_torch.distributed import sharding as dsh
+    from repro_torch.obs import recorder as R
+    from repro_torch.serving import FleetScheduler, SessionStore
+    tag = f"{'int8' if quant else 'float32'}, D = {SHARD_D}"
+    cfg, theta = shard_cfg(dev, quant)
+    drives = ShardDrives(cfg.layer_sizes[0], t=100)
+    c = FleetScheduler(cfg, theta, slots=B, device=dev, store=SessionStore(),
+                       health=health_config())
+    m = FleetScheduler(cfg, theta, slots=B, mesh=shard_mesh(SHARD_D),
+                       store=SessionStore(), health=health_config())
+    for s in (c, m):
+        s.load_pool(path)
+
+    def window(what):
+        drv = drives(c.active_users)
+        oc = c.pool_step(dict(drv), timesteps=SHARD_K, record=True)
+        before = R.record_step.launches
+        om = drives.mcall(m.pool_step, dict(drv), timesteps=SHARD_K,
+                          record=True)
+        require(R.record_step.launches - before == SHARD_D,
+                f"{tag} (d): {R.record_step.launches - before} recorder "
+                f"launches in a window, not {SHARD_D}")
+        rows_equal(oc, om, f"{tag} (d) {what}")
+        for x, y in zip(tree_leaves(dsh.gather(c._rec)),
+                        tree_leaves(dsh.gather(m._rec))):
+            require(torch.equal(x, y), f"{tag} (d) {what}: recorder state "
+                    "differs")
+        require(torch.equal(dsh.host(c.last_verdict),
+                            dsh.host(m.last_verdict)),
+                f"{tag} (d) {what}: verdicts differ")
+
+    for w in range(SHARD_WINDOWS):
+        window(f"recorded window {w}")
+    victim = m.active_users[len(m.active_users) // 2]
+    for s in (c, m):
+        s.health_checkpoint()
+        s.quarantine(victim)
+    window("with a quarantine")
+    rc, rm = c.rollback(victim), m.rollback(victim)
+    require(rc == rm and rc["steps_lost"] == SHARD_K,
+            f"{tag} (d): rollback reports {rc} and {rm}")
+    window("after the rollback")
+    require(c.flagged_sessions() == m.flagged_sessions(),
+            f"{tag} (d): flagged sessions differ")
+    report[tag]["record"] = {"windows": SHARD_WINDOWS + 2, "rollback": rm,
+                             "flagged": len(m.flagged_sessions()),
+                             "launches": drives.launches["recorder"]}
+    log(f"  {tag}: (d) {SHARD_WINDOWS + 2} recorded windows bit for bit "
+        f"(ring, baselines, verdicts), {SHARD_D} recorder launches a "
+        f"window; {victim} quarantined and rolled back ({rm['steps_lost']} "
+        f"steps lost)")
+    return drives.launches
+
+
+def sharded_lm(dev, report):
+    """(e): the LM decode pool at D = 2 against unmeshed, qwen3-4b at full
+    width and `shallow` depth: the same tokens."""
+    import torch
+    from repro_torch.serving import LMScheduler
+    model, params = pool_model(dev, cut=True)
+    prompts = pool_prompts(model.cfg.vocab, dev)
+    users = list(prompts)[:3]
+    ref = LMScheduler(model, params, slots=POOL_SLOTS, max_len=POOL_MAX_LEN)
+    m = LMScheduler(model, params, slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                    mesh=shard_mesh(2))
+    for s in (ref, m):
+        for u in users:
+            s.admit_prompt(u, prompts[u])
+    toks = []
+    for _ in range(SHARD_LM_STEPS):
+        a, b = ref.step(), m.step()
+        require(a == b, f"(e): the sharded LM pool's tokens {b} are not the "
+                f"unmeshed pool's {a}")
+        toks.append(a)
+    w = {u: torch.tensor([ref.pending(u), 3, 5, 7]) for u in users}
+    la, lb = ref.decode_window(dict(w)), m.decode_window(dict(w))
+    same = all(torch.equal(la[u].argmax(-1).cpu(), lb[u].argmax(-1).cpu())
+               for u in users)
+    require(same, "(e): the window's tokens differ")
+    report["lm"] = {"arch": model.cfg.name, "layers": model.cfg.n_layers,
+                    "slots": POOL_SLOTS, "shards": 2,
+                    "steps": SHARD_LM_STEPS, "window_k": 4,
+                    "logits_bitwise": all(torch.equal(la[u].cpu(),
+                                                      lb[u].cpu())
+                                          for u in users)}
+    log(f"  (e) {model.cfg.name} ({model.cfg.n_layers} layers): "
+        f"{SHARD_LM_STEPS} steps and a 4-token window at D = 2 give the "
+        f"unmeshed tokens (window logits bit for bit: "
+        f"{report['lm']['logits_bitwise']})")
+    del ref, m, model, params
+
+
+SHARD_HEAD_START = 10_000_000   # cycles the card sleeps before a timed call
+
+
+def queued_ms(fn, reps=20):
+    """Median device time of one call of ``fn``: CUDA events around it,
+    with the L2 flushed by writing and the card then held in a sleep
+    kernel (`SHARD_HEAD_START` cycles, ~5 ms), so the host has queued the
+    whole call before the first event fires and the events time its
+    kernels back to back, not the host's dispatch.  ``fn`` must not wait
+    on the card (no copies from pageable host memory)."""
+    import torch
+    flush_l2("write")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush_l2("write")
+        torch.cuda._sleep(SHARD_HEAD_START)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def sharded_window_time(pair, report):
+    """(f): one window's device time, sharded (D launches on 1024 slots
+    each, their operands already on the shards) beside the unmeshed
+    pool's (one launch), by `queued_ms`; printed, not gated.  (Late in the
+    whole script `torch.profiler` loses launches, so this phase times by
+    events.)"""
+    from repro_torch.distributed import sharding as dsh
+    from repro_torch.kernels.plasticity import fused
+    c, m = pair.c, pair.m
+    drv = pair.drives(c.active_users)
+    ops = {}
+    for name, s in (("unmeshed", c), ("sharded", m)):
+        x, _ = s._gather_rows(drv, None)
+        act, seeds = s._active_mask(), s._seeds()
+        if s.mesh is not None:
+            place = dsh.SlotSharding(s.mesh, dsh.slot_pspec(0)).place
+            x, act, seeds = place(x), place(act), place(seeds)
+        def call(s=s, x=x, act=act, seeds=seeds):
+            return s._launch(SHARD_K, x, None, act, seeds, False, False)
+
+        before = fused.rollout.launches
+        call()
+        ops[name] = {"launches": fused.rollout.launches - before,
+                     "device_ms": queued_ms(call)}
+    report["window_time"] = ops
+    log(f"  (f) a window of K = {SHARD_K}: sharded "
+        f"{ops['sharded']['device_ms']:.4f} ms on the card "
+        f"({ops['sharded']['launches']} launches) beside unmeshed "
+        f"{ops['unmeshed']['device_ms']:.4f} ms "
+        f"({ops['unmeshed']['launches']} launch)")
+
+
+def sharded_pool(dev, results=None):
+    """Phase 20 (and ``--only sharded-pool``): (a)-(d) on both datapaths
+    at D = 4, (a) and (c) at D = every visible card, (e), (f).  Adds the
+    sharded pools' launches to ``results``."""
+    import tempfile
+    import time
+    import torch
+    report = {"card": nvidia_smi(),
+              "visible_cards": torch.cuda.device_count()}
+    t0 = time.perf_counter()
+    launches = {}
+    every = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        for quant in (False, True):
+            mode = "int8" if quant else "float32"
+            pair, path = sharded_serving(dev, quant, shard_mesh(SHARD_D),
+                                         tmp, report)
+            if not quant:
+                t1 = time.perf_counter()
+                sharded_window_time(pair, report)
+                report["window_time"]["seconds"] = time.perf_counter() - t1
+            counts = dict(pair.drives.launches)
+            del pair
+            t1 = time.perf_counter()
+            for k, n in sharded_record(dev, quant, path, report).items():
+                counts[k] += n
+            report[f"{mode}, D = {SHARD_D}"]["seconds"]["d"] = \
+                time.perf_counter() - t1
+            if every != SHARD_D:
+                sharded_serving(dev, quant, shard_mesh(every), tmp, report)
+            launches[mode] = counts
+            for name in (("fleet_step_q",) if quant else ("fleet_step",)) \
+                    + ("rollout", "recorder"):
+                require(counts[name] > 0, f"phase 20 ({mode}): {name} was "
+                        f"not launched")
+            gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    sharded_lm(dev, report)
+    report["lm"]["seconds"] = time.perf_counter() - t1
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t0
+    log(f"  phase 20 seconds {report['seconds']:.1f} (the LM pool "
+        f"{report['lm']['seconds']:.1f})")
+    if results is not None:
+        for mode, counts in launches.items():
+            for name in (("fleet_step_q",) if mode == "int8"
+                         else ("fleet_step",)) + ("rollout", "recorder"):
+                results[name].setdefault("launches_by_path", {
+                    "main path": results[name]["launches"]})[
+                    f"sharded pool, {mode}"] = counts[name]
+    return report
 
 
 def nvidia_smi():
@@ -8678,11 +9228,12 @@ ONLY = {"fleet-steps": only_fleet_steps, "shared-steps": only_shared_steps,
         "kv-quant-profile": kvq_profile, "train": only_train,
         "train-profile": train_profile, "ssm-train": only_ssm_train,
         "ssm-train-profile": ssm_train_profile, "moe-train": only_moe_train,
-        "moe-train-profile": moe_train_profile}
-# seconds after which a stalled LM phase (or ``--only`` part) prints every
+        "moe-train-profile": moe_train_profile, "sharded-pool": sharded_pool}
+# seconds after which a stalled phase (or ``--only`` part) prints every
 # thread's stack and exits non-zero (`faulthandler`), well before the
 # script's 1200 s
-STALL_LIMITS = {"8": 300, "9": 300, "11": 300, "14": 240, "15": 240,
+STALL_LIMITS = {"8": 300, "9": 300, "10": 300, "11": 300, "12": 240,
+                "13": 240, "14": 240, "15": 240,
                 "16": 480, "--only lm-pool": 240,
                 "--only lm-pool-profile": 150, "--only moe": 240,
                 "--only moe-profile": 150, "--only kv-quant": 480,
@@ -8690,11 +9241,14 @@ STALL_LIMITS = {"8": 300, "9": 300, "11": 300, "14": 240, "15": 240,
                 "--only train": 420, "--only train-profile": 300,
                 "18": 480, "--only ssm-train": 480,
                 "--only ssm-train-profile": 300, "19": 420,
-                "--only moe-train": 420, "--only moe-train-profile": 300}
+                "--only moe-train": 420, "--only moe-train-profile": 300,
+                "20": 240, "--only sharded-pool": 240, "--only health": 240}
 
 
 def main() -> int:
+    global PROFILES
     import torch
+    PROFILES = bool({"--profiles", "--only"} & set(sys.argv[1:]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -8753,6 +9307,8 @@ def main() -> int:
         require(parts and set(parts) <= set(ONLY),
                 f"--only takes one or more of {', '.join(ONLY)} (comma "
                 f"separated); got {parts}")
+        if "--wait" in sys.argv[1:] and sys.stdin.readline().strip() != "go":
+            return 2            # the process that started this one is gone
         out = {"card": smi}
         for part in parts:
             with phase(f"--only {part}"):
@@ -8811,10 +9367,12 @@ def main() -> int:
         for name, n in launches.items():
             results[name]["launches"] = n
         plain_closed_loop_matches(dev, main)
-    with phase("phase 4b: where the closed loop's time goes (20 control "
-               "steps; 5 per-event windows)"):
-        profiled = profile_closed_loop(dev, main)
-        profiled["per_event"] = profile_per_event(dev)
+    profiled = profiled_online = {}
+    if PROFILES:
+        with phase("phase 4b: where the closed loop's time goes (20 control "
+                   "steps; 5 per-event windows)"):
+            profiled = profile_closed_loop(dev, main)
+            profiled["per_event"] = profile_per_event(dev)
     with phase("phase 4f: main path in bfloat16, 8-128-8 controller, "
                "B = 4096"):
         bf16_main = bf16_controller_path(dev, main,
@@ -8835,8 +9393,10 @@ def main() -> int:
         for name, n in online_launches.items():
             results[name]["launches"] = n
         plain_stream_matches(dev, online)
-    with phase("phase 6b: where the online stream's time goes (10 digits)"):
-        profiled_online = profile_online(online)
+    if PROFILES:
+        with phase("phase 6b: where the online stream's time goes (10 "
+                   "digits)"):
+            profiled_online = profile_online(online)
     with phase("phase 6f: online-learning path in bfloat16, 784-1024-10, "
                "T = 8, B = 1"):
         bf16_online = bf16_online_path(
@@ -8847,7 +9407,8 @@ def main() -> int:
     with phase("phase 7: Table II timings and the new kernels (L2 "
                "flushed)"):
         table = table2(dev, online)
-        table["profile_per_event"] = profile_online_per_event(dev)
+        if PROFILES:
+            table["profile_per_event"] = profile_online_per_event(dev)
         time_new_kernels(dev, results)
         time_shared_shapes(dev, ("float32", "int8"), results)
         shared_launches = shared_step_launches(dev)
@@ -8878,7 +9439,7 @@ def main() -> int:
                    f"({layers}), B = 4, prompt 2048, 32 generated tokens, "
                    f"plastic adapter"):
             lm[arch], lm_launches[arch] = lm_path(dev, lm_counters, every,
-                                                  results, arch)
+                                                  results, arch, PROFILES)
         n_shallow = shallow(lm_config(arch)[0]).n_layers
         with phase(f"phase {tag}b: {arch}, {n_shallow} layers at full width "
                    f"in float32, kernels against the plain path"):
@@ -8978,6 +9539,13 @@ def main() -> int:
             f"{TRAIN_ARCH} training": results[name]["launches"]})[
             f"{MOE_ARCH} training"] = moe_trained["path"]["launches"][k]
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"phase 20: sharded session pools, 8-128-8 FleetScheduler, "
+               f"{B} slots over {SHARD_D} shards and over every visible "
+               f"card, float32 and int8; the LM pool over 2 shards"):
+        sharded = sharded_pool(dev, results)
+
     # #3 fleet's launches in each path that ran it; `launches` stays the
     # controller's (phase 4)
     results["rollout"]["launches_by_path"] = {
@@ -9021,6 +9589,7 @@ def main() -> int:
               "health_path": health, "lm_pool": pool, "moe_path": moe,
               "kv_quant_path": kvq, "train_path": trained,
               "ssm_train_path": ssm_trained, "moe_train_path": moe_trained,
+              "sharded_pool": sharded,
               "profile": profiled, "profile_online": profiled_online,
               "fleet_step_launches": fleet_launches,
               "shared_step_launches": shared_launches,

@@ -19,7 +19,10 @@ optimizer's ``OptState``), ``[i]`` for another tuple's or a list's entry,
 checkpoint written by either package loads in the other.  The flatten here
 is the port's own, over dataclasses, tuples, lists and dicts whose leaves
 are tensors or arrays; None is an empty subtree.  Leaves come off the card
-with ``.cpu().numpy()`` and restore onto the device the caller names.
+with ``.cpu().numpy()`` and restore onto the device the caller names, or
+onto a mesh's shards (``shardings=``, from
+`distributed.sharding.pool_shardings`); a sharded leaf is saved whole, so a
+checkpoint is the same files whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -128,8 +131,12 @@ _BF16_WORDS = np.dtype("V2")
 
 
 def to_host(leaf) -> np.ndarray:
-    """One leaf as a host numpy array (a copy for a tensor); a bfloat16
-    tensor as its 2-byte words."""
+    """One leaf as a host numpy array (a copy for a tensor; a
+    `distributed.sharding.Sharded` leaf gathered whole); a bfloat16 tensor
+    as its 2-byte words."""
+    from repro_torch.distributed.sharding import Sharded
+    if isinstance(leaf, Sharded):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -191,10 +198,16 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def load_checkpoint(directory: str, tree_like: Any,
-                    step: Optional[int] = None, device=None):
+                    step: Optional[int] = None, device=None,
+                    shardings: Any = None):
     """Restore into the structure of `tree_like`, leaves as tensors on
     ``device`` (the CPU when None).  Each stored leaf must have its
-    counterpart's shape.  Returns ``(tree, step, extra)``."""
+    counterpart's shape.  Returns ``(tree, step, extra)``.
+
+    ``shardings``: a tree of placements matching `tree_like`
+    (`distributed.sharding.pool_shardings`); each leaf is placed onto its
+    mesh's shards instead.  The stored leaves are whole, so any mesh
+    works: the elastic re-mesh."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -205,8 +218,10 @@ def load_checkpoint(directory: str, tree_like: Any,
 
     paths, leaves = flatten(tree_like)
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    places = (flatten(shardings)[1] if shardings is not None
+              else [None] * len(leaves))
     out = []
-    for path, like in zip(paths, leaves):
+    for path, like, place in zip(paths, leaves, places):
         entry = by_path.get(path)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {path!r}")
@@ -215,7 +230,8 @@ def load_checkpoint(directory: str, tree_like: Any,
         if tuple(arr.shape) != want_shape:
             raise ValueError(
                 f"shape mismatch for {path}: ckpt {arr.shape} vs {want_shape}")
-        out.append(_from_host(arr, entry["dtype"]).to(device))
+        leaf = _from_host(arr, entry["dtype"])
+        out.append(leaf.to(device) if place is None else place.place(leaf))
     return unflatten(tree_like, out), step, manifest["extra"]
 
 

@@ -385,3 +385,85 @@ def rollout(state: NetworkState, theta, drives: torch.Tensor, *,
                          occupancy=_occupancy(active, raw.shape[0],
                                               drives.device))
     return new_state, outs, tel
+
+
+# ---- sharded fleet dispatch (multi-device slot pools) ----------------------
+
+
+def fleet_spmd(fn, mesh, in_axes, out_axes, axis_name: str = "data"):
+    """Run a fleet-mode function once per shard of ``mesh``.
+
+    The fleet tensors are slot-major and slot rows are independent, so a
+    pool of B slots on D shards is pure data parallelism: each shard runs
+    the SAME function, the same kernels, on its B/D slot rows, and no
+    shard reads another's.  The JAX package lowers this as ``shard_map``
+    (`src/repro/core/engine.py` `fleet_spmd`); here one process drives the
+    shards in turn, each launch on its shard's device, and nothing is
+    concatenated or copied between shards.
+
+    Args:
+      fn:       positional-argument function over fleet trees.
+      mesh:     a `distributed.sharding.FleetMesh` (`fleet_mesh`).
+      in_axes:  one entry per positional argument: an int, the slot axis
+                every leaf of that argument carries (0 for ``(B, ...)``
+                state, 1 for time-major ``(K, B, ...)`` windows), a tree of
+                them matching the argument, or None for a replicated input
+                (scalars, the shared rule), which every shard receives on
+                its own device.  A slot-mapped leaf is a
+                `distributed.sharding.Sharded` (its piece) or a whole
+                tensor (its block of rows, moved to the shard's device).
+      out_axes: the same per output; every output must be slot-mapped: a
+                replicated output has no one shard to come from, so compute
+                pool-global outputs outside the wrapped call (ValueError
+                otherwise).
+
+    Returns a function of the same arguments whose outputs are trees of
+    `Sharded` leaves (None stays None).
+    """
+    from repro_torch.checkpoint import manager as _ckpt
+    from repro_torch.distributed import sharding as _sh
+
+    if axis_name not in mesh.axis_names:
+        raise ValueError(f"fleet_spmd maps over mesh axis {axis_name!r}; "
+                         f"the mesh has {mesh.axis_names}")
+    for ax in out_axes:
+        if ax is None or any(a is None for a in _ckpt.flatten(ax)[1]):
+            raise ValueError(
+                "fleet_spmd outputs must be slot-mapped (int axis); "
+                "compute replicated outputs outside the wrapped fn")
+
+    def per_leaf(tree, ax):
+        """``tree``'s leaves beside their axes (``ax`` an int, None or a
+        tree of them)."""
+        leaves = _ckpt.flatten(tree)[1]
+        if isinstance(ax, int) or ax is None:
+            return leaves, [ax] * len(leaves)
+        return leaves, _ckpt.flatten(ax)[1]
+
+    def run(*args):
+        if len(args) != len(in_axes):
+            raise ValueError(f"fleet_spmd: {len(args)} arguments for "
+                             f"{len(in_axes)} in_axes")
+        outs = []
+        for d in range(mesh.size):
+            local = []
+            for a, ax in zip(args, in_axes):
+                leaves, axes = per_leaf(a, ax)
+                local.append(_ckpt.unflatten(a, [
+                    _sh.local(x, xa, d, mesh)
+                    for x, xa in zip(leaves, axes)]))
+            out = fn(*local)
+            outs.append(out if isinstance(out, tuple) else (out,))
+        if any(len(o) != len(out_axes) for o in outs):
+            raise ValueError(f"fleet_spmd: {len(outs[0])} outputs for "
+                             f"{len(out_axes)} out_axes")
+        result = []
+        for i, ax in enumerate(out_axes):
+            shards = [per_leaf(o[i], ax) for o in outs]
+            leaves, axes = shards[0]
+            result.append(_ckpt.unflatten(outs[0][i], [
+                _sh.Sharded([s[0][j] for s in shards], axes[j])
+                for j in range(len(leaves))]))
+        return tuple(result)
+
+    return run

@@ -184,15 +184,17 @@ long long stage_bytes(const long long* nm, int n_layers, int e, int k,
   return s;
 }
 
-// obs/recorder.py recorder_plan: false where no plan fits.
-bool make_plan(int b, const long long* nm, int n_layers, int e, int sms,
-               int words, Plan* p) {
+// obs/recorder.py recorder_plan: false where no plan fits.  The route and
+// the cluster (a slot's sum order) follow pool_b, the slots of the pool
+// this launch is a shard of (b where it is the whole pool).
+bool make_plan(int b, int pool_b, const long long* nm, int n_layers, int e,
+               int sms, int words, Plan* p) {
   *p = Plan{};
-  if (b < 1 || sms < 1) return false;
+  if (b < 1 || pool_b < b || sms < 1) return false;
   long long per_slot = 0;
   for (int l = 0; l < n_layers; ++l) per_slot += nm[l] * e;
   p->words = words;
-  long long c = std::min<long long>(kMaxCluster, (sms + b - 1) / b);
+  long long c = std::min<long long>(kMaxCluster, (sms + pool_b - 1) / pool_b);
   c = std::min<long long>(c, std::max<long long>(1, per_slot / kMinShare));
   if (c == 1 && 2 * stage_bytes(nm, n_layers, e, 1, 1, p) +
                         extra_bytes(n_layers) <= kSmemMax) {
@@ -728,7 +730,8 @@ int attrs(K* kernel, int* out) {
 // lo[4], hi[4] (float32); icfg: warmup, hysteresis[4].  plan: the
 // wrapper's recorder_plan at this card's SM count (cluster, slots, tiles,
 // stages, ctas, stage, smem, words); a plan that differs from make_plan's
-// is refused.  Returns a cudaError_t.
+// is refused; pool_b the slots of the pool this launch is a shard of (b
+// where it is the whole pool).  Returns a cudaError_t.
 extern "C" int recorder_step(const void* const* w, const float* const* scales,
                              const long long* nm, int n_layers, int w_dtype,
                              const float* const* chan,
@@ -738,7 +741,8 @@ extern "C" int recorder_step(const void* const* w, const float* const* scales,
                              float* last, int* streaks,
                              unsigned char* flagged, int* steps,
                              unsigned char* verdict, long long row,
-                             int window, int b, const float* fcfg,
+                             int window, int b, int pool_b,
+                             const float* fcfg,
                              const int* icfg, const int* plan,
                              cudaStream_t stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || b < 1 || window < 1 ||
@@ -761,7 +765,7 @@ extern "C" int recorder_step(const void* const* w, const float* const* scales,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  if (!make_plan(b, nm, n_layers, a.e, sms, words, &a.p))
+  if (!make_plan(b, pool_b, nm, n_layers, a.e, sms, words, &a.p))
     return (int)cudaErrorInvalidValue;
   const Plan& p = a.p;
   const int mine[8] = {p.cluster, p.slots, p.tiles, p.stages,

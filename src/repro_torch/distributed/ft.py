@@ -9,10 +9,9 @@
 
 The runner and the monitor accept an `obs.MetricsRegistry`: resume,
 rollback and straggler events and step times land in its counters and
-histogram.  One card, so there is no mesh: a checkpoint restores onto the
-device of the state it replaces.  The JAX package's ``elastic_restore``
-(a checkpoint onto another mesh) waits for ROADMAP Queue 1 item 8
-(`distributed/`).
+histogram.  The runner trains on one card: a checkpoint restores onto the
+device of the state it replaces.  `elastic_restore` places a checkpoint on
+another mesh's shards instead (the session pools' `load_pool` re-mesh).
 
 The port's step functions update their state in place (the optimizer,
 `launch.steps.make_train_step`); a rollback restores every leaf from the
@@ -28,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.checkpoint.manager import flatten
+from repro_torch.checkpoint.manager import flatten, load_checkpoint
 from repro_torch.obs import MetricsRegistry
 
 
@@ -198,3 +197,15 @@ class FaultTolerantRunner:
 
         self.ckpt.save(num_steps, state, blocking=True)
         return state, history
+
+
+def elastic_restore(ckpt_dir: str, tree_like, new_mesh, sharding_fn,
+                    step: Optional[int] = None):
+    """Restore a checkpoint onto a DIFFERENT mesh (elastic scaling).
+
+    ``sharding_fn(mesh)`` -> a tree of placements matching ``tree_like``
+    (`distributed.sharding.pool_shardings`).  Checkpoint leaves are stored
+    whole, so this is a pure re-layout: any mesh whose shards divide the
+    slot axes works.  Returns ``(tree, step, extra)``."""
+    return load_checkpoint(ckpt_dir, tree_like, step=step,
+                           shardings=sharding_fn(new_mesh))

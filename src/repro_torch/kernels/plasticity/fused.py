@@ -95,7 +95,8 @@ def _state_bytes(sizes, wb: int, sb: int) -> int:
 def fleet_plan(sizes, batch: int, block_b: int, plastic, *, quant: bool,
                limit: int, w_bytes: int = 4, s_bytes: int = 4,
                theta_bytes: int = 4, sms: int | None = None,
-               occupancy: int | None = None) -> dict:
+               occupancy: int | None = None,
+               warps: int | None = None) -> dict:
     """The fleet kernel's plan (``csrc/rollout.cu``): ``block_b`` streams
     per tile, the tile's streams each run by a group of ``warps`` warps.
 
@@ -103,7 +104,8 @@ def fleet_plan(sizes, batch: int, block_b: int, plastic, *, quant: bool,
     * ``warps``: a power of two, as many as give each thread about
       `FLEET_SYNAPSES_PER_THREAD` synapses of the widest layer a step, at
       most 1024 / (32 * tile); 1 when the tile has more streams than the
-      CTA has named barriers.
+      CTA has named barriers.  ``warps=`` takes another's (a larger
+      tile's: a shard planned as its pool, `fleet_launch`).
     * ``buffers``: "double" (the next stream is fetched into a second state
       buffer while the group computes) or, for a bfloat16 window, "staged"
       (its next stream lands raw beside the float32 state buffer); where
@@ -131,13 +133,18 @@ def fleet_plan(sizes, batch: int, block_b: int, plastic, *, quant: bool,
         raise ValueError(
             f"fleet rollout: block_b={block_b} streams a tile need "
             f"{32 * tile} threads; a CTA has {_k.MAX_THREADS}")
-    warps = 1
-    if tile <= _k.BARRIER_GROUPS:
-        widest = max(sizes[i] * sizes[i + 1] for i in range(n_layers))
-        want = -(-widest // (32 * FLEET_SYNAPSES_PER_THREAD))
-        cap = _k.MAX_THREADS // (32 * tile)
-        while warps * 2 <= cap and warps < want:
-            warps *= 2
+    if warps is None:
+        warps = 1
+        if tile <= _k.BARRIER_GROUPS:
+            widest = max(sizes[i] * sizes[i + 1] for i in range(n_layers))
+            want = -(-widest // (32 * FLEET_SYNAPSES_PER_THREAD))
+            cap = _k.MAX_THREADS // (32 * tile)
+            while warps * 2 <= cap and warps < want:
+                warps *= 2
+    elif (warps < 1 or warps & (warps - 1) or 32 * warps * tile
+          > _k.MAX_THREADS or (warps > 1 and tile > _k.BARRIER_GROUPS)):
+        raise ValueError(f"fleet rollout: {warps} warps a stream do not fit "
+                         f"a tile of {tile} streams")
     staged = not quant and s_bytes == 2
     state = _state_bytes(sizes, 1 if quant else 4, 4) \
         + (_k._al(4 * (n_layers + 1)) if quant else 0)
@@ -354,7 +361,8 @@ def _window_telemetry(acc, ws0, ws, plastic, scales, active, k_steps, qcfg):
         mean_dw = mean_dw / float(k_steps * len(plast))
     row = torch.stack([spike_rate, mean_dw, sat_frac], dim=1)
     if active is not None:
-        row = row * active.reshape(-1, 1).float()
+        # by selection: a lost slot's poisoned (NaN) rows report zeros
+        row = torch.where(active.reshape(-1, 1).bool(), row, 0.0)
     return row
 
 
@@ -550,19 +558,28 @@ def _fill_plan(a, plan: dict) -> None:
 
 def fleet_launch(device, sizes, batch: int, block_b, plastic, *,
                  quant: bool, telemetry: bool = False, bf16: bool = False,
-                 theta_bf16: bool = False) -> dict:
+                 theta_bf16: bool = False, pool: int | None = None) -> dict:
     """`fleet_plan` on ``device`` with its persistent grid: the SM count and
     the CTAs one SM holds of the instantiation the flags select, asked of
-    the card once per plan key (sizes, B, block_b, flags, device).
-    ``block_b=None`` takes the largest tile that fits (`fleet_fit`)."""
+    the card once per plan key (sizes, B, block_b, flags, device, pool).
+    ``block_b=None`` takes the largest tile that fits (`fleet_fit`).
+
+    ``pool``: the launch is a shard of a pool of that many streams; its
+    tile is at most the pool's and its warps a stream are the pool's, so
+    each stream sums in the order the whole pool's launch would."""
     plastic = tuple(bool(p) for p in plastic)
+    pool = None if pool in (None, batch) else int(pool)
     key = (tuple(sizes), batch, block_b, plastic, quant, telemetry, bf16,
-           theta_bf16, torch.device(device))
+           theta_bf16, torch.device(device), pool)
     plan = _fleet_plans.get(key)
     if plan is None:
         wb, sb = (1, 4) if quant else (2, 2) if bf16 else (4, 4)
         kw = dict(quant=quant, limit=_k.smem_limit(device), w_bytes=wb,
                   s_bytes=sb, theta_bytes=2 if theta_bf16 else 4)
+        if pool is not None:
+            whole = (fleet_fit(sizes, pool, plastic, **kw) if block_b is None
+                     else fleet_plan(sizes, pool, block_b, plastic, **kw))
+            block_b, kw["warps"] = whole["tile"], whole["warps"]
         plan = (fleet_fit(sizes, batch, plastic, **kw) if block_b is None
                 else fleet_plan(sizes, batch, block_b, plastic, **kw))
         a = _RolloutArgs()
@@ -662,7 +679,8 @@ def rollout(drives, ws, thetas, vs, traces, *, spiking, plastic,
     a.sat_f = sat_threshold(v_th)
     plan = fleet_launch(drives.device, sizes, b, block_b, plastic,
                         quant=quant, telemetry=telemetry, bf16=bool(a.bf16),
-                        theta_bf16=bool(a.theta_bf16))
+                        theta_bf16=bool(a.theta_bf16),
+                        pool=_k.pool_batch(b))
     _fill_plan(a, plan)
     _build.check(_fleet_entry("rollout")(ctypes.byref(a), int(quant),
                                          plan["smem"], _k.stream_of(drives)),

@@ -32,13 +32,18 @@ cluster may share, as `shared_step_plan` decides (`shared_step_launch`).
 
 The backend follows the tensors: a CPU tensor takes the plain version
 (``ref.dual_engine_fleet_step[_q]``), a CUDA tensor launches the kernel, and
-anything else raises.  Each wrapper counts its kernel launches in
+anything else raises.  Inside `pool_plan(B)` the fleet kernels whose
+per-stream arithmetic follows the launch's batch (the fleet window's warps
+a stream, the recorder's cluster) plan it for a pool of B streams: a shard
+of a sharded pool then sums every stream as the whole pool does.  Each
+wrapper counts its kernel launches in
 ``<wrapper>.launches``, the fleet steps those of their telemetry variant
 also in ``<wrapper>.telemetry_launches``, and the float wrappers their
 bfloat16 launches also in ``<wrapper>.bf16_launches``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -134,6 +139,28 @@ def q_params(qcfg: Q.QuantConfig, v_th, v_reset, batch: int = 1) -> QParams:
     return QParams(qcfg.one, qcfg.tau_shift, qcfg.trace_shift, vth_fx,
                    vres_fx, int(qcfg.stoch_round), 1.0 / (qcfg.one * batch),
                    1.0 / (qcfg.one * qcfg.one * batch))
+
+
+_POOL_BATCH = [None]
+
+
+@contextlib.contextmanager
+def pool_plan(batch: int):
+    """Within: a fleet launch of any B plans each stream's arithmetic as a
+    launch of ``batch`` streams would (`pool_batch` reads it).  The
+    sharded session pools run each shard's launches inside it, so a slot's
+    float sums do not depend on how many shards the pool has."""
+    prev, _POOL_BATCH[0] = _POOL_BATCH[0], int(batch)
+    try:
+        yield
+    finally:
+        _POOL_BATCH[0] = prev
+
+
+def pool_batch(batch: int) -> int:
+    """The batch whose plan sets each stream's arithmetic: the enclosing
+    `pool_plan`'s, else ``batch`` itself."""
+    return batch if _POOL_BATCH[0] is None else _POOL_BATCH[0]
 
 
 def on_card(t: torch.Tensor) -> bool:

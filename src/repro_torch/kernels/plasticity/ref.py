@@ -37,9 +37,10 @@ def _fleet_telemetry_raw(events, v_out, w_old, w_new, active, *, v_th,
     schema) from the already-gated fleet outputs: col 0 = sum |events| in
     event units (the fixed-point 0/``one`` grid divided out), col 1 = sum
     |dw| in float weight units (int8 grid steps x per-slot scale), col 2 =
-    count of membranes at >= SAT_FRACTION of threshold.  The row is
-    multiplied by the active mask: a vacant slot's frozen membrane may sit
-    near threshold and must not leak into col 2.  Fixed-point sums stay
+    count of membranes at >= SAT_FRACTION of threshold.  The row is gated
+    by the active mask: a vacant slot's frozen membrane may sit near
+    threshold and must not leak into col 2.  The gate selects, so a lost
+    slot's poisoned (NaN) rows report zeros too.  Fixed-point sums stay
     integer until the one division or scaling, so they are exact."""
     if qcfg is not None:
         spike_sum = events.abs().sum(1, dtype=torch.int32).float() / qcfg.one
@@ -54,7 +55,7 @@ def _fleet_telemetry_raw(events, v_out, w_old, w_new, active, *, v_th,
         sat = v_out.float().abs() >= sat_threshold(v_th)
     raw = torch.stack([spike_sum, abs_dw, sat.sum(1).float()], dim=1)
     if active is not None:
-        raw = raw * active.reshape(-1, 1).float()
+        raw = torch.where(active.reshape(-1, 1).bool(), raw, 0.0)
     return raw
 
 

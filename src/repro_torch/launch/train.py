@@ -56,8 +56,8 @@ def build(arch: str, smoke: bool, global_batch: int, seq_len: int,
     if data_par > 1 or model_par > 1:
         raise NotImplementedError(
             f"the port trains on one card; --data-par {data_par} / "
-            f"--model-par {model_par} wait for ROADMAP Queue 1 item 8 "
-            f"(distributed/)")
+            f"--model-par {model_par} wait for ROADMAP Queue 1 item 8c "
+            f"(the LM model-sharding vocabulary and launch/mesh.py)")
     cfg = get_smoke(arch) if smoke else get_config(arch)
     setup = train_setup(arch) if not smoke else {}
     cfg = apply_setup(cfg, setup)

@@ -110,7 +110,8 @@ def _write_at(cache, row, index, active=None):
     """Write one new position of every stream, ``row (B,1,...)``, into the
     ``(B,Smax,...)`` cache, in place: at the scalar ``index`` for every
     stream, or at each stream's own position for a ``(B,)`` index.  Under
-    ``active (B,)`` a vacant stream's row is written back as it was."""
+    ``active (B,)`` a vacant stream's row is written back as it was, at
+    position 0 (a lost slot's index is garbage)."""
     if index.ndim == 0 and active is None:
         cache.index_copy_(1, index.reshape(1).long(), row.to(cache.dtype))
         return cache
@@ -119,6 +120,7 @@ def _write_at(cache, row, index, active=None):
     idx = index.long().expand(b)
     new = row[:, 0].to(cache.dtype)
     if active is not None:
+        idx = torch.where(active.to(torch.bool), idx, 0)
         mask = active.to(torch.bool).reshape((b,) + (1,) * (new.ndim - 1))
         new = torch.where(mask, new, cache[rows, idx])
     cache[rows, idx] = new

@@ -356,9 +356,14 @@ def _decode_backbone(params, cache, tokens, cfg: ModelConfig, active=None):
     piece of its cache row: K/V rows write back what they held, SSM and
     conv rows are selected, a per-slot index holds, and its token is
     masked out of every MoE layer's expert capacity; its hidden state is
-    computed and nothing persistent reads it."""
+    computed and nothing persistent reads it (a vacant token outside the
+    vocabulary, a lost slot's garbage, is clamped into it, as XLA's gather
+    clamps)."""
     index = cache["index"]
     token_mask = None if active is None else active[:, None] != 0
+    if token_mask is not None:
+        tokens = torch.where(token_mask, tokens,
+                             tokens.clamp(0, params["embed"].shape[0] - 1))
     h = params["embed"][tokens]
     shared = _shared(params, cfg)
     for seg_idx, (kind, count) in enumerate(segments(cfg)):

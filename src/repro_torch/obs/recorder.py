@@ -228,7 +228,7 @@ def _stage(nms, e: int, k: int, c: int):
 
 
 def recorder_plan(b: int, nms, w_dtype, sm_count: int,
-                  aligned=None) -> dict:
+                  aligned=None, pool: Optional[int] = None) -> dict:
     """How ``csrc/recorder.cu`` lays out one recorded step of ``b`` slots
     whose layers hold ``nms`` weights each (N * M) of ``w_dtype``, on a card
     of ``sm_count`` SMs (``aligned``: each layer's base on 16 bytes; all by
@@ -243,16 +243,20 @@ def recorder_plan(b: int, nms, w_dtype, sm_count: int,
     elements of every layer, their sums met in rank order.  ``loads``: each
     layer by one "bulk" copy, or "cp_async" words where its N M bytes are
     not a multiple of 16 or its base is off 16 bytes (``words``: their
-    bits).  ``smem``: dynamic shared bytes a CTA.  Raises for a shape no
-    plan fits: a slot whose eighth does not fit a CTA's shared memory, or
-    more than `MAX_LAYERS` layers."""
+    bits).  ``smem``: dynamic shared bytes a CTA.  ``pool``: the launch is
+    a shard of a pool of that many slots; the route and the cluster, which
+    set a slot's sum order, are the pool's.  Raises for a shape no plan
+    fits: a slot whose eighth does not fit a CTA's shared memory, or more
+    than `MAX_LAYERS` layers."""
     if w_dtype not in _W_BYTES:
         raise ValueError(f"recorder_plan takes float32, bfloat16 or int8 "
                          f"weights; got {w_dtype}")
     e = _W_BYTES[w_dtype]
     nms = tuple(int(n) for n in nms)
     n = len(nms)
-    if not 1 <= n <= MAX_LAYERS or b < 1 or min(nms) < 1 or sm_count < 1:
+    pool = b if pool is None else int(pool)
+    if not 1 <= n <= MAX_LAYERS or b < 1 or min(nms) < 1 or sm_count < 1 \
+            or pool < b:
         raise ValueError(f"recorder_plan takes 1 to {MAX_LAYERS} layers of "
                          f"at least one weight and B >= 1; got B = {b}, "
                          f"N * M = {nms}")
@@ -261,7 +265,7 @@ def recorder_plan(b: int, nms, w_dtype, sm_count: int,
                   for nm, al in zip(nms, aligned))
     words = sum(1 << l for l, r in enumerate(loads) if r == "cp_async")
     per_slot = sum(nms) * e
-    c = min(REC_MAX_CLUSTER, -(-sm_count // b),
+    c = min(REC_MAX_CLUSTER, -(-sm_count // pool),
             max(1, per_slot // REC_MIN_SHARE))
     if c == 1 and (2 * _stage(nms, e, 1, 1)[0] + _extra_bytes(n)
                    <= REC_SMEM_MAX):
@@ -299,7 +303,7 @@ def recorder_plan(b: int, nms, w_dtype, sm_count: int,
     if e == 1 and 128 * plan["stage_bytes"] >= 2 ** 31:
         raise ValueError("the recorder's int8 partials could overflow")
     plan.update(threads=REC_THREADS, loads=loads, words=words, shares=shares,
-                offsets=offs)
+                offsets=offs, pool=pool)
     return plan
 
 
@@ -343,7 +347,8 @@ def record_step(cfg: HealthConfig, rec: RecorderState, state, tel, pos,
     telemetry fields ``(B,)`` float32 at any stride, ``active`` a ``(B,)``
     bool or uint8 mask on the card."""
     # the kernel helpers import obs.telemetry: imported here, not above
-    from repro_torch.kernels.plasticity.kernel import on_card, stream_of
+    from repro_torch.kernels.plasticity.kernel import (on_card, pool_batch,
+                                                       stream_of)
     if not on_card(rec.ring):
         return record_step_plain(cfg, rec, state, tel, pos, active, quant)
     b, dev = rec.ring.shape[0], rec.ring.device
@@ -392,13 +397,14 @@ def record_step(cfg: HealthConfig, rec: RecorderState, state, tel, pos,
     plan = recorder_plan(b, nms, w_dt,
                          torch.cuda.get_device_properties(dev)
                          .multi_processor_count,
-                         [w.data_ptr() % 16 == 0 for w in layers])
+                         [w.data_ptr() % 16 == 0 for w in layers],
+                         pool=pool_batch(b))
     fc, ic = _config_arrays(cfg)
     fn = _build.library("recorder.cu").recorder_step
     fn.argtypes = [ctypes.POINTER(_P), ctypes.POINTER(_P),
                    ctypes.POINTER(_L), _I, _I, ctypes.POINTER(_P),
                    ctypes.POINTER(_L), _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _P, _L, _I, _I, ctypes.POINTER(ctypes.c_float),
+                   _P, _L, _I, _I, _I, ctypes.POINTER(ctypes.c_float),
                    ctypes.POINTER(_I), ctypes.POINTER(_I), _P]
     fn.restype = _I
     _build.check(fn(
@@ -411,7 +417,7 @@ def record_step(cfg: HealthConfig, rec: RecorderState, state, tel, pos,
         rec.ring.data_ptr(), rec.wnorm0.data_ptr(), h.ewma_mean.data_ptr(),
         h.ewma_var.data_ptr(), h.last.data_ptr(), h.streaks.data_ptr(),
         h.flagged.data_ptr(), h.steps.data_ptr(), verdict.data_ptr(),
-        int(pos) % cfg.window, cfg.window, b, fc, ic,
+        int(pos) % cfg.window, cfg.window, b, plan["pool"], fc, ic,
         (_I * len(_PLAN_FIELDS))(*[plan[k] for k in _PLAN_FIELDS]),
         stream_of(rec.ring)),
         "recorder_step")

@@ -122,9 +122,11 @@ def adapter_telemetry(before: dict, after: dict, active, *, qcfg=None,
     spike_rate = s2.abs().mean(dim=-1).float()
     mean_abs_dw = (abs_dw.sum(dim=(-2, -1)) / (n * n)).float()
     sat_frac = sat.float().mean(dim=-1)
-    return FleetTelemetry(spike_rate=spike_rate * act,
-                          mean_abs_dw=mean_abs_dw * act,
-                          sat_frac=sat_frac * act, occupancy=act)
+    on = act != 0        # a selection: a poisoned slot reports zeros too
+    return FleetTelemetry(spike_rate=torch.where(on, spike_rate, 0.0),
+                          mean_abs_dw=torch.where(on, mean_abs_dw, 0.0),
+                          sat_frac=torch.where(on, sat_frac, 0.0),
+                          occupancy=act)
 
 
 def record_fleet_telemetry(registry, tel: FleetTelemetry,

@@ -29,6 +29,15 @@ assignment is dropped and they do not.
 `compiled_programs()` counts, per entry point, the static signatures
 dispatched (the port compiles nothing at serve time; see
 `SessionPool._dispatch`): the keys are those of the JAX package's pool.
+
+Shards (``mesh=``): for the dense, ssm and hybrid layouts a stream's decode
+reads only its own slot rows, so the pool splits over the mesh's shards
+like the controller fleet and each decode runs once a shard
+(`engine.fleet_spmd`) with the parameters on the shard's device (shards
+sharing a device share the same tensors).  The moe layout refuses D > 1:
+its decode capacity, ``max(int(1.25 B top_k / E), 1)`` rows an expert,
+couples the slots of the whole pool, and per-shard routing would change
+the tokens; routing across shards waits for ROADMAP Queue 1 item 8b.
 """
 from __future__ import annotations
 
@@ -38,7 +47,10 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import manager as _ckpt
+from repro_torch.core.engine import fleet_spmd
 from repro_torch.core.snn import resolve_device
+from repro_torch.distributed import sharding as _sharding
+from repro_torch.kernels.plasticity.kernel import pool_plan
 from repro_torch.models import factory, plastic
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_from_plan
@@ -52,7 +64,19 @@ from repro_torch.serving.sessions import SessionStore
 
 
 def _host(x) -> np.ndarray:
-    return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+    if isinstance(x, (torch.Tensor, _sharding.Sharded)):
+        return _sharding.host(x).numpy()
+    return np.asarray(x)
+
+
+def _refuse_moe_shards(cfg: ModelConfig, mesh) -> None:
+    if mesh is not None and mesh.size > 1 and cfg.layout == "moe":
+        raise ValueError(
+            f"{cfg.name}: a moe pool does not split over {mesh.size} "
+            "shards: its decode capacity couples the slots of the whole "
+            "pool, so per-shard routing would change the tokens; the moe "
+            "pool across shards (global routing) waits for ROADMAP Queue 1 "
+            "item 8b")
 
 
 class LMScheduler(SessionPool):
@@ -70,6 +94,10 @@ class LMScheduler(SessionPool):
       store:   `SessionStore` backing eviction/restore.
       health:  optional `obs.health.HealthConfig`: ``record=`` stepping and
                the remediation loop of `SessionPool`.
+      mesh:    optional `distributed.sharding.FleetMesh`: the pool splits
+               over its shards along the slot axes and every decode runs
+               once a shard (dense, ssm and hybrid layouts; moe raises for
+               more than one shard, see the module docstring).
     """
 
     ENTRY_POINTS = SessionPool.ENTRY_POINTS + (
@@ -80,18 +108,21 @@ class LMScheduler(SessionPool):
     def __init__(self, model, params, slots: int, max_len: int,
                  store: Optional[SessionStore] = None,
                  registry: Optional[MetricsRegistry] = None,
-                 health: Optional[HealthConfig] = None):
+                 health: Optional[HealthConfig] = None, mesh=None):
         if not isinstance(model, factory.Model):
             model = factory.build(model)
         if model.cfg.input_mode != "tokens":
             raise ValueError(
                 f"{model.cfg.name}: LMScheduler pools token streams; "
                 f"input_mode {model.cfg.input_mode!r} is not poolable")
+        _refuse_moe_shards(model.cfg, mesh)
         self.model = model
         self.cfg = model.cfg
         self.params = params
+        self._params = {}            # device -> the parameters there
         self.max_len = int(max_len)
-        dev = params["embed"].device
+        dev = (mesh.devices[0] if mesh is not None
+               else params["embed"].device)
         pool = {"cache": model.pool_cache(slots, max_len, dev),
                 "tok": torch.zeros((slots,), dtype=torch.int32, device=dev)}
         axes = {"cache": model.cache_axes(max_len), "tok": 0}
@@ -100,8 +131,21 @@ class LMScheduler(SessionPool):
         # device read (a layout without attention has no such rows)
         self._length = np.zeros(slots, np.int64)
         self._kv_rows = any("k" in seg for seg in pool["cache"]["segments"])
-        super().__init__(pool, axes, slots, store, registry, health=health)
+        super().__init__(pool, axes, slots, store, registry, health=health,
+                         mesh=mesh)
         self._qcfg = plastic.QUANT if self.cfg.adapter_quant else None
+
+    def _params_on(self, device):
+        """The parameters on ``device``: ``self.params`` where they live,
+        else a copy moved there once."""
+        if device == self.params["embed"].device:
+            return self.params
+        p = self._params.get(device)
+        if p is None:
+            p = self._params[device] = _ckpt.tree_map(
+                lambda t: t.to(device) if isinstance(t, torch.Tensor)
+                else t, self.params)
+        return p
 
     # ---- session construction --------------------------------------------
 
@@ -122,8 +166,8 @@ class LMScheduler(SessionPool):
     def _prefill(self, prompt: torch.Tensor):
         """One B = 1 prefill -> a session row and its first greedy token."""
         self._dispatch("prefill", prompt)
-        logits, cache = self.model.prefill(self.params, prompt[None, :],
-                                           self.max_len)
+        logits, cache = self.model.prefill(self._params_on(prompt.device),
+                                           prompt[None, :], self.max_len)
         return {"cache": self.model.session_from_prefill(cache),
                 "tok": logits[0].argmax(-1).to(torch.int32)}
 
@@ -164,10 +208,11 @@ class LMScheduler(SessionPool):
     def _check_room(self, k: int) -> list:
         """The slots a ``k``-token decode advances; raises ValueError,
         naming the sessions, where one would write past ``max_len``.  A
-        frozen (quarantined) slot still reads the row at its length."""
+        frozen (quarantined) slot still reads the row at its length; a
+        lost one is skipped (its rows are gone)."""
         live, full = [], []
         for slot, uid in enumerate(self.slot_user):
-            if uid is None:
+            if uid is None or slot in self._lost_slots:
                 continue
             frozen = slot in self._quarantined
             if (self._kv_rows and self._length[slot] + (1 if frozen else k)
@@ -185,8 +230,9 @@ class LMScheduler(SessionPool):
     def _run(self, kind: str, k: int, telemetry: bool, record: bool, decode,
              *operands):
         """Dispatch one ``k``-token decode entry point over the whole pool:
-        ``decode (cache, active) -> (logits, new_cache, next tokens)``.
-        Returns (logits, next tokens, telemetry or None)."""
+        ``decode (params, cache, tok, active, *operands) -> (logits,
+        new_cache, next tokens)``, once a shard on a meshed pool.  Returns
+        (logits, next tokens, telemetry or None)."""
         if record or telemetry:
             self._require_adapter()
         live = self._check_room(k)
@@ -196,19 +242,20 @@ class LMScheduler(SessionPool):
                                    "_telemetry" if telemetry else "")
         self._dispatch(name, self.pool, active, *operands,
                        *(() if rec is None else (rec,)))
-        with phase(f"lm.decode_{kind}"):
+        quant, pos = self._qcfg is not None, self._rec_pos
+
+        def core(cache, tok, active, rec, *ops):
             before = None
             if telemetry or record:
                 # a copy of the leaves the telemetry reads: the step may
                 # write the adapter in place
                 before = {key: a.clone() for key, a in
-                          self.pool["cache"]["adapter"].items()
+                          cache["adapter"].items()
                           if key in ("tr2", "w_fast", "w_scale")}
-            logits, cache, nxt = decode(self.pool["cache"], active)
-            self.pool["cache"] = cache
-            self.pool["tok"] = torch.where(active, nxt, self.pool["tok"])
-            self._length[live] += k
-            tel = None
+            logits, cache, nxt = decode(self._params_on(tok.device), cache,
+                                        tok, active, *ops)
+            tok = torch.where(active, nxt, tok)
+            tel, tail = None, ()
             if before is not None:
                 tel = adapter_telemetry(before, cache["adapter"], active,
                                         qcfg=self._qcfg)
@@ -222,12 +269,45 @@ class LMScheduler(SessionPool):
             if record:
                 # channels + the adapter weight norm -> ring and detectors
                 # (one launch on the card); the verdict stays on the device
-                self._rec, self.last_verdict = _recorder.record_step(
+                tail = _recorder.record_step(
                     self.health_cfg, rec,
-                    _recorder.AdapterLayers.of(cache["adapter"],
-                                               self._qcfg is not None),
-                    tel, self._rec_pos, active, self._qcfg is not None)
+                    _recorder.AdapterLayers.of(cache["adapter"], quant),
+                    tel, pos, active, quant)
+            return logits, cache, nxt, tok, tel, tail
+
+        with phase(f"lm.decode_{kind}"):
+            if self.mesh is None:
+                logits, cache, nxt, tok, tel, tail = core(
+                    self.pool["cache"], self.pool["tok"], active, rec,
+                    *operands)
+            else:
+                tel_on = telemetry or record
+
+                def body(*args):
+                    out = core(*args)
+                    return out[:4] + ((out[4],) if tel_on else ()) + \
+                        tuple(out[5])
+
+                cache_axes = self._axes["cache"]
+                mapped = fleet_spmd(
+                    body, self.mesh,
+                    in_axes=(cache_axes, 0, 0, 0) + (0,) * len(operands),
+                    out_axes=(0, cache_axes, 0, 0) + ((0,) if tel_on else ())
+                    + ((0, 0) if record else ()))
+                with pool_plan(self.slots):
+                    res = mapped(self.pool["cache"], self.pool["tok"],
+                                 active, rec, *operands)
+                logits, cache, nxt, tok = res[:4]
+                tel = res[4] if tel_on else None
+                tail = res[-2:] if record else ()
+            self.pool["cache"] = cache
+            self.pool["tok"] = tok
+            self._length[live] += k
+            if record:
+                self._rec, self.last_verdict = tail
                 self._rec_pos += 1
+        if tel is not None and self.mesh is not None:
+            tel = _sharding.gather(tel)
         if telemetry:
             record_fleet_telemetry(self.metrics, tel, prefix="adapter")
         return logits, nxt, tel
@@ -246,14 +326,14 @@ class LMScheduler(SessionPool):
         and the detectors; the latched verdict waits on the device for
         `flagged_sessions` / `remediate`.
         """
-        def decode(cache, active):
+        def decode(params, cache, tok, active):
             logits, cache = self.model.decode_step(
-                self.params, cache, self.pool["tok"][:, None], active=active)
+                params, cache, tok[:, None], active=active)
             return logits, cache, logits.argmax(-1).to(torch.int32)
 
         _, nxt, tel = self._run("step", 1, telemetry, record, decode)
         self.advance_steps(1)
-        nxt = nxt.cpu().numpy()
+        nxt = _host(nxt)
         toks = {uid: int(nxt[slot]) for uid, slot in self.user_slot.items()}
         return (toks, tel) if telemetry else toks
 
@@ -287,17 +367,17 @@ class LMScheduler(SessionPool):
         tokens = np.zeros((self.slots, k), np.int64)
         for uid, w in rows.items():
             tokens[self.user_slot[uid]] = w
-        tokens = torch.from_numpy(tokens).to(self.device)
+        tokens = self._on_pool(torch.from_numpy(tokens))
 
-        def decode(cache, active):
+        def decode(params, cache, tok, active, tokens):
             logits, cache = self.model.decode_rollout(
-                self.params, cache, tokens, active=active)
+                params, cache, tokens, active=active)
             return logits, cache, logits[:, -1].argmax(-1).to(torch.int32)
 
         logits, _, tel = self._run("window", k, telemetry, record, decode,
                                    tokens)
         self.advance_steps(k)
-        out = {uid: logits[slot] for uid, slot in self.user_slot.items()}
+        out = self._rows(logits)
         return (out, tel) if telemetry else out
 
 
@@ -311,21 +391,28 @@ class AdapterPool(SessionPool):
     admit users before `launch.serve.generate`, which installs
     ``pool.pool`` as the cache's adapter entry and hands the learned rows
     back, then evict to persist what each stream learned.
-    ``device=None`` is the card.
+    ``device=None`` is the card.  With ``mesh=`` (exclusive with
+    ``device``) the rows split over the mesh's shards for admission,
+    eviction, device-loss drain and the re-mesh of `load_pool`; the
+    lockstep `launch.serve.generate` decodes an unmeshed pool's rows.
     """
 
     def __init__(self, cfg: ModelConfig, slots: int,
                  store: Optional[SessionStore] = None,
                  registry: Optional[MetricsRegistry] = None, device=None,
-                 health: Optional[HealthConfig] = None):
+                 health: Optional[HealthConfig] = None, mesh=None):
         if not cfg.plastic_adapter:
             raise ValueError(f"{cfg.name}: AdapterPool needs "
                              "cfg.plastic_adapter=True")
+        if mesh is not None and device is not None:
+            raise ValueError("AdapterPool takes device= or mesh=, not both")
         self.cfg = cfg
         pool = init_from_plan(plastic.plan_cache(cfg, slots),
-                              torch.Generator(resolve_device(device)))
+                              torch.Generator(mesh.devices[0] if mesh
+                                              is not None
+                                              else resolve_device(device)))
         super().__init__(pool, uniform_axes(pool), slots, store, registry,
-                         health=health)
+                         health=health, mesh=mesh)
 
     def _session_factory(self):
         # fresh sessions keep the plan's inits (int8 rows: w_scale != 0)

@@ -44,6 +44,19 @@ vacant slots use) -> `rollback` (re-admit from the last healthy
 `SessionStore` checkpoint; `health_checkpoint` rides `persist_resident`)
 -> a bit-identical continuation.  `remediate()` runs the whole loop,
 optionally dumping a flight-recorder incident bundle per casualty first.
+
+Shards (``mesh=distributed.sharding.fleet_mesh(...)``): the pool's slot
+rows split over D shards, slot s on shard ``s * D // B``, each shard's rows
+a tensor of their own on its device (`distributed.sharding.Sharded`).  The
+stepping entry points launch the same kernels once per shard on its B/D
+rows (`core.engine.fleet_spmd`), planned as the whole pool's launch
+(`kernels.plasticity.kernel.pool_plan`), so a meshed pool is the unmeshed
+pool bit for bit.  Device loss: `fail_device` / `fail_slots` mark a shard's
+slots lost (poisoned by default, frozen by the active mask), and
+`drain_failed` re-admits their sessions onto surviving shards from their
+last durable snapshot (`persist_resident`); `save_pool` stores the leaves
+whole, so `load_pool` resumes a pool saved at D shards at any D'
+(`distributed.ft.elastic_restore`).
 """
 from __future__ import annotations
 
@@ -55,7 +68,10 @@ import torch
 
 from repro_torch.checkpoint import manager as _ckpt
 from repro_torch.core import snn
-from repro_torch.core.engine import NetworkState
+from repro_torch.core.engine import NetworkState, fleet_spmd
+from repro_torch.distributed import ft as _ft
+from repro_torch.distributed import sharding as _sharding
+from repro_torch.kernels.plasticity.kernel import pool_plan
 from repro_torch.obs import MetricsRegistry, phase
 from repro_torch.obs import recorder as _recorder
 from repro_torch.obs.health import HealthConfig
@@ -137,6 +153,12 @@ class SessionPool:
              subclasses gain ``record=True`` stepping, this base gains
              `flagged_sessions` / `health_checkpoint` / `remediate`.
              Without it, recording and remediation raise.
+      mesh:  optional `distributed.sharding.FleetMesh` (`fleet_mesh`): the
+             pool tree is split over its shards along the slot axes, shard
+             d owning the contiguous slots ``[d B/D, (d+1) B/D)``; `slots`
+             must divide evenly over them.  The pool's devices are then
+             the mesh's (``self.device`` is its first, where sessions are
+             built and restored before their rows are copied in).
     """
 
     # entry points of the static-signature audit, registered at 0
@@ -145,15 +167,34 @@ class SessionPool:
     def __init__(self, pool, axes, slots: int,
                  store: Optional[SessionStore] = None,
                  registry: Optional[MetricsRegistry] = None,
-                 health: Optional[HealthConfig] = None):
+                 health: Optional[HealthConfig] = None, mesh=None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.slots = slots
+        self.mesh = mesh
+        self.num_devices = 1
+        if mesh is not None:
+            if _sharding.DATA not in mesh.axis_names:
+                raise ValueError(
+                    f"pool mesh needs a 'data' axis (the slot axis); got "
+                    f"axes {mesh.axis_names}: build it with "
+                    "distributed.sharding.fleet_mesh()")
+            self.num_devices = mesh.size
+            if slots % self.num_devices:
+                raise ValueError(
+                    f"slots={slots} must divide evenly over the "
+                    f"{self.num_devices}-shard 'data' axis (every shard "
+                    "owns the same number of slot rows; pad the pool or "
+                    "shrink the mesh)")
+            pool = _sharding.shard(pool,
+                                   _sharding.pool_shardings(mesh, axes))
         self.metrics = registry if registry is not None else MetricsRegistry()
         self.store = (store if store is not None
                       else SessionStore(registry=self.metrics))
         self.pool = pool
-        self.device = _ckpt.flatten(pool)[1][0].device
+        self._axes = axes
+        self.device = (mesh.devices[0] if mesh is not None
+                       else _ckpt.flatten(pool)[1][0].device)
         self._put, self._take = make_slot_ops(axes)
         self._zero_session = self._take(pool, 0)
         # the pool-mode session template: shapes and dtypes, no storage
@@ -166,6 +207,11 @@ class SessionPool:
         self._admit_seq = np.zeros(slots, np.int64)  # admission order (LRU)
         self._seq = 0
         self.evictions = 0
+        # fault tolerance: slots whose shard is marked lost never admit,
+        # never count active and refuse evict (their rows are gone);
+        # `drain_failed` re-homes their sessions
+        self._lost_slots: set = set()
+        self._poison_session = None                  # built on first failure
         # session health: quarantined slots are occupied but frozen by the
         # active mask; the recorder is built on the first recorded step, so
         # a health-enabled pool that never records allocates nothing
@@ -186,16 +232,14 @@ class SessionPool:
             "pool_admissions_total", "sessions admitted")
         self._m_evictions = self.metrics.counter(
             "pool_evictions_total", "sessions evicted")
-        # The fault-tolerance metrics of the JAX pools, under the same names
-        # so both export one schema; they stay at 0 (the port has no lost
-        # slots).
-        self.metrics.counter("pool_device_failures_total",
-                             "device shards marked lost")
-        self.metrics.counter("pool_drained_sessions_total",
-                             "sessions re-homed off a lost shard")
-        self.metrics.histogram("pool_drain_seconds",
-                               "drain latency (restore + re-admit, per "
-                               "drain_failed call)")
+        self._m_failures = self.metrics.counter(
+            "pool_device_failures_total", "device shards marked lost")
+        self._m_drained = self.metrics.counter(
+            "pool_drained_sessions_total",
+            "sessions re-homed off a lost shard")
+        self._m_drain = self.metrics.histogram(
+            "pool_drain_seconds", "drain latency (restore + re-admit, per "
+            "drain_failed call)")
         self._m_quarantined = self.metrics.counter(
             "pool_quarantined_total", "sessions quarantined as unhealthy")
         self._m_rollbacks = self.metrics.counter(
@@ -223,15 +267,53 @@ class SessionPool:
 
     @property
     def free_slots(self) -> int:
-        return sum(1 for u in self.slot_user if u is None)
+        return sum(1 for s, u in enumerate(self.slot_user)
+                   if u is None and s not in self._lost_slots)
+
+    @property
+    def lost_slots(self) -> frozenset:
+        """Slots whose shard has been marked lost."""
+        return frozenset(self._lost_slots)
+
+    def slot_device(self, slot: int) -> int:
+        """The shard owning ``slot`` (0 unmeshed): contiguous blocks,
+        shard d owns slots ``[d B/D, (d+1) B/D)``."""
+        return slot * self.num_devices // self.slots
+
+    def device_slots(self, device: int) -> range:
+        """The contiguous slot block owned by shard ``device``."""
+        per = self.slots // self.num_devices
+        if not 0 <= device < self.num_devices:
+            raise ValueError(f"device must be in [0, {self.num_devices}), "
+                             f"got {device}")
+        return range(device * per, (device + 1) * per)
 
     def _active_mask(self) -> torch.Tensor:
-        # quarantined slots are masked out like vacant ones: an unhealthy
-        # session is frozen until rollback restores it
-        mask = np.fromiter((u is not None and s not in self._quarantined
+        # lost and quarantined slots are masked out like vacant ones: a
+        # stranded session is frozen until drain_failed re-homes it, an
+        # unhealthy one until rollback restores it.  A meshed pool's mask
+        # stays on the host; each shard gets its block on its device.
+        mask = np.fromiter((u is not None and s not in self._lost_slots
+                            and s not in self._quarantined
                             for s, u in enumerate(self.slot_user)),
                            np.bool_, self.slots)
-        return torch.from_numpy(mask).to(self.device)
+        return self._on_pool(torch.from_numpy(mask))
+
+    def _on_pool(self, t: torch.Tensor) -> torch.Tensor:
+        """A host operand on the pool's device; a meshed pool keeps it on
+        the host and each shard takes its block (`engine.fleet_spmd`)."""
+        return t if self.mesh is not None else t.to(self.device)
+
+    def _rows(self, out, axis: int = 0) -> dict:
+        """uid -> its row of ``out`` (slot rows on ``axis``); a sharded
+        output comes to the host once a shard."""
+        if not isinstance(out, _sharding.Sharded):
+            return {uid: out.select(axis, slot)
+                    for uid, slot in self.user_slot.items()}
+        pieces = [p.cpu() for p in out.pieces]
+        per = self.slots // self.num_devices
+        return {uid: pieces[slot // per].select(axis, slot % per)
+                for uid, slot in self.user_slot.items()}
 
     def compiled_programs(self) -> Dict[str, int]:
         """Per-entry-point counts of distinct static signatures dispatched:
@@ -243,8 +325,9 @@ class SessionPool:
         return sum(self.compiled_programs().values())
 
     def pool_nbytes(self) -> int:
-        """Resident bytes of the pool tree (all leaves): an int8 pool holds
-        about 4x more sessions per byte than a float32 one."""
+        """Resident bytes of the pool tree (all leaves, every shard's): an
+        int8 pool holds about 4x more sessions per byte than a float32
+        one."""
         return sum(t.numel() * t.element_size()
                    for t in _ckpt.flatten(self.pool)[1])
 
@@ -279,20 +362,22 @@ class SessionPool:
         if uid in self.user_slot:
             raise ValueError(f"session {uid!r} is already in slot "
                              f"{self.user_slot[uid]}")
-        free = [s for s in range(self.slots) if self.slot_user[s] is None]
-        if not free:
+        lost = self._lost_slots
+        slot = next((s for s, u in enumerate(self.slot_user)
+                     if u is None and s not in lost), None)
+        if slot is None:
             # quarantined residents are not LRU-evictable: evicting one
             # would persist its diverged state over the healthy checkpoint
             candidates = [s for s in range(self.slots)
-                          if s not in self._quarantined]
+                          if s not in lost and s not in self._quarantined]
             if not evict_lru or not candidates:
+                gone = (f" ({len(lost)} slots lost to device failure)"
+                        if lost else "")
                 raise RuntimeError(
-                    f"pool is full ({self.slots} slots); pass "
+                    f"pool is full ({self.slots} slots{gone}); pass "
                     "evict_lru=True or evict a session first")
-            lru = min(candidates, key=lambda s: self._admit_seq[s])
-            self.evict(self.slot_user[lru])
-            free = [lru]
-        slot = free[0]
+            slot = min(candidates, key=lambda s: self._admit_seq[s])
+            self.evict(self.slot_user[slot])
         with self._m_admit.time(), phase("pool.admit"):
             state, step = self.store.checkout(
                 uid, self._session_factory if factory is None else factory,
@@ -315,6 +400,12 @@ class SessionPool:
         slot = self.user_slot.get(uid)
         if slot is None:
             raise KeyError(f"session {uid!r} is not in the pool")
+        if slot in self._lost_slots:
+            raise RuntimeError(
+                f"session {uid!r} sits in lost slot {slot} (device "
+                f"{self.slot_device(slot)}); its rows are gone — recover it "
+                "with drain_failed(), which restores the last durable "
+                "checkpoint, instead of evicting garbage")
         if slot in self._quarantined:
             raise RuntimeError(
                 f"session {uid!r} in slot {slot} is quarantined as "
@@ -338,25 +429,118 @@ class SessionPool:
         self._m_occupancy.set(len(self.user_slot) / self.slots)
 
     def advance_steps(self, k: int) -> None:
-        """Advance every admitted session's host-side step counter by k."""
+        """Advance every admitted session's host-side step counter by k.
+        A stranded session (in a lost slot) takes no step, so its counter
+        holds where the failure left it and `drain_failed`'s
+        ``steps_lost`` counts the steps it took after its snapshot (the
+        JAX package's counter also counts the windows it sat stranded)."""
         for slot in self.user_slot.values():
-            self._steps[slot] += k
+            if slot not in self._lost_slots:
+                self._steps[slot] += k
+
+    # ---- device-loss recovery --------------------------------------------
 
     def persist_resident(self) -> int:
         """Durably snapshot every resident session WITHOUT evicting it
-        (`SessionStore.persist`; the warm cache is untouched).  Returns the
-        number of sessions persisted.  Quarantined slots are skipped: their
+        (`SessionStore.persist`; the warm cache is untouched): the
+        drain-safety checkpoint, whose age is the blast radius of a device
+        loss.  Returns the number of sessions persisted.  Lost slots are
+        skipped (their rows are gone) and so are quarantined ones (their
         rows are diverged state, and persisting one would overwrite the
-        checkpoint rollback needs."""
+        checkpoint rollback needs)."""
         n = 0
         for uid, slot in list(self.user_slot.items()):
-            if slot in self._quarantined:
+            if slot in self._lost_slots or slot in self._quarantined:
                 continue
             user = self._take_slot(slot)
             user = self._finalize_session(user, int(self._steps[slot]))
             self.store.persist(uid, user, int(self._steps[slot]))
             n += 1
         return n
+
+    def stranded_sessions(self) -> list:
+        """Uids resident in lost slots, awaiting `drain_failed`."""
+        return [u for u, s in self.user_slot.items()
+                if s in self._lost_slots]
+
+    def _poison(self):
+        """A session of garbage: NaN float planes, the integer dtype's
+        largest value, ones for bool."""
+        if self._poison_session is None:
+            def leaf(z):
+                if z.dtype.is_floating_point:
+                    return torch.full_like(z, float("nan"))
+                if z.dtype == torch.bool:
+                    return torch.ones_like(z)
+                return torch.full_like(z, torch.iinfo(z.dtype).max)
+            self._poison_session = _ckpt.tree_map(leaf, self._zero_session)
+        return self._poison_session
+
+    def fail_slots(self, slots, poison: bool = True) -> list:
+        """Failure injection: mark ``slots`` lost; returns the stranded
+        uids.
+
+        With ``poison=True`` (the default) their rows are overwritten with
+        garbage (`_poison`): a recovery that passes with poison on shows
+        that the drain reads only `SessionStore` checkpoints, never the dead
+        shard, and that the active mask isolates the garbage from the
+        surviving slots' arithmetic."""
+        slots = sorted(set(int(s) for s in slots))
+        for s in slots:
+            if not 0 <= s < self.slots:
+                raise ValueError(f"slot {s} out of range [0, {self.slots})")
+        self._lost_slots.update(slots)
+        if poison:
+            for s in slots:
+                self._put_slot(s, self._poison())
+        return self.stranded_sessions()
+
+    def fail_device(self, device: int, poison: bool = True) -> list:
+        """Mark shard ``device``'s whole slot block lost (see `fail_slots`):
+        everything it owned, resident sessions included, is gone; follow
+        with `drain_failed()` to re-home its sessions on the survivors."""
+        stranded = self.fail_slots(self.device_slots(device), poison=poison)
+        self._m_failures.inc()
+        return stranded
+
+    def drain_failed(self, evict_lru: bool = False) -> list:
+        """Re-home every stranded session onto surviving shards.
+
+        For each uid resident in a lost slot: drop the dead occupancy
+        (nothing is read from the shard), then `admit` the uid, which
+        restores its last durable snapshot from the `SessionStore` into a
+        healthy slot.  A session's trajectory does not depend on its slot
+        or neighbours, so its continuation equals an uninterrupted run from
+        that snapshot bit for bit.  Steps after the last
+        `persist_resident` or evict are lost; each report row says how
+        many.
+
+        Returns one dict a session: ``{uid, from_slot, to_slot,
+        from_device, to_device, steps_lost}``.  With ``evict_lru=True`` a
+        full pool evicts least-recently-admitted survivors to make room.
+        """
+        report = []
+        with self._m_drain.time(), phase("pool.drain"):
+            for uid in self.stranded_sessions():
+                old_slot = self.user_slot.pop(uid)
+                self.slot_user[old_slot] = None
+                steps_at_fail = int(self._steps[old_slot])
+                self._steps[old_slot] = 0
+                # hygiene (an injected loss is writable, a real one is
+                # not): zeros over the poison keep vacant slots zero for
+                # save_pool
+                self._put_slot(old_slot, self._zero_session)
+                new_slot = self.admit(uid, evict_lru=evict_lru)
+                self._m_drained.inc()
+                report.append({
+                    "uid": uid,
+                    "from_slot": old_slot, "to_slot": new_slot,
+                    "from_device": self.slot_device(old_slot),
+                    "to_device": self.slot_device(new_slot),
+                    "steps_lost": steps_at_fail - int(self._steps[new_slot]),
+                })
+        self._m_occupancy.set(len(self.user_slot) / self.slots)
+        return report
 
     # ---- session health: detect -> quarantine -> rollback ----------------
 
@@ -373,8 +557,15 @@ class SessionPool:
                 "this pool was built without health=HealthConfig(...); "
                 "recording and remediation are unavailable")
         if self._rec is None:
-            self._rec = _recorder.init_recorder(self.health_cfg, self.slots,
-                                                device=self.device)
+            if self.mesh is None:
+                self._rec = _recorder.init_recorder(
+                    self.health_cfg, self.slots, device=self.device)
+            else:
+                # every recorder leaf is slot-major: split like the pool
+                rec = _recorder.init_recorder(self.health_cfg, self.slots,
+                                              device="cpu")
+                self._rec = _sharding.shard(rec, _sharding.pool_shardings(
+                    self.mesh, uniform_axes(rec)))
         return self._rec
 
     def _reset_recorder(self, slot: int) -> None:
@@ -396,12 +587,15 @@ class SessionPool:
         """Uids whose latched device-side verdict is unhealthy (slot order).
 
         The one host read of the health loop, a single ``(B,)`` copy on
-        demand, never per step.  Quarantined slots are excluded."""
+        demand (one a shard), never per step.  Lost and quarantined slots
+        are excluded."""
         if self._rec is None:
             return []
-        flags = self._rec.health.flagged.any(dim=-1).cpu().numpy()
+        flags = _sharding.host(self._rec.health.flagged).any(dim=-1).numpy()
         return [u for s, u in enumerate(self.slot_user)
-                if u is not None and flags[s] and s not in self._quarantined]
+                if u is not None and flags[s]
+                and s not in self._lost_slots
+                and s not in self._quarantined]
 
     def quarantine(self, uid: str) -> int:
         """Freeze `uid`'s slot by the active mask (no data moves): its state
@@ -410,6 +604,10 @@ class SessionPool:
         slot = self.user_slot.get(uid)
         if slot is None:
             raise KeyError(f"session {uid!r} is not in the pool")
+        if slot in self._lost_slots:
+            raise RuntimeError(
+                f"session {uid!r} sits in LOST slot {slot}; use "
+                "drain_failed(), not quarantine")
         self._quarantined.add(slot)
         self._m_quarantined.inc()
         return slot
@@ -472,9 +670,18 @@ class SessionPool:
 
     def save_pool(self, directory: str) -> str:
         """Checkpoint the WHOLE pool — resident sessions in place — plus the
-        occupancy bookkeeping, in the `checkpoint.manager` layout.  A pool
-        with quarantined sessions refuses: `load_pool` restarts with none,
-        which would unfreeze diverged state as healthy."""
+        occupancy bookkeeping, in the `checkpoint.manager` layout, every
+        leaf whole (a meshed pool's shards gathered on the host): a pool
+        saved at D shards loads at any D' (`load_pool`), and in the JAX
+        package's.  Stranded sessions must be drained first (their rows are
+        garbage); a pool with quarantined sessions refuses too: `load_pool`
+        restarts with none, which would unfreeze diverged state as
+        healthy."""
+        stranded = self.stranded_sessions()
+        if stranded:
+            raise RuntimeError(
+                f"cannot checkpoint a pool with stranded sessions "
+                f"{stranded}; run drain_failed() first")
         sick = [u for u, s in self.user_slot.items()
                 if s in self._quarantined]
         if sick:
@@ -492,14 +699,27 @@ class SessionPool:
                                      extra=extra)
 
     def load_pool(self, directory: str, step: Optional[int] = None) -> None:
-        """Resume a `save_pool` checkpoint into this pool: occupancy,
-        per-session step counters and LRU order resume exactly."""
-        tree, _, extra = _ckpt.load_checkpoint(directory, self.pool,
-                                               step=step, device=self.device)
+        """Resume a `save_pool` checkpoint into this pool, laid out on this
+        pool's mesh: the elastic re-mesh.  Build the pool at the new
+        topology (any shard count dividing ``slots``, or none) and load a
+        checkpoint taken at the old one; the leaves are stored whole, so
+        this places them on the new shards
+        (`distributed.ft.elastic_restore`).  Occupancy, per-session step
+        counters and LRU order resume exactly; every slot comes back
+        healthy."""
+        if self.mesh is not None:
+            tree, _, extra = _ft.elastic_restore(
+                directory, self.pool, self.mesh,
+                lambda mesh: _sharding.pool_shardings(mesh, self._axes),
+                step=step)
+        else:
+            tree, _, extra = _ckpt.load_checkpoint(
+                directory, self.pool, step=step, device=self.device)
         if int(extra["slots"]) != self.slots:
             raise ValueError(
                 f"checkpointed pool has {extra['slots']} slots; this pool "
-                f"has {self.slots}")
+                f"has {self.slots} (elastic restore re-meshes devices, not "
+                "the slot count)")
         self.pool = tree
         self.slot_user = list(extra["slot_user"])
         self.user_slot = {u: s for s, u in enumerate(self.slot_user)
@@ -507,8 +727,11 @@ class SessionPool:
         self._steps = np.asarray(extra["steps"], np.int64).copy()
         self._admit_seq = np.asarray(extra["admit_seq"], np.int64).copy()
         self._seq = int(extra["seq"])
+        self._lost_slots = set()
+        self._poison_session = None
         # the recorder is not checkpointed (detector baselines are cheap to
-        # rebuild): every slot restarts healthy and unrecorded
+        # rebuild and meaningless across a re-mesh): every slot restarts
+        # healthy and unrecorded
         self._quarantined = set()
         self._rec = None
         self._rec_pos = 0
@@ -549,6 +772,14 @@ class FleetScheduler(SessionPool):
               there is none).
       health: optional `obs.health.HealthConfig`: ``record=True`` stepping
               and the remediation loop (see `SessionPool`).
+      mesh:   optional `distributed.sharding.FleetMesh`, exclusive with
+              ``device``: the fleet splits over its shards along the slot
+              axis and every stepping entry point runs per shard through
+              `engine.fleet_spmd`, each shard launching the same kernels on
+              its B/D slots with its block of the drives, the mask and the
+              per-session seeds; the pool clock ``t`` stays whole and
+              advances outside the shards.  Outputs come back to the host
+              once a shard; the pool is the unmeshed pool bit for bit.
     """
 
     ENTRY_POINTS = SessionPool.ENTRY_POINTS + (
@@ -558,12 +789,19 @@ class FleetScheduler(SessionPool):
     def __init__(self, cfg: snn.SNNConfig, theta, slots: int,
                  store: Optional[SessionStore] = None,
                  registry: Optional[MetricsRegistry] = None, device=None,
-                 health: Optional[HealthConfig] = None):
+                 health: Optional[HealthConfig] = None, mesh=None):
+        if mesh is not None and device is not None:
+            raise ValueError("FleetScheduler takes device= or mesh=, not "
+                             "both: a meshed pool lives on the mesh's "
+                             "devices")
         self.cfg = cfg
         self.theta = theta
-        fleet = snn.init_state(cfg, batch=slots, fleet=True, device=device)
+        # a meshed fleet is built on the host and split onto the shards
+        fleet = snn.init_state(cfg, batch=slots, fleet=True,
+                               device="cpu" if mesh is not None else device)
         super().__init__(fleet, _network_axes(fleet), slots, store, registry,
-                         health=health)
+                         health=health, mesh=mesh)
+        self._thetas = {}            # device -> the rule there (meshed)
 
     # the historical attribute name: the pool tree IS the fleet state
     @property
@@ -609,33 +847,96 @@ class FleetScheduler(SessionPool):
             tarr = np.zeros((self.slots, m_out), np.float32)
             for uid, row in teach.items():
                 tarr[self.user_slot[uid]] = np.asarray(row, np.float32)
-            tarr = torch.from_numpy(tarr).to(self.device)
-        return torch.from_numpy(drive).to(self.device), tarr
+            tarr = self._on_pool(torch.from_numpy(tarr))
+        return self._on_pool(torch.from_numpy(drive)), tarr
 
     def _seeds(self) -> torch.Tensor:
         """Per-SESSION step counters: in a quantized pool they drive the
         stochastic round, so a session's update stream follows the session
-        across evictions and slots, never the pool clock."""
-        return torch.from_numpy(self._steps.astype(np.int32)).to(self.device)
+        across evictions, slots and shards, never the pool clock (a shard
+        gets its block of them)."""
+        return self._on_pool(torch.from_numpy(self._steps.astype(np.int32)))
 
-    def _rows(self, out: torch.Tensor, axis: int = 0) -> dict:
-        return {uid: out.select(axis, slot)
-                for uid, slot in self.user_slot.items()}
+    def _theta_on(self, device) -> list:
+        """The shared rule on ``device``, copied there once."""
+        th = self._thetas.get(device)
+        if th is None:
+            th = self._thetas[device] = [
+                None if t is None else t.to(device) for t in self.theta]
+        return th
 
-    def _record(self, fleet: NetworkState, tel, active) -> None:
-        """The recorded tail of a step or window: one `record_step` (one
-        launch on the card) on the new fleet state and its telemetry; the
-        verdict stays on the device."""
-        self._rec, self.last_verdict = _recorder.record_step(
-            self.health_cfg, self._rec, fleet, tel, self._rec_pos, active,
-            self.cfg.quant is not None)
-        self._rec_pos += 1
+    def _launch(self, window: int, drive, tarr, active, seeds,
+                telemetry: bool, record: bool):
+        """The fused step (``window`` 0) or a ``window``-step rollout of the
+        whole pool, recorded with ``record``: ``(new fleet, outputs,
+        telemetry or None)``, the recorder advanced in place.  A meshed
+        pool runs it once a shard (`engine.fleet_spmd`) under the whole
+        pool's kernel plans (`pool_plan`)."""
+        cfg, tel_on, quant = self.cfg, telemetry or record, \
+            self.cfg.quant is not None
+        rec = self._rec if record else None
+        pos = self._rec_pos
+
+        def core(fleet, x, active, teach, seeds, rec, theta):
+            if window:
+                res = snn.rollout_window(
+                    cfg, fleet, theta, x[None].expand(window, *x.shape),
+                    teach=teach, active=active, seed=seeds,
+                    telemetry=tel_on)
+            else:
+                res = snn.timestep(cfg, fleet, theta, x, teach=teach,
+                                   active=active, seed=seeds,
+                                   telemetry=tel_on)
+            tail = ()
+            if record:
+                tail = _recorder.record_step(self.health_cfg, rec, res[0],
+                                             res[2], pos, active, quant)
+            return res[0], res[1], (res[2] if tel_on else None), tail
+
+        if self.mesh is None:
+            ns, out, tel, tail = core(self.fleet, drive, active, tarr, seeds,
+                                      rec, self.theta)
+        else:
+            def body(w, v, tr, scl, t, x, active, teach, seeds, rec):
+                st = NetworkState(w=w, v=v, trace=tr, t=t, w_scale=scl)
+                ns, out, tel, tail = core(st, x, active, teach, seeds, rec,
+                                          self._theta_on(x.device))
+                return ((ns.w, ns.v, ns.trace, ns.w_scale, out)
+                        + ((tel,) if tel_on else ()) + tuple(tail))
+
+            out_axes = ((0, 0, 0, 0, 1 if window else 0)
+                        + ((0,) if tel_on else ()) + ((0, 0) if record
+                                                      else ()))
+            mapped = fleet_spmd(body, self.mesh,
+                                in_axes=(0, 0, 0, 0, None, 0, 0, 0, 0, 0),
+                                out_axes=out_axes)
+            f = self.fleet
+            with pool_plan(self.slots):
+                res = mapped(f.w, f.v, f.trace, f.w_scale, f.t, drive,
+                             active, tarr, seeds, rec)
+            ns = NetworkState(w=res[0], v=res[1], trace=res[2],
+                              t=f.t + max(window, 1), w_scale=res[3])
+            out = res[4]
+            tel = res[5] if tel_on else None
+            tail = res[-2:] if record else ()
+        if record:
+            self._rec, self.last_verdict = tail
+            self._rec_pos += 1
+        return ns, out, tel
+
+    def _telemetry_out(self, tel):
+        """Record the fleet gauges; a sharded telemetry comes to the host
+        once a shard."""
+        if self.mesh is not None:
+            tel = _sharding.gather(tel)
+        record_fleet_telemetry(self.metrics, tel)
+        return tel
 
     def step(self, drives: Mapping[str, Any],
              teach: Optional[Mapping[str, Any]] = None,
              telemetry: bool = False, record: bool = False):
         """One fused SNN timestep for the WHOLE pool (one fleet-step launch
-        per layer).
+        per layer, a shard).
 
         `drives` maps uid -> input drive ``(obs_dim,)`` (already encoded).
         Every admitted session must receive a drive; vacant slots get zero
@@ -663,18 +964,13 @@ class FleetScheduler(SessionPool):
             self._dispatch(name, self.fleet, drive, active, tarr, seeds,
                            telemetry=telemetry)
         with phase("pool.step"):
-            res = snn.timestep(self.cfg, self.fleet, self.theta, drive,
-                               teach=tarr, active=active, seed=seeds,
-                               telemetry=telemetry or record)
-            if record:
-                self._record(res[0], res[2], active)
-        self.fleet = res[0]
+            self.fleet, out, tel = self._launch(0, drive, tarr, active, seeds,
+                                                telemetry, record)
         self.advance_steps(1)
-        outputs = self._rows(res[1])
+        outputs = self._rows(out)
         if not telemetry:
             return outputs
-        record_fleet_telemetry(self.metrics, res[2])
-        return outputs, res[2]
+        return outputs, self._telemetry_out(tel)
 
     def _window(self, drives, timesteps, teach, telemetry, record=False):
         k = self.cfg.timesteps if timesteps is None else int(timesteps)
@@ -682,8 +978,8 @@ class FleetScheduler(SessionPool):
             raise ValueError(f"pool_step needs timesteps >= 1, got {k}")
         drive, tarr = self._gather_rows(drives, teach)
         rec = self._ensure_recorder() if record else None
-        window = drive[None].expand(k, *drive.shape)
         active, seeds = self._active_mask(), self._seeds()
+        window = drive[None].expand(k, *drive.shape)
         if record:
             self._dispatch("pool_rollout_record", self.fleet, window, active,
                            tarr, seeds, rec)
@@ -692,23 +988,19 @@ class FleetScheduler(SessionPool):
             self._dispatch(name, self.fleet, window, active, tarr, seeds,
                            telemetry=telemetry)
         with phase("pool.rollout"):
-            res = snn.rollout_window(self.cfg, self.fleet, self.theta, window,
-                                     teach=tarr, active=active, seed=seeds,
-                                     telemetry=telemetry or record)
-            if record:
-                self._record(res[0], res[2], active)
-        self.fleet = res[0]
+            self.fleet, outs, tel = self._launch(k, drive, tarr, active,
+                                                 seeds, telemetry, record)
         self.advance_steps(k)
         if not telemetry:
-            return res[1], None
-        record_fleet_telemetry(self.metrics, res[2])
-        return res[1], res[2]
+            return outs, None
+        return outs, self._telemetry_out(tel)
 
     def pool_step(self, drives: Mapping[str, Any],
                   timesteps: Optional[int] = None,
                   teach: Optional[Mapping[str, Any]] = None,
                   telemetry: bool = False, record: bool = False):
-        """K fused SNN timesteps for the WHOLE pool in ONE rollout launch.
+        """K fused SNN timesteps for the WHOLE pool in ONE rollout launch
+        (one a shard).
 
         The time-fused form of calling `step` K times on held drives, with
         per-session step counters seeding each step of the window exactly
@@ -734,7 +1026,12 @@ class FleetScheduler(SessionPool):
         mean readout over the window, tanh-squashed unless the readout
         spikes)."""
         outs, _ = self._window(obs, None, None, False)
-        actions = outs.mean(dim=0)
-        if not self.cfg.spiking_readout:
-            actions = torch.tanh(actions)
-        return self._rows(actions)
+
+        def act(o):
+            a = o.mean(dim=0)
+            return a if self.cfg.spiking_readout else torch.tanh(a)
+
+        if isinstance(outs, _sharding.Sharded):
+            return self._rows(_sharding.Sharded(
+                [act(p) for p in outs.pieces], 0))
+        return self._rows(act(outs))

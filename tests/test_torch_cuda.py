@@ -2202,3 +2202,120 @@ def test_adamw_update_launches_once_per_leaf_on_card(cuda_device):
     for a, b in zip(O.flatten((params, state.mu, state.nu))[1],
                     O.flatten((plain_p, plain_s.mu, plain_s.nu))[1]):
         assert torch.equal(a, b)
+
+
+# ---- sharded session pools ---------------------------------------------------
+
+# (layer sizes, slots), two shards: the controller's 8-128-8 at 64 slots,
+# whose float32 recorder takes clusters of 3 CTAs a slot and would take 4
+# at a shard's 32; and a 16-256-8 net at 8 slots, whose window takes 4
+# warps a stream and would take 8 at a shard's 4 (`pool_plan` keeps the
+# pool's plan)
+SHARD_CASES = [((8, 128, 8), 64), ((16, 256, 8), 8)]
+
+
+def _shard_pools(dev, sizes, slots, quant, d=2, health=None):
+    """An unmeshed pool and one over ``d`` shards on ``dev``, one rule."""
+    from repro_torch.core import snn
+    from repro_torch.distributed import fleet_mesh
+    from repro_torch.serving import FleetScheduler, SessionStore
+    cfg = snn.SNNConfig(layer_sizes=sizes, timesteps=4)
+    if quant:
+        cfg = snn.quant_config(cfg)
+    theta = [t.to(dev) for t in snn.init_theta(
+        cfg, torch.Generator().manual_seed(5), scale=0.05)]
+    ref = FleetScheduler(cfg, theta, slots=slots, device=dev,
+                         store=SessionStore(), health=health)
+    m = FleetScheduler(cfg, theta, slots=slots, store=SessionStore(),
+                       mesh=fleet_mesh(devices=[dev] * d), health=health)
+    return ref, m
+
+
+def _shard_drives(users, t, n):
+    return {u: (np.sin(0.5 * t + np.arange(n) + 0.1 * int(u[1:])) * 1.5
+                ).astype(np.float32) for u in users}
+
+
+def _rows_equal(a, b):
+    assert a.keys() == b.keys()
+    for u in a:
+        assert torch.equal(a[u].cpu(), b[u].cpu()), u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["float32", "int8"])
+@pytest.mark.parametrize("case", SHARD_CASES)
+def test_sharded_pool_matches_unmeshed_on_card(case, quant, cuda_device):
+    """Two shards on one card are the unmeshed pool bit for bit: windows,
+    per-event steps and recorded windows, each shard's launches planned as
+    the whole pool's."""
+    from repro_torch.checkpoint import manager as TM
+    from repro_torch.distributed import sharding as dsh
+    from repro_torch.obs import HealthConfig
+    from repro_torch.obs import recorder as R
+    sizes, slots = case
+    health = HealthConfig(z_threshold=1e9, bounds=((-1e9, 1e9),) * 4,
+                          dead_floor=-1.0, hysteresis=(9999,) * 4)
+    ref, m = _shard_pools(cuda_device, sizes, slots, quant, health=health)
+    users = [f"u{i}" for i in range(slots - slots // 4)]
+    for s in (ref, m):
+        for u in users:
+            s.admit(u)
+    before = TF.rollout.launches
+    for t in range(3):
+        drv = _shard_drives(users, t, sizes[0])
+        _rows_equal(ref.pool_step(dict(drv)), m.pool_step(dict(drv)))
+        _rows_equal(ref.step(dict(drv)), m.step(dict(drv)))
+    assert TF.rollout.launches - before == 3 * 3
+    before = R.record_step.launches
+    for t in range(3, 6):
+        drv = _shard_drives(users, t, sizes[0])
+        _rows_equal(ref.pool_step(dict(drv), record=True),
+                    m.pool_step(dict(drv), record=True))
+    assert R.record_step.launches - before == 3 * 3
+    for tree in ("_rec", "fleet"):
+        for x, y in zip(TM.flatten(dsh.gather(getattr(ref, tree)))[1],
+                        TM.flatten(dsh.gather(getattr(m, tree)))[1]):
+            assert torch.equal(x, y), tree
+    assert torch.equal(dsh.host(ref.last_verdict), dsh.host(m.last_verdict))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["float32", "int8"])
+def test_sharded_pool_fail_and_drain_on_card(quant, cuda_device):
+    """Shard 1 of two lost with poison: while its sessions are stranded the
+    survivors equal the control's (which pauses those sessions: evicted
+    before the window, re-admitted after) and the stranded outputs are
+    exactly 0; drained onto shard 0, every session continues as the
+    control's bit for bit."""
+    ref, m = _shard_pools(cuda_device, (8, 128, 8), 16, quant)
+    users = [f"u{i}" for i in range(12)]
+    for s in (ref, m):
+        for u in users:
+            s.admit(u)
+        for u in ("u1", "u3", "u5", "u7"):      # room on shard 0
+            s.evict(u)
+    users = ref.active_users
+    for t in range(2):
+        drv = _shard_drives(users, t, 8)
+        _rows_equal(ref.pool_step(dict(drv)), m.pool_step(dict(drv)))
+    m.persist_resident()
+    stranded = m.fail_device(1, poison=True)
+    assert stranded == ["u8", "u9", "u10", "u11"]
+    for u in stranded:
+        ref.evict(u)
+    drv = _shard_drives(users, 2, 8)
+    out = m.pool_step(dict(drv))
+    _rows_equal(ref.pool_step({u: drv[u] for u in ref.active_users}),
+                {u: out[u] for u in ref.active_users})
+    for u in stranded:
+        assert bool((out[u] == 0).all())
+    rep = m.drain_failed()
+    for u in stranded:
+        ref.admit(u)
+    assert [(r["from_device"], r["to_device"], r["steps_lost"])
+            for r in rep] == [(1, 0, 0)] * 4
+    for t in range(3, 6):
+        drv = _shard_drives(users, t, 8)
+        _rows_equal(ref.pool_step(dict(drv)), m.pool_step(dict(drv)))
+        _rows_equal(ref.step(dict(drv)), m.step(dict(drv)))
